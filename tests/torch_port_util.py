@@ -1,0 +1,65 @@
+"""Shared helpers of the vadc_tpu_torch parity tests (tests/test_torch_*.py).
+
+`single_torch_thread` is an autouse fixture for the modules that import it:
+it runs torch on one CPU thread while the module's tests run. Measured with
+torch 2.13 on an x86 CPU: in a process that imported jax before torch
+started its OpenMP worker threads, torch.exp on a multi-threaded first call
+intermittently returned values with ~1e-4 relative error (the same call on
+one thread, or with the worker pool started before jax was imported, was
+exact to 1 ulp). The port itself never imports jax; only these tests load
+both frameworks in one process.
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+DATA = ROOT / "vadc_tpu" / "data"
+V31_ARCHIVE = DATA / "silero_v31_16k.testtensor"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def single_torch_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
+
+
+def to_torch(x) -> torch.Tensor:
+    """numpy (or array-like) -> a float32 CPU tensor that owns its memory."""
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def jax_and_port_params():
+    """(JAX param tree, the port's tree) of the bundled v3.1 archive; the
+    port's is built from the JAX tree's leaves, so both compute from the
+    same weights."""
+    import jax
+
+    from vadc_tpu.io.testtensor import load_testtensor
+    from vadc_tpu.models.weights import silero_v31_params
+    from vadc_tpu_torch.models.weights import params_from_numpy
+
+    jp = silero_v31_params(load_testtensor(V31_ARCHIVE))
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp))
+
+
+def speech(n_chunks: int, chunk: int = 1536, seed: int = 0) -> np.ndarray:
+    """[n_chunks, chunk] of synthetic speech (voiced spans and silence)."""
+    from vadc_tpu.io.synthaudio import utterance_track
+
+    track, _ = utterance_track(n_utterances=4, seed=seed)
+    need = n_chunks * chunk
+    reps = -(-need // len(track))
+    return np.tile(track, reps)[:need].reshape(n_chunks, chunk).astype(np.float32)
+
+
+def noise(n_chunks: int, chunk: int = 1536, seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (0.1 * rng.normal(size=(n_chunks, chunk))).astype(np.float32)

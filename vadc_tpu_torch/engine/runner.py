@@ -1,0 +1,173 @@
+"""Model runners: the per-chunk step, its scan, and the minibatch runner.
+
+Counterpart of vadc_tpu/engine/runner.py, for family v3 (Silero v3.1):
+
+  * `StreamRunner.step` — one chunk per stream for a batch of B independent
+    streams (the realtime serving hot path); `StreamRunner.scan` — T chunks
+    of each stream in order (a Python loop of steps).
+  * `MinibatchRunner` — the reference driver's semantics for ONE stream: a
+    window of N consecutive chunks through the model with the LSTM state
+    threading chunk to chunk (process_chunks, vadc.c:56-103); the CLI's
+    runner.
+
+Every runner takes its device explicitly. On a CUDA device the model runs
+through the package's CUDA kernels; on the CPU through their plain
+versions.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from vadc_tpu_torch.models import silero_v31
+from vadc_tpu_torch.models.weights import Params
+from vadc_tpu_torch.runtime import check_precision, resolve_device
+
+_FAMILIES = {"v3": silero_v31}
+
+
+def get_family_module(family: str):
+    try:
+        return _FAMILIES[family]
+    except KeyError:
+        raise NotImplementedError(
+            f"model family {family!r} is not ported yet (ROADMAP.md, Queue 1: "
+            "'The v4 family, 16k and 8k' / 'The v5 family, 16k and 8k')"
+        ) from None
+
+
+@dataclass
+class StreamState:
+    """Per-stream recurrent state of a batch of streams: the complete
+    resumable inference state (reference silero.h:36-37, vadc.c:124)."""
+
+    h: torch.Tensor  # [L, B, H]
+    c: torch.Tensor  # [L, B, H]
+
+    @property
+    def n_streams(self) -> int:
+        return self.h.shape[1]
+
+
+def init_stream_state(family: str, n_streams: int, device="cpu") -> StreamState:
+    h, c = get_family_module(family).init_state(n_streams, device)
+    return StreamState(h, c)
+
+
+def params_to(params: dict, device: torch.device) -> Params:
+    """The param tree with every leaf on `device`, as a Params; the same
+    object when it is a Params there already (so what the kernels derived
+    from it stays cached)."""
+
+    def leaves(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                yield from leaves(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                yield from leaves(v)
+        else:
+            yield node
+
+    if all(t.device == device for t in leaves(params)):
+        return params if isinstance(params, Params) else Params(params)
+
+    def move(node):
+        if isinstance(node, dict):
+            return {k: move(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [move(v) for v in node]
+        return node.to(device)
+
+    return Params(move(params))
+
+
+def _as_audio(chunks, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(chunks, dtype=torch.float32).to(device)
+
+
+class StreamRunner:
+    """Batched independent-stream inference for one model family on one
+    device. Only the faithful tier (fp32) is ported."""
+
+    def __init__(self, family: str, params: dict, *, device, precision: str = "faithful"):
+        check_precision(precision)
+        self.family = family
+        self.module = get_family_module(family)
+        self.precision = precision
+        self.device = resolve_device(device)
+        self.params = params_to(params, self.device)
+
+    def init_state(self, n_streams: int) -> StreamState:
+        return init_stream_state(self.family, n_streams, self.device)
+
+    def step(self, chunks, state: StreamState) -> tuple[torch.Tensor, StreamState]:
+        """chunks: [B, chunk_samples] new audio -> (probs [B], state).
+
+        The state is updated IN PLACE and returned: the kernel writes hn, cn
+        over h, c. This is the counterpart of the JAX runner's donated
+        state buffers; callers treat the passed-in state as consumed."""
+        audio = _as_audio(chunks, self.device)
+        probs, _, _ = self.module.forward(
+            self.params, audio, state.h, state.c, hn=state.h, cn=state.c
+        )
+        return probs, state
+
+    def scan(self, chunks, state: StreamState) -> tuple[torch.Tensor, StreamState]:
+        """chunks: [B, T, chunk_samples] -> (probs [B, T], final state),
+        T steps in order; the state is updated in place as in `step`."""
+        audio = _as_audio(chunks, self.device)
+        probs = torch.empty(audio.shape[:2], dtype=torch.float32, device=self.device)
+        for t in range(audio.shape[1]):
+            probs[:, t], state = self.step(audio[:, t], state)
+        return probs, state
+
+
+class MinibatchRunner:
+    """Reference-parity single-stream driver: batches of consecutive chunks
+    through the model with the state threading chunk to chunk, rotated
+    between batches."""
+
+    def __init__(
+        self,
+        family: str,
+        params: dict,
+        *,
+        batch_size: int,
+        chunk_samples: int,
+        device,
+        precision: str = "faithful",
+    ):
+        check_precision(precision)
+        self.family = family
+        self.module = get_family_module(family)
+        self.precision = precision
+        self.device = resolve_device(device)
+        self.params = params_to(params, self.device)
+        self.batch_size = batch_size
+        self.chunk_samples = chunk_samples
+        self.h, self.c = self.module.init_state(1, self.device)
+
+    def process_window(self, samples) -> list[float]:
+        """Process a window of samples (zero-padded multiple of the chunk
+        size), returning one probability per chunk in the window."""
+        n_chunks = samples.shape[0] // self.chunk_samples
+        chunks = _as_audio(samples, self.device).reshape(n_chunks, self.chunk_samples)
+        probs_out: list[float] = []
+        for off in range(0, n_chunks, self.batch_size):
+            batch = chunks[off : off + self.batch_size]
+            if batch.shape[0] < self.batch_size:
+                batch = torch.nn.functional.pad(batch, (0, 0, 0, self.batch_size - batch.shape[0]))
+            probs, self.h, self.c = self.module.forward_minibatched(
+                self.params, batch, self.h, self.c
+            )
+            # one device -> host copy per batch
+            probs_out.extend(np.asarray(probs.cpu()).tolist())
+        # A short final batch is zero-padded up to batch_size; the padded
+        # entries advance the LSTM state (reference stale-probability
+        # semantics, vadc.c:88-99) but are not probabilities of real
+        # chunks: never return more than one probability per chunk.
+        return probs_out[:n_chunks]

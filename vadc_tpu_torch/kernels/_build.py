@@ -1,0 +1,140 @@
+"""Build the package's CUDA kernels at first use and bind them with ctypes.
+
+Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (sm_90a) into ONE
+shared library with a plain C interface; no PyTorch header is included, so
+the build takes seconds. The library goes to `kernels/_build/`, named by a
+hash of the sources and flags, so a changed source builds anew and an
+unchanged one loads what an earlier process built.
+
+No `--use_fast_math`: the faithful tier needs the correctly rounded `sqrtf`
+and the accurate `expf` of the default build.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines without `nvcc` or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
+_SIGNATURES = {
+    # frames base, batch, n_frames, stride_b, stride_f, wr, wi, n_fft,
+    # cutoff, out, stream
+    "vadc_dot_magnitude": [_P, _I, _I, _L, _L, _P, _P, _I, _I, _P, _P],
+    # weights, offsets (host int32[]), n_offsets, x, h, c, probs, hn, cn,
+    # batch, seq0, stream
+    "vadc_silero_v31_fused": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+#: what the last build in this process did: library path, seconds spent
+#: (0.0 when an earlier build was loaded), and nvcc's output
+build_info: dict = {}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and under CUDA_HOME or /usr/local/cuda); "
+        "the CUDA kernels of vadc_tpu_torch build at first use on a machine "
+        "with the CUDA toolkit"
+    )
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libvadc_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless a library of the same sources exists."""
+    out = library_path()
+    if out.exists():
+        build_info.update(path=str(out), seconds=0.0, log="(loaded an earlier build)")
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sources()]
+    start = time.perf_counter()
+    # build under a temporary name, then rename: a concurrent process never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
+            capture_output=True,
+            text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_info.update(
+        path=str(out),
+        seconds=time.perf_counter() - start,
+        log=(proc.stdout + proc.stderr).strip(),
+    )
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on the first call in this process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.vadc_error_string.argtypes = [ctypes.c_int]
+            lib.vadc_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise when a C entry point reported a CUDA error."""
+    if status != 0:
+        what = library().vadc_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status} at launch ({what})")

@@ -1,0 +1,128 @@
+"""Silero VAD v3.1 16 kHz forward passes.
+
+Counterpart of vadc_tpu/models/silero_v31.py. Pipeline (reference
+silero_v3.c:72-215; Silero_V3.forward, silero_vad.py:262-272):
+
+    audio [B, S] --reflect pad 128/128, hop 64--> STFT magnitude [B, F, 129]
+    -> adaptive audio normalization
+    -> 4 encoder stages (ConvBlock + TransformerBlock + strided 1x1 conv + BN
+       + ReLU), conv strides 2,2,1,1
+    -> 2-layer LSTM (hidden 64) -> v3 decoder -> speech probability
+
+Chunks are 512..1536 samples in steps of 256, which gives F = S/64 + 1 =
+9, 13, 17, 21 or 25 frames.
+
+`forward` and `forward_minibatched` go through the two kernel wrappers
+(`kernels.stft_dotmag.dot_magnitude` for the spectrum, then
+`kernels.silero_v31_fused2d.forward_fused2d` for everything after the
+adaptive normalization). On a CUDA tensor those launch the CUDA kernels; on
+a CPU tensor they run their plain versions. `forward_reference` and
+`forward_minibatched_reference` are the JAX package's `forward` and
+`forward_minibatched` written with the plain ops of nn/functional, on any
+device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
+from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude, split_basis
+from vadc_tpu_torch.models.weights import V3_STRIDES, Params
+from vadc_tpu_torch.nn import functional as F
+
+SAMPLE_RATE = 16000
+CHUNK_SAMPLES_DEFAULT = 1536  # 96 ms; any multiple of 256 in [512, 1536]
+NUM_LSTM_LAYERS = 2
+HIDDEN = 64
+STFT_PAD = 128
+STFT_HOP = 64
+
+
+def init_state(n_streams: int, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero LSTM state for a batch of independent streams: (h, c) [2, B, 64]."""
+    shape = (NUM_LSTM_LAYERS, n_streams, HIDDEN)
+    return (
+        torch.zeros(shape, dtype=torch.float32, device=device),
+        torch.zeros(shape, dtype=torch.float32, device=device),
+    )
+
+
+def features(params: Params, audio: torch.Tensor) -> torch.Tensor:
+    """Front-end: audio [B, S] -> normalized features [B, F, 129].
+
+    The framing is a view (reflect pad, then unfold); the spectrum product
+    and its magnitude are the dot_magnitude kernel; the adaptive
+    normalization stays in torch ops, as the JAX package leaves it to XLA."""
+    basis = params["stft_basis"]
+    frames = F.frame(F.reflect_pad_last(audio, STFT_PAD, STFT_PAD), basis.shape[1], STFT_HOP)
+    wr, wi = params.derived("stft_split_basis", lambda: split_basis(basis))
+    return F.adaptive_audio_normalization_nlc(dot_magnitude(frames, wr, wi))
+
+
+def encode_nlc(params: dict, audio: torch.Tensor) -> torch.Tensor:
+    """Plain front-end + encoder: audio [B, S] -> features [B, T, 64]."""
+    spect = F.stft_magnitude_nlc(
+        audio, params["stft_basis"], pad_left=STFT_PAD, pad_right=STFT_PAD, hop=STFT_HOP
+    )
+    x = F.adaptive_audio_normalization_nlc(spect)
+    for layer_params, stride in zip(params["layers"], V3_STRIDES):
+        x = F.transformer_layer_nlc(x, layer_params, stride=stride)
+    return x
+
+
+def forward(
+    params: Params,
+    audio: torch.Tensor,
+    h: torch.Tensor,
+    c: torch.Tensor,
+    *,
+    hn: torch.Tensor | None = None,
+    cn: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched independent-stream forward: audio [B, S]; h, c [2, B, 64]
+    -> (probs [B], hn, cn). `hn`/`cn` may be `h`/`c` to update the state
+    in place (see forward_fused2d)."""
+    return forward_fused2d(params, features(params, audio), h, c, hn=hn, cn=cn)
+
+
+def forward_minibatched(
+    params: Params, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reference-parity forward: the N rows of audio [N, S] are consecutive
+    chunks of ONE stream; h, c [2, 1, 64]. Returns (probs [N], hn, cn).
+
+    The JAX package flattens the N chunks' frames into one LSTM sequence
+    (nn.functional.lstm_minibatched). Only the LSTM carries anything from
+    chunk to chunk: the encoder and the decoder are per chunk. So this runs
+    the front-end (STFT + normalization) for all N chunks at once, then the
+    fused encoder/LSTM/decoder once per chunk, in order, at batch 1,
+    threading (h, c) from each chunk to the next. That is exactly the
+    flattened-sequence semantics (forward_minibatched_reference computes it
+    the flattened way)."""
+    feats = features(params, audio)
+    hn, cn = h.clone(), c.clone()
+    probs = torch.empty(audio.shape[0], dtype=torch.float32, device=audio.device)
+    for i in range(audio.shape[0]):
+        p, _, _ = forward_fused2d(params, feats[i : i + 1], hn, cn, hn=hn, cn=cn)
+        probs[i : i + 1] = p
+    return probs, hn, cn
+
+
+def forward_reference(
+    params: dict, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain independent-stream forward (the JAX package's `forward`)."""
+    out, hn, cn = F.lstm(encode_nlc(params, audio), h, c, params["lstm_w"], params["lstm_b"])
+    return F.decoder_v3_nlc(out, params["dec_w"], params["dec_b"]), hn, cn
+
+
+def forward_minibatched_reference(
+    params: dict, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain minibatched forward (the JAX package's `forward_minibatched`):
+    the N chunks' frames flattened into one LSTM sequence."""
+    out, hn, cn = F.lstm_minibatched(
+        encode_nlc(params, audio), h, c, params["lstm_w"], params["lstm_b"]
+    )
+    return F.decoder_v3_nlc(out, params["dec_w"], params["dec_b"]), hn, cn

@@ -1,0 +1,209 @@
+"""Weight schemas: named .testtensor archives -> the port's param trees.
+
+Counterpart of vadc_tpu/models/weights.py, with the same leaf names, so that
+a param tree of either package maps leaf for leaf onto the other's. Leaves
+are fp32 torch tensors on an explicit device.
+
+The v3.1 archive layout (99 tensors, reference utils.py:194-232):
+`forward_basis_buffer`, four `transformer_l{1..4}.*` groups (l3 has no
+conv-block projection), the fused LSTM `weights`/`biases`, and
+`decoder_weights`/`decoder_biases`.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Callable
+
+import numpy as np
+import torch
+
+from vadc_tpu.io.testtensor import load_testtensor
+
+# Encoder stage conv strides for v3 (reference tensor.h:158-161).
+V3_STRIDES = (2, 2, 1, 1)
+
+_TRANSFORMER_KEYS = {
+    "dw_w": ("dw_conv_weights", "dw"),
+    "dw_b": ("dw_conv_biases", None),
+    "pw_w": ("pw_conv_weights", "pw"),
+    "pw_b": ("pw_conv_biases", None),
+    "proj_w": ("proj_weights", "pw"),
+    "proj_b": ("proj_biases", None),
+    "qkv_w": ("attention_weights", None),
+    "qkv_b": ("attention_biases", None),
+    "att_proj_w": ("attention_proj_weights", None),
+    "att_proj_b": ("attention_proj_biases", None),
+    "norm1_w": ("norm1_weights", None),
+    "norm1_b": ("norm1_biases", None),
+    "lin1_w": ("linear1_weights", None),
+    "lin1_b": ("linear1_biases", None),
+    "lin2_w": ("linear2_weights", None),
+    "lin2_b": ("linear2_biases", None),
+    "norm2_w": ("norm2_weights", None),
+    "norm2_b": ("norm2_biases", None),
+    "conv_w": ("conv_weights", "pw"),
+    "conv_b": ("conv_biases", None),
+    "bn_w": ("batch_norm_weights", None),
+    "bn_b": ("batch_norm_biases", None),
+    "bn_mean": ("batch_norm_running_mean", None),
+    "bn_var": ("batch_norm_running_var", None),
+}
+
+# ROADMAP.md Queue 1 items of the families this package does not run yet.
+_UNPORTED_FAMILIES = {
+    "v4": "ROADMAP.md, Queue 1: 'The v4 family, 16k and 8k'",
+    "v4_8k": "ROADMAP.md, Queue 1: 'The v4 family, 16k and 8k'",
+    "v5": "ROADMAP.md, Queue 1: 'The v5 family, 16k and 8k'",
+    "v5_8k": "ROADMAP.md, Queue 1: 'The v5 family, 16k and 8k'",
+}
+
+
+class Params(dict):
+    """A param tree: a dict with the JAX pytree's keys and leaves.
+
+    It differs from a plain dict only in caching what the kernels derive
+    from it once (the fused kernel's packed weight buffer, the split STFT
+    basis), so a tree must not be changed after it is built. The model's
+    kernel paths take a Params; every loader here returns one."""
+
+    def derived(self, key: str, build: Callable[[], object]):
+        cache = self.__dict__.setdefault("_derived", {})
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    # a copy: the source may be a read-only view (an archive, a JAX array)
+    return torch.from_numpy(np.array(arr, dtype=np.float32, copy=True)).to(device)
+
+
+def _canon(arr: np.ndarray, kind: str | None, device="cpu") -> torch.Tensor:
+    """Canonicalize a raw weight: squeeze conv kernel dims to matmul shapes."""
+    arr = np.asarray(arr)
+    if kind in ("dw", "pw"):
+        # dw: [C, 1, 5] or [C, 5] -> [C, 5]; pw: [O, C, 1] or [O, C] -> [O, C]
+        arr = arr.reshape(arr.shape[0], -1)
+    return _tensor(arr, device)
+
+
+def transformer_layer_params(
+    tensors: dict[str, np.ndarray], prefix: str = "", device="cpu"
+) -> dict:
+    """Extract one encoder-stage param group; `proj_*` are absent for stages
+    without a conv-block projection (v3.1 stage 3), `bn_*` when the
+    exporter folded batch norm into the stage conv."""
+    p: dict = {}
+    for out_key, (name, kind) in _TRANSFORMER_KEYS.items():
+        full = f"{prefix}{name}"
+        if full not in tensors:
+            if out_key in ("proj_w", "proj_b") or out_key.startswith("bn_"):
+                continue
+            raise KeyError(f"missing weight tensor {full!r}")
+        p[out_key] = _canon(tensors[full], kind, device)
+    return p
+
+
+def silero_v31_params(tensors: dict[str, np.ndarray], device="cpu") -> Params:
+    """Build the Silero v3.1 param tree from the 99-tensor archive."""
+    basis = np.asarray(tensors["forward_basis_buffer"])
+    return Params(
+        stft_basis=_tensor(basis.reshape(basis.shape[0], -1), device),
+        layers=[
+            transformer_layer_params(tensors, f"transformer_l{i}.", device)
+            for i in (1, 2, 3, 4)
+        ],
+        lstm_w=_tensor(tensors["weights"], device),
+        lstm_b=_tensor(tensors["biases"], device),
+        dec_w=_canon(tensors["decoder_weights"], "pw", device),
+        dec_b=_tensor(tensors["decoder_biases"], device),
+    )
+
+
+def params_from_numpy(tree, device="cpu"):
+    """A param tree with numpy leaves (e.g. the JAX package's tree after
+    `jax.tree.map(np.asarray, p)`) -> the port's tree of fp32 tensors on
+    `device`. Dicts and lists keep their structure; the top-level dict
+    becomes a Params."""
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
+        return _tensor(node, device)
+
+    return Params(convert(tree))
+
+
+def clamp_sequence_count(family: str, requested: int) -> int:
+    """Model-imposed chunk-size contract (reference vadc.h:85-94, clamp
+    vadc.c:742-754): v3/v4 chunk sizes are multiples of 256 in
+    [512, 1536], rounded to the nearest valid point; 8 kHz branch families
+    use half-rate slices (128) and ranges; v5 is fixed at 512, v5 8 kHz at
+    256."""
+    if family == "v5":
+        return 512
+    if family == "v5_8k":
+        return 256
+    if family == "v4_8k":
+        slice_samples, lo, hi = 128, 256, 768
+    else:
+        slice_samples, lo, hi = 256, 512, 1536
+    rounded = int(requested / slice_samples + 0.5) * slice_samples
+    return max(lo, min(hi, rounded))
+
+
+def detect_model_family(tensors: dict[str, np.ndarray]) -> str:
+    """Classify a weight archive as 'v3', 'v4', 'v4_8k', 'v5' or 'v5_8k'
+    (reference onnx_helpers.c:154-161, 277-312)."""
+    if "transformer_l1.dw_conv_weights" in tensors:
+        return "v3"
+    if "stage1.dw_conv_weights" in tensors:
+        sr = tensors.get("meta.sample_rate")
+        if sr is not None and int(sr[0]) == 8000:
+            return "v4_8k"
+        return "v4"
+    if "enc1.weight" in tensors or (
+        "weights" in tensors and tensors["weights"].shape[-1] == 256
+    ):
+        # fused [L, 4H, 2H]: 2H=256 => hidden 128 => v5 (v3/v4 have 2H=128);
+        # the 8 kHz branch has a 130-row STFT basis
+        sr = tensors.get("meta.sample_rate")
+        if sr is not None and int(np.asarray(sr).ravel()[0]) == 8000:
+            return "v5_8k"
+        basis = tensors.get("forward_basis_buffer")
+        if basis is not None and basis.shape[0] == 130:
+            return "v5_8k"
+        return "v5"
+    raise ValueError("unrecognized weight archive layout")
+
+
+def load_params_from_tensors(
+    tensors: dict[str, np.ndarray], device="cpu"
+) -> tuple[str, Params]:
+    """Classify a loaded tensor archive and build its param tree (v3 only)."""
+    family = detect_model_family(tensors)
+    if family != "v3":
+        raise NotImplementedError(
+            f"model family {family!r} is not ported yet ({_UNPORTED_FAMILIES[family]})"
+        )
+    return family, silero_v31_params(tensors, device)
+
+
+def load_params(path: str | Path, device="cpu") -> tuple[str, Params]:
+    """Load model weights from a .testtensor archive or a plain v3 .onnx
+    graph (through the JAX-free numpy extractor), returning (family, params)."""
+    path = Path(path)
+    if path.suffix.lower() == ".onnx":
+        from vadc_tpu.export.onnx_extract import classify_model
+        from vadc_tpu.export.silero_v3_from_onnx import extract_silero_v3
+
+        family = classify_model(path)
+        if family != "v3":
+            raise NotImplementedError(
+                f"model family {family!r} is not ported yet ({_UNPORTED_FAMILIES[family]})"
+            )
+        return load_params_from_tensors(extract_silero_v3(path), device)
+    return load_params_from_tensors(load_testtensor(path), device)
