@@ -5,19 +5,35 @@
 
 Phases, each of which raises on failure (exit code 1):
   1. the card's name and power limit; build the CUDA kernels from
-     vadc_tpu_torch/kernels/csrc/ with nvcc for sm_90a;
-  2. each kernel against its plain PyTorch version on the card, with
-     Silero v3.1 weights and synthetic speech: B=2048 chunks of 1536
-     samples, B=1, B=37 (a ragged last block), 512-sample chunks;
-  3. the main path: StreamRunner.scan over 2048 streams x 8 chunks on the
-     card against the same on the CPU (plain versions), then the vadc CLI
-     on a 13 s synthetic file with --device cuda and --device cpu
-     (identical segments, raw probabilities within 1e-4). The kernels'
-     launch counts are set to 0 just before and must be > 0 just after;
+     vadc_tpu_torch/kernels/csrc/ with nvcc for sm_90a (one nvcc per
+     source, in parallel);
+  2. each kernel against its plain PyTorch version on the card:
+     - Silero v3.1 (bundled weights) and synthetic speech: dot_magnitude
+       and the fused encoder/LSTM/decoder at B=2048 chunks of 1536
+       samples, B=1, B=37 (a ragged last block), 512-sample chunks;
+     - stft_magnitude at every v4/v5 geometry (v4 16 kHz B=2048/1/37 x
+       1536, v4 8 kHz 768 and 256, v5 576, v5 8 kHz 288), and bit for bit
+       against dot_magnitude on the reflect-padded unfold;
+     - lstm_fused at the v4 shape (L=2, H=64: B=2048 x T=3, B=1 x T=288)
+       and the v5 shape (L=1, H=128: B=2048 x T=1, B=1 x T=96) from a
+       carried state;
+  3. the main paths, each with the kernels' launch counts set to 0 just
+     before and read just after (each kernel of the path must be > 0):
+     - v3.1: StreamRunner.scan over 2048 streams x 8 chunks on the card
+       against the same on the CPU (plain versions), then the vadc CLI on
+       a 12 s synthetic file with --device cuda and --device cpu
+       (identical segments, raw probabilities within 1e-4);
+     - v4: StreamRunner.scan 2048 x 8 card vs CPU, and the CLI with the
+       bundled v4 16 kHz and 8 kHz archives, cuda vs cpu;
+     - v5: StreamRunner.scan 2048 x 8 card vs CPU (the audio context
+       carried), and MinibatchRunner (the CLI's runner) over two 96-chunk
+       windows for v5 and v5 8 kHz, card vs CPU. The v5 weights are
+       synthetic, from vadc_tpu_torch.models.synthetic at a fixed seed;
   4. timings with CUDA events: each kernel against its plain version, and
-     ms per chunk-step of the whole step at batch 2048.
+     ms per chunk-step of the whole step at batch 2048 for v3.1, v4 and v5.
 
-Prints a JSON line of per-kernel results, then as its last line
+Prints a JSON line of per-kernel results, then the card's name and power
+limit, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX. Needs one card; exits 1 without one.
 """
@@ -53,6 +69,14 @@ TOL_DOTMAG_REL = 1e-5  # of the largest magnitude
 TOL_FUSED = {"probs": 1e-5, "hn": 5e-5, "cn": 5e-5}
 # port on the card vs port on the CPU, through the whole model
 TOL_PATH = 1e-4
+# lstm_fused vs plain on the card: both fp32, the kernel sums each gate's
+# 2H products in k order, cuBLAS in its own. The same bound as the fused
+# kernel's state (c relative to its largest value): the synthetic v5
+# weights drive gate pre-activations to tens, where an fp32 ulp is ~4e-6
+TOL_LSTM = 5e-5
+# v4 and v5 chunk sizes of the paths below (model samples)
+V4_CHUNK, V4_8K_CHUNK, V5_CHUNK, V5_8K_CHUNK = 1536, 768, 512, 256
+CLI_WINDOW = 96  # chunks per CLI window (the CLI's --batch default)
 
 
 def log(msg: str) -> None:
@@ -130,10 +154,11 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def cuda_ms_pair(a, b) -> tuple[float, float]:
+def cuda_ms_pair(a, b, iters: int = 50) -> tuple[float, float]:
     """Times of a and b taken in turns (a, b, b, a), each the mean of its
     two runs, so a drift of the card's clocks falls on both alike."""
-    a1, b1, b2, a2 = cuda_ms(a), cuda_ms(b), cuda_ms(b), cuda_ms(a)
+    a1, b1 = cuda_ms(a, iters), cuda_ms(b, iters)
+    b2, a2 = cuda_ms(b, iters), cuda_ms(a, iters)
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
@@ -234,14 +259,138 @@ def phase_kernels(params, device) -> dict:
     return errs
 
 
+def check_stft_magnitude(params, audio, label: str, *, pad_left: int, pad_right: int,
+                         hop: int) -> float:
+    """stft_magnitude against its plain version, and bit for bit against
+    dot_magnitude on the reflect-padded unfold (the two share their tile,
+    so on the same samples they must give the same bits)."""
+    import torch
+
+    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
+    from vadc_tpu_torch.kernels.stft_mag import (
+        split_basis_of, stft_magnitude, stft_magnitude_reference,
+    )
+    from vadc_tpu_torch.nn import functional as F
+
+    wr, wi = split_basis_of(params)
+    kw = dict(pad_left=pad_left, pad_right=pad_right, hop=hop)
+    out = stft_magnitude(audio, wr, wi, **kw)
+    ref = stft_magnitude_reference(audio, wr, wi, **kw)
+    via_dotmag = dot_magnitude(F.frame(F.reflect_pad_last(audio, pad_left, pad_right),
+                                       wr.shape[0], hop), wr, wi)
+    torch.cuda.synchronize()
+    require(out.shape == ref.shape, f"stft_magnitude shape {tuple(out.shape)} vs {tuple(ref.shape)}")
+    require(bool(torch.isfinite(out).all()), "stft_magnitude: non-finite output")
+    err = max_abs(out, ref)
+    rel = err / float(ref.abs().max().item())
+    same_bits = torch.equal(out, via_dotmag)
+    log(f"stft_magnitude {label}: shape {tuple(out.shape)} max abs err {err:.3e}, relative "
+        f"to max magnitude {rel:.3e} (bound {TOL_DOTMAG_REL:g}); bit-equal to dot_magnitude "
+        f"on the padded unfold: {same_bits}")
+    require(rel <= TOL_DOTMAG_REL, f"stft_magnitude {label}: relative error {rel:.3e}")
+    require(same_bits, f"stft_magnitude {label}: differs from dot_magnitude on the same frames")
+    return err
+
+
+def check_lstm(params, x, h, c, label: str) -> float:
+    """lstm_fused from a carried state (h, c) against its plain version on
+    the card, with the plain version on the CPU beside it as the floor."""
+    import torch
+
+    from vadc_tpu_torch.kernels.lstm import lstm_fused, lstm_fused_reference, transposed_weight_of
+
+    w, b = params["lstm_w"], params["lstm_b"]
+    got = lstm_fused(x, h, c, w, b, wt=transposed_weight_of(params))
+    want = lstm_fused_reference(x, h, c, w, b)
+    torch.cuda.synchronize()
+    floor = lstm_fused_reference(x.cpu(), h.cpu(), c.cpu(), w.cpu(), b.cpu())
+    errs, bounds, floors = {}, {}, {}
+    for i, name in enumerate(("y", "hn", "cn")):
+        require(got[i].shape == want[i].shape, f"lstm {label} {name} shape {tuple(got[i].shape)}")
+        require(bool(torch.isfinite(got[i]).all()), f"lstm {label} {name}: non-finite output")
+        errs[name] = max_abs(got[i], want[i])
+        floors[name] = max_abs(floor[i], want[i].cpu())
+        # y and h lie in [-1, 1]; c is an unbounded running sum
+        scale = float(want[i].abs().max().item()) if name == "cn" else 1.0
+        bounds[name] = TOL_LSTM * max(1.0, scale)
+    log(f"lstm_fused {label}: max abs err "
+        + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.3e}, plain card vs CPU {floors[k]:.3e})"
+                    for k, v in errs.items()))
+    for name in errs:
+        require(errs[name] <= bounds[name], f"lstm {label}: {name} {errs[name]:.3e}")
+    # the state may be updated in place
+    h2, c2 = h.clone(), c.clone()
+    lstm_fused(x, h2, c2, w, b, hn=h2, cn=c2, wt=transposed_weight_of(params))
+    torch.cuda.synchronize()
+    require(torch.equal(h2, got[1]) and torch.equal(c2, got[2]), f"lstm {label}: in place differs")
+    return max(errs.values())
+
+
+def lstm_inputs(module, params, audio, n_seq: int, device):
+    """Encoder features of `audio` reshaped to n_seq sequences, and a
+    realistic carried state: one plain forward on other audio first."""
+    import torch
+
+    feats = module.encode(params, audio)
+    x = feats.reshape(n_seq, -1, feats.shape[-1]).contiguous()
+    h0, c0 = module.init_state(audio.shape[0], device)
+    _, h, c = module.forward_reference(params, audio.flip(0).contiguous(), h0, c0)
+    return x, h[:, :n_seq].contiguous(), c[:, :n_seq].contiguous()
+
+
+def phase_kernels_v45(models: dict, device) -> dict:
+    """stft_magnitude and lstm_fused at every shape the v4 and v5 paths give
+    them. models: family -> (module, params)."""
+    import torch
+
+    def audio(n, chunk, seed):
+        return torch.from_numpy(speech_chunks(n, chunk, seed=seed)).to(device)
+
+    v4, p4 = models["v4"]
+    v48, p48 = models["v4_8k"]
+    v5, p5 = models["v5"]
+    v58, p58 = models["v5_8k"]
+    pad4 = dict(pad_left=v4.STFT_PAD, pad_right=v4.STFT_PAD, hop=v4.STFT_HOP)
+    a4 = audio(B_MAIN, V4_CHUNK, SEED + 300)
+    errs = {"stft_magnitude": check_stft_magnitude(p4, a4, f"v4 B={B_MAIN} x {V4_CHUNK}", **pad4)}
+    for b in (1, 37):
+        check_stft_magnitude(p4, a4[:b], f"v4 B={b} x {V4_CHUNK}", **pad4)
+    for n in (V4_8K_CHUNK, 256):
+        check_stft_magnitude(p48, audio(B_MAIN, n, SEED + 301), f"v4_8k B={B_MAIN} x {n}", **pad4)
+    a5 = audio(B_MAIN, v5.CONTEXT_SAMPLES + V5_CHUNK, SEED + 302)
+    check_stft_magnitude(p5, a5, f"v5 B={B_MAIN} x {a5.shape[1]}", pad_left=0,
+                         pad_right=v5.STFT_PAD_RIGHT, hop=v5.STFT_HOP)
+    a58 = audio(B_MAIN, v58.CONTEXT_SAMPLES + V5_8K_CHUNK, SEED + 303)
+    check_stft_magnitude(p58, a58, f"v5_8k B={B_MAIN} x {a58.shape[1]}", pad_left=0,
+                         pad_right=v58.STFT_PAD_RIGHT, hop=v58.STFT_HOP)
+
+    x, h, c = lstm_inputs(v4, p4, a4, B_MAIN, device)
+    errs["lstm_fused"] = check_lstm(p4, x, h, c, f"v4 B={B_MAIN} x T={x.shape[1]}")
+    window = audio(CLI_WINDOW, V4_CHUNK, SEED + 304)
+    check_lstm(p4, *lstm_inputs(v4, p4, window, 1, device), f"v4 B=1 x T={3 * CLI_WINDOW}")
+    x, h, c = lstm_inputs(v5, p5, a5, B_MAIN, device)
+    check_lstm(p5, x, h, c, f"v5 B={B_MAIN} x T={x.shape[1]}")
+    window = audio(CLI_WINDOW, v5.CONTEXT_SAMPLES + V5_CHUNK, SEED + 305)
+    check_lstm(p5, *lstm_inputs(v5, p5, window, 1, device), f"v5 B=1 x T={CLI_WINDOW}")
+    return errs
+
+
 def synthetic_file(path: Path) -> None:
-    """The verify recipe's file: two voiced spans, about 13 s."""
+    """The verify recipe's file: two voiced spans, 12 s, as raw s16le at
+    `path` and as a 16 kHz mono wav beside it (path with suffix .wav)."""
+    import wave
 
     def sil(d):
         return 0.001 * np.random.default_rng(1).normal(size=int(d * SR))
 
     audio = np.concatenate([sil(2), voiced(3), sil(2), voiced(3, 180), sil(2)])
-    np.clip(audio * 32768, -32768, 32767).astype("<i2").tofile(path)
+    pcm = np.clip(audio * 32768, -32768, 32767).astype("<i2")
+    pcm.tofile(path)
+    with wave.open(str(path.with_suffix(".wav")), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SR)
+        w.writeframes(pcm.tobytes())
 
 
 def run_cli(argv: list[str], stdin_path: Path) -> str:
@@ -260,76 +409,138 @@ def run_cli(argv: list[str], stdin_path: Path) -> str:
         finally:
             sys.stdin = saved
     seconds = time.perf_counter() - t0
-    audio_s = stdin_path.stat().st_size / 2 / 16000
+    audio_s = stdin_path.stat().st_size / 2 / SR
     require(rc == 0, f"CLI {argv} exited {rc}: {err.getvalue()}")
-    log(f"CLI {' '.join(argv)}: {audio_s:.2f} s of audio in {seconds:.3f} s "
+    log(f"CLI {' '.join(argv)} < {stdin_path.name}: {audio_s:.2f} s of audio in {seconds:.3f} s "
         f"(realtime factor {audio_s / seconds:.1f}x)")
     return out.getvalue()
 
 
-def phase_main_path(params, device) -> dict:
-    import torch
-
-    from vadc_tpu_torch.engine.runner import StreamRunner
-    from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
-    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
-
-    chunks = speech_chunks(B_MAIN * SCAN_CHUNKS, CHUNK, seed=SEED + 100)
-    chunks = chunks.reshape(B_MAIN, SCAN_CHUNKS, CHUNK)
-
-    dot_magnitude.launches = 0
-    forward_fused2d.launches = 0
-    gpu = StreamRunner("v3", params, device=device)
-    state = gpu.init_state(B_MAIN)
-    probs_gpu, state = gpu.scan(chunks, state)
-    torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        pcm = Path(tmp) / "synthetic.s16le"
-        synthetic_file(pcm)
-        seg_gpu = run_cli(["--device", "cuda"], pcm)
-        raw_gpu = run_cli(["--device", "cuda", "--raw_probabilities"], pcm)
-        launches = {
-            "dot_magnitude": dot_magnitude.launches,
-            "silero_v31_fused": forward_fused2d.launches,
-        }
-        seg_cpu = run_cli(["--device", "cpu"], pcm)
-        raw_cpu = run_cli(["--device", "cpu", "--raw_probabilities"], pcm)
-    log(f"main path launches (scan {B_MAIN}x{SCAN_CHUNKS} + 2 CLI runs): {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"{name}: no launch on the main path")
-
-    t0 = time.perf_counter()
-    cpu = StreamRunner("v3", params, device="cpu")
-    cstate = cpu.init_state(B_MAIN)
-    probs_cpu, cstate = cpu.scan(chunks, cstate)
-    log(f"plain CPU scan {B_MAIN}x{SCAN_CHUNKS}: {time.perf_counter() - t0:.1f} s")
-    require(probs_gpu.shape == (B_MAIN, SCAN_CHUNKS), f"scan probs shape {tuple(probs_gpu.shape)}")
-    require(bool(torch.isfinite(probs_gpu).all()), "scan: non-finite probabilities")
-    errs = {
-        "probs": max_abs(probs_gpu.cpu(), probs_cpu),
-        "h": max_abs(state.h.cpu(), cstate.h),
-        "c": max_abs(state.c.cpu(), cstate.c),
-    }
-    # the cell state is an unbounded running sum: its bound scales with it
-    bounds = {"probs": TOL_PATH, "h": TOL_PATH,
-              "c": TOL_PATH * max(1.0, float(cstate.c.abs().max().item()))}
-    log("scan card vs CPU: max abs err "
-        + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.3e})" for k, v in errs.items())
-        + f"; speech share p>0.5: {float((probs_gpu > 0.5).float().mean()):.3f}")
-    for k in errs:
-        require(errs[k] <= bounds[k], f"scan card vs CPU: {k} {errs[k]:.3e}")
-
-    log(f"CLI segments --device cuda: {seg_gpu.split()}")
-    log(f"CLI segments --device cpu:  {seg_cpu.split()}")
-    require(seg_gpu == seg_cpu, "CLI segments differ between cuda and cpu")
-    require(len(seg_gpu.split()) == 2, f"expected 2 segments, got {seg_gpu!r}")
+def cli_card_vs_cpu(extra: list[str], stdin_path: Path) -> None:
+    """The CLI with --device cuda and --device cpu: identical segments (the
+    file's two voiced spans), raw probabilities within TOL_PATH."""
+    seg_gpu = run_cli(["--device", "cuda", *extra], stdin_path)
+    raw_gpu = run_cli(["--device", "cuda", "--raw_probabilities", *extra], stdin_path)
+    seg_cpu = run_cli(["--device", "cpu", *extra], stdin_path)
+    raw_cpu = run_cli(["--device", "cpu", "--raw_probabilities", *extra], stdin_path)
+    label = " ".join(extra) or "default model"
+    log(f"CLI segments ({label}) --device cuda: {seg_gpu.split()}")
+    log(f"CLI segments ({label}) --device cpu:  {seg_cpu.split()}")
+    require(seg_gpu == seg_cpu, f"CLI segments ({label}) differ between cuda and cpu")
+    require(len(seg_gpu.split()) == 2, f"expected 2 segments ({label}), got {seg_gpu!r}")
     pg = np.array([float(x) for x in raw_gpu.split()])
     pc = np.array([float(x) for x in raw_cpu.split()])
     require(pg.shape == pc.shape and pg.size > 0, f"raw probabilities {pg.shape} vs {pc.shape}")
     raw_err = float(np.abs(pg - pc).max())
-    log(f"CLI raw probabilities: {pg.size} chunks, max abs diff cuda vs cpu {raw_err:.3e} "
-        f"(bound {TOL_PATH:g})")
-    require(raw_err <= TOL_PATH, f"CLI raw probabilities differ by {raw_err}")
+    log(f"CLI raw probabilities ({label}): {pg.size} chunks, max abs diff cuda vs cpu "
+        f"{raw_err:.3e} (bound {TOL_PATH:g})")
+    require(raw_err <= TOL_PATH, f"CLI raw probabilities ({label}) differ by {raw_err}")
+
+
+def check_close_to_cpu(label: str, got: dict, want: dict) -> None:
+    """Card results against the CPU's: probabilities and h within TOL_PATH,
+    c within TOL_PATH of its largest value (an unbounded running sum)."""
+    errs = {k: max_abs(got[k].cpu(), want[k]) for k in want}
+    bounds = {k: TOL_PATH * (max(1.0, float(want[k].abs().max().item())) if k == "c" else 1.0)
+              for k in want}
+    log(f"{label} card vs CPU: max abs err "
+        + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.3e})" for k, v in errs.items()))
+    for k in errs:
+        require(errs[k] <= bounds[k], f"{label} card vs CPU: {k} {errs[k]:.3e}")
+
+
+def scan_card_vs_cpu(family: str, params, device, chunk: int, seed: int) -> None:
+    """StreamRunner.scan over B_MAIN streams x SCAN_CHUNKS chunks on the
+    card, then the same on the CPU (plain versions)."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import StreamRunner
+
+    chunks = speech_chunks(B_MAIN * SCAN_CHUNKS, chunk, seed=seed).reshape(B_MAIN, SCAN_CHUNKS, chunk)
+    gpu = StreamRunner(family, params, device=device)
+    probs_gpu, state = gpu.scan(chunks, gpu.init_state(B_MAIN))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cpu = StreamRunner(family, params, device="cpu")
+    probs_cpu, cstate = cpu.scan(chunks, cpu.init_state(B_MAIN))
+    log(f"plain CPU scan {family} {B_MAIN}x{SCAN_CHUNKS}: {time.perf_counter() - t0:.1f} s")
+    require(probs_gpu.shape == (B_MAIN, SCAN_CHUNKS), f"scan probs shape {tuple(probs_gpu.shape)}")
+    require(bool(torch.isfinite(probs_gpu).all()), f"scan {family}: non-finite probabilities")
+    if state.context is not None:
+        require(torch.equal(state.context.cpu(), cstate.context), f"scan {family}: context differs")
+    check_close_to_cpu(f"scan {family} {B_MAIN}x{SCAN_CHUNKS}",
+                       {"probs": probs_gpu, "h": state.h, "c": state.c},
+                       {"probs": probs_cpu, "h": cstate.h, "c": cstate.c})
+    log(f"scan {family}: speech share p>0.5: {float((probs_gpu > 0.5).float().mean()):.3f}")
+
+
+def minibatch_card_vs_cpu(family: str, params, device, chunk: int, seed: int) -> None:
+    """MinibatchRunner (the CLI's runner, batch CLI_WINDOW) over two windows
+    of CLI_WINDOW chunks, card against CPU, the state and the audio context
+    carried from window to window."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import MinibatchRunner
+
+    windows = speech_chunks(2 * CLI_WINDOW, chunk, seed=seed).reshape(2, CLI_WINDOW * chunk)
+    kw = dict(batch_size=CLI_WINDOW, chunk_samples=chunk)
+    gpu = MinibatchRunner(family, params, device=device, **kw)
+    cpu = MinibatchRunner(family, params, device="cpu", **kw)
+    for w in range(2):
+        pg = torch.tensor(gpu.process_window(windows[w]))
+        pc = torch.tensor(cpu.process_window(windows[w]))
+        require(pg.shape == (CLI_WINDOW,) and bool(torch.isfinite(pg).all()),
+                f"minibatch {family}: probabilities {tuple(pg.shape)}")
+        check_close_to_cpu(f"MinibatchRunner {family} window {w}",
+                           {"probs": pg, "h": gpu.h, "c": gpu.c},
+                           {"probs": pc, "h": cpu.h, "c": cpu.c})
+    if gpu.context is not None:
+        require(torch.equal(gpu.context.cpu(), cpu.context), f"minibatch {family}: context differs")
+
+
+def phase_main_path_v3(params, device, pcm: Path) -> dict:
+    from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
+    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
+
+    dot_magnitude.launches = forward_fused2d.launches = 0
+    scan_card_vs_cpu("v3", params, device, CHUNK, SEED + 100)
+    cli_card_vs_cpu([], pcm)
+    launches = {"dot_magnitude": dot_magnitude.launches,
+                "silero_v31_fused": forward_fused2d.launches}
+    log(f"v3.1 path launches (scan {B_MAIN}x{SCAN_CHUNKS} + CLI): {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"{name}: no launch on the v3.1 path")
+    return launches
+
+
+def phase_main_path_v4(params, device, pcm: Path, archives: dict) -> dict:
+    from vadc_tpu_torch.kernels.lstm import lstm_fused
+    from vadc_tpu_torch.kernels.stft_mag import stft_magnitude
+
+    stft_magnitude.launches = lstm_fused.launches = 0
+    scan_card_vs_cpu("v4", params, device, V4_CHUNK, SEED + 110)
+    cli_card_vs_cpu(["--model", str(archives["v4"])], pcm)
+    # the 8 kHz model on the same 16 kHz file as a wav: resampled natively
+    cli_card_vs_cpu(["--model", str(archives["v4_8k"])], pcm.with_suffix(".wav"))
+    launches = {"stft_magnitude": stft_magnitude.launches, "lstm_fused": lstm_fused.launches}
+    log(f"v4 path launches (scan {B_MAIN}x{SCAN_CHUNKS} + CLI v4, v4_8k): {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"{name}: no launch on the v4 path")
+    return launches
+
+
+def phase_main_path_v5(models: dict, device) -> dict:
+    from vadc_tpu_torch.kernels.lstm import lstm_fused
+    from vadc_tpu_torch.kernels.stft_mag import stft_magnitude
+
+    stft_magnitude.launches = lstm_fused.launches = 0
+    scan_card_vs_cpu("v5", models["v5"][1], device, V5_CHUNK, SEED + 120)
+    minibatch_card_vs_cpu("v5", models["v5"][1], device, V5_CHUNK, SEED + 121)
+    minibatch_card_vs_cpu("v5_8k", models["v5_8k"][1], device, V5_8K_CHUNK, SEED + 122)
+    launches = {"stft_magnitude": stft_magnitude.launches, "lstm_fused": lstm_fused.launches}
+    log(f"v5 path launches (scan {B_MAIN}x{SCAN_CHUNKS} + MinibatchRunner v5, v5_8k): {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"{name}: no launch on the v5 path")
     return launches
 
 
@@ -374,9 +585,62 @@ def phase_timing(params, device) -> dict:
     )
     log(f"front-end (reflect pad, unfold, dot_magnitude kernel, adaptive norm) "
         f"B={B_MAIN}: {front_ms:.4f} ms")
-    log(f"ms per chunk-step B={B_MAIN}x{CHUNK}: kernels {step_ms:.4f} ms, plain {plain_ms:.4f} ms; "
-        f"realtime streams at the kernel rate: {B_MAIN * (CHUNK / 16000) / (step_ms / 1000):.0f}")
-    return {"kernels": t, "step_ms": step_ms, "plain_step_ms": plain_ms}
+    log(f"ms per chunk-step v3.1 B={B_MAIN}x{CHUNK}: kernels {step_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms; realtime streams at the kernel rate: "
+        f"{B_MAIN * (CHUNK / SR) / (step_ms / 1000):.0f}")
+    return t
+
+
+def phase_timing_v45(models: dict, device) -> dict:
+    """Each new kernel against its plain version at the main paths' shapes,
+    and ms per chunk-step at B_MAIN for v4 and v5, kernels vs plain."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels.lstm import lstm_fused, lstm_fused_reference, transposed_weight_of
+    from vadc_tpu_torch.kernels.stft_mag import (
+        split_basis_of, stft_magnitude, stft_magnitude_reference,
+    )
+
+    t = {}
+    for family, chunk in (("v4", V4_CHUNK), ("v5", V5_CHUNK)):
+        module, params = models[family]
+        ctx = getattr(module, "CONTEXT_SAMPLES", 0)
+        audio = torch.from_numpy(speech_chunks(B_MAIN, ctx + chunk, seed=SEED + 400)).to(device)
+        wr, wi = split_basis_of(params)
+        pad = (dict(pad_left=module.STFT_PAD, pad_right=module.STFT_PAD, hop=module.STFT_HOP)
+               if family == "v4" else
+               dict(pad_left=0, pad_right=module.STFT_PAD_RIGHT, hop=module.STFT_HOP))
+        stft = cuda_ms_pair(lambda: stft_magnitude(audio, wr, wi, **pad),
+                            lambda: stft_magnitude_reference(audio, wr, wi, **pad))
+        log(f"time stft_magnitude {family} B={B_MAIN}x{audio.shape[1]}: kernel {stft[0]:.4f} ms, "
+            f"plain {stft[1]:.4f} ms")
+        w, b, wt = params["lstm_w"], params["lstm_b"], transposed_weight_of(params)
+        x, h, c = lstm_inputs(module, params, audio, B_MAIN, device)
+        lstm = cuda_ms_pair(lambda: lstm_fused(x, h, c, w, b, wt=wt),
+                            lambda: lstm_fused_reference(x, h, c, w, b))
+        log(f"time lstm_fused {family} B={B_MAIN} x T={x.shape[1]}: kernel {lstm[0]:.4f} ms, "
+            f"plain {lstm[1]:.4f} ms")
+        window = torch.from_numpy(speech_chunks(CLI_WINDOW, ctx + chunk, seed=SEED + 401)).to(device)
+        x1, h1, c1 = lstm_inputs(module, params, window, 1, device)
+        long = cuda_ms_pair(lambda: lstm_fused(x1, h1, c1, w, b, wt=wt),
+                            lambda: lstm_fused_reference(x1, h1, c1, w, b), iters=5)
+        log(f"time lstm_fused {family} B=1 x T={x1.shape[1]} (one CLI window): kernel "
+            f"{long[0]:.4f} ms, plain {long[1]:.4f} ms")
+        runner = StreamRunner(family, params, device=device)
+        state = runner.init_state(B_MAIN)
+        steps = audio[:, ctx:].contiguous()
+        h0, c0 = module.init_state(B_MAIN, device)
+        step_ms, plain_ms = cuda_ms_pair(
+            lambda: runner.step(steps, state),
+            lambda: module.forward_reference(params, audio, h0, c0),
+        )
+        log(f"ms per chunk-step {family} B={B_MAIN}x{chunk}: kernels {step_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; realtime streams at the kernel rate: "
+            f"{B_MAIN * (chunk / SR) / (step_ms / 1000):.0f}")
+        if family == "v4":  # the JSON line's shapes: the v4 16 kHz step's
+            t["stft_magnitude"], t["lstm_fused"] = stft, lstm
+    return t
 
 
 def main() -> int:
@@ -385,9 +649,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible to PyTorch", file=sys.stderr)
         return 1
-    from vadc_tpu_torch.models.weights import load_params
-    from vadc_tpu_torch.runtime import require_cuda
     from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
+    from vadc_tpu_torch.models import silero_v4, silero_v5
+    from vadc_tpu_torch.models.synthetic import random_v5_8k_archive, random_v5_archive
+    from vadc_tpu_torch.models.weights import load_params, load_params_from_tensors
+    from vadc_tpu_torch.runtime import require_cuda
 
     smi = nvidia_smi()
     log(f"card: {smi}")
@@ -395,20 +661,41 @@ def main() -> int:
     device = require_cuda()
     phase_build()
     _, params = load_params(DEFAULT_WEIGHTS, device=device)
+    archives = {"v4": DEFAULT_WEIGHTS.parent / "silero_v4_16k.testtensor",
+                "v4_8k": DEFAULT_WEIGHTS.parent / "silero_v4_8k.testtensor"}
+    models = {
+        "v4": (silero_v4, load_params(archives["v4"], device=device)[1]),
+        "v4_8k": (silero_v4.v4_8k, load_params(archives["v4_8k"], device=device)[1]),
+        # synthetic weights of the official shapes, from fixed seeds
+        "v5": (silero_v5, load_params_from_tensors(random_v5_archive(0), device=device)[1]),
+        "v5_8k": (silero_v5.v5_8k,
+                  load_params_from_tensors(random_v5_8k_archive(1), device=device)[1]),
+    }
 
     errs = phase_kernels(params, device)
-    launches = phase_main_path(params, device)
+    errs.update(phase_kernels_v45(models, device))
+    with tempfile.TemporaryDirectory() as tmp:
+        pcm = Path(tmp) / "synthetic.s16le"
+        synthetic_file(pcm)
+        launches = phase_main_path_v3(params, device, pcm)
+        v4 = phase_main_path_v4(models["v4"][1], device, pcm, archives)
+    v5 = phase_main_path_v5(models, device)
+    launches.update({name: v4[name] + v5[name] for name in v4})
     timing = phase_timing(params, device)
+    timing.update(phase_timing_v45(models, device))
 
     sources = {
         "dot_magnitude": ("vadc_tpu_torch/kernels/csrc/stft_dotmag.cu",
                           "vadc_tpu/kernels/stft_dotmag.py:56"),
         "silero_v31_fused": ("vadc_tpu_torch/kernels/csrc/silero_v31_fused.cu",
                              "vadc_tpu/kernels/silero_v31_fused2d.py:232"),
+        "stft_magnitude": ("vadc_tpu_torch/kernels/csrc/stft_mag.cu",
+                           "vadc_tpu/kernels/stft_mag.py:91"),
+        "lstm_fused": ("vadc_tpu_torch/kernels/csrc/lstm.cu", "vadc_tpu/kernels/lstm.py:181"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
-        ms, plain_ms = timing["kernels"][name]
+        ms, plain_ms = timing[name]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                  "launches": launches[name], "max_abs_err": errs[name],
                  "ms": ms, "plain_ms": plain_ms}

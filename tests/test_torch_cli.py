@@ -10,6 +10,14 @@ where the adaptive normalization's log1p(2^20 x) magnifies each package's
 own rounding (see tests/test_torch_model.py). Measured on the CPU: 1.9e-4.
 The port on the card against the port on the CPU, on the same file, is
 held to 1e-4 by chip_smoke.py.
+
+The other families on the same file: v4 (official weights) prints the JAX
+CLI's segments, `1.99,5.21` and `6.98,10.21`, and v4_8k, given the file
+as a 16 kHz .wav that both packages resample to 8 kHz natively, prints
+the JAX CLI's segments too. v5 and v5_8k (synthetic weights, written to a
+.testtensor) print raw probabilities within 1e-4 of the JAX CLI's
+(measured 2e-6, at the six decimals the CLI prints: v5 has no log1p in
+its front-end).
 """
 
 import io
@@ -23,12 +31,13 @@ import torch
 import jax
 
 from tests.conftest import assert_close
-from tests.torch_port_util import single_torch_thread  # noqa: F401
+from tests.torch_port_util import DATA, single_torch_thread  # noqa: F401
 from vadc_tpu.cli import main as jax_cli
 from vadc_tpu_torch.cli import main as port_cli
 
 SR = 16000
 TOL_PROBS = 1e-3
+TOL_V5 = 1e-4
 # jax settings the JAX CLI's compile-cache setup overwrites in-process
 _JAX_CACHE_SETTINGS = (
     "jax_compilation_cache_dir",
@@ -109,6 +118,48 @@ def test_cli_stdout_matches_jax(inputs, source, mode, capsys, monkeypatch,
         p_j = np.array([float(v) for v in out_j.split()])
         assert p_t.shape == p_j.shape == (12 * SR // 1536,)
         assert_close(p_t, p_j, TOL_PROBS, f"{source} raw probabilities")
+
+
+@pytest.mark.parametrize("family,source", [("v4", "s16le"), ("v4", "wav"), ("v4_8k", "wav")])
+def test_v4_cli_prints_the_jax_segments(inputs, family, source, capsys, monkeypatch,
+                                        restore_jax_cache_settings):
+    pcm, wav_path = inputs
+    archive = DATA / ("silero_v4_16k.testtensor" if family == "v4" else "silero_v4_8k.testtensor")
+    argv = ["--model", str(archive)] + ([str(wav_path)] if source == "wav" else [])
+    stdin = b"" if source == "wav" else pcm
+    rc_j, out_j, err_j = _run(jax_cli, argv, stdin, capsys, monkeypatch)
+    rc_t, out_t, err_t = _run(port_cli, argv + ["--device", "cpu"], stdin, capsys, monkeypatch)
+    assert rc_j == 0, err_j
+    assert rc_t == 0, err_t
+    assert out_t == out_j
+    if family == "v4":
+        assert out_t == "1.99,5.21\n6.98,10.21\n"
+    else:
+        assert "-> 8000 Hz mono" in err_t and len(out_t.split()) == 2, (out_t, err_t)
+
+
+@pytest.mark.parametrize("family,source", [("v5", "s16le"), ("v5_8k", "wav")])
+def test_v5_cli_raw_probabilities_match_jax(inputs, tmp_path, family, source, capsys,
+                                            monkeypatch, restore_jax_cache_settings):
+    from vadc_tpu.io.testtensor import save_testtensor
+    from vadc_tpu_torch.models.synthetic import random_v5_8k_archive, random_v5_archive
+
+    pcm, wav_path = inputs
+    archive = tmp_path / f"{family}.testtensor"
+    save_testtensor(archive, random_v5_archive(0) if family == "v5" else random_v5_8k_archive(1))
+    argv = ["--model", str(archive), "--raw_probabilities"]
+    argv += [str(wav_path)] if source == "wav" else []
+    stdin = b"" if source == "wav" else pcm
+    rc_j, out_j, err_j = _run(jax_cli, argv, stdin, capsys, monkeypatch)
+    rc_t, out_t, err_t = _run(port_cli, argv + ["--device", "cpu"], stdin, capsys, monkeypatch)
+    assert rc_j == 0, err_j
+    assert rc_t == 0, err_t
+    assert ("Model arch is Silero v5" in err_t) == (family == "v5")
+    p_t = np.array([float(v) for v in out_t.split()])
+    p_j = np.array([float(v) for v in out_j.split()])
+    chunk, rate = (512, SR) if family == "v5" else (256, SR // 2)
+    assert p_t.shape == p_j.shape == (12 * rate // chunk,)
+    assert_close(p_t, p_j, TOL_V5, f"{family} raw probabilities")
 
 
 def test_empty_stdin_exits_0_with_no_output(capsys, monkeypatch):

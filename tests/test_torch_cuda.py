@@ -5,10 +5,13 @@ no JAX, which tests/conftest.py imports), run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Bounds as in chip_smoke.py: dot_magnitude 1e-5 of the largest magnitude;
-the fused kernel 1e-5 on probabilities and 5e-5 on h and on c relative to
-its largest value (the state passes 14 recurrent updates whose fp32 sums
-the kernel takes in another order than cuBLAS).
+Bounds as in chip_smoke.py: dot_magnitude and stft_magnitude 1e-5 of the
+largest magnitude (and stft_magnitude bit-equal to dot_magnitude on the
+reflect-padded unfold, as the two share their tile); the fused kernel 1e-5
+on probabilities and 5e-5 on h and on c relative to its largest value (the
+state passes 14 recurrent updates whose fp32 sums the kernel takes in
+another order than cuBLAS); lstm_fused 5e-5 on y, h and c (c relative),
+for the same reason.
 """
 
 from pathlib import Path
@@ -23,7 +26,8 @@ pytestmark = pytest.mark.cuda
 
 # This file imports nothing from tests/ (the card's machine may have another
 # package named `tests` installed) and no JAX.
-V31_ARCHIVE = Path(__file__).resolve().parent.parent / "vadc_tpu" / "data" / "silero_v31_16k.testtensor"
+DATA = Path(__file__).resolve().parent.parent / "vadc_tpu" / "data"
+V31_ARCHIVE = DATA / "silero_v31_16k.testtensor"
 
 
 def speech(n_chunks: int, chunk: int = 1536, seed: int = 0) -> np.ndarray:
@@ -111,3 +115,124 @@ def test_state_in_place_and_the_runner_on_the_card(params, device):
     assert _max_abs(p_gpu.cpu(), p_cpu) <= 1e-4
     assert _max_abs(st.h.cpu(), st_cpu.h) <= 1e-4
     assert np.isfinite(p_gpu.cpu().numpy()).all()
+
+
+@pytest.fixture(scope="module")
+def family_params(device):
+    """family -> (model module, params on the card) for v4, v4_8k (bundled
+    archives) and v5, v5_8k (synthetic archives, fixed seeds)."""
+    from vadc_tpu_torch.models import silero_v4, silero_v5
+    from vadc_tpu_torch.models.synthetic import random_v5_8k_archive, random_v5_archive
+    from vadc_tpu_torch.models.weights import load_params, load_params_from_tensors
+
+    return {
+        "v4": (silero_v4, load_params(DATA / "silero_v4_16k.testtensor", device=device)[1]),
+        "v4_8k": (silero_v4.v4_8k,
+                  load_params(DATA / "silero_v4_8k.testtensor", device=device)[1]),
+        "v5": (silero_v5, load_params_from_tensors(random_v5_archive(0), device=device)[1]),
+        "v5_8k": (silero_v5.v5_8k,
+                  load_params_from_tensors(random_v5_8k_archive(1), device=device)[1]),
+    }
+
+
+# (family, batch, samples the model sees, pad_left, pad_right, hop)
+STFT_CASES = [
+    ("v4", 64, 1536, 96, 96, 64), ("v4", 37, 512, 96, 96, 64), ("v4", 1, 1536, 96, 96, 64),
+    ("v4_8k", 16, 768, 96, 96, 64), ("v4_8k", 16, 256, 96, 96, 64),
+    ("v5", 64, 576, 0, 64, 128), ("v5_8k", 64, 288, 0, 32, 64),
+]
+
+
+@pytest.mark.parametrize("family,batch,samples,pad_left,pad_right,hop", STFT_CASES,
+                         ids=[f"{c[0]}-B{c[1]}-{c[2]}" for c in STFT_CASES])
+def test_stft_magnitude_kernel_matches_plain(family_params, device, family, batch, samples,
+                                             pad_left, pad_right, hop):
+    from vadc_tpu_torch.kernels import stft_dotmag as KD
+    from vadc_tpu_torch.kernels import stft_mag as KS
+    from vadc_tpu_torch.nn import functional as F
+
+    _, params = family_params[family]
+    audio = torch.from_numpy(speech(batch, chunk=samples, seed=samples)).to(device)
+    wr, wi = KS.split_basis_of(params)
+    kw = dict(pad_left=pad_left, pad_right=pad_right, hop=hop)
+    before = KS.stft_magnitude.launches
+    got = KS.stft_magnitude(audio, wr, wi, **kw)
+    want = KS.stft_magnitude_reference(audio, wr, wi, **kw)
+    via_dotmag = KD.dot_magnitude(F.frame(F.reflect_pad_last(audio, pad_left, pad_right),
+                                          wr.shape[0], hop), wr, wi)
+    torch.cuda.synchronize()
+    assert KS.stft_magnitude.launches == before + 1
+    n_fft, cutoff = wr.shape
+    assert got.shape == (batch, (samples + pad_left + pad_right - n_fft) // hop + 1, cutoff)
+    assert _max_abs(got, want) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got, via_dotmag)
+
+
+def test_stft_magnitude_refuses_a_pad_the_chunk_cannot_reflect(family_params, device):
+    from vadc_tpu_torch.kernels import stft_mag as KS
+
+    wr, wi = KS.split_basis_of(family_params["v4"][1])
+    with pytest.raises(ValueError, match="reflect pads"):
+        KS.stft_magnitude(torch.zeros(2, 96, device=device), wr, wi,
+                          pad_left=96, pad_right=96, hop=64)
+
+
+# (family, batch, steps): the main paths' shapes, smaller batches
+LSTM_CASES = [("v4", 64, 3), ("v4", 37, 5), ("v4", 1, 288), ("v5", 64, 1), ("v5", 1, 96)]
+
+
+@pytest.mark.parametrize("family,batch,steps", LSTM_CASES,
+                         ids=[f"{c[0]}-B{c[1]}-T{c[2]}" for c in LSTM_CASES])
+def test_lstm_fused_kernel_matches_plain(family_params, device, family, batch, steps):
+    from vadc_tpu_torch.kernels import lstm as KL
+
+    module, params = family_params[family]
+    layers, hidden = module.NUM_LSTM_LAYERS, module.HIDDEN
+    x = torch.from_numpy(noise(batch * steps, chunk=hidden, seed=5)).reshape(batch, steps, hidden)
+    x = (10 * x).to(device)  # encoder features are O(1)
+    h = (5 * torch.from_numpy(noise(layers * batch, chunk=hidden, seed=6))).to(device)
+    c = (20 * torch.from_numpy(noise(layers * batch, chunk=hidden, seed=7))).to(device)
+    h, c = h.reshape(layers, batch, hidden), c.reshape(layers, batch, hidden)
+    w, b = params["lstm_w"], params["lstm_b"]
+    before = KL.lstm_fused.launches
+    y, hn, cn = KL.lstm_fused(x, h, c, w, b, wt=KL.transposed_weight_of(params))
+    y_ref, h_ref, c_ref = KL.lstm_fused_reference(x, h, c, w, b)
+    torch.cuda.synchronize()
+    assert KL.lstm_fused.launches == before + 1
+    assert y.shape == (batch, steps, hidden) and hn.shape == (layers, batch, hidden)
+    assert _max_abs(y, y_ref) <= 5e-5
+    assert _max_abs(hn, h_ref) <= 5e-5
+    assert _max_abs(cn, c_ref) <= 5e-5 * max(1.0, float(c_ref.abs().max()))
+    # the state in place: hn, cn written over h, c; the same bits
+    h2, c2 = h.clone(), c.clone()
+    _, h_out, c_out = KL.lstm_fused(x, h2, c2, w, b, hn=h2, cn=c2)
+    torch.cuda.synchronize()
+    assert h_out is h2 and c_out is c2
+    assert torch.equal(h2, hn) and torch.equal(c2, cn)
+
+
+@pytest.mark.parametrize("family", ["v4", "v4_8k", "v5", "v5_8k"])
+def test_v4_v5_runners_on_the_card(family_params, device, family):
+    """The stream runner on the card matches the plain path on the CPU and
+    goes through both new kernels once per step; the v5 context is carried
+    on the card exactly as on the CPU."""
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels.lstm import lstm_fused
+    from vadc_tpu_torch.kernels.stft_mag import stft_magnitude
+
+    chunk = {"v4": 1536, "v4_8k": 768, "v5": 512, "v5_8k": 256}[family]
+    _, params = family_params[family]
+    chunks = speech(32 * 3, chunk=chunk, seed=8).reshape(32, 3, -1)
+    gpu = StreamRunner(family, params, device=device)
+    cpu = StreamRunner(family, params, device="cpu")
+    stft_magnitude.launches = lstm_fused.launches = 0
+    state = gpu.init_state(32)
+    p_gpu, st = gpu.scan(chunks, state)
+    torch.cuda.synchronize()
+    assert st is state
+    assert stft_magnitude.launches == 3 and lstm_fused.launches == 3
+    p_cpu, st_cpu = cpu.scan(chunks, cpu.init_state(32))
+    assert _max_abs(p_gpu.cpu(), p_cpu) <= 1e-4
+    assert _max_abs(st.h.cpu(), st_cpu.h) <= 1e-4
+    if st.context is not None:
+        assert torch.equal(st.context.cpu(), st_cpu.context)

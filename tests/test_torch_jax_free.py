@@ -26,6 +26,9 @@ modules = [
     "vadc_tpu_torch.engine.runner", "vadc_tpu_torch.kernels._build",
     "vadc_tpu_torch.kernels.stft_dotmag", "vadc_tpu_torch.kernels.silero_v31_fused2d",
     "vadc_tpu_torch.kernels.silero_v31_fused3d", "vadc_tpu_torch.cli.main",
+    "vadc_tpu_torch.kernels.stft_mag", "vadc_tpu_torch.kernels.lstm",
+    "vadc_tpu_torch.models.silero_v4", "vadc_tpu_torch.models.silero_v5",
+    "vadc_tpu_torch.models.synthetic",
 ]
 for name in modules:
     importlib.import_module(name)
@@ -37,6 +40,22 @@ _, params = load_params(DEFAULT_WEIGHTS)
 runner = StreamRunner("v3", params, device="cpu")
 probs, _ = runner.scan(np.zeros((2, 2, 1536), np.float32), runner.init_state(2))
 assert probs.shape == (2, 2) and bool(torch.isfinite(probs).all())
+from vadc_tpu_torch.models.synthetic import random_v5_8k_archive, random_v5_archive
+from vadc_tpu_torch.models.weights import load_params_from_tensors
+for family, path, chunk in (("v4", DEFAULT_WEIGHTS.parent / "silero_v4_16k.testtensor", 1536),
+                            ("v4_8k", DEFAULT_WEIGHTS.parent / "silero_v4_8k.testtensor", 768)):
+    got, p = load_params(path)
+    assert got == family
+    r = StreamRunner(family, p, device="cpu")
+    probs, _ = r.scan(np.zeros((2, 2, chunk), np.float32), r.init_state(2))
+    assert bool(torch.isfinite(probs).all())
+for family, archive, chunk in (("v5", random_v5_archive(0), 512),
+                               ("v5_8k", random_v5_8k_archive(1), 256)):
+    got, p = load_params_from_tensors(archive)
+    assert got == family
+    r = StreamRunner(family, p, device="cpu")
+    probs, st = r.scan(np.zeros((2, 2, chunk), np.float32), r.init_state(2))
+    assert bool(torch.isfinite(probs).all()) and st.context is not None
 sys.stdin = io.TextIOWrapper(io.BytesIO(b"\\0\\0" * 1536 * 3))
 with contextlib.redirect_stderr(io.StringIO()):
     assert main(["--device", "cpu", "--raw_probabilities"]) == 0

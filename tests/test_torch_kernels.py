@@ -247,7 +247,10 @@ def test_cpu_runs_build_and_launch_nothing(params):
 
 def test_kernel_sources_and_build_flags():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["errors.cu", "silero_v31_fused.cu", "stft_dotmag.cu"]
+    assert names == ["errors.cu", "lstm.cu", "silero_v31_fused.cu", "stft_dotmag.cu",
+                     "stft_mag.cu"]
+    # the header the two STFT kernels share is part of the library's hash
+    assert [p.name for p in _build.headers()] == ["stft_tile.cuh"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags
     assert "fast_math" not in flags and "fast-math" not in flags

@@ -205,8 +205,9 @@ def test_runners_refuse_unported_tiers_families_and_missing_cards(params):
     for tier in ("balanced", "fast", "turbo"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TR.StreamRunner("v3", tp, device="cpu", precision=tier)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.StreamRunner("v5", tp, device="cpu")
+    # every family of the JAX package is ported; an unknown one is refused
+    with pytest.raises(ValueError, match="unknown model family"):
+        TR.StreamRunner("v6", tp, device="cpu")
     with pytest.raises(ValueError):
         TR.StreamRunner("v3", tp, device="cpu", precision="exact")
     if torch.cuda.is_available():

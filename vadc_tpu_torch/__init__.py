@@ -12,10 +12,11 @@ the JAX-free modules: `vadc_tpu.io.*`, `vadc_tpu.cli.segmenter`,
 
 Layering (bottom to top):
   runtime   device selection, TF32 off for the faithful tier
-  nn/       plain PyTorch ops of the v3.1 channels-last pipeline
+  nn/       plain PyTorch ops of the channels-last pipelines
   kernels/  CUDA kernels (csrc/*.cu, built with nvcc at first use) and
             their plain PyTorch versions
-  models/   weight loading and the Silero v3.1 forwards
+  models/   weight loading, the Silero v3.1, v4 and v5 forwards (16 kHz,
+            and 8 kHz for v4 and v5), synthetic v5 archives
   engine/   stream runner (independent streams) and minibatch runner
   cli/      the vadc-compatible command line
 """

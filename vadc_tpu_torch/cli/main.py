@@ -15,6 +15,11 @@ plus [--precision faithful] (the only tier ported so far) and
 [--device cuda|cpu] (default cuda). With --device cuda and no card the CLI
 exits 1 with a one-line error; it never runs on the CPU instead.
 
+--model takes a .testtensor archive of any family (v3, v4, v4_8k, v5,
+v5_8k) or a plain v3 .onnx graph. The 8 kHz families segment at 8 kHz and
+decode wav input to 8 kHz; raw PCM on stdin is taken to be at the model's
+rate.
+
 Ingest, segmentation and stats are the JAX package's own JAX-free modules.
 Output discipline: stdout carries only data; everything else goes to stderr.
 """
@@ -36,7 +41,7 @@ from vadc_tpu.cli.segmenter import (
 )
 from vadc_tpu.cli.stats import Stats
 from vadc_tpu.io.ffmpeg import FFmpegSource
-from vadc_tpu.io.pcm import BYTES_PER_SAMPLE, SAMPLE_RATE, BSError, BufferedStream, s16le_to_f32
+from vadc_tpu.io.pcm import BYTES_PER_SAMPLE, BSError, BufferedStream, s16le_to_f32
 from vadc_tpu.io.wav import PrependStream, WavFormatError, WavSource, is_riff_wave, sniff_media_head
 from vadc_tpu_torch.runtime import PRECISIONS, NoCudaDeviceError
 
@@ -49,8 +54,8 @@ DEFAULT_WEIGHTS = Path(vadc_tpu.__file__).resolve().parent / "data" / "silero_v3
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="vadc-torch",
-        description="Streaming voice activity detection (Silero VAD v3.1) "
-        "on PyTorch and CUDA.",
+        description="Streaming voice activity detection (Silero VAD v3.1, v4, "
+        "v5) on PyTorch and CUDA.",
     )
     p.add_argument("filename", nargs="?", default=None,
                    help="input media file (.wav decoded natively; anything "
@@ -81,7 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_centi_seconds", action="store_true",
                    help="print integer centiseconds instead of seconds")
     p.add_argument("--model", type=str, default=None,
-                   help="path to a v3 .testtensor archive or .onnx graph "
+                   help="path to a .testtensor archive of any family (v3, "
+                        "v4, v4_8k, v5, v5_8k) or a v3 .onnx graph "
                         "(default: bundled Silero v3.1 16k)")
     p.add_argument("--precision", choices=PRECISIONS, default="faithful",
                    help="precision tier; only faithful (fp32) is ported")
@@ -117,6 +123,8 @@ def _main(argv: list[str] | None = None) -> int:
     if not weights_path.exists():
         raise FileNotFoundError(f"no weight archive at {weights_path}")
     family, params = load_params(weights_path, device=device)
+    if family == "v5":
+        print("Model arch is Silero v5", file=sys.stderr)
     seq = clamp_sequence_count(family, int(args.sequence_count))
     print(f"Running with batch size {args.batch}", file=sys.stderr)
     print(f"Running with sequence count {seq}", file=sys.stderr)
@@ -124,7 +132,8 @@ def _main(argv: list[str] | None = None) -> int:
         family, params, batch_size=int(args.batch), chunk_samples=seq,
         device=device, precision=args.precision,
     )
-    model_sr = SAMPLE_RATE
+    # the 8 kHz families time chunks (and decode wav input) at their own rate
+    model_sr = runner.module.SAMPLE_RATE
     seg_config = SegmenterConfig.from_ms(
         chunk_samples=seq,
         sample_rate=model_sr,

@@ -1,6 +1,7 @@
 """Model runners: the per-chunk step, its scan, and the minibatch runner.
 
-Counterpart of vadc_tpu/engine/runner.py, for family v3 (Silero v3.1):
+Counterpart of vadc_tpu/engine/runner.py, for the five families: v3
+(Silero v3.1), v4 and v4_8k, v5 and v5_8k:
 
   * `StreamRunner.step` — one chunk per stream for a batch of B independent
     streams (the realtime serving hot path); `StreamRunner.scan` — T chunks
@@ -9,6 +10,12 @@ Counterpart of vadc_tpu/engine/runner.py, for family v3 (Silero v3.1):
     window of N consecutive chunks through the model with the LSTM state
     threading chunk to chunk (process_chunks, vadc.c:56-103); the CLI's
     runner.
+
+The v5 families carry a raw-audio context between chunks (the last 64
+samples of a chunk, 32 at 8 kHz, prefix the next); both runners attach it
+before the model sees the audio. The JAX package's chunk-blocked scan
+(`_scan_tblock`) is a TPU throughput device, not semantics, and is not
+ported.
 
 Every runner takes its device explicitly. On a CUDA device the model runs
 through the package's CUDA kernels; on the CPU through their plain
@@ -22,21 +29,24 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from vadc_tpu_torch.models import silero_v31
+from vadc_tpu_torch.models import silero_v4, silero_v5, silero_v31
 from vadc_tpu_torch.models.weights import Params
 from vadc_tpu_torch.runtime import check_precision, resolve_device
 
-_FAMILIES = {"v3": silero_v31}
+_FAMILIES = {
+    "v3": silero_v31,
+    "v4": silero_v4,
+    "v4_8k": silero_v4.v4_8k,
+    "v5": silero_v5,
+    "v5_8k": silero_v5.v5_8k,
+}
 
 
 def get_family_module(family: str):
     try:
         return _FAMILIES[family]
     except KeyError:
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet (ROADMAP.md, Queue 1: "
-            "'The v4 family, 16k and 8k' / 'The v5 family, 16k and 8k')"
-        ) from None
+        raise ValueError(f"unknown model family {family!r}") from None
 
 
 @dataclass
@@ -46,6 +56,7 @@ class StreamState:
 
     h: torch.Tensor  # [L, B, H]
     c: torch.Tensor  # [L, B, H]
+    context: torch.Tensor | None = None  # [B, ctx], the v5 families only
 
     @property
     def n_streams(self) -> int:
@@ -53,8 +64,11 @@ class StreamState:
 
 
 def init_stream_state(family: str, n_streams: int, device="cpu") -> StreamState:
-    h, c = get_family_module(family).init_state(n_streams, device)
-    return StreamState(h, c)
+    mod = get_family_module(family)
+    h, c = mod.init_state(n_streams, device)
+    # the v5 families carry a raw-audio context tail between chunks
+    ctx = mod.init_context(n_streams, device) if hasattr(mod, "init_context") else None
+    return StreamState(h, c, ctx)
 
 
 def params_to(params: dict, device: torch.device) -> Params:
@@ -108,9 +122,13 @@ class StreamRunner:
         """chunks: [B, chunk_samples] new audio -> (probs [B], state).
 
         The state is updated IN PLACE and returned: the kernel writes hn, cn
-        over h, c. This is the counterpart of the JAX runner's donated
-        state buffers; callers treat the passed-in state as consumed."""
+        over h, c, and the chunks' tails over a v5 context. This is the
+        counterpart of the JAX runner's donated state buffers; callers
+        treat the passed-in state as consumed."""
         audio = _as_audio(chunks, self.device)
+        if state.context is not None:
+            audio, tail = self.module.attach_context(audio, state.context)
+            state.context.copy_(tail)
         probs, _, _ = self.module.forward(
             self.params, audio, state.h, state.c, hn=state.h, cn=state.c
         )
@@ -149,7 +167,20 @@ class MinibatchRunner:
         self.params = params_to(params, self.device)
         self.batch_size = batch_size
         self.chunk_samples = chunk_samples
-        self.h, self.c = self.module.init_state(1, self.device)
+        mod = self.module
+        self.h, self.c = mod.init_state(1, self.device)
+        self.context = mod.init_context(1, self.device) if hasattr(mod, "init_context") else None
+
+    def _forward(self, chunks: torch.Tensor):
+        if self.context is None:
+            return self.module.forward_minibatched(self.params, chunks, self.h, self.c)
+        # per-chunk context prefix: chunk i gets the tail of chunk i-1,
+        # chunk 0 the carried context (process_chunks_v5, vadc.c:105-162)
+        ctx = self.module.CONTEXT_SAMPLES
+        tails = torch.cat([self.context, chunks[:-1, -ctx:]], dim=0)
+        self.context = chunks[-1:, -ctx:].clone()
+        inp = torch.cat([tails, chunks], dim=-1)
+        return self.module.forward_minibatched(self.params, inp, self.h, self.c)
 
     def process_window(self, samples) -> list[float]:
         """Process a window of samples (zero-padded multiple of the chunk
@@ -161,9 +192,7 @@ class MinibatchRunner:
             batch = chunks[off : off + self.batch_size]
             if batch.shape[0] < self.batch_size:
                 batch = torch.nn.functional.pad(batch, (0, 0, 0, self.batch_size - batch.shape[0]))
-            probs, self.h, self.c = self.module.forward_minibatched(
-                self.params, batch, self.h, self.c
-            )
+            probs, self.h, self.c = self._forward(batch)
             # one device -> host copy per batch
             probs_out.extend(np.asarray(probs.cpu()).tolist())
         # A short final batch is zero-padded up to batch_size; the padded

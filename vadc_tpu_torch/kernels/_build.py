@@ -3,8 +3,9 @@
 Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (sm_90a) into ONE
 shared library with a plain C interface; no PyTorch header is included, so
 the build takes seconds. The library goes to `kernels/_build/`, named by a
-hash of the sources and flags, so a changed source builds anew and an
-unchanged one loads what an earlier process built.
+hash of the sources, their headers (`csrc/*.cuh`) and the flags, so a
+changed source builds anew and an unchanged one loads what an earlier
+process built.
 
 No `--use_fast_math`: the faithful tier needs the correctly rounded `sqrtf`
 and the accurate `expf` of the default build.
@@ -30,9 +31,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +47,11 @@ _SIGNATURES = {
     # weights, offsets (host int32[]), n_offsets, x, h, c, probs, hn, cn,
     # batch, seq0, stream
     "vadc_silero_v31_fused": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # audio, batch, stride_b, samples, pad_left, pad_right, hop, wr, wi,
+    # n_fft, cutoff, out, stream
+    "vadc_stft_magnitude": [_P, _I, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
+    # x, h0, c0, wt, bias, y, hn, cn, batch, seq, hidden, layers, stream
+    "vadc_lstm_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -56,7 +63,12 @@ build_info: dict = {}
 
 
 def sources() -> list[Path]:
+    """The files nvcc compiles, one translation unit each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -75,44 +87,55 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for src in sources() + headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libvadc_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless a library of the same sources exists."""
+    """Compile csrc/*.cu unless a library of the same sources exists: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         build_info.update(path=str(out), seconds=0.0, log="(loaded an earlier build)")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources()]
+    nvcc = _nvcc()
     start = time.perf_counter()
-    # build under a temporary name, then rename: a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-            capture_output=True,
-            text=True,
+    # build in a temporary directory, then rename: a concurrent process
+    # never loads a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        jobs = []
+        for src in sources():
+            obj = tmp / f"{src.stem}.o"
+            log = open(tmp / f"{src.stem}.log", "w+")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+            jobs.append((src, obj, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+        logs, failed = [], []
+        for src, _, log, proc in jobs:
+            proc.wait()
+            log.seek(0)
+            logs.append(f"Compiling {src.name}\n{log.read()}")
+            log.close()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} (exit {proc.returncode})")
+        if failed:
+            raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n" + "\n".join(logs))
+        lib = tmp / "lib.so"
+        link = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(lib), *(str(obj) for _, obj, _, _ in jobs)],
+            capture_output=True, text=True,
         )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n{link.stdout}\n{link.stderr}")
+        os.replace(lib, out)
     build_info.update(
         path=str(out),
         seconds=time.perf_counter() - start,
-        log=(proc.stdout + proc.stderr).strip(),
+        log="\n".join(logs).strip(),
     )
     return out
 

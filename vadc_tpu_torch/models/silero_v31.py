@@ -27,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
-from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude, split_basis
+from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
+from vadc_tpu_torch.kernels.stft_mag import split_basis_of
 from vadc_tpu_torch.models.weights import V3_STRIDES, Params
 from vadc_tpu_torch.nn import functional as F
 
@@ -56,7 +57,7 @@ def features(params: Params, audio: torch.Tensor) -> torch.Tensor:
     normalization stays in torch ops, as the JAX package leaves it to XLA."""
     basis = params["stft_basis"]
     frames = F.frame(F.reflect_pad_last(audio, STFT_PAD, STFT_PAD), basis.shape[1], STFT_HOP)
-    wr, wi = params.derived("stft_split_basis", lambda: split_basis(basis))
+    wr, wi = split_basis_of(params)
     return F.adaptive_audio_normalization_nlc(dot_magnitude(frames, wr, wi))
 
 

@@ -1,13 +1,16 @@
 """Weight schemas: named .testtensor archives -> the port's param trees.
 
-Counterpart of vadc_tpu/models/weights.py, with the same leaf names, so that
-a param tree of either package maps leaf for leaf onto the other's. Leaves
-are fp32 torch tensors on an explicit device.
+Counterpart of vadc_tpu/models/weights.py (and of the param builders in
+vadc_tpu/models/silero_v4.py and silero_v5.py), with the same leaf names, so
+that a param tree of either package maps leaf for leaf onto the other's.
+Leaves are fp32 torch tensors on an explicit device.
 
-The v3.1 archive layout (99 tensors, reference utils.py:194-232):
+Archive layouts. v3.1 (99 tensors, reference utils.py:194-232):
 `forward_basis_buffer`, four `transformer_l{1..4}.*` groups (l3 has no
 conv-block projection), the fused LSTM `weights`/`biases`, and
-`decoder_weights`/`decoder_biases`.
+`decoder_weights`/`decoder_biases`. v4: the same basis, LSTM and decoder
+names around four `stage{1..4}.*` conv groups. v5: the basis, four
+`enc{1..4}.weight`/`.bias` k3 convs, the LSTM and the decoder.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ from vadc_tpu.io.testtensor import load_testtensor
 
 # Encoder stage conv strides for v3 (reference tensor.h:158-161).
 V3_STRIDES = (2, 2, 1, 1)
+# v4 16 kHz strides stage 3 by 2 as well (silero_vad.py:175-178).
+V4_STRIDES_16K = (2, 2, 2, 1)
+V4_STRIDES_8K = (2, 2, 1, 1)
 
 _TRANSFORMER_KEYS = {
     "dw_w": ("dw_conv_weights", "dw"),
@@ -50,12 +56,12 @@ _TRANSFORMER_KEYS = {
     "bn_var": ("batch_norm_running_var", None),
 }
 
-# ROADMAP.md Queue 1 items of the families this package does not run yet.
-_UNPORTED_FAMILIES = {
-    "v4": "ROADMAP.md, Queue 1: 'The v4 family, 16k and 8k'",
-    "v4_8k": "ROADMAP.md, Queue 1: 'The v4 family, 16k and 8k'",
-    "v5": "ROADMAP.md, Queue 1: 'The v5 family, 16k and 8k'",
-    "v5_8k": "ROADMAP.md, Queue 1: 'The v5 family, 16k and 8k'",
+# The v4 encoder stage: a v3 transformer layer's keys minus the
+# transformer block (vadc_tpu/models/silero_v4.py:31-44).
+_STAGE_KEYS = {
+    k: v for k, v in _TRANSFORMER_KEYS.items()
+    if k in ("dw_w", "dw_b", "pw_w", "pw_b", "proj_w", "proj_b", "conv_w", "conv_b")
+    or k.startswith("bn_")
 }
 
 
@@ -89,13 +95,13 @@ def _canon(arr: np.ndarray, kind: str | None, device="cpu") -> torch.Tensor:
 
 
 def transformer_layer_params(
-    tensors: dict[str, np.ndarray], prefix: str = "", device="cpu"
+    tensors: dict[str, np.ndarray], prefix: str = "", device="cpu", keys=_TRANSFORMER_KEYS
 ) -> dict:
     """Extract one encoder-stage param group; `proj_*` are absent for stages
-    without a conv-block projection (v3.1 stage 3), `bn_*` when the
+    without a conv-block projection (v3.1 and v4 stage 3), `bn_*` when the
     exporter folded batch norm into the stage conv."""
     p: dict = {}
-    for out_key, (name, kind) in _TRANSFORMER_KEYS.items():
+    for out_key, (name, kind) in keys.items():
         full = f"{prefix}{name}"
         if full not in tensors:
             if out_key in ("proj_w", "proj_b") or out_key.startswith("bn_"):
@@ -112,6 +118,43 @@ def silero_v31_params(tensors: dict[str, np.ndarray], device="cpu") -> Params:
         stft_basis=_tensor(basis.reshape(basis.shape[0], -1), device),
         layers=[
             transformer_layer_params(tensors, f"transformer_l{i}.", device)
+            for i in (1, 2, 3, 4)
+        ],
+        lstm_w=_tensor(tensors["weights"], device),
+        lstm_b=_tensor(tensors["biases"], device),
+        dec_w=_canon(tensors["decoder_weights"], "pw", device),
+        dec_b=_tensor(tensors["decoder_biases"], device),
+    )
+
+
+def silero_v4_params(
+    tensors: dict[str, np.ndarray], sample_rate: int = 16000, device="cpu"
+) -> Params:
+    """Build the Silero v4 param tree (either branch: the sample rate
+    selects the encoder strides at run time, not the leaves)."""
+    del sample_rate  # the tree is the same for both branches, as in vadc_tpu
+    basis = np.asarray(tensors["forward_basis_buffer"])
+    return Params(
+        stft_basis=_tensor(basis.reshape(basis.shape[0], -1), device),
+        stages=[
+            transformer_layer_params(tensors, f"stage{i}.", device, keys=_STAGE_KEYS)
+            for i in (1, 2, 3, 4)
+        ],
+        lstm_w=_tensor(tensors["weights"], device),
+        lstm_b=_tensor(tensors["biases"], device),
+        dec_w=_canon(tensors["decoder_weights"], "pw", device),
+        dec_b=_tensor(tensors["decoder_biases"], device),
+    )
+
+
+def silero_v5_params(tensors: dict[str, np.ndarray], device="cpu") -> Params:
+    """Build the Silero v5 param tree (16 kHz or the 8 kHz branch)."""
+    basis = np.asarray(tensors["forward_basis_buffer"])
+    return Params(
+        stft_basis=_tensor(basis.reshape(basis.shape[0], -1), device),
+        encoder=[
+            {"w": _tensor(tensors[f"enc{i}.weight"], device),
+             "b": _tensor(tensors[f"enc{i}.bias"], device)}
             for i in (1, 2, 3, 4)
         ],
         lstm_w=_tensor(tensors["weights"], device),
@@ -183,18 +226,20 @@ def detect_model_family(tensors: dict[str, np.ndarray]) -> str:
 def load_params_from_tensors(
     tensors: dict[str, np.ndarray], device="cpu"
 ) -> tuple[str, Params]:
-    """Classify a loaded tensor archive and build its param tree (v3 only)."""
+    """Classify a loaded tensor archive and build its param tree."""
     family = detect_model_family(tensors)
-    if family != "v3":
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet ({_UNPORTED_FAMILIES[family]})"
-        )
-    return family, silero_v31_params(tensors, device)
+    if family == "v3":
+        return family, silero_v31_params(tensors, device)
+    if family in ("v5", "v5_8k"):
+        return family, silero_v5_params(tensors, device)
+    sample_rate = 8000 if family == "v4_8k" else 16000
+    return family, silero_v4_params(tensors, sample_rate, device)
 
 
 def load_params(path: str | Path, device="cpu") -> tuple[str, Params]:
-    """Load model weights from a .testtensor archive or a plain v3 .onnx
-    graph (through the JAX-free numpy extractor), returning (family, params)."""
+    """Load model weights from a .testtensor archive (any family) or a
+    plain v3 .onnx graph (through the JAX-free numpy extractor), returning
+    (family, params)."""
     path = Path(path)
     if path.suffix.lower() == ".onnx":
         from vadc_tpu.export.onnx_extract import classify_model
@@ -203,7 +248,9 @@ def load_params(path: str | Path, device="cpu") -> tuple[str, Params]:
         family = classify_model(path)
         if family != "v3":
             raise NotImplementedError(
-                f"model family {family!r} is not ported yet ({_UNPORTED_FAMILIES[family]})"
+                f"loading a {family!r} .onnx graph is not ported yet (ROADMAP.md, "
+                "Queue 1: 'v4/v5 .onnx loading and --sr', which waits for a v4 "
+                ".onnx in the repository); load a .testtensor archive instead"
             )
         return load_params_from_tensors(extract_silero_v3(path), device)
     return load_params_from_tensors(load_testtensor(path), device)

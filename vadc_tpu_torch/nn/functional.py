@@ -1,4 +1,4 @@
-"""Plain PyTorch ops of the Silero v3.1 channels-last pipeline.
+"""Plain PyTorch ops of the Silero channels-last pipelines (v3.1, v4, v5).
 
 Counterpart of the NLC ops in vadc_tpu/nn/functional.py, with the same names
 and layouts ([batch, length, channels]) so the tests compare like with like.
@@ -69,11 +69,13 @@ def stft_magnitude_nlc(
 ) -> torch.Tensor:
     """STFT magnitude, frames-major: audio [B, S] -> [B, F, cutoff].
 
-    basis: [2*cutoff, n_fft], real filters then imaginary. Frames by
-    unfold, then the product with each half and the magnitude, exactly as
-    the dot_magnitude kernel's plain version computes it: log1p(2^20 x)
-    downstream turns any rounding difference at a near-zero bin into a
-    large feature difference, so the two must not differ in rounding."""
+    basis: [2*cutoff, n_fft], real filters then imaginary, of any n_fft
+    (256 at 16 kHz, 128 for v5's 8 kHz branch). Frames by unfold, then the
+    product with each half and the magnitude, exactly as the dot_magnitude
+    kernel's plain version computes it: log1p(2^20 x) downstream (v3, v4)
+    turns any rounding difference at a near-zero bin into a large feature
+    difference, so the two must not differ in rounding. This function is
+    also the plain version of the stft_magnitude kernel."""
     n_fft = basis.shape[1]
     cutoff = basis.shape[0] // 2
     frames = frame(reflect_pad_last(audio, pad_left, pad_right), n_fft, hop)
@@ -211,8 +213,7 @@ def transformer_layer_nlc(x: torch.Tensor, p: dict, *, stride: int) -> torch.Ten
         h = h[:, ::stride, :]
     h = linear(h, p["conv_w"], p["conv_b"])
     if "bn_w" in p:
-        inv = torch.rsqrt(p["bn_var"] + BATCH_NORM_EPS)
-        h = (h - p["bn_mean"]) * inv * p["bn_w"] + p["bn_b"]
+        h = batch_norm1d_nlc(h, p["bn_mean"], p["bn_var"], p["bn_w"], p["bn_b"])
     return torch.relu(h)
 
 
@@ -253,6 +254,47 @@ def lstm_minibatched(
     n, t, feat = x.shape
     out, hn, cn = lstm(x.reshape(1, n * t, feat), h0, c0, w, b)
     return out.reshape(n, t, feat), hn, cn
+
+
+def conv1d_nlc(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, *, stride: int = 1, padding: int = 0
+) -> torch.Tensor:
+    """Small-kernel conv over [B, L, C]; w [O, C, K]. K shifted strided
+    products summed in tap order, as the JAX package writes it (not
+    torch's conv1d: cuDNN is no kernel of this repo, and it would sum in
+    another order)."""
+    k = w.shape[-1]
+    if padding:
+        x = tnf.pad(x, (0, 0, padding, padding))
+    out_len = (x.shape[1] - k) // stride + 1
+    y = None
+    for tap in range(k):
+        xs = x[:, tap : tap + (out_len - 1) * stride + 1 : stride, :]
+        term = torch.matmul(xs, w[:, :, tap].T)
+        y = term if y is None else y + term
+    if b is not None:
+        y = y + b
+    return y
+
+
+def batch_norm1d_nlc(
+    x: torch.Tensor,
+    running_mean: torch.Tensor,
+    running_var: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+) -> torch.Tensor:
+    """Inference BatchNorm over the channel (last) dim of [B, L, C], fp32."""
+    inv = torch.rsqrt(running_var + BATCH_NORM_EPS)
+    return (x - running_mean) * inv * w + b
+
+
+def decoder_v5_nlc(out: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """v4/v5 decoder over LSTM output [B, T, H] -> probs [B]: relu, H->1
+    projection, sigmoid, then the frame mean (the sigmoid comes first,
+    silero_vad.py:331-341)."""
+    logits = linear(torch.relu(out), w, b)  # [B, T, 1]
+    return torch.mean(torch.sigmoid(logits[:, :, 0]), dim=1)
 
 
 def decoder_v3_nlc(out: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
