@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Profile one StreamRunner step of the PyTorch/CUDA port on one card.
+"""Profile one StreamRunner step and one server tick of the PyTorch/CUDA
+port on one card.
 
     python3 chip_profile.py
 
 Runs 20 steps of `StreamRunner.step` over 2048 streams of 1536-sample
 chunks of synthetic speech (chip_smoke.speech_chunks, seed 300) with the
-LSTM state carried, under torch.profiler, after 10 warm-up steps. Prints:
-  - host wall ms per step with the profiler on, the device's busy ms per
-    step (the sum of CUDA kernel times), kernels per step, and the idle
-    share 1 - busy / wall;
-  - the 30 kernels that take the most device time, per step;
-  - host wall ms per step of the same loop without the profiler.
+LSTM state carried, under torch.profiler, after 10 warm-up steps; then 20
+`_tick`s of a 2048-slot v3.1 server (vadc_tpu_torch.server, every slot
+active, the same audio as s16) the same way. Prints for each:
+  - host wall ms per call with the profiler on, the device's busy ms per
+    call (the sum of the CUDA kernel and copy times), device events per
+    call, and the idle share 1 - busy / wall;
+  - the 30 device events that take the most time, per call;
+  - host wall ms per call of the same loop without the profiler.
 Imports nothing of JAX. Exits 1 without a card.
 """
 
@@ -20,6 +23,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 BATCH = 2048
@@ -27,9 +32,50 @@ CHUNK = 1536
 STEPS = 20
 
 
-def main() -> int:
+def profile_calls(label: str, call) -> bool:
+    """STEPS calls under torch.profiler, then STEPS without it; prints the
+    device time per call by event. False when the profiler saw no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # the CPU-side op rows would count their kernels twice
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    if busy_us <= 0:
+        print(f"chip_profile: the profiler recorded no device time for {label}", file=sys.stderr)
+        return False
+    print(f"{label} B={BATCH} x {CHUNK}: wall {wall * 1e3 / STEPS:.4f} ms/call "
+          f"(host clock, profiler on), device busy {busy_us / 1e3 / STEPS:.4f} ms/call in "
+          f"{sum(r[2] for r in rows) // STEPS} device events, idle share "
+          f"{1 - busy_us / 1e6 / wall:.3f}")
+    for dev_us, key, count in rows[:30]:
+        print(f"  {dev_us / STEPS:9.1f} us/call  {count // STEPS:4d}x  {key[:110]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        call()
+    torch.cuda.synchronize()
+    print(f"{label}: wall without profiler {(time.perf_counter() - t0) * 1e3 / STEPS:.4f} ms/call")
+    return True
+
+
+def main() -> int:
+    import torch
 
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device is visible to PyTorch", file=sys.stderr)
@@ -50,37 +96,21 @@ def main() -> int:
         runner.step(audio, state)
     torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(STEPS):
-            runner.step(audio, state)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # the CPU-side op rows would count their kernels twice
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy_us = sum(r[0] for r in rows)
-    if busy_us <= 0:
-        print("chip_profile: the profiler recorded no device time", file=sys.stderr)
+    if not profile_calls("StreamRunner.step", lambda: runner.step(audio, state)):
         return 1
-    print(f"B={BATCH} x {CHUNK}: wall {wall * 1e3 / STEPS:.4f} ms/step "
-          f"(host clock, profiler on), device busy {busy_us / 1e3 / STEPS:.4f} ms/step in "
-          f"{sum(r[2] for r in rows) // STEPS} kernels, idle share {1 - busy_us / 1e6 / wall:.3f}")
-    for dev_us, key, count in rows[:30]:
-        print(f"  {dev_us / STEPS:9.1f} us/step  {count // STEPS:4d}x  {key[:110]}")
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
-        runner.step(audio, state)
-    torch.cuda.synchronize()
-    print(f"wall without profiler {(time.perf_counter() - t0) * 1e3 / STEPS:.4f} ms/step")
+    from vadc_tpu_torch.server import VadServer
+
+    server = VadServer(port=0, max_streams=BATCH, device=device)
+    try:
+        batch = (audio.cpu().numpy() * 32768).clip(-32768, 32767).astype(np.int16)
+        on, off = np.ones(BATCH, bool), np.zeros(BATCH, bool)
+        for _ in range(10):
+            server._tick(batch, on, off)
+        if not profile_calls("server _tick", lambda: server._tick(batch, on, off)):
+            return 1
+    finally:
+        server.pool.close()
     return 0
 
 

@@ -6,11 +6,18 @@
 Phases, each of which raises on failure (exit code 1):
   1. the card's name and power limit; build the CUDA kernels from
      vadc_tpu_torch/kernels/csrc/ with nvcc for sm_90a (one nvcc per
-     source, in parallel);
+     source, in parallel); the kernels whose device code is shared through
+     headers (forward_fused2d, dot_magnitude) give the bits they gave
+     before that code moved into the headers (PARENT_DIGESTS);
   2. each kernel against its plain PyTorch version on the card:
      - Silero v3.1 (bundled weights) and synthetic speech: dot_magnitude
        and the fused encoder/LSTM/decoder at B=2048 chunks of 1536
        samples, B=1, B=37 (a ragged last block), 512-sample chunks;
+     - forward_fused (the whole v3.1 step from raw audio) from a carried
+       state at B=2048, 1, 37 x 1536 and B=2048 x 512, 768, 1024, 1280,
+       and on a BN-folded copy of the weights; also against
+       forward_fused2d(features(audio)), its spectrum bit for bit against
+       dot_magnitude's, and its state in place;
      - stft_magnitude at every v4/v5 geometry (v4 16 kHz B=2048/1/37 x
        1536, v4 8 kHz 768 and 256, v5 576, v5 8 kHz 288), and bit for bit
        against dot_magnitude on the reflect-padded unfold;
@@ -20,17 +27,25 @@ Phases, each of which raises on failure (exit code 1):
   3. the main paths, each with the kernels' launch counts set to 0 just
      before and read just after (each kernel of the path must be > 0):
      - v3.1: StreamRunner.scan over 2048 streams x 8 chunks on the card
-       against the same on the CPU (plain versions), then the vadc CLI on
-       a 12 s synthetic file with --device cuda and --device cpu
-       (identical segments, raw probabilities within 1e-4);
+       against the same on the CPU (plain versions; forward_fused), then
+       the vadc CLI on a 12 s synthetic file with --device cuda and
+       --device cpu (identical segments, raw probabilities within 1e-4;
+       dot_magnitude and forward_fused2d);
      - v4: StreamRunner.scan 2048 x 8 card vs CPU, and the CLI with the
        bundled v4 16 kHz and 8 kHz archives, cuda vs cpu;
      - v5: StreamRunner.scan 2048 x 8 card vs CPU (the audio context
        carried), and MinibatchRunner (the CLI's runner) over two 96-chunk
        windows for v5 and v5 8 kHz, card vs CPU. The v5 weights are
        synthetic, from vadc_tpu_torch.models.synthetic at a fixed seed;
-  4. timings with CUDA events: each kernel against its plain version, and
-     ms per chunk-step of the whole step at batch 2048 for v3.1, v4 and v5.
+     - the serving daemon (vadc_tpu_torch.server, bundled v3.1, 64 slots)
+       on localhost: 8 clients send 20 s of seeded speech each, unpaced;
+       each client's segment lines equal those of the same server on the
+       CPU (forward_fused); logs tick_count, catchup_ticks, tick p50/p99;
+  4. timings with CUDA events: each kernel against its plain version,
+     forward_fused against features + forward_fused2d, ms per chunk-step
+     of the whole step at batch 2048 for v3.1 (and the two-kernel v3.1
+     step, features + forward_fused2d), v4
+     and v5, and the server's _tick and _tick2 at 2048 slots (v3.1, v5).
 
 Prints a JSON line of per-kernel results, then the card's name and power
 limit, then as its last line
@@ -74,9 +89,26 @@ TOL_PATH = 1e-4
 # kernel's state (c relative to its largest value): the synthetic v5
 # weights drive gate pre-activations to tens, where an fp32 ulp is ~4e-6
 TOL_LSTM = 5e-5
+# forward_fused (the whole v3.1 step from raw audio) against its plain
+# version on the card, and against features + forward_fused2d: the spectra
+# are summed in other orders (the kernel's tile vs cuBLAS's unfold GEMM),
+# and the normalization's log1p(2^20 x) amplifies that at near-zero bins
+# (ROADMAP Queue 3), so the whole-model bounds of the CPU parity tests
+# hold: probs 1e-4, h 3e-4, c 3e-4 of its largest value
+TOL_FUSED_AUDIO = {"probs": 1e-4, "hn": 3e-4, "cn": 3e-4}
+FUSED_AUDIO_SAMPLES = (512, 768, 1024, 1280, 1536)
+# sha256 digests (shared_code_digests) of the kernels whose device code
+# moved into headers (silero_v31_body.cuh, stft_tile.cuh), from the
+# sources before the move, on an H100 80GB HBM3 (700 W): the move must
+# leave their outputs bit for bit
+PARENT_DIGESTS = {"forward_fused2d": "6d6e602fd6f5405b", "forward_fused2d_ragged": "32c8579105cb8cbd",
+                  "dot_magnitude": "aa1f71c035ea6ba5"}
 # v4 and v5 chunk sizes of the paths below (model samples)
 V4_CHUNK, V4_8K_CHUNK, V5_CHUNK, V5_8K_CHUNK = 1536, 768, 512, 256
 CLI_WINDOW = 96  # chunks per CLI window (the CLI's --batch default)
+# the server phase: slots, clients, seconds of speech per client
+SERVER_SLOTS, SERVER_CLIENTS, SERVER_AUDIO_S = 64, 8, 20.0
+TICK_SLOTS = 2048  # the slots of the timed server ticks
 
 
 def log(msg: str) -> None:
@@ -162,6 +194,46 @@ def cuda_ms_pair(a, b, iters: int = 50) -> tuple[float, float]:
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
+def digest(*tensors) -> str:
+    """sha256 (first 16 hex digits) of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def shared_code_digests(params, device) -> dict:
+    """Digests of the outputs of the kernels whose device code is shared
+    through headers (forward_fused2d through silero_v31_body.cuh,
+    dot_magnitude through stft_tile.cuh) on inputs made from a seed alone:
+    fused2d at B=2048 x 25 frames (random features, carried state) and at
+    a ragged B=37 x 9 frames; dot_magnitude over 2048 chunks of speech."""
+    import torch
+
+    from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
+    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude, split_basis
+    from vadc_tpu_torch.nn import functional as F
+
+    rng = np.random.default_rng(SEED + 7)
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(device)
+
+    feats = t(2.0 * rng.normal(size=(B_MAIN, 25, 129)))
+    h = t(0.5 * rng.normal(size=(2, B_MAIN, 64)))
+    c = t(3.0 * rng.normal(size=(2, B_MAIN, 64)))
+    full = forward_fused2d(params, feats, h, c)
+    ragged = forward_fused2d(params, feats[:37, :9].contiguous(), h[:, :37].contiguous(),
+                             c[:, :37].contiguous())
+    audio = t(speech_chunks(B_MAIN, CHUNK, seed=SEED + 8))
+    wr, wi = split_basis(params["stft_basis"])
+    mag = dot_magnitude(F.frame(F.reflect_pad_last(audio, 128, 128), 256, 64), wr, wi)
+    return {"forward_fused2d": digest(*full), "forward_fused2d_ragged": digest(*ragged),
+            "dot_magnitude": digest(mag)}
+
+
 def phase_build() -> float:
     from vadc_tpu_torch.kernels import _build
 
@@ -170,11 +242,22 @@ def phase_build() -> float:
     seconds = time.perf_counter() - t0
     log(f"build: {seconds:.2f} s, nvcc {' '.join(_build.NVCC_FLAGS)}")
     log(f"build: sources {[str(p.relative_to(ROOT)) for p in _build.sources()]}")
+    log(f"build: headers {[str(p.relative_to(ROOT)) for p in _build.headers()]}")
     log(f"build: library {_build.build_info['path']}")
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "smem" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
     return seconds
+
+
+def phase_shared_code(params, device) -> None:
+    """The kernels whose device code is shared through headers give the
+    bits they gave before that code moved into the headers."""
+    got = shared_code_digests(params, device)
+    log(f"shared device code digests: {json.dumps(got)}")
+    log(f"before the header move: {json.dumps(PARENT_DIGESTS)}")
+    for name, want in PARENT_DIGESTS.items():
+        require(got[name] == want, f"{name}: outputs differ from before the header move ({got[name]} vs {want})")
 
 
 def check_dot_magnitude(params, audio, label: str) -> float:
@@ -242,6 +325,81 @@ def check_fused(params, audio, label: str) -> float:
     return max(errs.values())
 
 
+def fold_bn(params):
+    """The v3.1 params with batch norm folded into each stage's 1x1 conv and
+    the bn_* tensors dropped, as the official v3 .onnx extraction has them."""
+    import torch
+
+    from vadc_tpu_torch.models.weights import Params
+    from vadc_tpu_torch.nn.functional import BATCH_NORM_EPS
+
+    layers = []
+    for p in params["layers"]:
+        p = dict(p)
+        scale = p.pop("bn_w") / torch.sqrt(p.pop("bn_var") + BATCH_NORM_EPS)
+        p["conv_b"] = (p["conv_b"] - p.pop("bn_mean")) * scale + p.pop("bn_b")
+        p["conv_w"] = p["conv_w"] * scale[:, None]
+        layers.append(p)
+    return Params({**params, "layers": layers})
+
+
+def check_forward_fused(params, audio, label: str) -> float:
+    """forward_fused from a carried state against its plain version on the
+    card (the plain version on the CPU beside it as the floor) and against
+    forward_fused2d(features(audio)) (the CLI path's two kernels); its
+    spectrum bit for bit against dot_magnitude's on the same frames."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import params_to
+    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused, forward_fused_reference
+    from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
+    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude, split_basis
+    from vadc_tpu_torch.models import silero_v31
+    from vadc_tpu_torch.nn import functional as F
+
+    b, samples = audio.shape
+    h0, c0 = silero_v31.init_state(b, audio.device)
+    _, h, c = forward_fused_reference(params, audio.flip(0).contiguous(), h0, c0)
+    spect = torch.empty(b, samples // 64 + 1, 129, device=audio.device)
+    got = forward_fused(params, audio, h, c, spectrum=spect)
+    want = forward_fused_reference(params, audio, h, c)
+    via_2d = forward_fused2d(params, silero_v31.features(params, audio), h, c)
+    wr, wi = split_basis(params["stft_basis"])
+    mag = dot_magnitude(F.frame(F.reflect_pad_last(audio, 128, 128), 256, 64), wr, wi)
+    torch.cuda.synchronize()
+    floor = forward_fused_reference(params_to(params, torch.device("cpu")), audio.cpu(),
+                                    h.cpu(), c.cpu())
+    same_spectrum = torch.equal(spect, mag)
+    errs, gaps, bounds, floors = {}, {}, {}, {}
+    for i, name in enumerate(("probs", "hn", "cn")):
+        require(got[i].shape == want[i].shape, f"forward_fused {label} {name} shape")
+        require(bool(torch.isfinite(got[i]).all()), f"forward_fused {label} {name}: non-finite")
+        errs[name] = max_abs(got[i], want[i])
+        gaps[name] = max_abs(got[i], via_2d[i])
+        floors[name] = max_abs(floor[i], want[i].cpu())
+        # c is an unbounded running sum: its bound scales with its largest value
+        scale = float(want[i].abs().max().item()) if name == "cn" else 1.0
+        bounds[name] = TOL_FUSED_AUDIO[name] * max(1.0, scale)
+    log(f"forward_fused {label}: max abs err "
+        + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.3e}, plain card vs CPU {floors[k]:.3e})"
+                    for k, v in errs.items())
+        + "; vs forward_fused2d(features) "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + f"; spectrum bit-equal to dot_magnitude: {same_spectrum}")
+    require(same_spectrum, f"forward_fused {label}: spectrum differs from dot_magnitude's")
+    for name in errs:
+        require(errs[name] <= bounds[name], f"forward_fused {label}: {name} {errs[name]:.3e}")
+        require(gaps[name] <= bounds[name],
+                f"forward_fused {label}: {name} {gaps[name]:.3e} from forward_fused2d(features)")
+    # the state in place: hn, cn written over h, c give the same bits
+    h2, c2 = h.clone(), c.clone()
+    forward_fused(params, audio, h2, c2, hn=h2, cn=c2)
+    torch.cuda.synchronize()
+    require(torch.equal(h2, got[1]) and torch.equal(c2, got[2]),
+            f"forward_fused {label}: in place differs")
+    return max(errs.values())
+
+
 def phase_kernels(params, device) -> dict:
     import torch
 
@@ -249,13 +407,20 @@ def phase_kernels(params, device) -> dict:
     errs = {
         "dot_magnitude": check_dot_magnitude(params, audio, f"B={B_MAIN} x {CHUNK}"),
         "silero_v31_fused": check_fused(params, audio, f"B={B_MAIN} x {CHUNK}"),
+        "forward_fused": check_forward_fused(params, audio, f"B={B_MAIN} x {CHUNK}"),
     }
     for b in (1, 37):
         check_dot_magnitude(params, audio[:b], f"B={b} x {CHUNK}")
         check_fused(params, audio[:b], f"B={b} x {CHUNK}")
+        check_forward_fused(params, audio[:b], f"B={b} x {CHUNK}")
     short = audio[:, :512].contiguous()
     check_dot_magnitude(params, short, f"B={B_MAIN} x 512")
     check_fused(params, short, f"B={B_MAIN} x 512")
+    for samples in FUSED_AUDIO_SAMPLES[:-1]:
+        chunks = torch.from_numpy(speech_chunks(B_MAIN, samples, seed=SEED + samples)).to(device)
+        check_forward_fused(params, chunks, f"B={B_MAIN} x {samples}")
+    # a BN-folded archive: the packed weights give it scale 1 and shift 0
+    check_forward_fused(fold_bn(params), audio, f"BN-folded B={B_MAIN} x {CHUNK}")
     return errs
 
 
@@ -498,19 +663,39 @@ def minibatch_card_vs_cpu(family: str, params, device, chunk: int, seed: int) ->
         require(torch.equal(gpu.context.cpu(), cpu.context), f"minibatch {family}: context differs")
 
 
-def phase_main_path_v3(params, device, pcm: Path) -> dict:
+def v3_launches() -> dict:
+    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
     from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
     from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
 
-    dot_magnitude.launches = forward_fused2d.launches = 0
+    return {"dot_magnitude": dot_magnitude.launches, "silero_v31_fused": forward_fused2d.launches,
+            "forward_fused": forward_fused.launches}
+
+
+def zero_v3_launches() -> None:
+    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
+    from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
+    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
+
+    dot_magnitude.launches = forward_fused2d.launches = forward_fused.launches = 0
+
+
+def phase_main_path_v3(params, device, pcm: Path) -> dict:
+    """Two v3.1 paths, each counted on its own: StreamRunner.scan (the
+    step: forward_fused alone) and the CLI (MinibatchRunner: dot_magnitude
+    and forward_fused2d)."""
+    zero_v3_launches()
     scan_card_vs_cpu("v3", params, device, CHUNK, SEED + 100)
+    scan = v3_launches()
+    log(f"v3.1 StreamRunner.scan {B_MAIN}x{SCAN_CHUNKS} launches: {scan}")
+    require(scan["forward_fused"] > 0, "forward_fused: no launch on the v3.1 step")
+    zero_v3_launches()
     cli_card_vs_cpu([], pcm)
-    launches = {"dot_magnitude": dot_magnitude.launches,
-                "silero_v31_fused": forward_fused2d.launches}
-    log(f"v3.1 path launches (scan {B_MAIN}x{SCAN_CHUNKS} + CLI): {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"{name}: no launch on the v3.1 path")
-    return launches
+    cli = v3_launches()
+    log(f"v3.1 CLI launches: {cli}")
+    for name in ("dot_magnitude", "silero_v31_fused"):
+        require(cli[name] > 0, f"{name}: no launch on the v3.1 CLI path")
+    return {name: scan[name] + cli[name] for name in scan}
 
 
 def phase_main_path_v4(params, device, pcm: Path, archives: dict) -> dict:
@@ -544,10 +729,119 @@ def phase_main_path_v5(models: dict, device) -> dict:
     return launches
 
 
+def client_pcm(index: int) -> bytes:
+    """SERVER_AUDIO_S seconds of seeded speech as s16le bytes."""
+    n = int(SERVER_AUDIO_S * SR) // CHUNK
+    audio = speech_chunks(n, CHUNK, seed=SEED + 500 + index).ravel()
+    return np.clip(audio * 32768, -32768, 32767).astype("<i2").tobytes()
+
+
+def serve_clients(device, payloads: list[bytes], **server_kw):
+    """A VadServer (the bundled v3.1 archive, SERVER_SLOTS slots) on
+    `device` through serve_forever on a free localhost port; one client
+    thread per payload sends it unpaced, half-closes and reads the segment
+    lines until the server closes. Returns (lines per client, server)."""
+    import socket
+    import threading
+
+    from vadc_tpu_torch.server import VadServer
+
+    srv = VadServer(port=0, max_streams=SERVER_SLOTS, device=device, **server_kw)
+    failure = []
+
+    def serve():
+        try:
+            srv.serve_forever()
+        except Exception as e:  # noqa: BLE001 - reported below
+            failure.append(e)
+            srv.ready.set()
+
+    server_thread = threading.Thread(target=serve, daemon=True)
+    server_thread.start()
+    try:
+        require(srv.ready.wait(timeout=600) and not failure, f"server did not start: {failure}")
+        results: list[bytes | None] = [None] * len(payloads)
+
+        def client(i):
+            c = socket.create_connection(srv.address, timeout=120)
+            try:
+                c.sendall(payloads[i])
+                c.shutdown(socket.SHUT_WR)
+                data = b""
+                while chunk := c.recv(4096):
+                    data += chunk
+                results[i] = data
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(len(payloads))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        require(all(r is not None for r in results), f"a client got no answer on {device}")
+    finally:
+        srv.stop()
+        server_thread.join(timeout=60)
+    require(not failure, f"server on {device} failed: {failure}")
+    return [r.decode().splitlines() for r in results], srv
+
+
+def phase_server(device) -> dict:
+    """The serving daemon on the card against itself on the CPU: SERVER_CLIENTS
+    clients send seeded speech faster than realtime (so catch-up ticks
+    happen); each client's segment lines must be the same on both."""
+    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
+
+    payloads = [client_pcm(i) for i in range(SERVER_CLIENTS)]
+    zero_v3_launches()
+    t0 = time.perf_counter()
+    lines_gpu, srv = serve_clients(device, payloads)
+    wall = time.perf_counter() - t0
+    launches = v3_launches()
+    ticks_ms = np.array(srv.tick_times) * 1e3
+    log(f"server on {device}: {SERVER_CLIENTS} clients x {SERVER_AUDIO_S:g} s in {wall:.2f} s "
+        f"(build and warm-up included); launches {launches}; tick_count {srv.tick_count}, "
+        f"catchup_ticks {srv.catchup_ticks}, tick ms p50 {np.percentile(ticks_ms, 50):.4f} "
+        f"p99 {np.percentile(ticks_ms, 99):.4f} over {ticks_ms.size} ticks with audio")
+    require(forward_fused.launches > 0, "forward_fused: no launch on the server path")
+    t0 = time.perf_counter()
+    lines_cpu, srv_cpu = serve_clients("cpu", payloads)
+    log(f"server on cpu: {time.perf_counter() - t0:.2f} s, tick_count {srv_cpu.tick_count}, "
+        f"catchup_ticks {srv_cpu.catchup_ticks}")
+    for i, (g, c) in enumerate(zip(lines_gpu, lines_cpu)):
+        log(f"server client {i}: cuda {g}")
+        require(g == c, f"server client {i}: segment lines differ: cuda {g} cpu {c}")
+        require(len(g) > 0 and not any(line.startswith("error") for line in g),
+                f"server client {i}: {g}")
+    return {"forward_fused": launches["forward_fused"]}
+
+
+def time_ticks(model: str, device, label: str) -> None:
+    """_tick and _tick2 of a TICK_SLOTS-slot server, every slot active, on
+    seeded speech (CUDA events around host-synchronous calls: the times
+    include the staging, the masked merge and the copy of the probs)."""
+    from vadc_tpu_torch.server import VadServer
+
+    srv = VadServer(port=0, max_streams=TICK_SLOTS, model=model, device=device)
+    try:
+        batch = np.clip(speech_chunks(TICK_SLOTS, srv.chunk, seed=SEED + 600) * 32768,
+                        -32768, 32767).astype(np.int16)
+        on, off = np.ones(TICK_SLOTS, bool), np.zeros(TICK_SLOTS, bool)
+        tick = cuda_ms(lambda: srv._tick(batch, on, off), iters=20)
+        tick2 = cuda_ms(lambda: srv._tick2(batch, batch, on, on, off), iters=20)
+        log(f"time server {label} N={TICK_SLOTS} x {srv.chunk}, all active: _tick {tick:.4f} ms, "
+            f"_tick2 {tick2:.4f} ms")
+    finally:
+        srv.pool.close()
+
+
 def phase_timing(params, device) -> dict:
     import torch
 
     from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused, forward_fused_reference
     from vadc_tpu_torch.kernels.silero_v31_fused2d import (
         forward_fused2d, forward_fused2d_reference,
     )
@@ -574,20 +868,36 @@ def phase_timing(params, device) -> dict:
             lambda: forward_fused2d_reference(params, feats, h, c),
         ),
     }
+    t["forward_fused"] = cuda_ms_pair(
+        lambda: forward_fused(params, audio, h, c),
+        lambda: forward_fused_reference(params, audio, h, c),
+    )
     for name, (k, p) in t.items():
         log(f"time {name} B={B_MAIN}: kernel {k:.4f} ms, plain {p:.4f} ms")
+    fused_ms, two_kernels_ms = cuda_ms_pair(
+        lambda: forward_fused(params, audio, h, c),
+        lambda: forward_fused2d(params, silero_v31.features(params, audio), h, c),
+    )
+    log(f"time forward_fused B={B_MAIN}x{CHUNK}: {fused_ms:.4f} ms; features (dot_magnitude "
+        f"and the torch front-end) + forward_fused2d: {two_kernels_ms:.4f} ms")
     front_ms = cuda_ms(lambda: silero_v31.features(params, audio))
     runner = StreamRunner("v3", params, device=device)
     state = runner.init_state(B_MAIN)
-    step_ms, plain_ms = cuda_ms_pair(
+    hb, cb = silero_v31.init_state(B_MAIN, device)
+    step_ms, before_ms = cuda_ms_pair(
+        lambda: runner.step(audio, state),
+        # the two-kernel step: features, then forward_fused2d, the state in place
+        lambda: forward_fused2d(params, silero_v31.features(params, audio), hb, cb, hn=hb, cn=cb),
+    )
+    _, plain_ms = cuda_ms_pair(
         lambda: runner.step(audio, state),
         lambda: silero_v31.forward_reference(params, audio, h, c),
     )
     log(f"front-end (reflect pad, unfold, dot_magnitude kernel, adaptive norm) "
         f"B={B_MAIN}: {front_ms:.4f} ms")
-    log(f"ms per chunk-step v3.1 B={B_MAIN}x{CHUNK}: kernels {step_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms; realtime streams at the kernel rate: "
-        f"{B_MAIN * (CHUNK / SR) / (step_ms / 1000):.0f}")
+    log(f"ms per chunk-step v3.1 B={B_MAIN}x{CHUNK}: forward_fused {step_ms:.4f} ms, before "
+        f"(features + forward_fused2d) {before_ms:.4f} ms, plain {plain_ms:.4f} ms; realtime "
+        f"streams at the kernel rate: {B_MAIN * (CHUNK / SR) / (step_ms / 1000):.0f}")
     return t
 
 
@@ -651,7 +961,9 @@ def main() -> int:
         return 1
     from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
     from vadc_tpu_torch.models import silero_v4, silero_v5
-    from vadc_tpu_torch.models.synthetic import random_v5_8k_archive, random_v5_archive
+    from vadc_tpu_torch.models.synthetic import (
+        random_v5_8k_archive, random_v5_archive, save_archive,
+    )
     from vadc_tpu_torch.models.weights import load_params, load_params_from_tensors
     from vadc_tpu_torch.runtime import require_cuda
 
@@ -672,6 +984,7 @@ def main() -> int:
                   load_params_from_tensors(random_v5_8k_archive(1), device=device)[1]),
     }
 
+    phase_shared_code(params, device)
     errs = phase_kernels(params, device)
     errs.update(phase_kernels_v45(models, device))
     with tempfile.TemporaryDirectory() as tmp:
@@ -681,8 +994,14 @@ def main() -> int:
         v4 = phase_main_path_v4(models["v4"][1], device, pcm, archives)
     v5 = phase_main_path_v5(models, device)
     launches.update({name: v4[name] + v5[name] for name in v4})
+    launches["forward_fused"] += phase_server(device)["forward_fused"]
     timing = phase_timing(params, device)
     timing.update(phase_timing_v45(models, device))
+    with tempfile.TemporaryDirectory() as tmp:
+        v5_archive = Path(tmp) / "v5_synthetic.testtensor"
+        save_archive(v5_archive, random_v5_archive(0))
+        time_ticks(str(DEFAULT_WEIGHTS), device, "v3.1")
+        time_ticks(str(v5_archive), device, "v5 (synthetic weights)")
 
     sources = {
         "dot_magnitude": ("vadc_tpu_torch/kernels/csrc/stft_dotmag.cu",
@@ -692,6 +1011,8 @@ def main() -> int:
         "stft_magnitude": ("vadc_tpu_torch/kernels/csrc/stft_mag.cu",
                            "vadc_tpu/kernels/stft_mag.py:91"),
         "lstm_fused": ("vadc_tpu_torch/kernels/csrc/lstm.cu", "vadc_tpu/kernels/lstm.py:181"),
+        "forward_fused": ("vadc_tpu_torch/kernels/csrc/silero_v31_fused_audio.cu",
+                          "vadc_tpu/kernels/silero_v31_fused.py:236"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

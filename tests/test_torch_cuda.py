@@ -11,7 +11,9 @@ reflect-padded unfold, as the two share their tile); the fused kernel 1e-5
 on probabilities and 5e-5 on h and on c relative to its largest value (the
 state passes 14 recurrent updates whose fp32 sums the kernel takes in
 another order than cuBLAS); lstm_fused 5e-5 on y, h and c (c relative),
-for the same reason.
+for the same reason; forward_fused, which also takes its own spectrum,
+the whole-model bounds 1e-4 on probabilities and 3e-4 on h and c (c
+relative), and its spectrum bit-equal to dot_magnitude's.
 """
 
 from pathlib import Path
@@ -97,24 +99,106 @@ def test_fused_kernel_matches_plain(params, device, batch, chunk):
 
 def test_state_in_place_and_the_runner_on_the_card(params, device):
     """hn/cn may be h/c; the stream runner on the card matches the plain
-    path on the CPU and goes through both kernels."""
+    path on the CPU and goes through the whole-step kernel alone."""
     from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
     from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
     from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
 
     chunks = speech(32 * 3, seed=4).reshape(32, 3, -1)
     gpu = StreamRunner("v3", params, device=device)
     cpu = StreamRunner("v3", params, device="cpu")
-    dot_magnitude.launches = forward_fused2d.launches = 0
+    dot_magnitude.launches = forward_fused2d.launches = forward_fused.launches = 0
     state = gpu.init_state(32)
     p_gpu, st = gpu.scan(chunks, state)
     torch.cuda.synchronize()
     assert st is state
-    assert dot_magnitude.launches == 3 and forward_fused2d.launches == 3
+    assert forward_fused.launches == 3
+    assert dot_magnitude.launches == 0 and forward_fused2d.launches == 0
     p_cpu, st_cpu = cpu.scan(chunks, cpu.init_state(32))
     assert _max_abs(p_gpu.cpu(), p_cpu) <= 1e-4
     assert _max_abs(st.h.cpu(), st_cpu.h) <= 1e-4
     assert np.isfinite(p_gpu.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("batch,chunk", [(64, 1536), (37, 1536), (1, 1536), (16, 512),
+                                         (16, 1024)])
+def test_forward_fused_kernel_matches_plain(params, device, batch, chunk):
+    """The whole v3.1 step from raw audio against its plain version, from a
+    carried state, with the state in place and a ragged last block. Bounds:
+    the whole-model ones (probs 1e-4, h 3e-4, c 3e-4 of its largest value):
+    the spectra are summed in other orders, and log1p(2^20 x) amplifies
+    that. The kernel's spectrum is dot_magnitude's, bit for bit."""
+    from vadc_tpu_torch.kernels import silero_v31_fused as KF
+    from vadc_tpu_torch.kernels import stft_dotmag as KD
+    from vadc_tpu_torch.nn import functional as F
+
+    audio = torch.from_numpy(speech(batch, chunk=chunk, seed=batch + 10)).to(device)
+    h = torch.from_numpy(0.5 * noise(2 * batch, chunk=64, seed=12)).reshape(2, batch, 64).to(device)
+    c = torch.from_numpy(5 * noise(2 * batch, chunk=64, seed=13)).reshape(2, batch, 64).to(device)
+    spect = torch.empty(batch, chunk // 64 + 1, 129, device=device)
+    before = KF.forward_fused.launches
+    probs, hn, cn = KF.forward_fused(params, audio, h, c, spectrum=spect)
+    p_ref, h_ref, c_ref = KF.forward_fused_reference(params, audio, h, c)
+    wr, wi = KD.split_basis(params["stft_basis"])
+    mag = KD.dot_magnitude(F.frame(F.reflect_pad_last(audio, 128, 128), 256, 64), wr, wi)
+    torch.cuda.synchronize()
+    assert KF.forward_fused.launches == before + 1
+    assert probs.shape == (batch,) and hn.shape == (2, batch, 64)
+    assert torch.equal(spect, mag)
+    assert _max_abs(probs, p_ref) <= 1e-4
+    assert _max_abs(hn, h_ref) <= 3e-4
+    assert _max_abs(cn, c_ref) <= 3e-4 * max(1.0, float(c_ref.abs().max()))
+    h2, c2 = h.clone(), c.clone()
+    _, h_out, c_out = KF.forward_fused(params, audio, h2, c2, hn=h2, cn=c2)
+    torch.cuda.synchronize()
+    assert h_out is h2 and c_out is c2
+    assert torch.equal(h2, hn) and torch.equal(c2, cn)
+
+
+def test_forward_fused_refuses_a_chunk_size_on_the_card(params, device):
+    from vadc_tpu_torch.kernels import silero_v31_fused as KF
+
+    h = torch.zeros(2, 2, 64, device=device)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        KF.forward_fused(params, torch.zeros(2, 1000, device=device), h, h.clone())
+
+
+def test_server_tick_on_the_card_matches_its_cpu_self(device):
+    """The server's _tick and _tick2 on the card against the same server on
+    the CPU: idle slots bit for bit, the rest within the whole-model
+    bounds."""
+    from vadc_tpu_torch.server import VadServer
+
+    servers = [VadServer(port=0, max_streams=8, model=str(V31_ARCHIVE), device=d)
+               for d in (device, "cpu")]
+    try:
+        rng = np.random.default_rng(14)
+        n, chunk = 8, servers[0].chunk
+        ba = np.clip(speech(n, chunk=chunk, seed=15) * 32768, -32768, 32767).astype(np.int16)
+        bb = (rng.normal(size=(n, chunk)) * 3000).astype(np.int16)
+        h0 = (0.3 * rng.normal(size=(2, n, 64))).astype(np.float32)
+        c0 = rng.normal(size=(2, n, 64)).astype(np.float32)
+        act_a = np.array([1, 1, 0, 0, 1, 1, 1, 0], bool)
+        act_b = np.array([1, 0, 1, 0, 1, 1, 0, 1], bool)
+        reset = np.array([0, 1, 0, 1, 0, 0, 0, 0], bool)
+        out = []
+        for srv in servers:
+            srv.state.h.copy_(torch.from_numpy(h0))
+            srv.state.c.copy_(torch.from_numpy(c0))
+            p1 = srv._tick(ba, act_a, reset)
+            p2 = srv._tick2(bb, ba, act_b, act_a, np.zeros(n, bool))
+            out.append((p1, p2, srv.state.h.cpu(), srv.state.c.cpu()))
+        (g1, g2, gh, gc), (c1, c2, ch, cc) = out
+        assert np.abs(g1 - c1).max() <= 1e-4 and np.abs(g2 - c2).max() <= 1e-4
+        assert _max_abs(gh, ch) <= 3e-4
+        assert _max_abs(gc, cc) <= 3e-4 * max(1.0, float(cc.abs().max()))
+        # slot 3: reset, then idle in every sub-step: zeros on the card too
+        assert not gh[:, 3].any() and not gc[:, 3].any()
+        assert servers[0].tick_count == 2
+    finally:
+        for srv in servers:
+            srv.pool.close()
 
 
 @pytest.fixture(scope="module")

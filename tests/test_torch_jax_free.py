@@ -1,14 +1,20 @@
 """vadc_tpu_torch runs where JAX is not installed (the machine with the
 card has none): in a fresh interpreter where `import jax` fails, every
-module of the package imports, the CPU path runs and the CLI answers.
+module of the package imports, the CPU path runs, the CLI answers and the
+server serves a client.
 chip_smoke.py and chip_profile.py, which drive the port on the card,
 import no JAX and nothing of vadc_tpu themselves, and without a card they
 exit non-zero with no result line."""
 
+import importlib.util
 import os
 import re
+import select
+import signal
+import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -28,7 +34,8 @@ modules = [
     "vadc_tpu_torch.kernels.silero_v31_fused3d", "vadc_tpu_torch.cli.main",
     "vadc_tpu_torch.kernels.stft_mag", "vadc_tpu_torch.kernels.lstm",
     "vadc_tpu_torch.models.silero_v4", "vadc_tpu_torch.models.silero_v5",
-    "vadc_tpu_torch.models.synthetic",
+    "vadc_tpu_torch.models.synthetic", "vadc_tpu_torch.kernels.silero_v31_fused",
+    "vadc_tpu_torch.server",
 ]
 for name in modules:
     importlib.import_module(name)
@@ -112,3 +119,72 @@ def test_chip_profile_without_a_card_exits_nonzero():
     proc = _python(code)
     assert proc.returncode != 0
     assert not proc.stdout and "no CUDA device" in proc.stderr
+
+
+_SERVE = _BLOCK_JAX + (
+    "import runpy\n"
+    "runpy.run_module('vadc_tpu_torch.server', run_name='__main__', alter_sys=True)\n"
+)
+
+
+def _synthetic_file(path: Path) -> None:
+    """chip_smoke.py's (and the verify recipe's) 12 s file of two voiced
+    spans, as raw s16le."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.synthetic_file(path)
+
+
+def _banner_port(proc: subprocess.Popen, timeout: float = 60.0) -> int:
+    """The port of the server's 'vadc-torch server on HOST:PORT' line."""
+    deadline = time.monotonic() + timeout
+    seen = ""
+    while time.monotonic() < deadline:
+        ready, _, _ = select.select([proc.stderr], [], [], 0.5)
+        if ready:
+            line = proc.stderr.readline()
+            seen += line
+            m = re.search(r"vadc-torch server on [^:]+:(\d+) ", line)
+            if m:
+                return int(m.group(1))
+            if not line and proc.poll() is not None:
+                break
+    raise AssertionError(f"no banner within {timeout} s: {seen!r}")
+
+
+def test_server_module_serves_and_stops_without_jax(tmp_path):
+    """`python -m vadc_tpu_torch.server --device cpu --port 0` with JAX
+    blocked: it announces its port, answers a client with the two segments
+    of the synthetic file, and exits 130 on SIGINT."""
+    pcm = tmp_path / "synthetic.s16le"
+    _synthetic_file(pcm)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _SERVE, "--device", "cpu", "--port", "0", "--max_streams", "2"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        port = _banner_port(proc)
+        c = socket.create_connection(("127.0.0.1", port), timeout=60)
+        try:
+            c.sendall(pcm.read_bytes())
+            c.shutdown(socket.SHUT_WR)
+            data = b""
+            while chunk := c.recv(4096):
+                data += chunk
+        finally:
+            c.close()
+        lines = data.decode().split()
+        # the JAX CLI's segments of this file (the first end sits on a
+        # borderline chunk: 5.12 or 5.21)
+        assert len(lines) == 2 and lines[0] in ("1.99,5.12", "1.99,5.21"), lines
+        assert lines[1] == "6.98,10.21", lines
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 130
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()

@@ -235,22 +235,28 @@ def test_wrappers_refuse_a_device_they_have_no_kernel_for(params):
 def test_cpu_runs_build_and_launch_nothing(params):
     """Importing the kernel modules and running the CPU path never invokes
     nvcc nor loads the library, and counts no launch."""
+    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
+
     _, tp = params
     KD.dot_magnitude.launches = 0
     K2.forward_fused2d.launches = 0
+    forward_fused.launches = 0
     h, c = TM.init_state(3)
     TM.forward(tp, _t(speech(3, seed=9)), h, c)
     TM.forward_minibatched(tp, _t(speech(3, seed=9)), h[:, :1], c[:, :1])
     assert _build._lib is None and not _build.build_info
     assert KD.dot_magnitude.launches == 0 and K2.forward_fused2d.launches == 0
+    assert forward_fused.launches == 0
 
 
 def test_kernel_sources_and_build_flags():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["errors.cu", "lstm.cu", "silero_v31_fused.cu", "stft_dotmag.cu",
-                     "stft_mag.cu"]
-    # the header the two STFT kernels share is part of the library's hash
-    assert [p.name for p in _build.headers()] == ["stft_tile.cuh"]
+    assert names == ["errors.cu", "lstm.cu", "silero_v31_fused.cu", "silero_v31_fused_audio.cu",
+                     "stft_dotmag.cu", "stft_mag.cu"]
+    # the headers the kernels share are part of the library's hash: the
+    # STFT tile (dot_magnitude, stft_magnitude, forward_fused) and the v3.1
+    # model body (forward_fused2d, forward_fused)
+    assert [p.name for p in _build.headers()] == ["silero_v31_body.cuh", "stft_tile.cuh"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags
     assert "fast_math" not in flags and "fast-math" not in flags

@@ -8,7 +8,8 @@ the tests hold the two to each other on the same weights and inputs.
 
 This package imports `torch` and never `jax`. From `vadc_tpu` it reuses only
 the JAX-free modules: `vadc_tpu.io.*`, `vadc_tpu.cli.segmenter`,
-`vadc_tpu.cli.stats` and the numpy ONNX readers in `vadc_tpu.export`.
+`vadc_tpu.cli.stats`, the numpy ONNX readers in `vadc_tpu.export`, and
+`vadc_tpu.native` (the stream pool and segmentation FSM the server drives).
 
 Layering (bottom to top):
   runtime   device selection, TF32 off for the faithful tier
@@ -19,6 +20,7 @@ Layering (bottom to top):
             and 8 kHz for v4 and v5), synthetic v5 archives
   engine/   stream runner (independent streams) and minibatch runner
   cli/      the vadc-compatible command line
+  server    the multi-client serving daemon (TCP in, segment lines out)
 """
 
 __version__ = "0.1.0"

@@ -125,14 +125,19 @@ class StreamRunner:
         over h, c, and the chunks' tails over a v5 context. This is the
         counterpart of the JAX runner's donated state buffers; callers
         treat the passed-in state as consumed."""
+        return self.step_into(chunks, state, state), state
+
+    def step_into(self, chunks, state: StreamState, out: StreamState) -> torch.Tensor:
+        """One step that writes the new state into `out` (h, c and a v5
+        context, tensors of the state's shapes) and returns probs [B].
+        `out` may be `state` (the in-place `step`); a distinct `out` keeps
+        the old state, as the server's masked merge needs."""
         audio = _as_audio(chunks, self.device)
         if state.context is not None:
             audio, tail = self.module.attach_context(audio, state.context)
-            state.context.copy_(tail)
-        probs, _, _ = self.module.forward(
-            self.params, audio, state.h, state.c, hn=state.h, cn=state.c
-        )
-        return probs, state
+            out.context.copy_(tail)
+        probs, _, _ = self.module.forward(self.params, audio, state.h, state.c, hn=out.h, cn=out.c)
+        return probs
 
     def scan(self, chunks, state: StreamState) -> tuple[torch.Tensor, StreamState]:
         """chunks: [B, T, chunk_samples] -> (probs [B, T], final state),

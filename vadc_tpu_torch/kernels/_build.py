@@ -47,6 +47,11 @@ _SIGNATURES = {
     # weights, offsets (host int32[]), n_offsets, x, h, c, probs, hn, cn,
     # batch, seq0, stream
     "vadc_silero_v31_fused": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # weights, offsets (host int32[]), n_offsets, norm_w (host float[]),
+    # n_norm_w, audio, batch, stride_b, samples, wr, wi, h, c, probs, hn, cn,
+    # spect (or null), stream
+    "vadc_silero_v31_fused_audio": [_P, _P, _I, _P, _I, _P, _I, _L, _I, _P, _P, _P, _P, _P,
+                                    _P, _P, _P, _P],
     # audio, batch, stride_b, samples, pad_left, pad_right, hop, wr, wi,
     # n_fft, cutoff, out, stream
     "vadc_stft_magnitude": [_P, _I, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],

@@ -25,34 +25,8 @@
 
 namespace {
 
-// frame rows read from the raw audio through the reflect pad
-struct PaddedAudio {
-  struct Row {
-    const float* chunk;
-    int start;  // padded index of the frame's first sample, minus pad_left
-  };
-  const float* audio;
-  int n_frames;
-  long long stride_b;
-  int samples;
-  int pad_left;
-  int hop;
-
-  __device__ Row row(int r) const {
-    const int b = r / n_frames;
-    const int f = r - b * n_frames;
-    return Row{audio + b * stride_b, f * hop - pad_left};
-  }
-  __device__ float load(Row row, int k) const {
-    int j = row.start + k;
-    j = j < 0 ? -j : j;
-    j = j >= samples ? 2 * samples - 2 - j : j;
-    return row.chunk[j];
-  }
-};
-
 __global__ void __launch_bounds__(stft_tile::THREADS)
-stft_magnitude_kernel(PaddedAudio src, int rows, const float* __restrict__ wr,
+stft_magnitude_kernel(stft_tile::PaddedAudio src, int rows, const float* __restrict__ wr,
                       const float* __restrict__ wi, int n_fft, int cutoff,
                       float* __restrict__ out) {
   __shared__ stft_tile::Smem sm;
@@ -77,7 +51,7 @@ extern "C" int vadc_stft_magnitude(const float* audio, int batch, long long stri
   }
   const int n_frames = (padded - n_fft) / hop + 1;
   const int rows = batch * n_frames;
-  const PaddedAudio src{audio, n_frames, stride_b, samples, pad_left, hop};
+  const stft_tile::PaddedAudio src{audio, n_frames, stride_b, samples, pad_left, hop};
   stft_magnitude_kernel<<<stft_tile::grid(rows, cutoff), stft_tile::THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(src, rows, wr, wi, n_fft,
                                                                cutoff, out);

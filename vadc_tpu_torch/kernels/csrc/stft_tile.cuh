@@ -1,9 +1,10 @@
 // The STFT's spectrum tile with its magnitude epilogue, shared by
-// stft_dotmag.cu (frames given as a strided view) and stft_mag.cu (frames
-// read from the raw audio through the reflect pad). The two kernels differ
-// only in where a frame row's samples come from; the products, their order
-// and the epilogue are this one code, so on the same samples they give the
-// same bits.
+// stft_dotmag.cu (frames given as a strided view), stft_mag.cu (frames read
+// from the raw audio through the reflect pad) and silero_v31_fused_audio.cu
+// (the same reflect-padded frames, tile by tile inside one block). The
+// kernels differ only in where a frame row's samples come from and where a
+// magnitude goes; the products, their order and the epilogue are this one
+// code, so on the same samples they give the same bits.
 //
 // out[r, c] = sqrt((A@wr)[r, c]^2 + (A@wi)[r, c]^2), A the frame matrix.
 // A classic shared-memory tiled SGEMM: a block computes 64 rows x 32 bins
@@ -44,17 +45,17 @@ inline dim3 grid(int rows, int cutoff) {
 //   typename Src::Row   a row's handle, computed once per row;
 //   Src::row(r)         the handle of row r;
 //   Src::load(row, k)   sample k (0 <= k < n_fft) of that row.
-// Launch with THREADS threads and grid(rows, cutoff).
-template <class Src>
-__device__ __forceinline__ void magnitude_tile(Smem& sm, const Src& src, int rows,
-                                               const float* __restrict__ wr,
-                                               const float* __restrict__ wi, int n_fft,
-                                               int cutoff, float* __restrict__ out) {
+// Store(r, c, v) puts the magnitude v of row r, bin c where it belongs.
+// Computes the tile of rows row0.. and bins col0.. with THREADS threads; all
+// of them must call it (it has barriers, and ends on one).
+template <class Src, class Store>
+__device__ __forceinline__ void magnitude_tile_at(Smem& sm, const Src& src, int rows, int row0,
+                                                  int col0, const float* __restrict__ wr,
+                                                  const float* __restrict__ wi, int n_fft,
+                                                  int cutoff, const Store& store) {
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);  // bin group
   const int ty = tid / (BN / TN);  // row group
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
 
   // this thread loads column kk of rows m0, m0 + 8, ... of every frame slice
   const int kk_load = tid % BK;
@@ -120,11 +121,61 @@ __device__ __forceinline__ void magnitude_tile(Smem& sm, const Src& src, int row
       if (col < cutoff) {
         const float re = acc_r[m][n];
         const float im = acc_i[m][n];
-        out[static_cast<long long>(r) * cutoff + col] = sqrtf(re * re + im * im);
+        store(r, col, sqrtf(re * re + im * im));
       }
     }
   }
 }
+
+// magnitudes row-major [rows, cutoff] in device memory
+struct RowMajor {
+  float* out;
+  int cutoff;
+  __device__ void operator()(int r, int c, float v) const {
+    out[static_cast<long long>(r) * cutoff + c] = v;
+  }
+};
+
+// The tile of block (blockIdx.x, blockIdx.y) of a grid(rows, cutoff) launch,
+// stored row-major to out [rows, cutoff].
+template <class Src>
+__device__ __forceinline__ void magnitude_tile(Smem& sm, const Src& src, int rows,
+                                               const float* __restrict__ wr,
+                                               const float* __restrict__ wi, int n_fft,
+                                               int cutoff, float* __restrict__ out) {
+  magnitude_tile_at(sm, src, rows, blockIdx.x * BM, blockIdx.y * BN, wr, wi, n_fft, cutoff,
+                    RowMajor{out, cutoff});
+}
+
+// Frame rows read from raw audio through the reflect pad: row r is frame f
+// of chunk b (r = b * n_frames + f); padded sample i of a chunk is
+// audio[b, j] with j = i - pad_left, reflected at both edges (edge
+// excluded, PyTorch's 'reflect'): j < 0 -> -j, j >= S -> 2S - 2 - j. Each
+// pad must be < S.
+struct PaddedAudio {
+  struct Row {
+    const float* chunk;
+    int start;  // padded index of the frame's first sample, minus pad_left
+  };
+  const float* audio;
+  int n_frames;
+  long long stride_b;
+  int samples;
+  int pad_left;
+  int hop;
+
+  __device__ Row row(int r) const {
+    const int b = r / n_frames;
+    const int f = r - b * n_frames;
+    return Row{audio + b * stride_b, f * hop - pad_left};
+  }
+  __device__ float load(Row row, int k) const {
+    int j = row.start + k;
+    j = j < 0 ? -j : j;
+    j = j >= samples ? 2 * samples - 2 - j : j;
+    return row.chunk[j];
+  }
+};
 
 }  // namespace stft_tile
 }  // namespace

@@ -12,11 +12,19 @@ silero_v3.c:72-215; Silero_V3.forward, silero_vad.py:262-272):
 Chunks are 512..1536 samples in steps of 256, which gives F = S/64 + 1 =
 9, 13, 17, 21 or 25 frames.
 
-`forward` and `forward_minibatched` go through the two kernel wrappers
-(`kernels.stft_dotmag.dot_magnitude` for the spectrum, then
-`kernels.silero_v31_fused2d.forward_fused2d` for everything after the
-adaptive normalization). On a CUDA tensor those launch the CUDA kernels; on
-a CPU tensor they run their plain versions. `forward_reference` and
+Which path launches which kernel:
+
+  * `forward`, the independent-stream step behind `StreamRunner.step/scan`
+    (and so every server tick of a v3.1 model), is ONE kernel from raw
+    audio: `kernels.silero_v31_fused.forward_fused` (STFT, adaptive
+    normalization, encoder, LSTM, decoder).
+  * `forward_minibatched`, the CLI's path through `MinibatchRunner`, runs
+    `features` (the `kernels.stft_dotmag.dot_magnitude` kernel, then the
+    adaptive normalization in torch ops) over the window's chunks, then
+    `kernels.silero_v31_fused2d.forward_fused2d` once per chunk.
+
+On a CUDA tensor the wrappers launch the CUDA kernels; on a CPU tensor they
+run their plain versions. `forward_reference` and
 `forward_minibatched_reference` are the JAX package's `forward` and
 `forward_minibatched` written with the plain ops of nn/functional, on any
 device.
@@ -26,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
 from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
 from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
 from vadc_tpu_torch.kernels.stft_mag import split_basis_of
@@ -83,8 +92,8 @@ def forward(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched independent-stream forward: audio [B, S]; h, c [2, B, 64]
     -> (probs [B], hn, cn). `hn`/`cn` may be `h`/`c` to update the state
-    in place (see forward_fused2d)."""
-    return forward_fused2d(params, features(params, audio), h, c, hn=hn, cn=cn)
+    in place (see forward_fused)."""
+    return forward_fused(params, audio, h, c, hn=hn, cn=cn)
 
 
 def forward_minibatched(

@@ -44,3 +44,11 @@ def random_v5_archive(seed: int = 0) -> dict:
 def random_v5_8k_archive(seed: int = 1) -> dict:
     """8 kHz v5 branch: half-rate STFT (n_fft 128), same encoder and LSTM."""
     return _random_v5(seed, 128, {"meta.sample_rate": np.asarray([8000.0], np.float32)})
+
+
+def save_archive(path, tensors: dict) -> None:
+    """Write an archive as a .testtensor file, for the entry points that load
+    their weights from a path (the CLI, the server)."""
+    from vadc_tpu.io.testtensor import save_testtensor
+
+    save_testtensor(str(path), tensors)
