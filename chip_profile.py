@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Profile one StreamRunner step and one server tick of the PyTorch/CUDA
-port on one card.
+"""Profile one StreamRunner step, one server tick and one slab scan of the
+PyTorch/CUDA port on one card.
 
     python3 chip_profile.py
 
@@ -8,7 +8,9 @@ Runs 20 steps of `StreamRunner.step` over 2048 streams of 1536-sample
 chunks of synthetic speech (chip_smoke.speech_chunks, seed 300) with the
 LSTM state carried, under torch.profiler, after 10 warm-up steps; then 20
 `_tick`s of a 2048-slot v3.1 server (vadc_tpu_torch.server, every slot
-active, the same audio as s16) the same way. Prints for each:
+active, the same audio as s16) the same way; then 20 `StreamRunner.scan`s of
+one corpus slab, 64 streams x 64 chunks (the slab route: the front-end,
+encode_fused and one lstm_decoder_fused). Prints for each:
   - host wall ms per call with the profiler on, the device's busy ms per
     call (the sum of the CUDA kernel and copy times), device events per
     call, and the idle share 1 - busy / wall;
@@ -30,9 +32,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 BATCH = 2048
 CHUNK = 1536
 STEPS = 20
+SLAB_STREAMS, SLAB_CHUNKS = 64, 64  # one slab of the offline corpus path
 
 
-def profile_calls(label: str, call) -> bool:
+def profile_calls(label: str, call, shape: str = f"B={BATCH} x {CHUNK}") -> bool:
     """STEPS calls under torch.profiler, then STEPS without it; prints the
     device time per call by event. False when the profiler saw no device
     time."""
@@ -59,7 +62,7 @@ def profile_calls(label: str, call) -> bool:
     if busy_us <= 0:
         print(f"chip_profile: the profiler recorded no device time for {label}", file=sys.stderr)
         return False
-    print(f"{label} B={BATCH} x {CHUNK}: wall {wall * 1e3 / STEPS:.4f} ms/call "
+    print(f"{label} {shape}: wall {wall * 1e3 / STEPS:.4f} ms/call "
           f"(host clock, profiler on), device busy {busy_us / 1e3 / STEPS:.4f} ms/call in "
           f"{sum(r[2] for r in rows) // STEPS} device events, idle share "
           f"{1 - busy_us / 1e6 / wall:.3f}")
@@ -111,6 +114,16 @@ def main() -> int:
             return 1
     finally:
         server.pool.close()
+
+    slab = torch.from_numpy(
+        chip_smoke.speech_chunks(SLAB_STREAMS * SLAB_CHUNKS, CHUNK, seed=301)
+    ).to(device).reshape(SLAB_STREAMS, SLAB_CHUNKS, CHUNK)
+    slab_state = runner.init_state(SLAB_STREAMS)
+    for _ in range(5):
+        runner.scan(slab, slab_state)
+    if not profile_calls("StreamRunner.scan (one slab)", lambda: runner.scan(slab, slab_state),
+                         shape=f"B={SLAB_STREAMS} x K={SLAB_CHUNKS} x {CHUNK}"):
+        return 1
     return 0
 
 

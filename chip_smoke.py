@@ -7,8 +7,8 @@ Phases, each of which raises on failure (exit code 1):
   1. the card's name and power limit; build the CUDA kernels from
      vadc_tpu_torch/kernels/csrc/ with nvcc for sm_90a (one nvcc per
      source, in parallel); the kernels whose device code is shared through
-     headers (forward_fused2d, dot_magnitude) give the bits they gave
-     before that code moved into the headers (PARENT_DIGESTS);
+     headers (forward_fused2d, dot_magnitude, forward_fused) give the bits
+     they gave before that code moved into the headers (PARENT_DIGESTS);
   2. each kernel against its plain PyTorch version on the card:
      - Silero v3.1 (bundled weights) and synthetic speech: dot_magnitude
        and the fused encoder/LSTM/decoder at B=2048 chunks of 1536
@@ -24,13 +24,26 @@ Phases, each of which raises on failure (exit code 1):
      - lstm_fused at the v4 shape (L=2, H=64: B=2048 x T=3, B=1 x T=288)
        and the v5 shape (L=1, H=128: B=2048 x T=1, B=1 x T=96) from a
        carried state;
+     - lstm_decoder_fused (the LSTM with the v3 decoder folded in, over K
+       chunks of each stream in order) on encode_fused's output at B=2048
+       x K=1 x T=7, B=37 x K=5 x T=3..7 (a ragged block, every chunk
+       size) and B=1 x K=96 x T=7: against its plain version, in place,
+       the K-chunk call against K single calls bit for bit, and
+       lstm_decoder_fused(encode_fused(feats)) against forward_fused2d
+       bit for bit; encode_fused against the plain encoder stages;
   3. the main paths, each with the kernels' launch counts set to 0 just
      before and read just after (each kernel of the path must be > 0):
      - v3.1: StreamRunner.scan over 2048 streams x 8 chunks on the card
-       against the same on the CPU (plain versions; forward_fused), then
-       the vadc CLI on a 12 s synthetic file with --device cuda and
-       --device cpu (identical segments, raw probabilities within 1e-4;
-       dot_magnitude and forward_fused2d);
+       (the slab route: dot_magnitude, encode_fused, lstm_decoder_fused)
+       against the same on the CPU (plain versions) and against the loop
+       of StreamRunner.step on the card (forward_fused), then the vadc CLI
+       on a 12 s synthetic file with --device cuda and --device cpu
+       (identical segments, raw probabilities within 1e-4; dot_magnitude,
+       encode_fused and lstm_decoder_fused);
+     - the offline corpus CLI (vadc_tpu_torch.cli.batch) over 24 seeded
+       files of 5 to 40 s (one pure silence, one 44.1 kHz wav) with
+       --cut_dir, --device cuda against --device cpu: identical lines and
+       cut files, and per file the lines of the streaming CLI;
      - v4: StreamRunner.scan 2048 x 8 card vs CPU, and the CLI with the
        bundled v4 16 kHz and 8 kHz archives, cuda vs cpu;
      - v5: StreamRunner.scan 2048 x 8 card vs CPU (the audio context
@@ -45,10 +58,16 @@ Phases, each of which raises on failure (exit code 1):
      forward_fused against features + forward_fused2d, ms per chunk-step
      of the whole step at batch 2048 for v3.1 (and the two-kernel v3.1
      step, features + forward_fused2d), v4
-     and v5, and the server's _tick and _tick2 at 2048 slots (v3.1, v5).
+     and v5, the server's _tick and _tick2 at 2048 slots (v3.1, v5);
+     StreamRunner.scan by slab against the loop of steps at 2048 x 8 and
+     64 x 64, encode_fused and lstm_decoder_fused alone at those shapes,
+     the CLI's window of 96 chunks against 96 launches of forward_fused2d,
+     the batch CLI's audio seconds per wall second, and torch.nn.LSTM
+     (cuDNN) on the LSTM kernels' inputs as the library's time.
 
-Prints a JSON line of per-kernel results, then the card's name and power
-limit, then as its last line
+Prints a JSON line of per-kernel results (time, plain version's time, the
+bound from this run's shapes, the library call's time where there is one),
+then the card's name and power limit, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX. Needs one card; exits 1 without one.
 """
@@ -102,13 +121,26 @@ FUSED_AUDIO_SAMPLES = (512, 768, 1024, 1280, 1536)
 # sources before the move, on an H100 80GB HBM3 (700 W): the move must
 # leave their outputs bit for bit
 PARENT_DIGESTS = {"forward_fused2d": "6d6e602fd6f5405b", "forward_fused2d_ragged": "32c8579105cb8cbd",
-                  "dot_magnitude": "aa1f71c035ea6ba5"}
+                  "dot_magnitude": "aa1f71c035ea6ba5",
+                  # forward_fused, from the sources before the body's LSTM and
+                  # decoder became functions that lstm_decoder.cu shares
+                  "forward_fused": "e09d095c326b455f", "forward_fused_ragged": "86c6c25c68636077"}
 # v4 and v5 chunk sizes of the paths below (model samples)
 V4_CHUNK, V4_8K_CHUNK, V5_CHUNK, V5_8K_CHUNK = 1536, 768, 512, 256
 CLI_WINDOW = 96  # chunks per CLI window (the CLI's --batch default)
 # the server phase: slots, clients, seconds of speech per client
 SERVER_SLOTS, SERVER_CLIENTS, SERVER_AUDIO_S = 64, 8, 20.0
 TICK_SLOTS = 2048  # the slots of the timed server ticks
+# the corpus path: files, their lengths in seconds, the slab
+CORPUS_FILES, CORPUS_SECONDS, SLAB_CHUNKS = 24, (5.0, 40.0), 64
+# encode_fused against the plain encoder stages: fp32 both, other orders of
+# the sums through four stages of products, norms and a softmax; the
+# faithful tier's per-op bound, absolute, on activations of up to about 7
+# (a first bound of 1e-5 of the largest activation was passed at 1.1e-5)
+TOL_ENCODE = 1e-4
+# the card's published peaks (NVIDIA H100 SXM data sheet): fp32 outside the
+# tensor cores, and device memory
+PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -209,9 +241,12 @@ def shared_code_digests(params, device) -> dict:
     through headers (forward_fused2d through silero_v31_body.cuh,
     dot_magnitude through stft_tile.cuh) on inputs made from a seed alone:
     fused2d at B=2048 x 25 frames (random features, carried state) and at
-    a ragged B=37 x 9 frames; dot_magnitude over 2048 chunks of speech."""
+    a ragged B=37 x 9 frames; dot_magnitude over 2048 chunks of speech;
+    forward_fused (both headers) at B=2048 x 1536 and a ragged B=37 x 512
+    samples of speech, from a random carried state."""
     import torch
 
+    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
     from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
     from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude, split_basis
     from vadc_tpu_torch.nn import functional as F
@@ -230,8 +265,15 @@ def shared_code_digests(params, device) -> dict:
     audio = t(speech_chunks(B_MAIN, CHUNK, seed=SEED + 8))
     wr, wi = split_basis(params["stft_basis"])
     mag = dot_magnitude(F.frame(F.reflect_pad_last(audio, 128, 128), 256, 64), wr, wi)
-    return {"forward_fused2d": digest(*full), "forward_fused2d_ragged": digest(*ragged),
-            "dot_magnitude": digest(mag)}
+    out = {"forward_fused2d": digest(*full), "forward_fused2d_ragged": digest(*ragged),
+           "dot_magnitude": digest(mag)}
+    rng = np.random.default_rng(SEED + 9)
+    for name, b, samples in (("forward_fused", B_MAIN, CHUNK), ("forward_fused_ragged", 37, 512)):
+        chunks = t(speech_chunks(b, samples, seed=SEED + 10))
+        h = t(0.5 * rng.normal(size=(2, b, 64)))
+        c = t(3.0 * rng.normal(size=(2, b, 64)))
+        out[name] = digest(*forward_fused(params, chunks, h, c))
+    return out
 
 
 def phase_build() -> float:
@@ -540,6 +582,101 @@ def phase_kernels_v45(models: dict, device) -> dict:
     return errs
 
 
+def check_lstm_decoder(params, audio, n_streams: int, label: str) -> float:
+    """encode_fused and lstm_decoder_fused at audio [n_streams * K, S], the
+    K chunks of a stream in consecutive rows: encode_fused against the plain
+    encoder stages; lstm_decoder_fused on its output, from a carried state,
+    against its plain version (the plain version on the CPU beside it as the
+    floor), in place, the K-chunk call against K single calls bit for bit,
+    and chunk 0 of lstm_decoder_fused(encode_fused(feats)) against
+    forward_fused2d(feats) bit for bit."""
+    import torch
+
+    from vadc_tpu_torch.kernels.lstm import transposed_weight_of
+    from vadc_tpu_torch.kernels.lstm_decoder import (
+        lstm_decoder_fused, lstm_decoder_fused_reference,
+    )
+    from vadc_tpu_torch.kernels.silero_v31_fused2d import (
+        encode_fused, encode_fused_reference, forward_fused2d, forward_fused2d_reference,
+    )
+    from vadc_tpu_torch.models import silero_v31
+
+    n_chunks = audio.shape[0] // n_streams
+    feats = silero_v31.features(params, audio)
+    enc = encode_fused(params, feats)
+    enc_ref = encode_fused_reference(params, feats)
+    torch.cuda.synchronize()
+    require(enc.shape == enc_ref.shape, f"encode_fused {label}: shape {tuple(enc.shape)}")
+    require(bool(torch.isfinite(enc).all()), f"encode_fused {label}: non-finite output")
+    enc_err = max_abs(enc, enc_ref)
+    enc_max = float(enc_ref.abs().max().item())
+    frames = enc.shape[1]
+    x = enc.reshape(n_streams, n_chunks, frames, 64)
+    # a realistic carried state: one plain step on other audio first
+    h0, c0 = silero_v31.init_state(n_streams, audio.device)
+    first = feats.reshape(n_streams, n_chunks, *feats.shape[1:])[:, 0].contiguous()
+    _, h, c = forward_fused2d_reference(params, first.flip(0).contiguous(), h0, c0)
+    args = (params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"])
+    wt = transposed_weight_of(params)
+    got = lstm_decoder_fused(x, h, c, *args, wt=wt)
+    want = lstm_decoder_fused_reference(x, h, c, *args)
+    torch.cuda.synchronize()
+    floor = lstm_decoder_fused_reference(x.cpu(), h.cpu(), c.cpu(), *(a.cpu() for a in args))
+    errs, bounds, floors = {}, {}, {}
+    for i, name in enumerate(("probs", "hn", "cn")):
+        require(got[i].shape == want[i].shape, f"lstm_decoder {label} {name} shape {tuple(got[i].shape)}")
+        require(bool(torch.isfinite(got[i]).all()), f"lstm_decoder {label} {name}: non-finite")
+        errs[name] = max_abs(got[i], want[i])
+        floors[name] = max_abs(floor[i], want[i].cpu())
+        bounds[name] = TOL_FUSED[name] * max(1.0, float(want[i].abs().max().item()))
+    # K single calls, the state in place, give the K-chunk call's bits
+    hk, ck = h.clone(), c.clone()
+    singles = []
+    for k in range(n_chunks):
+        p_k, _, _ = lstm_decoder_fused(x[:, k].contiguous(), hk, ck, *args, hn=hk, cn=ck, wt=wt)
+        singles.append(p_k)
+    same_singles = (torch.equal(torch.stack(singles, dim=1), got[0])
+                    and torch.equal(hk, got[1]) and torch.equal(ck, got[2]))
+    # the K-chunk call in place
+    h2, c2 = h.clone(), c.clone()
+    p2, _, _ = lstm_decoder_fused(x, h2, c2, *args, hn=h2, cn=c2, wt=wt)
+    same_in_place = torch.equal(p2, got[0]) and torch.equal(h2, got[1]) and torch.equal(c2, got[2])
+    # chunk 0 through the fused kernel, which runs the same device code
+    fused = forward_fused2d(params, first, h, c)
+    split = lstm_decoder_fused(x[:, 0].contiguous(), h, c, *args, wt=wt)
+    torch.cuda.synchronize()
+    same_fused = all(torch.equal(a, b) for a, b in zip(fused, split))
+    log(f"lstm_decoder_fused {label} (x {tuple(x.shape)}): encode_fused max abs err {enc_err:.3e} "
+        f"(bound {TOL_ENCODE:g}; largest activation {enc_max:.3f}); max abs err "
+        + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.3e}, plain card vs CPU {floors[k]:.3e})"
+                    for k, v in errs.items())
+        + f"; K single calls bit-equal: {same_singles}; in place bit-equal: {same_in_place}; "
+        f"lstm_decoder_fused(encode_fused) bit-equal to forward_fused2d: {same_fused}")
+    require(enc_err <= TOL_ENCODE, f"encode_fused {label}: max abs err {enc_err:.3e}")
+    for name in errs:
+        require(errs[name] <= bounds[name], f"lstm_decoder {label}: {name} {errs[name]:.3e}")
+    require(same_singles, f"lstm_decoder {label}: the K-chunk call differs from K single calls")
+    require(same_in_place, f"lstm_decoder {label}: in place differs")
+    require(same_fused, f"lstm_decoder {label}: differs from forward_fused2d on the same features")
+    return max(errs.values())
+
+
+def phase_kernels_lstm_decoder(params, device) -> dict:
+    import torch
+
+    def audio(n, chunk, seed):
+        return torch.from_numpy(speech_chunks(n, chunk, seed=seed)).to(device)
+
+    err = check_lstm_decoder(params, audio(B_MAIN, CHUNK, SEED + 700), B_MAIN,
+                             f"B={B_MAIN} x K=1 x {CHUNK}")
+    for samples in FUSED_AUDIO_SAMPLES:  # T = 3, 4, 5, 6, 7 frames
+        check_lstm_decoder(params, audio(37 * 5, samples, SEED + 701 + samples), 37,
+                           f"B=37 x K=5 x {samples}")
+    check_lstm_decoder(params, audio(CLI_WINDOW, CHUNK, SEED + 702), 1,
+                       f"B=1 x K={CLI_WINDOW} x {CHUNK}")
+    return {"lstm_decoder_fused": err}
+
+
 def synthetic_file(path: Path) -> None:
     """The verify recipe's file: two voiced spans, 12 s, as raw s16le at
     `path` and as a 16 kHz mono wav beside it (path with suffix .wav)."""
@@ -663,70 +800,192 @@ def minibatch_card_vs_cpu(family: str, params, device, chunk: int, seed: int) ->
         require(torch.equal(gpu.context.cpu(), cpu.context), f"minibatch {family}: context differs")
 
 
-def v3_launches() -> dict:
-    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
-    from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
-    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
-
-    return {"dot_magnitude": dot_magnitude.launches, "silero_v31_fused": forward_fused2d.launches,
-            "forward_fused": forward_fused.launches}
-
-
-def zero_v3_launches() -> None:
-    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
-    from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
-    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
-
-    dot_magnitude.launches = forward_fused2d.launches = forward_fused.launches = 0
-
-
-def phase_main_path_v3(params, device, pcm: Path) -> dict:
-    """Two v3.1 paths, each counted on its own: StreamRunner.scan (the
-    step: forward_fused alone) and the CLI (MinibatchRunner: dot_magnitude
-    and forward_fused2d)."""
-    zero_v3_launches()
-    scan_card_vs_cpu("v3", params, device, CHUNK, SEED + 100)
-    scan = v3_launches()
-    log(f"v3.1 StreamRunner.scan {B_MAIN}x{SCAN_CHUNKS} launches: {scan}")
-    require(scan["forward_fused"] > 0, "forward_fused: no launch on the v3.1 step")
-    zero_v3_launches()
-    cli_card_vs_cpu([], pcm)
-    cli = v3_launches()
-    log(f"v3.1 CLI launches: {cli}")
-    for name in ("dot_magnitude", "silero_v31_fused"):
-        require(cli[name] > 0, f"{name}: no launch on the v3.1 CLI path")
-    return {name: scan[name] + cli[name] for name in scan}
-
-
-def phase_main_path_v4(params, device, pcm: Path, archives: dict) -> dict:
+def wrappers() -> dict:
+    """name -> the wrapper that counts that kernel's launches."""
     from vadc_tpu_torch.kernels.lstm import lstm_fused
+    from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused
+    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
+    from vadc_tpu_torch.kernels.silero_v31_fused2d import encode_fused, forward_fused2d
+    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
     from vadc_tpu_torch.kernels.stft_mag import stft_magnitude
 
-    stft_magnitude.launches = lstm_fused.launches = 0
+    return {"dot_magnitude": dot_magnitude, "forward_fused2d": forward_fused2d,
+            "encode_fused": encode_fused, "forward_fused": forward_fused,
+            "stft_magnitude": stft_magnitude, "lstm_fused": lstm_fused,
+            "lstm_decoder_fused": lstm_decoder_fused}
+
+
+def zero_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches(label: str, totals: dict, required: tuple) -> dict:
+    """The launch counts since zero_launches, logged, each of `required`
+    held > 0, and added into `totals`."""
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    log(f"{label} launches: { {k: v for k, v in counts.items() if v} }")
+    for name in required:
+        require(counts[name] > 0, f"{name}: no launch on the path: {label}")
+    for name, n in counts.items():
+        totals[name] = totals.get(name, 0) + n
+    return counts
+
+
+V3_SLAB_KERNELS = ("dot_magnitude", "encode_fused", "lstm_decoder_fused")
+
+
+def steps_vs_scan(params, device) -> None:
+    """The v3.1 loop of StreamRunner.step (forward_fused) against the slab
+    scan on the card, on the same chunks from the same state."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import StreamRunner
+
+    chunks = torch.from_numpy(
+        speech_chunks(B_MAIN * SCAN_CHUNKS, CHUNK, seed=SEED + 100)
+    ).to(device).reshape(B_MAIN, SCAN_CHUNKS, CHUNK)
+    runner = StreamRunner("v3", params, device=device)
+    probs_slab, slab = runner.scan(chunks, runner.init_state(B_MAIN))
+    state = runner.init_state(B_MAIN)
+    probs = torch.stack([runner.step(chunks[:, k], state)[0] for k in range(SCAN_CHUNKS)], dim=1)
+    torch.cuda.synchronize()
+    errs = {"probs": max_abs(probs, probs_slab), "h": max_abs(state.h, slab.h),
+            "c": max_abs(state.c, slab.c) / max(1.0, float(slab.c.abs().max().item()))}
+    log(f"v3.1 loop of steps vs slab scan {B_MAIN}x{SCAN_CHUNKS} on the card: max abs diff probs "
+        f"{errs['probs']:.3e}, h {errs['h']:.3e}, c {errs['c']:.3e} of its largest value "
+        f"(bound {TOL_PATH:g} each)")
+    for name, err in errs.items():
+        require(err <= TOL_PATH, f"steps vs slab scan: {name} {err:.3e}")
+
+
+def phase_main_path_v3(params, device, pcm: Path, totals: dict) -> None:
+    """Three v3.1 paths, each counted on its own: StreamRunner.scan (the
+    slab route: dot_magnitude, encode_fused, lstm_decoder_fused), the loop
+    of StreamRunner.step (forward_fused alone) and the CLI (MinibatchRunner:
+    the slab route at one stream)."""
+    zero_launches()
+    scan_card_vs_cpu("v3", params, device, CHUNK, SEED + 100)
+    read_launches(f"v3.1 StreamRunner.scan {B_MAIN}x{SCAN_CHUNKS}", totals, V3_SLAB_KERNELS)
+    zero_launches()
+    steps_vs_scan(params, device)
+    read_launches(f"v3.1 StreamRunner.step x {SCAN_CHUNKS} (and one slab scan)", totals,
+                  ("forward_fused",))
+    zero_launches()
+    cli_card_vs_cpu([], pcm)
+    read_launches("v3.1 CLI", totals, V3_SLAB_KERNELS)
+
+
+def phase_main_path_v4(params, device, pcm: Path, archives: dict, totals: dict) -> None:
+    zero_launches()
     scan_card_vs_cpu("v4", params, device, V4_CHUNK, SEED + 110)
     cli_card_vs_cpu(["--model", str(archives["v4"])], pcm)
     # the 8 kHz model on the same 16 kHz file as a wav: resampled natively
     cli_card_vs_cpu(["--model", str(archives["v4_8k"])], pcm.with_suffix(".wav"))
-    launches = {"stft_magnitude": stft_magnitude.launches, "lstm_fused": lstm_fused.launches}
-    log(f"v4 path launches (scan {B_MAIN}x{SCAN_CHUNKS} + CLI v4, v4_8k): {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"{name}: no launch on the v4 path")
-    return launches
+    read_launches(f"v4 path (scan {B_MAIN}x{SCAN_CHUNKS} + CLI v4, v4_8k)", totals,
+                  ("stft_magnitude", "lstm_fused"))
 
 
-def phase_main_path_v5(models: dict, device) -> dict:
-    from vadc_tpu_torch.kernels.lstm import lstm_fused
-    from vadc_tpu_torch.kernels.stft_mag import stft_magnitude
-
-    stft_magnitude.launches = lstm_fused.launches = 0
+def phase_main_path_v5(models: dict, device, totals: dict) -> None:
+    zero_launches()
     scan_card_vs_cpu("v5", models["v5"][1], device, V5_CHUNK, SEED + 120)
     minibatch_card_vs_cpu("v5", models["v5"][1], device, V5_CHUNK, SEED + 121)
     minibatch_card_vs_cpu("v5_8k", models["v5_8k"][1], device, V5_8K_CHUNK, SEED + 122)
-    launches = {"stft_magnitude": stft_magnitude.launches, "lstm_fused": lstm_fused.launches}
-    log(f"v5 path launches (scan {B_MAIN}x{SCAN_CHUNKS} + MinibatchRunner v5, v5_8k): {launches}")
-    for name, n in launches.items():
-        require(n > 0, f"{name}: no launch on the v5 path")
-    return launches
+    read_launches(f"v5 path (scan {B_MAIN}x{SCAN_CHUNKS} + MinibatchRunner v5, v5_8k)", totals,
+                  ("stft_magnitude", "lstm_fused"))
+
+
+def write_corpus(root: Path) -> tuple[list[str], float]:
+    """CORPUS_FILES files of unequal length from a seed: synthetic speech as
+    raw s16le, file 3 pure digital silence, the last one a 44.1 kHz 16-bit
+    wav. Returns (paths, total seconds of audio)."""
+    from vadc_tpu_torch.io.wav import write_wav
+
+    rng = np.random.default_rng(SEED + 800)
+    paths, total = [], 0.0
+    for i in range(CORPUS_FILES):
+        seconds = float(rng.uniform(*CORPUS_SECONDS))
+        total += seconds
+        n = int(seconds * SR)
+        audio = speech_chunks(n // CHUNK + 1, CHUNK, seed=SEED + 801 + i).ravel()[:n]
+        if i == CORPUS_FILES - 1:
+            # the same kind of speech at 44.1 kHz (linear interpolation)
+            at = np.arange(int(seconds * 44100)) * (SR / 44100)
+            audio = np.interp(at, np.arange(n), audio)
+            pcm = np.clip(audio * 32768, -32768, 32767).astype("<i2")
+            path = root / f"file{i:02d}_44k.wav"
+            write_wav(path, pcm, sample_rate=44100)
+        else:
+            if i == 3:
+                audio = np.zeros_like(audio)
+            path = root / f"file{i:02d}.s16le"
+            np.clip(audio * 32768, -32768, 32767).astype("<i2").tofile(path)
+        paths.append(str(path))
+    return paths, total
+
+
+def run_batch_cli(argv: list[str]) -> tuple[str, float]:
+    """The batch CLI in this process; returns (stdout, wall seconds)."""
+    from vadc_tpu_torch.cli import batch
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = batch.main(argv)
+    seconds = time.perf_counter() - t0
+    require(rc == 0, f"batch CLI {argv[-6:]} exited {rc}: {err.getvalue()}")
+    return out.getvalue(), seconds
+
+
+def phase_main_path_batch(device, totals: dict) -> dict:
+    """The offline corpus CLI over the seeded corpus with --cut_dir, on the
+    card and on the CPU: identical lines and cut files; per file the lines
+    of the port's streaming CLI on the card."""
+    from vadc_tpu_torch.cli import main as cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        paths, audio_s = write_corpus(root)
+        argv = [*paths, "--slab_chunks", str(SLAB_CHUNKS)]
+        zero_launches()
+        out_gpu, first_s = run_batch_cli([*argv, "--device", "cuda", "--cut_dir", str(root / "cut_gpu")])
+        read_launches(f"batch CLI, {CORPUS_FILES} files", totals, V3_SLAB_KERNELS)
+        _, again_s = run_batch_cli([*argv, "--device", "cuda"])
+        out_cpu, cpu_s = run_batch_cli([*argv, "--device", "cpu", "--cut_dir", str(root / "cut_cpu")])
+        lines = out_gpu.splitlines()
+        log(f"batch CLI --device cuda: {CORPUS_FILES} files, {audio_s:.1f} s of audio, {len(lines)} "
+            f"segment lines in {first_s:.3f} s (first call, weights and --cut_dir included: "
+            f"{audio_s / first_s:.1f} audio s per wall s), {again_s:.3f} s again without --cut_dir "
+            f"({audio_s / again_s:.1f} audio s per wall s); --device cpu {cpu_s:.3f} s")
+        require(out_gpu == out_cpu, "batch CLI: lines differ between cuda and cpu")
+        require(len(lines) >= CORPUS_FILES, f"batch CLI: only {len(lines)} segment lines")
+        require(not any(line.startswith(paths[3] + "\t") for line in lines),
+                "batch CLI: segments in the silent file")
+        cut_gpu = {p.name: p.read_bytes() for p in sorted((root / "cut_gpu").iterdir())}
+        cut_cpu = {p.name: p.read_bytes() for p in sorted((root / "cut_cpu").iterdir())}
+        require(sorted(cut_gpu) == sorted(Path(p).name for p in paths), f"cut files {sorted(cut_gpu)}")
+        require(cut_gpu == cut_cpu, "batch CLI: cut files differ between cuda and cpu")
+        log(f"batch CLI cut files: {len(cut_gpu)} written, {sum(map(len, cut_gpu.values()))} bytes, "
+            f"identical on cuda and cpu")
+        # the streaming CLI, file by file, on the card
+        for path in paths:
+            out, err = io.StringIO(), io.StringIO()
+            saved = sys.stdin
+            with open(path, "rb") as f, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                try:
+                    if path.endswith(".wav"):
+                        rc = cli.main([path, "--device", "cuda"])
+                    else:
+                        sys.stdin = io.TextIOWrapper(f)
+                        rc = cli.main(["--device", "cuda"])
+                finally:
+                    sys.stdin = saved
+            require(rc == 0, f"streaming CLI on {path}: exit {rc}: {err.getvalue()}")
+            batch_lines = [ln.split("\t")[1] for ln in lines if ln.startswith(path + "\t")]
+            require(batch_lines == out.getvalue().split(),
+                    f"{Path(path).name}: batch {batch_lines} vs streaming {out.getvalue().split()}")
+        log(f"batch CLI: every file's lines equal the streaming CLI's ({CORPUS_FILES} files)")
+    return {"audio_s": audio_s, "wall_s": again_s}
 
 
 def client_pcm(index: int) -> bytes:
@@ -788,24 +1047,21 @@ def serve_clients(device, payloads: list[bytes], **server_kw):
     return [r.decode().splitlines() for r in results], srv
 
 
-def phase_server(device) -> dict:
+def phase_server(device, totals: dict) -> None:
     """The serving daemon on the card against itself on the CPU: SERVER_CLIENTS
     clients send seeded speech faster than realtime (so catch-up ticks
     happen); each client's segment lines must be the same on both."""
-    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
-
     payloads = [client_pcm(i) for i in range(SERVER_CLIENTS)]
-    zero_v3_launches()
+    zero_launches()
     t0 = time.perf_counter()
     lines_gpu, srv = serve_clients(device, payloads)
     wall = time.perf_counter() - t0
-    launches = v3_launches()
+    launches = read_launches("server", totals, ("forward_fused",))
     ticks_ms = np.array(srv.tick_times) * 1e3
     log(f"server on {device}: {SERVER_CLIENTS} clients x {SERVER_AUDIO_S:g} s in {wall:.2f} s "
         f"(build and warm-up included); launches {launches}; tick_count {srv.tick_count}, "
         f"catchup_ticks {srv.catchup_ticks}, tick ms p50 {np.percentile(ticks_ms, 50):.4f} "
         f"p99 {np.percentile(ticks_ms, 99):.4f} over {ticks_ms.size} ticks with audio")
-    require(forward_fused.launches > 0, "forward_fused: no launch on the server path")
     t0 = time.perf_counter()
     lines_cpu, srv_cpu = serve_clients("cpu", payloads)
     log(f"server on cpu: {time.perf_counter() - t0:.2f} s, tick_count {srv_cpu.tick_count}, "
@@ -815,7 +1071,6 @@ def phase_server(device) -> dict:
         require(g == c, f"server client {i}: segment lines differ: cuda {g} cpu {c}")
         require(len(g) > 0 and not any(line.startswith("error") for line in g),
                 f"server client {i}: {g}")
-    return {"forward_fused": launches["forward_fused"]}
 
 
 def time_ticks(model: str, device, label: str) -> None:
@@ -901,6 +1156,165 @@ def phase_timing(params, device) -> dict:
     return t
 
 
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the operations over
+    the fp32 peak and the bytes (each input read once, each output written
+    once) over the memory rate; and which of the two it is."""
+    by_ops, by_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def spectrum_flops(rows: int, n_fft: int = 256, bins: int = 129) -> float:
+    """rows x n_fft frames against the real and the imaginary basis, then
+    two squares, a sum and a root per bin."""
+    return rows * (2 * 2 * n_fft * bins + 4 * bins)
+
+
+def v31_encoder_flops(seq0: int) -> float:
+    """One stream's four encoder stages, 2 flops per multiply-add, from the
+    stages' widths and frame counts (the norms and the softmax not counted)."""
+    macs, frames = 0, seq0
+    for (cin, cout), stride in zip(((129, 16), (16, 32), (32, 32), (32, 64)), (2, 2, 1, 1)):
+        out_frames = -(-frames // stride)
+        macs += frames * cin * 5 + frames * cin * cout * (2 if cin != cout else 1)  # dw, pw, proj
+        macs += frames * cout * 3 * cout + 2 * frames * frames * cout  # qkv, scores, mix
+        macs += 3 * frames * cout * cout + out_frames * cout * cout  # out proj, ff, 1x1 conv
+        frames = out_frames
+    return 2.0 * macs
+
+
+def lstm_flops(steps: int, layers: int, hidden: int) -> float:
+    """steps x layers gate products of [2H] x [2H, 4H], 2 flops a
+    multiply-add (the gates' elementwise work not counted)."""
+    return 2.0 * steps * layers * 2 * hidden * 4 * hidden
+
+
+def cudnn_lstm(w, b):
+    """torch.nn.LSTM (cuDNN) with the fused [L, 4H, 2H] weight split into
+    weight_ih and weight_hh (gate order i, f, g, o in both) and the
+    pre-summed bias as bias_ih: the library call that computes the LSTM
+    kernels' function. Timed here only; nothing on a path calls it."""
+    import torch
+
+    layers, hidden = w.shape[0], w.shape[2] // 2
+    lstm = torch.nn.LSTM(hidden, hidden, num_layers=layers, batch_first=True).to(w.device)
+    with torch.no_grad():
+        for layer in range(layers):
+            getattr(lstm, f"weight_ih_l{layer}").copy_(w[layer][:, :hidden])
+            getattr(lstm, f"weight_hh_l{layer}").copy_(w[layer][:, hidden:])
+            getattr(lstm, f"bias_ih_l{layer}").copy_(b[layer])
+            getattr(lstm, f"bias_hh_l{layer}").zero_()
+    lstm.flatten_parameters()
+    return lstm
+
+
+def time_cudnn_lstm(label: str, w, b, x, h, c, y_ref, iters: int) -> float:
+    """ms of one torch.nn.LSTM call on the kernel's inputs; its output is
+    held to the plain version's (1e-3: another order of sums, cuDNN's own
+    activations) so the two are the same function."""
+    import torch
+
+    lstm = cudnn_lstm(w, b)
+    with torch.no_grad():
+        y, _ = lstm(x, (h, c))
+        torch.cuda.synchronize()
+        diff = max_abs(y, y_ref)
+        require(diff <= 1e-3, f"torch.nn.LSTM {label}: differs from the plain version by {diff:.3e}")
+        ms = cuda_ms(lambda: lstm(x, (h, c)), iters=iters)
+    log(f"time torch.nn.LSTM (cuDNN) {label}: {ms:.4f} ms (max abs diff from the plain version "
+        f"{diff:.3e})")
+    return ms
+
+
+def phase_timing_slab(params, device, corpus: dict) -> dict:
+    """The slab route: StreamRunner.scan by slab against the loop of steps,
+    encode_fused and lstm_decoder_fused alone (kernel, plain, torch.nn.LSTM),
+    the CLI's window against 96 launches of forward_fused2d."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels.lstm import transposed_weight_of
+    from vadc_tpu_torch.kernels.lstm_decoder import (
+        lstm_decoder_fused, lstm_decoder_fused_reference,
+    )
+    from vadc_tpu_torch.kernels.silero_v31_fused2d import (
+        encode_fused, encode_fused_reference, forward_fused2d,
+    )
+    from vadc_tpu_torch.models import silero_v31
+    from vadc_tpu_torch.nn import functional as F
+
+    args = (params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"])
+    wt = transposed_weight_of(params)
+    runner = StreamRunner("v3", params, device=device)
+    out = {}
+    for n_streams, n_chunks in ((B_MAIN, SCAN_CHUNKS), (SLAB_CHUNKS, SLAB_CHUNKS)):
+        shape = f"B={n_streams} x K={n_chunks}"
+        iters = 10
+        chunks = torch.from_numpy(
+            speech_chunks(n_streams * n_chunks, CHUNK, seed=SEED + 900)
+        ).to(device).reshape(n_streams, n_chunks, CHUNK)
+        state, state2 = runner.init_state(n_streams), runner.init_state(n_streams)
+
+        def steps():
+            for k in range(n_chunks):
+                runner.step(chunks[:, k], state2)
+
+        slab_ms, steps_ms = cuda_ms_pair(lambda: runner.scan(chunks, state), steps, iters=iters)
+        log(f"time StreamRunner.scan v3.1 {shape} x {CHUNK}: by slab {slab_ms:.4f} ms, loop of "
+            f"steps {steps_ms:.4f} ms ({slab_ms / n_chunks:.4f} vs {steps_ms / n_chunks:.4f} ms a "
+            f"chunk-step)")
+        flat = chunks.reshape(n_streams * n_chunks, CHUNK)
+        feats = silero_v31.features(params, flat)
+        front_ms = cuda_ms(lambda: silero_v31.features(params, flat), iters=iters)
+        enc_ms, enc_plain_ms = cuda_ms_pair(lambda: encode_fused(params, feats),
+                                            lambda: encode_fused_reference(params, feats),
+                                            iters=iters)
+        x = encode_fused(params, feats).reshape(n_streams, n_chunks, -1, 64)
+        h, c = state.h.clone(), state.c.clone()
+        tail_ms, tail_plain_ms = cuda_ms_pair(
+            lambda: lstm_decoder_fused(x, h, c, *args, wt=wt),
+            lambda: lstm_decoder_fused_reference(x, h, c, *args), iters=iters)
+        seq = x.reshape(n_streams, -1, 64)  # the chunks' frames as one sequence a stream
+        y_ref, _, _ = F.lstm(seq, h, c, args[0], args[1])
+        lib_ms = time_cudnn_lstm(f"v3.1 {shape} x T={x.shape[2]}", args[0], args[1], seq, h, c,
+                                 y_ref, iters)
+        log(f"time slab parts {shape}: features (dot_magnitude and the torch front-end) "
+            f"{front_ms:.4f} ms; encode_fused {enc_ms:.4f} ms (plain {enc_plain_ms:.4f}); "
+            f"lstm_decoder_fused {tail_ms:.4f} ms (plain {tail_plain_ms:.4f}, torch.nn.LSTM "
+            f"{lib_ms:.4f})")
+        out[(n_streams, n_chunks)] = {
+            "lstm_decoder_fused": (tail_ms, tail_plain_ms, lib_ms, tuple(x.shape)),
+            "encode_fused": (enc_ms, enc_plain_ms), "slab_ms": slab_ms, "steps_ms": steps_ms,
+        }
+    # the CLI's window: 96 chunks of one stream
+    window = torch.from_numpy(speech_chunks(CLI_WINDOW, CHUNK, seed=SEED + 901)).to(device)
+    h, c = silero_v31.init_state(1, device)
+
+    def per_chunk():
+        feats = silero_v31.features(params, window)
+        hn, cn = h.clone(), c.clone()
+        for i in range(CLI_WINDOW):
+            forward_fused2d(params, feats[i : i + 1], hn, cn, hn=hn, cn=cn)
+
+    new_ms, old_ms = cuda_ms_pair(lambda: silero_v31.forward_minibatched(params, window, h, c),
+                                  per_chunk, iters=10)
+    x1 = encode_fused(params, silero_v31.features(params, window)).reshape(1, CLI_WINDOW, -1, 64)
+    tail1_ms, tail1_plain_ms = cuda_ms_pair(
+        lambda: lstm_decoder_fused(x1, h, c, *args, wt=wt),
+        lambda: lstm_decoder_fused_reference(x1, h, c, *args), iters=5)
+    seq1 = x1.reshape(1, -1, 64)
+    lib1_ms = time_cudnn_lstm(f"v3.1 B=1 x T={seq1.shape[1]}", args[0], args[1], seq1, h, c,
+                              F.lstm(seq1, h, c, args[0], args[1])[0], 10)
+    log(f"time CLI window v3.1 (forward_minibatched, N={CLI_WINDOW} x {CHUNK}): slab route "
+        f"{new_ms:.4f} ms, {CLI_WINDOW} launches of forward_fused2d {old_ms:.4f} ms; "
+        f"lstm_decoder_fused B=1 x K={CLI_WINDOW} {tail1_ms:.4f} ms (plain {tail1_plain_ms:.4f}, "
+        f"torch.nn.LSTM {lib1_ms:.4f})")
+    log(f"batch CLI on the card: {corpus['audio_s']:.1f} s of audio in {corpus['wall_s']:.3f} s, "
+        f"{corpus['audio_s'] / corpus['wall_s']:.1f} audio seconds per wall second "
+        f"({CORPUS_FILES} files, slabs of {SLAB_CHUNKS} chunks)")
+    return out
+
+
 def phase_timing_v45(models: dict, device) -> dict:
     """Each new kernel against its plain version at the main paths' shapes,
     and ms per chunk-step at B_MAIN for v4 and v5, kernels vs plain."""
@@ -931,12 +1345,16 @@ def phase_timing_v45(models: dict, device) -> dict:
                             lambda: lstm_fused_reference(x, h, c, w, b))
         log(f"time lstm_fused {family} B={B_MAIN} x T={x.shape[1]}: kernel {lstm[0]:.4f} ms, "
             f"plain {lstm[1]:.4f} ms")
+        lstm_lib = time_cudnn_lstm(f"{family} B={B_MAIN} x T={x.shape[1]}", w, b, x, h, c,
+                                   lstm_fused_reference(x, h, c, w, b)[0], 50)
         window = torch.from_numpy(speech_chunks(CLI_WINDOW, ctx + chunk, seed=SEED + 401)).to(device)
         x1, h1, c1 = lstm_inputs(module, params, window, 1, device)
         long = cuda_ms_pair(lambda: lstm_fused(x1, h1, c1, w, b, wt=wt),
                             lambda: lstm_fused_reference(x1, h1, c1, w, b), iters=5)
         log(f"time lstm_fused {family} B=1 x T={x1.shape[1]} (one CLI window): kernel "
             f"{long[0]:.4f} ms, plain {long[1]:.4f} ms")
+        time_cudnn_lstm(f"{family} B=1 x T={x1.shape[1]}", w, b, x1, h1, c1,
+                        lstm_fused_reference(x1, h1, c1, w, b)[0], 10)
         runner = StreamRunner(family, params, device=device)
         state = runner.init_state(B_MAIN)
         steps = audio[:, ctx:].contiguous()
@@ -949,7 +1367,8 @@ def phase_timing_v45(models: dict, device) -> dict:
             f"{plain_ms:.4f} ms; realtime streams at the kernel rate: "
             f"{B_MAIN * (chunk / SR) / (step_ms / 1000):.0f}")
         if family == "v4":  # the JSON line's shapes: the v4 16 kHz step's
-            t["stft_magnitude"], t["lstm_fused"] = stft, lstm
+            t["stft_magnitude"], t["lstm_fused"] = stft, (*lstm, lstm_lib, tuple(x.shape))
+            t["stft_magnitude_frames"] = audio.shape[1] // module.STFT_HOP + 1
     return t
 
 
@@ -986,43 +1405,96 @@ def main() -> int:
 
     phase_shared_code(params, device)
     errs = phase_kernels(params, device)
+    errs.update(phase_kernels_lstm_decoder(params, device))
     errs.update(phase_kernels_v45(models, device))
+    launches: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
         pcm = Path(tmp) / "synthetic.s16le"
         synthetic_file(pcm)
-        launches = phase_main_path_v3(params, device, pcm)
-        v4 = phase_main_path_v4(models["v4"][1], device, pcm, archives)
-    v5 = phase_main_path_v5(models, device)
-    launches.update({name: v4[name] + v5[name] for name in v4})
-    launches["forward_fused"] += phase_server(device)["forward_fused"]
+        phase_main_path_v3(params, device, pcm, launches)
+        phase_main_path_v4(models["v4"][1], device, pcm, archives, launches)
+    phase_main_path_v5(models, device, launches)
+    corpus = phase_main_path_batch(device, launches)
+    phase_server(device, launches)
+    log(f"launches on the main paths, all phases: {launches}")
     timing = phase_timing(params, device)
     timing.update(phase_timing_v45(models, device))
+    slab = phase_timing_slab(params, device, corpus)
     with tempfile.TemporaryDirectory() as tmp:
         v5_archive = Path(tmp) / "v5_synthetic.testtensor"
         save_archive(v5_archive, random_v5_archive(0))
         time_ticks(str(DEFAULT_WEIGHTS), device, "v3.1")
         time_ticks(str(v5_archive), device, "v5 (synthetic weights)")
 
-    sources = {
-        "dot_magnitude": ("vadc_tpu_torch/kernels/csrc/stft_dotmag.cu",
-                          "vadc_tpu/kernels/stft_dotmag.py:56"),
-        "silero_v31_fused": ("vadc_tpu_torch/kernels/csrc/silero_v31_fused.cu",
-                             "vadc_tpu/kernels/silero_v31_fused2d.py:232"),
-        "stft_magnitude": ("vadc_tpu_torch/kernels/csrc/stft_mag.cu",
-                           "vadc_tpu/kernels/stft_mag.py:91"),
-        "lstm_fused": ("vadc_tpu_torch/kernels/csrc/lstm.cu", "vadc_tpu/kernels/lstm.py:181"),
-        "forward_fused": ("vadc_tpu_torch/kernels/csrc/silero_v31_fused_audio.cu",
-                          "vadc_tpu/kernels/silero_v31_fused.py:236"),
-    }
+    # The bound of each kernel at the shape it was timed at: bytes are each
+    # input read once and each output written once (fp32), operations the
+    # multiply-adds of the shapes at 2 flops each.
+    state_bytes = 4 * 2 * B_MAIN * 64 * 4  # h, c in and hn, cn out, [2, B, 64]
+    v31_weights = 124_632 * 4  # the packed encoder, LSTM and decoder weights
+    basis = 2 * 256 * 129 * 4  # the real and the imaginary STFT basis
+    lstm_weights = (2 * 256 * 128 + 2 * 256) * 4  # two layers' fused weight and bias
+    rows = B_MAIN * 25
+    body_flops = B_MAIN * (v31_encoder_flops(25) + lstm_flops(7, 2, 64))
+    fused2d_bound = bound_ms(body_flops, rows * 129 * 4 + state_bytes + B_MAIN * 4 + v31_weights)
+    v4_rows = B_MAIN * timing["stft_magnitude_frames"]
+    lstm_ms, lstm_plain, lstm_lib, lstm_shape = timing["lstm_fused"]
+    tail_ms, tail_plain, tail_lib, tail_shape = slab[(SLAB_CHUNKS, SLAB_CHUNKS)]["lstm_decoder_fused"]
+    tail_steps = tail_shape[0] * tail_shape[1] * tail_shape[2]
+    fused_src = "vadc_tpu_torch/kernels/csrc/silero_v31_fused.cu"
+    # forward_fused2d and forward_fused3d are one CUDA kernel; since the
+    # CLI's window went to the slab route the main paths reach that source
+    # through its encoder entry (encode_fused)
+    fused_launches = launches["forward_fused2d"] + launches["encode_fused"]
+    by_entry = {"forward_fused2d": launches["forward_fused2d"],
+                "encode_fused": launches["encode_fused"]}
+    table = [
+        ("dot_magnitude", "vadc_tpu_torch/kernels/csrc/stft_dotmag.cu",
+         "vadc_tpu/kernels/stft_dotmag.py:56", launches["dot_magnitude"], errs["dot_magnitude"],
+         *timing["dot_magnitude"], None,
+         bound_ms(spectrum_flops(rows), B_MAIN * (CHUNK + 256) * 4 + basis + rows * 129 * 4),
+         f"B={B_MAIN} x {CHUNK}", {}),
+        ("silero_v31_fused", fused_src, "vadc_tpu/kernels/silero_v31_fused2d.py:232",
+         fused_launches, errs["silero_v31_fused"], *timing["silero_v31_fused"], None, fused2d_bound,
+         f"B={B_MAIN} x 25 frames", {"launches_by_entry": by_entry}),
+        ("silero_v31_fused3d", fused_src, "vadc_tpu/kernels/silero_v31_fused3d.py:178",
+         fused_launches, errs["silero_v31_fused"], *timing["silero_v31_fused"], None, fused2d_bound,
+         f"B={B_MAIN} x 25 frames",
+         {"launches_by_entry": by_entry, "same_kernel_as": "silero_v31_fused"}),
+        ("stft_magnitude", "vadc_tpu_torch/kernels/csrc/stft_mag.cu",
+         "vadc_tpu/kernels/stft_mag.py:91", launches["stft_magnitude"], errs["stft_magnitude"],
+         *timing["stft_magnitude"], None,
+         bound_ms(spectrum_flops(v4_rows), B_MAIN * V4_CHUNK * 4 + basis + v4_rows * 129 * 4),
+         f"v4 B={B_MAIN} x {V4_CHUNK}", {}),
+        ("lstm_fused", "vadc_tpu_torch/kernels/csrc/lstm.cu", "vadc_tpu/kernels/lstm.py:181",
+         launches["lstm_fused"], errs["lstm_fused"], lstm_ms, lstm_plain, lstm_lib,
+         bound_ms(lstm_shape[0] * lstm_flops(lstm_shape[1], 2, 64),
+                  2 * lstm_shape[0] * lstm_shape[1] * 64 * 4 + state_bytes + lstm_weights),
+         f"v4 B={lstm_shape[0]} x T={lstm_shape[1]}", {}),
+        ("forward_fused", "vadc_tpu_torch/kernels/csrc/silero_v31_fused_audio.cu",
+         "vadc_tpu/kernels/silero_v31_fused.py:236", launches["forward_fused"], errs["forward_fused"],
+         *timing["forward_fused"], None,
+         bound_ms(spectrum_flops(rows) + body_flops,
+                  B_MAIN * CHUNK * 4 + state_bytes + B_MAIN * 4 + v31_weights + basis),
+         f"B={B_MAIN} x {CHUNK}", {}),
+        ("lstm_decoder_fused", "vadc_tpu_torch/kernels/csrc/lstm_decoder.cu",
+         "vadc_tpu/kernels/lstm.py:132", launches["lstm_decoder_fused"], errs["lstm_decoder_fused"],
+         tail_ms, tail_plain, tail_lib,
+         bound_ms(lstm_flops(tail_steps, 2, 64),
+                  tail_steps * 64 * 4 + 4 * 2 * tail_shape[0] * 64 * 4
+                  + tail_shape[0] * tail_shape[1] * 4 + lstm_weights + (2 * 64 + 2) * 4),
+         f"B={tail_shape[0]} x K={tail_shape[1]} x T={tail_shape[2]}", {}),
+    ]
     kernels = []
-    for name, (src, replaces) in sources.items():
-        ms, plain_ms = timing[name]
-        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                 "launches": launches[name], "max_abs_err": errs[name],
-                 "ms": ms, "plain_ms": plain_ms}
-        if name == "silero_v31_fused":
-            entry["also_replaces"] = "vadc_tpu/kernels/silero_v31_fused3d.py:178"
-        kernels.append(entry)
+    for name, src, replaces, n, err, ms, plain_ms, library_ms, (bound, by), shape, extra in table:
+        require(n > 0, f"{name}: no launch on any main path")
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+                        "shape": shape, "bound_share": bound / ms, **extra})
+        log(f"kernel {name} at {shape}: {ms:.4f} ms, bound {bound:.4f} ms by {by} "
+            f"({100 * bound / ms:.1f} % of the kernel's time), plain {plain_ms:.4f} ms, library "
+            + (f"{library_ms:.4f} ms" if library_ms is not None else "none")
+            + f", {n} launches on the main paths")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ state passes 14 recurrent updates whose fp32 sums the kernel takes in
 another order than cuBLAS); lstm_fused 5e-5 on y, h and c (c relative),
 for the same reason; forward_fused, which also takes its own spectrum,
 the whole-model bounds 1e-4 on probabilities and 3e-4 on h and c (c
-relative), and its spectrum bit-equal to dot_magnitude's.
+relative), and its spectrum bit-equal to dot_magnitude's;
+lstm_decoder_fused the fused kernel's bounds, equal bit for bit to K single
+calls and, on encode_fused's output, to the fused kernel.
 """
 
 from pathlib import Path
@@ -99,26 +101,138 @@ def test_fused_kernel_matches_plain(params, device, batch, chunk):
 
 def test_state_in_place_and_the_runner_on_the_card(params, device):
     """hn/cn may be h/c; the stream runner on the card matches the plain
-    path on the CPU and goes through the whole-step kernel alone."""
+    path on the CPU. Its scan is the slab route (one launch each of
+    dot_magnitude, encode_fused and lstm_decoder_fused for the whole slab);
+    its step goes through the whole-step kernel alone."""
     from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused
     from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
-    from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
+    from vadc_tpu_torch.kernels.silero_v31_fused2d import encode_fused, forward_fused2d
     from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
 
+    counted = (dot_magnitude, encode_fused, lstm_decoder_fused, forward_fused, forward_fused2d)
     chunks = speech(32 * 3, seed=4).reshape(32, 3, -1)
     gpu = StreamRunner("v3", params, device=device)
     cpu = StreamRunner("v3", params, device="cpu")
-    dot_magnitude.launches = forward_fused2d.launches = forward_fused.launches = 0
+    for fn in counted:
+        fn.launches = 0
     state = gpu.init_state(32)
     p_gpu, st = gpu.scan(chunks, state)
     torch.cuda.synchronize()
     assert st is state
-    assert forward_fused.launches == 3
-    assert dot_magnitude.launches == 0 and forward_fused2d.launches == 0
+    assert [fn.launches for fn in counted] == [1, 1, 1, 0, 0]
     p_cpu, st_cpu = cpu.scan(chunks, cpu.init_state(32))
     assert _max_abs(p_gpu.cpu(), p_cpu) <= 1e-4
     assert _max_abs(st.h.cpu(), st_cpu.h) <= 1e-4
     assert np.isfinite(p_gpu.cpu().numpy()).all()
+    for fn in counted:
+        fn.launches = 0
+    steps = gpu.init_state(32)
+    for t in range(3):
+        p_t, steps = gpu.step(chunks[:, t], steps)
+        assert _max_abs(p_t, p_gpu[:, t]) <= 1e-4
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counted] == [0, 0, 0, 3, 0]
+    assert _max_abs(steps.h, st.h) <= 1e-4
+
+
+def _lstm_decoder_inputs(params, device, batch, chunks, samples, seed):
+    from vadc_tpu_torch.kernels import silero_v31_fused2d as K2
+    from vadc_tpu_torch.models import silero_v31 as TM
+
+    audio = torch.from_numpy(speech(batch * chunks, chunk=samples, seed=seed)).to(device)
+    feats = TM.features(params, audio)
+    enc = K2.encode_fused(params, feats)
+    h = torch.from_numpy(0.5 * noise(2 * batch, chunk=64, seed=seed + 1)).reshape(2, batch, 64)
+    c = torch.from_numpy(5 * noise(2 * batch, chunk=64, seed=seed + 2)).reshape(2, batch, 64)
+    return feats, enc, h.to(device), c.to(device)
+
+
+@pytest.mark.parametrize("batch,chunks,samples", [(64, 1, 1536), (5, 3, 512), (37, 5, 1024),
+                                                  (1, 24, 1536), (4, 4, 1280)])
+def test_lstm_decoder_kernel_matches_plain(params, device, batch, chunks, samples):
+    """lstm_decoder_fused on encode_fused's output against its plain
+    version (probs 1e-5, h and c 5e-5, c relative to its largest value: fp32
+    both, other orders of the gate sums), the K-chunk call against K single
+    calls bit for bit, the state in place, and encode_fused against the
+    plain encoder stages (1e-4, the faithful tier's per-op bound)."""
+    from vadc_tpu_torch.kernels import lstm_decoder as KD
+    from vadc_tpu_torch.kernels import silero_v31_fused2d as K2
+
+    feats, enc, h, c = _lstm_decoder_inputs(params, device, batch, chunks, samples, seed=20)
+    enc_ref = K2.encode_fused_reference(params, feats)
+    assert enc.shape == (batch * chunks, K2.out_frames(samples // 64 + 1), 64)
+    assert _max_abs(enc, enc_ref) <= 1e-4
+    x = enc.reshape(batch, chunks, -1, 64)
+    args = (params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"])
+    before = KD.lstm_decoder_fused.launches
+    probs, hn, cn = KD.lstm_decoder_fused(x, h, c, *args)
+    p_ref, h_ref, c_ref = KD.lstm_decoder_fused_reference(x, h, c, *args)
+    torch.cuda.synchronize()
+    assert KD.lstm_decoder_fused.launches == before + 1
+    assert probs.shape == (batch, chunks)
+    assert _max_abs(probs, p_ref) <= 1e-5
+    assert _max_abs(hn, h_ref) <= 5e-5
+    assert _max_abs(cn, c_ref) <= 5e-5 * max(1.0, float(c_ref.abs().max()))
+    hk, ck = h.clone(), c.clone()
+    for k in range(chunks):
+        p_k, h_out, c_out = KD.lstm_decoder_fused(x[:, k].contiguous(), hk, ck, *args, hn=hk, cn=ck)
+        assert h_out is hk and c_out is ck and p_k.shape == (batch,)
+        assert torch.equal(p_k, probs[:, k])
+    torch.cuda.synchronize()
+    assert torch.equal(hk, hn) and torch.equal(ck, cn)
+
+
+@pytest.mark.parametrize("batch,samples", [(64, 1536), (37, 512), (1, 768)])
+def test_encode_then_lstm_decoder_is_the_fused_kernel_bit_for_bit(params, device, batch, samples):
+    from vadc_tpu_torch.kernels import lstm_decoder as KD
+    from vadc_tpu_torch.kernels import silero_v31_fused2d as K2
+
+    feats, enc, h, c = _lstm_decoder_inputs(params, device, batch, 1, samples, seed=30)
+    want = K2.forward_fused2d(params, feats, h, c)
+    got = KD.lstm_decoder_fused(enc, h, c, params["lstm_w"], params["lstm_b"], params["dec_w"],
+                                params["dec_b"])
+    torch.cuda.synchronize()
+    assert got[0].shape == (batch,)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_lstm_decoder_refuses_what_it_does_not_take_on_the_card(params, device):
+    from vadc_tpu_torch.kernels import lstm_decoder as KD
+
+    args = (params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"])
+    h = torch.zeros(2, 3, 64, device=device)
+    with pytest.raises(ValueError, match="must be"):
+        KD.lstm_decoder_fused(torch.zeros(3, 7, 32, device=device), h, h.clone(), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        KD.lstm_decoder_fused(torch.zeros(7, 3, 64, device=device).transpose(0, 1), h, h.clone(),
+                              *args)
+    with pytest.raises(TypeError, match="float32"):
+        KD.lstm_decoder_fused(torch.zeros(3, 7, 64, device=device, dtype=torch.float16), h,
+                              h.clone(), *args)
+    with pytest.raises(ValueError, match="on cpu"):
+        KD.lstm_decoder_fused(torch.zeros(3, 7, 64, device=device), h.cpu(), h.clone(), *args)
+
+
+def test_batch_cli_on_the_card_equals_its_cpu_self(tmp_path, device, capsys):
+    from vadc_tpu_torch.cli import batch
+
+    paths = []
+    for i, n_chunks in enumerate((70, 33, 5)):
+        pcm = np.clip(speech(n_chunks, seed=40 + i).ravel()[: n_chunks * 1536 - 100 * i] * 32768,
+                      -32768, 32767).astype("<i2")
+        path = tmp_path / f"f{i}.s16le"
+        pcm.tofile(path)
+        paths.append(str(path))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        assert batch.main([*paths, "--device", dev, "--slab_chunks", "32",
+                           "--cut_dir", str(tmp_path / dev)]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and outs[0]
+    for name in ("f0.s16le", "f1.s16le", "f2.s16le"):
+        assert (tmp_path / "cuda" / name).read_bytes() == (tmp_path / "cpu" / name).read_bytes()
 
 
 @pytest.mark.parametrize("batch,chunk", [(64, 1536), (37, 1536), (1, 1536), (16, 512),

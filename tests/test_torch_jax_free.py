@@ -1,10 +1,12 @@
-"""vadc_tpu_torch runs where JAX is not installed (the machine with the
-card has none): in a fresh interpreter where `import jax` fails, every
-module of the package imports, the CPU path runs, the CLI answers and the
-server serves a client.
+"""vadc_tpu_torch runs where neither JAX nor the JAX package can be
+imported (the machine with the card has no JAX, and the port imports nothing
+of vadc_tpu, not even its numpy-only modules: it keeps its own copies): in a
+fresh interpreter where `import jax` and `import vadc_tpu` both fail, every
+module of the package imports, the CPU path runs, the CLI and the batch CLI
+answer and the server serves a client.
 chip_smoke.py and chip_profile.py, which drive the port on the card,
-import no JAX and nothing of vadc_tpu themselves, and without a card they
-exit non-zero with no result line."""
+import neither, and without a card they exit non-zero with no result
+line."""
 
 import importlib.util
 import os
@@ -22,23 +24,28 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "vadc_tpu_torch"
 
-_BLOCK_JAX = "import sys; sys.modules['jax'] = None\n"
+# `import jax`, `import vadc_tpu` and any `from vadc_tpu.x import y` raise
+# ImportError in the interpreter this prefixes
+_BLOCK_JAX = "import sys; sys.modules['jax'] = None; sys.modules['vadc_tpu'] = None\n"
 
 _DRIVE = _BLOCK_JAX + """
-import importlib, io, contextlib
-modules = [
-    "vadc_tpu_torch", "vadc_tpu_torch.runtime", "vadc_tpu_torch.nn.functional",
-    "vadc_tpu_torch.models.weights", "vadc_tpu_torch.models.silero_v31",
-    "vadc_tpu_torch.engine.runner", "vadc_tpu_torch.kernels._build",
-    "vadc_tpu_torch.kernels.stft_dotmag", "vadc_tpu_torch.kernels.silero_v31_fused2d",
-    "vadc_tpu_torch.kernels.silero_v31_fused3d", "vadc_tpu_torch.cli.main",
-    "vadc_tpu_torch.kernels.stft_mag", "vadc_tpu_torch.kernels.lstm",
-    "vadc_tpu_torch.models.silero_v4", "vadc_tpu_torch.models.silero_v5",
-    "vadc_tpu_torch.models.synthetic", "vadc_tpu_torch.kernels.silero_v31_fused",
-    "vadc_tpu_torch.server",
-]
+import importlib, importlib.util, io, contextlib, pkgutil, tempfile
+import vadc_tpu_torch
+modules = ["vadc_tpu_torch"] + sorted(
+    m.name for m in pkgutil.walk_packages(vadc_tpu_torch.__path__, "vadc_tpu_torch."))
+assert len(modules) > 30 and "vadc_tpu_torch.cli.batch" in modules, modules
 for name in modules:
     importlib.import_module(name)
+for script in ("chip_smoke.py", "chip_profile.py"):
+    spec = importlib.util.spec_from_file_location(script[:-3], script)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for blocked in ("jax", "vadc_tpu"):
+    try:
+        importlib.import_module(blocked)
+    except ImportError:
+        pass
+    else:
+        raise AssertionError(blocked + " is importable: the block does not hold")
 import numpy as np, torch
 from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS, main
 from vadc_tpu_torch.engine.runner import StreamRunner
@@ -66,7 +73,15 @@ for family, archive, chunk in (("v5", random_v5_archive(0), 512),
 sys.stdin = io.TextIOWrapper(io.BytesIO(b"\\0\\0" * 1536 * 3))
 with contextlib.redirect_stderr(io.StringIO()):
     assert main(["--device", "cpu", "--raw_probabilities"]) == 0
-loaded = sorted(k for k, v in sys.modules.items() if v is not None and k.split(".")[0] == "jax")
+from vadc_tpu_torch.cli import batch
+with tempfile.TemporaryDirectory() as tmp:
+    pcm = tmp + "/silence.s16le"
+    open(pcm, "wb").write(b"\\0\\0" * 1536 * 3)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        assert batch.main([pcm, "--device", "cpu"]) == 0
+    assert out.getvalue() == ""
+loaded = sorted(k for k, v in sys.modules.items()
+                if v is not None and k.split(".")[0] in ("jax", "jaxlib", "vadc_tpu"))
 assert not loaded, loaded
 """
 
@@ -78,6 +93,9 @@ def _python(code: str, cwd: Path = ROOT) -> subprocess.CompletedProcess:
 
 
 def test_package_imports_and_runs_without_jax():
+    """Also without vadc_tpu: every module of the port (found by walking the
+    package), chip_smoke.py and chip_profile.py import; the runners, the CLI
+    and the batch CLI run on the CPU."""
     proc = _python(_DRIVE)
     assert proc.returncode == 0, proc.stderr
     probs = np.array(proc.stdout.split(), float)
@@ -85,16 +103,15 @@ def test_package_imports_and_runs_without_jax():
 
 
 def test_no_source_of_the_port_names_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    """No file of the port, nor the card's two scripts, imports jax or
+    anything of vadc_tpu, at module level or inside a function."""
+    pattern = re.compile(r"^\s*(import jax|from jax|import vadc_tpu|from vadc_tpu)\b", re.M)
     sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
-    assert len(sources) > 10
+    assert len(sources) > 30
     for path in sources:
         assert not pattern.search(path.read_text()), path
-    # the card's scripts reach vadc_tpu only through the port's sanctioned
-    # JAX-free imports (vadc_tpu.io, vadc_tpu.cli.segmenter/stats)
-    vadc_tpu = re.compile(r"^\s*(import vadc_tpu|from vadc_tpu)\b", re.M)
-    for name in ("chip_smoke.py", "chip_profile.py"):
-        assert not vadc_tpu.search((ROOT / name).read_text()), name
+    assert pattern.search("    from vadc_tpu.io import wav") and pattern.search("import vadc_tpu")
+    assert not pattern.search("from vadc_tpu_torch.io import wav\nimport vadc_tpu_torch")
 
 
 def test_chip_smoke_without_a_card_exits_nonzero_without_a_result():

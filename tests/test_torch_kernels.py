@@ -251,11 +251,12 @@ def test_cpu_runs_build_and_launch_nothing(params):
 
 def test_kernel_sources_and_build_flags():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["errors.cu", "lstm.cu", "silero_v31_fused.cu", "silero_v31_fused_audio.cu",
-                     "stft_dotmag.cu", "stft_mag.cu"]
+    assert names == ["errors.cu", "lstm.cu", "lstm_decoder.cu", "silero_v31_fused.cu",
+                     "silero_v31_fused_audio.cu", "stft_dotmag.cu", "stft_mag.cu"]
     # the headers the kernels share are part of the library's hash: the
     # STFT tile (dot_magnitude, stft_magnitude, forward_fused) and the v3.1
-    # model body (forward_fused2d, forward_fused)
+    # model body (forward_fused2d, encode_fused, forward_fused,
+    # lstm_decoder_fused)
     assert [p.name for p in _build.headers()] == ["silero_v31_body.cuh", "stft_tile.cuh"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags

@@ -176,6 +176,12 @@ def test_stream_runner_scan_matches_jax(params):
 
 
 def test_scan_equals_steps(params):
+    """The v3.1 scan is the slab route (the front-end and the encoder over
+    all B*T chunks at once, then the LSTM through each stream's chunks); a
+    step is `forward_fused`. The two share every op but the adaptive
+    normalization's order of sums (the step collapses the 7-tap mean), so
+    they agree to rounding: probabilities 1e-5, h 1e-4, c 1e-4 of its
+    largest value. Measured: 1.8e-9, 7.2e-6, 1.4e-5."""
     _, tp = params
     chunks = _chunks("noise", 4, STEPS, seed=8)
     tr = TR.StreamRunner("v3", tp, device="cpu")
@@ -183,8 +189,10 @@ def test_scan_equals_steps(params):
     state = tr.init_state(4)
     for t in range(STEPS):
         p_t, state = tr.step(chunks[:, t], state)
-        assert torch.equal(p_t, p_scan[:, t])
-    assert torch.equal(state.h, s_scan.h) and torch.equal(state.c, s_scan.c)
+        assert_close(p_t, p_scan[:, t], 1e-5, f"step {t} probs")
+    assert_close(state.h, s_scan.h, 1e-4, "h")
+    scale = max(1.0, float(s_scan.c.abs().max()))
+    assert_close(state.c / scale, s_scan.c / scale, 1e-4, "c (relative)")
 
 
 def test_minibatch_runner_matches_jax_with_padded_final_batch(params):

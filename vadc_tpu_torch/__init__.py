@@ -6,20 +6,25 @@ CUDA kernels for an NVIDIA Hopper card (sm_90a). `vadc_tpu` stays the
 reference: every module here has the counterpart of the same name there, and
 the tests hold the two to each other on the same weights and inputs.
 
-This package imports `torch` and never `jax`. From `vadc_tpu` it reuses only
-the JAX-free modules: `vadc_tpu.io.*`, `vadc_tpu.cli.segmenter`,
-`vadc_tpu.cli.stats`, the numpy ONNX readers in `vadc_tpu.export`, and
-`vadc_tpu.native` (the stream pool and segmentation FSM the server drives).
+This package imports `torch`, never `jax`, and nothing of `vadc_tpu`: of that
+package's numpy-only modules it keeps its own copies at the same relative
+paths (`io/*`, `cli/segmenter.py`, `cli/stats.py`, the ONNX readers in
+`export/`, and `native.py` over the repository's `native/` sources). The
+bundled weight archives under `vadc_tpu/data` are read by path.
 
 Layering (bottom to top):
   runtime   device selection, TF32 off for the faithful tier
+  io/       PCM, wav, resampler, ffmpeg source, .testtensor archives
+  export/   numpy readers of the official v3 .onnx graph
+  native    ctypes over native/libvadc_native.so (stream pool, host FSM)
   nn/       plain PyTorch ops of the channels-last pipelines
   kernels/  CUDA kernels (csrc/*.cu, built with nvcc at first use) and
             their plain PyTorch versions
   models/   weight loading, the Silero v3.1, v4 and v5 forwards (16 kHz,
             and 8 kHz for v4 and v5), synthetic v5 archives
-  engine/   stream runner (independent streams) and minibatch runner
-  cli/      the vadc-compatible command line
+  engine/   stream runner (independent streams, step and slab scan),
+            minibatch runner, vectorized segmentation FSM
+  cli/      the vadc-compatible command line and the offline corpus tool
   server    the multi-client serving daemon (TCP in, segment lines out)
 """
 

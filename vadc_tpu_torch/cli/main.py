@@ -20,7 +20,8 @@ v5_8k) or a plain v3 .onnx graph. The 8 kHz families segment at 8 kHz and
 decode wav input to 8 kHz; raw PCM on stdin is taken to be at the model's
 rate.
 
-Ingest, segmentation and stats are the JAX package's own JAX-free modules.
+Ingest, segmentation and stats are the port's copies of the JAX package's
+numpy-only modules (io/, cli/segmenter.py, cli/stats.py).
 Output discipline: stdout carries only data; everything else goes to stderr.
 """
 
@@ -32,23 +33,21 @@ from pathlib import Path
 
 import numpy as np
 
-import vadc_tpu
-from vadc_tpu.cli.segmenter import (
+from vadc_tpu_torch.cli.segmenter import (
     Segmenter,
     SegmenterConfig,
     format_segment_centiseconds,
     format_segment_seconds,
 )
-from vadc_tpu.cli.stats import Stats
-from vadc_tpu.io.ffmpeg import FFmpegSource
-from vadc_tpu.io.pcm import BYTES_PER_SAMPLE, BSError, BufferedStream, s16le_to_f32
-from vadc_tpu.io.wav import PrependStream, WavFormatError, WavSource, is_riff_wave, sniff_media_head
+from vadc_tpu_torch.cli.stats import Stats
+from vadc_tpu_torch.io.ffmpeg import FFmpegSource
+from vadc_tpu_torch.io.pcm import BYTES_PER_SAMPLE, BSError, BufferedStream, s16le_to_f32
+from vadc_tpu_torch.io.wav import PrependStream, WavFormatError, WavSource, is_riff_wave, sniff_media_head
+from vadc_tpu_torch.models.weights import DEFAULT_WEIGHTS
 from vadc_tpu_torch.runtime import PRECISIONS, NoCudaDeviceError
 
 # Window of chunks processed per refill (reference vadc.c:799: 96 chunks).
 WINDOW_CHUNKS = 96
-
-DEFAULT_WEIGHTS = Path(vadc_tpu.__file__).resolve().parent / "data" / "silero_v31_16k.testtensor"
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -5,7 +5,9 @@ Counterpart of vadc_tpu/engine/runner.py, for the five families: v3
 
   * `StreamRunner.step` — one chunk per stream for a batch of B independent
     streams (the realtime serving hot path); `StreamRunner.scan` — T chunks
-    of each stream in order (a Python loop of steps).
+    of each stream in order: the family's slab scan where it has one (v3.1's
+    `forward_scan`: the encoders of all B*T chunks at once, then one kernel
+    through each stream's chunks), else a Python loop of steps.
   * `MinibatchRunner` — the reference driver's semantics for ONE stream: a
     window of N consecutive chunks through the model with the LSTM state
     threading chunk to chunk (process_chunks, vadc.c:56-103); the CLI's
@@ -143,6 +145,11 @@ class StreamRunner:
         """chunks: [B, T, chunk_samples] -> (probs [B, T], final state),
         T steps in order; the state is updated in place as in `step`."""
         audio = _as_audio(chunks, self.device)
+        if hasattr(self.module, "forward_scan"):
+            probs, _, _ = self.module.forward_scan(
+                self.params, audio, state.h, state.c, hn=state.h, cn=state.c
+            )
+            return probs, state
         probs = torch.empty(audio.shape[:2], dtype=torch.float32, device=self.device)
         for t in range(audio.shape[1]):
             probs[:, t], state = self.step(audio[:, t], state)

@@ -47,6 +47,8 @@ _SIGNATURES = {
     # weights, offsets (host int32[]), n_offsets, x, h, c, probs, hn, cn,
     # batch, seq0, stream
     "vadc_silero_v31_fused": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # weights, offsets (host int32[]), n_offsets, x, y, rows, seq0, stream
+    "vadc_silero_v31_encode": [_P, _P, _I, _P, _P, _I, _I, _P],
     # weights, offsets (host int32[]), n_offsets, norm_w (host float[]),
     # n_norm_w, audio, batch, stride_b, samples, wr, wi, h, c, probs, hn, cn,
     # spect (or null), stream
@@ -57,6 +59,9 @@ _SIGNATURES = {
     "vadc_stft_magnitude": [_P, _I, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
     # x, h0, c0, wt, bias, y, hn, cn, batch, seq, hidden, layers, stream
     "vadc_lstm_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, h0, c0, wt, bias, dec_w, dec_b, probs, hn, cn, batch, chunks,
+    # frames, stream
+    "vadc_lstm_decoder_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,11 @@
-// The Silero v3.1 model after its front-end, as device code shared by two
-// kernels: silero_v31_fused.cu (normalized features in) and
-// silero_v31_fused_audio.cu (raw audio in, the spectrum and the adaptive
-// normalization computed in the same block first). Both run this one code
-// for the encoder, the LSTM and the decoder, so on the same stage-1 input
-// they give the same bits.
+// The Silero v3.1 model after its front-end, as device code shared by three
+// sources: silero_v31_fused.cu (normalized features in; and its encoder-only
+// entry), silero_v31_fused_audio.cu (raw audio in, the spectrum and the
+// adaptive normalization computed in the same block first) and
+// lstm_decoder.cu (the encoder's output in: the LSTM and the decoder alone,
+// over several chunks of a stream in order). All run this one code for the
+// encoder, the LSTM and the decoder, so on the same input they give the
+// same bits.
 //
 // Per stage (widths 129->16->32->32->64, frames 25->13->7->7->7):
 //   residual = proj(x) (identity on stage 3); x = relu(dwconv5(x)) in place;
@@ -351,32 +353,56 @@ __device__ void load_state(const Block& m, const float* h0, const float* c0, int
   for (int i = tid; i < NB * HIDDEN; i += blockDim.x) m.dec[i] = 0.f;
 }
 
-// Everything after the stage-1 input: the four encoder stages over A, the
-// 2-layer LSTM over the last stage's frames, the decoder; stores probs [B]
-// and hn, cn [2, B, 64] of the block's real streams. Expects A, hs, cs and
-// dec loaded and a barrier passed.
-__device__ void encode_lstm_decode(const float* __restrict__ W, const Offsets& o, const Block& m,
-                                   int seq0, int b0, int batch, float* probs, float* hn,
-                                   float* cn) {
+// The hidden and cell state hs, cs of the block's real streams to hn, cn
+// [2, batch, 64]. No barrier.
+__device__ void store_state(const Block& m, int b0, int batch, float* hn, float* cn) {
+  for (int i = threadIdx.x; i < 2 * NB * HIDDEN; i += blockDim.x) {
+    const int layer = i / (NB * HIDDEN);
+    const int s = (i / HIDDEN) % NB;
+    const int u = i % HIDDEN;
+    if (b0 + s >= batch) continue;
+    const long long g = (static_cast<long long>(layer) * batch + b0 + s) * HIDDEN + u;
+    hn[g] = m.hs[i];
+    cn[g] = m.cs[i];
+  }
+}
+
+// The four encoder stages over region A (the stage-1 input, a barrier
+// passed). Returns the frame count S of the last stage's output, which A
+// then holds as [NB][S][pitch(64)].
+__device__ int encode(const float* __restrict__ W, const Offsets& o, const Block& m, int seq0) {
+  int S = seq0;
+  for (int st = 0; st < N_STAGES; ++st) {
+    encoder_stage(st, W, o.v + st * STAGE_SLOTS, m.A, m.sa, m.H, m.sh, S);
+    S = (S + stride_of(st) - 1) / stride_of(st);
+  }
+  return S;
+}
+
+// The encoder's output rows in region A, as the LSTM's input.
+struct ActRows {
+  Act a;
+  __device__ const float* operator()(int s, int t) const { return a.at(s, t); }
+};
+
+// The 2-layer LSTM over S frames of NB streams with the decoder's running
+// sum: in(s, t) is frame t of stream s (64 floats), wt[l] the layer's
+// transposed weight [2H][4H], bias[l] its [4H]. Updates hs, cs in place and
+// adds relu(h_top) of every frame to dec. Expects hs, cs, dec loaded and a
+// barrier passed; ends on a barrier. This one function is the LSTM of every
+// kernel that includes this header (the fused ones and lstm_decoder.cu), so
+// on the same inputs they give the same bits.
+template <class In>
+__device__ void lstm_decoder_steps(const float* const* wt_l, const float* const* bias_l, In in,
+                                   int S, const Block& m) {
   const int tid = threadIdx.x;
-  float* A = m.A;
   float* hs = m.hs;
   float* cs = m.cs;
   float* gates = m.gates;
   float* dec = m.dec;
-  const int sa = m.sa;
-
-  int S = seq0;
-  for (int st = 0; st < N_STAGES; ++st) {
-    encoder_stage(st, W, o.v + st * STAGE_SLOTS, A, sa, m.H, m.sh, S);
-    S = (S + stride_of(st) - 1) / stride_of(st);
-  }
-  // A now holds the last stage's output [NB][S][pitch(64)]
-
-  const Act feats{A, sa, pitch(HIDDEN)};
   for (int t = 0; t < S; ++t) {
     for (int layer = 0; layer < 2; ++layer) {
-      const float* wt = W + o.v[LSTM_WT0 + layer];  // [2H][4H]
+      const float* wt = wt_l[layer];  // [2H][4H]
       float* h_l = hs + layer * NB * HIDDEN;
       float* c_l = cs + layer * NB * HIDDEN;
       {
@@ -384,20 +410,24 @@ __device__ void encode_lstm_decode(const float* __restrict__ W, const Offsets& o
         float acc[NB];
 #pragma unroll
         for (int s = 0; s < NB; ++s) acc[s] = 0.f;
+        // unroll 8: eight weight loads from L2 in flight instead of one; each
+        // sum keeps its order of additions, so the bits do not change
+#pragma unroll 8
         for (int k = 0; k < HIDDEN; ++k) {
           const float w = __ldg(wt + k * GATES + j);
 #pragma unroll
           for (int s = 0; s < NB; ++s) {
-            const float in = layer == 0 ? feats.at(s, t)[k] : hs[s * HIDDEN + k];
-            acc[s] = fmaf(in, w, acc[s]);
+            const float x = layer == 0 ? in(s, t)[k] : hs[s * HIDDEN + k];
+            acc[s] = fmaf(x, w, acc[s]);
           }
         }
+#pragma unroll 8
         for (int k = 0; k < HIDDEN; ++k) {
           const float w = __ldg(wt + (HIDDEN + k) * GATES + j);
 #pragma unroll
           for (int s = 0; s < NB; ++s) acc[s] = fmaf(h_l[s * HIDDEN + k], w, acc[s]);
         }
-        const float bias = __ldg(W + o.v[LSTM_B0 + layer] + j);
+        const float bias = __ldg(bias_l[layer] + j);
 #pragma unroll
         for (int s = 0; s < NB; ++s) gates[s * GATES + j] = acc[s] + bias;
       }
@@ -419,25 +449,36 @@ __device__ void encode_lstm_decode(const float* __restrict__ W, const Offsets& o
       __syncthreads();
     }
   }
+}
 
-  // decoder: channel 1 of dec_w [2, 64] on the frame mean of relu(h_top)
-  const float* dec_w = W + o.v[DEC_W] + HIDDEN;
-  const float dec_b = __ldg(W + o.v[DEC_B] + 1);
-  for (int s = tid; s < NB; s += blockDim.x) {
+// The v3 decoder on one stream's running sum dec_s [64] over S frames:
+// sigmoid(mean_t relu(h_top) . dec_w1 + dec_b1), channel 1 of dec_w [2, 64].
+__device__ float decode_prob(const float* dec_s, int S, const float* __restrict__ dec_w1,
+                             float dec_b1) {
+  float acc = 0.f;
+  for (int u = 0; u < HIDDEN; ++u) acc = fmaf(dec_s[u] / S, __ldg(dec_w1 + u), acc);
+  return sigmoidf(acc + dec_b1);
+}
+
+// Everything after the stage-1 input: the four encoder stages over A, the
+// 2-layer LSTM over the last stage's frames, the decoder; stores probs [B]
+// and hn, cn [2, B, 64] of the block's real streams. Expects A, hs, cs and
+// dec loaded and a barrier passed.
+__device__ void encode_lstm_decode(const float* __restrict__ W, const Offsets& o, const Block& m,
+                                   int seq0, int b0, int batch, float* probs, float* hn,
+                                   float* cn) {
+  const int S = encode(W, o, m, seq0);
+  const float* const wt[2] = {W + o.v[LSTM_WT0], W + o.v[LSTM_WT1]};
+  const float* const bias[2] = {W + o.v[LSTM_B0], W + o.v[LSTM_B1]};
+  lstm_decoder_steps(wt, bias, ActRows{Act{m.A, m.sa, pitch(HIDDEN)}}, S, m);
+
+  const float* dec_w1 = W + o.v[DEC_W] + HIDDEN;
+  const float dec_b1 = __ldg(W + o.v[DEC_B] + 1);
+  for (int s = threadIdx.x; s < NB; s += blockDim.x) {
     if (b0 + s >= batch) continue;
-    float acc = 0.f;
-    for (int u = 0; u < HIDDEN; ++u) acc = fmaf(dec[s * HIDDEN + u] / S, __ldg(dec_w + u), acc);
-    probs[b0 + s] = sigmoidf(acc + dec_b);
+    probs[b0 + s] = decode_prob(m.dec + s * HIDDEN, S, dec_w1, dec_b1);
   }
-  for (int i = tid; i < 2 * NB * HIDDEN; i += blockDim.x) {
-    const int layer = i / (NB * HIDDEN);
-    const int s = (i / HIDDEN) % NB;
-    const int u = i % HIDDEN;
-    if (b0 + s >= batch) continue;
-    const long long g = (static_cast<long long>(layer) * batch + b0 + s) * HIDDEN + u;
-    hn[g] = hs[i];
-    cn[g] = cs[i];
-  }
+  store_state(m, b0, batch, hn, cn);
 }
 
 }  // namespace

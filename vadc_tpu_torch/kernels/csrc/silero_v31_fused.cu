@@ -28,6 +28,14 @@
 // keeps NB sums in registers, so a layer-step reads its 128 KB of gate
 // weights once per block. The batch does not have to divide by NB: a ragged
 // last block computes on zero rows and stores only its real streams.
+//
+// A second entry, vadc_silero_v31_encode, runs the four encoder stages alone
+// and stores the last stage's output [R, T, 64] (T = 3..7 frames). It
+// replaces no Pallas kernel (the JAX package leaves its encoder to XLA); it
+// feeds lstm_decoder.cu on the slab route, where the encoders of all the
+// chunks of a slab run at once and only the LSTM walks them in order. It
+// stages and computes exactly as the full kernel does, so its rows equal
+// what the full kernel hands its own LSTM.
 
 #include <cuda_runtime.h>
 
@@ -37,6 +45,19 @@
 
 namespace {
 
+// stage-1 input of the block's streams into region A: rows of 129 floats,
+// pitch(129) = 129, so a stream's features are one contiguous run; zeros
+// past the batch. No barrier.
+__device__ void load_features(const Block& m, const float* __restrict__ x, int b0, int batch,
+                              int seq0) {
+  const int n_in = seq0 * N_FEAT;
+  for (int i = threadIdx.x; i < NB * n_in; i += blockDim.x) {
+    const int s = i / n_in;
+    const int r = i - s * n_in;
+    m.A[s * m.sa + r] = b0 + s < batch ? x[static_cast<long long>(b0 + s) * n_in + r] : 0.f;
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 silero_v31_fused_kernel(const float* __restrict__ W, Offsets o,
                         const float* __restrict__ x, const float* h0, const float* c0,
@@ -45,19 +66,41 @@ silero_v31_fused_kernel(const float* __restrict__ W, Offsets o,
   extern __shared__ float smem[];
   const Block m = carve(smem, sa, sh);
   const int b0 = blockIdx.x * NB;
-  const int tid = threadIdx.x;
-
-  // stage-1 input: rows of 129 floats, pitch(129) = 129, so a stream's
-  // features are one contiguous run
-  const int n_in = seq0 * N_FEAT;
-  for (int i = tid; i < NB * n_in; i += blockDim.x) {
-    const int s = i / n_in;
-    const int r = i - s * n_in;
-    m.A[s * sa + r] = b0 + s < batch ? x[static_cast<long long>(b0 + s) * n_in + r] : 0.f;
-  }
+  load_features(m, x, b0, batch, seq0);
   load_state(m, h0, c0, b0, batch);
   __syncthreads();
   encode_lstm_decode(W, o, m, seq0, b0, batch, probs, hn, cn);
+}
+
+__global__ void __launch_bounds__(THREADS)
+silero_v31_encode_kernel(const float* __restrict__ W, Offsets o, const float* __restrict__ x,
+                         float* __restrict__ y, int rows, int seq0, int sa, int sh) {
+  extern __shared__ float smem[];
+  const Block m = carve(smem, sa, sh);
+  const int b0 = blockIdx.x * NB;
+  load_features(m, x, b0, rows, seq0);
+  __syncthreads();
+  const int S = encode(W, o, m, seq0);
+  // A holds [NB][S][pitch(64)]; y is [rows, S, 64]
+  for (int i = threadIdx.x; i < NB * S * HIDDEN; i += blockDim.x) {
+    const int u = i % HIDDEN;
+    const int r = i / HIDDEN;
+    const int s = r / S;
+    if (b0 + s >= rows) continue;
+    y[(static_cast<long long>(b0 + s) * S + (r - s * S)) * HIDDEN + u] =
+        m.A[s * sa + (r - s * S) * pitch(HIDDEN) + u];
+  }
+}
+
+// The dynamic shared memory of a block at seq0 frames, raised as the
+// kernel's limit; *err says whether the card took it.
+template <class Kernel>
+size_t prepare(Kernel kernel, int seq0, int* sa, int* sh, cudaError_t* err) {
+  plan(seq0, sa, sh);
+  const size_t bytes = static_cast<size_t>(block_floats(*sa, *sh)) * sizeof(float);
+  *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+  return bytes;
 }
 
 }  // namespace
@@ -76,14 +119,32 @@ extern "C" int vadc_silero_v31_fused(const float* weights, const int* offsets,
   Offsets o;
   std::memcpy(o.v, offsets, sizeof(o.v));
   int sa = 0, sh = 0;
-  plan(seq0, &sa, &sh);
-  const size_t bytes = static_cast<size_t>(block_floats(sa, sh)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(silero_v31_fused_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+  cudaError_t err;
+  const size_t bytes = prepare(silero_v31_fused_kernel, seq0, &sa, &sh, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (batch + NB - 1) / NB;
   silero_v31_fused_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
       weights, o, x, h, c, probs, hn, cn, batch, seq0, sa, sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The encoder alone: x [rows, seq0, 129] -> y [rows, T, 64], T the frame
+// count after the strides 2, 2, 1, 1 (3..7). weights and offsets as above.
+// Returns cudaGetLastError() after the launch.
+extern "C" int vadc_silero_v31_encode(const float* weights, const int* offsets, int n_offsets,
+                                      const float* x, float* y, int rows, int seq0,
+                                      void* stream) {
+  if (n_offsets != N_SLOTS || rows <= 0 || seq0 < MIN_SEQ0 || seq0 > MAX_SEQ0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Offsets o;
+  std::memcpy(o.v, offsets, sizeof(o.v));
+  int sa = 0, sh = 0;
+  cudaError_t err;
+  const size_t bytes = prepare(silero_v31_encode_kernel, seq0, &sa, &sh, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (rows + NB - 1) / NB;
+  silero_v31_encode_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+      weights, o, x, y, rows, seq0, sa, sh);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,13 @@ Unlike the JAX entry point, which runs the STFT and the adaptive
 normalization itself, this one takes the normalized features: in the port
 the front-end is `models/silero_v31.features` (the dot_magnitude kernel and
 torch ops).
+
+`encode_fused` is the same source's second entry: the four encoder stages
+alone, storing the last stage's output. It is no port of a Pallas kernel
+(the JAX package leaves `encode_nlc` to XLA); the slab scan and the CLI's
+window run it over all their chunks at once and hand its rows to
+`kernels.lstm_decoder.lstm_decoder_fused`, so their numbers are the fused
+kernels' own.
 """
 
 from __future__ import annotations
@@ -123,9 +130,7 @@ def forward_fused2d_reference(
     """Plain version: the four encoder stages, the LSTM and the v3 decoder
     of nn/functional. feats [B, S0, 129]; h, c [2, B, 64] -> (probs [B],
     hn, cn)."""
-    x = feats
-    for p, stride in zip(params["layers"], V3_STRIDES):
-        x = F.transformer_layer_nlc(x, p, stride=stride)
+    x = encode_fused_reference(params, feats)
     out, hn, cn = F.lstm(x, h, c, params["lstm_w"], params["lstm_b"])
     return F.decoder_v3_nlc(out, params["dec_w"], params["dec_b"]), hn, cn
 
@@ -177,25 +182,78 @@ def forward_fused2d(
 forward_fused2d.launches = 0
 
 
-def _check(packed, feats, h, c, hn, cn) -> None:
+def out_frames(seq0: int) -> int:
+    """Frames after the four stages' strides (9..25 -> 3..7)."""
+    for stride in V3_STRIDES:
+        seq0 = -(-seq0 // stride)
+    return seq0
+
+
+def encode_fused_reference(params: dict, feats: torch.Tensor) -> torch.Tensor:
+    """Plain version: the four encoder stages of nn/functional
+    (`silero_v31.encode_nlc` after the normalization). feats [R, S0, 129]
+    -> [R, T, 64]."""
+    x = feats
+    for p, stride in zip(params["layers"], V3_STRIDES):
+        x = F.transformer_layer_nlc(x, p, stride=stride)
+    return x
+
+
+def encode_fused(params: Params, feats: torch.Tensor) -> torch.Tensor:
+    """The four encoder stages over normalized features: feats [R, S0, 129]
+    with S0 in 9..25 -> [R, T, 64], T = 3..7. The rows are independent (R
+    is streams x chunks on the slab route). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    if feats.device.type == "cpu":
+        return encode_fused_reference(params, feats)
+    packed = pack_weights(params)
+    _check_feats("encode_fused", packed, feats)
+    rows, seq0 = feats.shape[0], feats.shape[1]
+    out = torch.empty(rows, out_frames(seq0), HIDDEN, dtype=torch.float32, device=feats.device)
+    lib = _build.library()
+    status = lib.vadc_silero_v31_encode(
+        packed.buffer.data_ptr(), packed._c_offsets, len(packed.offsets),
+        feats.data_ptr(), out.data_ptr(), rows, seq0,
+        torch.cuda.current_stream(feats.device).cuda_stream,
+    )
+    _build.check(status, "encode_fused")
+    encode_fused.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+encode_fused.launches = 0
+
+
+def _check_feats(who: str, packed, feats) -> None:
     if feats.device.type != "cuda":
-        raise ValueError(f"forward_fused2d: unsupported device {feats.device}")
+        raise ValueError(f"{who}: unsupported device {feats.device}")
     if feats.dim() != 3 or feats.shape[2] != N_FEAT:
-        raise ValueError(f"forward_fused2d: feats must be [B, S0, 129], got {tuple(feats.shape)}")
+        raise ValueError(f"{who}: feats must be [B, S0, 129], got {tuple(feats.shape)}")
     batch, seq0 = feats.shape[0], feats.shape[1]
     if not MIN_FRAMES <= seq0 <= MAX_FRAMES or batch < 1:
         raise ValueError(
-            f"forward_fused2d: {seq0} frames (chunk of 512..1536 samples gives "
+            f"{who}: {seq0} frames (chunk of 512..1536 samples gives "
             f"{MIN_FRAMES}..{MAX_FRAMES}) and batch {batch}"
         )
-    state_shape = (2, batch, HIDDEN)
-    for name, t in (("feats", feats), ("h", h), ("c", c), ("hn", hn), ("cn", cn),
-                    ("weights", packed.buffer)):
+    for name, t in (("feats", feats), ("weights", packed.buffer)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{who}: {name} must be float32, got {t.dtype}")
+        if t.device != feats.device:
+            raise ValueError(f"{who}: {name} on {t.device}, feats on {feats.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous")
+
+
+def _check(packed, feats, h, c, hn, cn) -> None:
+    _check_feats("forward_fused2d", packed, feats)
+    state_shape = (2, feats.shape[0], HIDDEN)
+    for name, t in (("h", h), ("c", c), ("hn", hn), ("cn", cn)):
         if t.dtype != torch.float32:
             raise TypeError(f"forward_fused2d: {name} must be float32, got {t.dtype}")
         if t.device != feats.device:
             raise ValueError(f"forward_fused2d: {name} on {t.device}, feats on {feats.device}")
         if not t.is_contiguous():
             raise ValueError(f"forward_fused2d: {name} must be contiguous")
-        if name in ("h", "c", "hn", "cn") and tuple(t.shape) != state_shape:
+        if tuple(t.shape) != state_shape:
             raise ValueError(f"forward_fused2d: {name} {tuple(t.shape)} is not {state_shape}")

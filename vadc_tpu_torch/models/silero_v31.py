@@ -18,10 +18,15 @@ Which path launches which kernel:
     (and so every server tick of a v3.1 model), is ONE kernel from raw
     audio: `kernels.silero_v31_fused.forward_fused` (STFT, adaptive
     normalization, encoder, LSTM, decoder).
-  * `forward_minibatched`, the CLI's path through `MinibatchRunner`, runs
-    `features` (the `kernels.stft_dotmag.dot_magnitude` kernel, then the
-    adaptive normalization in torch ops) over the window's chunks, then
-    `kernels.silero_v31_fused2d.forward_fused2d` once per chunk.
+  * `forward_scan`, the slab scan behind `StreamRunner.scan` (the offline
+    corpus path), takes K chunks of each of B streams: `features` (the
+    `kernels.stft_dotmag.dot_magnitude` kernel, then the adaptive
+    normalization in torch ops) and `kernels.silero_v31_fused2d.encode_fused`
+    over all B*K chunks at once, then ONE launch of
+    `kernels.lstm_decoder.lstm_decoder_fused`, which walks the K chunks of
+    each stream in order. Only the LSTM carries anything from chunk to chunk.
+  * `forward_minibatched`, the CLI's path through `MinibatchRunner`, is
+    `forward_scan` at B = 1 over the window's N chunks.
 
 On a CUDA tensor the wrappers launch the CUDA kernels; on a CPU tensor they
 run their plain versions. `forward_reference` and
@@ -34,8 +39,10 @@ from __future__ import annotations
 
 import torch
 
+from vadc_tpu_torch.kernels.lstm import transposed_weight_of
+from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused
 from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
-from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
+from vadc_tpu_torch.kernels.silero_v31_fused2d import encode_fused
 from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
 from vadc_tpu_torch.kernels.stft_mag import split_basis_of
 from vadc_tpu_torch.models.weights import V3_STRIDES, Params
@@ -47,6 +54,11 @@ NUM_LSTM_LAYERS = 2
 HIDDEN = 64
 STFT_PAD = 128
 STFT_HOP = 64
+# Rows (streams x chunks) of a slab that go through the front-end and the
+# encoder in one pass: a row's features are 12.9 KB at 25 frames and the
+# normalization holds a few such arrays at once, so 16384 rows stay near
+# 1 GB of device memory. A larger slab is cut over rows, never over chunks.
+SCAN_ROWS = 16384
 
 
 def init_state(n_streams: int, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
@@ -96,6 +108,37 @@ def forward(
     return forward_fused(params, audio, h, c, hn=hn, cn=cn)
 
 
+def forward_scan(
+    params: Params,
+    audio: torch.Tensor,
+    h: torch.Tensor,
+    c: torch.Tensor,
+    *,
+    hn: torch.Tensor | None = None,
+    cn: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A slab of K consecutive chunks of each of B independent streams:
+    audio [B, K, S]; h, c [2, B, 64] -> (probs [B, K], hn, cn), equal to K
+    calls of `forward` in order up to the rounding of the normalization.
+
+    The front-end and the encoder are per chunk, so they run over the B*K
+    chunks as one batch; the LSTM and the decoder then walk each stream's K
+    chunks in order in one kernel. `hn`/`cn` may be `h`/`c` to update the
+    state in place."""
+    n_streams, n_chunks, samples = audio.shape
+    flat = audio.reshape(n_streams * n_chunks, samples)
+    pieces = [
+        encode_fused(params, features(params, flat[r0 : r0 + SCAN_ROWS]))
+        for r0 in range(0, flat.shape[0], SCAN_ROWS)
+    ]
+    enc = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+    x = enc.reshape(n_streams, n_chunks, enc.shape[1], HIDDEN)
+    return lstm_decoder_fused(
+        x, h, c, params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"],
+        hn=hn, cn=cn, wt=transposed_weight_of(params),
+    )
+
+
 def forward_minibatched(
     params: Params, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -104,19 +147,13 @@ def forward_minibatched(
 
     The JAX package flattens the N chunks' frames into one LSTM sequence
     (nn.functional.lstm_minibatched). Only the LSTM carries anything from
-    chunk to chunk: the encoder and the decoder are per chunk. So this runs
-    the front-end (STFT + normalization) for all N chunks at once, then the
-    fused encoder/LSTM/decoder once per chunk, in order, at batch 1,
-    threading (h, c) from each chunk to the next. That is exactly the
-    flattened-sequence semantics (forward_minibatched_reference computes it
-    the flattened way)."""
-    feats = features(params, audio)
-    hn, cn = h.clone(), c.clone()
-    probs = torch.empty(audio.shape[0], dtype=torch.float32, device=audio.device)
-    for i in range(audio.shape[0]):
-        p, _, _ = forward_fused2d(params, feats[i : i + 1], hn, cn, hn=hn, cn=cn)
-        probs[i : i + 1] = p
-    return probs, hn, cn
+    chunk to chunk: the encoder and the decoder are per chunk. So this is
+    the slab scan of one stream: the front-end and the encoder for all N
+    chunks at once, then the LSTM and the decoder through the chunks in
+    order in one launch. That is exactly the flattened-sequence semantics
+    (forward_minibatched_reference computes it the flattened way)."""
+    probs, hn, cn = forward_scan(params, audio[None], h, c)
+    return probs[0], hn, cn
 
 
 def forward_reference(

@@ -49,6 +49,6 @@ def random_v5_8k_archive(seed: int = 1) -> dict:
 def save_archive(path, tensors: dict) -> None:
     """Write an archive as a .testtensor file, for the entry points that load
     their weights from a path (the CLI, the server)."""
-    from vadc_tpu.io.testtensor import save_testtensor
+    from vadc_tpu_torch.io.testtensor import save_testtensor
 
     save_testtensor(str(path), tensors)

@@ -21,7 +21,12 @@ from typing import Callable
 import numpy as np
 import torch
 
-from vadc_tpu.io.testtensor import load_testtensor
+from vadc_tpu_torch.io.testtensor import load_testtensor
+
+# The bundled weight archives are data of the repository, kept once under
+# vadc_tpu/data and read by path (nothing of that package is imported).
+DATA_DIR = Path(__file__).resolve().parents[2] / "vadc_tpu" / "data"
+DEFAULT_WEIGHTS = DATA_DIR / "silero_v31_16k.testtensor"
 
 # Encoder stage conv strides for v3 (reference tensor.h:158-161).
 V3_STRIDES = (2, 2, 1, 1)
@@ -238,12 +243,12 @@ def load_params_from_tensors(
 
 def load_params(path: str | Path, device="cpu") -> tuple[str, Params]:
     """Load model weights from a .testtensor archive (any family) or a
-    plain v3 .onnx graph (through the JAX-free numpy extractor), returning
+    plain v3 .onnx graph (through the numpy extractor of export/), returning
     (family, params)."""
     path = Path(path)
     if path.suffix.lower() == ".onnx":
-        from vadc_tpu.export.onnx_extract import classify_model
-        from vadc_tpu.export.silero_v3_from_onnx import extract_silero_v3
+        from vadc_tpu_torch.export.onnx_extract import classify_model
+        from vadc_tpu_torch.export.silero_v3_from_onnx import extract_silero_v3
 
         family = classify_model(path)
         if family != "v3":

@@ -10,12 +10,12 @@ applies the EOF snap, flushes the final segment and reuses the slot.
 
 Architecture:
   * client sockets are drained GIL-free by the native StreamPool
-    (vadc_tpu.native, unchanged) into per-stream chunk rings; wav clients
+    (native.py over native/stream_pool.cpp) into per-stream chunk rings; wav clients
     go through a per-connection decoder thread feeding the pool via a pipe;
   * one engine loop advances ALL slots per tick in one batched step on the
     one device it is given: the s16 batch goes from a pinned host buffer to
     the device once per gather and is dequantized there (x / 32768, a power
-    of two, so bit-identical to vadc_tpu/io/pcm.py); reset slots are zeroed,
+    of two, so bit-identical to io/pcm.py); reset slots are zeroed,
     the step writes the new state into a second set of state buffers, and a
     masked merge keeps every idle slot's state (and v5 context) bit for bit;
     one device-to-host copy of the probabilities ends the tick. When the
@@ -112,8 +112,8 @@ class VadServer:
         sequence_count: int = 1536,
         device="cuda",
     ):
-        from vadc_tpu import native
-        from vadc_tpu.cli.segmenter import SegmenterConfig
+        from vadc_tpu_torch import native
+        from vadc_tpu_torch.cli.segmenter import SegmenterConfig
         from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
         from vadc_tpu_torch.engine.runner import StreamRunner
         from vadc_tpu_torch.models.weights import clamp_sequence_count, load_params
@@ -292,7 +292,7 @@ class VadServer:
         native pool; a RIFF/WAVE header routes through the native decoder
         (any rate/bits/channels -> model-rate mono s16le) into a pipe the
         pool drains."""
-        from vadc_tpu.io.wav import WavFormatError, WavSource, is_riff_wave
+        from vadc_tpu_torch.io.wav import WavFormatError, WavSource, is_riff_wave
 
         head = b""
         deadline = time.monotonic() + 2.0
