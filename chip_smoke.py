@@ -21,13 +21,19 @@ Phases, each of which raises on failure (exit code 1):
      - stft_magnitude at every v4/v5 geometry (v4 16 kHz B=2048/1/37 x
        1536, v4 8 kHz 768 and 256, v5 576, v5 8 kHz 288), and bit for bit
        against dot_magnitude on the reflect-padded unfold;
-     - lstm_fused at the v4 shape (L=2, H=64: B=2048 x T=3, B=1 x T=288)
-       and the v5 shape (L=1, H=128: B=2048 x T=1, B=1 x T=96) from a
-       carried state;
+     - lstm_fused at the v4 shape (L=2, H=64: B=2048 x T=3, B=1 x T=288,
+       a ragged B=333 x T=12) and the v5 shape (L=1, H=128: B=2048 x T=1,
+       B=1 x T=96, B=333 x T=4) from a carried state: the wrapper's call
+       against the plain version, then both variants of the kernel
+       (streaming weights, resident weights; the latter also in every
+       alternative of its kernel and in several passes) launched explicitly and held
+       bit for bit to it; at B=1, the one call over the window against one
+       call per chunk's frames with the state in place, bit for bit;
      - lstm_decoder_fused (the LSTM with the v3 decoder folded in, over K
        chunks of each stream in order) on encode_fused's output at B=2048
        x K=1 x T=7, B=37 x K=5 x T=3..7 (a ragged block, every chunk
-       size) and B=1 x K=96 x T=7: against its plain version, in place,
+       size), B=1 x K=96 x T=7 and B=333 x K=3 x T=7: against its plain
+       version, in place, both variants launched explicitly bit for bit,
        the K-chunk call against K single calls bit for bit, and
        lstm_decoder_fused(encode_fused(feats)) against forward_fused2d
        bit for bit; encode_fused against the plain encoder stages;
@@ -62,8 +68,10 @@ Phases, each of which raises on failure (exit code 1):
      StreamRunner.scan by slab against the loop of steps at 2048 x 8 and
      64 x 64, encode_fused and lstm_decoder_fused alone at those shapes,
      the CLI's window of 96 chunks against 96 launches of forward_fused2d,
-     the batch CLI's audio seconds per wall second, and torch.nn.LSTM
-     (cuDNN) on the LSTM kernels' inputs as the library's time.
+     the batch CLI's audio seconds per wall second, torch.nn.LSTM
+     (cuDNN) on the LSTM kernels' inputs as the library's time, and both
+     variants of the two recurrent kernels at B = 1, 64, 2048 over a range
+     of steps (the crossover behind kernels/lstm.py's RESIDENT_MIN_STEPS).
 
 Prints a JSON line of per-kernel results (time, plain version's time, the
 bound from this run's shapes, the library call's time where there is one),
@@ -198,6 +206,20 @@ def max_abs(a, b) -> float:
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def same_bits(out, got) -> bool:
+    import torch
+
+    return all(torch.equal(a, g) for a, g in zip(out, got))
+
+
+def variant_diffs(variants: dict, got, names) -> str:
+    """For each variant that differs from `got`: the largest absolute
+    difference of each output."""
+    return "; ".join(
+        f"{name}: " + ", ".join(f"{n} {max_abs(a, g):.3e}" for n, a, g in zip(names, out, got))
+        for name, out in variants.items() if not same_bits(out, got))
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -499,15 +521,49 @@ def check_stft_magnitude(params, audio, label: str, *, pad_left: int, pad_right:
     return err
 
 
-def check_lstm(params, x, h, c, label: str) -> float:
+def lstm_variants(x, h, c, wt, b) -> dict:
+    """lstm_fused's variants launched explicitly through the wrapper's
+    private launch functions (not counted): name -> (y, hn, cn)."""
+    import torch
+
+    from vadc_tpu_torch.kernels import lstm as KL
+
+    out = {}
+    for name, launch in (("streaming", KL._launch_streaming), ("resident", KL._launch_resident)):
+        y, hn, cn = torch.empty_like(x), torch.empty_like(h), torch.empty_like(c)
+        launch(x, h, c, wt, b, y, hn, cn)
+        out[name] = (y, hn, cn)
+    torch.cuda.synchronize()
+    return out
+
+
+@contextlib.contextmanager
+def small_pre_scratch(nbytes: int):
+    """The resident variant's scratch limited to nbytes, so that a call
+    walks its frames in several passes."""
+    from vadc_tpu_torch.kernels import lstm as KL
+
+    saved, KL.PRE_BYTES_MAX = KL.PRE_BYTES_MAX, nbytes
+    try:
+        yield
+    finally:
+        KL.PRE_BYTES_MAX = saved
+
+
+def check_lstm(params, x, h, c, label: str, chunk_frames: int = 0) -> float:
     """lstm_fused from a carried state (h, c) against its plain version on
-    the card, with the plain version on the CPU beside it as the floor."""
+    the card, with the plain version on the CPU beside it as the floor: the
+    wrapper's call, then each variant launched explicitly, all bit-equal to
+    each other, the resident one also in passes. With chunk_frames, one call
+    over the whole sequence against one call per chunk_frames frames with the
+    state in place, bit for bit."""
     import torch
 
     from vadc_tpu_torch.kernels.lstm import lstm_fused, lstm_fused_reference, transposed_weight_of
 
     w, b = params["lstm_w"], params["lstm_b"]
-    got = lstm_fused(x, h, c, w, b, wt=transposed_weight_of(params))
+    wt = transposed_weight_of(params)
+    got = lstm_fused(x, h, c, w, b, wt=wt)
     want = lstm_fused_reference(x, h, c, w, b)
     torch.cuda.synchronize()
     floor = lstm_fused_reference(x.cpu(), h.cpu(), c.cpu(), w.cpu(), b.cpu())
@@ -520,16 +576,37 @@ def check_lstm(params, x, h, c, label: str) -> float:
         # y and h lie in [-1, 1]; c is an unbounded running sum
         scale = float(want[i].abs().max().item()) if name == "cn" else 1.0
         bounds[name] = TOL_LSTM * max(1.0, scale)
-    log(f"lstm_fused {label}: max abs err "
+    variants = lstm_variants(x, h, c, wt, b)
+    with small_pre_scratch(16 * x.shape[2] * x.shape[0] * max(1, x.shape[1] // 3)):
+        variants["resident, in passes"] = lstm_variants(x, h, c, wt, b)["resident"]
+    same = {name: same_bits(out, got) for name, out in variants.items()}
+    log(f"lstm_fused {label} (the wrapper runs {variant_of(*x.shape[:2])}): max abs err "
         + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.3e}, plain card vs CPU {floors[k]:.3e})"
-                    for k, v in errs.items()))
+                    for k, v in errs.items())
+        + f"; bit-equal to the wrapper's call: {same}")
+    if not all(same.values()):
+        log(f"lstm_fused {label}: differences from the wrapper's call: "
+            + variant_diffs(variants, got, ("y", "hn", "cn")))
     for name in errs:
         require(errs[name] <= bounds[name], f"lstm {label}: {name} {errs[name]:.3e}")
+    for name, ok in same.items():
+        require(ok, f"lstm {label}: the {name} variant differs from the wrapper's call")
     # the state may be updated in place
     h2, c2 = h.clone(), c.clone()
-    lstm_fused(x, h2, c2, w, b, hn=h2, cn=c2, wt=transposed_weight_of(params))
+    lstm_fused(x, h2, c2, w, b, hn=h2, cn=c2, wt=wt)
     torch.cuda.synchronize()
     require(torch.equal(h2, got[1]) and torch.equal(c2, got[2]), f"lstm {label}: in place differs")
+    if chunk_frames:
+        hk, ck, pieces = h.clone(), c.clone(), []
+        for t0 in range(0, x.shape[1], chunk_frames):
+            piece = x[:, t0 : t0 + chunk_frames].contiguous()
+            pieces.append(lstm_fused(piece, hk, ck, w, b, hn=hk, cn=ck, wt=wt)[0])
+        torch.cuda.synchronize()
+        same_chunks = (torch.equal(torch.cat(pieces, dim=1), got[0]) and torch.equal(hk, got[1])
+                       and torch.equal(ck, got[2]))
+        log(f"lstm_fused {label}: {len(pieces)} calls of {chunk_frames} frames, the state in "
+            f"place, bit-equal to the one call: {same_chunks}")
+        require(same_chunks, f"lstm {label}: the one call differs from the calls chunk by chunk")
     return max(errs.values())
 
 
@@ -574,11 +651,18 @@ def phase_kernels_v45(models: dict, device) -> dict:
     x, h, c = lstm_inputs(v4, p4, a4, B_MAIN, device)
     errs["lstm_fused"] = check_lstm(p4, x, h, c, f"v4 B={B_MAIN} x T={x.shape[1]}")
     window = audio(CLI_WINDOW, V4_CHUNK, SEED + 304)
-    check_lstm(p4, *lstm_inputs(v4, p4, window, 1, device), f"v4 B=1 x T={3 * CLI_WINDOW}")
+    check_lstm(p4, *lstm_inputs(v4, p4, window, 1, device), f"v4 B=1 x T={3 * CLI_WINDOW}",
+               chunk_frames=3)
+    # a ragged block of the resident variant at 4 streams a block
+    ragged = audio(333 * 4, V4_CHUNK, SEED + 306)
+    check_lstm(p4, *lstm_inputs(v4, p4, ragged, 333, device), "v4 B=333 x T=12")
     x, h, c = lstm_inputs(v5, p5, a5, B_MAIN, device)
     check_lstm(p5, x, h, c, f"v5 B={B_MAIN} x T={x.shape[1]}")
     window = audio(CLI_WINDOW, v5.CONTEXT_SAMPLES + V5_CHUNK, SEED + 305)
-    check_lstm(p5, *lstm_inputs(v5, p5, window, 1, device), f"v5 B=1 x T={CLI_WINDOW}")
+    check_lstm(p5, *lstm_inputs(v5, p5, window, 1, device), f"v5 B=1 x T={CLI_WINDOW}",
+               chunk_frames=1)
+    ragged = audio(333 * 4, v5.CONTEXT_SAMPLES + V5_CHUNK, SEED + 307)
+    check_lstm(p5, *lstm_inputs(v5, p5, ragged, 333, device), "v5 B=333 x T=4")
     return errs
 
 
@@ -592,6 +676,7 @@ def check_lstm_decoder(params, audio, n_streams: int, label: str) -> float:
     forward_fused2d(feats) bit for bit."""
     import torch
 
+    from vadc_tpu_torch.kernels import lstm_decoder as KD
     from vadc_tpu_torch.kernels.lstm import transposed_weight_of
     from vadc_tpu_torch.kernels.lstm_decoder import (
         lstm_decoder_fused, lstm_decoder_fused_reference,
@@ -641,6 +726,20 @@ def check_lstm_decoder(params, audio, n_streams: int, label: str) -> float:
     h2, c2 = h.clone(), c.clone()
     p2, _, _ = lstm_decoder_fused(x, h2, c2, *args, hn=h2, cn=c2, wt=wt)
     same_in_place = torch.equal(p2, got[0]) and torch.equal(h2, got[1]) and torch.equal(c2, got[2])
+    # each variant launched explicitly (not counted), the resident one also
+    # in passes over the chunks
+    variants = {}
+    for name, launch, limit in (
+            ("streaming", KD._launch_streaming, None),
+            ("resident", KD._launch_resident, None),
+            ("resident, in passes", KD._launch_resident,
+             1024 * n_streams * frames * max(1, n_chunks // 3))):
+        out = (torch.empty_like(got[0]), torch.empty_like(h), torch.empty_like(c))
+        with small_pre_scratch(limit) if limit else contextlib.nullcontext():
+            launch(x, h, c, wt, *args[1:], *out)
+        variants[name] = out
+    torch.cuda.synchronize()
+    same_variants = {name: same_bits(out, got) for name, out in variants.items()}
     # chunk 0 through the fused kernel, which runs the same device code
     fused = forward_fused2d(params, first, h, c)
     split = lstm_decoder_fused(x[:, 0].contiguous(), h, c, *args, wt=wt)
@@ -650,11 +749,18 @@ def check_lstm_decoder(params, audio, n_streams: int, label: str) -> float:
         f"(bound {TOL_ENCODE:g}; largest activation {enc_max:.3f}); max abs err "
         + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.3e}, plain card vs CPU {floors[k]:.3e})"
                     for k, v in errs.items())
-        + f"; K single calls bit-equal: {same_singles}; in place bit-equal: {same_in_place}; "
+        + f"; the wrapper runs {variant_of(n_streams, n_chunks * frames)}; bit-equal to its "
+        f"call: {same_variants}; "
+        f"K single calls bit-equal: {same_singles}; in place bit-equal: {same_in_place}; "
         f"lstm_decoder_fused(encode_fused) bit-equal to forward_fused2d: {same_fused}")
+    if not all(same_variants.values()):
+        log(f"lstm_decoder_fused {label}: differences from the wrapper's call: "
+            + variant_diffs(variants, got, ("probs", "hn", "cn")))
     require(enc_err <= TOL_ENCODE, f"encode_fused {label}: max abs err {enc_err:.3e}")
     for name in errs:
         require(errs[name] <= bounds[name], f"lstm_decoder {label}: {name} {errs[name]:.3e}")
+    for name, ok in same_variants.items():
+        require(ok, f"lstm_decoder {label}: the {name} variant differs from the wrapper's call")
     require(same_singles, f"lstm_decoder {label}: the K-chunk call differs from K single calls")
     require(same_in_place, f"lstm_decoder {label}: in place differs")
     require(same_fused, f"lstm_decoder {label}: differs from forward_fused2d on the same features")
@@ -674,6 +780,8 @@ def phase_kernels_lstm_decoder(params, device) -> dict:
                            f"B=37 x K=5 x {samples}")
     check_lstm_decoder(params, audio(CLI_WINDOW, CHUNK, SEED + 702), 1,
                        f"B=1 x K={CLI_WINDOW} x {CHUNK}")
+    # a ragged block of the resident variant at 4 streams a block
+    check_lstm_decoder(params, audio(333 * 3, CHUNK, SEED + 703), 333, f"B=333 x K=3 x {CHUNK}")
     return {"lstm_decoder_fused": err}
 
 
@@ -1156,6 +1264,13 @@ def phase_timing(params, device) -> dict:
     return t
 
 
+def variant_of(batch: int, steps: int) -> str:
+    """The variant of the recurrent kernels that the wrappers run at a shape."""
+    from vadc_tpu_torch.kernels.lstm import use_resident
+
+    return "resident weights" if use_resident(batch, steps) else "streaming weights"
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     """The least time the card could take: the larger of the operations over
     the fp32 peak and the bytes (each input read once, each output written
@@ -1278,12 +1393,15 @@ def phase_timing_slab(params, device, corpus: dict) -> dict:
         y_ref, _, _ = F.lstm(seq, h, c, args[0], args[1])
         lib_ms = time_cudnn_lstm(f"v3.1 {shape} x T={x.shape[2]}", args[0], args[1], seq, h, c,
                                  y_ref, iters)
+        counted = lstm_decoder_fused.launches
+        lstm_decoder_fused(x, h, c, *args, wt=wt)
+        per_call = lstm_decoder_fused.launches - counted
         log(f"time slab parts {shape}: features (dot_magnitude and the torch front-end) "
             f"{front_ms:.4f} ms; encode_fused {enc_ms:.4f} ms (plain {enc_plain_ms:.4f}); "
-            f"lstm_decoder_fused {tail_ms:.4f} ms (plain {tail_plain_ms:.4f}, torch.nn.LSTM "
-            f"{lib_ms:.4f})")
+            f"lstm_decoder_fused {tail_ms:.4f} ms in {per_call} kernels a call (plain "
+            f"{tail_plain_ms:.4f}, torch.nn.LSTM {lib_ms:.4f})")
         out[(n_streams, n_chunks)] = {
-            "lstm_decoder_fused": (tail_ms, tail_plain_ms, lib_ms, tuple(x.shape)),
+            "lstm_decoder_fused": (tail_ms, tail_plain_ms, lib_ms, tuple(x.shape), per_call),
             "encode_fused": (enc_ms, enc_plain_ms), "slab_ms": slab_ms, "steps_ms": steps_ms,
         }
     # the CLI's window: 96 chunks of one stream
@@ -1343,8 +1461,11 @@ def phase_timing_v45(models: dict, device) -> dict:
         x, h, c = lstm_inputs(module, params, audio, B_MAIN, device)
         lstm = cuda_ms_pair(lambda: lstm_fused(x, h, c, w, b, wt=wt),
                             lambda: lstm_fused_reference(x, h, c, w, b))
-        log(f"time lstm_fused {family} B={B_MAIN} x T={x.shape[1]}: kernel {lstm[0]:.4f} ms, "
-            f"plain {lstm[1]:.4f} ms")
+        counted = lstm_fused.launches
+        lstm_fused(x, h, c, w, b, wt=wt)
+        per_call = lstm_fused.launches - counted
+        log(f"time lstm_fused {family} B={B_MAIN} x T={x.shape[1]}: kernel {lstm[0]:.4f} ms in "
+            f"{per_call} kernels a call, plain {lstm[1]:.4f} ms")
         lstm_lib = time_cudnn_lstm(f"{family} B={B_MAIN} x T={x.shape[1]}", w, b, x, h, c,
                                    lstm_fused_reference(x, h, c, w, b)[0], 50)
         window = torch.from_numpy(speech_chunks(CLI_WINDOW, ctx + chunk, seed=SEED + 401)).to(device)
@@ -1367,9 +1488,67 @@ def phase_timing_v45(models: dict, device) -> dict:
             f"{plain_ms:.4f} ms; realtime streams at the kernel rate: "
             f"{B_MAIN * (chunk / SR) / (step_ms / 1000):.0f}")
         if family == "v4":  # the JSON line's shapes: the v4 16 kHz step's
-            t["stft_magnitude"], t["lstm_fused"] = stft, (*lstm, lstm_lib, tuple(x.shape))
+            t["stft_magnitude"], t["lstm_fused"] = stft, (*lstm, lstm_lib, tuple(x.shape), per_call)
             t["stft_magnitude_frames"] = audio.shape[1] // module.STFT_HOP + 1
     return t
+
+
+def phase_timing_variants(models: dict, params, device) -> None:
+    """The crossover of the two variants of the recurrent kernels: each
+    timed at B = 1, 64, 2048 over a range of steps on seeded random inputs
+    (the times do not depend on the values), lstm_fused at the v4 and v5
+    shapes and lstm_decoder_fused at T=7 frames a chunk, with torch.nn.LSTM
+    beside them. kernels/lstm.py's RESIDENT_MIN_STEPS is read from this."""
+    import torch
+
+    from vadc_tpu_torch.kernels import lstm as KL
+    from vadc_tpu_torch.kernels import lstm_decoder as KD
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1000)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=device, generator=gen)
+
+    def line(label, times, lib_ms, rule):
+        log(f"time variants {label}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+            + f", torch.nn.LSTM {lib_ms:.4f} ms; the wrapper runs: {rule}")
+
+    for family, steps in (("v4", (1, 3, 6, 12, 24, 96, 288)), ("v5", (1, 2, 3, 4, 8, 16, 96))):
+        p = models[family][1]
+        w, b, wt = p["lstm_w"], p["lstm_b"], KL.transposed_weight_of(p)
+        layers, hidden = w.shape[0], w.shape[2] // 2
+        lib = cudnn_lstm(w, b)
+        for batch in (1, 64, B_MAIN):
+            for seq in steps:
+                x, h, c = rand(batch, seq, hidden), rand(layers, batch, hidden, scale=0.3), \
+                    rand(layers, batch, hidden)
+                y, hn, cn = torch.empty_like(x), torch.empty_like(h), torch.empty_like(c)
+                runs = {"streaming": lambda: KL._launch_streaming(x, h, c, wt, b, y, hn, cn),
+                        "resident": lambda: KL._launch_resident(x, h, c, wt, b, y, hn, cn)}
+                times = {k: cuda_ms(fn, iters=10, warmup=2) for k, fn in runs.items()}
+                with torch.no_grad():
+                    lib_ms = cuda_ms(lambda: lib(x, (h, c)), iters=10, warmup=2)
+                line(f"lstm_fused {family} B={batch} x T={seq}", times, lib_ms,
+                     variant_of(batch, seq))
+    w, b, dec_w, dec_b = (params[k] for k in ("lstm_w", "lstm_b", "dec_w", "dec_b"))
+    wt = KL.transposed_weight_of(params)
+    lib = cudnn_lstm(w, b)
+    for batch in (1, 64, B_MAIN):
+        for chunks in (1, 2, 4, 8, 64):
+            if batch * chunks > B_MAIN * 8:
+                continue
+            x, h, c = rand(batch, chunks, 7, 64), rand(2, batch, 64, scale=0.3), rand(2, batch, 64)
+            out = (torch.empty(batch, chunks, device=device), torch.empty_like(h),
+                   torch.empty_like(c))
+            rest = (wt, b, dec_w, dec_b, *out)
+            runs = {"streaming": lambda: KD._launch_streaming(x, h, c, *rest),
+                    "resident": lambda: KD._launch_resident(x, h, c, *rest)}
+            times = {k: cuda_ms(fn, iters=10, warmup=2) for k, fn in runs.items()}
+            seq = x.reshape(batch, chunks * 7, 64)
+            with torch.no_grad():
+                lib_ms = cuda_ms(lambda: lib(seq, (h, c)), iters=10, warmup=2)
+            line(f"lstm_decoder_fused B={batch} x K={chunks} x T=7", times, lib_ms,
+                 variant_of(batch, chunks * 7))
 
 
 def main() -> int:
@@ -1420,6 +1599,7 @@ def main() -> int:
     timing = phase_timing(params, device)
     timing.update(phase_timing_v45(models, device))
     slab = phase_timing_slab(params, device, corpus)
+    phase_timing_variants(models, params, device)
     with tempfile.TemporaryDirectory() as tmp:
         v5_archive = Path(tmp) / "v5_synthetic.testtensor"
         save_archive(v5_archive, random_v5_archive(0))
@@ -1437,8 +1617,9 @@ def main() -> int:
     body_flops = B_MAIN * (v31_encoder_flops(25) + lstm_flops(7, 2, 64))
     fused2d_bound = bound_ms(body_flops, rows * 129 * 4 + state_bytes + B_MAIN * 4 + v31_weights)
     v4_rows = B_MAIN * timing["stft_magnitude_frames"]
-    lstm_ms, lstm_plain, lstm_lib, lstm_shape = timing["lstm_fused"]
-    tail_ms, tail_plain, tail_lib, tail_shape = slab[(SLAB_CHUNKS, SLAB_CHUNKS)]["lstm_decoder_fused"]
+    lstm_ms, lstm_plain, lstm_lib, lstm_shape, lstm_per_call = timing["lstm_fused"]
+    tail_ms, tail_plain, tail_lib, tail_shape, tail_per_call = \
+        slab[(SLAB_CHUNKS, SLAB_CHUNKS)]["lstm_decoder_fused"]
     tail_steps = tail_shape[0] * tail_shape[1] * tail_shape[2]
     fused_src = "vadc_tpu_torch/kernels/csrc/silero_v31_fused.cu"
     # forward_fused2d and forward_fused3d are one CUDA kernel; since the
@@ -1469,7 +1650,7 @@ def main() -> int:
          launches["lstm_fused"], errs["lstm_fused"], lstm_ms, lstm_plain, lstm_lib,
          bound_ms(lstm_shape[0] * lstm_flops(lstm_shape[1], 2, 64),
                   2 * lstm_shape[0] * lstm_shape[1] * 64 * 4 + state_bytes + lstm_weights),
-         f"v4 B={lstm_shape[0]} x T={lstm_shape[1]}", {}),
+         f"v4 B={lstm_shape[0]} x T={lstm_shape[1]}", {"variant": variant_of(*lstm_shape[:2]), "kernels_per_call": lstm_per_call}),
         ("forward_fused", "vadc_tpu_torch/kernels/csrc/silero_v31_fused_audio.cu",
          "vadc_tpu/kernels/silero_v31_fused.py:236", launches["forward_fused"], errs["forward_fused"],
          *timing["forward_fused"], None,
@@ -1482,7 +1663,9 @@ def main() -> int:
          bound_ms(lstm_flops(tail_steps, 2, 64),
                   tail_steps * 64 * 4 + 4 * 2 * tail_shape[0] * 64 * 4
                   + tail_shape[0] * tail_shape[1] * 4 + lstm_weights + (2 * 64 + 2) * 4),
-         f"B={tail_shape[0]} x K={tail_shape[1]} x T={tail_shape[2]}", {}),
+         f"B={tail_shape[0]} x K={tail_shape[1]} x T={tail_shape[2]}",
+         {"variant": variant_of(tail_shape[0], tail_shape[1] * tail_shape[2]),
+          "kernels_per_call": tail_per_call}),
     ]
     kernels = []
     for name, src, replaces, n, err, ms, plain_ms, library_ms, (bound, by), shape, extra in table:

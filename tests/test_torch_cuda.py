@@ -15,7 +15,9 @@ for the same reason; forward_fused, which also takes its own spectrum,
 the whole-model bounds 1e-4 on probabilities and 3e-4 on h and c (c
 relative), and its spectrum bit-equal to dot_magnitude's;
 lstm_decoder_fused the fused kernel's bounds, equal bit for bit to K single
-calls and, on encode_fused's output, to the fused kernel.
+calls and, on encode_fused's output, to the fused kernel. The two variants
+of lstm_fused and lstm_decoder_fused (streaming and resident weights),
+launched explicitly, equal each other and the wrapper's call bit for bit.
 """
 
 from pathlib import Path
@@ -102,8 +104,9 @@ def test_fused_kernel_matches_plain(params, device, batch, chunk):
 def test_state_in_place_and_the_runner_on_the_card(params, device):
     """hn/cn may be h/c; the stream runner on the card matches the plain
     path on the CPU. Its scan is the slab route (one launch each of
-    dot_magnitude, encode_fused and lstm_decoder_fused for the whole slab);
-    its step goes through the whole-step kernel alone."""
+    dot_magnitude and encode_fused for the whole slab, and the two of
+    lstm_decoder_fused's resident variant: its pre-pass and its recurrent
+    kernel); its step goes through the whole-step kernel alone."""
     from vadc_tpu_torch.engine.runner import StreamRunner
     from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused
     from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
@@ -120,7 +123,7 @@ def test_state_in_place_and_the_runner_on_the_card(params, device):
     p_gpu, st = gpu.scan(chunks, state)
     torch.cuda.synchronize()
     assert st is state
-    assert [fn.launches for fn in counted] == [1, 1, 1, 0, 0]
+    assert [fn.launches for fn in counted] == [1, 1, 2, 0, 0]
     p_cpu, st_cpu = cpu.scan(chunks, cpu.init_state(32))
     assert _max_abs(p_gpu.cpu(), p_cpu) <= 1e-4
     assert _max_abs(st.h.cpu(), st_cpu.h) <= 1e-4
@@ -169,7 +172,8 @@ def test_lstm_decoder_kernel_matches_plain(params, device, batch, chunks, sample
     probs, hn, cn = KD.lstm_decoder_fused(x, h, c, *args)
     p_ref, h_ref, c_ref = KD.lstm_decoder_fused_reference(x, h, c, *args)
     torch.cuda.synchronize()
-    assert KD.lstm_decoder_fused.launches == before + 1
+    # three frames and more: the resident variant's pre-pass and recurrent kernel
+    assert KD.lstm_decoder_fused.launches == before + 2
     assert probs.shape == (batch, chunks)
     assert _max_abs(probs, p_ref) <= 1e-5
     assert _max_abs(hn, h_ref) <= 5e-5
@@ -396,7 +400,8 @@ def test_lstm_fused_kernel_matches_plain(family_params, device, family, batch, s
     y, hn, cn = KL.lstm_fused(x, h, c, w, b, wt=KL.transposed_weight_of(params))
     y_ref, h_ref, c_ref = KL.lstm_fused_reference(x, h, c, w, b)
     torch.cuda.synchronize()
-    assert KL.lstm_fused.launches == before + 1
+    # the streaming variant is one kernel, the resident one its pre-pass and another
+    assert KL.lstm_fused.launches == before + (2 if KL.use_resident(batch, steps) else 1)
     assert y.shape == (batch, steps, hidden) and hn.shape == (layers, batch, hidden)
     assert _max_abs(y, y_ref) <= 5e-5
     assert _max_abs(hn, h_ref) <= 5e-5
@@ -409,17 +414,82 @@ def test_lstm_fused_kernel_matches_plain(family_params, device, family, batch, s
     assert torch.equal(h2, hn) and torch.equal(c2, cn)
 
 
+# a ragged block at 4 streams a block (B=333), 1 stream a block, one step
+VARIANT_CASES = [("v4", 333, 5), ("v4", 1, 288), ("v4", 64, 1), ("v5", 333, 4), ("v5", 1, 96)]
+
+
+@pytest.mark.parametrize("family,batch,steps", VARIANT_CASES,
+                         ids=[f"{c[0]}-B{c[1]}-T{c[2]}" for c in VARIANT_CASES])
+def test_lstm_fused_variants_give_the_same_bits(family_params, device, family, batch, steps):
+    """The streaming-weights and the resident-weights variant, launched
+    explicitly at any length, equal each other and the wrapper's call bit for
+    bit; so does the resident one in several passes over a small scratch."""
+    from vadc_tpu_torch.kernels import lstm as KL
+
+    module, params = family_params[family]
+    layers, hidden = module.NUM_LSTM_LAYERS, module.HIDDEN
+    x = torch.from_numpy(noise(batch * steps, chunk=hidden, seed=15)).reshape(batch, steps, hidden)
+    x = (10 * x).to(device)
+    h = (5 * torch.from_numpy(noise(layers * batch, chunk=hidden, seed=16))).to(device)
+    c = (20 * torch.from_numpy(noise(layers * batch, chunk=hidden, seed=17))).to(device)
+    h, c = h.reshape(layers, batch, hidden), c.reshape(layers, batch, hidden)
+    w, b, wt = params["lstm_w"], params["lstm_b"], KL.transposed_weight_of(params)
+    want = KL.lstm_fused(x, h, c, w, b, wt=wt)
+
+    def run(launch, **kw):
+        out = (torch.empty_like(x), torch.empty_like(h), torch.empty_like(c))
+        launch(x, h, c, wt, b, *out, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    outs = {"streaming": run(KL._launch_streaming), "resident": run(KL._launch_resident)}
+    saved, KL.PRE_BYTES_MAX = KL.PRE_BYTES_MAX, 16 * hidden * batch * max(1, steps // 3)
+    try:
+        outs["resident in passes"] = run(KL._launch_resident)
+    finally:
+        KL.PRE_BYTES_MAX = saved
+    for name, out in outs.items():
+        assert all(torch.equal(a, r) for a, r in zip(out, want)), name
+
+
+@pytest.mark.parametrize("batch,chunks,samples", [(333, 3, 1536), (1, 20, 1536), (37, 4, 512)])
+def test_lstm_decoder_variants_give_the_same_bits(params, device, batch, chunks, samples):
+    from vadc_tpu_torch.kernels import lstm as KL
+    from vadc_tpu_torch.kernels import lstm_decoder as KD
+    from vadc_tpu_torch.kernels.silero_v31_fused2d import encode_fused
+    from vadc_tpu_torch.models import silero_v31
+
+    audio = torch.from_numpy(speech(batch * chunks, chunk=samples, seed=18)).to(device)
+    enc = encode_fused(params, silero_v31.features(params, audio))
+    x = enc.reshape(batch, chunks, enc.shape[1], 64)
+    h = (0.5 * torch.from_numpy(noise(2 * batch, chunk=64, seed=19))).to(device)
+    c = (20 * torch.from_numpy(noise(2 * batch, chunk=64, seed=20))).to(device)
+    h, c = h.reshape(2, batch, 64), c.reshape(2, batch, 64)
+    args = (params["lstm_b"], params["dec_w"], params["dec_b"])
+    wt = KL.transposed_weight_of(params)
+    want = KD.lstm_decoder_fused(x, h, c, params["lstm_w"], *args, wt=wt)
+    for launch in (KD._launch_streaming, KD._launch_resident):
+        out = (torch.empty_like(want[0]), torch.empty_like(h), torch.empty_like(c))
+        launch(x, h, c, wt, *args, *out)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, r) for a, r in zip(out, want)), launch.__name__
+
+
 @pytest.mark.parametrize("family", ["v4", "v4_8k", "v5", "v5_8k"])
 def test_v4_v5_runners_on_the_card(family_params, device, family):
     """The stream runner on the card matches the plain path on the CPU and
-    goes through both new kernels once per step; the v5 context is carried
+    goes through both new kernels once per step (lstm_fused's resident
+    variant, which takes the chunks of three frames and more, is two
+    kernels: its pre-pass and the recurrent one); the v5 context is carried
     on the card exactly as on the CPU."""
     from vadc_tpu_torch.engine.runner import StreamRunner
-    from vadc_tpu_torch.kernels.lstm import lstm_fused
+    from vadc_tpu_torch.kernels.lstm import lstm_fused, use_resident
     from vadc_tpu_torch.kernels.stft_mag import stft_magnitude
 
     chunk = {"v4": 1536, "v4_8k": 768, "v5": 512, "v5_8k": 256}[family]
-    _, params = family_params[family]
+    module, params = family_params[family]
+    context = getattr(module, "CONTEXT_SAMPLES", 0)
+    frames = module.encode(params, torch.zeros(1, context + chunk, device=device)).shape[1]
     chunks = speech(32 * 3, chunk=chunk, seed=8).reshape(32, 3, -1)
     gpu = StreamRunner(family, params, device=device)
     cpu = StreamRunner(family, params, device="cpu")
@@ -428,7 +498,8 @@ def test_v4_v5_runners_on_the_card(family_params, device, family):
     p_gpu, st = gpu.scan(chunks, state)
     torch.cuda.synchronize()
     assert st is state
-    assert stft_magnitude.launches == 3 and lstm_fused.launches == 3
+    assert stft_magnitude.launches == 3
+    assert lstm_fused.launches == 3 * (2 if use_resident(32, frames) else 1)
     p_cpu, st_cpu = cpu.scan(chunks, cpu.init_state(32))
     assert _max_abs(p_gpu.cpu(), p_cpu) <= 1e-4
     assert _max_abs(st.h.cpu(), st_cpu.h) <= 1e-4

@@ -4,8 +4,8 @@ of vadc_tpu, not even its numpy-only modules: it keeps its own copies): in a
 fresh interpreter where `import jax` and `import vadc_tpu` both fail, every
 module of the package imports, the CPU path runs, the CLI and the batch CLI
 answer and the server serves a client.
-chip_smoke.py and chip_profile.py, which drive the port on the card,
-import neither, and without a card they exit non-zero with no result
+chip_smoke.py, chip_profile.py and chip_ab.py, which drive the port on the
+card, import neither, and without a card they exit non-zero with no result
 line."""
 
 import importlib.util
@@ -36,7 +36,7 @@ modules = ["vadc_tpu_torch"] + sorted(
 assert len(modules) > 30 and "vadc_tpu_torch.cli.batch" in modules, modules
 for name in modules:
     importlib.import_module(name)
-for script in ("chip_smoke.py", "chip_profile.py"):
+for script in ("chip_smoke.py", "chip_profile.py", "chip_ab.py"):
     spec = importlib.util.spec_from_file_location(script[:-3], script)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for blocked in ("jax", "vadc_tpu"):
@@ -103,10 +103,11 @@ def test_package_imports_and_runs_without_jax():
 
 
 def test_no_source_of_the_port_names_jax():
-    """No file of the port, nor the card's two scripts, imports jax or
+    """No file of the port, nor the card's three scripts, imports jax or
     anything of vadc_tpu, at module level or inside a function."""
     pattern = re.compile(r"^\s*(import jax|from jax|import vadc_tpu|from vadc_tpu)\b", re.M)
-    sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
+    sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
+                                               ROOT / "chip_ab.py"]
     assert len(sources) > 30
     for path in sources:
         assert not pattern.search(path.read_text()), path
@@ -132,6 +133,18 @@ def test_chip_profile_without_a_card_exits_nonzero():
         "torch.cuda.is_available = lambda: False\n"
         "sys.argv = ['chip_profile.py']\n"
         "runpy.run_path('chip_profile.py', run_name='__main__')\n"
+    )
+    proc = _python(code)
+    assert proc.returncode != 0
+    assert not proc.stdout and "no CUDA device" in proc.stderr
+
+
+def test_chip_ab_without_a_card_exits_nonzero():
+    code = _BLOCK_JAX + (
+        "import runpy, torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "sys.argv = ['chip_ab.py']\n"
+        "runpy.run_path('chip_ab.py', run_name='__main__')\n"
     )
     proc = _python(code)
     assert proc.returncode != 0

@@ -254,10 +254,13 @@ def test_kernel_sources_and_build_flags():
     assert names == ["errors.cu", "lstm.cu", "lstm_decoder.cu", "silero_v31_fused.cu",
                      "silero_v31_fused_audio.cu", "stft_dotmag.cu", "stft_mag.cu"]
     # the headers the kernels share are part of the library's hash: the
-    # STFT tile (dot_magnitude, stft_magnitude, forward_fused) and the v3.1
+    # STFT tile (dot_magnitude, stft_magnitude, forward_fused), the v3.1
     # model body (forward_fused2d, encode_fused, forward_fused,
-    # lstm_decoder_fused)
-    assert [p.name for p in _build.headers()] == ["silero_v31_body.cuh", "stft_tile.cuh"]
+    # lstm_decoder_fused), the LSTM's activations and cell (every kernel
+    # that runs an LSTM step) and the resident-weights variant of the two
+    # recurrent kernels (lstm_fused, lstm_decoder_fused)
+    assert [p.name for p in _build.headers()] == [
+        "lstm_cell.cuh", "lstm_resident.cuh", "silero_v31_body.cuh", "stft_tile.cuh"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags
     assert "fast_math" not in flags and "fast-math" not in flags

@@ -39,6 +39,7 @@ LINK_FLAGS = ("-shared",)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
 _SIGNATURES = {
     # frames base, batch, n_frames, stride_b, stride_f, wr, wi, n_fft,
@@ -62,6 +63,13 @@ _SIGNATURES = {
     # x, h0, c0, wt, bias, dec_w, dec_b, probs, hn, cn, batch, chunks,
     # frames, stream
     "vadc_lstm_decoder_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, h0, c0, wt, bias, pre, pre_rows, y, hn, cn, batch, seq, hidden,
+    # layers, launched (out: kernels launched), stream
+    "vadc_lstm_fused_resident": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _IP, _P],
+    # x, h0, c0, wt, bias, dec_w, dec_b, pre, pre_rows, probs, hn, cn, batch,
+    # chunks, frames, launched (out: kernels launched), stream
+    "vadc_lstm_decoder_fused_resident": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I,
+                                         _I, _IP, _P],
 }
 
 _lock = threading.Lock()

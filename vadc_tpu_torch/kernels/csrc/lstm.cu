@@ -1,4 +1,5 @@
-// Multi-layer LSTM over a whole sequence in one launch.
+// Multi-layer LSTM over a whole sequence in one launch, in two variants that
+// give the same bits.
 //
 // Replaces the Pallas kernel vadc_tpu/kernels/lstm.py: lstm_fused
 // (pallas_call at :204). x [B, T, H], h0/c0 [L, B, H], the fused weight
@@ -10,36 +11,41 @@
 //
 // What bounds it on an H100: not FLOPs (2 x 2H x 4H multiply-adds per stream
 // per layer-step: 0.54 GFLOP for v5 at batch 2048, T=1) but the chain of T x
-// L dependent steps and the weight reads. Streams are independent, so a
-// block takes NB streams and walks every step for them with h, c, the
-// input row and the gates in shared memory (a few KB). Thread j owns gate
-// column j (4H threads: 256 for H=64, 512 for H=128) and keeps NB sums in
-// registers, so each weight it reads serves NB streams. The weights (128 KB
-// a layer at H=64, 512 KB at H=128: more than a block's shared memory) are
-// read from global memory with __ldg, where they stay in L2; neighbouring
-// threads read neighbouring columns. A ragged last block computes on zero
-// rows and stores only its real streams.
+// L dependent steps and the weight reads.
 //
-// At batch 1 (the CLI's minibatched path: T = 96 chunks x frames) one block
-// walks the whole sequence, so the time is set by the dependent steps, each
-// reading the layer's weights from L2.
+// The streaming-weights variant (lstm_kernel, vadc_lstm_fused), for calls of
+// one or two steps (v5's and the short v4 chunks' one frame a chunk), where
+// loading the weights onto the SM first does not pay. Streams are independent, so a block takes NB
+// streams and walks every step for them with h, c, the input row and the
+// gates in shared memory (a few KB). Thread j owns gate column j (4H
+// threads: 256 for H=64, 512 for H=128) and keeps NB sums in registers, so
+// each weight it reads serves NB streams. The weights (128 KB a layer at
+// H=64, 512 KB at H=128) are read from global memory with __ldg, where they
+// stay in L2; neighbouring threads read neighbouring columns. A ragged last
+// block computes on zero rows and stores only its real streams. With many
+// blocks on every SM the L2 latency of those reads is hidden; at batch 1
+// (the CLI's minibatched path: T = 96 chunks x frames) one block walks the
+// whole sequence and every step waits on them.
+//
+// The resident-weights variant (vadc_lstm_fused_resident, the kernels of
+// lstm_resident.cuh), for three steps and more: the recurrent weights stay on the SM
+// for the whole launch, the input half of layer 0 is computed for all frames
+// before the chain, and the two layers of v4 run as a wavefront; v5's one
+// layer of 128 units is split over a cluster of two blocks. What bounds it
+// then (the fmaf chains, the shared-memory pipe, the latency of the
+// activations) is in that header. kernels/lstm.py chooses between the two from the shapes.
 //
 // Numerics are the faithful tier's: fp32 sums in k order (inputs, then
 // recurrent units, then the bias), sigmoid as 1/(1+expf(-x)), the accurate
 // tanh of vadc_tpu/nn/functional.py accurate_tanh, no --use_fast_math.
 #include <cuda_runtime.h>
 
+#include "lstm_cell.cuh"
+#include "lstm_resident.cuh"
+
 namespace {
 
 constexpr int NB = 4;  // streams per block
-
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ float accurate_tanhf(float x) {
-  const float e = expf(-2.f * fabsf(x));
-  const float r = (1.f - e) / (1.f + e);
-  return x > 0.f ? r : (x < 0.f ? -r : 0.f);
-}
 
 template <int H>
 __global__ void __launch_bounds__(4 * H)
@@ -143,6 +149,24 @@ int launch(const float* x, const float* h0, const float* c0, const float* wt,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One launch of the H=128, L=1 recurrent kernel over pre [batch, frames, 512],
+// at 1, 2 or 4 streams a cluster.
+cudaError_t launch_cluster(const float* pre, const float* h0, const float* c0, const float* wt,
+                           const float* bias, float* y, long long y_stride_b, float* hn,
+                           float* cn, int batch, int frames, cudaStream_t stream) {
+  using resident::launch_cluster1;
+  int nb = 0;
+  const cudaError_t err = resident::streams_per_block(batch, &nb);
+  if (err != cudaSuccess) return err;
+  if (nb == 1) {
+    return launch_cluster1<1>(pre, h0, c0, wt, bias, y, y_stride_b, hn, cn, batch, frames, stream);
+  }
+  if (nb == 2) {
+    return launch_cluster1<2>(pre, h0, c0, wt, bias, y, y_stride_b, hn, cn, batch, frames, stream);
+  }
+  return launch_cluster1<4>(pre, h0, c0, wt, bias, y, y_stride_b, hn, cn, batch, frames, stream);
+}
+
 }  // namespace
 
 // x [batch, seq, hidden]; h0, c0, hn, cn [layers, batch, hidden] (hn, cn
@@ -157,5 +181,41 @@ extern "C" int vadc_lstm_fused(const float* x, const float* h0, const float* c0,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hidden == 64) return launch<64>(x, h0, c0, wt, bias, y, hn, cn, batch, seq, layers, s);
   if (hidden == 128) return launch<128>(x, h0, c0, wt, bias, y, hn, cn, batch, seq, layers, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same function by the resident-weights variant. Beyond vadc_lstm_fused:
+// pre is scratch of pre_rows x 4*hidden floats (pre_rows >= batch; fewer
+// rows than batch * seq make passes over the frames); hidden 64 takes
+// layers 2, hidden 128 layers 1; *launched receives the number of kernels it
+// launched (the pre-pass and the recurrent kernel of every pass). Returns
+// the first CUDA error of its launches.
+extern "C" int vadc_lstm_fused_resident(const float* x, const float* h0, const float* c0,
+                                        const float* wt, const float* bias, float* pre,
+                                        long long pre_rows, float* y, float* hn, float* cn,
+                                        int batch, int seq, int hidden, int layers,
+                                        int* launched, void* stream) {
+  *launched = 0;
+  if (batch <= 0 || seq <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using namespace resident;
+  if (hidden == 64 && layers == 2) {
+    return run_in_passes<H2>(
+        x, h0, c0, wt, pre, pre_rows, hn, cn, batch, seq, 1,
+        [=](int f0, int n, const float* h, const float* c) {
+          const StoreY top{y + static_cast<long long>(f0) * H2, static_cast<long long>(seq) * H2};
+          return launch_wavefront(pre, h, c, wt, bias, hn, cn, batch, n, top, s);
+        },
+        launched, s);
+  }
+  if (hidden == 128 && layers == 1) {
+    return run_in_passes<H1>(
+        x, h0, c0, wt, pre, pre_rows, hn, cn, batch, seq, 1,
+        [=](int f0, int n, const float* h, const float* c) {
+          return launch_cluster(pre, h, c, wt, bias, y + static_cast<long long>(f0) * H1,
+                                static_cast<long long>(seq) * H1, hn, cn, batch, n, s);
+        },
+        launched, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,26 +20,44 @@
 // shared memory between chunks and is fp32 there as in global memory, so a
 // K-chunk launch equals K launches of one chunk bit for bit.
 //
-// What bounds it on an H100: at a large batch, the bytes of x (B*K*T*256 B)
-// are small and the FLOPs (2 x 128 x 256 multiply-adds per layer-step and
-// stream) modest, so it is the chain of K*T*2 dependent layer-steps, each
-// reading a layer's 128 KB of weights from L2; at batch 1 (the CLI's window
-// of 96 chunks) it is that latency alone, in one block. The design is the
-// simple one of lstm.cu: NB = 4 streams a block, thread j owns gate column j
-// and keeps NB sums in registers so each weight it reads serves NB streams,
-// the weights stay in L2 (256 KB: more than a block's shared memory), x is
-// read from global memory where it is used (a row serves all 256 threads
-// through L1), 9 KB of shared memory for gates, state and the decoder's sum.
-// A ragged last block reads its last real stream's rows again and stores
-// only its real streams.
+// Two variants that give the same bits; kernels/lstm.py chooses between
+// them from the shapes.
 //
-// The LSTM steps and the decoder are the device code of silero_v31_body.cuh
-// that silero_v31_fused.cu runs after its encoder (same order of the two
-// 64-term products, same sigmoid and tanh, the same dec / T then fmaf), so
-// this kernel on vadc_silero_v31_encode's output equals the fused kernel bit
-// for bit. fp32 throughout, no --use_fast_math.
+// What bounds it on an H100: the bytes of x (B*K*T*256 B) are small and the
+// FLOPs (2 x 128 x 256 multiply-adds per layer-step and stream) modest, so
+// it is the chain of K*T*2 dependent layer-steps.
+//
+// The streaming-weights variant (lstm_decoder_kernel,
+// vadc_lstm_decoder_fused): the simple design of lstm.cu, the one that shares
+// its device code with the fused kernels. NB = 4 streams a block, thread j
+// owns gate column j and keeps NB sums in registers so each weight it reads
+// serves NB streams, the weights stay in L2 (256 KB), x is read from global
+// memory where it is used (a row serves all 256 threads through L1), 9 KB of
+// shared memory for gates, state and the decoder's sum. A ragged last block
+// reads its last real stream's rows again and stores only its real streams.
+// Every layer-step waits on its layer's 128 KB of weights from L2, which
+// only many blocks on an SM hide: over the K*T frames of a slab at few
+// streams, or of the CLI's window at batch 1, that latency was all of its
+// time. Since the resident variant it runs only calls of one or two frames,
+// which no model gives it (a chunk has 3 to 7 frames): chip_smoke.py and the
+// card's tests launch it at every shape as the witness of the bits.
+//
+// The resident-weights variant (vadc_lstm_decoder_fused_resident, the
+// kernels of lstm_resident.cuh), for three frames and more: the recurrent
+// weights stay on the SM for the whole launch, the input half of layer 0 is
+// computed for all frames before the chain, and the two layers run as a
+// wavefront. What bounds it then (the fmaf chains, the shared-memory pipe,
+// the latency of the activations) is in that header.
+//
+// The LSTM steps and the decoder of the streaming variant are the device
+// code of silero_v31_body.cuh that silero_v31_fused.cu runs after its
+// encoder (same order of the two 64-term products, same sigmoid and tanh,
+// the same dec / T then fmaf), and the resident variant keeps every sum's
+// order, so either on vadc_silero_v31_encode's output equals the fused
+// kernel bit for bit. fp32 throughout, no --use_fast_math.
 #include <cuda_runtime.h>
 
+#include "lstm_resident.cuh"
 #include "silero_v31_body.cuh"
 
 namespace {
@@ -114,4 +132,27 @@ extern "C" int vadc_lstm_decoder_fused(const float* x, const float* h0, const fl
   lstm_decoder_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       x, h0, c0, wt, b, dec_w, dec_b, probs, hn, cn, batch, chunks, frames);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same function by the resident-weights variant. Beyond
+// vadc_lstm_decoder_fused: pre is scratch of pre_rows x 256 floats
+// (pre_rows >= batch * frames; fewer rows than batch * chunks * frames make
+// passes over whole chunks); *launched receives the number of kernels it
+// launched (the pre-pass and the recurrent kernel of every pass). Returns
+// the first CUDA error of its launches.
+extern "C" int vadc_lstm_decoder_fused_resident(
+    const float* x, const float* h0, const float* c0, const float* wt, const float* b,
+    const float* dec_w, const float* dec_b, float* pre, long long pre_rows, float* probs,
+    float* hn, float* cn, int batch, int chunks, int frames, int* launched, void* stream) {
+  *launched = 0;
+  if (batch <= 0 || chunks <= 0 || frames <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  using namespace resident;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return run_in_passes<H2>(
+      x, h0, c0, wt, pre, pre_rows, hn, cn, batch, chunks * frames, frames,
+      [=](int f0, int n, const float* h, const float* c) {
+        const DecoderSum top{dec_w + HIDDEN, dec_b + 1, probs + f0 / frames, chunks, frames};
+        return launch_wavefront(pre, h, c, wt, b, hn, cn, batch, n, top, s);
+      },
+      launched, s);
 }

@@ -31,6 +31,8 @@
 
 #include <cuda_runtime.h>
 
+#include "lstm_cell.cuh"  // sigmoidf, accurate_tanhf
+
 namespace {
 
 constexpr int N_STAGES = 4;
@@ -84,14 +86,6 @@ struct Act {
 };
 
 enum : int { EP_ACC = 1, EP_RELU = 2, EP_AFFINE = 4 };
-
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ float accurate_tanhf(float x) {
-  const float e = expf(-2.f * fabsf(x));
-  const float r = (1.f - e) / (1.f + e);
-  return x > 0.f ? r : (x < 0.f ? -r : 0.f);
-}
 
 // out(s, f, n) = epilogue(sum_k in(s, f * in_step, k) * wt[k * N + n] + b[n])
 // for f < S. Epilogue in order: + out (EP_ACC), * scale + shift

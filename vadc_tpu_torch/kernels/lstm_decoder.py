@@ -1,21 +1,26 @@
 """2-layer LSTM with the v3 decoder folded in, as one CUDA kernel.
 
 Counterpart of vadc_tpu/kernels/lstm.py (`lstm_decoder_fused`). The kernel
-is `csrc/lstm_decoder.cu`; its header says what bounds it on an H100 and how
-its design answers that. Beyond the JAX function (x [B, T, 64] -> probs [B])
-it takes x [B, K, T, 64], K consecutive chunks of each stream, and walks them
-in order in one launch with the state carried from chunk to chunk: the slab
-scan of the offline corpus path (`models/silero_v31.forward_scan`) and the
-CLI's window (`forward_minibatched`, B = 1) run it that way, after the
-encoders of all the chunks ran at once (`silero_v31_fused2d.encode_fused`).
+is `csrc/lstm_decoder.cu` in two variants that give the same bits (streaming
+weights for one or two frames, resident weights for more;
+`kernels.lstm.use_resident` chooses from the shapes alone); its header says
+what bounds each on an H100 and how its design answers that. Beyond the JAX
+function (x [B, T, 64] -> probs [B]) it takes x [B, K, T, 64], K consecutive
+chunks of each stream, and walks them in order in one launch with the state
+carried from chunk to chunk: the slab scan of the offline corpus path
+(`models/silero_v31.forward_scan`) and the CLI's window
+(`forward_minibatched`, B = 1) run it that way, after the encoders of all the
+chunks ran at once (`silero_v31_fused2d.encode_fused`).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from vadc_tpu_torch.kernels import _build
-from vadc_tpu_torch.kernels.lstm import transpose_weight
+from vadc_tpu_torch.kernels.lstm import pre_scratch, transpose_weight, use_resident
 from vadc_tpu_torch.nn import functional as F
 
 HIDDEN = 64
@@ -46,6 +51,37 @@ def lstm_decoder_fused_reference(
     return torch.stack(probs, dim=1), hn, cn
 
 
+def _launch_streaming(x, h0, c0, wt, b, dec_w, dec_b, probs, hn, cn) -> int:
+    """Launches the streaming-weights kernel; returns the kernels launched."""
+    batch, frames = x.shape[0], x.shape[-2]
+    chunks = x.shape[1] if x.dim() == 4 else 1
+    status = _build.library().vadc_lstm_decoder_fused(
+        x.data_ptr(), h0.data_ptr(), c0.data_ptr(), wt.data_ptr(), b.data_ptr(),
+        dec_w.data_ptr(), dec_b.data_ptr(), probs.data_ptr(), hn.data_ptr(), cn.data_ptr(),
+        batch, chunks, frames, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "lstm_decoder_fused")
+    return 1
+
+
+def _launch_resident(x, h0, c0, wt, b, dec_w, dec_b, probs, hn, cn) -> int:
+    """Launches the resident-weights variant: the pre-pass and the recurrent
+    kernel, once for each pass over the scratch; returns the kernels
+    launched."""
+    batch, frames = x.shape[0], x.shape[-2]
+    chunks = x.shape[1] if x.dim() == 4 else 1
+    pre = pre_scratch(x, batch, chunks * frames, frames)
+    launched = ctypes.c_int(0)
+    status = _build.library().vadc_lstm_decoder_fused_resident(
+        x.data_ptr(), h0.data_ptr(), c0.data_ptr(), wt.data_ptr(), b.data_ptr(),
+        dec_w.data_ptr(), dec_b.data_ptr(), pre.data_ptr(), pre.shape[0], probs.data_ptr(),
+        hn.data_ptr(), cn.data_ptr(), batch, chunks, frames, ctypes.byref(launched),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "lstm_decoder_fused (resident)")
+    return launched.value
+
+
 def lstm_decoder_fused(
     x: torch.Tensor,
     h0: torch.Tensor,
@@ -71,7 +107,8 @@ def lstm_decoder_fused(
     The new state goes to `hn`/`cn` when given, which may BE `h0`/`c0` (the
     state is then updated in place); otherwise to new tensors. `wt` is
     `lstm.transpose_weight(w)` when the caller keeps it. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises."""
+    the plain version; a CUDA tensor launches the kernel (the variant
+    `lstm.use_resident` names) or raises."""
     if x.device.type == "cpu":
         probs, h_new, c_new = lstm_decoder_fused_reference(x, h0, c0, w, b, dec_w, dec_b)
         if hn is not None:
@@ -86,21 +123,15 @@ def lstm_decoder_fused(
     if cn is None:
         cn = torch.empty_like(c0)
     _check(x, h0, c0, wt, b, dec_w, dec_b, hn, cn)
-    batch, frames = x.shape[0], x.shape[-2]
-    chunks = x.shape[1] if x.dim() == 4 else 1
     probs = torch.empty(x.shape[:-2], dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    status = lib.vadc_lstm_decoder_fused(
-        x.data_ptr(), h0.data_ptr(), c0.data_ptr(), wt.data_ptr(), b.data_ptr(),
-        dec_w.data_ptr(), dec_b.data_ptr(), probs.data_ptr(), hn.data_ptr(), cn.data_ptr(),
-        batch, chunks, frames, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(status, "lstm_decoder_fused")
-    lstm_decoder_fused.launches += 1
+    steps = x.shape[-2] * (x.shape[1] if x.dim() == 4 else 1)
+    launch = _launch_resident if use_resident(x.shape[0], steps) else _launch_streaming
+    lstm_decoder_fused.launches += launch(x, h0, c0, wt, b, dec_w, dec_b, probs, hn, cn)
     return probs, hn, cn
 
 
-#: kernel launches since the count was last set to 0
+#: kernels launched since the count was last set to 0: one a call of the
+#: streaming variant, two a pass of the resident one (its pre-pass counts)
 lstm_decoder_fused.launches = 0
 
 
