@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the two recurrent kernels of the PyTorch/CUDA port through their
-wrappers, in the tree of the current directory, on one NVIDIA card.
+"""Time the kernels of the PyTorch/CUDA port through their wrappers, and the
+v3.1 paths built on them, in the tree of the current directory, on one
+NVIDIA card.
 
     cd <a checkout> && python3 <path to>/chip_ab.py
 
@@ -8,25 +9,46 @@ To compare two commits on one card, unpack each with `git archive` into a
 directory of its own and run this script from each in turns on one card,
 one run right after the other (parent, change, change, parent): it imports
 `vadc_tpu_torch` from the current directory, whichever tree that is, builds
-that tree's kernels and prints one line: the directory's name, then ms per
-call (CUDA events, seeded random inputs: the times do not depend on the
-values) of `lstm_fused` at the v4 (H=64, L=2) and v5 (H=128, L=1) steps at
-B=2048 and CLI windows at B=1, and of `lstm_decoder_fused` at B=2048 x K=1
-and K=8, a 64 x 64 corpus slab and the CLI's window of 96 chunks, T=7 frames
-a chunk. Imports nothing of JAX. Exits 1 without a card.
+that tree's kernels and prints one line: the directory's name, the card and
+its power limit, then ms per call (CUDA events; the timer and the seeded
+speech are chip_smoke.py's, taken from beside this script):
+
+  - the fused v3.1 kernels: `forward_fused` at B = 2048, 64, 1 x 1536 samples
+    and 2048 x 512; `forward_fused2d` at 2048 x 25 frames; `encode_fused` at
+    4096 rows; `encode_fused_audio` at 4096 and 16384 rows (where the tree
+    has that entry);
+  - the spectrum kernels `dot_magnitude` and `stft_magnitude` at 2048 x 1536;
+  - the v3.1 paths: `StreamRunner.scan` over a 64 x 64 and a 2048 x 8 slab,
+    the loop of 8 `StreamRunner.step` at B = 2048, and the CLI's window
+    (`forward_minibatched`, 96 chunks of one stream);
+  - the recurrent kernels: `lstm_fused` at the v4 (H=64, L=2) and v5 (H=128,
+    L=1) steps at B=2048 and CLI windows at B=1, `lstm_decoder_fused` at
+    B=2048 x K=1 and K=8, a 64 x 64 corpus slab and the CLI's window of 96
+    chunks, T=7 frames a chunk (seeded random inputs: the times do not
+    depend on the values).
+
+Imports nothing of JAX. Exits 1 without a card.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+from pathlib import Path
 
 SEED = 0
+CHUNK = 1536
 # (label, hidden, layers, batch, steps)
 LSTM_SHAPES = (("v4", 64, 2, 2048, 3), ("v4", 64, 2, 2048, 1), ("v5", 128, 1, 2048, 1),
                ("v4", 64, 2, 1, 288), ("v5", 128, 1, 1, 96))
 # (batch, chunks) at 7 frames a chunk
 DECODER_SHAPES = ((2048, 1), (2048, 8), (64, 64), (1, 96))
+# (batch, samples) of forward_fused
+STEP_SHAPES = ((2048, 1536), (64, 1536), (1, 1536), (2048, 512))
+# (streams, chunks) of StreamRunner.scan
+SLAB_SHAPES = ((64, 64), (2048, 8))
+ENCODE_AUDIO_ROWS = (4096, 16384)
+CLI_WINDOW = 96
 
 
 def main() -> int:
@@ -35,44 +57,93 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device is visible to PyTorch", file=sys.stderr)
         return 1
+    # the tree under test first, then this script's directory for chip_smoke
     sys.path.insert(0, os.getcwd())
+    sys.path.append(str(Path(__file__).resolve().parent))
+    import chip_smoke
+    from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels import silero_v31_fused as KA
     from vadc_tpu_torch.kernels.lstm import lstm_fused, transpose_weight
     from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused
+    from vadc_tpu_torch.kernels.silero_v31_fused2d import encode_fused, forward_fused2d
+    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
+    from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude
+    from vadc_tpu_torch.models import silero_v31
+    from vadc_tpu_torch.models.weights import load_params
+    from vadc_tpu_torch.nn import functional as F
 
-    def ms(fn, iters: int, warmup: int = 20) -> float:
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
+    ms = chip_smoke.cuda_ms
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(SEED)
 
     def rand(*shape, scale=1.0):
         return scale * torch.randn(*shape, device=device, generator=gen)
 
+    def speech(n, samples, seed):
+        return torch.from_numpy(chip_smoke.speech_chunks(n, samples, seed=seed)).to(device)
+
+    _, params = load_params(DEFAULT_WEIGHTS, device=device)
     out = []
+
+    for batch, samples in STEP_SHAPES:
+        audio = speech(batch, samples, SEED + 1)
+        h, c = silero_v31.init_state(batch, device)
+        t = ms(lambda: KA.forward_fused(params, audio, h, c))
+        out.append(f"forward_fused B={batch} x {samples}: {t:.4f}")
+    feats = 2.0 * rand(4096, 25, 129)
+    h, c = silero_v31.init_state(2048, device)
+    t = ms(lambda: forward_fused2d(params, feats[:2048], h, c))
+    out.append(f"forward_fused2d B=2048 x 25: {t:.4f}")
+    t = ms(lambda: encode_fused(params, feats))
+    out.append(f"encode_fused 4096 rows x 25: {t:.4f}")
+    big = speech(max(ENCODE_AUDIO_ROWS), CHUNK, SEED + 2)
+    if hasattr(KA, "encode_fused_audio"):
+        for rows in ENCODE_AUDIO_ROWS:
+            t = ms(lambda: KA.encode_fused_audio(params, big[:rows]), iters=20)
+            out.append(f"encode_fused_audio {rows} rows x {CHUNK}: {t:.4f}")
+
+    audio = big[:2048]
+    wr, wi = split_basis_of(params)
+    frames = F.frame(F.reflect_pad_last(audio, 128, 128), 256, 64)
+    t = ms(lambda: dot_magnitude(frames, wr, wi))
+    out.append(f"dot_magnitude B=2048 x {CHUNK}: {t:.4f}")
+    t = ms(lambda: stft_magnitude(audio, wr, wi, pad_left=128, pad_right=128, hop=64))
+    out.append(f"stft_magnitude B=2048 x {CHUNK}: {t:.4f}")
+
+    runner = StreamRunner("v3", params, device=device)
+    for streams, chunks in SLAB_SHAPES:
+        slab = big[: streams * chunks].reshape(streams, chunks, CHUNK)
+        state = runner.init_state(streams)
+        t = ms(lambda: runner.scan(slab, state), iters=10)
+        out.append(f"scan {streams} x {chunks}: {t:.4f}")
+    slab = big[: 2048 * 8].reshape(2048, 8, CHUNK)
+    state = runner.init_state(2048)
+
+    def steps():
+        for k in range(8):
+            runner.step(slab[:, k], state)
+
+    out.append(f"8 steps B=2048: {ms(steps, iters=10):.4f}")
+    window = big[:CLI_WINDOW]
+    h, c = silero_v31.init_state(1, device)
+    t = ms(lambda: silero_v31.forward_minibatched(params, window, h, c), iters=10)
+    out.append(f"CLI window {CLI_WINDOW} x {CHUNK}: {t:.4f}")
+
     for name, hidden, layers, batch, seq in LSTM_SHAPES:
         w, b = rand(layers, 4 * hidden, 2 * hidden, scale=0.1), rand(layers, 4 * hidden, scale=0.1)
         wt = transpose_weight(w)
         x, h, c = rand(batch, seq, hidden), rand(layers, batch, hidden, scale=0.3), \
             rand(layers, batch, hidden)
-        t = ms(lambda: lstm_fused(x, h, c, w, b, wt=wt), iters=200 if batch > 1 else 20)
+        t = ms(lambda: lstm_fused(x, h, c, w, b, wt=wt), iters=200 if batch > 1 else 20, warmup=20)
         out.append(f"lstm_fused {name} B={batch} x T={seq}: {t:.4f}")
     w, b = rand(2, 256, 128, scale=0.1), rand(2, 256, scale=0.1)
     wt, dec_w, dec_b = transpose_weight(w), rand(2, 64), rand(2)
     for batch, chunks in DECODER_SHAPES:
         x, h, c = rand(batch, chunks, 7, 64), rand(2, batch, 64, scale=0.3), rand(2, batch, 64)
-        t = ms(lambda: lstm_decoder_fused(x, h, c, w, b, dec_w, dec_b, wt=wt), iters=20)
+        t = ms(lambda: lstm_decoder_fused(x, h, c, w, b, dec_w, dec_b, wt=wt), iters=20, warmup=20)
         out.append(f"lstm_decoder_fused B={batch} x K={chunks} x T=7: {t:.4f}")
-    print(f"{os.path.basename(os.getcwd())} ({torch.cuda.get_device_name(0)}), ms per call | "
+    print(f"{os.path.basename(os.getcwd())} ({chip_smoke.nvidia_smi()}), ms per call | "
           + "; ".join(out), flush=True)
     return 0
 

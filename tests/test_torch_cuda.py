@@ -103,17 +103,20 @@ def test_fused_kernel_matches_plain(params, device, batch, chunk):
 
 def test_state_in_place_and_the_runner_on_the_card(params, device):
     """hn/cn may be h/c; the stream runner on the card matches the plain
-    path on the CPU. Its scan is the slab route (one launch each of
-    dot_magnitude and encode_fused for the whole slab, and the two of
+    path on the CPU. Its scan is the slab route (one launch of
+    encode_fused_audio for the whole slab, and the two of
     lstm_decoder_fused's resident variant: its pre-pass and its recurrent
-    kernel); its step goes through the whole-step kernel alone."""
+    kernel; none of dot_magnitude or encode_fused, the route's front half
+    until encode_fused_audio took it); its step goes through the whole-step
+    kernel alone, and gives the slab's bits."""
     from vadc_tpu_torch.engine.runner import StreamRunner
     from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused
-    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
+    from vadc_tpu_torch.kernels.silero_v31_fused import encode_fused_audio, forward_fused
     from vadc_tpu_torch.kernels.silero_v31_fused2d import encode_fused, forward_fused2d
     from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
 
-    counted = (dot_magnitude, encode_fused, lstm_decoder_fused, forward_fused, forward_fused2d)
+    counted = (encode_fused_audio, lstm_decoder_fused, forward_fused, forward_fused2d,
+               dot_magnitude, encode_fused)
     chunks = speech(32 * 3, seed=4).reshape(32, 3, -1)
     gpu = StreamRunner("v3", params, device=device)
     cpu = StreamRunner("v3", params, device="cpu")
@@ -123,7 +126,7 @@ def test_state_in_place_and_the_runner_on_the_card(params, device):
     p_gpu, st = gpu.scan(chunks, state)
     torch.cuda.synchronize()
     assert st is state
-    assert [fn.launches for fn in counted] == [1, 1, 2, 0, 0]
+    assert [fn.launches for fn in counted] == [1, 2, 0, 0, 0, 0]
     p_cpu, st_cpu = cpu.scan(chunks, cpu.init_state(32))
     assert _max_abs(p_gpu.cpu(), p_cpu) <= 1e-4
     assert _max_abs(st.h.cpu(), st_cpu.h) <= 1e-4
@@ -133,10 +136,80 @@ def test_state_in_place_and_the_runner_on_the_card(params, device):
     steps = gpu.init_state(32)
     for t in range(3):
         p_t, steps = gpu.step(chunks[:, t], steps)
-        assert _max_abs(p_t, p_gpu[:, t]) <= 1e-4
+        assert torch.equal(p_t, p_gpu[:, t])
     torch.cuda.synchronize()
-    assert [fn.launches for fn in counted] == [0, 0, 0, 3, 0]
-    assert _max_abs(steps.h, st.h) <= 1e-4
+    assert [fn.launches for fn in counted] == [0, 0, 3, 0, 0, 0]
+    assert torch.equal(steps.h, st.h) and torch.equal(steps.c, st.c)
+
+
+@pytest.mark.parametrize("batch,chunk", [(64, 1536), (37, 1536), (1, 1536), (16, 512),
+                                         (5, 768), (9, 1024), (12, 1280)])
+def test_encode_fused_audio_kernel_matches_plain(params, device, batch, chunk):
+    """The step kernel's front-end and encoder alone against its plain
+    version (5e-4 absolute on activations of up to about 7, chip_smoke.py's
+    TOL_ENCODE_AUDIO: the spectra are summed in other orders and
+    log1p(2^20 x) amplifies that at near-zero bins), counted once, a strided batch equal to its contiguous copy; and
+    lstm_decoder_fused on its rows equal to forward_fused bit for bit."""
+    from vadc_tpu_torch.kernels import lstm_decoder as KD
+    from vadc_tpu_torch.kernels import silero_v31_fused as KF
+
+    audio = torch.from_numpy(speech(batch * 2, chunk=chunk, seed=40)).to(device)
+    audio = audio.reshape(batch, 2, chunk)[:, 1]  # rows strided, as a slab's column
+    h = torch.from_numpy(0.5 * noise(2 * batch, chunk=64, seed=41)).reshape(2, batch, 64).to(device)
+    c = torch.from_numpy(5 * noise(2 * batch, chunk=64, seed=42)).reshape(2, batch, 64).to(device)
+    before = KF.encode_fused_audio.launches
+    enc = KF.encode_fused_audio(params, audio)
+    ref = KF.encode_fused_audio_reference(params, audio)
+    torch.cuda.synchronize()
+    assert KF.encode_fused_audio.launches == before + 1
+    assert enc.shape == ref.shape == (batch, (chunk // 64 + 1 + 3) // 4, 64)
+    assert bool(torch.isfinite(enc).all())
+    assert _max_abs(enc, ref) <= 5e-4
+    assert torch.equal(enc, KF.encode_fused_audio(params, audio.contiguous()))
+    want = KF.forward_fused(params, audio, h, c)
+    got = KD.lstm_decoder_fused(enc[:, None], h, c, params["lstm_w"], params["lstm_b"],
+                                params["dec_w"], params["dec_b"])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0][:, 0], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("streams,chunks,chunk", [(37, 5, 1536), (1, 24, 1536), (64, 3, 512)])
+def test_slab_scan_is_the_loop_of_steps_bit_for_bit(params, device, streams, chunks, chunk):
+    """StreamRunner.scan (encode_fused_audio over all the slab's chunks, then
+    lstm_decoder_fused) against the loop of StreamRunner.step (forward_fused)
+    from the same carried state: the same bits, probabilities and state."""
+    from vadc_tpu_torch.engine.runner import StreamRunner
+
+    slab = torch.from_numpy(speech(streams * chunks, chunk=chunk, seed=50)).to(device)
+    slab = slab.reshape(streams, chunks, chunk)
+    runner = StreamRunner("v3", params, device=device)
+    warm = runner.init_state(streams)
+    runner.step(slab[:, 0], warm)  # a carried state, not zeros
+    by_slab, by_steps = runner.init_state(streams), runner.init_state(streams)
+    for st in (by_slab, by_steps):
+        st.h.copy_(warm.h)
+        st.c.copy_(warm.c)
+    p_slab, by_slab = runner.scan(slab, by_slab)
+    p_steps = []
+    for k in range(chunks):
+        p_k, by_steps = runner.step(slab[:, k], by_steps)
+        p_steps.append(p_k.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(torch.stack(p_steps, dim=1), p_slab)
+    assert torch.equal(by_steps.h, by_slab.h) and torch.equal(by_steps.c, by_slab.c)
+
+
+def test_encode_fused_audio_refuses_on_the_card(params, device):
+    from vadc_tpu_torch.kernels import silero_v31_fused as KF
+
+    for samples in (256, 1000, 1792):
+        with pytest.raises(ValueError, match="multiple of 256"):
+            KF.encode_fused_audio(params, torch.zeros(2, samples, device=device))
+    with pytest.raises(TypeError, match="float32"):
+        KF.encode_fused_audio(params, torch.zeros(2, 1536, device=device, dtype=torch.float64))
+    with pytest.raises(ValueError, match="unit-stride"):
+        KF.encode_fused_audio(params, torch.zeros(1536, 2, device=device).T)
 
 
 def _lstm_decoder_inputs(params, device, batch, chunks, samples, seed):

@@ -165,3 +165,101 @@ def test_wrapper_state_in_place_chunk_sizes_and_devices(params):
     state = torch.empty(2, 2, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         KF.forward_fused(tp, meta, state, state.clone())
+
+
+# encode_fused_audio: the step kernel's front-end and encoder alone (the slab
+# route's front half). Against the JAX package's encode_nlc on the same
+# audio, on activations of up to about 4. From the same features the encoder
+# stages hold 1e-4 (tests/test_torch_scan.py); from raw audio the two
+# packages' STFTs round differently under log1p(2^20 x) first, so the
+# state's bound of this file holds (chip_smoke.py's TOL_ENCODE_AUDIO).
+# Measured: speech 4.8e-5 (512), 1.5e-5 (1024), 1.4e-5 (1536); noise 1.7e-5,
+# 1.1e-4, 2.6e-5; the BN-folded archive 1.8e-5; activations up to 4.0.
+TOL_ENCODE = TOL_STATE
+
+
+@pytest.mark.parametrize("samples", [512, 1024, 1536])
+@pytest.mark.parametrize("material", sorted(MATERIALS))
+def test_plain_encode_fused_audio_matches_jax_encode_nlc(params, material, samples):
+    jp, tp = params
+    audio = MATERIALS[material](BATCH, chunk=samples, seed=samples + 2)
+    want = JM.encode_nlc(jp, jnp.asarray(audio))
+    got = KF.encode_fused_audio(tp, _t(audio))
+    assert got.shape == (BATCH, (samples // 64 + 1 + 3) // 4, 64)
+    assert_close(got, want, TOL_ENCODE, f"{material} S={samples} encoder rows")
+
+
+def test_encode_fused_audio_on_a_bn_folded_archive(params, folded):
+    folded_j, folded_t = folded
+    audio = speech(BATCH, seed=11)
+    want = JM.encode_nlc(folded_j, jnp.asarray(audio))
+    got = KF.encode_fused_audio(folded_t, _t(audio))
+    assert_close(got, want, TOL_ENCODE, "BN-folded encoder rows")
+    _, tp = params
+    assert_close(got, KF.encode_fused_audio(tp, _t(audio)), 1e-5, "folded vs unfolded rows")
+
+
+@pytest.mark.parametrize("samples", [512, 1536])
+def test_encode_fused_audio_rows_are_what_forward_fused_hands_its_lstm(params, samples):
+    """The LSTM and the decoder on encode_fused_audio's rows give
+    forward_fused: on the CPU both are the plain versions over the same
+    front-end, so only the order of the LSTM's sums may differ (held at
+    1e-6; on the card the two are equal bit for bit)."""
+    from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused
+
+    _, tp = params
+    audio = _t(speech(BATCH, chunk=samples, seed=12))
+    h, c = (_t(x) for x in _state(BATCH, seed=13))
+    rows = KF.encode_fused_audio(tp, audio)
+    got = lstm_decoder_fused(rows[:, None], h, c, tp["lstm_w"], tp["lstm_b"], tp["dec_w"],
+                             tp["dec_b"])
+    want = KF.forward_fused(tp, audio, h, c)
+    assert_close(got[0][:, 0], want[0], 1e-6, "probs")
+    assert_close(got[1], want[1], 1e-6, "h")
+    assert_close(got[2], want[2], 1e-6, "c")
+
+
+def test_encode_fused_audio_refuses_what_it_does_not_take(params):
+    _, tp = params
+    for samples in (256, 1000, 1792):
+        with pytest.raises(ValueError, match="multiple of 256"):
+            KF.encode_fused_audio(tp, torch.zeros(2, samples))
+    with pytest.raises(ValueError, match="multiple of 256"):
+        KF.encode_fused_audio(tp, torch.zeros(1536))
+    # only a CPU tensor takes the plain version; 'meta' stands for a device
+    # without the kernel: refused, never handed to the plain version
+    before = KF.encode_fused_audio.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        KF.encode_fused_audio(tp, torch.empty(2, 1536, device="meta"))
+    with pytest.raises(ValueError, match="unit-stride"):
+        KF.encode_fused_audio(tp, torch.empty(1536, 2, device="meta").T)
+    with pytest.raises(ValueError, match="do not overlap"):
+        KF.encode_fused_audio(tp, torch.empty(4096, device="meta").as_strided((3, 1536), (64, 1)))
+    with pytest.raises(TypeError, match="float32"):
+        KF.encode_fused_audio(tp, torch.empty(2, 1536, device="meta", dtype=torch.float64))
+    assert KF.encode_fused_audio.launches == before == 0
+    # a strided batch (one chunk of each stream) is its contiguous copy
+    chunks = _t(speech(6, seed=14)).reshape(2, 3, -1)
+    assert torch.equal(KF.encode_fused_audio(tp, chunks[:, 1]),
+                       KF.encode_fused_audio(tp, chunks[:, 1].contiguous()))
+
+
+def test_padded_basis_and_aligned_packed_weights(params):
+    """What the redesigned kernels read: the STFT bases as [256, 2, 132]
+    (real, imaginary, zero padding), built once per Params; every packed
+    tensor at a multiple of 4 floats, the values those of the archive."""
+    from vadc_tpu_torch.kernels import silero_v31_fused2d as K2
+    from vadc_tpu_torch.kernels.stft_mag import split_basis_of
+
+    _, tp = params
+    basis = KF.padded_basis_of(tp)
+    wr, wi = split_basis_of(tp)
+    assert basis.shape == (256, 2, KF.BASIS_LD) and KF.padded_basis_of(tp) is basis
+    assert torch.equal(basis[:, 0, :129], wr) and torch.equal(basis[:, 1, :129], wi)
+    assert not basis[:, :, 129:].any()
+    packed = K2.pack_weights(tp)
+    assert all(o % 4 == 0 for o in packed.offsets if o >= 0)
+    qkv = packed.offsets[3 * len(K2._STAGE_SLOTS) + K2._STAGE_SLOTS.index("qkv_w")]
+    assert torch.equal(packed.buffer[qkv : qkv + 64 * 192].reshape(64, 192),
+                       tp["layers"][3]["qkv_w"].T)
+    assert packed.buffer.numel() >= 124_632

@@ -126,16 +126,29 @@ def test_stft_gap_is_jax_rounding(params, material):
 def test_chunk_sequential_minibatched_equals_the_flattened_form(params):
     """forward_minibatched runs the encoder per chunk and threads (h, c)
     chunk to chunk; forward_minibatched_reference flattens the N chunks'
-    frames into one LSTM sequence. The two are the same function: only
-    the batch shape of the encoder's products differs."""
+    frames into one LSTM sequence. The two are the same function: on the
+    same encoder rows (encode_fused_audio's, whose normalization is the
+    step kernel's collapsed form) they agree to 1e-5 (measured: probs
+    3.3e-9, hn and cn equal); against forward_minibatched_reference,
+    whose normalization smooths before it averages (another order of the
+    same sums), the whole-model bounds hold (probs 1e-4, state 3e-4;
+    measured: probs 8.8e-9, hn 1.7e-5, cn 5.0e-5)."""
+    from vadc_tpu_torch.kernels.silero_v31_fused import encode_fused_audio_reference
+    from vadc_tpu_torch.nn import functional as TF
+
     _, tp = params
     audio = _t(speech(BATCH, seed=3))
     h = _t(0.3 * np.random.default_rng(4).normal(size=(2, 1, 64)))
     c = _t(np.random.default_rng(5).normal(size=(2, 1, 64)))
     got = TM.forward_minibatched(tp, audio, h, c)
-    want = TM.forward_minibatched_reference(tp, audio, h, c)
-    for name, g, w in zip(("probs", "hn", "cn"), got, want):
+    out, hn, cn = TF.lstm_minibatched(encode_fused_audio_reference(tp, audio), h, c,
+                                      tp["lstm_w"], tp["lstm_b"])
+    flattened = (TF.decoder_v3_nlc(out, tp["dec_w"], tp["dec_b"]), hn, cn)
+    for name, g, w in zip(("probs", "hn", "cn"), got, flattened):
         assert_close(g, w, 1e-5, f"minibatched {name}")
+    want = TM.forward_minibatched_reference(tp, audio, h, c)
+    for name, g, w, tol in zip(("probs", "hn", "cn"), got, want, (1e-4, 3e-4, 3e-4)):
+        assert_close(g, w, tol, f"minibatched vs the smoothing form {name}")
     # the caller's state is not consumed
     assert torch.equal(h, _t(0.3 * np.random.default_rng(4).normal(size=(2, 1, 64))))
 

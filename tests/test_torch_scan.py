@@ -26,6 +26,7 @@ from vadc_tpu.engine import runner as JR
 from vadc_tpu.models import silero_v31 as JM
 from vadc_tpu_torch.engine import runner as TR
 from vadc_tpu_torch.kernels import lstm_decoder as KD
+from vadc_tpu_torch.kernels import silero_v31_fused as KF
 from vadc_tpu_torch.kernels import silero_v31_fused2d as K2
 from vadc_tpu_torch.models import silero_v31 as TM
 from vadc_tpu_torch.models import weights as TW
@@ -115,11 +116,14 @@ def test_forward_scan_cut_over_rows_gives_the_same_bits(params, monkeypatch):
 
 
 def test_forward_scan_is_its_three_parts(params):
-    """features -> encode_fused -> one lstm_decoder_fused over [B, K, T, 64]."""
+    """encode_fused_audio (the front-end and the encoder from raw audio) ->
+    one lstm_decoder_fused over [B, K, T, 64]; the front-end was `features`
+    and the encoder `encode_fused` until the slab route took the step
+    kernel's own front-end."""
     _, tp = params
     slab = _t(_slab("speech", 2, 3, seed=7))
     h, c = TM.init_state(2)
-    enc = K2.encode_fused(tp, TM.features(tp, slab.reshape(6, 1536)))
+    enc = KF.encode_fused_audio(tp, slab.reshape(6, 1536))
     assert enc.shape == (6, 7, 64) and K2.out_frames(25) == 7 and K2.out_frames(9) == 3
     want = KD.lstm_decoder_fused(enc.reshape(2, 3, 7, 64), h, c, tp["lstm_w"], tp["lstm_b"],
                                  tp["dec_w"], tp["dec_b"])
@@ -209,3 +213,63 @@ def test_encode_fused_refuses_a_device_it_has_no_kernel_for(params):
     with pytest.raises(ValueError, match="encode_fused: unsupported device"):
         K2.encode_fused(tp, torch.empty(2, 25, 129, device="meta"))
     assert K2.encode_fused.launches == 0
+
+
+@pytest.mark.parametrize("material", sorted(MATERIALS))
+def test_forward_scan_and_the_steps_share_their_front_end(params, material):
+    """The slab route's front half is the step kernel's own front-end and
+    encoder (encode_fused_audio), so against the loop of steps only the
+    batch shape of the products differs: held ten times tighter than
+    TOL_OWN (probabilities 1e-6, h and c 1e-5 of c's largest value;
+    measured: probabilities 1.2e-7, h 1.2e-6, c 2.9e-6). On the card the two
+    are equal bit for bit (tests/test_torch_cuda.py)."""
+    _, tp = params
+    batch, chunks = 3, 5
+    slab = _t(_slab(material, batch, chunks, seed=31))
+    h, c = TM.init_state(batch)
+    _, h, c = TM.forward(tp, _t(speech(batch, seed=32)), h, c)
+    probs, hn, cn = TM.forward_scan(tp, slab, h, c)
+    hs, cs = h, c
+    for k in range(chunks):
+        p_k, hs, cs = TM.forward(tp, slab[:, k], hs, cs)
+        assert_close(probs[:, k], p_k, 1e-6, f"chunk {k} probs")
+    _assert_state(hn, cn, hs, cs, 1e-5, material)
+
+
+def test_forward_scan_runs_encode_fused_audio_and_not_features(params, monkeypatch):
+    """One encode_fused_audio call per SCAN_ROWS rows of the slab; neither
+    `features` (dot_magnitude and the torch normalization) nor encode_fused
+    is on the route any more."""
+    _, tp = params
+    calls = []
+
+    def counted(p, audio):
+        calls.append(tuple(audio.shape))
+        return KF.encode_fused_audio(p, audio)
+
+    def off_route(*args, **kwargs):
+        raise AssertionError("features / encode_fused are not on the slab route")
+
+    monkeypatch.setattr(TM, "encode_fused_audio", counted)
+    monkeypatch.setattr(TM, "features", off_route)
+    monkeypatch.setattr(K2, "encode_fused", off_route)
+    slab = _t(_slab("speech", 2, 3, seed=33))
+    h, c = TM.init_state(2)
+    probs, _, _ = TM.forward_scan(tp, slab, h, c)
+    assert calls == [(6, 1536)] and probs.shape == (2, 3)
+    monkeypatch.setattr(TM, "SCAN_ROWS", 4)
+    TM.forward_scan(tp, slab, h, c)
+    assert calls[1:] == [(4, 1536), (2, 1536)]
+    window, _, _ = TM.forward_minibatched(tp, slab[0], h[:, :1], c[:, :1])
+    assert calls[3:] == [(3, 1536)] and window.shape == (3,)
+
+
+def test_forward_minibatched_is_the_scan_of_one_stream(params):
+    _, tp = params
+    window = _t(_slab("speech", 1, 7, seed=34))
+    h = _t(0.3 * np.random.default_rng(35).normal(size=(2, 1, 64)))
+    c = _t(np.random.default_rng(36).normal(size=(2, 1, 64)))
+    got = TM.forward_minibatched(tp, window[0], h, c)
+    want = TM.forward_scan(tp, window, h, c)
+    assert torch.equal(got[0], want[0][0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])

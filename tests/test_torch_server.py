@@ -582,8 +582,8 @@ def test_outbox_never_blocks_and_preserves_line_integrity(blocking):
 @pytest.mark.parametrize("argv,message", [
     (["--fast"], "precision 'fast' is not ported"),
     (["--precision", "balanced"], "precision 'balanced' is not ported"),
-    (["--resume", "x.ckpt"], "Queue 1 item 8"),
-    (["--shard"], "Queue 1 item 9"),
+    (["--resume", "x.ckpt"], "Queue 1: 'Checkpoint'"),
+    (["--shard"], "Queue 1: 'Multi-GPU'"),
     (["--model", "/nonexistent/w.testtensor", "--device", "cpu"], "no weight archive"),
 ])
 def test_main_refuses_what_is_not_ported(argv, message, capsys):

@@ -51,10 +51,13 @@ _SIGNATURES = {
     # weights, offsets (host int32[]), n_offsets, x, y, rows, seq0, stream
     "vadc_silero_v31_encode": [_P, _P, _I, _P, _P, _I, _I, _P],
     # weights, offsets (host int32[]), n_offsets, norm_w (host float[]),
-    # n_norm_w, audio, batch, stride_b, samples, wr, wi, h, c, probs, hn, cn,
+    # n_norm_w, audio, batch, stride_b, samples, basis, h, c, probs, hn, cn,
     # spect (or null), stream
     "vadc_silero_v31_fused_audio": [_P, _P, _I, _P, _I, _P, _I, _L, _I, _P, _P, _P, _P, _P,
-                                    _P, _P, _P, _P],
+                                    _P, _P, _P],
+    # weights, offsets (host int32[]), n_offsets, norm_w (host float[]),
+    # n_norm_w, audio, rows, stride_b, samples, basis, y, stream
+    "vadc_silero_v31_encode_audio": [_P, _P, _I, _P, _I, _P, _I, _L, _I, _P, _P, _P],
     # audio, batch, stride_b, samples, pad_left, pad_right, hop, wr, wi,
     # n_fft, cutoff, out, stream
     "vadc_stft_magnitude": [_P, _I, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
@@ -104,18 +107,20 @@ def _nvcc() -> str:
     )
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+def library_path(defines: tuple[str, ...] = (), only: tuple[str, ...] = ()) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS + defines + only).encode())
     for src in sources() + headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libvadc_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
+def build(defines: tuple[str, ...] = (), only: tuple[str, ...] = ()) -> Path:
     """Compile csrc/*.cu unless a library of the same sources exists: one
-    nvcc per source, all started together, then one link."""
-    out = library_path()
+    nvcc per source, all started together, then one link. `defines` are
+    extra -D flags and `only` the source names to compile instead of all
+    (a measuring script's second library; the package's own has neither)."""
+    out = library_path(defines, only)
     if out.exists():
         build_info.update(path=str(out), seconds=0.0, log="(loaded an earlier build)")
         return out
@@ -128,9 +133,11 @@ def build() -> Path:
         tmp = Path(tmp)
         jobs = []
         for src in sources():
+            if only and src.name not in only:
+                continue
             obj = tmp / f"{src.stem}.o"
             log = open(tmp / f"{src.stem}.log", "w+")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, *defines, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
             jobs.append((src, obj, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
         logs, failed = [], []
         for src, _, log, proc in jobs:
@@ -158,20 +165,46 @@ def build() -> Path:
     return out
 
 
+def _bind(lib: ctypes.CDLL, names) -> ctypes.CDLL:
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    lib.vadc_error_string.argtypes = [ctypes.c_int]
+    lib.vadc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on the first call in this process."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.vadc_error_string.argtypes = [ctypes.c_int]
-            lib.vadc_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = _bind(ctypes.CDLL(str(build())), _SIGNATURES)
         return _lib
+
+
+#: the step kernel's phase ids, in the order of `enum Phase` in
+#: csrc/silero_v31_body.cuh
+PHASES = (
+    "start", "spectrum", "log1p", "mean, subtract, state", "proj", "depthwise", "pw", "qkv",
+    "scores", "softmax", "mix", "out_proj", "layer_norm 1", "lin1", "lin2", "layer_norm 2",
+    "conv1x1", "lstm input half", "lstm", "decoder, stores",
+)
+
+
+def probe_library() -> ctypes.CDLL:
+    """A second library for chip_profile.py: the step kernel from raw audio
+    compiled with -DVADC_PHASE_PROBE, so that it stamps clock64() at its
+    phase boundaries (csrc/silero_v31_body.cuh). Nothing in the package
+    loads it."""
+    path = build(("-DVADC_PHASE_PROBE",), ("silero_v31_fused_audio.cu", "errors.cu"))
+    lib = _bind(ctypes.CDLL(str(path)), ["vadc_silero_v31_fused_audio"])
+    lib.vadc_phase_probe_shape.argtypes = [_IP, _IP]
+    lib.vadc_phase_probe_shape.restype = None
+    lib.vadc_phase_probe_read.argtypes = [_P, _P, _P, _P]
+    lib.vadc_phase_probe_read.restype = ctypes.c_int
+    return lib
 
 
 def check(status: int, name: str) -> None:

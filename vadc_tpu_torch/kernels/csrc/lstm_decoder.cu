@@ -91,6 +91,7 @@ lstm_decoder_kernel(const float* __restrict__ x, const float* h0, const float* c
   m.hs = m.gates + NB * GATES;
   m.cs = m.hs + 2 * NB * HIDDEN;
   m.dec = m.cs + 2 * NB * HIDDEN;
+  m.wbuf = nullptr;
   m.sa = 0;
   m.sh = 0;
   const int b0 = blockIdx.x * NB;

@@ -16,18 +16,16 @@
 // which silero_v31_fused_audio.cu shares; its header says what they compute.
 //
 // What bounds it on an H100: not FLOPs (about 1.05 M multiply-adds per stream
-// at 25 frames, 44 % of them in the LSTM: 4.3 GFLOP at batch 2048) but the
-// chain of dependent small steps and the weight reads. Streams are
-// independent, so a block takes NB streams and walks every stage and every
-// LSTM step for them with all activations in shared memory (a stream's
-// stage-1 input alone is 25 x 129 x 4 = 12.9 KB; NB = 4 needs 68 KB and
-// NB = 8 136 KB of the 227 KB a block may use). The weights (124,632 floats,
-// 0.5 MB, packed once by the wrapper into one buffer with an offset table)
-// are read from global memory, where they stay in L2. Each weight a thread
-// reads serves NB streams: in the LSTM, thread j owns gate column j and
-// keeps NB sums in registers, so a layer-step reads its 128 KB of gate
-// weights once per block. The batch does not have to divide by NB: a ragged
-// last block computes on zero rows and stores only its real streams.
+// at 25 frames, 44 % of them in the LSTM: 4.3 GFLOP at batch 2048, on the
+// CUDA cores: the faithful tier keeps fp32 products, no TF32; the tensor
+// cores come with the bf16 tiers, where the tier itself moves the bound) but
+// the latency of a chain of dependent small steps. Streams are independent,
+// so a block takes NB = 4 streams and walks every stage and every LSTM step
+// for them with all activations in shared memory (a stream's stage-1 input
+// alone is 25 x 129 x 4 = 12.9 KB); the weights come through shared memory
+// and registers. silero_v31_body.cuh's header says how. The batch does not
+// have to divide by NB: a ragged last block computes on zero rows and stores
+// only its real streams.
 //
 // A second entry, vadc_silero_v31_encode, runs the four encoder stages alone
 // and stores the last stage's output [R, T, 64] (T = 3..7 frames). It
@@ -47,49 +45,41 @@ namespace {
 
 // stage-1 input of the block's streams into region A: rows of 129 floats,
 // pitch(129) = 129, so a stream's features are one contiguous run; zeros
-// past the batch. No barrier.
+// past the batch. No barrier (the encoder passes one first).
 __device__ void load_features(const Block& m, const float* __restrict__ x, int b0, int batch,
                               int seq0) {
   const int n_in = seq0 * N_FEAT;
+  const FastDiv by_in(n_in);
   for (int i = threadIdx.x; i < NB * n_in; i += blockDim.x) {
-    const int s = i / n_in;
+    const int s = by_in.div(i);
     const int r = i - s * n_in;
     m.A[s * m.sa + r] = b0 + s < batch ? x[static_cast<long long>(b0 + s) * n_in + r] : 0.f;
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-silero_v31_fused_kernel(const float* __restrict__ W, Offsets o,
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+silero_v31_fused_kernel(const float* __restrict__ W, const __grid_constant__ Offsets o,
                         const float* __restrict__ x, const float* h0, const float* c0,
                         float* probs, float* hn, float* cn, int batch, int seq0,
                         int sa, int sh) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const Block m = carve(smem, sa, sh);
   const int b0 = blockIdx.x * NB;
   load_features(m, x, b0, batch, seq0);
   load_state(m, h0, c0, b0, batch);
-  __syncthreads();
   encode_lstm_decode(W, o, m, seq0, b0, batch, probs, hn, cn);
 }
 
-__global__ void __launch_bounds__(THREADS)
-silero_v31_encode_kernel(const float* __restrict__ W, Offsets o, const float* __restrict__ x,
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+silero_v31_encode_kernel(const float* __restrict__ W, const __grid_constant__ Offsets o,
+                         const float* __restrict__ x,
                          float* __restrict__ y, int rows, int seq0, int sa, int sh) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const Block m = carve(smem, sa, sh);
   const int b0 = blockIdx.x * NB;
   load_features(m, x, b0, rows, seq0);
-  __syncthreads();
   const int S = encode(W, o, m, seq0);
-  // A holds [NB][S][pitch(64)]; y is [rows, S, 64]
-  for (int i = threadIdx.x; i < NB * S * HIDDEN; i += blockDim.x) {
-    const int u = i % HIDDEN;
-    const int r = i / HIDDEN;
-    const int s = r / S;
-    if (b0 + s >= rows) continue;
-    y[(static_cast<long long>(b0 + s) * S + (r - s * S)) * HIDDEN + u] =
-        m.A[s * sa + (r - s * S) * pitch(HIDDEN) + u];
-  }
+  store_encoded(m, S, b0, rows, y);
 }
 
 // The dynamic shared memory of a block at seq0 frames, raised as the

@@ -10,16 +10,16 @@
 // state before it writes any of it, and blocks own disjoint streams.
 //
 // A block takes NB = 4 streams with 256 threads, as silero_v31_fused.cu:
-//  1. Spectrum. The NB streams' F frames (reflect pad 128/128, hop 64,
-//     n_fft 256) against the [256, 129] real and imaginary bases, one 64-row
-//     x 32-bin tile at a time, with the tile of stft_tile.cuh reading its
-//     rows through the reflect pad as stft_mag.cu does. So every magnitude
-//     is dot_magnitude's, bit for bit. Each lands in region A, where the
-//     body reads its stage-1 input; the tile's shared memory lies over the
-//     regions the body fills only later. The audio and the bases (264 KB)
-//     are read from global memory, where they stay in L1 and L2. The Pallas
-//     kernel's split of the frames into hop blocks worked around its
-//     compiler and is not carried over.
+//  1. Spectrum. The streams' chunks are staged once in shared memory through
+//     the reflect pad (128/128), so the F frames of a stream (hop 64, n_fft
+//     256) are overlapping windows of 7 KB and nothing is framed again;
+//     stft_tile.cuh's stft_block then forms the magnitudes against the real
+//     and imaginary bases, 56 rows x 129 bins a pass. Every magnitude is
+//     dot_magnitude's, bit for bit. Each lands in region A, where the body
+//     reads its stage-1 input; the staged chunks and the basis buffers lie
+//     over the regions the body fills only later. The Pallas kernel's split
+//     of the frames into hop blocks worked around its compiler and is not
+//     carried over.
 //  2. Adaptive normalization, in place: log1p(2^20 x) by the Pallas
 //     kernel's series (_log1p_series), op for op with each op rounded on
 //     its own (no contraction into FMAs), so it equals
@@ -28,15 +28,20 @@
 //     its reflect pad and the frame mean into F weights (host-computed by
 //     the wrapper, passed by value); subtracted from every bin.
 //  3. The encoder, LSTM and decoder of silero_v31_body.cuh.
+// A second entry, vadc_silero_v31_encode_audio, runs 1, 2 and the encoder
+// alone and stores the last stage's output [R, T, 64]: the slab route's
+// front half, whose rows are what this kernel hands its own LSTM.
 //
 // What bounds it on an H100: the spectrum's fp32 FMAs (51,200 frames x 256
 // x 258 x 2 = 6.8 GFLOP at batch 2048 x 1536, on the CUDA cores: the
-// faithful tier keeps fp32 products) beside the body's chain of dependent
-// small steps (4.3 GFLOP). A block's 100 rows x 129 bins take the tile 2 x
-// 5 passes over 128 x 160, so 63 % of the tile's FMAs are useful (80 % in
-// dot_magnitude, whose rows fill whole tiles); what it saves is the
-// spectrum's and the features' round trips through device memory (26 MB
-// each way at batch 2048) and the front-end's dozen small launches.
+// faithful tier keeps fp32 products, no TF32; the tensor cores come with the
+// bf16 tiers, where the tier itself moves the bound) beside the body's chain
+// of dependent small steps (4.3 GFLOP). The first design spent 39 % of a
+// block's life in the spectrum (chip_profile.py's phase split): 10 passes of
+// a 64 x 32 tile over 128 x 160 for 100 x 129 results, each of its 80
+// slices refilled by scalar loads between two barriers with nothing in
+// flight. stft_block's header says what the block-fitted spectrum does
+// about each of these; silero_v31_body.cuh's says the same for the body.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -50,8 +55,10 @@ namespace {
 constexpr int N_FFT = 256;
 constexpr int HOP = 64;
 constexpr int PAD = 128;
-// the tile's thread mapping is the block's
-static_assert(THREADS == stft_tile::THREADS, "one block of threads for the tile and the body");
+// the spectrum's thread mapping is the block's
+static_assert(THREADS == stft_block::THREADS, "one block of threads for the spectrum and the body");
+static_assert(N_FFT % stft_block::BK == 0 && HOP % stft_block::BK == 0, "whole slices a hop");
+static_assert(N_FEAT == 4 * 32 + 1 && stft_block::BINS_LD >= N_FEAT, "32 lanes x 4 bins + Nyquist");
 
 // the collapsed normalization weights of one chunk size, by value
 struct NormW {
@@ -89,60 +96,80 @@ __device__ __forceinline__ float log1p_series(float y) {
 struct ToStageInput {
   float* A;
   int sa;
-  int n_frames;
+  FastDiv by_frames;
   float* spect;  // [B, F, 129] or null
   long long spect_row0;
 
   __device__ void operator()(int r, int c, float v) const {
-    const int s = r / n_frames;
-    const int f = r - s * n_frames;
+    const int s = by_frames.div(r);
+    const int f = r - s * by_frames.d;
     A[s * sa + f * N_FEAT + c] = v;
     if (spect != nullptr) spect[(spect_row0 + r) * N_FEAT + c] = v;
   }
 };
 
-__global__ void __launch_bounds__(THREADS)
-silero_v31_fused_audio_kernel(const float* __restrict__ W, Offsets o, NormW norm_w,
-                              const float* __restrict__ audio, long long stride_b, int samples,
-                              const float* __restrict__ wr, const float* __restrict__ wi,
-                              const float* h0, const float* c0, float* probs, float* hn,
-                              float* cn, float* spect, int batch, int seq0, int sa, int sh) {
-  extern __shared__ float smem[];
-  const Block m = carve(smem, sa, sh);
-  const int b0 = blockIdx.x * NB;
+// floats of one stream's staged, skewed, reflect-padded chunk (a multiple of 4)
+__host__ __device__ inline int staged_chunk_floats(int samples) {
+  return (stft_block::skewed_len(samples + 2 * PAD, HOP) + 3) & ~3;
+}
+
+// The front-end of both entries, so the two cannot drift: the spectrum of
+// the block's live streams into region A, then the adaptive normalization
+// in place; streams past `batch` (a ragged last block) get a zero stage-1
+// input. The staged chunks and the basis buffers lie over everything after
+// region A, which the body fills only later. Ends without a barrier: the
+// encoder passes one first.
+__device__ void audio_features(const Block& m, const NormW& norm_w,
+                               const float* __restrict__ audio, long long stride_b, int samples,
+                               const float* __restrict__ basis, float* spect, int b0, int batch,
+                               int seq0) {
   const int tid = threadIdx.x;
   const int live = min(NB, batch - b0);
   const int n_in = seq0 * N_FEAT;
+  const int sa = m.sa;
+  const FastDiv by_in(n_in), by_seq(seq0);
 
-  // streams past the batch (a ragged last block) get a zero stage-1 input
   for (int i = tid; i < (NB - live) * n_in; i += blockDim.x) {
-    m.A[(live + i / n_in) * sa + i % n_in] = 0.f;
+    const int s = by_in.div(i);
+    m.A[(live + s) * sa + (i - s * n_in)] = 0.f;
   }
 
-  // 1. spectrum of the live streams' frames into A
-  stft_tile::Smem& tile = *reinterpret_cast<stft_tile::Smem*>(m.H);
-  const stft_tile::PaddedAudio src{audio + b0 * stride_b, seq0, stride_b, samples, PAD, HOP};
-  const ToStageInput store{m.A, sa, seq0, spect, static_cast<long long>(b0) * seq0};
-  const int rows = live * seq0;
-  for (int row0 = 0; row0 < rows; row0 += stft_tile::BM) {
-    for (int col0 = 0; col0 < N_FEAT; col0 += stft_tile::BN) {
-      stft_tile::magnitude_tile_at(tile, src, rows, row0, col0, wr, wi, N_FFT, N_FEAT, store);
-    }
+  // 1. the live streams' chunks through the reflect pad into shared memory
+  // (padded sample i is audio[j], j = i - PAD reflected at both edges, edge
+  // excluded), then their spectrum into A
+  float* pad = m.H;
+  const int pad_ld = staged_chunk_floats(samples);
+  float* bbuf = pad + NB * pad_ld;
+  const int padded = samples + 2 * PAD;
+  const FastDiv by_padded(padded);
+  for (int i = tid; i < live * padded; i += blockDim.x) {
+    const int s = by_padded.div(i);
+    const int p = i - s * padded;
+    int j = p - PAD;
+    j = j < 0 ? -j : j;
+    j = j >= samples ? 2 * samples - 2 - j : j;
+    pad[s * pad_ld + stft_block::skewed(p, HOP)] = audio[(b0 + s) * stride_b + j];
   }
   __syncthreads();
+  const ToStageInput store{m.A, sa, by_seq, spect, static_cast<long long>(b0) * seq0};
+  stft_block::magnitudes(pad, pad_ld, HOP, live * seq0, seq0, N_FFT, basis, bbuf, store);
+  __syncthreads();
+  PHASE_STAMP(PH_SPECTRUM);
 
   // 2. adaptive normalization in place
   for (int i = tid; i < NB * n_in; i += blockDim.x) {
-    const int s = i / n_in;
+    const int s = by_in.div(i);
     float* p = m.A + s * sa + (i - s * n_in);
     *p = log1p_series(__fmul_rn(*p, 1048576.f));
   }
   __syncthreads();
+  PHASE_STAMP(PH_LOG1P);
   float* mean = m.gates;  // [NB][seq0]; the gates are free until the LSTM
   for (int r = tid; r < NB * seq0; r += blockDim.x) {
-    const int s = r / seq0;
+    const int s = by_seq.div(r);
     const float* row = m.A + s * sa + (r - s * seq0) * N_FEAT;
     float sum = 0.f;
+#pragma unroll 8
     for (int c = 0; c < N_FEAT; ++c) sum += row[c];
     mean[r] = sum / N_FEAT;
   }
@@ -155,52 +182,135 @@ silero_v31_fused_audio_kernel(const float* __restrict__ W, Offsets o, NormW norm
   }
   __syncthreads();
   for (int i = tid; i < NB * n_in; i += blockDim.x) {
-    const int s = i / n_in;
+    const int s = by_in.div(i);
     m.A[s * sa + (i - s * n_in)] -= mean_mean[s];
   }
+}
 
-  // 3. the model
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+silero_v31_fused_audio_kernel(const float* __restrict__ W, const __grid_constant__ Offsets o,
+                               const __grid_constant__ NormW norm_w,
+                              const float* __restrict__ audio, long long stride_b, int samples,
+                              const float* __restrict__ basis, const float* h0, const float* c0, float* probs, float* hn,
+                              float* cn, float* spect, int batch, int seq0, int sa, int sh) {
+  extern __shared__ __align__(16) float smem[];
+  const Block m = carve(smem, sa, sh);
+  const int b0 = blockIdx.x * NB;
+  PHASE_STAMP(PH_START);
+  audio_features(m, norm_w, audio, stride_b, samples, basis, spect, b0, batch, seq0);
   load_state(m, h0, c0, b0, batch);
   __syncthreads();
+  PHASE_STAMP(PH_NORM);
   encode_lstm_decode(W, o, m, seq0, b0, batch, probs, hn, cn);
+}
+
+// The encoder alone from raw audio: the same front-end, the same four
+// stages, and the store of silero_v31_fused.cu's encoder entry. Its rows
+// are what the step kernel above hands its own LSTM.
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+silero_v31_encode_audio_kernel(const float* __restrict__ W, const __grid_constant__ Offsets o,
+                               const __grid_constant__ NormW norm_w,
+                               const float* __restrict__ audio, long long stride_b, int samples,
+                               const float* __restrict__ basis, float* __restrict__ y, int rows, int seq0, int sa, int sh) {
+  extern __shared__ __align__(16) float smem[];
+  const Block m = carve(smem, sa, sh);
+  const int b0 = blockIdx.x * NB;
+  audio_features(m, norm_w, audio, stride_b, samples, basis, nullptr, b0, rows, seq0);
+  const int S = encode(W, o, m, seq0);
+  store_encoded(m, S, b0, rows, y);
+}
+
+// Checks the arguments both entries share, fills the by-value tables and
+// raises the kernel's dynamic shared memory; returns its bytes, or 0 with
+// *err set.
+template <class Kernel>
+size_t prepare(Kernel kernel, const int* offsets, int n_offsets, const float* norm_w,
+               int n_norm_w, int batch, long long stride_b, int samples, Offsets* o, NormW* nw,
+               int* seq0, int* sa, int* sh, cudaError_t* err) {
+  *seq0 = samples / HOP + 1;
+  if (n_offsets != N_SLOTS || batch <= 0 || samples % 256 != 0 || *seq0 < MIN_SEQ0 ||
+      *seq0 > MAX_SEQ0 || n_norm_w != *seq0 || stride_b < samples) {
+    *err = cudaErrorInvalidValue;
+    return 0;
+  }
+  std::memcpy(o->v, offsets, sizeof(o->v));
+  *nw = NormW{};
+  std::memcpy(nw->v, norm_w, sizeof(float) * *seq0);
+  plan(*seq0, sa, sh);
+  // the staged chunks and the basis buffers lie over everything after region A
+  const int front = NB * staged_chunk_floats(samples) + stft_block::BASIS_FLOATS;
+  const int floats = NB * *sa + std::max(tail_floats(*sh), front);
+  const size_t bytes = static_cast<size_t>(floats) * sizeof(float);
+  *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+  return bytes;
 }
 
 }  // namespace
 
 // weights, offsets, n_offsets: as vadc_silero_v31_fused; norm_w: host
 // float[n_norm_w], the F collapsed normalization weights; audio: chunk b at
-// audio + b*stride_b, `samples` fp32 each; wr, wi: [256, 129] row-major;
+// audio + b*stride_b, `samples` fp32 each; basis: [256][2][132], tap k's
+// real then imaginary basis row, each 129 bins padded with zeros to 132;
 // h, c, hn, cn [2, batch, 64] (hn, cn may alias h, c); probs [batch];
 // spect: [batch, F, 129] for a copy of the magnitudes, or null. Returns
 // cudaGetLastError() after the launch.
 extern "C" int vadc_silero_v31_fused_audio(const float* weights, const int* offsets,
                                            int n_offsets, const float* norm_w, int n_norm_w,
                                            const float* audio, int batch, long long stride_b,
-                                           int samples, const float* wr, const float* wi,
-                                           const float* h, const float* c, float* probs,
+                                           int samples, const float* basis, const float* h,
+                                           const float* c, float* probs,
                                            float* hn, float* cn, float* spect, void* stream) {
-  const int seq0 = samples / HOP + 1;
-  if (n_offsets != N_SLOTS || batch <= 0 || samples % 256 != 0 || seq0 < MIN_SEQ0 ||
-      seq0 > MAX_SEQ0 || n_norm_w != seq0 || stride_b < samples) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   Offsets o;
-  std::memcpy(o.v, offsets, sizeof(o.v));
-  NormW nw{};
-  std::memcpy(nw.v, norm_w, sizeof(float) * seq0);
-  int sa = 0, sh = 0;
-  plan(seq0, &sa, &sh);
-  // the tile's shared memory lies over everything after region A
-  const int tile_floats = static_cast<int>(sizeof(stft_tile::Smem) / sizeof(float));
-  const int floats = std::max(block_floats(sa, sh), NB * sa + tile_floats);
-  const size_t bytes = static_cast<size_t>(floats) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(silero_v31_fused_audio_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+  NormW nw;
+  int seq0 = 0, sa = 0, sh = 0;
+  cudaError_t err = cudaSuccess;
+  const size_t bytes = prepare(silero_v31_fused_audio_kernel, offsets, n_offsets, norm_w,
+                               n_norm_w, batch, stride_b, samples, &o, &nw, &seq0, &sa, &sh, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (batch + NB - 1) / NB;
   silero_v31_fused_audio_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      weights, o, nw, audio, stride_b, samples, wr, wi, h, c, probs, hn, cn, spect, batch, seq0,
-      sa, sh);
+      weights, o, nw, audio, stride_b, samples, basis, h, c, probs, hn, cn, spect, batch, seq0, sa,
+      sh);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The encoder alone from raw audio: audio as above (`rows` chunks) -> y
+// [rows, T, 64], T the frame count after the strides 2, 2, 1, 1 (3..7).
+// Returns cudaGetLastError() after the launch.
+extern "C" int vadc_silero_v31_encode_audio(const float* weights, const int* offsets,
+                                            int n_offsets, const float* norm_w, int n_norm_w,
+                                            const float* audio, int rows, long long stride_b,
+                                            int samples, const float* basis, float* y,
+                                            void* stream) {
+  Offsets o;
+  NormW nw;
+  int seq0 = 0, sa = 0, sh = 0;
+  cudaError_t err = cudaSuccess;
+  const size_t bytes = prepare(silero_v31_encode_audio_kernel, offsets, n_offsets, norm_w,
+                               n_norm_w, rows, stride_b, samples, &o, &nw, &seq0, &sa, &sh, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (rows + NB - 1) / NB;
+  silero_v31_encode_audio_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+      weights, o, nw, audio, stride_b, samples, basis, y, rows, seq0, sa, sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#ifdef VADC_PHASE_PROBE
+// The stamps of the last launch (synchronizes the device): clocks and ids
+// [blocks][slots], counts [blocks], ns [blocks][2] into host arrays sized by
+// vadc_phase_probe_shape. Only in the probe library of chip_profile.py.
+extern "C" void vadc_phase_probe_shape(int* blocks, int* slots) {
+  *blocks = PROBE_BLOCKS;
+  *slots = PROBE_SLOTS;
+}
+extern "C" int vadc_phase_probe_read(long long* clocks, int* ids, int* counts,
+                                     unsigned long long* ns) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(clocks, probe_clock, sizeof(probe_clock));
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(ids, probe_id, sizeof(probe_id));
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(counts, probe_count, sizeof(probe_count));
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(ns, probe_ns, sizeof(probe_ns));
+  return static_cast<int>(err);
+}
+#endif

@@ -4,9 +4,15 @@ Counterpart of vadc_tpu/kernels/silero_v31_fused.py (`forward_fused`): STFT
 magnitude, adaptive normalization, the four encoder stages, the 2-layer
 LSTM and the v3 decoder in one launch. The kernel is
 `csrc/silero_v31_fused_audio.cu`; its header says what bounds it on an
-H100 and how its design answers that. Its spectrum is the tile of
-`dot_magnitude` (bit for bit) and its encoder, LSTM and decoder are the
-device code of `forward_fused2d`'s kernel.
+H100 and how its design answers that. Its spectrum gives `dot_magnitude`'s
+bits and its encoder, LSTM and decoder are the device code of
+`forward_fused2d`'s kernel.
+
+`encode_fused_audio` is the same source's second entry: the spectrum, the
+normalization and the four encoder stages alone, storing the last stage's
+output. The slab scan and the CLI's window run it over all their chunks at
+once and hand its rows to `kernels.lstm_decoder.lstm_decoder_fused`, so a
+slab gives the loop of steps bit for bit.
 
 The JAX kernel splits each frame into 64-sample hop blocks because its
 compiler could not stack overlapping frames; that is not semantics and is
@@ -27,7 +33,9 @@ from vadc_tpu_torch.kernels import _build
 from vadc_tpu_torch.kernels.silero_v31_fused2d import (
     HIDDEN,
     N_FEAT,
+    encode_fused_reference,
     forward_fused2d_reference,
+    out_frames,
     pack_weights,
 )
 from vadc_tpu_torch.kernels.stft_mag import split_basis_of
@@ -56,6 +64,24 @@ def _norm_weights(n_frames: int) -> tuple[np.ndarray, ctypes.Array]:
     return norm_w, (ctypes.c_float * n_frames)(*norm_w.tolist())
 
 
+BASIS_LD = 132  # 129 bins padded to a multiple of 4 (stft_block::BINS_LD)
+
+
+def padded_basis_of(params: Params) -> torch.Tensor:
+    """The STFT bases as the kernels read them: [256, 2, 132], tap k's real
+    then imaginary basis row, each 129 bins padded with zeros to 132, so that
+    a slice of taps is one contiguous 16-byte aligned run. Built once per
+    Params object."""
+    def build() -> torch.Tensor:
+        wr, wi = split_basis_of(params)
+        out = torch.zeros(wr.shape[0], 2, BASIS_LD, dtype=torch.float32, device=wr.device)
+        out[:, 0, : wr.shape[1]] = wr
+        out[:, 1, : wi.shape[1]] = wi
+        return out
+
+    return params.derived("silero_v31_padded_basis", build)
+
+
 def norm_weights(n_frames: int) -> np.ndarray:
     """The adaptive normalization's smoothing collapsed to F weights
     (vadc_tpu/kernels/silero_v31_fused.py:270-279): the frame mean of the
@@ -64,18 +90,29 @@ def norm_weights(n_frames: int) -> np.ndarray:
     return _norm_weights(n_frames)[0]
 
 
-def forward_fused_reference(
-    params: dict, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version: the STFT magnitude of nn/functional, log1p(2^20 x) by
-    the same series, the per-frame channel mean weighted by norm_weights
-    and subtracted, then forward_fused2d_reference. audio [B, S]; h, c
-    [2, B, 64] -> (probs [B], hn, cn)."""
+def features_reference(params: dict, audio: torch.Tensor) -> torch.Tensor:
+    """The kernels' front-end in plain ops: the STFT magnitude of
+    nn/functional, log1p(2^20 x) by the same series, the per-frame channel
+    mean weighted by norm_weights and subtracted. audio [B, S] -> [B, F, 129]."""
     spect = F.stft_magnitude_nlc(audio, params["stft_basis"], pad_left=PAD, pad_right=PAD, hop=HOP)
     loge = F.accurate_log1p(spect * 1048576.0)
     norm_w = torch.from_numpy(norm_weights(spect.shape[1]).copy()).to(audio.device)
     mean_mean = torch.sum(torch.mean(loge, dim=-1) * norm_w, dim=-1)
-    return forward_fused2d_reference(params, loge - mean_mean[:, None, None], h, c)
+    return loge - mean_mean[:, None, None]
+
+
+def forward_fused_reference(
+    params: dict, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version: features_reference, then forward_fused2d_reference.
+    audio [B, S]; h, c [2, B, 64] -> (probs [B], hn, cn)."""
+    return forward_fused2d_reference(params, features_reference(params, audio), h, c)
+
+
+def encode_fused_audio_reference(params: dict, audio: torch.Tensor) -> torch.Tensor:
+    """Plain version of encode_fused_audio: features_reference, then the
+    four encoder stages. audio [R, S] -> [R, T, 64]."""
+    return encode_fused_reference(params, features_reference(params, audio))
 
 
 def forward_fused(
@@ -109,21 +146,9 @@ def forward_fused(
         hn = torch.empty_like(h)
     if cn is None:
         cn = torch.empty_like(c)
-    packed = pack_weights(params)
-    wr, wi = split_basis_of(params)
-    _check(packed, audio, wr, h, c, hn, cn, spectrum)
-    batch, samples = audio.shape
-    _, c_norm_w = _norm_weights(samples // HOP + 1)
-    probs = torch.empty(batch, dtype=torch.float32, device=audio.device)
-    lib = _build.library()
-    status = lib.vadc_silero_v31_fused_audio(
-        packed.buffer.data_ptr(), packed._c_offsets, len(packed.offsets),
-        c_norm_w, len(c_norm_w), audio.data_ptr(), batch, audio.stride(0), samples,
-        wr.data_ptr(), wi.data_ptr(), h.data_ptr(), c.data_ptr(),
-        probs.data_ptr(), hn.data_ptr(), cn.data_ptr(),
-        None if spectrum is None else spectrum.data_ptr(),
-        torch.cuda.current_stream(audio.device).cuda_stream,
-    )
+    probs = torch.empty(audio.shape[0], dtype=torch.float32, device=audio.device)
+    args = step_args(params, audio, h, c, probs, hn, cn, spectrum)
+    status = _build.library().vadc_silero_v31_fused_audio(*args)
     _build.check(status, "forward_fused")
     forward_fused.launches += 1
     return probs, hn, cn
@@ -133,41 +158,100 @@ def forward_fused(
 forward_fused.launches = 0
 
 
-def _check_chunks(audio: torch.Tensor) -> None:
+def step_args(params: Params, audio, h, c, probs, hn, cn, spectrum=None) -> tuple:
+    """Checks the tensors of one step and returns the arguments of the C
+    entry vadc_silero_v31_fused_audio (chip_profile.py hands them to its
+    stamped build of the same source)."""
+    packed = pack_weights(params)
+    basis = padded_basis_of(params)
+    _check("forward_fused", packed, audio, basis, h, c, hn, cn, spectrum)
+    batch, samples = audio.shape
+    _, c_norm_w = _norm_weights(samples // HOP + 1)
+    return (
+        packed.buffer.data_ptr(), packed._c_offsets, len(packed.offsets),
+        c_norm_w, len(c_norm_w), audio.data_ptr(), batch, audio.stride(0), samples,
+        basis.data_ptr(), h.data_ptr(), c.data_ptr(),
+        probs.data_ptr(), hn.data_ptr(), cn.data_ptr(),
+        None if spectrum is None else spectrum.data_ptr(),
+        torch.cuda.current_stream(audio.device).cuda_stream,
+    )
+
+
+def encode_fused_audio(params: Params, audio: torch.Tensor) -> torch.Tensor:
+    """The front-end and the four encoder stages from raw audio, the step
+    kernel's own up to its LSTM: audio [R, S], S a multiple of 256 in
+    512..1536 (rows may be strided, samples unit-stride) -> [R, T, 64],
+    T = 3..7. The rows are independent (R is streams x chunks on the slab
+    route); `kernels.lstm_decoder.lstm_decoder_fused` on them gives
+    forward_fused's bits. A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises."""
+    _check_chunks(audio, "encode_fused_audio")
+    if audio.device.type == "cpu":
+        return encode_fused_audio_reference(params, audio)
+    packed = pack_weights(params)
+    basis = padded_basis_of(params)
+    _check("encode_fused_audio", packed, audio, basis)
+    rows, samples = audio.shape
+    frames = samples // HOP + 1
+    _, c_norm_w = _norm_weights(frames)
+    out = torch.empty(rows, out_frames(frames), HIDDEN, dtype=torch.float32, device=audio.device)
+    status = _build.library().vadc_silero_v31_encode_audio(
+        packed.buffer.data_ptr(), packed._c_offsets, len(packed.offsets),
+        c_norm_w, len(c_norm_w), audio.data_ptr(), rows, audio.stride(0), samples,
+        basis.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(audio.device).cuda_stream,
+    )
+    _build.check(status, "encode_fused_audio")
+    encode_fused_audio.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+encode_fused_audio.launches = 0
+
+
+def _check_chunks(audio: torch.Tensor, who: str = "forward_fused") -> None:
     """The chunk sizes the model is defined for, on every device."""
     batch, samples = audio.shape if audio.dim() == 2 else (0, 0)
     if samples % 256 or not MIN_SAMPLES <= samples <= MAX_SAMPLES or batch < 1:
         raise ValueError(
-            f"forward_fused: audio {tuple(audio.shape)} is not [B, S] with B >= 1 and S a "
+            f"{who}: audio {tuple(audio.shape)} is not [B, S] with B >= 1 and S a "
             f"multiple of 256 in {MIN_SAMPLES}..{MAX_SAMPLES}"
         )
 
 
-def _check(packed, audio, wr, h, c, hn, cn, spectrum) -> None:
-    if audio.device.type != "cuda":
-        raise ValueError(f"forward_fused: unsupported device {audio.device}")
-    if audio.dim() != 2 or audio.stride(1) != 1:
+def _check(who, packed, audio, basis, h=None, c=None, hn=None, cn=None, spectrum=None) -> None:
+    """The tensors of one launch: the step's (state and, optionally, the
+    spectrum copy) or the encoder entry's (audio and weights alone)."""
+    if audio.dim() != 2 or audio.stride(1) != 1 or (audio.shape[0] > 1 and
+                                                    audio.stride(0) < audio.shape[1]):
         raise ValueError(
-            f"forward_fused: audio must be [B, S] with unit-stride samples, got shape "
-            f"{tuple(audio.shape)} strides {audio.stride()}"
+            f"{who}: audio must be [B, S] with unit-stride samples and rows that do not "
+            f"overlap, got shape {tuple(audio.shape)} strides {audio.stride()}"
         )
+    if audio.dtype != torch.float32:
+        raise TypeError(f"{who}: audio must be float32, got {audio.dtype}")
+    if audio.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {audio.device}")
     batch, samples = audio.shape
-    if tuple(wr.shape) != (N_FFT, N_FEAT):
-        raise ValueError(f"forward_fused: STFT basis {tuple(wr.shape)} is not [256, 129]")
+    if tuple(basis.shape) != (N_FFT, 2, BASIS_LD):
+        raise ValueError(
+            f"{who}: padded STFT basis {tuple(basis.shape)} is not [{N_FFT}, 2, {BASIS_LD}]")
     state_shape = (2, batch, HIDDEN)
-    tensors = [("audio", audio), ("h", h), ("c", c), ("hn", hn), ("cn", cn),
-               ("weights", packed.buffer), ("basis", wr)]
+    tensors = [("audio", audio), ("weights", packed.buffer), ("basis", basis)]
+    if h is not None:
+        tensors += [("h", h), ("c", c), ("hn", hn), ("cn", cn)]
     if spectrum is not None:
         tensors.append(("spectrum", spectrum))
         want = (batch, samples // HOP + 1, N_FEAT)
         if tuple(spectrum.shape) != want:
-            raise ValueError(f"forward_fused: spectrum {tuple(spectrum.shape)} is not {want}")
+            raise ValueError(f"{who}: spectrum {tuple(spectrum.shape)} is not {want}")
     for name, t in tensors:
         if t.dtype != torch.float32:
-            raise TypeError(f"forward_fused: {name} must be float32, got {t.dtype}")
+            raise TypeError(f"{who}: {name} must be float32, got {t.dtype}")
         if t.device != audio.device:
-            raise ValueError(f"forward_fused: {name} on {t.device}, audio on {audio.device}")
+            raise ValueError(f"{who}: {name} on {t.device}, audio on {audio.device}")
         if name != "audio" and not t.is_contiguous():
-            raise ValueError(f"forward_fused: {name} must be contiguous")
+            raise ValueError(f"{who}: {name} must be contiguous")
         if name in ("h", "c", "hn", "cn") and tuple(t.shape) != state_shape:
-            raise ValueError(f"forward_fused: {name} {tuple(t.shape)} is not {state_shape}")
+            raise ValueError(f"{who}: {name} {tuple(t.shape)} is not {state_shape}")

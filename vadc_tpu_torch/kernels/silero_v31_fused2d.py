@@ -14,10 +14,11 @@ torch ops).
 
 `encode_fused` is the same source's second entry: the four encoder stages
 alone, storing the last stage's output. It is no port of a Pallas kernel
-(the JAX package leaves `encode_nlc` to XLA); the slab scan and the CLI's
-window run it over all their chunks at once and hand its rows to
-`kernels.lstm_decoder.lstm_decoder_fused`, so their numbers are the fused
-kernels' own.
+(the JAX package leaves `encode_nlc` to XLA). `lstm_decoder_fused` on its
+rows gives `forward_fused2d`'s bits. The model's slab scan runs the
+counterpart that starts from raw audio,
+`kernels.silero_v31_fused.encode_fused_audio`; this one serves callers that
+hold normalized features.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ _STAGE_SLOTS = (
     "bn_scale", "bn_shift",
 )
 _TAIL_SLOTS = ("lstm_w0", "lstm_w1", "lstm_b0", "lstm_b1", "dec_w", "dec_b")
+_ALIGN = 4  # floats: every packed tensor starts 16-byte aligned
 # stored transposed ([in, out]; dw_w as [5, C]) so neighbouring threads of
 # the kernel read neighbouring weights
 _TRANSPOSED = {"dw_w", "pw_w", "proj_w", "qkv_w", "att_proj_w", "lin1_w", "lin2_w", "conv_w"}
@@ -53,6 +55,8 @@ _TRANSPOSED = {"dw_w", "pw_w", "proj_w", "qkv_w", "att_proj_w", "lin1_w", "lin2_
 class PackedWeights:
     """All v3.1 weights the kernel reads, as one contiguous fp32 device
     buffer and an int32 offset table (-1 for stage 3's absent projection).
+    Every tensor starts at a multiple of 4 floats (zeros between), so the
+    kernel can copy a matrix to shared memory 16 bytes at a time.
     Batch norm is folded to scale = w / sqrt(var + eps), shift = b -
     mean * scale; a BN-folded archive gets scale 1, shift 0."""
 
@@ -67,6 +71,10 @@ class PackedWeights:
                 offsets.append(-1)
                 return
             flat = t.detach().to(torch.float32).reshape(-1)
+            gap = -cursor % _ALIGN
+            if gap:
+                pieces.append(flat.new_zeros(gap))
+                cursor += gap
             pieces.append(flat)
             offsets.append(cursor)
             cursor += flat.numel()

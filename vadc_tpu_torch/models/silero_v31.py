@@ -19,12 +19,13 @@ Which path launches which kernel:
     audio: `kernels.silero_v31_fused.forward_fused` (STFT, adaptive
     normalization, encoder, LSTM, decoder).
   * `forward_scan`, the slab scan behind `StreamRunner.scan` (the offline
-    corpus path), takes K chunks of each of B streams: `features` (the
-    `kernels.stft_dotmag.dot_magnitude` kernel, then the adaptive
-    normalization in torch ops) and `kernels.silero_v31_fused2d.encode_fused`
-    over all B*K chunks at once, then ONE launch of
-    `kernels.lstm_decoder.lstm_decoder_fused`, which walks the K chunks of
-    each stream in order. Only the LSTM carries anything from chunk to chunk.
+    corpus path), takes K chunks of each of B streams:
+    `kernels.silero_v31_fused.encode_fused_audio` (the step kernel's own
+    front-end and encoder, from raw audio) over all B*K chunks at once, then
+    ONE call of `kernels.lstm_decoder.lstm_decoder_fused`, which walks the K
+    chunks of each stream in order. Only the LSTM carries anything from
+    chunk to chunk, so on the card the slab equals the loop of steps bit for
+    bit.
   * `forward_minibatched`, the CLI's path through `MinibatchRunner`, is
     `forward_scan` at B = 1 over the window's N chunks.
 
@@ -41,8 +42,7 @@ import torch
 
 from vadc_tpu_torch.kernels.lstm import transposed_weight_of
 from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused
-from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
-from vadc_tpu_torch.kernels.silero_v31_fused2d import encode_fused
+from vadc_tpu_torch.kernels.silero_v31_fused import encode_fused_audio, forward_fused
 from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
 from vadc_tpu_torch.kernels.stft_mag import split_basis_of
 from vadc_tpu_torch.models.weights import V3_STRIDES, Params
@@ -55,9 +55,7 @@ HIDDEN = 64
 STFT_PAD = 128
 STFT_HOP = 64
 # Rows (streams x chunks) of a slab that go through the front-end and the
-# encoder in one pass: a row's features are 12.9 KB at 25 frames and the
-# normalization holds a few such arrays at once, so 16384 rows stay near
-# 1 GB of device memory. A larger slab is cut over rows, never over chunks.
+# encoder in one launch. A larger slab is cut over rows, never over chunks.
 SCAN_ROWS = 16384
 
 
@@ -75,7 +73,10 @@ def features(params: Params, audio: torch.Tensor) -> torch.Tensor:
 
     The framing is a view (reflect pad, then unfold); the spectrum product
     and its magnitude are the dot_magnitude kernel; the adaptive
-    normalization stays in torch ops, as the JAX package leaves it to XLA."""
+    normalization stays in torch ops, as the JAX package leaves it to XLA.
+    The front-end for callers of `forward_fused2d` and `encode_fused`; the
+    model's own paths run theirs inside `forward_fused` and
+    `encode_fused_audio`."""
     basis = params["stft_basis"]
     frames = F.frame(F.reflect_pad_last(audio, STFT_PAD, STFT_PAD), basis.shape[1], STFT_HOP)
     wr, wi = split_basis_of(params)
@@ -119,7 +120,8 @@ def forward_scan(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A slab of K consecutive chunks of each of B independent streams:
     audio [B, K, S]; h, c [2, B, 64] -> (probs [B, K], hn, cn), equal to K
-    calls of `forward` in order up to the rounding of the normalization.
+    calls of `forward` in order (bit for bit on the card, where both run
+    the same device code; to the rounding of the LSTM's sums on the CPU).
 
     The front-end and the encoder are per chunk, so they run over the B*K
     chunks as one batch; the LSTM and the decoder then walk each stream's K
@@ -128,7 +130,7 @@ def forward_scan(
     n_streams, n_chunks, samples = audio.shape
     flat = audio.reshape(n_streams * n_chunks, samples)
     pieces = [
-        encode_fused(params, features(params, flat[r0 : r0 + SCAN_ROWS]))
+        encode_fused_audio(params, flat[r0 : r0 + SCAN_ROWS])
         for r0 in range(0, flat.shape[0], SCAN_ROWS)
     ]
     enc = pieces[0] if len(pieces) == 1 else torch.cat(pieces)

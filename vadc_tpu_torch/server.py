@@ -25,8 +25,8 @@ Architecture:
     counters; pad/merge and the EOF snap run on the host per event.
 
 Every family the port loads serves, at the faithful tier. Not in the port
-yet: checkpoint/resume (ROADMAP Queue 1 item 8) and serving over several
-devices (item 9); `--resume` and `--shard` say so and exit 1.
+yet: checkpoint/resume (ROADMAP Queue 1, 'Checkpoint') and serving over
+several devices ('Multi-GPU'); `--resume` and `--shard` say so and exit 1.
 
     python -m vadc_tpu_torch.server --port 7355 --max_streams 64 [--device cuda]
     # then: cat audio.s16le | nc -q1 localhost 7355
@@ -663,13 +663,13 @@ def main(argv: list[str] | None = None) -> int:
     try:
         if args.resume:
             raise NotImplementedError(
-                "--resume: server checkpoints are not ported yet (ROADMAP.md, Queue 1 "
-                "item 8: 'Checkpoint')"
+                "--resume: server checkpoints are not ported yet (ROADMAP.md, Queue 1: "
+                "'Checkpoint')"
             )
         if args.shard:
             raise NotImplementedError(
                 "--shard: serving over several devices is not ported yet (ROADMAP.md, "
-                "Queue 1 item 9: 'Multi-GPU'); the server serves on the one --device"
+                "Queue 1: 'Multi-GPU'); the server serves on the one --device"
             )
         server = VadServer(
             args.host,
