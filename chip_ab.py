@@ -17,7 +17,17 @@ speech are chip_smoke.py's, taken from beside this script):
     and 2048 x 512; `forward_fused2d` at 2048 x 25 frames; `encode_fused` at
     4096 rows; `encode_fused_audio` at 4096 and 16384 rows (where the tree
     has that entry);
-  - the spectrum kernels `dot_magnitude` and `stft_magnitude` at 2048 x 1536;
+  - the spectrum kernels `dot_magnitude` and `stft_magnitude` at 2048 x 1536
+    (the v3.1 geometry, pads 128/128); `stft_magnitude` at the geometries of
+    the four v4/v5 families at B = 2048 (v4 x 1536, v4_8k x 768, v5 x 576
+    and v5_8k x 288, the context attached) and at the v4 CLI window (96 x
+    1536), and its digests there (chip_smoke.stft_digests); beside them, as
+    a yardstick of the product alone, cuBLAS's fp32 `torch.matmul` of the
+    contiguous frames [rows, 256] with the bases [256, 258] (no TF32; no
+    magnitude, the [rows, 258] product written out) at the v4 and the v3.1
+    shapes;
+  - the v4 and v5 `StreamRunner.step` at B = 2048, and the v4 CLI window
+    (`silero_v4.forward_minibatched`, 96 chunks of one stream);
   - the v3.1 paths: `StreamRunner.scan` over a 64 x 64 and a 2048 x 8 slab,
     the loop of 8 `StreamRunner.step` at B = 2048, and the CLI's window
     (`forward_minibatched`, 96 chunks of one stream);
@@ -32,6 +42,8 @@ Imports nothing of JAX. Exits 1 without a card.
 
 from __future__ import annotations
 
+import importlib.util
+import json
 import os
 import sys
 from pathlib import Path
@@ -57,10 +69,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device is visible to PyTorch", file=sys.stderr)
         return 1
-    # the tree under test first, then this script's directory for chip_smoke
+    # the package of the tree under test; chip_smoke.py from beside this
+    # script, whichever tree the current directory is
     sys.path.insert(0, os.getcwd())
-    sys.path.append(str(Path(__file__).resolve().parent))
-    import chip_smoke
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = chip_smoke
+    spec.loader.exec_module(chip_smoke)
     from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
     from vadc_tpu_torch.engine.runner import StreamRunner
     from vadc_tpu_torch.kernels import silero_v31_fused as KA
@@ -110,6 +126,28 @@ def main() -> int:
     out.append(f"dot_magnitude B=2048 x {CHUNK}: {t:.4f}")
     t = ms(lambda: stft_magnitude(audio, wr, wi, pad_left=128, pad_right=128, hop=64))
     out.append(f"stft_magnitude B=2048 x {CHUNK}: {t:.4f}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    product = torch.cat([wr, wi], dim=1)  # [256, 258]
+    rows = frames.reshape(-1, 256).contiguous()
+    t = ms(lambda: torch.matmul(rows, product))
+    out.append(f"cuBLAS product only, {rows.shape[0]} rows (v3.1): {t:.4f}")
+
+    _, models = chip_smoke.family_models(device)
+    for family, (module, p) in models.items():
+        samples, kw = chip_smoke.stft_geometry(family, module)
+        fam_audio = speech(2048, samples, SEED + 3)
+        fwr, fwi = split_basis_of(p)
+        t = ms(lambda: stft_magnitude(fam_audio, fwr, fwi, **kw))
+        out.append(f"stft_magnitude {family} B=2048 x {samples}: {t:.4f}")
+        if family == "v4":
+            rows = F.frame(F.reflect_pad_last(fam_audio, kw["pad_left"], kw["pad_right"]), 256,
+                           kw["hop"]).reshape(-1, 256).contiguous()
+            t = ms(lambda: torch.matmul(rows, torch.cat([fwr, fwi], dim=1)))
+            out.append(f"cuBLAS product only, {rows.shape[0]} rows (v4): {t:.4f}")
+            window = fam_audio[:CLI_WINDOW]
+            t = ms(lambda: stft_magnitude(window, fwr, fwi, **kw))
+            out.append(f"stft_magnitude v4 CLI window {CLI_WINDOW} x {samples}: {t:.4f}")
+    out.append("stft_magnitude digests " + json.dumps(chip_smoke.stft_digests(models, device)))
 
     runner = StreamRunner("v3", params, device=device)
     for streams, chunks in SLAB_SHAPES:
@@ -129,6 +167,19 @@ def main() -> int:
     h, c = silero_v31.init_state(1, device)
     t = ms(lambda: silero_v31.forward_minibatched(params, window, h, c), iters=10)
     out.append(f"CLI window {CLI_WINDOW} x {CHUNK}: {t:.4f}")
+    for family in ("v4", "v5"):
+        module, p = models[family]
+        chunk = chip_smoke.V4_CHUNK if family == "v4" else chip_smoke.V5_CHUNK
+        fam_runner = StreamRunner(family, p, device=device)
+        fam_state = fam_runner.init_state(2048)
+        chunks = speech(2048, chunk, SEED + 4)
+        t = ms(lambda: fam_runner.step(chunks, fam_state), iters=20)
+        out.append(f"step {family} B=2048 x {chunk}: {t:.4f}")
+    module, p = models["v4"]
+    window = speech(CLI_WINDOW, chip_smoke.V4_CHUNK, SEED + 5)
+    h, c = module.init_state(1, device)
+    t = ms(lambda: module.forward_minibatched(p, window, h, c), iters=20)
+    out.append(f"v4 CLI window {CLI_WINDOW} x {chip_smoke.V4_CHUNK}: {t:.4f}")
 
     for name, hidden, layers, batch, seq in LSTM_SHAPES:
         w, b = rand(layers, 4 * hidden, 2 * hidden, scale=0.1), rand(layers, 4 * hidden, scale=0.1)
@@ -145,6 +196,17 @@ def main() -> int:
         out.append(f"lstm_decoder_fused B={batch} x K={chunks} x T=7: {t:.4f}")
     print(f"{os.path.basename(os.getcwd())} ({chip_smoke.nvidia_smi()}), ms per call | "
           + "; ".join(out), flush=True)
+    # registers, spills and stack of the spectrum kernels, from nvcc -Xptxas -v
+    from vadc_tpu_torch.kernels import _build
+
+    unit, ptxas = "", []
+    for line in _build.build_info.get("log", "").splitlines():
+        if line.startswith("Compiling "):
+            unit = line.split()[1]
+        elif unit.startswith(("stft_", "silero_v31_fused_audio")) and (
+                "registers" in line or "spill" in line or "entry function" in line):
+            ptxas.append(f"{unit}: {line.strip()}")
+    print(f"{os.path.basename(os.getcwd())} ptxas | " + " | ".join(ptxas), flush=True)
     return 0
 
 

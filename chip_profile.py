@@ -22,12 +22,17 @@ phase boundary in the first 512 blocks; printed per phase as the mean over
 those blocks, in microseconds (cycles scaled by each block's own span on the
 card's nanosecond timer) and as a share of the block's life, at B=2048 x
 1536 (all blocks resident together with their neighbours) and at B=4 (one
-block alone). The package's own library carries no stamp.
+block alone). The package's own library carries no stamp. Then
+stft_magnitude at the v4 step (B=2048), the v4 CLI window (96 chunks) and
+the v5_8k step the same way (device time against host time), and
+`spectrum_variants`: the standalone spectrum built with other template
+constants and with one part knocked out, timed against the shipped build.
 Imports nothing of JAX. Exits 1 without a card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 from pathlib import Path
@@ -82,6 +87,146 @@ def profile_calls(label: str, call, shape: str = f"B={BATCH} x {CHUNK}") -> bool
     torch.cuda.synchronize()
     print(f"{label}: wall without profiler {(time.perf_counter() - t0) * 1e3 / STEPS:.4f} ms/call")
     return True
+
+
+# The standalone spectrum's alternatives (spectrum_variants): the template
+# constants of an instance of stft_mag.cu, (n_fft, bins, BK, BGW, RT,
+# STAGES, blocks an SM), the shipped ones first ...
+SPECTRUM_CONSTANTS = (
+    (256, 129, 32, 8, 6, 2, 2), (256, 129, 32, 8, 7, 2, 2), (256, 129, 32, 8, 4, 2, 2),
+    (256, 129, 16, 8, 6, 2, 2), (256, 129, 16, 8, 6, 3, 2), (256, 129, 16, 8, 4, 2, 3),
+    (256, 129, 32, 32, 7, 2, 2), (256, 129, 8, 32, 7, 2, 2),
+    (128, 65, 32, 8, 6, 2, 2), (128, 65, 32, 8, 3, 2, 2), (128, 65, 32, 8, 4, 2, 2))
+# ... and copies of the shipped one with one part knocked out (wrong
+# magnitudes; their time says what the part costs): name -> pairs of (text
+# of stft_tile.cuh, its replacement)
+SPECTRUM_KNOCKOUTS = {
+    "no Nyquist bin": (("if (nyq_row >= 0) {", "if (nyq_row >= 0 && G::BINS < 0) {"),),
+    "no barrier a slice": (("      cp_async_wait<G::STAGES - 2>();\n      __syncthreads();",
+                            "      cp_async_wait<G::STAGES - 2>();"),),
+    "no store": (("st(r, col + c, sqrtf(x * x + y * y));",
+                  "if (x == 12345.f) st(r, col + c, sqrtf(x * x + y * y));"),
+                 ("    store.pass_done(row0, rows);\n", "")),
+    "no copy of the bases": (("if (next < total) {\n        load_basis_slice",
+                              "if (next < 0) {\n        load_basis_slice"),),
+}
+
+
+def spectrum_variants(models, device) -> None:
+    """stft_magnitude at the four family geometries at B=2048 through
+    libraries of other builds of csrc/stft_mag.cu: each of SPECTRUM_CONSTANTS and
+    SPECTRUM_KNOCKOUTS, compiled in parallel into a temporary directory of
+    the build directory, launched with the plan launch_plan makes for its
+    rows a pass and shared memory, timed with chip_smoke.cuda_ms (three
+    runs of 50 calls), and held bit for bit to the package's kernel. Nothing
+    in the package loads these builds."""
+    import ctypes
+    import re
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+
+    import chip_smoke
+    from vadc_tpu_torch.kernels import _build
+    from vadc_tpu_torch.kernels import stft_dotmag as KD
+    from vadc_tpu_torch.kernels import stft_mag as KS
+
+    # name -> (header edits, instance constants, rows a pass, slice taps, stages, blocks)
+    builds = {}
+    for n_fft, bins, bk, bgw, rt, stages, blocks in SPECTRUM_CONSTANTS:
+        rows_pass = (8 // ((bins - 1) // (4 * bgw))) * (32 // bgw) * rt
+        builds[f"{bins} bins BK={bk} BGW={bgw} RT={rt} STAGES={stages} {blocks} blocks/SM"] = (
+            None, (n_fft, bins, bk, bgw, rt, stages, blocks), rows_pass, bk, stages, blocks)
+    for name, edit in SPECTRUM_KNOCKOUTS.items():
+        builds[name] = (edit, None, KD.ROWS_PASS[(256, 129)], KS.SLICE_TAPS, KS.STAGES, 2)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        jobs = {}
+        for i, (name, (edit, constants, *_)) in enumerate(builds.items()):
+            d = Path(tmp) / str(i)
+            d.mkdir()
+            for f in ("stft_tile.cuh", "stft_mag.cu", "errors.cu"):
+                shutil.copy(_build.CSRC / f, d / f)
+            if edit is not None:
+                header = (d / "stft_tile.cuh").read_text()
+                for text, replacement in edit:
+                    assert text in header, name
+                    header = header.replace(text, replacement)
+                (d / "stft_tile.cuh").write_text(header)
+            if constants is not None:
+                n_fft, bins, bk, bgw, rt, stages, blocks = constants
+                src = re.sub(rf"Geometry<{n_fft}, {bins}, \d+, \d+, \d+, \d+>",
+                             f"Geometry<{n_fft}, {bins}, {bk}, {bgw}, {rt}, {stages}>",
+                             (d / "stft_mag.cu").read_text())
+                (d / "stft_mag.cu").write_text(
+                    src.replace("__launch_bounds__(G::THREADS, 2)",
+                                f"__launch_bounds__(G::THREADS, {blocks})"))
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.LINK_FLAGS, "-I", str(d),
+                   "-o", str(d / "lib.so"), str(d / "stft_mag.cu"), str(d / "errors.cu")]
+            jobs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True))
+        libs = {}
+        for name, (d, proc) in jobs.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"spectrum variant {name}: nvcc failed:\n{log}")
+            ptxas = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
+            print(f"spectrum variant {name}: ptxas " + " | ".join(ptxas), flush=True)
+            lib = ctypes.CDLL(str(d / "lib.so"))
+            lib.vadc_stft_magnitude.argtypes = _build._SIGNATURES["vadc_stft_magnitude"]
+            libs[name] = lib
+        for family in ("v4", "v4_8k", "v5", "v5_8k"):
+            module, params = models[family]
+            samples, kw = chip_smoke.stft_geometry(family, module)
+            audio = torch.from_numpy(chip_smoke.speech_chunks(BATCH, samples, seed=302)).to(device)
+            wr, wi = KS.split_basis_of(params)
+            want = KS.stft_magnitude(audio, wr, wi, **kw)
+            basis = KD.packed_basis(wr, wi)
+            n_fft, cutoff = wr.shape
+            for name, lib in libs.items():
+                _, constants, rows_pass, taps, stages, blocks = builds[name]
+                if (constants or (256, 129))[:2] != (n_fft, cutoff):
+                    continue
+                with spectrum_constants((n_fft, cutoff), rows_pass, taps, stages, blocks):
+                    streams, _ = KS.launch_plan(BATCH, want.shape[1], kw["hop"], n_fft, cutoff,
+                                                KS._sm_count(device))
+                out = torch.zeros_like(want)
+
+                def run():
+                    status = lib.vadc_stft_magnitude(
+                        audio.data_ptr(), BATCH, audio.stride(0), samples, kw["pad_left"],
+                        kw["pad_right"], kw["hop"], basis.data_ptr(), n_fft, cutoff, streams,
+                        out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+                    _build.check(status, f"spectrum variant {name}")
+
+                run()
+                torch.cuda.synchronize()
+                times = [chip_smoke.cuda_ms(run) for _ in range(3)]
+                print(f"spectrum variant {name}, stft_magnitude {family} B={BATCH} x {samples} "
+                      f"({streams} streams a block): " + " ".join(f"{t:.4f}" for t in times)
+                      + f" ms; bit-equal to the package's kernel: {torch.equal(out, want)}",
+                      flush=True)
+
+
+@contextlib.contextmanager
+def spectrum_constants(instance: tuple, rows_pass: int, taps: int, stages: int, blocks: int):
+    """launch_plan for another build of an instance (n_fft, bins): its rows
+    a pass, slice taps, ring stages and blocks an SM."""
+    from vadc_tpu_torch.kernels import stft_mag as KS
+
+    saved = dict(KS.ROWS_PASS), KS.SLICE_TAPS, KS.STAGES, KS.SMEM_TWO_BLOCKS
+    KS.ROWS_PASS[instance] = rows_pass
+    KS.SLICE_TAPS, KS.STAGES, KS.SMEM_TWO_BLOCKS = taps, stages, 233_472 // blocks - 1024
+    KS.launch_plan.cache_clear()
+    try:
+        yield
+    finally:
+        KS.ROWS_PASS.clear()
+        KS.ROWS_PASS.update(saved[0])
+        KS.SLICE_TAPS, KS.STAGES, KS.SMEM_TWO_BLOCKS = saved[1:]
+        KS.launch_plan.cache_clear()
 
 
 def phase_split(params, audio, label: str) -> None:
@@ -198,6 +343,23 @@ def main() -> int:
         return 1
     phase_split(params, audio, f"B={BATCH} x {CHUNK}")
     phase_split(params, audio[:4], f"B=4 x {CHUNK} (one block alone)")
+
+    # the standalone spectrum: device time against host time at the v4 step,
+    # the v4 CLI window and the v5_8k step, then its alternatives
+    from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude
+
+    _, models = chip_smoke.family_models(device)
+    for family, batch in (("v4", BATCH), ("v4", chip_smoke.CLI_WINDOW), ("v5_8k", BATCH)):
+        module, fparams = models[family]
+        samples, kw = chip_smoke.stft_geometry(family, module)
+        chunks = torch.from_numpy(chip_smoke.speech_chunks(batch, samples, seed=303)).to(device)
+        wr, wi = split_basis_of(fparams)
+        for _ in range(5):
+            stft_magnitude(chunks, wr, wi, **kw)
+        if not profile_calls(f"stft_magnitude {family}", lambda: stft_magnitude(chunks, wr, wi, **kw),
+                             shape=f"B={batch} x {samples}"):
+            return 1
+    spectrum_variants(models, device)
     return 0
 
 

@@ -8,7 +8,9 @@ Phases, each of which raises on failure (exit code 1):
      vadc_tpu_torch/kernels/csrc/ with nvcc for sm_90a (one nvcc per
      source, in parallel); the kernels whose device code is shared through
      headers (forward_fused2d, dot_magnitude, forward_fused) give the bits
-     they gave before that code moved into the headers (PARENT_DIGESTS);
+     they gave before that code moved into the headers, and stft_magnitude
+     at the four v4/v5 family geometries the bits of its first design
+     (PARENT_DIGESTS);
   2. each kernel against its plain PyTorch version on the card:
      - Silero v3.1 (bundled weights) and synthetic speech: dot_magnitude
        and the fused encoder/LSTM/decoder at B=2048 chunks of 1536
@@ -64,7 +66,10 @@ Phases, each of which raises on failure (exit code 1):
        on localhost: 8 clients send 20 s of seeded speech each, unpaced;
        each client's segment lines equal those of the same server on the
        CPU (forward_fused); logs tick_count, catchup_ticks, tick p50/p99;
-  4. timings with CUDA events: each kernel against its plain version,
+  4. timings with CUDA events: each kernel against its plain version
+     (stft_magnitude at every family geometry at B=2048 and at the v4 CLI
+     window, each with its own bound; beside the two spectrum kernels,
+     cuBLAS's fp32 product of the same frames alone as a yardstick),
      forward_fused against features + forward_fused2d, ms per chunk-step
      of the whole step at batch 2048 for v3.1 (and the two-kernel v3.1
      step, features + forward_fused2d), v4
@@ -79,7 +84,9 @@ Phases, each of which raises on failure (exit code 1):
      of steps (the crossover behind kernels/lstm.py's RESIDENT_MIN_STEPS).
 
 Prints a JSON line of per-kernel results (time, plain version's time, the
-bound from this run's shapes, the library call's time where there is one;
+bound from this run's shapes, the library call's time where there is one,
+and `cublas_product_only_ms` beside the spectrum kernels: no PyTorch call
+computes their function, so that is not a library time;
 launches 0 for a kernel that no main path runs any more: dot_magnitude and
 forward_fused2d stay public functions, checked and timed here),
 then the card's name and power limit, then as its last line
@@ -125,21 +132,26 @@ TOL_PATH = 1e-4
 TOL_LSTM = 5e-5
 # forward_fused (the whole v3.1 step from raw audio) against its plain
 # version on the card, and against features + forward_fused2d: the spectra
-# are summed in other orders (the kernel's tile vs cuBLAS's unfold GEMM),
+# are summed in other orders (the kernel's fmaf chains vs cuBLAS's unfold GEMM),
 # and the normalization's log1p(2^20 x) amplifies that at near-zero bins
 # (ROADMAP Queue 3), so the whole-model bounds of the CPU parity tests
 # hold: probs 1e-4, h 3e-4, c 3e-4 of its largest value
 TOL_FUSED_AUDIO = {"probs": 1e-4, "hn": 3e-4, "cn": 3e-4}
 FUSED_AUDIO_SAMPLES = (512, 768, 1024, 1280, 1536)
-# sha256 digests (shared_code_digests) of the kernels whose device code
-# moved into headers (silero_v31_body.cuh, stft_tile.cuh), from the
-# sources before the move, on an H100 80GB HBM3 (700 W): the move must
+# sha256 digests (shared_code_digests, stft_digests) of the kernels whose
+# device code moved into headers (silero_v31_body.cuh, stft_tile.cuh), from
+# the sources before the move, on an H100 80GB HBM3 (700 W): the move must
 # leave their outputs bit for bit
 PARENT_DIGESTS = {"forward_fused2d": "6d6e602fd6f5405b", "forward_fused2d_ragged": "32c8579105cb8cbd",
                   "dot_magnitude": "aa1f71c035ea6ba5",
                   # forward_fused, from the sources before the body's LSTM and
                   # decoder became functions that lstm_decoder.cu shares
-                  "forward_fused": "e09d095c326b455f", "forward_fused_ragged": "86c6c25c68636077"}
+                  "forward_fused": "e09d095c326b455f", "forward_fused_ragged": "86c6c25c68636077",
+                  # stft_magnitude at the four family geometries (stft_digests),
+                  # from its first design (the 64 x 32 tile) before the spectrum
+                  # was fitted to streams
+                  "stft_magnitude_v4": "fe673efd6c1997d2", "stft_magnitude_v4_8k": "3926a382740d2ea4",
+                  "stft_magnitude_v5": "b54fae0a7716f353", "stft_magnitude_v5_8k": "2f4f7898f725909c"}
 # v4 and v5 chunk sizes of the paths below (model samples)
 V4_CHUNK, V4_8K_CHUNK, V5_CHUNK, V5_8K_CHUNK = 1536, 768, 512, 256
 CLI_WINDOW = 96  # chunks per CLI window (the CLI's --batch default)
@@ -311,6 +323,57 @@ def shared_code_digests(params, device) -> dict:
     return out
 
 
+def family_models(device) -> tuple[dict, dict]:
+    """The v4 and v5 families as the paths run them: (archives, models),
+    models: family -> (model module, params on the card); v4 and v4_8k the
+    bundled official weights, v5 and v5_8k synthetic weights of the official
+    shapes from fixed seeds."""
+    from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
+    from vadc_tpu_torch.models import silero_v4, silero_v5
+    from vadc_tpu_torch.models.synthetic import random_v5_8k_archive, random_v5_archive
+    from vadc_tpu_torch.models.weights import load_params, load_params_from_tensors
+
+    archives = {"v4": DEFAULT_WEIGHTS.parent / "silero_v4_16k.testtensor",
+                "v4_8k": DEFAULT_WEIGHTS.parent / "silero_v4_8k.testtensor"}
+    models = {
+        "v4": (silero_v4, load_params(archives["v4"], device=device)[1]),
+        "v4_8k": (silero_v4.v4_8k, load_params(archives["v4_8k"], device=device)[1]),
+        "v5": (silero_v5, load_params_from_tensors(random_v5_archive(0), device=device)[1]),
+        "v5_8k": (silero_v5.v5_8k,
+                  load_params_from_tensors(random_v5_8k_archive(1), device=device)[1]),
+    }
+    return archives, models
+
+
+def stft_geometry(family: str, module) -> tuple[int, dict]:
+    """(samples stft_magnitude sees per chunk, its pads and hop) on the
+    main path of a family: v4 pads 96/96, v5 attaches its context and pads
+    the right side only."""
+    from vadc_tpu_torch.models import silero_v4
+
+    chunk = {"v4": V4_CHUNK, "v4_8k": V4_8K_CHUNK, "v5": V5_CHUNK, "v5_8k": V5_8K_CHUNK}[family]
+    if family.startswith("v4"):  # the 8 kHz branch frames as the 16 kHz model does
+        return chunk, dict(pad_left=silero_v4.STFT_PAD, pad_right=silero_v4.STFT_PAD,
+                           hop=silero_v4.STFT_HOP)
+    return module.CONTEXT_SAMPLES + chunk, dict(pad_left=0, pad_right=module.STFT_PAD_RIGHT,
+                                                hop=module.STFT_HOP)
+
+
+def stft_digests(models: dict, device) -> dict:
+    """Digests of stft_magnitude at the four family geometries, B=B_MAIN
+    chunks of speech from a seed: name -> digest."""
+    import torch
+
+    from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude
+
+    out = {}
+    for family, (module, params) in models.items():
+        samples, kw = stft_geometry(family, module)
+        audio = torch.from_numpy(speech_chunks(B_MAIN, samples, seed=SEED + 11)).to(device)
+        out[f"stft_magnitude_{family}"] = digest(stft_magnitude(audio, *split_basis_of(params), **kw))
+    return out
+
+
 def phase_build() -> float:
     from vadc_tpu_torch.kernels import _build
 
@@ -327,10 +390,11 @@ def phase_build() -> float:
     return seconds
 
 
-def phase_shared_code(params, device) -> None:
+def phase_shared_code(params, models, device) -> None:
     """The kernels whose device code is shared through headers give the
-    bits they gave before that code moved into the headers."""
-    got = shared_code_digests(params, device)
+    bits they gave before that code moved into the headers, and
+    stft_magnitude the bits of its first design at every family geometry."""
+    got = {**shared_code_digests(params, device), **stft_digests(models, device)}
     log(f"shared device code digests: {json.dumps(got)}")
     log(f"before the header move: {json.dumps(PARENT_DIGESTS)}")
     for name, want in PARENT_DIGESTS.items():
@@ -544,7 +608,7 @@ def phase_kernels(params, device) -> dict:
 def check_stft_magnitude(params, audio, label: str, *, pad_left: int, pad_right: int,
                          hop: int) -> float:
     """stft_magnitude against its plain version, and bit for bit against
-    dot_magnitude on the reflect-padded unfold (the two share their tile,
+    dot_magnitude on the reflect-padded unfold (the two share one spectrum code,
     so on the same samples they must give the same bits)."""
     import torch
 
@@ -684,22 +748,22 @@ def phase_kernels_v45(models: dict, device) -> dict:
         return torch.from_numpy(speech_chunks(n, chunk, seed=seed)).to(device)
 
     v4, p4 = models["v4"]
-    v48, p48 = models["v4_8k"]
     v5, p5 = models["v5"]
-    v58, p58 = models["v5_8k"]
-    pad4 = dict(pad_left=v4.STFT_PAD, pad_right=v4.STFT_PAD, hop=v4.STFT_HOP)
-    a4 = audio(B_MAIN, V4_CHUNK, SEED + 300)
-    errs = {"stft_magnitude": check_stft_magnitude(p4, a4, f"v4 B={B_MAIN} x {V4_CHUNK}", **pad4)}
-    for b in (1, 37):
-        check_stft_magnitude(p4, a4[:b], f"v4 B={b} x {V4_CHUNK}", **pad4)
-    for n in (V4_8K_CHUNK, 256):
-        check_stft_magnitude(p48, audio(B_MAIN, n, SEED + 301), f"v4_8k B={B_MAIN} x {n}", **pad4)
+    errs = {}
+    # every family geometry at B_MAIN and a ragged B=37; v4 also at B=1 and
+    # v4_8k at 256-sample chunks
+    for seed, (family, (module, params)) in enumerate(models.items(), SEED + 300):
+        samples, kw = stft_geometry(family, module)
+        chunks = audio(B_MAIN, samples, seed)
+        err = check_stft_magnitude(params, chunks, f"{family} B={B_MAIN} x {samples}", **kw)
+        if family == "v4":
+            errs["stft_magnitude"] = err
+            a4 = chunks
+            check_stft_magnitude(params, chunks[:1], f"v4 B=1 x {samples}", **kw)
+        check_stft_magnitude(params, chunks[:37], f"{family} B=37 x {samples}", **kw)
+    check_stft_magnitude(models["v4_8k"][1], audio(B_MAIN, 256, SEED + 308),
+                         f"v4_8k B={B_MAIN} x 256", **stft_geometry("v4_8k", None)[1])
     a5 = audio(B_MAIN, v5.CONTEXT_SAMPLES + V5_CHUNK, SEED + 302)
-    check_stft_magnitude(p5, a5, f"v5 B={B_MAIN} x {a5.shape[1]}", pad_left=0,
-                         pad_right=v5.STFT_PAD_RIGHT, hop=v5.STFT_HOP)
-    a58 = audio(B_MAIN, v58.CONTEXT_SAMPLES + V5_8K_CHUNK, SEED + 303)
-    check_stft_magnitude(p58, a58, f"v5_8k B={B_MAIN} x {a58.shape[1]}", pad_left=0,
-                         pad_right=v58.STFT_PAD_RIGHT, hop=v58.STFT_HOP)
 
     x, h, c = lstm_inputs(v4, p4, a4, B_MAIN, device)
     errs["lstm_fused"] = check_lstm(p4, x, h, c, f"v4 B={B_MAIN} x T={x.shape[1]}")
@@ -1303,6 +1367,9 @@ def phase_timing(params, device) -> dict:
     )
     for name, (k, p) in t.items():
         log(f"time {name} B={B_MAIN}: kernel {k:.4f} ms, plain {p:.4f} ms")
+    t["dot_magnitude_cublas"] = cublas_product_ms(frames, wr, wi)
+    log(f"time cuBLAS fp32 product only (frames [{frames.shape[0] * frames.shape[1]}, 256] @ "
+        f"[256, 258], no TF32) beside dot_magnitude: {t['dot_magnitude_cublas']:.4f} ms")
     fused_ms, two_kernels_ms = cuda_ms_pair(
         lambda: forward_fused(params, audio, h, c),
         lambda: forward_fused2d(params, silero_v31.features(params, audio), h, c),
@@ -1349,6 +1416,19 @@ def spectrum_flops(rows: int, n_fft: int = 256, bins: int = 129) -> float:
     """rows x n_fft frames against the real and the imaginary basis, then
     two squares, a sum and a root per bin."""
     return rows * (2 * 2 * n_fft * bins + 4 * bins)
+
+
+def cublas_product_ms(frames, wr, wi) -> float:
+    """A yardstick of the spectrum's product alone, not of the same
+    function: cuBLAS's fp32 torch.matmul of the contiguous frames [rows,
+    n_fft] with both bases [n_fft, 2 * cutoff], TF32 off (no magnitude; the
+    product is written out). Timed here only; the port never calls it."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = frames.reshape(-1, frames.shape[-1]).contiguous()
+    both = torch.cat([wr, wi], dim=1)
+    return cuda_ms(lambda: torch.matmul(rows, both))
 
 
 def v31_encoder_flops(seq0: int) -> float:
@@ -1519,20 +1599,45 @@ def phase_timing_v45(models: dict, device) -> dict:
     from vadc_tpu_torch.kernels.stft_mag import (
         split_basis_of, stft_magnitude, stft_magnitude_reference,
     )
+    from vadc_tpu_torch.nn import functional as F
 
-    t = {}
+    t = {"stft_magnitude_at": {}}
+    # stft_magnitude at every family geometry at B_MAIN and at the v4 CLI
+    # window, each against its own bound (frames counted from the output)
+    for family, (module, params) in models.items():
+        samples, pad = stft_geometry(family, module)
+        audio = torch.from_numpy(speech_chunks(B_MAIN, samples, seed=SEED + 400)).to(device)
+        wr, wi = split_basis_of(params)
+        cases = [(f"{family} B={B_MAIN} x {samples}", audio)]
+        if family == "v4":
+            cases.append((f"v4 CLI window {CLI_WINDOW} x {samples}", audio[:CLI_WINDOW]))
+        for label, chunks in cases:
+            spect = stft_magnitude(chunks, wr, wi, **pad)
+            ms, plain_ms = cuda_ms_pair(lambda: stft_magnitude(chunks, wr, wi, **pad),
+                                        lambda: stft_magnitude_reference(chunks, wr, wi, **pad))
+            n_fft, bins = wr.shape
+            rows = spect.shape[0] * spect.shape[1]
+            bound, by = bound_ms(spectrum_flops(rows, n_fft, bins),
+                                 4 * (chunks.numel() + 2 * n_fft * bins + spect.numel()))
+            t["stft_magnitude_at"][label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                             "bound_by": by, "bound_share": bound / ms,
+                                             "frames": spect.shape[1]}
+            log(f"time stft_magnitude {label} ({spect.shape[1]} frames): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f} %)")
+            if label == f"v4 B={B_MAIN} x {samples}":
+                t["stft_magnitude"] = (ms, plain_ms)
+                t["stft_magnitude_bound"] = (bound, by)
+                frames = F.frame(F.reflect_pad_last(chunks, pad["pad_left"], pad["pad_right"]),
+                                 n_fft, pad["hop"])
+                t["stft_magnitude_cublas"] = cublas_product_ms(frames, wr, wi)
+                log(f"time cuBLAS fp32 product only (frames [{rows}, {n_fft}] @ [{n_fft}, "
+                    f"{2 * bins}], no TF32) beside stft_magnitude v4: "
+                    f"{t['stft_magnitude_cublas']:.4f} ms")
+
     for family, chunk in (("v4", V4_CHUNK), ("v5", V5_CHUNK)):
         module, params = models[family]
         ctx = getattr(module, "CONTEXT_SAMPLES", 0)
         audio = torch.from_numpy(speech_chunks(B_MAIN, ctx + chunk, seed=SEED + 400)).to(device)
-        wr, wi = split_basis_of(params)
-        pad = (dict(pad_left=module.STFT_PAD, pad_right=module.STFT_PAD, hop=module.STFT_HOP)
-               if family == "v4" else
-               dict(pad_left=0, pad_right=module.STFT_PAD_RIGHT, hop=module.STFT_HOP))
-        stft = cuda_ms_pair(lambda: stft_magnitude(audio, wr, wi, **pad),
-                            lambda: stft_magnitude_reference(audio, wr, wi, **pad))
-        log(f"time stft_magnitude {family} B={B_MAIN}x{audio.shape[1]}: kernel {stft[0]:.4f} ms, "
-            f"plain {stft[1]:.4f} ms")
         w, b, wt = params["lstm_w"], params["lstm_b"], transposed_weight_of(params)
         x, h, c = lstm_inputs(module, params, audio, B_MAIN, device)
         lstm = cuda_ms_pair(lambda: lstm_fused(x, h, c, w, b, wt=wt),
@@ -1563,9 +1668,8 @@ def phase_timing_v45(models: dict, device) -> dict:
         log(f"ms per chunk-step {family} B={B_MAIN}x{chunk}: kernels {step_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms; realtime streams at the kernel rate: "
             f"{B_MAIN * (chunk / SR) / (step_ms / 1000):.0f}")
-        if family == "v4":  # the JSON line's shapes: the v4 16 kHz step's
-            t["stft_magnitude"], t["lstm_fused"] = stft, (*lstm, lstm_lib, tuple(x.shape), per_call)
-            t["stft_magnitude_frames"] = audio.shape[1] // module.STFT_HOP + 1
+        if family == "v4":  # the JSON line's shape: the v4 16 kHz step's
+            t["lstm_fused"] = (*lstm, lstm_lib, tuple(x.shape), per_call)
     return t
 
 
@@ -1634,11 +1738,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible to PyTorch", file=sys.stderr)
         return 1
     from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
-    from vadc_tpu_torch.models import silero_v4, silero_v5
-    from vadc_tpu_torch.models.synthetic import (
-        random_v5_8k_archive, random_v5_archive, save_archive,
-    )
-    from vadc_tpu_torch.models.weights import load_params, load_params_from_tensors
+    from vadc_tpu_torch.models.synthetic import random_v5_archive, save_archive
+    from vadc_tpu_torch.models.weights import load_params
     from vadc_tpu_torch.runtime import require_cuda
 
     smi = nvidia_smi()
@@ -1647,18 +1748,9 @@ def main() -> int:
     device = require_cuda()
     phase_build()
     _, params = load_params(DEFAULT_WEIGHTS, device=device)
-    archives = {"v4": DEFAULT_WEIGHTS.parent / "silero_v4_16k.testtensor",
-                "v4_8k": DEFAULT_WEIGHTS.parent / "silero_v4_8k.testtensor"}
-    models = {
-        "v4": (silero_v4, load_params(archives["v4"], device=device)[1]),
-        "v4_8k": (silero_v4.v4_8k, load_params(archives["v4_8k"], device=device)[1]),
-        # synthetic weights of the official shapes, from fixed seeds
-        "v5": (silero_v5, load_params_from_tensors(random_v5_archive(0), device=device)[1]),
-        "v5_8k": (silero_v5.v5_8k,
-                  load_params_from_tensors(random_v5_8k_archive(1), device=device)[1]),
-    }
+    archives, models = family_models(device)
 
-    phase_shared_code(params, device)
+    phase_shared_code(params, models, device)
     errs = phase_kernels(params, device)
     errs.update(phase_kernels_lstm_decoder(params, device))
     errs.update(phase_kernels_v45(models, device))
@@ -1692,7 +1784,6 @@ def main() -> int:
     rows = B_MAIN * 25
     body_flops = B_MAIN * (v31_encoder_flops(25) + lstm_flops(7, 2, 64))
     fused2d_bound = bound_ms(body_flops, rows * 129 * 4 + state_bytes + B_MAIN * 4 + v31_weights)
-    v4_rows = B_MAIN * timing["stft_magnitude_frames"]
     lstm_ms, lstm_plain, lstm_lib, lstm_shape, lstm_per_call = timing["lstm_fused"]
     tail_ms, tail_plain, tail_lib, tail_shape, tail_per_call = \
         slab[(SLAB_CHUNKS, SLAB_CHUNKS)]["lstm_decoder_fused"]
@@ -1710,7 +1801,7 @@ def main() -> int:
          "vadc_tpu/kernels/stft_dotmag.py:56", launches["dot_magnitude"], errs["dot_magnitude"],
          *timing["dot_magnitude"], None,
          bound_ms(spectrum_flops(rows), B_MAIN * (CHUNK + 256) * 4 + basis + rows * 129 * 4),
-         f"B={B_MAIN} x {CHUNK}", {}),
+         f"B={B_MAIN} x {CHUNK}", {"cublas_product_only_ms": timing["dot_magnitude_cublas"]}),
         ("silero_v31_fused", fused_src, "vadc_tpu/kernels/silero_v31_fused2d.py:232",
          fused_launches, errs["silero_v31_fused"], *timing["silero_v31_fused"], None, fused2d_bound,
          f"B={B_MAIN} x 25 frames", {"launches_by_entry": by_entry}),
@@ -1720,9 +1811,10 @@ def main() -> int:
          {"launches_by_entry": by_entry, "same_kernel_as": "silero_v31_fused"}),
         ("stft_magnitude", "vadc_tpu_torch/kernels/csrc/stft_mag.cu",
          "vadc_tpu/kernels/stft_mag.py:91", launches["stft_magnitude"], errs["stft_magnitude"],
-         *timing["stft_magnitude"], None,
-         bound_ms(spectrum_flops(v4_rows), B_MAIN * V4_CHUNK * 4 + basis + v4_rows * 129 * 4),
-         f"v4 B={B_MAIN} x {V4_CHUNK}", {}),
+         *timing["stft_magnitude"], None, timing["stft_magnitude_bound"],
+         f"v4 B={B_MAIN} x {V4_CHUNK}",
+         {"cublas_product_only_ms": timing["stft_magnitude_cublas"],
+          "geometries": timing["stft_magnitude_at"]}),
         ("lstm_fused", "vadc_tpu_torch/kernels/csrc/lstm.cu", "vadc_tpu/kernels/lstm.py:181",
          launches["lstm_fused"], errs["lstm_fused"], lstm_ms, lstm_plain, lstm_lib,
          bound_ms(lstm_shape[0] * lstm_flops(lstm_shape[1], 2, 64),

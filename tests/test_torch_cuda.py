@@ -7,7 +7,7 @@ no JAX, which tests/conftest.py imports), run them with
 
 Bounds as in chip_smoke.py: dot_magnitude and stft_magnitude 1e-5 of the
 largest magnitude (and stft_magnitude bit-equal to dot_magnitude on the
-reflect-padded unfold, as the two share their tile); the fused kernel 1e-5
+reflect-padded unfold, as the two share one spectrum code); the fused kernel 1e-5
 on probabilities and 5e-5 on h and on c relative to its largest value (the
 state passes 14 recurrent updates whose fp32 sums the kernel takes in
 another order than cuBLAS); lstm_fused 5e-5 on y, h and c (c relative),
@@ -410,11 +410,14 @@ def family_params(device):
     }
 
 
-# (family, batch, samples the model sees, pad_left, pad_right, hop)
+# (family, batch, samples the model sees, pad_left, pad_right, hop): the
+# paths' geometries, v4 at the step's B=2048, and a ragged B=37 at each
 STFT_CASES = [
     ("v4", 64, 1536, 96, 96, 64), ("v4", 37, 512, 96, 96, 64), ("v4", 1, 1536, 96, 96, 64),
     ("v4_8k", 16, 768, 96, 96, 64), ("v4_8k", 16, 256, 96, 96, 64),
     ("v5", 64, 576, 0, 64, 128), ("v5_8k", 64, 288, 0, 32, 64),
+    ("v4", 2048, 1536, 96, 96, 64), ("v4", 37, 1536, 96, 96, 64),
+    ("v4_8k", 37, 768, 96, 96, 64), ("v5", 37, 576, 0, 64, 128), ("v5_8k", 37, 288, 0, 32, 64),
 ]
 
 
@@ -450,6 +453,50 @@ def test_stft_magnitude_refuses_a_pad_the_chunk_cannot_reflect(family_params, de
     with pytest.raises(ValueError, match="reflect pads"):
         KS.stft_magnitude(torch.zeros(2, 96, device=device), wr, wi,
                           pad_left=96, pad_right=96, hop=64)
+
+
+def test_spectrum_kernels_refuse_a_geometry_they_are_not_built_for(family_params, device):
+    """n_fft and bins of no instance, a hop that does not divide the padded
+    chunk (the Pallas kernel's refusal too), a hop under a slice of taps."""
+    from vadc_tpu_torch.kernels import stft_dotmag as KD
+    from vadc_tpu_torch.kernels import stft_mag as KS
+
+    wr, wi = KS.split_basis_of(family_params["v4"][1])
+    audio = torch.zeros(2, 1536, device=device)
+    with pytest.raises(ValueError, match="no kernel"):
+        KS.stft_magnitude(audio, wr[:, :128].contiguous(), wi[:, :128].contiguous(),
+                          pad_left=96, pad_right=96, hop=64)
+    with pytest.raises(ValueError, match="must divide"):
+        KS.stft_magnitude(audio, wr, wi, pad_left=96, pad_right=90, hop=64)
+    with pytest.raises(ValueError, match="multiple of"):
+        KS.stft_magnitude(audio, wr, wi, pad_left=96, pad_right=96, hop=16)
+    with pytest.raises(ValueError, match="no kernel"):
+        KD.dot_magnitude(torch.zeros(2, 3, 512, device=device), torch.zeros(512, 257, device=device),
+                         torch.zeros(512, 257, device=device))
+
+
+@pytest.mark.parametrize("family", ["v4", "v5_8k"])
+def test_dot_magnitude_on_a_view_that_is_not_16_byte_aligned(family_params, device, family):
+    """Frames one float off 16-byte alignment take the kernel's 4-byte
+    copies: within 1e-5 of the largest magnitude of the plain version, and
+    the bits of the kernel on an aligned copy of the same frames."""
+    from vadc_tpu_torch.kernels import stft_dotmag as KD
+    from vadc_tpu_torch.kernels import stft_mag as KS
+
+    _, params = family_params[family]
+    wr, wi = KS.split_basis_of(params)
+    n_fft = wr.shape[0]
+    flat = torch.from_numpy(speech(1, chunk=37 * 9 * n_fft + 1, seed=5)).to(device)[0]
+    frames = flat[1:].reshape(37, 9, n_fft)
+    assert frames.data_ptr() % 16 != 0
+    before = KD.dot_magnitude.launches
+    got = KD.dot_magnitude(frames, wr, wi)
+    want = KD.dot_magnitude_reference(frames, wr, wi)
+    aligned = KD.dot_magnitude(frames.clone(), wr, wi)
+    torch.cuda.synchronize()
+    assert KD.dot_magnitude.launches == before + 2
+    assert _max_abs(got, want) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got, aligned)
 
 
 # (family, batch, steps): the main paths' shapes, smaller batches

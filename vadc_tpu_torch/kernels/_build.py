@@ -42,9 +42,9 @@ _L = ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
 _SIGNATURES = {
-    # frames base, batch, n_frames, stride_b, stride_f, wr, wi, n_fft,
+    # frames base, batch, n_frames, stride_b, stride_f, padded basis, n_fft,
     # cutoff, out, stream
-    "vadc_dot_magnitude": [_P, _I, _I, _L, _L, _P, _P, _I, _I, _P, _P],
+    "vadc_dot_magnitude": [_P, _I, _I, _L, _L, _P, _I, _I, _P, _P],
     # weights, offsets (host int32[]), n_offsets, x, h, c, probs, hn, cn,
     # batch, seq0, stream
     "vadc_silero_v31_fused": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -58,9 +58,9 @@ _SIGNATURES = {
     # weights, offsets (host int32[]), n_offsets, norm_w (host float[]),
     # n_norm_w, audio, rows, stride_b, samples, basis, y, stream
     "vadc_silero_v31_encode_audio": [_P, _P, _I, _P, _I, _P, _I, _L, _I, _P, _P, _P],
-    # audio, batch, stride_b, samples, pad_left, pad_right, hop, wr, wi,
-    # n_fft, cutoff, out, stream
-    "vadc_stft_magnitude": [_P, _I, _L, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
+    # audio, batch, stride_b, samples, pad_left, pad_right, hop, padded
+    # basis, n_fft, cutoff, streams a block, out, stream
+    "vadc_stft_magnitude": [_P, _I, _L, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P],
     # x, h0, c0, wt, bias, y, hn, cn, batch, seq, hidden, layers, stream
     "vadc_lstm_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, h0, c0, wt, bias, dec_w, dec_b, probs, hn, cn, batch, chunks,

@@ -13,8 +13,9 @@
 //  1. Spectrum. The streams' chunks are staged once in shared memory through
 //     the reflect pad (128/128), so the F frames of a stream (hop 64, n_fft
 //     256) are overlapping windows of 7 KB and nothing is framed again;
-//     stft_tile.cuh's stft_block then forms the magnitudes against the real
-//     and imaginary bases, 56 rows x 129 bins a pass. Every magnitude is
+//     stft_tile.cuh's spectrum (the instance `Spectrum` below) then forms
+//     the magnitudes against the real and imaginary bases, 56 rows x 129
+//     bins a pass. Every magnitude is
 //     dot_magnitude's, bit for bit. Each lands in region A, where the body
 //     reads its stage-1 input; the staged chunks and the basis buffers lie
 //     over the regions the body fills only later. The Pallas kernel's split
@@ -40,7 +41,7 @@
 // block's life in the spectrum (chip_profile.py's phase split): 10 passes of
 // a 64 x 32 tile over 128 x 160 for 100 x 129 results, each of its 80
 // slices refilled by scalar loads between two barriers with nothing in
-// flight. stft_block's header says what the block-fitted spectrum does
+// flight. stft_tile.cuh's header says what the block-fitted spectrum does
 // about each of these; silero_v31_body.cuh's says the same for the body.
 #include <cuda_runtime.h>
 
@@ -55,10 +56,13 @@ namespace {
 constexpr int N_FFT = 256;
 constexpr int HOP = 64;
 constexpr int PAD = 128;
-// the spectrum's thread mapping is the block's
-static_assert(THREADS == stft_block::THREADS, "one block of threads for the spectrum and the body");
-static_assert(N_FFT % stft_block::BK == 0 && HOP % stft_block::BK == 0, "whole slices a hop");
-static_assert(N_FEAT == 4 * 32 + 1 && stft_block::BINS_LD >= N_FEAT, "32 lanes x 4 bins + Nyquist");
+// stft_tile.cuh's spectrum fitted to the block's constraints (its shared
+// memory, 128 registers): 32 lanes across bins 0..127 (BGW = 32), RT = 7 rows
+// a warp, so 8 warps cover 56 rows a pass and the 100 rows of 4 streams x
+// 25 frames take 2 passes; slices of BK = 8 taps in a ring of two
+using Spectrum = stft_block::Geometry<N_FFT, N_FEAT, 8, 32, 7, 2>;
+static_assert(THREADS == Spectrum::THREADS, "one block of threads for the spectrum and the body");
+static_assert(HOP % Spectrum::BK == 0, "whole slices a hop");
 
 // the collapsed normalization weights of one chunk size, by value
 struct NormW {
@@ -106,6 +110,7 @@ struct ToStageInput {
     A[s * sa + f * N_FEAT + c] = v;
     if (spect != nullptr) spect[(spect_row0 + r) * N_FEAT + c] = v;
   }
+  __device__ void pass_done(int, int) const {}
 };
 
 // floats of one stream's staged, skewed, reflect-padded chunk (a multiple of 4)
@@ -139,7 +144,7 @@ __device__ void audio_features(const Block& m, const NormW& norm_w,
   // excluded), then their spectrum into A
   float* pad = m.H;
   const int pad_ld = staged_chunk_floats(samples);
-  float* bbuf = pad + NB * pad_ld;
+  float* bbuf = pad + NB * pad_ld;  // 16-byte aligned: pad_ld is a multiple of 4
   const int padded = samples + 2 * PAD;
   const FastDiv by_padded(padded);
   for (int i = tid; i < live * padded; i += blockDim.x) {
@@ -152,7 +157,7 @@ __device__ void audio_features(const Block& m, const NormW& norm_w,
   }
   __syncthreads();
   const ToStageInput store{m.A, sa, by_seq, spect, static_cast<long long>(b0) * seq0};
-  stft_block::magnitudes(pad, pad_ld, HOP, live * seq0, seq0, N_FFT, basis, bbuf, store);
+  stft_block::magnitudes<Spectrum>(pad, pad_ld, HOP, live * seq0, seq0, basis, bbuf, store);
   __syncthreads();
   PHASE_STAMP(PH_SPECTRUM);
 
@@ -238,7 +243,7 @@ size_t prepare(Kernel kernel, const int* offsets, int n_offsets, const float* no
   std::memcpy(nw->v, norm_w, sizeof(float) * *seq0);
   plan(*seq0, sa, sh);
   // the staged chunks and the basis buffers lie over everything after region A
-  const int front = NB * staged_chunk_floats(samples) + stft_block::BASIS_FLOATS;
+  const int front = NB * staged_chunk_floats(samples) + Spectrum::BASIS_FLOATS;
   const int floats = NB * *sa + std::max(tail_floats(*sh), front);
   const size_t bytes = static_cast<size_t>(floats) * sizeof(float);
   *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -5,55 +5,121 @@
 // stft_magnitude_pallas (pallas_call at :119). audio [B, S] fp32 (row b at
 // audio + b*stride_b) -> out [B, F, cutoff], F = (S + pad_left + pad_right
 // - n_fft) / hop + 1. The v4 and v5 front-ends run it: v4 pad 96/96 hop 64,
-// v5 pad 0/64 hop 128, the v5 8 kHz branch n_fft 128 pad 0/32 hop 64.
+// v5 pad 0/64 hop 128 (n_fft 256, 129 bins), the v5 8 kHz branch n_fft 128
+// pad 0/32 hop 64 (65 bins).
 //
-// The Pallas kernel splits each frame into n_fft/hop hop-sized blocks
-// because its compiler could not gather frames; here the reflect pad and
-// the framing are index arithmetic in the load of the A operand. Padded
-// sample i of chunk b is audio[b, j] with j = i - pad_left, reflected at
-// both edges (edge excluded, PyTorch's 'reflect'): j < 0 -> -j, j >= S ->
-// 2S - 2 - j. No padded copy, no frame matrix and no spectrum is written to
-// device memory: only the magnitude.
+// A block owns a group of whole streams (the wrapper's launch_plan chooses
+// how many, so that their rows fill whole passes). It stages each stream's
+// reflect-padded chunk once in shared memory with cp.async, the reflect
+// arithmetic done at staging time (padded sample i of chunk b is audio[b,
+// j], j = i - pad_left reflected at both edges, edge excluded: PyTorch's
+// 'reflect'), skewed by one float per hop; the frame rows are then
+// overlapping windows of the staged chunks, and stft_tile.cuh's spectrum
+// forms their magnitudes. No padded copy, no frame matrix and no spectrum
+// is written to device memory: only the magnitude.
 //
-// What bounds it on an H100: the fp32 FMAs, as for dot_magnitude (v4 16 kHz
-// at batch 2048 x 1536: 49,152 rows x 256 x 258 x 2 = 6.5 GFLOP). The tile
-// is dot_magnitude's (stft_tile.cuh), so on the same samples the two give
-// the same bits.
+// What bounds it on an H100: the fp32 FMAs (v4 16 kHz at batch 2048 x 1536:
+// 49,152 rows x 256 x 258 x 2 = 6.5 GFLOP, 0.0973 ms at 67 TFLOP/s, against
+// 12.6 MB of audio in and 25.4 MB of magnitude out, 0.0113 ms at 3.35
+// TB/s). The design's answer: 8 * RT = 48 FMAs for 8 shared loads a tap and
+// thread (BGW = 8 lanes across 32 bins, 4 row groups of RT = 6 rows), slices
+// of BK = 32 taps (one barrier per 32 taps) in a ring of two filled by
+// cp.async, two blocks of 256 threads an SM, and each pass's magnitudes
+// gathered in shared memory and written out in whole sectors. ptxas: 122
+// registers, no spill, no stack, in both instances; at v4 B=2048 a block
+// owns 2 streams (48 rows, one pass) in 106.6 KB, two blocks an SM. On one
+// H100 80GB HBM3 at 700 W (chip_smoke.py): 0.1828 ms at v4 B=2048 x 1536,
+// 53 % of the bound (the first design, a 64 x 32 tile: 0.32); what holds
+// it there is measured in PERF.md (chip_profile.py: spectrum_variants).
 #include <cuda_runtime.h>
 
 #include "stft_tile.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(stft_tile::THREADS)
-stft_magnitude_kernel(stft_tile::PaddedAudio src, int rows, const float* __restrict__ wr,
-                      const float* __restrict__ wi, int n_fft, int cutoff,
-                      float* __restrict__ out) {
-  __shared__ stft_tile::Smem sm;
-  stft_tile::magnitude_tile(sm, src, rows, wr, wi, n_fft, cutoff, out);
+// the two instances: n_fft 256 with 129 bins, n_fft 128 with 65 bins
+using Spectrum256 = stft_block::Geometry<256, 129, 32, 8, 6, 2>;
+using Spectrum128 = stft_block::Geometry<128, 65, 32, 8, 6, 2>;
+
+template <class G>
+__global__ void __launch_bounds__(G::THREADS, 2)
+stft_magnitude_kernel(const float* __restrict__ audio, int batch, long long stride_b, int samples,
+                      int pad_left, int hop, int n_frames, int streams, int pad_ld,
+                      const float* __restrict__ basis, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  float* bbuf = smem;
+  float* tile = smem + G::BASIS_FLOATS;
+  float* pad = tile + G::ROWS_PASS * G::BINS;
+  const int b0 = blockIdx.x * streams;
+  const int live = min(streams, batch - b0);
+  const int staged = (n_frames - 1) * hop + G::NFFT;  // padded samples the frames read
+  for (int s = 0; s < live; ++s) {
+    const float* chunk = audio + (b0 + s) * stride_b;
+    float* dst = pad + s * pad_ld;
+    for (int p = threadIdx.x; p < staged; p += G::THREADS) {
+      int j = p - pad_left;
+      j = j < 0 ? -j : j;
+      j = j >= samples ? 2 * samples - 2 - j : j;
+      stft_block::cp_async4(dst + stft_block::skewed(p, hop), chunk + j);
+    }
+  }
+  // the staging lands with the first slice of the bases
+  const stft_block::CoalescedStore<G> store{
+      tile, out + static_cast<long long>(b0) * n_frames * G::BINS};
+  stft_block::magnitudes<G>(pad, pad_ld, hop, live * n_frames, n_frames, basis, bbuf, store);
+}
+
+template <class G>
+int launch(const float* audio, int batch, long long stride_b, int samples, int pad_left,
+           int hop, int n_frames, int streams, const float* basis, float* out,
+           cudaStream_t stream) {
+  if (hop % G::BK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int staged = (n_frames - 1) * hop + G::NFFT;
+  // stream s at s * pad_ld: pad_ld = F * (hop + 1) mod 32 keeps the skew's
+  // banks running on from one stream's frames to the next's
+  const int len = stft_block::skewed_len(staged, hop);
+  const int pad_ld = len + ((n_frames * (hop + 1) - len) % 32 + 32) % 32;
+  const size_t bytes = sizeof(float) * (G::BASIS_FLOATS + G::ROWS_PASS * G::BINS +
+                                        static_cast<size_t>(streams) * pad_ld);
+  if (bytes > stft_block::MAX_SHARED_BYTES) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = stft_block::allow_shared_memory<stft_magnitude_kernel<G>>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (batch + streams - 1) / streams;
+  stft_magnitude_kernel<G><<<grid, G::THREADS, bytes, stream>>>(
+      audio, batch, stride_b, samples, pad_left, hop, n_frames, streams, pad_ld, basis, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // audio: chunk b at audio + b*stride_b, `samples` fp32 each (unit stride);
-// wr, wi: [n_fft, cutoff] row-major; out: [batch, n_frames, cutoff]
-// row-major. Each pad must be < samples (one reflection). Returns
+// basis: [n_fft][2][BINS_LD], tap k's real then imaginary basis row, each
+// `cutoff` bins padded with zeros to a multiple of 4 (kernels/stft_mag.py:
+// padded_basis); out: [batch, n_frames, cutoff] row-major; streams: the
+// streams a block owns (kernels/stft_mag.py: launch_plan). Takes (n_fft,
+// cutoff) = (256, 129) or (128, 65), hop a multiple of 32 dividing n_fft,
+// padded length a multiple of hop, each pad < samples (one reflection), and
+// the block's staged chunks within shared memory. Returns
 // cudaGetLastError() after the launch.
 extern "C" int vadc_stft_magnitude(const float* audio, int batch, long long stride_b,
                                    int samples, int pad_left, int pad_right, int hop,
-                                   const float* wr, const float* wi, int n_fft,
-                                   int cutoff, float* out, void* stream) {
+                                   const float* basis, int n_fft, int cutoff, int streams,
+                                   float* out, void* stream) {
   const int padded = samples + pad_left + pad_right;
-  if (batch <= 0 || samples <= 0 || hop <= 0 || n_fft <= 0 || cutoff <= 0 ||
-      pad_left < 0 || pad_right < 0 || pad_left >= samples || pad_right >= samples ||
-      padded < n_fft) {
+  if (batch <= 0 || samples <= 0 || hop <= 0 || streams <= 0 || pad_left < 0 ||
+      pad_right < 0 || pad_left >= samples || pad_right >= samples || padded < n_fft ||
+      padded % hop != 0 || n_fft % hop != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_frames = (padded - n_fft) / hop + 1;
-  const int rows = batch * n_frames;
-  const stft_tile::PaddedAudio src{audio, n_frames, stride_b, samples, pad_left, hop};
-  stft_magnitude_kernel<<<stft_tile::grid(rows, cutoff), stft_tile::THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(src, rows, wr, wi, n_fft,
-                                                               cutoff, out);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_fft == 256 && cutoff == 129) {
+    return launch<Spectrum256>(audio, batch, stride_b, samples, pad_left, hop, n_frames, streams,
+                               basis, out, s);
+  }
+  if (n_fft == 128 && cutoff == 65) {
+    return launch<Spectrum128>(audio, batch, stride_b, samples, pad_left, hop, n_frames, streams,
+                               basis, out, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -38,7 +38,7 @@ from vadc_tpu_torch.kernels.silero_v31_fused2d import (
     out_frames,
     pack_weights,
 )
-from vadc_tpu_torch.kernels.stft_mag import split_basis_of
+from vadc_tpu_torch.kernels.stft_mag import bins_ld, padded_basis_of
 from vadc_tpu_torch.models.weights import Params
 from vadc_tpu_torch.nn import functional as F
 
@@ -64,22 +64,7 @@ def _norm_weights(n_frames: int) -> tuple[np.ndarray, ctypes.Array]:
     return norm_w, (ctypes.c_float * n_frames)(*norm_w.tolist())
 
 
-BASIS_LD = 132  # 129 bins padded to a multiple of 4 (stft_block::BINS_LD)
-
-
-def padded_basis_of(params: Params) -> torch.Tensor:
-    """The STFT bases as the kernels read them: [256, 2, 132], tap k's real
-    then imaginary basis row, each 129 bins padded with zeros to 132, so that
-    a slice of taps is one contiguous 16-byte aligned run. Built once per
-    Params object."""
-    def build() -> torch.Tensor:
-        wr, wi = split_basis_of(params)
-        out = torch.zeros(wr.shape[0], 2, BASIS_LD, dtype=torch.float32, device=wr.device)
-        out[:, 0, : wr.shape[1]] = wr
-        out[:, 1, : wi.shape[1]] = wi
-        return out
-
-    return params.derived("silero_v31_padded_basis", build)
+BASIS_LD = bins_ld(N_FEAT)  # 129 bins padded to 132 (stft_block::Geometry::BINS_LD)
 
 
 def norm_weights(n_frames: int) -> np.ndarray:
