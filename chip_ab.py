@@ -35,7 +35,12 @@ speech are chip_smoke.py's, taken from beside this script):
     L=1) steps at B=2048 and CLI windows at B=1, `lstm_decoder_fused` at
     B=2048 x K=1 and K=8, a 64 x 64 corpus slab and the CLI's window of 96
     chunks, T=7 frames a chunk (seeded random inputs: the times do not
-    depend on the values).
+    depend on the values);
+  - in a tree with the bf16 tiers (`vadc_tpu_torch.nn.precision`), each of
+    balanced, fast and turbo: `forward_fused` at B = 2048 and 1 x 1536,
+    `encode_fused_audio` at 4096 rows, `dot_magnitude` at 2048 x 1536,
+    `lstm_decoder_fused` at 64 x 64 x 7, the 64 x 64 and 2048 x 8 slabs and
+    the CLI's window at the tier.
 
 Imports nothing of JAX. Exits 1 without a card.
 """
@@ -194,6 +199,33 @@ def main() -> int:
         x, h, c = rand(batch, chunks, 7, 64), rand(2, batch, 64, scale=0.3), rand(2, batch, 64)
         t = ms(lambda: lstm_decoder_fused(x, h, c, w, b, dec_w, dec_b, wt=wt), iters=20, warmup=20)
         out.append(f"lstm_decoder_fused B={batch} x K={chunks} x T=7: {t:.4f}")
+    if importlib.util.find_spec("vadc_tpu_torch.nn.precision") is not None:
+        from vadc_tpu_torch.nn.precision import TIERS
+
+        audio = big[:2048]
+        h, c = silero_v31.init_state(2048, device)
+        h1, c1 = silero_v31.init_state(1, device)
+        x, hs, cs = rand(64, 64, 7, 64), rand(2, 64, 64, scale=0.3), rand(2, 64, 64)
+        for tier in ("balanced", "fast", "turbo"):
+            t_runner = StreamRunner("v3", params, device=device, precision=tier)
+            times = {
+                "forward_fused B=2048": ms(lambda: KA.forward_fused(params, audio, h, c, tier=tier)),
+                "forward_fused B=1": ms(lambda: KA.forward_fused(params, audio[:1], h1, c1, tier=tier)),
+                "encode_fused_audio 4096 rows": ms(
+                    lambda: KA.encode_fused_audio(params, big[:4096], tier), iters=20),
+                "dot_magnitude B=2048": ms(lambda: dot_magnitude(frames, wr, wi, tier)),
+                "lstm_decoder_fused 64 x 64 x 7": ms(
+                    lambda: lstm_decoder_fused(x, hs, cs, params["lstm_w"], params["lstm_b"],
+                                               params["dec_w"], params["dec_b"], tier=tier),
+                    iters=20, warmup=20),
+                "CLI window": ms(lambda: silero_v31.forward_minibatched(
+                    params, big[:CLI_WINDOW], h1, c1, tier), iters=10),
+            }
+            for streams, chunks in SLAB_SHAPES:
+                slab = big[: streams * chunks].reshape(streams, chunks, CHUNK)
+                state = t_runner.init_state(streams)
+                times[f"scan {streams} x {chunks}"] = ms(lambda: t_runner.scan(slab, state), iters=10)
+            out += [f"{name} [{TIERS[tier]}]: {t:.4f}" for name, t in times.items()]
     print(f"{os.path.basename(os.getcwd())} ({chip_smoke.nvidia_smi()}), ms per call | "
           + "; ".join(out), flush=True)
     # registers, spills and stack of the spectrum kernels, from nvcc -Xptxas -v

@@ -66,6 +66,24 @@ Phases, each of which raises on failure (exit code 1):
        on localhost: 8 clients send 20 s of seeded speech each, unpaced;
        each client's segment lines equal those of the same server on the
        CPU (forward_fused); logs tick_count, catchup_ticks, tick p50/p99;
+  3b. the bf16 tiers (balanced, fast, turbo) of the v3.1 path: each tier
+     instance (forward_fused, encode_fused_audio, forward_fused2d,
+     lstm_decoder_fused, dot_magnitude) against its plain version at the
+     tier at B=2048, 1, 37 x 1536 and 2048 x 512, the plain version fed the
+     kernel's own spectrum, held to kernels/tier_check.py (the share of
+     outputs that differ by more than its tau, and the largest difference),
+     and as a control the faithful instance against the same plain version,
+     which must fail those limits; the step kernel's spectrum bit for bit
+     against dot_magnitude's instance and lstm_decoder_fused on either
+     encoder entry's rows bit for bit against the fused kernel; the
+     instances' digests (TIER_DIGESTS); per tier, the loop of
+     StreamRunner.step against StreamRunner.scan 2048 x 8 bit for bit, and
+     the tier against faithful on the speech tracks of seeds 0-11
+     (StreamRunner.scan within tier_check's SPEECH_BOUND, the segments as
+     tier_on_speech says, the CLI's on seed 0 identical), each counted
+     (forward_fused, encode_fused_audio, lstm_decoder_fused > 0); at fast,
+     the batch CLI (--fast) over the corpus and the server (--precision
+     fast) over its clients, counted, their lines logged beside faithful's;
   4. timings with CUDA events: each kernel against its plain version
      (stft_magnitude at every family geometry at B=2048 and at the v4 CLI
      window, each with its own bound; beside the two spectrum kernels,
@@ -81,9 +99,15 @@ Phases, each of which raises on failure (exit code 1):
      the batch CLI's audio seconds per wall second, torch.nn.LSTM
      (cuDNN) on the LSTM kernels' inputs as the library's time, and both
      variants of the two recurrent kernels at B = 1, 64, 2048 over a range
-     of steps (the crossover behind kernels/lstm.py's RESIDENT_MIN_STEPS).
+     of steps (the crossover behind kernels/lstm.py's RESIDENT_MIN_STEPS);
+     per tier beside faithful in one call: each tier instance against its
+     plain version, forward_fused at B=1, the v3.1 step, the 64 x 64 and
+     2048 x 8 slabs, the CLI window, the server's ticks at 2048 slots, and
+     cuBLAS's bf16 product of the frames beside the fast spectrum.
 
-Prints a JSON line of per-kernel results (time, plain version's time, the
+Prints a JSON line of per-kernel results, a row per tier instance too
+("forward_fused[fast]", ...: its tier's bound, the bf16 tensor-core peak
+at the bf16 tiers) (time, plain version's time, the
 bound from this run's shapes, the library call's time where there is one,
 and `cublas_product_only_ms` beside the spectrum kernels: no PyTorch call
 computes their function, so that is not a library time;
@@ -172,8 +196,26 @@ TOL_ENCODE = 1e-4
 # values; 1.0e-5 to 1.5e-4 at the other shapes)
 TOL_ENCODE_AUDIO = 5e-4
 # the card's published peaks (NVIDIA H100 SXM data sheet): fp32 outside the
-# tensor cores, and device memory
-PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# tensor cores, bf16 dense on the tensor cores, and device memory
+PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
+# the bf16 precision tiers of the v3.1 path (vadc_tpu_torch/nn/precision.py);
+# each instance is held to its plain version, and each tier to faithful on
+# speech, by the limits of vadc_tpu_torch/kernels/tier_check.py
+TIERS = ("balanced", "fast", "turbo")
+# the speech tracks of the tiers' check against faithful (utterance_track(4,
+# seed)): seed 0 is the material of the JAX package's recorded deviations
+SPEECH_SEEDS = range(12)
+# digests of the tier instances' outputs (tier_digests), recorded on an
+# NVIDIA H100 80GB HBM3 (700 W) when the instances were written: a later
+# change of their device code must keep them, as PARENT_DIGESTS holds the
+# faithful instances
+TIER_DIGESTS = {
+    "forward_fused2d[balanced]": "ad1c2c8d0071a6b2", "forward_fused[balanced]": "e5b0c283474b9913",
+    "forward_fused_ragged[balanced]": "f1fa738c4373f9a1",
+    "forward_fused2d[fast]": "33e28073d2fc07c7", "forward_fused[fast]": "8dc74bea4f5741ee",
+    "forward_fused_ragged[fast]": "481e3e197ca5b179",
+    "forward_fused2d[turbo]": "870e6ab5197b4818", "forward_fused[turbo]": "812807f7fc028f26",
+    "forward_fused_ragged[turbo]": "8b57c57494b2d5a1"}
 
 
 def log(msg: str) -> None:
@@ -1065,11 +1107,12 @@ V3_SLAB_KERNELS = ("encode_fused_audio", "lstm_decoder_fused")
 OFF_PATH_KERNELS = ("dot_magnitude", "silero_v31_fused", "silero_v31_fused3d")
 
 
-def steps_vs_scan(params, device) -> None:
+def steps_vs_scan(params, device, tier: str = "faithful") -> None:
     """The v3.1 loop of StreamRunner.step (forward_fused) against the slab
-    scan on the card, on the same chunks from the same state: bit for bit,
-    since the slab's front half is the step kernel's own front-end and
-    encoder and the resident LSTM gives the step kernel's bits."""
+    scan on the card at the tier, on the same chunks from the same state:
+    bit for bit, since the slab's front half is the step kernel's own
+    front-end and encoder and the resident LSTM gives the step kernel's
+    bits."""
     import torch
 
     from vadc_tpu_torch.engine.runner import StreamRunner
@@ -1077,7 +1120,7 @@ def steps_vs_scan(params, device) -> None:
     chunks = torch.from_numpy(
         speech_chunks(B_MAIN * SCAN_CHUNKS, CHUNK, seed=SEED + 100)
     ).to(device).reshape(B_MAIN, SCAN_CHUNKS, CHUNK)
-    runner = StreamRunner("v3", params, device=device)
+    runner = StreamRunner("v3", params, device=device, precision=tier)
     probs_slab, slab = runner.scan(chunks, runner.init_state(B_MAIN))
     state = runner.init_state(B_MAIN)
     probs = torch.stack([runner.step(chunks[:, k], state)[0] for k in range(SCAN_CHUNKS)], dim=1)
@@ -1086,9 +1129,9 @@ def steps_vs_scan(params, device) -> None:
             "c": max_abs(state.c, slab.c)}
     same = (torch.equal(probs, probs_slab) and torch.equal(state.h, slab.h)
             and torch.equal(state.c, slab.c))
-    log(f"v3.1 loop of steps vs slab scan {B_MAIN}x{SCAN_CHUNKS} on the card: bit-equal: {same} "
+    log(f"v3.1 {tier} loop of steps vs slab scan {B_MAIN}x{SCAN_CHUNKS} on the card: bit-equal: {same} "
         f"(max abs diff probs {errs['probs']:.3e}, h {errs['h']:.3e}, c {errs['c']:.3e})")
-    require(same, f"steps vs slab scan: not bit for bit: {errs}")
+    require(same, f"{tier} steps vs slab scan: not bit for bit: {errs}")
 
 
 def phase_main_path_v3(params, device, pcm: Path, totals: dict) -> None:
@@ -1305,13 +1348,14 @@ def phase_server(device, totals: dict) -> None:
                 f"server client {i}: {g}")
 
 
-def time_ticks(model: str, device, label: str) -> None:
+def time_ticks(model: str, device, label: str, precision: str = "faithful") -> tuple[float, float]:
     """_tick and _tick2 of a TICK_SLOTS-slot server, every slot active, on
     seeded speech (CUDA events around host-synchronous calls: the times
     include the staging, the masked merge and the copy of the probs)."""
     from vadc_tpu_torch.server import VadServer
 
-    srv = VadServer(port=0, max_streams=TICK_SLOTS, model=model, device=device)
+    srv = VadServer(port=0, max_streams=TICK_SLOTS, model=model, device=device,
+                    precision=precision)
     try:
         batch = np.clip(speech_chunks(TICK_SLOTS, srv.chunk, seed=SEED + 600) * 32768,
                         -32768, 32767).astype(np.int16)
@@ -1322,6 +1366,7 @@ def time_ticks(model: str, device, label: str) -> None:
             f"_tick2 {tick2:.4f} ms")
     finally:
         srv.pool.close()
+    return tick, tick2
 
 
 def phase_timing(params, device) -> dict:
@@ -1731,6 +1776,373 @@ def phase_timing_variants(models: dict, params, device) -> None:
                  variant_of(batch, chunks * 7))
 
 
+# ---- the bf16 tiers (balanced, fast, turbo) of the v3.1 path -----------------
+
+
+def tier_digests(params, device) -> dict:
+    """Digests of the tier instances of forward_fused (B=2048 x 1536 and a
+    ragged B=37 x 512 of speech, a random carried state) and forward_fused2d
+    (B=2048 x 25 random features): name[tier] -> digest."""
+    import torch
+
+    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
+    from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(device)
+
+    out = {}
+    for tier in TIERS:
+        rng = np.random.default_rng(SEED + 7)
+        feats = t(2.0 * rng.normal(size=(B_MAIN, 25, 129)))
+        h = t(0.5 * rng.normal(size=(2, B_MAIN, 64)))
+        c = t(3.0 * rng.normal(size=(2, B_MAIN, 64)))
+        out[f"forward_fused2d[{tier}]"] = digest(*forward_fused2d(params, feats, h, c, tier=tier))
+        rng = np.random.default_rng(SEED + 9)
+        for name, b, samples in (("forward_fused", B_MAIN, CHUNK), ("forward_fused_ragged", 37, 512)):
+            chunks = t(speech_chunks(b, samples, seed=SEED + 10))
+            h = t(0.5 * rng.normal(size=(2, b, 64)))
+            c = t(3.0 * rng.normal(size=(2, b, 64)))
+            out[f"{name}[{tier}]"] = digest(*forward_fused(params, chunks, h, c, tier=tier))
+    return out
+
+
+def check_tier(params, audio, tier: str, label: str) -> dict:
+    """Each tier instance of the v3.1 path's kernels against its plain
+    version at the tier on the card, from a carried state, held to
+    kernels/tier_check.py: forward_fused and encode_fused_audio against
+    plain versions fed the step kernel's own spectrum (its rounding drops
+    out; the spectrum is held bit for bit to dot_magnitude's instance, and
+    that to its plain version), lstm_decoder_fused on encode_fused_audio's
+    rows bit for bit against forward_fused, forward_fused2d on features at
+    the tier (and encode_fused + lstm_decoder_fused bit for bit against
+    it), lstm_decoder_fused over K chunks, dot_magnitude. At B=2048 x 1536,
+    the control: the faithful instances against the same plain versions
+    must break the limits (tier_check says where no check of the outputs
+    can). Returns name -> the largest difference."""
+    import torch
+
+    from vadc_tpu_torch.kernels import tier_check
+    from vadc_tpu_torch.kernels.lstm import transposed_weight_of
+    from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused, lstm_decoder_fused_reference
+    from vadc_tpu_torch.kernels.silero_v31_fused import (
+        encode_fused_audio, encode_fused_audio_reference, forward_fused, forward_fused_reference,
+    )
+    from vadc_tpu_torch.kernels.silero_v31_fused2d import (
+        encode_fused, forward_fused2d, forward_fused2d_reference,
+    )
+    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude, dot_magnitude_reference, split_basis
+    from vadc_tpu_torch.models import silero_v31
+    from vadc_tpu_torch.nn import functional as F
+    from vadc_tpu_torch.nn.precision import FAITHFUL, tier_of
+
+    t = tier_of(tier)
+    b, samples = audio.shape
+    args = (params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"])
+    wt = transposed_weight_of(params, t.products)
+    h0, c0 = silero_v31.init_state(b, audio.device)
+    _, h, c = forward_fused_reference(params, audio.flip(0).contiguous(), h0, c0, t)
+    spect = torch.empty(b, samples // 64 + 1, 129, device=audio.device)
+    wr, wi = split_basis(params["stft_basis"])
+    frames = F.frame(F.reflect_pad_last(audio, 128, 128), 256, 64)
+    k = 4 if b % 4 == 0 else 1  # K chunks a stream of b / K streams
+    hk, ck = h[:, : b // k].contiguous(), c[:, : b // k].contiguous()
+    feats = silero_v31.features(params, audio, t)
+
+    def run(at, wt_at, x=None):
+        """The instances of tier `at` on this input (lstm_decoder_fused on
+        `x`, else on this encode_fused_audio's rows): kernel -> output."""
+        step = forward_fused(params, audio, h, c, spectrum=spect if at is t else None, tier=at)
+        enc = encode_fused_audio(params, audio, at)
+        x = enc.reshape(b // k, k, enc.shape[1], 64) if x is None else x
+        return {"forward_fused": step, "encode_fused_audio": enc,
+                "forward_fused2d": forward_fused2d(params, feats, h, c, tier=at),
+                "lstm_decoder_fused": lstm_decoder_fused(x, hk, ck, *args, wt=wt_at, tier=at),
+                "dot_magnitude": dot_magnitude(frames, wr, wi, at)}
+
+    got = run(t, wt)
+    enc = got["encode_fused_audio"]
+    x = enc.reshape(b // k, k, enc.shape[1], 64)
+    plain = {"forward_fused": forward_fused_reference(params, audio, h, c, t, spectrum=spect),
+             "encode_fused_audio": encode_fused_audio_reference(params, audio, t, spectrum=spect),
+             "forward_fused2d": forward_fused2d_reference(params, feats, h, c, t),
+             "lstm_decoder_fused": lstm_decoder_fused_reference(x, hk, ck, *args, t),
+             "dot_magnitude": dot_magnitude_reference(frames, wr, wi, t)}
+    split = lstm_decoder_fused(enc[:, None], h, c, *args, wt=wt, tier=t)
+    split2d = lstm_decoder_fused(encode_fused(params, feats, t)[:, None], h, c, *args, wt=wt, tier=t)
+    torch.cuda.synchronize()
+    for name in ("forward_fused", "forward_fused2d", "lstm_decoder_fused"):
+        require(bool(torch.isfinite(got[name][0]).all()), f"{tier} {label}: {name} not finite")
+    for name in ("encode_fused_audio", "dot_magnitude"):
+        require(bool(torch.isfinite(got[name]).all()), f"{tier} {label}: {name} not finite")
+
+    def errs_of(outs):
+        out = {name: tier_check.state_errors(outs[name], plain[name], tier)
+               for name in ("forward_fused", "forward_fused2d", "lstm_decoder_fused")}
+        out["encode_fused_audio"] = {"enc": tier_check.errors(outs["encode_fused_audio"],
+                                                              plain["encode_fused_audio"], tier)}
+        mag = plain["dot_magnitude"]
+        out["dot_magnitude"] = {"mag": tier_check.errors(outs["dot_magnitude"], mag, tier,
+                                                         float(mag.abs().max()))}
+        return out
+
+    def show(errs):
+        return "; ".join(f"{name} " + ", ".join(f"{o} {m:.3e}/{sh:.4f}" for o, (m, sh) in e.items())
+                         for name, e in errs.items())
+
+    errs = errs_of(got)
+    broken = [msg for name, e in errs.items() for msg in tier_check.breaches(tier, name, b, e)]
+    bits = {"spectrum = dot_magnitude": torch.equal(spect, got["dot_magnitude"]),
+            "lstm_decoder_fused(encode_fused_audio) = forward_fused": same_bits(
+                (split[0][:, 0], split[1], split[2]), got["forward_fused"]),
+            "lstm_decoder_fused(encode_fused) = forward_fused2d": same_bits(
+                (split2d[0][:, 0], split2d[1], split2d[2]), got["forward_fused2d"])}
+    log(f"tier {tier} {label} (largest difference / share above {tier_check.TAU[tier]:g}): "
+        + show(errs) + "; " + ", ".join(f"{k}: {v}" for k, v in bits.items()))
+    require(not broken, f"{tier} {label}: " + "; ".join(broken))
+    for what, ok in bits.items():
+        require(ok, f"{tier} {label}: {what} is not bit for bit")
+    if b == B_MAIN and samples == CHUNK:
+        control = errs_of(run(FAITHFUL, transposed_weight_of(params, "fp32"), x))
+        caught = {name: bool(tier_check.breaches(tier, name, b, e)) for name, e in control.items()}
+        log(f"tier {tier} {label} control, the faithful instances against the plain versions "
+            f"at {tier}: " + show(control) + f"; breaks the limits: {caught}")
+        # the balanced body's bf16_3x products are within 2^-17 of fp32
+        # ones, and the bf16_3x spectrum of an fp32 one (tier_check): there
+        # the faithful instances differ in the spectrum and log1p alone
+        must = (("forward_fused", "encode_fused_audio") if tier == "balanced" else
+                ("forward_fused", "encode_fused_audio", "forward_fused2d", "lstm_decoder_fused")
+                + (("dot_magnitude",) if t.stft == "bf16" else ()))
+        require(all(caught[name] for name in must),
+                f"{tier} control: the faithful instances pass the limits of {tier}: {caught}")
+    return {name: max(m for m, _ in e.values()) for name, e in errs.items()}
+
+
+def phase_kernels_tiers(params, device) -> dict:
+    """The tier instances against their plain versions at B=2048, 1 and a
+    ragged 37 (chunks of 1536 samples), and at B=2048 x 512; their digests
+    logged beside TIER_DIGESTS and held to them."""
+    import torch
+
+    audio = torch.from_numpy(speech_chunks(B_MAIN, CHUNK, seed=SEED + 300)).to(device)
+    errs = {}
+    for tier in TIERS:
+        errs[tier] = check_tier(params, audio, tier, f"B={B_MAIN} x {CHUNK}")
+        for b in (1, 37):
+            check_tier(params, audio[:b], tier, f"B={b} x {CHUNK}")
+        check_tier(params, audio[:, :512].contiguous(), tier, f"B={B_MAIN} x 512")
+    got = tier_digests(params, device)
+    log(f"tier digests: {json.dumps(got)}")
+    for name, want in TIER_DIGESTS.items():
+        require(got[name] == want, f"{name}: digest {got[name]} differs from {want}")
+    return errs
+
+
+def speech_track(seed: int = 0) -> np.ndarray:
+    """The whole chunks of the track of four synthetic utterances of `seed`
+    (the JAX package's generator; seed 0 is the material of the JAX
+    package's recorded deviations), [1, N, CHUNK] fp32."""
+    from vadc_tpu_torch.io.synthaudio import utterance_track
+
+    audio, _ = utterance_track(4, seed=seed)
+    n = len(audio) // CHUNK
+    return audio[: n * CHUNK].reshape(1, n, CHUNK).astype(np.float32)
+
+
+def speech_file(path: Path) -> None:
+    """speech_track() as raw s16le at `path`, for the CLI."""
+    np.clip(speech_track().ravel() * 32768, -32768, 32767).astype("<i2").tofile(path)
+
+
+def speech_segments(probs) -> list:
+    """The CLI's segmenter over one stream's probabilities."""
+    from vadc_tpu_torch.cli.segmenter import Segmenter, SegmenterConfig
+
+    seg = Segmenter(SegmenterConfig.from_ms(chunk_samples=CHUNK, sample_rate=SR))
+    return [e for p in probs.tolist() for e in seg.feed(p)] + list(seg.finish())
+
+
+def speech_probs(params, device, precision: str) -> list:
+    """StreamRunner.scan at `precision` over the speech track of each of
+    SPEECH_SEEDS, one stream each (as the JAX package measured its
+    deviations: tools/tpu_check.py `speech_*`): [N] fp64 on the host."""
+    from vadc_tpu_torch.engine.runner import StreamRunner
+
+    runner = StreamRunner("v3", params, device=device, precision=precision)
+    return [runner.scan(track, runner.init_state(1))[0][0].double().cpu()
+            for track in map(speech_track, SPEECH_SEEDS)]
+
+
+def tier_on_speech(params, device, tier: str, speech: Path, faithful: list) -> float:
+    """The tier against faithful (`faithful`: speech_probs at faithful) on
+    the card over the speech tracks of SPEECH_SEEDS: the largest deviation
+    within SPEECH_BOUND[tier]; the segments identical at balanced and fast,
+    and at turbo of the same count with each boundary within one chunk
+    (turbo moves one start by one chunk on seeds 1 and 6, as the JAX
+    package's own turbo does: tests/test_torch_tiers.py); and the CLI's
+    segments on speech_track() as s16le identical. Returns the largest
+    deviation."""
+    from vadc_tpu_torch.kernels.tier_check import SPEECH_BOUND
+
+    chunk_s = CHUNK / SR
+    devs, moved = [], []
+    for seed, want, got in zip(SPEECH_SEEDS, faithful, speech_probs(params, device, tier)):
+        devs.append(float((got - want).abs().max()))
+        seg, seg_want = speech_segments(got), speech_segments(want)
+        if seg != seg_want:
+            moved.append(seed)
+            require(tier == "turbo" and len(seg) == len(seg_want) and all(
+                abs(a - b) <= chunk_s + 1e-9 for s, w in zip(seg, seg_want) for a, b in zip(s, w)),
+                f"tier {tier}: the segments of speech seed {seed} differ: {seg} vs {seg_want}")
+    cli = [run_cli(["--device", "cuda", "--precision", p], speech) for p in ("faithful", tier)]
+    log(f"tier {tier} on speech, seeds {list(SPEECH_SEEDS)}: max abs deviation from faithful "
+        + ", ".join(f"{d:.3e}" for d in devs) + f" (largest {max(devs):.3e}, bound "
+        f"{SPEECH_BOUND[tier]:g}); seeds whose segments moved by a chunk: {moved}; CLI segments "
+        f"on seed 0 {cli[1].split()}, the same as faithful's: {cli[1] == cli[0]}")
+    require(max(devs) <= SPEECH_BOUND[tier], f"tier {tier}: deviation {max(devs):.3e} on speech")
+    require(cli[1] == cli[0] and len(cli[0].split()) >= 3, f"tier {tier}: CLI segments differ")
+    return max(devs)
+
+
+def phase_main_path_tiers(params, device, speech: Path, totals: dict) -> dict:
+    """Each tier's v3.1 paths, counted on their own: the loop of
+    StreamRunner.step (forward_fused) against StreamRunner.scan (the slab
+    route) bit for bit, then the CLI on speech against faithful. At fast,
+    also the batch CLI over the corpus and the server's clients, their
+    lines beside faithful's on the card. Returns tier -> the CLI's
+    deviation from faithful on speech."""
+    deviations = {}
+    faithful = speech_probs(params, device, "faithful")
+    for tier in TIERS:
+        counts = totals.setdefault(tier, {})
+        zero_launches()
+        steps_vs_scan(params, device, tier)
+        read_launches(f"{tier}: v3.1 StreamRunner.step and .scan", counts,
+                      ("forward_fused", *V3_SLAB_KERNELS))
+        zero_launches()
+        deviations[tier] = tier_on_speech(params, device, tier, speech, faithful)
+        read_launches(f"{tier}: v3.1 on speech (StreamRunner.scan, the CLI)", counts,
+                      V3_SLAB_KERNELS)
+    counts = totals["fast"]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, _ = write_corpus(Path(tmp))
+        argv = [*paths, "--slab_chunks", str(SLAB_CHUNKS), "--device", "cuda"]
+        want, _ = run_batch_cli(argv)
+        zero_launches()
+        got, wall = run_batch_cli([*argv, "--fast"])
+        read_launches("fast: batch CLI", counts, V3_SLAB_KERNELS)
+    differ = sorted({ln.split("\t")[0] for ln in set(got.splitlines()) ^ set(want.splitlines())})
+    log(f"batch CLI --fast: {len(got.splitlines())} lines in {wall:.3f} s; files whose lines "
+        f"differ from faithful's: {len(differ)} of {CORPUS_FILES}")
+    payloads = [client_pcm(i) for i in range(SERVER_CLIENTS)]
+    want_lines, _ = serve_clients(device, payloads)
+    zero_launches()
+    got_lines, srv = serve_clients(device, payloads, precision="fast")
+    read_launches("fast: server", counts, ("forward_fused",))
+    same = sum(g == w for g, w in zip(got_lines, want_lines))
+    log(f"server --precision fast: tick_count {srv.tick_count}; clients whose lines equal "
+        f"faithful's: {same} of {SERVER_CLIENTS}")
+    require(all(g and not any(x.startswith("error") for x in g) for g in got_lines),
+            "server at fast: a client got no segment lines")
+    require(got.count("\n") >= CORPUS_FILES, f"batch CLI at fast: {got.count(chr(10))} lines")
+    return deviations
+
+
+def tier_bound_ms(spectrum: float, body: float, nbytes: float, tier: str) -> tuple[float, str]:
+    """The least time of a tier instance: at faithful fp32 FMAs against the
+    CUDA cores' peak; at the bf16 tiers the same products against the bf16
+    dense tensor-core peak, three times over where the tier splits them
+    (bf16_3x: the spectrum at balanced and fast, every product at
+    balanced); bytes as at faithful (the activations stay on the chip)."""
+    from vadc_tpu_torch.nn.precision import tier_of
+
+    t = tier_of(tier)
+    if t.products == "fp32":
+        return bound_ms(spectrum + body, nbytes)
+    ops = (spectrum * (3 if t.stft == "bf16_3x" else 1)
+           + body * (3 if t.products == "bf16_3x" else 1))
+    by_ops, by_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def phase_timing_tiers(params, device) -> dict:
+    """Each tier in one call beside faithful: the instances against their
+    plain versions (forward_fused, encode_fused_audio, dot_magnitude at
+    B=2048 x 1536, forward_fused2d at 2048 x 25 frames, lstm_decoder_fused
+    at 64 x 64 x 7), forward_fused at B=1, the v3.1 step at 2048, the 64 x
+    64 and 2048 x 8 slabs, the CLI window, the server's ticks at 2048
+    slots; and cuBLAS's bf16 product of the frames beside the fast
+    spectrum. tier -> name -> (kernel ms, plain ms) or ms."""
+    import torch
+
+    from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels.lstm import transposed_weight_of
+    from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused, lstm_decoder_fused_reference
+    from vadc_tpu_torch.kernels.silero_v31_fused import (
+        encode_fused_audio, encode_fused_audio_reference, forward_fused, forward_fused_reference,
+    )
+    from vadc_tpu_torch.kernels.silero_v31_fused2d import forward_fused2d, forward_fused2d_reference
+    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude, dot_magnitude_reference, split_basis
+    from vadc_tpu_torch.models import silero_v31
+    from vadc_tpu_torch.nn import functional as F
+    from vadc_tpu_torch.nn.precision import bf16, tier_of
+
+    audio = torch.from_numpy(speech_chunks(B_MAIN, CHUNK, seed=SEED + 200)).to(device)
+    frames = F.frame(F.reflect_pad_last(audio, 128, 128), 256, 64)
+    wr, wi = split_basis(params["stft_basis"])
+    h, c = silero_v31.init_state(B_MAIN, device)
+    h1, c1 = silero_v31.init_state(1, device)
+    slab = torch.from_numpy(speech_chunks(SLAB_CHUNKS * SLAB_CHUNKS, CHUNK, seed=SEED + 900)
+                            ).to(device).reshape(SLAB_CHUNKS, SLAB_CHUNKS, CHUNK)
+    wide = torch.from_numpy(speech_chunks(B_MAIN * SCAN_CHUNKS, CHUNK, seed=SEED + 900)
+                            ).to(device).reshape(B_MAIN, SCAN_CHUNKS, CHUNK)
+    window = torch.from_numpy(speech_chunks(CLI_WINDOW, CHUNK, seed=SEED + 901)).to(device)
+    args = (params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"])
+    hs, cs = silero_v31.init_state(SLAB_CHUNKS, device)
+    out = {}
+    for name in ("faithful", *TIERS):
+        tier = tier_of(name)
+        feats = silero_v31.features(params, audio, tier)
+        x = encode_fused_audio(params, slab.reshape(-1, CHUNK), tier).reshape(
+            SLAB_CHUNKS, SLAB_CHUNKS, -1, 64)
+        wt = transposed_weight_of(params, tier.products)
+        runner = StreamRunner("v3", params, device=device, precision=name)
+        state, state_slab, state_wide = (runner.init_state(n) for n in (B_MAIN, SLAB_CHUNKS, B_MAIN))
+        t = {
+            "forward_fused": cuda_ms_pair(lambda: forward_fused(params, audio, h, c, tier=tier),
+                                          lambda: forward_fused_reference(params, audio, h, c, tier)),
+            "encode_fused_audio": cuda_ms_pair(
+                lambda: encode_fused_audio(params, audio, tier),
+                lambda: encode_fused_audio_reference(params, audio, tier)),
+            "dot_magnitude": cuda_ms_pair(lambda: dot_magnitude(frames, wr, wi, tier),
+                                          lambda: dot_magnitude_reference(frames, wr, wi, tier)),
+            "silero_v31_fused": cuda_ms_pair(
+                lambda: forward_fused2d(params, feats, h, c, tier=tier),
+                lambda: forward_fused2d_reference(params, feats, h, c, tier)),
+            "lstm_decoder_fused": cuda_ms_pair(
+                lambda: lstm_decoder_fused(x, hs, cs, *args, wt=wt, tier=tier),
+                lambda: lstm_decoder_fused_reference(x, hs, cs, *args, tier), iters=3),
+            "forward_fused_b1": cuda_ms(lambda: forward_fused(params, audio[:1], h1, c1, tier=tier)),
+            "step": cuda_ms(lambda: runner.step(audio, state)),
+            "slab_64x64": cuda_ms(lambda: runner.scan(slab, state_slab), iters=10),
+            "slab_2048x8": cuda_ms(lambda: runner.scan(wide, state_wide), iters=10),
+            "cli_window": cuda_ms(
+                lambda: silero_v31.forward_minibatched(params, window, h1, c1, tier), iters=10),
+        }
+        t["tick"], t["tick2"] = time_ticks(str(DEFAULT_WEIGHTS), device, f"v3.1 {name}", name)
+        out[name] = t
+        log(f"time tier {name}: " + ", ".join(
+            f"{k} {v[0]:.4f} ms (plain {v[1]:.4f})" if isinstance(v, tuple) else f"{k} {v:.4f} ms"
+            for k, v in t.items()))
+    a, b = bf16(frames.reshape(-1, 256)).to(torch.bfloat16), bf16(
+        torch.cat([wr, wi], dim=1)).to(torch.bfloat16)
+    out["fast"]["cublas_bf16"] = cuda_ms(lambda: torch.matmul(a, b))
+    log(f"time cuBLAS bf16 product only (frames [{a.shape[0]}, 256] @ [256, 258], bf16 in and "
+        f"out) beside the fast spectrum: {out['fast']['cublas_bf16']:.4f} ms")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1754,20 +2166,26 @@ def main() -> int:
     errs = phase_kernels(params, device)
     errs.update(phase_kernels_lstm_decoder(params, device))
     errs.update(phase_kernels_v45(models, device))
+    tier_errs = phase_kernels_tiers(params, device)
     launches: dict = {}
+    tier_launches: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
         pcm = Path(tmp) / "synthetic.s16le"
         synthetic_file(pcm)
         phase_main_path_v3(params, device, pcm, launches)
         phase_main_path_v4(models["v4"][1], device, pcm, archives, launches)
+        speech = Path(tmp) / "speech.s16le"
+        speech_file(speech)
+        phase_main_path_tiers(params, device, speech, tier_launches)
     phase_main_path_v5(models, device, launches)
     corpus = phase_main_path_batch(device, launches)
     phase_server(device, launches)
-    log(f"launches on the main paths, all phases: {launches}")
+    log(f"launches on the main paths, all phases: {launches}; at the bf16 tiers: {tier_launches}")
     timing = phase_timing(params, device)
     timing.update(phase_timing_v45(models, device))
     slab = phase_timing_slab(params, device, corpus)
     phase_timing_variants(models, params, device)
+    tier_timing = phase_timing_tiers(params, device)
     with tempfile.TemporaryDirectory() as tmp:
         v5_archive = Path(tmp) / "v5_synthetic.testtensor"
         save_archive(v5_archive, random_v5_archive(0))
@@ -1845,9 +2263,42 @@ def main() -> int:
          {"variant": variant_of(tail_shape[0], tail_shape[1] * tail_shape[2]),
           "kernels_per_call": tail_per_call}),
     ]
+    # each tier instance of the v3.1 path's kernels, with the tier's bound
+    slab_rows = SLAB_CHUNKS * SLAB_CHUNKS
+    slab_steps = slab_rows * 7
+    tier_table = (
+        ("forward_fused", audio_src, "vadc_tpu/kernels/silero_v31_fused.py:236", "forward_fused",
+         (spectrum_flops(rows), body_flops,
+          B_MAIN * CHUNK * 4 + state_bytes + B_MAIN * 4 + v31_weights + basis), f"B={B_MAIN} x {CHUNK}"),
+        ("encode_fused_audio", audio_src, "vadc_tpu/kernels/silero_v31_fused.py:236",
+         "encode_fused_audio",
+         (spectrum_flops(rows), B_MAIN * v31_encoder_flops(25),
+          B_MAIN * CHUNK * 4 + B_MAIN * 7 * 64 * 4 + v31_weights + basis), f"B={B_MAIN} x {CHUNK}"),
+        ("silero_v31_fused", fused_src, "vadc_tpu/kernels/silero_v31_fused2d.py:232",
+         "forward_fused2d", (0.0, body_flops, rows * 129 * 4 + state_bytes + B_MAIN * 4 + v31_weights),
+         f"B={B_MAIN} x 25 frames"),
+        ("lstm_decoder_fused", "vadc_tpu_torch/kernels/csrc/lstm_decoder.cu",
+         "vadc_tpu/kernels/lstm.py:132", "lstm_decoder_fused",
+         (0.0, lstm_flops(slab_steps, 2, 64),
+          slab_steps * 64 * 4 + 4 * 2 * SLAB_CHUNKS * 64 * 4 + slab_rows * 4 + lstm_weights
+          + (2 * 64 + 2) * 4), f"B={SLAB_CHUNKS} x K={SLAB_CHUNKS} x T=7"),
+        ("dot_magnitude", "vadc_tpu_torch/kernels/csrc/stft_dotmag.cu",
+         "vadc_tpu/kernels/stft_dotmag.py:56", "dot_magnitude",
+         (spectrum_flops(rows), 0.0, B_MAIN * (CHUNK + 256) * 4 + basis + rows * 129 * 4),
+         f"B={B_MAIN} x {CHUNK}"),
+    )
+    for tier in TIERS:
+        for name, src, replaces, counter, (spec, body, nbytes), shape in tier_table:
+            ms, plain_ms = tier_timing[tier][name]
+            extra = {"tier": tier}
+            if name == "dot_magnitude" and tier == "fast":
+                extra["cublas_bf16_product_only_ms"] = tier_timing["fast"]["cublas_bf16"]
+            table.append((f"{name}[{tier}]", src, replaces, tier_launches[tier].get(counter, 0),
+                          tier_errs[tier][counter],
+                          ms, plain_ms, None, tier_bound_ms(spec, body, nbytes, tier), shape, extra))
     kernels = []
     for name, src, replaces, n, err, ms, plain_ms, library_ms, (bound, by), shape, extra in table:
-        if name in OFF_PATH_KERNELS:
+        if name.split("[")[0] in OFF_PATH_KERNELS:
             extra = {**extra, "on_a_main_path": False}
         else:
             require(n > 0, f"{name}: no launch on any main path")

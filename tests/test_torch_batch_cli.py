@@ -135,9 +135,12 @@ def test_cuda_is_the_default_and_exits_1_without_a_card(corpus, capsys):
 @pytest.mark.parametrize("argv", [["--fast"], ["--precision", "fast"], ["--precision", "turbo"],
                                   ["--precision", "balanced"]])
 def test_unported_tiers_are_refused_in_one_line(corpus, capsys, argv):
-    rc, out, err = _run(TB, [corpus[0], "--device", "cpu", *argv], capsys)
+    """The bf16 tiers run Silero v3.1; the v4 model refuses them."""
+    v4 = str(DATA / "silero_v4_16k.testtensor")
+    rc, out, err = _run(TB, [corpus[0], "--device", "cpu", "--model", v4, *argv], capsys)
     assert rc == 1 and out == ""
     assert len(err.strip().splitlines()) == 1 and "not ported" in err
+    assert "'bf16 tiers: v4 and v5'" in err
 
 
 def test_missing_input_and_missing_model_exit_1(corpus, tmp_path, capsys):
@@ -157,3 +160,10 @@ def test_same_basename_from_two_directories_gets_two_cut_files(corpus, tmp_path,
                     capsys)
     assert rc == 0
     assert sorted(p.name for p in (tmp_path / "cut").iterdir()) == ["speech0.s16le", "speech0_1.s16le"]
+
+
+@pytest.mark.parametrize("argv", [["--fast"], ["--precision", "balanced"], ["--precision", "turbo"]])
+def test_bf16_tiers_print_the_faithful_lines(corpus, capsys, argv):
+    rc, want, _ = _run(TB, [*corpus, "--device", "cpu"], capsys)
+    rc_t, got, _ = _run(TB, [*corpus, "--device", "cpu", *argv], capsys)
+    assert rc == rc_t == 0 and got == want and want.count("\n") >= 3

@@ -177,6 +177,34 @@ def test_no_card_is_an_error_not_a_cpu_run(capsys, monkeypatch):
 
 
 def test_unported_tier_is_an_error(capsys, monkeypatch):
+    """A bf16 tier runs Silero v3.1 (the default model); the v4 model
+    refuses it in one line naming the ROADMAP item."""
     rc, out, err = _run(port_cli, ["--device", "cpu", "--precision", "fast"], b"",
                         capsys, monkeypatch)
-    assert rc == 1 and out == "" and "ROADMAP" in err
+    assert rc == 0 and out == ""
+    rc, out, err = _run(port_cli, ["--device", "cpu", "--precision", "fast", "--model",
+                                   str(DATA / "silero_v4_16k.testtensor")], b"",
+                        capsys, monkeypatch)
+    assert rc == 1 and out == "" and "ROADMAP" in err and "'bf16 tiers: v4 and v5'" in err
+
+
+@pytest.mark.parametrize("tier", ["balanced", "fast", "turbo"])
+def test_bf16_tiers_print_the_faithful_segments(capsys, monkeypatch, tier):
+    """Each tier on synthetic speech with its aspiration floor
+    (vadc_tpu/io/synthaudio.py; tests/test_torch_tiers.py says why this
+    track): the faithful tier's segment lines; --raw_probabilities at fast
+    and turbo says on stderr that probabilities deviate from fp32. (On the
+    pure harmonics of `inputs`, which have no noise floor, turbo's bf16
+    STFT moves a borderline chunk, as the JAX package's does.)"""
+    from vadc_tpu.io.synthaudio import utterance_track
+
+    track, _ = utterance_track(4, seed=7)
+    pcm = np.clip(track * 32768, -32768, 32767).astype("<i2").tobytes()
+    rc, want, _ = _run(port_cli, ["--device", "cpu"], pcm, capsys, monkeypatch)
+    rc_t, got, err = _run(port_cli, ["--device", "cpu", "--precision", tier], pcm, capsys,
+                          monkeypatch)
+    assert rc == rc_t == 0 and got == want and want.count("\n") >= 3
+    rc, raw, err = _run(port_cli, ["--device", "cpu", "--precision", tier, "--raw_probabilities"],
+                        pcm[: 2 * 1536 * 10], capsys, monkeypatch)
+    assert rc == 0 and len(raw.split()) == 10
+    assert ("note: --raw_probabilities at --precision" in err) == (tier != "balanced")

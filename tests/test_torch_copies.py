@@ -19,10 +19,14 @@ from vadc_tpu.cli import stats as j_stats
 from vadc_tpu.export import onnx_build
 from vadc_tpu.export import onnx_extract as j_extract
 from vadc_tpu.export import silero_v3_from_onnx as j_v3
+from vadc_tpu.engine import onnx_backend as j_backend
+from vadc_tpu.export import onnx_exec as j_exec
 from vadc_tpu.export import silero_v4_from_onnx as j_v4
+from vadc_tpu.export import silero_v5_from_onnx as j_v5
 from vadc_tpu.io import ffmpeg as j_ffmpeg
 from vadc_tpu.io import pcm as j_pcm
 from vadc_tpu.io import resample as j_resample
+from vadc_tpu.io import synthaudio as j_synth
 from vadc_tpu.io import testtensor as j_tt
 from vadc_tpu.io import wav as j_wav
 from vadc_tpu.models.synthetic import random_v5_8k_archive, random_v5_archive
@@ -31,10 +35,14 @@ from vadc_tpu_torch.cli import segmenter as t_segmenter
 from vadc_tpu_torch.cli import stats as t_stats
 from vadc_tpu_torch.export import onnx_extract as t_extract
 from vadc_tpu_torch.export import silero_v3_from_onnx as t_v3
+from vadc_tpu_torch.engine import onnx_backend as t_backend
+from vadc_tpu_torch.export import onnx_exec as t_exec
 from vadc_tpu_torch.export import silero_v4_from_onnx as t_v4
+from vadc_tpu_torch.export import silero_v5_from_onnx as t_v5
 from vadc_tpu_torch.io import ffmpeg as t_ffmpeg
 from vadc_tpu_torch.io import pcm as t_pcm
 from vadc_tpu_torch.io import resample as t_resample
+from vadc_tpu_torch.io import synthaudio as t_synth
 from vadc_tpu_torch.io import testtensor as t_tt
 from vadc_tpu_torch.io import wav as t_wav
 
@@ -43,7 +51,9 @@ PAIRS = {
     "io.ffmpeg": (j_ffmpeg, t_ffmpeg), "io.testtensor": (j_tt, t_tt),
     "cli.segmenter": (j_segmenter, t_segmenter), "cli.stats": (j_stats, t_stats),
     "native": (j_native, t_native), "export.onnx_extract": (j_extract, t_extract),
-    "export.silero_v3_from_onnx": (j_v3, t_v3),
+    "export.silero_v3_from_onnx": (j_v3, t_v3), "export.silero_v4_from_onnx": (j_v4, t_v4),
+    "export.silero_v5_from_onnx": (j_v5, t_v5), "export.onnx_exec": (j_exec, t_exec),
+    "engine.onnx_backend": (j_backend, t_backend), "io.synthaudio": (j_synth, t_synth),
 }
 
 
@@ -70,6 +80,10 @@ def test_copies_import_the_ports_siblings():
     assert t_v3.parse_model is t_extract.parse_model
     assert t_v3.convert_onnx_lstm is t_v4.convert_onnx_lstm
     assert t_v3.save_testtensor is t_tt.save_testtensor
+    assert t_v4.parse_model is t_extract.parse_model
+    assert t_v5.extract_initializers is t_extract.extract_initializers
+    assert t_exec.parse_model is t_extract.parse_model
+    assert t_backend.OnnxExecutor is t_exec.OnnxExecutor
 
 
 def _pcm(n: int, seed: int) -> np.ndarray:
@@ -395,3 +409,21 @@ def test_the_ports_loader_takes_the_rebuilt_v3_graph(v3_onnx):
     assert family == "v3" and len(params["layers"]) == 4
     assert np.array_equal(params["lstm_w"].numpy(), archive["weights"])
     assert "bn_w" not in params["layers"][0]
+
+
+def test_a_v3_graph_has_no_8k_branch(v3_onnx):
+    from vadc_tpu.models.weights import load_params as jax_load_params
+    from vadc_tpu_torch.models.weights import load_params
+
+    path, _ = v3_onnx
+    for load in (jax_load_params, load_params):
+        with pytest.raises(ValueError, match="v3 models have no 8 kHz branch"):
+            load(path, sample_rate=8000)
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_synthetic_speech_is_the_same_track(seed):
+    """The speech the tiers' checks run on (chip_smoke.py) is the JAX
+    package's, sample for sample."""
+    (a, ra), (b, rb) = t_synth.utterance_track(4, seed=seed), j_synth.utterance_track(4, seed=seed)
+    assert a.dtype == b.dtype and np.array_equal(a, b) and ra == rb and a.size > 16000

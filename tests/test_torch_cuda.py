@@ -625,3 +625,82 @@ def test_v4_v5_runners_on_the_card(family_params, device, family):
     assert _max_abs(st.h.cpu(), st_cpu.h) <= 1e-4
     if st.context is not None:
         assert torch.equal(st.context.cpu(), st_cpu.context)
+
+
+# ---- the bf16 tiers of the v3.1 path --------------------------------------
+# each tier instance against its plain version at the tier, held to
+# vadc_tpu_torch/kernels/tier_check.py (which says why they are not
+# bit-equal): the largest differences at its large-batch limits, which
+# allow a flip in any stream, and at 2048 streams the share of outputs
+# that differ
+
+
+@pytest.mark.parametrize("tier", ["balanced", "fast", "turbo"])
+@pytest.mark.parametrize("batch", [2048, 37, 1])
+def test_tier_instances_match_plain(params, device, tier, batch):
+    """forward_fused (against the plain version fed its own spectrum),
+    forward_fused2d and encode_fused_audio at the tier against their plain
+    versions at the tier; the step kernel's spectrum bit for bit against
+    dot_magnitude's instance; lstm_decoder_fused on encode_fused_audio's
+    rows bit for bit against forward_fused."""
+    from vadc_tpu_torch.kernels import lstm_decoder as KL
+    from vadc_tpu_torch.kernels import silero_v31_fused as KF
+    from vadc_tpu_torch.kernels import silero_v31_fused2d as K2
+    from vadc_tpu_torch.kernels import stft_dotmag as KD
+    from vadc_tpu_torch.kernels import tier_check as TC
+    from vadc_tpu_torch.models import silero_v31 as TM
+    from vadc_tpu_torch.nn import functional as F
+
+    audio = torch.from_numpy(speech(batch, seed=60)).to(device)
+    h = torch.from_numpy(0.5 * noise(2 * batch, chunk=64, seed=61)).reshape(2, batch, 64).to(device)
+    c = torch.from_numpy(5 * noise(2 * batch, chunk=64, seed=62)).reshape(2, batch, 64).to(device)
+    spect = torch.empty(batch, 25, 129, device=device)
+    got = KF.forward_fused(params, audio, h, c, spectrum=spect, tier=tier)
+    want = KF.forward_fused_reference(params, audio, h, c, tier, spectrum=spect)
+    wr, wi = KD.split_basis(params["stft_basis"])
+    mag = KD.dot_magnitude(F.frame(F.reflect_pad_last(audio, 128, 128), 256, 64), wr, wi, tier)
+    enc = KF.encode_fused_audio(params, audio, tier)
+    enc_ref = KF.encode_fused_audio_reference(params, audio, tier, spectrum=spect)
+    args = (params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"])
+    split = KL.lstm_decoder_fused(enc[:, None], h, c, *args, tier=tier)
+    feats = TM.features(params, audio, tier)
+    f2d = K2.forward_fused2d(params, feats, h, c, tier=tier)
+    f2d_ref = K2.forward_fused2d_reference(params, feats, h, c, tier)
+    torch.cuda.synchronize()
+    assert torch.equal(spect, mag)
+    assert torch.equal(split[0][:, 0], got[0]) and torch.equal(split[1], got[1])
+    broken = (TC.breaches(tier, "forward_fused", batch, TC.state_errors(got, want, tier), True)
+              + TC.breaches(tier, "forward_fused2d", batch, TC.state_errors(f2d, f2d_ref, tier), True)
+              + TC.breaches(tier, "encode_fused_audio", batch,
+                            {"enc": TC.errors(enc, enc_ref, tier)}, True))
+    assert not broken, broken
+
+
+@pytest.mark.parametrize("tier", ["balanced", "fast", "turbo"])
+@pytest.mark.parametrize("streams,chunks", [(37, 5), (1, 24)])
+def test_tier_slab_is_the_loop_of_steps_bit_for_bit(params, device, tier, streams, chunks):
+    from vadc_tpu_torch.engine.runner import StreamRunner
+
+    slab = torch.from_numpy(speech(streams * chunks, seed=63)).to(device).reshape(streams, chunks, 1536)
+    runner = StreamRunner("v3", params, device=device, precision=tier)
+    p_slab, by_slab = runner.scan(slab, runner.init_state(streams))
+    by_steps = runner.init_state(streams)
+    p_steps = torch.stack([runner.step(slab[:, k], by_steps)[0] for k in range(chunks)], dim=1)
+    torch.cuda.synchronize()
+    assert torch.equal(p_steps, p_slab)
+    assert torch.equal(by_steps.h, by_slab.h) and torch.equal(by_steps.c, by_slab.c)
+
+
+def test_tiers_leave_the_faithful_instance_alone(params, device):
+    """The faithful tier by name and by default are one instance; a bf16
+    tier is another."""
+    from vadc_tpu_torch.kernels import silero_v31_fused as KF
+
+    audio = torch.from_numpy(speech(8, seed=64)).to(device)
+    h, c = torch.zeros(2, 8, 64, device=device), torch.zeros(2, 8, 64, device=device)
+    default = KF.forward_fused(params, audio, h, c)
+    named = KF.forward_fused(params, audio, h, c, tier="faithful")
+    fast = KF.forward_fused(params, audio, h, c, tier="fast")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(default, named))
+    assert not torch.equal(default[1], fast[1])

@@ -34,6 +34,10 @@ import vadc_tpu_torch
 modules = ["vadc_tpu_torch"] + sorted(
     m.name for m in pkgutil.walk_packages(vadc_tpu_torch.__path__, "vadc_tpu_torch."))
 assert len(modules) > 30 and "vadc_tpu_torch.cli.batch" in modules, modules
+assert {"vadc_tpu_torch.nn.precision", "vadc_tpu_torch.engine.onnx_backend",
+        "vadc_tpu_torch.export.onnx_exec", "vadc_tpu_torch.export.silero_v5_from_onnx",
+        "vadc_tpu_torch.export.silero_v4_from_onnx",
+        "vadc_tpu_torch.kernels.tier_check"} <= set(modules), modules
 for name in modules:
     importlib.import_module(name)
 for script in ("chip_smoke.py", "chip_profile.py", "chip_ab.py"):
@@ -54,6 +58,10 @@ _, params = load_params(DEFAULT_WEIGHTS)
 runner = StreamRunner("v3", params, device="cpu")
 probs, _ = runner.scan(np.zeros((2, 2, 1536), np.float32), runner.init_state(2))
 assert probs.shape == (2, 2) and bool(torch.isfinite(probs).all())
+for tier in ("balanced", "fast", "turbo"):
+    r = StreamRunner("v3", params, device="cpu", precision=tier)
+    p, _ = r.scan(np.zeros((2, 2, 1536), np.float32), r.init_state(2))
+    assert bool(torch.isfinite(p).all())
 from vadc_tpu_torch.models.synthetic import random_v5_8k_archive, random_v5_archive
 from vadc_tpu_torch.models.weights import load_params_from_tensors
 for family, path, chunk in (("v4", DEFAULT_WEIGHTS.parent / "silero_v4_16k.testtensor", 1536),

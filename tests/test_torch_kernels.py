@@ -257,10 +257,12 @@ def test_kernel_sources_and_build_flags():
     # STFT tile (dot_magnitude, stft_magnitude, forward_fused), the v3.1
     # model body (forward_fused2d, encode_fused, forward_fused,
     # lstm_decoder_fused), the LSTM's activations and cell (every kernel
-    # that runs an LSTM step) and the resident-weights variant of the two
-    # recurrent kernels (lstm_fused, lstm_decoder_fused)
+    # that runs an LSTM step), the resident-weights variant of the two
+    # recurrent kernels (lstm_fused, lstm_decoder_fused) and the precision
+    # tiers' arithmetic (the v3.1 kernels' instances)
     assert [p.name for p in _build.headers()] == [
-        "lstm_cell.cuh", "lstm_resident.cuh", "silero_v31_body.cuh", "stft_tile.cuh"]
+        "lstm_cell.cuh", "lstm_resident.cuh", "silero_v31_body.cuh", "stft_tile.cuh",
+        "tier.cuh"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags
     assert "fast_math" not in flags and "fast-math" not in flags

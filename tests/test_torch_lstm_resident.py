@@ -177,11 +177,11 @@ def test_both_variants_have_declared_c_signatures():
     """ctypes cuts a pointer passed without argtypes: each entry point of
     the two variants is declared, with as many arguments as its launch
     function passes: the streaming variant's, and the scratch, its rows
-    and the count of kernels launched."""
+    and the count of kernels launched (and the decoder's precision tier)."""
     sig = _build._SIGNATURES
     assert len(sig["vadc_lstm_fused_resident"]) == len(sig["vadc_lstm_fused"]) + 3
     assert (len(sig["vadc_lstm_decoder_fused_resident"])
-            == len(sig["vadc_lstm_decoder_fused"]) + 3)
+            == len(sig["vadc_lstm_decoder_fused"]) + 4)
     sources = {p.name for p in _build.sources()} | {p.name for p in _build.headers()}
     assert {"lstm.cu", "lstm_decoder.cu", "lstm_resident.cuh", "lstm_cell.cuh"} <= sources
     for name in ("vadc_lstm_fused_resident", "vadc_lstm_decoder_fused_resident"):

@@ -243,9 +243,9 @@ def test_forward_scan_runs_encode_fused_audio_and_not_features(params, monkeypat
     _, tp = params
     calls = []
 
-    def counted(p, audio):
+    def counted(p, audio, tier):
         calls.append(tuple(audio.shape))
-        return KF.encode_fused_audio(p, audio)
+        return KF.encode_fused_audio(p, audio, tier)
 
     def off_route(*args, **kwargs):
         raise AssertionError("features / encode_fused are not on the slab route")

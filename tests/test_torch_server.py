@@ -30,7 +30,7 @@ import pytest
 import torch
 
 from tests.conftest import assert_close
-from tests.torch_port_util import V31_ARCHIVE
+from tests.torch_port_util import DATA, V31_ARCHIVE
 from tests.torch_port_util import single_torch_thread  # noqa: F401
 from vadc_tpu import native
 from vadc_tpu.io.pcm import f32_to_s16le
@@ -578,10 +578,14 @@ def test_outbox_never_blocks_and_preserves_line_integrity(blocking):
 
 # ---- the command line ------------------------------------------------------
 
+V4_ARCHIVE = DATA / "silero_v4_16k.testtensor"
+
 
 @pytest.mark.parametrize("argv,message", [
-    (["--fast"], "precision 'fast' is not ported"),
-    (["--precision", "balanced"], "precision 'balanced' is not ported"),
+    (["--fast", "--model", str(V4_ARCHIVE), "--device", "cpu"],
+     "precision 'fast' is not ported for the v4 model"),
+    (["--precision", "balanced", "--model", str(V4_ARCHIVE), "--device", "cpu"],
+     "precision 'balanced' is not ported for the v4 model"),
     (["--resume", "x.ckpt"], "Queue 1: 'Checkpoint'"),
     (["--shard"], "Queue 1: 'Multi-GPU'"),
     (["--model", "/nonexistent/w.testtensor", "--device", "cpu"], "no weight archive"),
@@ -599,3 +603,23 @@ def test_main_without_a_card_exits_1(capsys, monkeypatch):
     assert main(["--port", "0"]) == 1
     err = capsys.readouterr().err
     assert "no CUDA device" in err and "--device cpu" in err
+
+
+@pytest.mark.parametrize("precision", ["balanced", "fast", "turbo"])
+def test_bf16_tiers_serve_the_faithful_segment_lines(precision):
+    """The server at a bf16 tier (its StreamRunner's tier, every tick):
+    the faithful tier's segment lines for the same client, on synthetic
+    speech with its aspiration floor (tests/test_torch_tiers.py's track)."""
+    from vadc_tpu.io.synthaudio import utterance_track
+
+    track, _ = utterance_track(4, seed=7)
+    audio = f32_to_s16le(track.astype(np.float32))
+    want_srv = VadServer(port=0, max_streams=2, model=str(V31_ARCHIVE), device="cpu")
+    with serving(want_srv) as port:
+        want = _exchange(port, audio)
+    srv = VadServer(port=0, max_streams=2, model=str(V31_ARCHIVE), device="cpu",
+                    precision=precision)
+    assert srv.runner.precision == precision
+    with serving(srv) as port:
+        got = _exchange(port, audio)
+    assert want.count(b"\n") >= 3 and got == want

@@ -72,18 +72,6 @@ def test_synthetic_v5_archives_load_from_a_file(tmp_path, family):
     ]
 
 
-def test_onnx_graphs_of_other_families_wait_for_a_v4_onnx(tmp_path):
-    """A v5 .onnx (built in the repository) is recognized and refused with
-    the ROADMAP item that waits for a v4 .onnx in the repository."""
-    from vadc_tpu.export.onnx_build import build_silero_v5_onnx
-    from vadc_tpu_torch.models.synthetic import random_v5_8k_archive, random_v5_archive
-
-    path = tmp_path / "v5.onnx"
-    build_silero_v5_onnx(path, random_v5_archive(0), random_v5_8k_archive(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*v4 .onnx"):
-        TW.load_params(path)
-
-
 def test_clamp_sequence_count_agrees():
     for family in ("v3", "v4", "v4_8k", "v5", "v5_8k"):
         for requested in (0, 100, 300, 511, 512, 700, 1000, 1536, 1700, 4096):

@@ -13,17 +13,20 @@ paths (`io/*`, `cli/segmenter.py`, `cli/stats.py`, the ONNX readers in
 bundled weight archives under `vadc_tpu/data` are read by path.
 
 Layering (bottom to top):
-  runtime   device selection, TF32 off for the faithful tier
+  runtime   device selection, TF32 off, which families run which tier
   io/       PCM, wav, resampler, ffmpeg source, .testtensor archives
-  export/   numpy readers of the official v3 .onnx graph
+  export/   numpy readers and the numpy executor of the official .onnx
+            graphs (v3, fused v4/v5)
   native    ctypes over native/libvadc_native.so (stream pool, host FSM)
-  nn/       plain PyTorch ops of the channels-last pipelines
+  nn/       plain PyTorch ops of the channels-last pipelines, and the four
+            precision tiers (nn/precision.py)
   kernels/  CUDA kernels (csrc/*.cu, built with nvcc at first use) and
             their plain PyTorch versions
   models/   weight loading, the Silero v3.1, v4 and v5 forwards (16 kHz,
             and 8 kHz for v4 and v5), synthetic v5 archives
   engine/   stream runner (independent streams, step and slab scan),
-            minibatch runner, vectorized segmentation FSM
+            minibatch runner, vectorized segmentation FSM, the numpy
+            graph-executor runner (--onnx_exec)
   cli/      the vadc-compatible command line and the offline corpus tool
   server    the multi-client serving daemon (TCP in, segment lines out)
 """

@@ -15,7 +15,7 @@ Usage:
         [--model PATH] [--sequence_count N] [--slab_chunks N]
         [--min_silence MS] [--min_speech MS] [--threshold P]
         [--neg_threshold_relative P] [--speech_pad MS] [--stats]
-        [--cut_dir DIR] [--device cuda|cpu]
+        [--cut_dir DIR] [--device cuda|cpu] [--fast | --precision TIER]
 
 Output (stdout): `<filename>\\t<start>,<end>` per segment. With --cut_dir,
 additionally writes one speech-only file per input. Inputs are raw mono
@@ -56,9 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "same pass")
     p.add_argument("--stats", action="store_true")
     p.add_argument("--fast", action="store_true",
-                   help="shorthand for --precision fast (not ported: refused)")
+                   help="shorthand for --precision fast")
     p.add_argument("--precision", choices=PRECISIONS, default=None,
-                   help="precision tier; only faithful (fp32) is ported")
+                   help="precision tier (default faithful, fp32); the bf16 tiers "
+                        "balanced, fast and turbo run Silero v3.1")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default), cuda:N or cpu")
     return p
@@ -115,16 +116,16 @@ def _main(argv: list[str] | None = None) -> int:
     from vadc_tpu_torch.engine.vectorized_segmenter import BatchSegmenter
     from vadc_tpu_torch.io.wav import write_wav
     from vadc_tpu_torch.models.weights import DEFAULT_WEIGHTS, clamp_sequence_count, load_params
-    from vadc_tpu_torch.runtime import check_precision, resolve_device
+    from vadc_tpu_torch.runtime import resolve_device
 
-    check_precision("fast" if args.fast else (args.precision or "faithful"))
+    precision = "fast" if args.fast else (args.precision or "faithful")
     device = resolve_device(args.device)
     weights_path = Path(args.model) if args.model else DEFAULT_WEIGHTS
     if not weights_path.exists():
         raise FileNotFoundError(f"no weight archive at {weights_path}")
     family, params = load_params(weights_path, device=device)
     seq = clamp_sequence_count(family, int(args.sequence_count))
-    runner = StreamRunner(family, params, device=device)
+    runner = StreamRunner(family, params, device=device, precision=precision)
     # the 8 kHz families take 8 kHz input (raw files are presumed at the
     # model rate, as on the streaming CLI; wav files resample to it) and
     # time chunks at their own rate

@@ -11,14 +11,21 @@ Counterpart of vadc_tpu/cli/main.py with the reference's 13 flags
          [--raw_probabilities] [--stats] [--output_centi_seconds]
          [--model PATH]
 
-plus [--precision faithful] (the only tier ported so far) and
-[--device cuda|cpu] (default cuda). With --device cuda and no card the CLI
-exits 1 with a one-line error; it never runs on the CPU instead.
+plus the JAX CLI's [--precision faithful|balanced|fast|turbo] (the bf16
+tiers for Silero v3.1; v4 and v5 run faithful only), [--sr 16000|8000] and
+[--onnx_exec], and [--device cuda|cpu] (default cuda). With --device cuda
+and no card the CLI exits 1 with a one-line error; it never runs on the CPU
+instead.
 
 --model takes a .testtensor archive of any family (v3, v4, v4_8k, v5,
-v5_8k) or a plain v3 .onnx graph. The 8 kHz families segment at 8 kHz and
-decode wav input to 8 kHz; raw PCM on stdin is taken to be at the model's
-rate.
+v5_8k) or an .onnx graph: a plain v3 graph, or a fused v4/v5 graph whose
+--sr branch is extracted. The 8 kHz families segment at 8 kHz and decode
+wav input to 8 kHz; raw PCM on stdin is taken to be at the model's rate.
+--onnx_exec runs the .onnx graph itself through the numpy graph executor,
+on the host whatever --device says (the reference's CPU-speed
+compatibility path). When a recognized graph defeats weight extraction the
+CLI falls back to that executor with --device cpu; with --device cuda it
+exits 1 instead of running on the host.
 
 Ingest, segmentation and stats are the port's copies of the JAX package's
 numpy-only modules (io/, cli/segmenter.py, cli/stats.py).
@@ -48,6 +55,11 @@ from vadc_tpu_torch.runtime import PRECISIONS, NoCudaDeviceError
 
 # Window of chunks processed per refill (reference vadc.c:799: 96 chunks).
 WINDOW_CHUNKS = 96
+# What --raw_probabilities at fast/turbo says of the deviation from fp32:
+# the port's own measurement on the card, with the card named (chip_smoke.py's
+# survey of twelve synthetic speech tracks, the largest deviation of each tier)
+RAW_NOTE = {"fast": "up to 2.2e-2", "turbo": "up to 1.7e-1"}
+RAW_NOTE_CARD = "over 12 synthetic speech tracks on an NVIDIA H100 80GB HBM3 at 700.00 W"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,10 +98,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print integer centiseconds instead of seconds")
     p.add_argument("--model", type=str, default=None,
                    help="path to a .testtensor archive of any family (v3, "
-                        "v4, v4_8k, v5, v5_8k) or a v3 .onnx graph "
+                        "v4, v4_8k, v5, v5_8k) or an .onnx graph "
                         "(default: bundled Silero v3.1 16k)")
     p.add_argument("--precision", choices=PRECISIONS, default="faithful",
-                   help="precision tier; only faithful (fp32) is ported")
+                   help="precision tier (default faithful, fp32); the bf16 "
+                        "tiers balanced, fast and turbo run Silero v3.1")
+    p.add_argument("--sr", type=int, choices=(16000, 8000), default=None,
+                   help="sample-rate branch of fused v4/v5 .onnx models "
+                        "(they carry both). Testtensor archives carry their "
+                        "own rate")
+    p.add_argument("--onnx_exec", action="store_true",
+                   help="run the .onnx graph itself through the numpy graph "
+                        "executor, on the host (CPU-speed compatibility "
+                        "path). Also the fallback, with --device cpu, when a "
+                        "recognized graph defeats weight extraction")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default), cuda:N or cpu")
     return p
@@ -109,30 +131,99 @@ def main(argv: list[str] | None = None) -> int:
         return 130
 
 
+def _make_exec_runner(weights_path: Path, args):
+    """The numpy graph executor's runner (engine/onnx_backend), clamping
+    --sequence_count against the graph's declared restriction."""
+    from vadc_tpu_torch.engine.onnx_backend import OnnxExecRunner
+
+    runner = OnnxExecRunner(
+        weights_path, chunk_samples=int(args.sequence_count), sample_rate=int(args.sr or 16000)
+    )
+    r = runner.restrictions
+    print(
+        "graph introspection: "
+        f"batch={'unrestricted' if r.batch < 0 else r.batch}, "
+        f"sequence={'unrestricted' if r.sequence < 0 else r.sequence}, "
+        f"hidden={r.hidden}, sr_input={r.has_sr_input}",
+        file=sys.stderr,
+    )
+    print("graph executor: numpy on the host, whatever --device says "
+          "(CPU-speed compatibility path)", file=sys.stderr)
+    return runner
+
+
+def _load_or_fall_back(weights_path: Path, args, device):
+    """(family, params, None) from the weight extractors, or (None, None,
+    runner) of the graph executor when a recognized .onnx graph defeats
+    extraction and the device is the CPU (vadc_tpu/cli/main.py's fallback).
+    On a CUDA device that failure is an error: the card was asked for."""
+    from vadc_tpu_torch.models.weights import load_params
+
+    try:
+        family, params = load_params(weights_path, device=device,
+                                     sample_rate=int(args.sr or 16000))
+        return family, params, None
+    except Exception as e:
+        if weights_path.suffix.lower() != ".onnx":
+            raise
+        from vadc_tpu_torch.export.onnx_extract import classify_model
+
+        try:
+            classify_model(weights_path)
+        except ValueError:
+            raise e from None  # not a graph of a known family: that error
+        if device.type != "cpu":
+            raise ValueError(
+                f"weight extraction failed ({type(e).__name__}: {e}); the numpy "
+                "graph executor runs on the host, not on the card: pass --onnx_exec "
+                "(or --device cpu) to run it"
+            ) from None
+        print(f"weight extraction failed ({type(e).__name__}: {e}); falling back "
+              "to the numpy graph executor (slow path, --onnx_exec)", file=sys.stderr)
+        return None, None, _make_exec_runner(weights_path, args)
+
+
 def _main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
 
     from vadc_tpu_torch.engine.runner import MinibatchRunner
-    from vadc_tpu_torch.models.weights import clamp_sequence_count, load_params
-    from vadc_tpu_torch.runtime import check_precision, resolve_device
+    from vadc_tpu_torch.models.weights import clamp_sequence_count
+    from vadc_tpu_torch.runtime import resolve_device
 
-    check_precision(args.precision)
     device = resolve_device(args.device)
     weights_path = Path(args.model) if args.model else DEFAULT_WEIGHTS
     if not weights_path.exists():
         raise FileNotFoundError(f"no weight archive at {weights_path}")
-    family, params = load_params(weights_path, device=device)
-    if family == "v5":
-        print("Model arch is Silero v5", file=sys.stderr)
-    seq = clamp_sequence_count(family, int(args.sequence_count))
-    print(f"Running with batch size {args.batch}", file=sys.stderr)
-    print(f"Running with sequence count {seq}", file=sys.stderr)
-    runner = MinibatchRunner(
-        family, params, batch_size=int(args.batch), chunk_samples=seq,
-        device=device, precision=args.precision,
-    )
+    runner = None
+    if args.onnx_exec:
+        if weights_path.suffix.lower() != ".onnx":
+            raise ValueError("--onnx_exec requires --model <file.onnx>")
+        runner = _make_exec_runner(weights_path, args)
+    else:
+        family, params, runner = _load_or_fall_back(weights_path, args, device)
+    if runner is None:
+        if family == "v5":
+            print("Model arch is Silero v5", file=sys.stderr)
+        seq = clamp_sequence_count(family, int(args.sequence_count))
+        print(f"Running with batch size {args.batch}", file=sys.stderr)
+        print(f"Running with sequence count {seq}", file=sys.stderr)
+        runner = MinibatchRunner(
+            family, params, batch_size=int(args.batch), chunk_samples=seq,
+            device=device, precision=args.precision,
+        )
+    else:
+        seq = runner.chunk_samples
+        print(f"Running with sequence count {seq} (graph-executor backend)", file=sys.stderr)
+    if args.raw_probabilities and args.precision in ("fast", "turbo"):
+        print(f"note: --raw_probabilities at --precision {args.precision}: "
+              f"probabilities deviate from fp32 on speech material ({RAW_NOTE[args.precision]} "
+              f"{RAW_NOTE_CARD}); use "
+              "balanced or faithful for probability-faithful output", file=sys.stderr)
     # the 8 kHz families time chunks (and decode wav input) at their own rate
     model_sr = runner.module.SAMPLE_RATE
+    if args.sr and model_sr != args.sr:
+        print(f"note: --sr {args.sr} ignored — this weight archive is a {model_sr} Hz "
+              "model (the flag selects the branch of fused .onnx models)", file=sys.stderr)
     seg_config = SegmenterConfig.from_ms(
         chunk_samples=seq,
         sample_rate=model_sr,

@@ -21,7 +21,9 @@ ported.
 
 Every runner takes its device explicitly. On a CUDA device the model runs
 through the package's CUDA kernels; on the CPU through their plain
-versions.
+versions. Every runner takes its precision tier too (`nn.precision`): v3
+runs all four, the other families faithful only
+(`runtime.check_precision`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 
 from vadc_tpu_torch.models import silero_v4, silero_v5, silero_v31
 from vadc_tpu_torch.models.weights import Params
+from vadc_tpu_torch.nn.precision import tier_of
 from vadc_tpu_torch.runtime import check_precision, resolve_device
 
 _FAMILIES = {
@@ -105,12 +108,19 @@ def _as_audio(chunks, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(chunks, dtype=torch.float32).to(device)
 
 
+def _tier_kwargs(family: str, precision: str) -> dict:
+    """The model functions' tier argument: v3's take one; the other
+    families' run faithful only and take none."""
+    check_precision(precision, family)
+    return {"tier": tier_of(precision)} if family == "v3" else {}
+
+
 class StreamRunner:
     """Batched independent-stream inference for one model family on one
-    device. Only the faithful tier (fp32) is ported."""
+    device, at one precision tier."""
 
     def __init__(self, family: str, params: dict, *, device, precision: str = "faithful"):
-        check_precision(precision)
+        self._tier = _tier_kwargs(family, precision)
         self.family = family
         self.module = get_family_module(family)
         self.precision = precision
@@ -138,7 +148,9 @@ class StreamRunner:
         if state.context is not None:
             audio, tail = self.module.attach_context(audio, state.context)
             out.context.copy_(tail)
-        probs, _, _ = self.module.forward(self.params, audio, state.h, state.c, hn=out.h, cn=out.c)
+        probs, _, _ = self.module.forward(
+            self.params, audio, state.h, state.c, hn=out.h, cn=out.c, **self._tier
+        )
         return probs
 
     def scan(self, chunks, state: StreamState) -> tuple[torch.Tensor, StreamState]:
@@ -147,7 +159,7 @@ class StreamRunner:
         audio = _as_audio(chunks, self.device)
         if hasattr(self.module, "forward_scan"):
             probs, _, _ = self.module.forward_scan(
-                self.params, audio, state.h, state.c, hn=state.h, cn=state.c
+                self.params, audio, state.h, state.c, hn=state.h, cn=state.c, **self._tier
             )
             return probs, state
         probs = torch.empty(audio.shape[:2], dtype=torch.float32, device=self.device)
@@ -171,7 +183,7 @@ class MinibatchRunner:
         device,
         precision: str = "faithful",
     ):
-        check_precision(precision)
+        self._tier = _tier_kwargs(family, precision)
         self.family = family
         self.module = get_family_module(family)
         self.precision = precision
@@ -185,7 +197,7 @@ class MinibatchRunner:
 
     def _forward(self, chunks: torch.Tensor):
         if self.context is None:
-            return self.module.forward_minibatched(self.params, chunks, self.h, self.c)
+            return self.module.forward_minibatched(self.params, chunks, self.h, self.c, **self._tier)
         # per-chunk context prefix: chunk i gets the tail of chunk i-1,
         # chunk 0 the carried context (process_chunks_v5, vadc.c:105-162)
         ctx = self.module.CONTEXT_SAMPLES

@@ -43,21 +43,21 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
 _SIGNATURES = {
     # frames base, batch, n_frames, stride_b, stride_f, padded basis, n_fft,
-    # cutoff, out, stream
-    "vadc_dot_magnitude": [_P, _I, _I, _L, _L, _P, _I, _I, _P, _P],
+    # cutoff, out, tier, stream
+    "vadc_dot_magnitude": [_P, _I, _I, _L, _L, _P, _I, _I, _P, _I, _P],
     # weights, offsets (host int32[]), n_offsets, x, h, c, probs, hn, cn,
-    # batch, seq0, stream
-    "vadc_silero_v31_fused": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # weights, offsets (host int32[]), n_offsets, x, y, rows, seq0, stream
-    "vadc_silero_v31_encode": [_P, _P, _I, _P, _P, _I, _I, _P],
+    # batch, seq0, tier, stream
+    "vadc_silero_v31_fused": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # weights, offsets (host int32[]), n_offsets, x, y, rows, seq0, tier, stream
+    "vadc_silero_v31_encode": [_P, _P, _I, _P, _P, _I, _I, _I, _P],
     # weights, offsets (host int32[]), n_offsets, norm_w (host float[]),
     # n_norm_w, audio, batch, stride_b, samples, basis, h, c, probs, hn, cn,
-    # spect (or null), stream
+    # spect (or null), tier, stream
     "vadc_silero_v31_fused_audio": [_P, _P, _I, _P, _I, _P, _I, _L, _I, _P, _P, _P, _P, _P,
-                                    _P, _P, _P],
+                                    _P, _P, _I, _P],
     # weights, offsets (host int32[]), n_offsets, norm_w (host float[]),
-    # n_norm_w, audio, rows, stride_b, samples, basis, y, stream
-    "vadc_silero_v31_encode_audio": [_P, _P, _I, _P, _I, _P, _I, _L, _I, _P, _P, _P],
+    # n_norm_w, audio, rows, stride_b, samples, basis, y, tier, stream
+    "vadc_silero_v31_encode_audio": [_P, _P, _I, _P, _I, _P, _I, _L, _I, _P, _P, _I, _P],
     # audio, batch, stride_b, samples, pad_left, pad_right, hop, padded
     # basis, n_fft, cutoff, streams a block, out, stream
     "vadc_stft_magnitude": [_P, _I, _L, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P],
@@ -70,9 +70,9 @@ _SIGNATURES = {
     # layers, launched (out: kernels launched), stream
     "vadc_lstm_fused_resident": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _IP, _P],
     # x, h0, c0, wt, bias, dec_w, dec_b, pre, pre_rows, probs, hn, cn, batch,
-    # chunks, frames, launched (out: kernels launched), stream
+    # chunks, frames, tier, launched (out: kernels launched), stream
     "vadc_lstm_decoder_fused_resident": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I,
-                                         _I, _IP, _P],
+                                         _I, _I, _IP, _P],
 }
 
 _lock = threading.Lock()

@@ -3,12 +3,16 @@
 // update of the resident-weights kernels, so that on the same gate sums all
 // give the same bits.
 //
-// Numerics are the faithful tier's: sigmoid as 1/(1+expf(-x)), the accurate
-// tanh of vadc_tpu/nn/functional.py accurate_tanh (the exp form), fp32, no
-// --use_fast_math.
+// Numerics: sigmoid as 1/(1+expf(-x)) at every tier; tanh by the tier
+// (tier.cuh): the accurate tanh of vadc_tpu/nn/functional.py accurate_tanh
+// (the exp form) at faithful and balanced, tanhf at fast and turbo; fp32
+// state, no --use_fast_math. The templates default to the faithful tier,
+// the only one lstm.cu runs.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "tier.cuh"
 
 namespace {
 
@@ -20,10 +24,21 @@ __device__ __forceinline__ float accurate_tanhf(float x) {
   return x > 0.f ? r : (x < 0.f ? -r : 0.f);
 }
 
+// tier T's tanh
+template <int T = TIER_FAITHFUL>
+__device__ __forceinline__ float tanh_at(float x) {
+  if constexpr (Tier<T>::kExpTanh) {
+    return accurate_tanhf(x);
+  } else {
+    return tanhf(x);
+  }
+}
+
 // Gate column `gate` (0 i, 1 f, 2 g, 3 o) of the sum z: tanh for g, sigmoid
 // for the others.
+template <int T = TIER_FAITHFUL>
 __device__ __forceinline__ float gate_activation(int gate, float z) {
-  return gate == 2 ? accurate_tanhf(z) : sigmoidf(z);
+  return gate == 2 ? tanh_at<T>(z) : sigmoidf(z);
 }
 
 // One unit's cell update from its four activated gates: updates c, returns
@@ -32,9 +47,10 @@ __device__ __forceinline__ float gate_activation(int gate, float z) {
 // CUDA 12.8, sm_90a): the product fg * c rounded, then one fused
 // multiply-add with ig * gg. Written with the operator it was contracted
 // the other way round here, and c differed in its last bit.
+template <int T = TIER_FAITHFUL>
 __device__ __forceinline__ float lstm_cell(float ig, float fg, float gg, float og, float& c) {
   c = fmaf(ig, gg, __fmul_rn(fg, c));
-  return og * accurate_tanhf(c);
+  return og * tanh_at<T>(c);
 }
 
 }  // namespace

@@ -54,7 +54,14 @@
 // encoder (same order of the two 64-term products, same sigmoid and tanh,
 // the same dec / T then fmaf), and the resident variant keeps every sum's
 // order, so either on vadc_silero_v31_encode's output equals the fused
-// kernel bit for bit. fp32 throughout, no --use_fast_math.
+// kernel bit for bit. fp32 state, no --use_fast_math.
+//
+// Precision tiers (tier.cuh): the resident variant has an instance of each
+// tier, the one that every slab and CLI window runs after the encoder's
+// instance of the same tier (the same products and tanh as the body's step
+// LSTM, so a slab equals the loop of steps at every tier); the streaming
+// variant is faithful only (kernels/lstm_decoder.py takes the resident one
+// at the bf16 tiers).
 #include <cuda_runtime.h>
 
 #include "lstm_resident.cuh"
@@ -139,21 +146,26 @@ extern "C" int vadc_lstm_decoder_fused(const float* x, const float* h0, const fl
 // vadc_lstm_decoder_fused: pre is scratch of pre_rows x 256 floats
 // (pre_rows >= batch * frames; fewer rows than batch * chunks * frames make
 // passes over whole chunks); *launched receives the number of kernels it
-// launched (the pre-pass and the recurrent kernel of every pass). Returns
-// the first CUDA error of its launches.
+// launched (the pre-pass and the recurrent kernel of every pass); wt and
+// dec_w are packed for `tier` (0 faithful, 1 balanced, 2 fast, 3 turbo).
+// Returns the first CUDA error of its launches.
 extern "C" int vadc_lstm_decoder_fused_resident(
     const float* x, const float* h0, const float* c0, const float* wt, const float* b,
     const float* dec_w, const float* dec_b, float* pre, long long pre_rows, float* probs,
-    float* hn, float* cn, int batch, int chunks, int frames, int* launched, void* stream) {
+    float* hn, float* cn, int batch, int chunks, int frames, int tier, int* launched,
+    void* stream) {
   *launched = 0;
   if (batch <= 0 || chunks <= 0 || frames <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  using namespace resident;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return run_in_passes<H2>(
-      x, h0, c0, wt, pre, pre_rows, hn, cn, batch, chunks * frames, frames,
-      [=](int f0, int n, const float* h, const float* c) {
-        const DecoderSum top{dec_w + HIDDEN, dec_b + 1, probs + f0 / frames, chunks, frames};
-        return launch_wavefront(pre, h, c, wt, b, hn, cn, batch, n, top, s);
-      },
-      launched, s);
+  return by_tier(tier, [&](auto t) {
+    constexpr int T = decltype(t)::value;
+    return resident::run_in_passes<resident::H2, T>(
+        x, h0, c0, wt, pre, pre_rows, hn, cn, batch, chunks * frames, frames,
+        [=](int f0, int n, const float* h, const float* c) {
+          const resident::DecoderSum<T> top{dec_w + HIDDEN, dec_b + 1, probs + f0 / frames, chunks,
+                                            frames};
+          return resident::launch_wavefront(pre, h, c, wt, b, hn, cn, batch, n, top, s);
+        },
+        launched, s);
+  });
 }

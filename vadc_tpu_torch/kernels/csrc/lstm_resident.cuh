@@ -63,6 +63,15 @@
 // measured and is gone; so is wavefront2_kernel at one stream a block. At
 // 2048 streams x 56 frames 2 streams a block took 0.9377 ms, 4 took 0.7896.
 //
+// Precision tiers (tier.cuh): lstm_decoder.cu's instances take the tier of
+// the v3.1 model (its `Top`, DecoderSum<T>, carries it, and the pre-pass
+// takes it as a template parameter): each x and h value is an operand of
+// the tier's products where it is read, against weights the wrapper packed
+// for the tier, in the same chains, with the tier's tanh, exactly as
+// silero_v31_body.cuh's step LSTM does, so a slab still equals the loop of
+// steps bit for bit. lstm.cu's instances (StoreY, the cluster kernel) are
+// faithful only.
+//
 // The scratch `pre` is the wrapper's (rows x 4H fp32); when it holds fewer
 // rows than the call has, the launchers below walk the frames in passes,
 // the state going through hn/cn between them (fp32 there as in the block, so
@@ -85,8 +94,8 @@ constexpr int PRE_THREADS = 256;  // one gate column each
 // pre[r, j] = sum_k x_r[k] * wt0[k, j], r = b * frames + f over `rows` rows,
 // x_r at x + b * stride_b + f * H; wt0 [>= H, 4H] (the H input rows of layer
 // 0's transposed weight). A thread takes column j of PRE_ROWS rows, so each
-// weight it reads serves them all.
-template <int H>
+// weight it reads serves them all. Tier T's products.
+template <int H, int T>
 __global__ void __launch_bounds__(PRE_THREADS)
 input_gates_kernel(const float* __restrict__ x, long long stride_b, int frames,
                    const float* __restrict__ wt0, float* __restrict__ pre, long long rows) {
@@ -117,10 +126,11 @@ input_gates_kernel(const float* __restrict__ x, long long stride_b, int frames,
 #pragma unroll
     for (int r = 0; r < PRE_ROWS; ++r) {
       const float4 v = xs4[(r * H + k) / 4];
-      acc[r] = fmaf(v.x, w0, acc[r]);
-      acc[r] = fmaf(v.y, w1, acc[r]);
-      acc[r] = fmaf(v.z, w2, acc[r]);
-      acc[r] = fmaf(v.w, w3, acc[r]);
+      using Op = Operand<Tier<T>::kProducts>;
+      acc[r] = Op(v.x).fma(w0, acc[r]);
+      acc[r] = Op(v.y).fma(w1, acc[r]);
+      acc[r] = Op(v.z).fma(w2, acc[r]);
+      acc[r] = Op(v.w).fma(w3, acc[r]);
     }
   }
 #pragma unroll
@@ -129,17 +139,18 @@ input_gates_kernel(const float* __restrict__ x, long long stride_b, int frames,
   }
 }
 
-template <int H>
+template <int H, int T>
 cudaError_t launch_input_gates(const float* x, long long stride_b, int frames, const float* wt0,
                                float* pre, long long rows, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((rows + PRE_ROWS - 1) / PRE_ROWS), 4 * H / PRE_THREADS);
-  input_gates_kernel<H><<<grid, PRE_THREADS, 0, stream>>>(x, stride_b, frames, wt0, pre, rows);
+  input_gates_kernel<H, T><<<grid, PRE_THREADS, 0, stream>>>(x, stride_b, frames, wt0, pre, rows);
   return cudaGetLastError();
 }
 
 // acc[s] = fmaf(h_s[k], w_k, acc[s]) for k = 0..H-1 in order, h [NB][H] in
-// shared memory read as float4 broadcasts, w(k) the thread's weight for k.
-template <int NB, int H, class W>
+// shared memory read as float4 broadcasts, w(k) the thread's weight for k;
+// products of mode M (tier.cuh).
+template <int NB, int H, int M = P_FP32, class W>
 __device__ __forceinline__ void gate_terms(const float* h, W w, float (&acc)[NB]) {
 #pragma unroll
   for (int k = 0; k < H; k += 4) {
@@ -147,10 +158,10 @@ __device__ __forceinline__ void gate_terms(const float* h, W w, float (&acc)[NB]
 #pragma unroll
     for (int s = 0; s < NB; ++s) {
       const float4 v = *reinterpret_cast<const float4*>(h + s * H + k);
-      acc[s] = fmaf(v.x, w0, acc[s]);
-      acc[s] = fmaf(v.y, w1, acc[s]);
-      acc[s] = fmaf(v.z, w2, acc[s]);
-      acc[s] = fmaf(v.w, w3, acc[s]);
+      acc[s] = Operand<M>(v.x).fma(w0, acc[s]);
+      acc[s] = Operand<M>(v.y).fma(w1, acc[s]);
+      acc[s] = Operand<M>(v.z).fma(w2, acc[s]);
+      acc[s] = Operand<M>(v.w).fma(w3, acc[s]);
     }
   }
 }
@@ -173,8 +184,9 @@ inline cudaError_t streams_per_block(int batch, int* nb) {
 // frames, H]: in passes of as many frames as `pre` (pre_rows x 4H floats)
 // holds, each a multiple of `unit` (the decoder's chunk), the state going
 // through hn, cn from pass to pass. Adds one to *launched for every kernel
-// it launched (two a pass). Returns the first CUDA error.
-template <int H, class Recurrent>
+// it launched (two a pass). Returns the first CUDA error. T: the pre-pass's
+// tier.
+template <int H, int T = TIER_FAITHFUL, class Recurrent>
 int run_in_passes(const float* x, const float* h0, const float* c0, const float* wt, float* pre,
                   long long pre_rows, float* hn, float* cn, int batch, int frames, int unit,
                   Recurrent recurrent, int* launched, cudaStream_t stream) {
@@ -183,7 +195,7 @@ int run_in_passes(const float* x, const float* h0, const float* c0, const float*
   const int per = static_cast<int>(fit < frames ? fit : frames);
   for (int f0 = 0; f0 < frames; f0 += per) {
     const int n = min(per, frames - f0);
-    cudaError_t err = launch_input_gates<H>(x + static_cast<long long>(f0) * H,
+    cudaError_t err = launch_input_gates<H, T>(x + static_cast<long long>(f0) * H,
                                             static_cast<long long>(frames) * H, n, wt, pre,
                                             static_cast<long long>(batch) * n, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -207,6 +219,7 @@ constexpr int THREADS2 = 2 * G2;  // one gate column of one layer each
 // it (lstm_fused's y [batch, seq, 64], stride_b = seq * 64) ...
 struct StoreY {
   static constexpr bool kDecoder = false;
+  static constexpr int kTier = TIER_FAITHFUL;
   float* y;
   long long stride_b;
   __device__ void frame(int b, int f, int u, float h) const {
@@ -216,10 +229,12 @@ struct StoreY {
 
 // ... or add relu(h) to the v3 decoder's sum over the chunk's frames, which
 // at the chunk's end gives probs[b, chunk] = sigmoid(mean . dec_w1 + dec_b1)
-// (silero_v31_body.cuh's decode_prob: the same dec / T, the same fmaf chain
-// over the 64 units).
+// (silero_v31_body.cuh's decode_probs at tier T: the same dec / T, the same
+// chain over the 64 units).
+template <int T>
 struct DecoderSum {
   static constexpr bool kDecoder = true;
+  static constexpr int kTier = T;
   const float* dec_w1;  // [64], logit 1's row of dec_w
   const float* dec_b1;  // [1]
   float* probs;  // [batch, chunks], at the pass's first chunk
@@ -227,7 +242,9 @@ struct DecoderSum {
   int frames;    // a chunk
   __device__ void decode(const float* mean, int b, int chunk) const {
     float acc = 0.f;
-    for (int u = 0; u < H2; ++u) acc = fmaf(mean[u], __ldg(dec_w1 + u), acc);
+    for (int u = 0; u < H2; ++u) {
+      acc = Operand<Tier<T>::kProducts>(mean[u]).fma(__ldg(dec_w1 + u), acc);
+    }
     probs[static_cast<long long>(b) * chunks + chunk] = sigmoidf(acc + __ldg(dec_b1));
   }
 };
@@ -312,20 +329,21 @@ wavefront2_kernel(const float* __restrict__ pre, const float* h0, const float* c
 #pragma unroll
         for (int s = 0; s < NB; ++s) acc[s] = 0.f;
         const float* w = w_in1 + col;
-        gate_terms<NB, H2>(hs, [w](int k) { return w[k * G2]; }, acc);
+        gate_terms<NB, H2, Tier<Top::kTier>::kProducts>(hs, [w](int k) { return w[k * G2]; }, acc);
       }
-      gate_terms<NB, H2>(hs + layer * PAIRS, [&wreg](int k) { return wreg[k]; }, acc);
+      gate_terms<NB, H2, Tier<Top::kTier>::kProducts>(hs + layer * PAIRS,
+                                                      [&wreg](int k) { return wreg[k]; }, acc);
       // the column's thread applies its gate's activation: all 256 at once,
       // not four in a row in the 64 threads a stream that update the cells
 #pragma unroll
       for (int s = 0; s < NB; ++s) {
-        gates[(layer * NB + s) * G2 + col] = gate_activation(col / H2, acc[s] + bj);
+        gates[(layer * NB + s) * G2 + col] = gate_activation<Top::kTier>(col / H2, acc[s] + bj);
       }
     }
     __syncthreads();
     if (active && has_pair) {
       const float* g = gates + (layer * NB + ps) * G2 + pu;
-      const float h_new = lstm_cell(g[0], g[H2], g[2 * H2], g[3 * H2], c_reg);
+      const float h_new = lstm_cell<Top::kTier>(g[0], g[H2], g[2 * H2], g[3 * H2], c_reg);
       hs[layer * PAIRS + col] = h_new;
       if (layer == 1) {
         if constexpr (Top::kDecoder) {
@@ -451,28 +469,30 @@ wavefront3_kernel(const float* __restrict__ pre, const float* h0, const float* c
       const float* h = hs + layer * H2;
 #pragma unroll
       for (int k = 0; k < H2; k += 4) {
+        using Op = Operand<Tier<Top::kTier>::kProducts>;
         const float4 v = *reinterpret_cast<const float4*>(h + k);
-        acc[0] = fmaf(v.x, w[k], acc[0]);
-        acc[1] = fmaf(v.x, w[H2 + k], acc[1]);
-        acc[0] = fmaf(v.y, w[k + 1], acc[0]);
-        acc[1] = fmaf(v.y, w[H2 + k + 1], acc[1]);
-        acc[0] = fmaf(v.z, w[k + 2], acc[0]);
-        acc[1] = fmaf(v.z, w[H2 + k + 2], acc[1]);
-        acc[0] = fmaf(v.w, w[k + 3], acc[0]);
-        acc[1] = fmaf(v.w, w[H2 + k + 3], acc[1]);
+        const Op x(v.x), y(v.y), z(v.z), u(v.w);
+        acc[0] = x.fma(w[k], acc[0]);
+        acc[1] = x.fma(w[H2 + k], acc[1]);
+        acc[0] = y.fma(w[k + 1], acc[0]);
+        acc[1] = y.fma(w[H2 + k + 1], acc[1]);
+        acc[0] = z.fma(w[k + 2], acc[0]);
+        acc[1] = z.fma(w[H2 + k + 2], acc[1]);
+        acc[0] = u.fma(w[k + 3], acc[0]);
+        acc[1] = u.fma(w[H2 + k + 3], acc[1]);
       }
       if (group_a) {
-        if (cell_now) gates[col_a] = gate_activation(col_a / H2, acc[0] + bias_a);
+        if (cell_now) gates[col_a] = gate_activation<Top::kTier>(col_a / H2, acc[0] + bias_a);
         partial[(i & 1) * G2 + col_a] = acc[1];
       } else {
-        gates[G2 + col_a] = gate_activation(col_a / H2, acc[0] + bias_a);
-        gates[G2 + col_b] = gate_activation(col_b / H2, acc[1] + bias_b);
+        gates[G2 + col_a] = gate_activation<Top::kTier>(col_a / H2, acc[0] + bias_a);
+        gates[G2 + col_b] = gate_activation<Top::kTier>(col_b / H2, acc[1] + bias_b);
       }
     }
     __syncthreads();
     if (cell_now && has_cell) {
       const float* g = gates + layer * G2 + col_a;
-      const float h_new = lstm_cell(g[0], g[H2], g[2 * H2], g[3 * H2], c_reg);
+      const float h_new = lstm_cell<Top::kTier>(g[0], g[H2], g[2 * H2], g[3 * H2], c_reg);
       hs[layer * H2 + col_a] = h_new;
       if (!group_a) {
         if constexpr (Top::kDecoder) {

@@ -54,12 +54,16 @@
 //     a thread.
 // Every sum keeps its order (one fmaf chain from 0.f in k order, then the
 // bias; the norms and the softmax add in the order they did), so the bits
-// are those of the first design. Numerics are the faithful tier's: fp32
-// products on the CUDA cores, accurate tanh (the exp form of
-// vadc_tpu/nn/functional.py accurate_tanh), sigmoid as 1/(1+expf(-x)),
-// 1/sqrtf for the norms, no --use_fast_math and no TF32: the tensor cores
-// come with the bf16 tiers, where the tier itself moves the bound (67
-// TFLOP/s fp32 here). Tried on the card and not kept (chip_ab.py, PERF.md):
+// are those of the first design. Every function that computes takes the
+// precision tier T as a template parameter (tier.cuh): the faithful
+// instance is the code it was (fp32 products on the CUDA cores, accurate
+// tanh, the exp form of vadc_tpu/nn/functional.py accurate_tanh, sigmoid as
+// 1/(1+expf(-x)), 1/sqrtf for the norms, no --use_fast_math and no TF32);
+// the bf16 tiers round or split each product's activation where it is read,
+// against weights the wrapper packed for the tier, in the same fmaf chains
+// on the CUDA cores, and turbo rounds the encoder's activations where they
+// are stored. The tensor cores are later work, where the tier itself moves
+// the bound (67 TFLOP/s fp32 here). Tried on the card and not kept (chip_ab.py, PERF.md):
 // the phase functions as __noinline__ (13 % slower), a software-pipelined k
 // loop, float4 sample loads in the spectrum, 48 rows of layer 1's weight
 // resident in shared memory (each within 2 % either way).
@@ -67,7 +71,8 @@
 
 #include <cuda_runtime.h>
 
-#include "lstm_cell.cuh"  // sigmoidf, accurate_tanhf
+#include "lstm_cell.cuh"  // sigmoidf, accurate_tanhf, tanh_at, lstm_cell
+#include "tier.cuh"
 
 namespace {
 
@@ -216,8 +221,11 @@ enum : int { EP_ACC = 1, EP_RELU = 2, EP_AFFINE = 4 };
 // of k one float4 of weights and R activations for 4 R FMAs; neighbouring
 // threads take neighbouring columns, so a warp reads a run of weights and
 // broadcasts its few activations. Each sum is one fmaf chain from 0.f in k
-// order, whatever R.
-template <int R>
+// order, whatever R. At tier T each activation is an operand of the tier's
+// products (split once for its 4 columns), and in turbo each result is
+// stored as the JAX package's bf16 ops give it: the product, the bias, the
+// residual and the affine each rounded.
+template <int T, int R>
 __device__ void linear_tiled(const float* ws, const float* __restrict__ b, Act in, int in_step,
                              Act out, int col0, int S, int K, int N, int flags,
                              const float* __restrict__ scale, const float* __restrict__ shift) {
@@ -255,11 +263,11 @@ __device__ void linear_tiled(const float* ws, const float* __restrict__ b, Act i
       const float4 w = *reinterpret_cast<const float4*>(wcol + k * N);
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const float a = src[j][k];
-        acc[j][0] = fmaf(a, w.x, acc[j][0]);
-        acc[j][1] = fmaf(a, w.y, acc[j][1]);
-        acc[j][2] = fmaf(a, w.z, acc[j][2]);
-        acc[j][3] = fmaf(a, w.w, acc[j][3]);
+        const Operand<Tier<T>::kProducts> a(src[j][k]);
+        acc[j][0] = a.fma(w.x, acc[j][0]);
+        acc[j][1] = a.fma(w.y, acc[j][1]);
+        acc[j][2] = a.fma(w.z, acc[j][2]);
+        acc[j][3] = a.fma(w.w, acc[j][3]);
       }
     }
 #pragma unroll
@@ -267,9 +275,16 @@ __device__ void linear_tiled(const float* ws, const float* __restrict__ b, Act i
       if (j >= valid) break;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        float v = acc[j][c] + bias[c];
-        if (flags & EP_ACC) v += dst[j][c];
-        if (flags & EP_AFFINE) v = v * sc[c] + sf[c];
+        float v;
+        if constexpr (Tier<T>::kStore) {
+          v = bf16_rn(__fadd_rn(bf16_rn(acc[j][c]), bias[c]));
+          if (flags & EP_ACC) v = bf16_rn(__fadd_rn(v, dst[j][c]));
+          if (flags & EP_AFFINE) v = bf16_rn(__fadd_rn(bf16_rn(__fmul_rn(v, sc[c])), sf[c]));
+        } else {
+          v = acc[j][c] + bias[c];
+          if (flags & EP_ACC) v += dst[j][c];
+          if (flags & EP_AFFINE) v = v * sc[c] + sf[c];
+        }
         if (flags & EP_RELU) v = fmaxf(v, 0.f);
         dst[j][c] = v;
       }
@@ -278,6 +293,7 @@ __device__ void linear_tiled(const float* ws, const float* __restrict__ b, Act i
 }
 
 // linear_tiled with the largest R that still gives half the block a tile.
+template <int T>
 __device__ void linear(const float* ws, const float* __restrict__ b, Act in, int in_step, Act out,
                        int col0, int S, int K, int N, int flags,
                        const float* __restrict__ scale = nullptr,
@@ -285,17 +301,20 @@ __device__ void linear(const float* ws, const float* __restrict__ b, Act in, int
   const int rows = NB * S;
   const int ncg = N / 4;
   if (((rows + 3) / 4) * ncg >= THREADS / 2) {
-    linear_tiled<4>(ws, b, in, in_step, out, col0, S, K, N, flags, scale, shift);
+    linear_tiled<T, 4>(ws, b, in, in_step, out, col0, S, K, N, flags, scale, shift);
   } else if (((rows + 1) / 2) * ncg >= THREADS / 2) {
-    linear_tiled<2>(ws, b, in, in_step, out, col0, S, K, N, flags, scale, shift);
+    linear_tiled<T, 2>(ws, b, in, in_step, out, col0, S, K, N, flags, scale, shift);
   } else {
-    linear_tiled<1>(ws, b, in, in_step, out, col0, S, K, N, flags, scale, shift);
+    linear_tiled<T, 1>(ws, b, in, in_step, out, col0, S, K, N, flags, scale, shift);
   }
 }
 
 // x = relu(depthwise conv k5, zero pad 2, over frames) in place. A thread
 // walks one (stream, channel) column down the frames with a five-value
-// window in registers, so it overwrites frame f only after reading it.
+// window in registers, so it overwrites frame f only after reading it. In
+// turbo every product and sum is a bf16 op, rounded on its own, as the JAX
+// package's bf16 elementwise ops are (weights and bias packed as bf16).
+template <int T>
 __device__ void depthwise_relu_inplace(Act x, int S, int C, const float* __restrict__ w,
                                        const float* __restrict__ b) {
   const FastDiv by_C(C);
@@ -311,12 +330,21 @@ __device__ void depthwise_relu_inplace(Act x, int S, int C, const float* __restr
     float xp1 = S > 1 ? col[x.ld] : 0.f;
     for (int f = 0; f < S; ++f) {
       const float xp2 = f + 2 < S ? col[(f + 2) * x.ld] : 0.f;
-      float y = xm2 * w0;
-      y = y + xm1 * w1;
-      y = y + x0 * w2;
-      y = y + xp1 * w3;
-      y = y + xp2 * w4;
-      col[f * x.ld] = fmaxf(y + bias, 0.f);
+      if constexpr (Tier<T>::kStore) {
+        float y = bf16_rn(__fmul_rn(xm2, w0));
+        y = bf16_rn(__fadd_rn(y, bf16_rn(__fmul_rn(xm1, w1))));
+        y = bf16_rn(__fadd_rn(y, bf16_rn(__fmul_rn(x0, w2))));
+        y = bf16_rn(__fadd_rn(y, bf16_rn(__fmul_rn(xp1, w3))));
+        y = bf16_rn(__fadd_rn(y, bf16_rn(__fmul_rn(xp2, w4))));
+        col[f * x.ld] = fmaxf(bf16_rn(__fadd_rn(y, bias)), 0.f);
+      } else {
+        float y = xm2 * w0;
+        y = y + xm1 * w1;
+        y = y + x0 * w2;
+        y = y + xp1 * w3;
+        y = y + xp2 * w4;
+        col[f * x.ld] = fmaxf(y + bias, 0.f);
+      }
       xm2 = xm1;
       xm1 = x0;
       x0 = xp1;
@@ -338,8 +366,9 @@ __device__ void copy_act(Act dst, Act src, int S, int C) {
 // LayerNorm over channels, one thread per (stream, frame) row, the row in
 // registers (C is 16, 32 or 64): all its loads go out at once, and the
 // three passes run on registers in the order of the plain loop, so the sums
-// keep their order.
-template <int C>
+// keep their order. Statistics in fp32 at every tier; turbo stores the row
+// as bf16.
+template <int T, int C>
 __device__ void layer_norm_c(Act x, int S, const float* __restrict__ w,
                              const float* __restrict__ b) {
   const FastDiv by_S(S);
@@ -361,23 +390,30 @@ __device__ void layer_norm_c(Act x, int S, const float* __restrict__ w,
     }
     const float inv = 1.f / sqrtf(sq / C + LN_EPS);
 #pragma unroll
-    for (int c = 0; c < C; ++c) row[c] = (v[c] - mean) * inv * __ldg(w + c) + __ldg(b + c);
+    for (int c = 0; c < C; ++c) {
+      row[c] = store_at<T>((v[c] - mean) * inv * __ldg(w + c) + __ldg(b + c));
+    }
   }
 }
 
+template <int T>
 __device__ void layer_norm(Act x, int S, int C, const float* __restrict__ w,
                            const float* __restrict__ b) {
   if (C == 16) {
-    layer_norm_c<16>(x, S, w, b);
+    layer_norm_c<T, 16>(x, S, w, b);
   } else if (C == 32) {
-    layer_norm_c<32>(x, S, w, b);
+    layer_norm_c<T, 32>(x, S, w, b);
   } else {
-    layer_norm_c<64>(x, S, w, b);
+    layer_norm_c<T, 64>(x, S, w, b);
   }
 }
 
 // Two-head attention of one stage. qkv rows are [q | k | v], heads are
 // contiguous column blocks of hd = C / 2. sc holds [stream][head][S(k)][S(q)].
+// The scores and the mix are fp32 sums at every tier (the JAX package sums
+// them elementwise, outside its matmul precision); turbo stores alpha and
+// the heads' output as bf16.
+template <int T>
 __device__ void attention(Act qkv, float* sc, int sc_ss, Act ao, int S, int C) {
   const int hd = C / 2;
   const float scale = sqrtf(static_cast<float>(hd));
@@ -423,7 +459,7 @@ __device__ void attention(Act qkv, float* sc, int sc_ss, Act ao, int S, int C) {
     const int row = by_S.div(item);  // (stream, head, k frame)
     const int s = by_2S.div(row);
     float* e = sc + s * sc_ss + (row - s * 2 * S) * S + (item - row * S);
-    *e = *e / sums[row];
+    *e = store_at<T>(*e / sums[row]);
   }
   __syncthreads();
   PHASE_STAMP(PH_SOFTMAX);
@@ -437,7 +473,7 @@ __device__ void attention(Act qkv, float* sc, int sc_ss, Act ao, int S, int C) {
     float acc = 0.f;
 #pragma unroll 8
     for (int j = 0; j < S; ++j) acc = fmaf(alpha[j], qkv.at(s, j)[2 * C + c], acc);
-    ao.at(s, i)[c] = acc;
+    ao.at(s, i)[c] = store_at<T>(acc);
   }
 }
 
@@ -532,6 +568,7 @@ struct WeightStage {
 // ws.now() (copied and a block_sync() passed); on exit those of the next
 // stage's first product are (next_off not null), and region A holds the
 // stage's output.
+template <int T>
 __device__ void encoder_stage(int st, const float* __restrict__ W, const int* off,
                               const int* next_off, WeightStage& ws, float* A, int sa, float* H,
                               int sh, int S) {
@@ -549,7 +586,7 @@ __device__ void encoder_stage(int st, const float* __restrict__ W, const int* of
 
   if (off[PROJ_WT] >= 0) {
     ws.prefetch(W, off, pw);
-    linear(ws.now(), W + off[PROJ_B], x, 1, h, 0, S, cin, cout, 0);
+    linear<T>(ws.now(), W + off[PROJ_B], x, 1, h, 0, S, cin, cout, 0);
     block_sync();
     ws.flip();
   } else {
@@ -560,10 +597,10 @@ __device__ void encoder_stage(int st, const float* __restrict__ W, const int* of
   // each copy starts as soon as its buffer is free, a phase or more before
   // the product that waits for it
   ws.prefetch(W, off, WeightOp{QKV_WT, 0, qkv_cols, cout, 3 * cout});
-  depthwise_relu_inplace(x, S, cin, W + off[DW_W], W + off[DW_B]);
+  depthwise_relu_inplace<T>(x, S, cin, W + off[DW_W], W + off[DW_B]);
   __syncthreads();
   PHASE_STAMP(PH_DW);
-  linear(ws.now(), W + off[PW_B], x, 1, h, 0, S, cin, cout, EP_ACC | EP_RELU);
+  linear<T>(ws.now(), W + off[PW_B], x, 1, h, 0, S, cin, cout, EP_ACC | EP_RELU);
   block_sync();
   ws.flip();
   PHASE_STAMP(PH_PW);
@@ -580,7 +617,7 @@ __device__ void encoder_stage(int st, const float* __restrict__ W, const int* of
       next.slot = AP_WT;
     }
     ws.prefetch(W, off, next);
-    linear(ws.now(), W + off[QKV_B] + col0, h, 1, qkv, col0, S, cout, qkv_cols, 0);
+    linear<T>(ws.now(), W + off[QKV_B] + col0, h, 1, qkv, col0, S, cout, qkv_cols, 0);
     block_sync();
     ws.flip();
   }
@@ -588,36 +625,36 @@ __device__ void encoder_stage(int st, const float* __restrict__ W, const int* of
   WeightOp next = square;
   next.slot = L1_WT;
   ws.prefetch(W, off, next);
-  attention(qkv, sc, sa, ao, S, cout);
+  attention<T>(qkv, sc, sa, ao, S, cout);
   __syncthreads();
   PHASE_STAMP(PH_MIX);
-  linear(ws.now(), W + off[AP_B], ao, 1, h, 0, S, cout, cout, EP_ACC);
+  linear<T>(ws.now(), W + off[AP_B], ao, 1, h, 0, S, cout, cout, EP_ACC);
   block_sync();
   ws.flip();
   PHASE_STAMP(PH_OUT_PROJ);
   next.slot = L2_WT;
   ws.prefetch(W, off, next);
-  layer_norm(h, S, cout, W + off[N1_W], W + off[N1_B]);
+  layer_norm<T>(h, S, cout, W + off[N1_W], W + off[N1_B]);
   __syncthreads();
   PHASE_STAMP(PH_LN1);
   Act ff{A, sa, pitch(cout)};  // qkv is dead
-  linear(ws.now(), W + off[L1_B], h, 1, ff, 0, S, cout, cout, EP_RELU);
+  linear<T>(ws.now(), W + off[L1_B], h, 1, ff, 0, S, cout, cout, EP_RELU);
   block_sync();
   ws.flip();
   PHASE_STAMP(PH_LIN1);
   next.slot = CONV_WT;
   ws.prefetch(W, off, next);
-  linear(ws.now(), W + off[L2_B], ff, 1, h, 0, S, cout, cout, EP_ACC);
+  linear<T>(ws.now(), W + off[L2_B], ff, 1, h, 0, S, cout, cout, EP_ACC);
   block_sync();
   ws.flip();
   PHASE_STAMP(PH_LIN2);
   if (next_off != nullptr) ws.prefetch(W, next_off, first_op(st + 1, next_off));
-  layer_norm(h, S, cout, W + off[N2_W], W + off[N2_B]);
+  layer_norm<T>(h, S, cout, W + off[N2_W], W + off[N2_B]);
   __syncthreads();
   PHASE_STAMP(PH_LN2);
   // the next stage's input; the last stage's rows at the LSTM's pitch
   Act y{A, sa, last ? ENC_LD : pitch(cout)};
-  linear(ws.now(), W + off[CONV_B], h, stride, y, 0, s_out, cout, cout, EP_AFFINE | EP_RELU,
+  linear<T>(ws.now(), W + off[CONV_B], h, stride, y, 0, s_out, cout, cout, EP_AFFINE | EP_RELU,
          W + off[BN_SCALE], W + off[BN_SHIFT]);
   block_sync();
   ws.flip();
@@ -657,6 +694,7 @@ __device__ void store_state(const Block& m, int b0, int batch, float* hn, float*
 // The four encoder stages over region A (the stage-1 input, written by all
 // threads; no barrier needed before the call). Returns the frame count S of
 // the last stage's output, which A then holds as [NB][S][ENC_LD].
+template <int T>
 __device__ int encode(const float* __restrict__ W, const Offsets& o, const Block& m, int seq0) {
   WeightStage ws{m.wbuf, 1};
   ws.prefetch(W, o.v, first_op(0, o.v));
@@ -665,7 +703,7 @@ __device__ int encode(const float* __restrict__ W, const Offsets& o, const Block
   int S = seq0;
   for (int st = 0; st < N_STAGES; ++st) {
     const int* next_off = st + 1 < N_STAGES ? o.v + (st + 1) * STAGE_SLOTS : nullptr;
-    encoder_stage(st, W, o.v + st * STAGE_SLOTS, next_off, ws, m.A, m.sa, m.H, m.sh, S);
+    encoder_stage<T>(st, W, o.v + st * STAGE_SLOTS, next_off, ws, m.A, m.sa, m.H, m.sh, S);
     S = (S + stride_of(st) - 1) / stride_of(st);
   }
   return S;
@@ -764,6 +802,9 @@ __device__ void lstm_decoder_steps(const float* const* wt_l, const float* const*
 //   - then W_hh of layer 0 in the same 64 registers for all frames: a
 //     layer-0 step reads only h (as float4) and its partial sum;
 //   - layer 1's 128 weights a frame from L2, sixteen loads in flight.
+// At tier T each x and h value is an operand of the tier's products, in the
+// same chains (lstm_resident.cuh does the same, so the bits stay equal).
+template <int T>
 __device__ void lstm_decoder_steps_hoisted(const float* const* wt_l, const float* const* bias_l,
                                            int S, const Block& m) {
   const int tid = threadIdx.x;
@@ -773,6 +814,7 @@ __device__ void lstm_decoder_steps_hoisted(const float* const* wt_l, const float
   float* gates = m.gates;
   float* dec = m.dec;
   float* pre = m.wbuf;
+  using Op = Operand<Tier<T>::kProducts>;
   static_assert(NB * 7 * GATES <= 2 * WBUF, "the hoisted sums fit the weight buffers");
   float w0[HIDDEN];
 #pragma unroll
@@ -786,10 +828,10 @@ __device__ void lstm_decoder_steps_hoisted(const float* const* wt_l, const float
 #pragma unroll
       for (int s = 0; s < NB; ++s) {
         const float4 x = *reinterpret_cast<const float4*>(m.A + s * m.sa + t * ENC_LD + 4 * k4);
-        acc[s] = fmaf(x.x, w0[4 * k4 + 0], acc[s]);
-        acc[s] = fmaf(x.y, w0[4 * k4 + 1], acc[s]);
-        acc[s] = fmaf(x.z, w0[4 * k4 + 2], acc[s]);
-        acc[s] = fmaf(x.w, w0[4 * k4 + 3], acc[s]);
+        acc[s] = Op(x.x).fma(w0[4 * k4 + 0], acc[s]);
+        acc[s] = Op(x.y).fma(w0[4 * k4 + 1], acc[s]);
+        acc[s] = Op(x.z).fma(w0[4 * k4 + 2], acc[s]);
+        acc[s] = Op(x.w).fma(w0[4 * k4 + 3], acc[s]);
       }
     }
 #pragma unroll
@@ -815,10 +857,10 @@ __device__ void lstm_decoder_steps_hoisted(const float* const* wt_l, const float
 #pragma unroll
           for (int s = 0; s < NB; ++s) {
             const float4 x = *reinterpret_cast<const float4*>(h_l + s * HIDDEN + 4 * k4);
-            acc[s] = fmaf(x.x, w0[4 * k4 + 0], acc[s]);
-            acc[s] = fmaf(x.y, w0[4 * k4 + 1], acc[s]);
-            acc[s] = fmaf(x.z, w0[4 * k4 + 2], acc[s]);
-            acc[s] = fmaf(x.w, w0[4 * k4 + 3], acc[s]);
+            acc[s] = Op(x.x).fma(w0[4 * k4 + 0], acc[s]);
+            acc[s] = Op(x.y).fma(w0[4 * k4 + 1], acc[s]);
+            acc[s] = Op(x.z).fma(w0[4 * k4 + 2], acc[s]);
+            acc[s] = Op(x.w).fma(w0[4 * k4 + 3], acc[s]);
           }
         }
 #pragma unroll
@@ -839,10 +881,10 @@ __device__ void lstm_decoder_steps_hoisted(const float* const* wt_l, const float
 #pragma unroll
             for (int s = 0; s < NB; ++s) {
               const float4 x = *reinterpret_cast<const float4*>(src + s * HIDDEN + 4 * k4);
-              acc[s] = fmaf(x.x, w[0], acc[s]);
-              acc[s] = fmaf(x.y, w[1], acc[s]);
-              acc[s] = fmaf(x.z, w[2], acc[s]);
-              acc[s] = fmaf(x.w, w[3], acc[s]);
+              acc[s] = Op(x.x).fma(w[0], acc[s]);
+              acc[s] = Op(x.y).fma(w[1], acc[s]);
+              acc[s] = Op(x.z).fma(w[2], acc[s]);
+              acc[s] = Op(x.w).fma(w[3], acc[s]);
             }
           }
         }
@@ -856,10 +898,10 @@ __device__ void lstm_decoder_steps_hoisted(const float* const* wt_l, const float
         const float* g = gates + s * GATES;
         const float ig = sigmoidf(g[u]);
         const float fg = sigmoidf(g[HIDDEN + u]);
-        const float gg = accurate_tanhf(g[2 * HIDDEN + u]);
+        const float gg = tanh_at<T>(g[2 * HIDDEN + u]);
         const float og = sigmoidf(g[3 * HIDDEN + u]);
         float c = c_l[i];
-        const float h_new = lstm_cell(ig, fg, gg, og, c);
+        const float h_new = lstm_cell<T>(ig, fg, gg, og, c);
         c_l[i] = c;
         h_l[i] = h_new;
         if (layer == 1) dec[i] += fmaxf(h_new, 0.f);
@@ -888,7 +930,10 @@ __device__ float decode_prob(const float* dec_s, int S, const float* __restrict_
 // the block: every unit's dec / S by a thread of its own (64 full-precision
 // divisions one after the other in one thread were 3 % of the step
 // kernel's time), then one thread a stream chains the 64 FMAs in order.
-// Expects a barrier passed since dec was written; gates is scratch.
+// Expects a barrier passed since dec was written; gates is scratch. At tier
+// T the mean is an operand of the tier's product against dec_w1 as packed
+// (the JAX kernel's dot(dec_acc / seq, dec_w), silero_v31_fused2d.py:224).
+template <int T>
 __device__ void decode_probs(const Block& m, int S, const float* __restrict__ dec_w1, float dec_b1,
                              int b0, int batch, float* probs) {
   float* mean = m.gates;           // [NB][HIDDEN]: dec / S
@@ -900,24 +945,27 @@ __device__ void decode_probs(const Block& m, int S, const float* __restrict__ de
     if (b0 + s >= batch) continue;
     float acc = 0.f;
 #pragma unroll
-    for (int u = 0; u < HIDDEN; ++u) acc = fmaf(mean[s * HIDDEN + u], w[u], acc);
+    for (int u = 0; u < HIDDEN; ++u) {
+      acc = Operand<Tier<T>::kProducts>(mean[s * HIDDEN + u]).fma(w[u], acc);
+    }
     probs[b0 + s] = sigmoidf(acc + dec_b1);
   }
 }
 
+template <int T>
 __device__ void encode_lstm_decode(const float* __restrict__ W, const Offsets& o, const Block& m,
                                    int seq0, int b0, int batch, float* probs, float* hn,
                                    float* cn) {
-  const int S = encode(W, o, m, seq0);
+  const int S = encode<T>(W, o, m, seq0);
   const float* const wt[2] = {W + o.v[LSTM_WT0], W + o.v[LSTM_WT1]};
   const float* const bias[2] = {W + o.v[LSTM_B0], W + o.v[LSTM_B1]};
-  lstm_decoder_steps_hoisted(wt, bias, S, m);
+  lstm_decoder_steps_hoisted<T>(wt, bias, S, m);
   PHASE_STAMP(PH_LSTM);
 
   const float* dec_w1 = W + o.v[DEC_W] + HIDDEN;
   const float dec_b1 = __ldg(W + o.v[DEC_B] + 1);
   store_state(m, b0, batch, hn, cn);
-  decode_probs(m, S, dec_w1, dec_b1, b0, batch, probs);
+  decode_probs<T>(m, S, dec_w1, dec_b1, b0, batch, probs);
   PHASE_STAMP(PH_END);
 }
 

@@ -33,6 +33,14 @@
 // alone and stores the last stage's output [R, T, 64]: the slab route's
 // front half, whose rows are what this kernel hands its own LSTM.
 //
+// Both entries take the precision tier (tier.cuh) and launch its instance:
+// the spectrum at the tier's STFT operands (bf16_3x on fp32 samples at
+// balanced and fast, bf16 at turbo), log1pf in place of the series at the
+// bf16 tiers, turbo's features stored as bf16, then the body's instance;
+// mean_mean stays fp32 at every tier (nn/precision.py says why). The JAX
+// package has no tier form of this kernel; the instances are held to the
+// plain versions at the tier (kernels/silero_v31_fused.py).
+//
 // What bounds it on an H100: the spectrum's fp32 FMAs (51,200 frames x 256
 // x 258 x 2 = 6.8 GFLOP at batch 2048 x 1536, on the CUDA cores: the
 // faithful tier keeps fp32 products, no TF32; the tensor cores come with the
@@ -124,6 +132,7 @@ __host__ __device__ inline int staged_chunk_floats(int samples) {
 // input. The staged chunks and the basis buffers lie over everything after
 // region A, which the body fills only later. Ends without a barrier: the
 // encoder passes one first.
+template <int T>
 __device__ void audio_features(const Block& m, const NormW& norm_w,
                                const float* __restrict__ audio, long long stride_b, int samples,
                                const float* __restrict__ basis, float* spect, int b0, int batch,
@@ -157,7 +166,8 @@ __device__ void audio_features(const Block& m, const NormW& norm_w,
   }
   __syncthreads();
   const ToStageInput store{m.A, sa, by_seq, spect, static_cast<long long>(b0) * seq0};
-  stft_block::magnitudes<Spectrum>(pad, pad_ld, HOP, live * seq0, seq0, basis, bbuf, store);
+  stft_block::magnitudes<Spectrum, Tier<T>::kStft>(pad, pad_ld, HOP, live * seq0, seq0, basis,
+                                                   bbuf, store);
   __syncthreads();
   PHASE_STAMP(PH_SPECTRUM);
 
@@ -165,7 +175,12 @@ __device__ void audio_features(const Block& m, const NormW& norm_w,
   for (int i = tid; i < NB * n_in; i += blockDim.x) {
     const int s = by_in.div(i);
     float* p = m.A + s * sa + (i - s * n_in);
-    *p = log1p_series(__fmul_rn(*p, 1048576.f));
+    const float y = __fmul_rn(*p, 1048576.f);
+    if constexpr (Tier<T>::kSeriesLog1p) {
+      *p = log1p_series(y);
+    } else {
+      *p = log1pf(y);
+    }
   }
   __syncthreads();
   PHASE_STAMP(PH_LOG1P);
@@ -188,10 +203,12 @@ __device__ void audio_features(const Block& m, const NormW& norm_w,
   __syncthreads();
   for (int i = tid; i < NB * n_in; i += blockDim.x) {
     const int s = by_in.div(i);
-    m.A[s * sa + (i - s * n_in)] -= mean_mean[s];
+    float* p = m.A + s * sa + (i - s * n_in);
+    *p = store_at<T>(*p - mean_mean[s]);
   }
 }
 
+template <int T>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 silero_v31_fused_audio_kernel(const float* __restrict__ W, const __grid_constant__ Offsets o,
                                const __grid_constant__ NormW norm_w,
@@ -202,16 +219,17 @@ silero_v31_fused_audio_kernel(const float* __restrict__ W, const __grid_constant
   const Block m = carve(smem, sa, sh);
   const int b0 = blockIdx.x * NB;
   PHASE_STAMP(PH_START);
-  audio_features(m, norm_w, audio, stride_b, samples, basis, spect, b0, batch, seq0);
+  audio_features<T>(m, norm_w, audio, stride_b, samples, basis, spect, b0, batch, seq0);
   load_state(m, h0, c0, b0, batch);
   __syncthreads();
   PHASE_STAMP(PH_NORM);
-  encode_lstm_decode(W, o, m, seq0, b0, batch, probs, hn, cn);
+  encode_lstm_decode<T>(W, o, m, seq0, b0, batch, probs, hn, cn);
 }
 
 // The encoder alone from raw audio: the same front-end, the same four
 // stages, and the store of silero_v31_fused.cu's encoder entry. Its rows
 // are what the step kernel above hands its own LSTM.
+template <int T>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 silero_v31_encode_audio_kernel(const float* __restrict__ W, const __grid_constant__ Offsets o,
                                const __grid_constant__ NormW norm_w,
@@ -220,8 +238,8 @@ silero_v31_encode_audio_kernel(const float* __restrict__ W, const __grid_constan
   extern __shared__ __align__(16) float smem[];
   const Block m = carve(smem, sa, sh);
   const int b0 = blockIdx.x * NB;
-  audio_features(m, norm_w, audio, stride_b, samples, basis, nullptr, b0, rows, seq0);
-  const int S = encode(W, o, m, seq0);
+  audio_features<T>(m, norm_w, audio, stride_b, samples, basis, nullptr, b0, rows, seq0);
+  const int S = encode<T>(W, o, m, seq0);
   store_encoded(m, S, b0, rows, y);
 }
 
@@ -251,33 +269,66 @@ size_t prepare(Kernel kernel, const int* offsets, int n_offsets, const float* no
   return bytes;
 }
 
-}  // namespace
-
-// weights, offsets, n_offsets: as vadc_silero_v31_fused; norm_w: host
-// float[n_norm_w], the F collapsed normalization weights; audio: chunk b at
-// audio + b*stride_b, `samples` fp32 each; basis: [256][2][132], tap k's
-// real then imaginary basis row, each 129 bins padded with zeros to 132;
-// h, c, hn, cn [2, batch, 64] (hn, cn may alias h, c); probs [batch];
-// spect: [batch, F, 129] for a copy of the magnitudes, or null. Returns
-// cudaGetLastError() after the launch.
-extern "C" int vadc_silero_v31_fused_audio(const float* weights, const int* offsets,
-                                           int n_offsets, const float* norm_w, int n_norm_w,
-                                           const float* audio, int batch, long long stride_b,
-                                           int samples, const float* basis, const float* h,
-                                           const float* c, float* probs,
-                                           float* hn, float* cn, float* spect, void* stream) {
+template <int T>
+int launch_step(const float* weights, const int* offsets, int n_offsets, const float* norm_w,
+                int n_norm_w, const float* audio, int batch, long long stride_b, int samples,
+                const float* basis, const float* h, const float* c, float* probs, float* hn,
+                float* cn, float* spect, cudaStream_t stream) {
   Offsets o;
   NormW nw;
   int seq0 = 0, sa = 0, sh = 0;
   cudaError_t err = cudaSuccess;
-  const size_t bytes = prepare(silero_v31_fused_audio_kernel, offsets, n_offsets, norm_w,
+  const size_t bytes = prepare(silero_v31_fused_audio_kernel<T>, offsets, n_offsets, norm_w,
                                n_norm_w, batch, stride_b, samples, &o, &nw, &seq0, &sa, &sh, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (batch + NB - 1) / NB;
-  silero_v31_fused_audio_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+  silero_v31_fused_audio_kernel<T><<<grid, THREADS, bytes, stream>>>(
       weights, o, nw, audio, stride_b, samples, basis, h, c, probs, hn, cn, spect, batch, seq0, sa,
       sh);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int T>
+int launch_encode_audio(const float* weights, const int* offsets, int n_offsets,
+                        const float* norm_w, int n_norm_w, const float* audio, int rows,
+                        long long stride_b, int samples, const float* basis, float* y,
+                        cudaStream_t stream) {
+  Offsets o;
+  NormW nw;
+  int seq0 = 0, sa = 0, sh = 0;
+  cudaError_t err = cudaSuccess;
+  const size_t bytes = prepare(silero_v31_encode_audio_kernel<T>, offsets, n_offsets, norm_w,
+                               n_norm_w, rows, stride_b, samples, &o, &nw, &seq0, &sa, &sh, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (rows + NB - 1) / NB;
+  silero_v31_encode_audio_kernel<T><<<grid, THREADS, bytes, stream>>>(
+      weights, o, nw, audio, stride_b, samples, basis, y, rows, seq0, sa, sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// weights, offsets, n_offsets: as vadc_silero_v31_fused (packed for the
+// tier); norm_w: host float[n_norm_w], the F collapsed normalization
+// weights; audio: chunk
+// b at audio + b*stride_b, `samples` fp32 each; basis: [256][2][132], tap
+// k's real then imaginary basis row, each 129 bins padded with zeros to 132,
+// packed for the tier's STFT; h, c, hn, cn [2, batch, 64] (hn, cn may alias
+// h, c); probs [batch]; spect: [batch, F, 129] for a copy of the
+// magnitudes, or null; tier: 0 faithful, 1 balanced, 2 fast, 3 turbo.
+// Returns cudaGetLastError() after the launch.
+extern "C" int vadc_silero_v31_fused_audio(const float* weights, const int* offsets,
+                                           int n_offsets, const float* norm_w, int n_norm_w,
+                                           const float* audio, int batch, long long stride_b,
+                                           int samples, const float* basis, const float* h,
+                                           const float* c, float* probs, float* hn, float* cn,
+                                           float* spect, int tier, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_tier(tier, [&](auto t) {
+    return launch_step<decltype(t)::value>(weights, offsets, n_offsets, norm_w, n_norm_w, audio,
+                                           batch, stride_b, samples, basis, h, c, probs, hn, cn,
+                                           spect, s);
+  });
 }
 
 // The encoder alone from raw audio: audio as above (`rows` chunks) -> y
@@ -286,19 +337,13 @@ extern "C" int vadc_silero_v31_fused_audio(const float* weights, const int* offs
 extern "C" int vadc_silero_v31_encode_audio(const float* weights, const int* offsets,
                                             int n_offsets, const float* norm_w, int n_norm_w,
                                             const float* audio, int rows, long long stride_b,
-                                            int samples, const float* basis, float* y,
+                                            int samples, const float* basis, float* y, int tier,
                                             void* stream) {
-  Offsets o;
-  NormW nw;
-  int seq0 = 0, sa = 0, sh = 0;
-  cudaError_t err = cudaSuccess;
-  const size_t bytes = prepare(silero_v31_encode_audio_kernel, offsets, n_offsets, norm_w,
-                               n_norm_w, rows, stride_b, samples, &o, &nw, &seq0, &sa, &sh, &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (rows + NB - 1) / NB;
-  silero_v31_encode_audio_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      weights, o, nw, audio, stride_b, samples, basis, y, rows, seq0, sa, sh);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_tier(tier, [&](auto t) {
+    return launch_encode_audio<decltype(t)::value>(weights, offsets, n_offsets, norm_w, n_norm_w,
+                                                   audio, rows, stride_b, samples, basis, y, s);
+  });
 }
 
 #ifdef VADC_PHASE_PROBE

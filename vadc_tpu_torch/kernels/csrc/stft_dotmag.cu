@@ -11,9 +11,10 @@
 // What bounds it on an H100: the fp32 FMAs. At batch 2048 of 1536-sample
 // chunks (the v3.1 unfold) a call is 51,200 rows x 256 x 258 x 2 = 6.8
 // GFLOP, 0.1013 ms at 67 TFLOP/s, against about 13 MB of audio in and 26 MB
-// of magnitude out. The faithful tier keeps fp32 products, so this runs on
-// the CUDA cores, not on tensor cores (a wgmma path on bf16 operands is the
-// later work of the bf16 tiers).
+// of magnitude out. Each tier's instance (tier.cuh: fp32 products at
+// faithful, bf16_3x on fp32 frames at balanced and fast, bf16 frames and
+// bases at turbo, the JAX package's bf16-operand use of this kernel) runs
+// on the CUDA cores, not on tensor cores (a wgmma path is later work).
 //
 // Design: stft_tile.cuh's spectrum, the inner loop of stft_mag.cu and of
 // the step kernel. A block owns ROWS_PASS rows. Each ring stage holds a
@@ -67,7 +68,7 @@ __device__ __forceinline__ void load_rows_slice(float* dst, const float* const* 
   }
 }
 
-template <class G, bool ALIGNED>
+template <class G, bool ALIGNED, int M>
 __global__ void __launch_bounds__(G::THREADS, 2)
 dot_magnitude_kernel(const float* __restrict__ frames, int n_frames, long long stride_b,
                      long long stride_f, int rows, const float* __restrict__ basis,
@@ -86,7 +87,7 @@ dot_magnitude_kernel(const float* __restrict__ frames, int n_frames, long long s
   }
   __syncthreads();
 
-  stft_block::Tile<G> tile;
+  stft_block::Tile<G, M> tile;
   int off[G::RT];
 #pragma unroll
   for (int j = 0; j < G::RT; ++j) off[j] = (tile.row + j) * Rows<G>::LD;
@@ -117,25 +118,26 @@ dot_magnitude_kernel(const float* __restrict__ frames, int n_frames, long long s
   store.pass_done(0, live);
 }
 
-template <class G, bool ALIGNED>
+template <class G, bool ALIGNED, int M>
 int launch(const float* frames, int n_frames, long long stride_b, long long stride_f, int rows,
            const float* basis, float* out, cudaStream_t stream) {
   constexpr size_t bytes = sizeof(float) * Rows<G>::SMEM_FLOATS;
-  const cudaError_t err = stft_block::allow_shared_memory<dot_magnitude_kernel<G, ALIGNED>>();
+  const cudaError_t err = stft_block::allow_shared_memory<dot_magnitude_kernel<G, ALIGNED, M>>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (rows + G::ROWS_PASS - 1) / G::ROWS_PASS;
-  dot_magnitude_kernel<G, ALIGNED><<<grid, G::THREADS, bytes, stream>>>(
+  dot_magnitude_kernel<G, ALIGNED, M><<<grid, G::THREADS, bytes, stream>>>(
       frames, n_frames, stride_b, stride_f, rows, basis, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class G>
+template <class G, int M>
 int launch(const float* frames, int n_frames, long long stride_b, long long stride_f, int rows,
            const float* basis, float* out, cudaStream_t stream) {
   const bool aligned = reinterpret_cast<std::uintptr_t>(frames) % 16 == 0 && stride_b % 4 == 0 &&
                        stride_f % 4 == 0;
-  return aligned ? launch<G, true>(frames, n_frames, stride_b, stride_f, rows, basis, out, stream)
-                 : launch<G, false>(frames, n_frames, stride_b, stride_f, rows, basis, out, stream);
+  return aligned
+             ? launch<G, true, M>(frames, n_frames, stride_b, stride_f, rows, basis, out, stream)
+             : launch<G, false, M>(frames, n_frames, stride_b, stride_f, rows, basis, out, stream);
 }
 
 }  // namespace
@@ -143,20 +145,25 @@ int launch(const float* frames, int n_frames, long long stride_b, long long stri
 // frames: row (b, f) of the frame matrix at frames + b*stride_b + f*stride_f
 // (unit stride along n_fft); basis: [n_fft][2][BINS_LD], tap k's real then
 // imaginary basis row, each `cutoff` bins padded with zeros to a multiple of
-// 4 (kernels/stft_mag.py: padded_basis); out: [batch * n_frames, cutoff]
-// row-major. Takes (n_fft, cutoff) = (256, 129) or (128, 65). Returns
-// cudaGetLastError() after the launch.
+// 4 (kernels/stft_mag.py: padded_basis) and packed for the tier; out:
+// [batch * n_frames, cutoff] row-major; tier: 0 faithful, 1 balanced, 2
+// fast, 3 turbo. Takes (n_fft, cutoff) = (256, 129) at every tier, (128, 65)
+// at faithful. Returns cudaGetLastError() after the launch.
 extern "C" int vadc_dot_magnitude(const float* frames, int batch, int n_frames,
                                   long long stride_b, long long stride_f, const float* basis,
-                                  int n_fft, int cutoff, float* out, void* stream) {
+                                  int n_fft, int cutoff, float* out, int tier, void* stream) {
   const int rows = batch * n_frames;
   if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_fft == 256 && cutoff == 129) {
-    return launch<Spectrum256>(frames, n_frames, stride_b, stride_f, rows, basis, out, s);
+    // the tier's instance: its STFT operands (tier.cuh)
+    return by_tier(tier, [&](auto t) {
+      return launch<Spectrum256, Tier<decltype(t)::value>::kStft>(frames, n_frames, stride_b,
+                                                                 stride_f, rows, basis, out, s);
+    });
   }
-  if (n_fft == 128 && cutoff == 65) {
-    return launch<Spectrum128>(frames, n_frames, stride_b, stride_f, rows, basis, out, s);
+  if (n_fft == 128 && cutoff == 65 && tier == TIER_FAITHFUL) {
+    return launch<Spectrum128, P_FP32>(frames, n_frames, stride_b, stride_f, rows, basis, out, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

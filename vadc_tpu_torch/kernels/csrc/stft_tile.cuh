@@ -9,8 +9,12 @@
 // out[r, c] = sqrt((A@wr)[r, c]^2 + (A@wi)[r, c]^2), A the frame matrix.
 // Every magnitude is one fmaf chain per basis in k order from 0.f, then
 // sqrtf(re * re + im * im) (the correctly rounded sqrtf: no
-// --use_fast_math). No split-K, no reordering, no TF32: the faithful tier's
-// fp32 products on the CUDA cores.
+// --use_fast_math). No split-K, no reordering, no TF32. The products'
+// operands are a template parameter M (tier.cuh): fp32 (the faithful tier,
+// and stft_mag.cu's only instance), bf16_3x on fp32 samples (the balanced
+// and fast tiers of the v3.1 spectrum: each sample split where it is read,
+// the bases packed as hi/lo pairs, three fmafs a term) or bf16 samples and
+// bases (turbo), all on the CUDA cores.
 //
 // Geometry (a template, one instance per kernel): a block of 256 threads
 // computes ROWS_PASS frame rows x all bins per pass. The bins are 4 * BGW *
@@ -41,6 +45,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "tier.cuh"
 
 namespace {
 namespace stft_block {
@@ -100,7 +106,7 @@ struct Geometry {
 
 // One thread's sums of a pass: RT rows x 4 bins of each basis, and the
 // Nyquist bin of one row on the lanes that carry it.
-template <class G>
+template <class G, int M = P_FP32>
 struct Tile {
   int col;      // the first of its 4 bins
   int row;      // its first row in the pass (rows row .. row + RT - 1)
@@ -139,20 +145,20 @@ struct Tile {
         const float4 bi = *reinterpret_cast<const float4*>(bb + kk * G::ROW_LD + G::BINS_LD + col);
 #pragma unroll
         for (int j = 0; j < G::RT; ++j) {
-          const float s = a[off[j] + kk];
-          re[j][0] = fmaf(s, br.x, re[j][0]);
-          re[j][1] = fmaf(s, br.y, re[j][1]);
-          re[j][2] = fmaf(s, br.z, re[j][2]);
-          re[j][3] = fmaf(s, br.w, re[j][3]);
-          im[j][0] = fmaf(s, bi.x, im[j][0]);
-          im[j][1] = fmaf(s, bi.y, im[j][1]);
-          im[j][2] = fmaf(s, bi.z, im[j][2]);
-          im[j][3] = fmaf(s, bi.w, im[j][3]);
+          const Operand<M> s(a[off[j] + kk]);
+          re[j][0] = s.fma(br.x, re[j][0]);
+          re[j][1] = s.fma(br.y, re[j][1]);
+          re[j][2] = s.fma(br.z, re[j][2]);
+          re[j][3] = s.fma(br.w, re[j][3]);
+          im[j][0] = s.fma(bi.x, im[j][0]);
+          im[j][1] = s.fma(bi.y, im[j][1]);
+          im[j][2] = s.fma(bi.z, im[j][2]);
+          im[j][3] = s.fma(bi.w, im[j][3]);
         }
         if (nyq_row >= 0) {
-          const float s = a[off_nyq + kk];
-          nyq_re = fmaf(s, bb[kk * G::ROW_LD + G::BINS - 1], nyq_re);
-          nyq_im = fmaf(s, bb[kk * G::ROW_LD + G::BINS_LD + G::BINS - 1], nyq_im);
+          const Operand<M> s(a[off_nyq + kk]);
+          nyq_re = s.fma(bb[kk * G::ROW_LD + G::BINS - 1], nyq_re);
+          nyq_im = s.fma(bb[kk * G::ROW_LD + G::BINS_LD + G::BINS - 1], nyq_im);
         }
       }
     }
@@ -216,12 +222,13 @@ __device__ __forceinline__ void load_basis_slice(float* dst, const float* __rest
 // THREADS threads call magnitudes. Copies the caller issued with cp.async
 // before the call complete before the first slice is read; plain stores of
 // the staging need a barrier before the call. The caller passes a barrier
-// after the call before it reads what store wrote to shared memory.
-template <class G, class Store>
+// after the call before it reads what store wrote to shared memory. M: the
+// products' operands, with `basis` packed for them.
+template <class G, int M = P_FP32, class Store>
 __device__ __forceinline__ void magnitudes(const float* pad, int pad_ld, int hop, int rows,
                                            int n_frames, const float* __restrict__ basis,
                                            float* bbuf, const Store& store) {
-  Tile<G> tile;
+  Tile<G, M> tile;
   const int per_hop = hop / G::BK;  // slices per hop: the skew grows by one float each
   const int n_pass = (rows + G::ROWS_PASS - 1) / G::ROWS_PASS;
   const int total = n_pass * G::N_SLICES;

@@ -19,6 +19,7 @@ import torch
 
 from vadc_tpu_torch.kernels import _build
 from vadc_tpu_torch.nn import functional as F
+from vadc_tpu_torch.nn.precision import pack_operand
 
 #: hidden sizes the kernel is built for (v4: 64, v5: 128)
 HIDDEN_SIZES = (64, 128)
@@ -33,9 +34,12 @@ def transpose_weight(w: torch.Tensor) -> torch.Tensor:
     return w.transpose(1, 2).contiguous()
 
 
-def transposed_weight_of(params) -> torch.Tensor:
-    """The kernel's weight of a Params' LSTM, transposed once per Params."""
-    return params.derived("lstm_wt", lambda: transpose_weight(params["lstm_w"]))
+def transposed_weight_of(params, mode: str = "fp32") -> torch.Tensor:
+    """The kernel's weight of a Params' LSTM, transposed once per Params and
+    packed for products of `mode` (a tier's `products`; lstm_decoder.cu's
+    resident instances read it so)."""
+    key = "lstm_wt" if mode == "fp32" else f"lstm_wt_{mode}"
+    return params.derived(key, lambda: pack_operand(transpose_weight(params["lstm_w"]), mode))
 
 
 def lstm_fused_reference(

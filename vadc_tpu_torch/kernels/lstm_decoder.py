@@ -11,6 +11,12 @@ carried from chunk to chunk: the slab scan of the offline corpus path
 (`models/silero_v31.forward_scan`) and the CLI's window
 (`forward_minibatched`, B = 1) run it that way, after the encoders of all the
 chunks ran at once (`silero_v31_fused2d.encode_fused`).
+
+It takes the precision tier (`nn.precision`; default faithful): the resident
+variant has an instance of each (the gate products, the tanh and the
+decoder's product of the tier, as the fused kernels' step LSTM computes
+them), and runs the bf16 tiers at every shape; the streaming variant is
+faithful only.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from vadc_tpu_torch.kernels import _build
 from vadc_tpu_torch.kernels.lstm import pre_scratch, transpose_weight, use_resident
 from vadc_tpu_torch.nn import functional as F
+from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, pack_operand, tier_of
 
 HIDDEN = 64
 LAYERS = 2
@@ -35,19 +42,21 @@ def lstm_decoder_fused_reference(
     b: torch.Tensor,
     dec_w: torch.Tensor,
     dec_b: torch.Tensor,
+    tier: Tier | str = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version: nn.functional.lstm then decoder_v3_nlc per chunk, the
-    state threading from chunk to chunk. x [B, T, 64] -> probs [B]; x [B, K,
-    T, 64] -> probs [B, K]; h0, c0 [2, B, 64]; w [2, 256, 128]; b [2, 256];
-    dec_w [2, 64]; dec_b [2] -> (probs, hn, cn)."""
+    """Plain version: nn.functional.lstm then decoder_v3_nlc per chunk at
+    the tier, the state threading from chunk to chunk. x [B, T, 64] ->
+    probs [B]; x [B, K, T, 64] -> probs [B, K]; h0, c0 [2, B, 64]; w [2,
+    256, 128]; b [2, 256]; dec_w [2, 64]; dec_b [2] -> (probs, hn, cn)."""
+    tier = tier_of(tier)
     if x.dim() == 3:
-        out, hn, cn = F.lstm(x, h0, c0, w, b)
-        return F.decoder_v3_nlc(out, dec_w, dec_b), hn, cn
+        out, hn, cn = F.lstm(x, h0, c0, w, b, tier)
+        return F.decoder_v3_nlc(out, dec_w, dec_b, tier), hn, cn
     hn, cn = h0, c0
     probs = []
     for k in range(x.shape[1]):
-        out, hn, cn = F.lstm(x[:, k], hn, cn, w, b)
-        probs.append(F.decoder_v3_nlc(out, dec_w, dec_b))
+        out, hn, cn = F.lstm(x[:, k], hn, cn, w, b, tier)
+        probs.append(F.decoder_v3_nlc(out, dec_w, dec_b, tier))
     return torch.stack(probs, dim=1), hn, cn
 
 
@@ -64,10 +73,10 @@ def _launch_streaming(x, h0, c0, wt, b, dec_w, dec_b, probs, hn, cn) -> int:
     return 1
 
 
-def _launch_resident(x, h0, c0, wt, b, dec_w, dec_b, probs, hn, cn) -> int:
-    """Launches the resident-weights variant: the pre-pass and the recurrent
-    kernel, once for each pass over the scratch; returns the kernels
-    launched."""
+def _launch_resident(x, h0, c0, wt, b, dec_w, dec_b, probs, hn, cn, tier=FAITHFUL) -> int:
+    """Launches the resident-weights variant at the tier (wt and dec_w
+    packed for it): the pre-pass and the recurrent kernel, once for each
+    pass over the scratch; returns the kernels launched."""
     batch, frames = x.shape[0], x.shape[-2]
     chunks = x.shape[1] if x.dim() == 4 else 1
     pre = pre_scratch(x, batch, chunks * frames, frames)
@@ -75,7 +84,7 @@ def _launch_resident(x, h0, c0, wt, b, dec_w, dec_b, probs, hn, cn) -> int:
     status = _build.library().vadc_lstm_decoder_fused_resident(
         x.data_ptr(), h0.data_ptr(), c0.data_ptr(), wt.data_ptr(), b.data_ptr(),
         dec_w.data_ptr(), dec_b.data_ptr(), pre.data_ptr(), pre.shape[0], probs.data_ptr(),
-        hn.data_ptr(), cn.data_ptr(), batch, chunks, frames, ctypes.byref(launched),
+        hn.data_ptr(), cn.data_ptr(), batch, chunks, frames, tier.index, ctypes.byref(launched),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "lstm_decoder_fused (resident)")
@@ -94,6 +103,7 @@ def lstm_decoder_fused(
     hn: torch.Tensor | None = None,
     cn: torch.Tensor | None = None,
     wt: torch.Tensor | None = None,
+    tier: Tier | str = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Encoder output, state and the LSTM's and decoder's weights -> (speech
     probabilities, hn, cn).
@@ -106,18 +116,22 @@ def lstm_decoder_fused(
 
     The new state goes to `hn`/`cn` when given, which may BE `h0`/`c0` (the
     state is then updated in place); otherwise to new tensors. `wt` is
-    `lstm.transpose_weight(w)` when the caller keeps it. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel (the variant
-    `lstm.use_resident` names) or raises."""
+    `lstm.transpose_weight(w)` packed for the tier's products when the
+    caller keeps it (`lstm.transposed_weight_of(params, tier.products)`). A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (the variant `lstm.use_resident` names; the resident one at the bf16
+    tiers) or raises."""
+    tier = tier_of(tier)
     if x.device.type == "cpu":
-        probs, h_new, c_new = lstm_decoder_fused_reference(x, h0, c0, w, b, dec_w, dec_b)
+        probs, h_new, c_new = lstm_decoder_fused_reference(x, h0, c0, w, b, dec_w, dec_b, tier)
         if hn is not None:
             h_new = hn.copy_(h_new)
         if cn is not None:
             c_new = cn.copy_(c_new)
         return probs, h_new, c_new
     if wt is None:
-        wt = transpose_weight(w)
+        wt = pack_operand(transpose_weight(w), tier.products)
+    dec_w = pack_operand(dec_w, tier.products)
     if hn is None:
         hn = torch.empty_like(h0)
     if cn is None:
@@ -125,8 +139,11 @@ def lstm_decoder_fused(
     _check(x, h0, c0, wt, b, dec_w, dec_b, hn, cn)
     probs = torch.empty(x.shape[:-2], dtype=torch.float32, device=x.device)
     steps = x.shape[-2] * (x.shape[1] if x.dim() == 4 else 1)
-    launch = _launch_resident if use_resident(x.shape[0], steps) else _launch_streaming
-    lstm_decoder_fused.launches += launch(x, h0, c0, wt, b, dec_w, dec_b, probs, hn, cn)
+    if tier is not FAITHFUL or use_resident(x.shape[0], steps):
+        launched = _launch_resident(x, h0, c0, wt, b, dec_w, dec_b, probs, hn, cn, tier)
+    else:
+        launched = _launch_streaming(x, h0, c0, wt, b, dec_w, dec_b, probs, hn, cn)
+    lstm_decoder_fused.launches += launched
     return probs, hn, cn
 
 

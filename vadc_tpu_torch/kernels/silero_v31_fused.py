@@ -14,6 +14,11 @@ output. The slab scan and the CLI's window run it over all their chunks at
 once and hand its rows to `kernels.lstm_decoder.lstm_decoder_fused`, so a
 slab gives the loop of steps bit for bit.
 
+Both entries take the precision tier (`nn.precision`; default faithful)
+and launch that instance, with the weights and the STFT basis packed for
+it; the JAX package has no tier form of this kernel, so the instances are
+held to the plain versions here at the same tier.
+
 The JAX kernel splits each frame into 64-sample hop blocks because its
 compiler could not stack overlapping frames; that is not semantics and is
 not carried over. Unlike the JAX kernel, this one takes BN-folded archives
@@ -41,6 +46,7 @@ from vadc_tpu_torch.kernels.silero_v31_fused2d import (
 from vadc_tpu_torch.kernels.stft_mag import bins_ld, padded_basis_of
 from vadc_tpu_torch.models.weights import Params
 from vadc_tpu_torch.nn import functional as F
+from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, store, tier_of
 
 N_FFT = 256
 HOP = 64
@@ -75,29 +81,49 @@ def norm_weights(n_frames: int) -> np.ndarray:
     return _norm_weights(n_frames)[0]
 
 
-def features_reference(params: dict, audio: torch.Tensor) -> torch.Tensor:
-    """The kernels' front-end in plain ops: the STFT magnitude of
-    nn/functional, log1p(2^20 x) by the same series, the per-frame channel
-    mean weighted by norm_weights and subtracted. audio [B, S] -> [B, F, 129]."""
-    spect = F.stft_magnitude_nlc(audio, params["stft_basis"], pad_left=PAD, pad_right=PAD, hop=HOP)
-    loge = F.accurate_log1p(spect * 1048576.0)
+def features_reference(
+    params: dict, audio: torch.Tensor, tier: Tier | str = FAITHFUL,
+    spectrum: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The kernels' front-end in plain ops at the tier: the STFT magnitude of
+    nn/functional, log1p(2^20 x) (by the same series at faithful), the
+    per-frame channel mean weighted by norm_weights (fp32 at every tier, as
+    nn/functional's smoothing) and subtracted. audio [B, S] -> [B, F, 129],
+    stored as the tier stores it. `spectrum` [B, F, 129], when given, stands
+    in for the STFT magnitude: a kernel's own, so that the rest of the
+    kernel is held to its plain version without the spectrum's rounding,
+    which log1p(2^20 x) amplifies at near-zero bins."""
+    tier = tier_of(tier)
+    spect = spectrum if spectrum is not None else F.stft_magnitude_nlc(
+        audio, params["stft_basis"], pad_left=PAD, pad_right=PAD, hop=HOP, tier=tier
+    )
+    loge = F.log1p_at(spect * 1048576.0, tier)
     norm_w = torch.from_numpy(norm_weights(spect.shape[1]).copy()).to(audio.device)
     mean_mean = torch.sum(torch.mean(loge, dim=-1) * norm_w, dim=-1)
-    return loge - mean_mean[:, None, None]
+    return store(loge - mean_mean[:, None, None], tier)
 
 
 def forward_fused_reference(
-    params: dict, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+    params: dict, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+    tier: Tier | str = FAITHFUL, spectrum: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version: features_reference, then forward_fused2d_reference.
-    audio [B, S]; h, c [2, B, 64] -> (probs [B], hn, cn)."""
-    return forward_fused2d_reference(params, features_reference(params, audio), h, c)
+    """Plain version: features_reference (from `spectrum` when given), then
+    forward_fused2d_reference, at the tier. audio [B, S]; h, c [2, B, 64]
+    -> (probs [B], hn, cn)."""
+    tier = tier_of(tier)
+    feats = features_reference(params, audio, tier, spectrum)
+    return forward_fused2d_reference(params, feats, h, c, tier)
 
 
-def encode_fused_audio_reference(params: dict, audio: torch.Tensor) -> torch.Tensor:
-    """Plain version of encode_fused_audio: features_reference, then the
-    four encoder stages. audio [R, S] -> [R, T, 64]."""
-    return encode_fused_reference(params, features_reference(params, audio))
+def encode_fused_audio_reference(
+    params: dict, audio: torch.Tensor, tier: Tier | str = FAITHFUL,
+    spectrum: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of encode_fused_audio: features_reference (from
+    `spectrum` when given), then the four encoder stages, at the tier.
+    audio [R, S] -> [R, T, 64]."""
+    tier = tier_of(tier)
+    return encode_fused_reference(params, features_reference(params, audio, tier, spectrum), tier)
 
 
 def forward_fused(
@@ -109,8 +135,9 @@ def forward_fused(
     hn: torch.Tensor | None = None,
     cn: torch.Tensor | None = None,
     spectrum: torch.Tensor | None = None,
+    tier: Tier | str = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The v3.1 model from raw audio.
+    """The v3.1 model from raw audio, at the precision tier.
 
     audio [B, S], S a multiple of 256 in 512..1536 (rows may be strided,
     samples unit-stride); h, c [2, B, 64]. Returns (probs [B], hn, cn). The
@@ -120,8 +147,9 @@ def forward_fused(
     against dot_magnitude's). A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel or raises."""
     _check_chunks(audio)
+    tier = tier_of(tier)
     if audio.device.type == "cpu":
-        probs, h_new, c_new = forward_fused_reference(params, audio, h, c)
+        probs, h_new, c_new = forward_fused_reference(params, audio, h, c, tier)
         if hn is not None:
             h_new = hn.copy_(h_new)
         if cn is not None:
@@ -132,7 +160,7 @@ def forward_fused(
     if cn is None:
         cn = torch.empty_like(c)
     probs = torch.empty(audio.shape[0], dtype=torch.float32, device=audio.device)
-    args = step_args(params, audio, h, c, probs, hn, cn, spectrum)
+    args = step_args(params, audio, h, c, probs, hn, cn, spectrum, tier)
     status = _build.library().vadc_silero_v31_fused_audio(*args)
     _build.check(status, "forward_fused")
     forward_fused.launches += 1
@@ -143,12 +171,13 @@ def forward_fused(
 forward_fused.launches = 0
 
 
-def step_args(params: Params, audio, h, c, probs, hn, cn, spectrum=None) -> tuple:
+def step_args(params: Params, audio, h, c, probs, hn, cn, spectrum=None,
+              tier: Tier = FAITHFUL) -> tuple:
     """Checks the tensors of one step and returns the arguments of the C
     entry vadc_silero_v31_fused_audio (chip_profile.py hands them to its
     stamped build of the same source)."""
-    packed = pack_weights(params)
-    basis = padded_basis_of(params)
+    packed = pack_weights(params, tier)
+    basis = padded_basis_of(params, tier.stft)
     _check("forward_fused", packed, audio, basis, h, c, hn, cn, spectrum)
     batch, samples = audio.shape
     _, c_norm_w = _norm_weights(samples // HOP + 1)
@@ -157,24 +186,28 @@ def step_args(params: Params, audio, h, c, probs, hn, cn, spectrum=None) -> tupl
         c_norm_w, len(c_norm_w), audio.data_ptr(), batch, audio.stride(0), samples,
         basis.data_ptr(), h.data_ptr(), c.data_ptr(),
         probs.data_ptr(), hn.data_ptr(), cn.data_ptr(),
-        None if spectrum is None else spectrum.data_ptr(),
+        None if spectrum is None else spectrum.data_ptr(), tier.index,
         torch.cuda.current_stream(audio.device).cuda_stream,
     )
 
 
-def encode_fused_audio(params: Params, audio: torch.Tensor) -> torch.Tensor:
+def encode_fused_audio(
+    params: Params, audio: torch.Tensor, tier: Tier | str = FAITHFUL
+) -> torch.Tensor:
     """The front-end and the four encoder stages from raw audio, the step
-    kernel's own up to its LSTM: audio [R, S], S a multiple of 256 in
+    kernel's own up to its LSTM, at the precision tier: audio [R, S], S a
+    multiple of 256 in
     512..1536 (rows may be strided, samples unit-stride) -> [R, T, 64],
     T = 3..7. The rows are independent (R is streams x chunks on the slab
     route); `kernels.lstm_decoder.lstm_decoder_fused` on them gives
     forward_fused's bits. A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel or raises."""
     _check_chunks(audio, "encode_fused_audio")
+    tier = tier_of(tier)
     if audio.device.type == "cpu":
-        return encode_fused_audio_reference(params, audio)
-    packed = pack_weights(params)
-    basis = padded_basis_of(params)
+        return encode_fused_audio_reference(params, audio, tier)
+    packed = pack_weights(params, tier)
+    basis = padded_basis_of(params, tier.stft)
     _check("encode_fused_audio", packed, audio, basis)
     rows, samples = audio.shape
     frames = samples // HOP + 1
@@ -183,7 +216,7 @@ def encode_fused_audio(params: Params, audio: torch.Tensor) -> torch.Tensor:
     status = _build.library().vadc_silero_v31_encode_audio(
         packed.buffer.data_ptr(), packed._c_offsets, len(packed.offsets),
         c_norm_w, len(c_norm_w), audio.data_ptr(), rows, audio.stride(0), samples,
-        basis.data_ptr(), out.data_ptr(),
+        basis.data_ptr(), out.data_ptr(), tier.index,
         torch.cuda.current_stream(audio.device).cuda_stream,
     )
     _build.check(status, "encode_fused_audio")

@@ -12,6 +12,12 @@ normalization itself, this one takes the normalized features: in the port
 the front-end is `models/silero_v31.features` (the dot_magnitude kernel and
 torch ops).
 
+Both take the precision tier (`nn.precision`; default faithful) and launch
+that instance of the kernel with the weights packed for it
+(`pack_weights(params, tier)`); the fast instance is the port of
+`forward_fused2d(fast=True)`. Their plain versions compute the same tier
+with torch ops.
+
 `encode_fused` is the same source's second entry: the four encoder stages
 alone, storing the last stage's output. It is no port of a Pallas kernel
 (the JAX package leaves `encode_nlc` to XLA). `lstm_decoder_fused` on its
@@ -31,6 +37,7 @@ import torch
 from vadc_tpu_torch.kernels import _build
 from vadc_tpu_torch.models.weights import V3_STRIDES, Params
 from vadc_tpu_torch.nn import functional as F
+from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, bf16, pack_operand, store, tier_of
 
 HIDDEN = 64
 N_FEAT = 129
@@ -50,6 +57,12 @@ _ALIGN = 4  # floats: every packed tensor starts 16-byte aligned
 # stored transposed ([in, out]; dw_w as [5, C]) so neighbouring threads of
 # the kernel read neighbouring weights
 _TRANSPOSED = {"dw_w", "pw_w", "proj_w", "qkv_w", "att_proj_w", "lin1_w", "lin2_w", "conv_w"}
+# the weights of products, packed as the tier's operands (csrc/tier.cuh)
+_PRODUCTS = {"pw_w", "proj_w", "qkv_w", "att_proj_w", "lin1_w", "lin2_w", "conv_w",
+             "lstm_w0", "lstm_w1", "dec_w"}
+# what turbo's bf16 encoder ops read as bf16 (the JAX package's `astype`s)
+_BF16_IN_TURBO = {"dw_w", "dw_b", "pw_b", "proj_b", "qkv_b", "att_proj_b", "lin1_b", "lin2_b",
+                  "conv_b", "bn_scale", "bn_shift"}
 
 
 class PackedWeights:
@@ -58,19 +71,26 @@ class PackedWeights:
     Every tensor starts at a multiple of 4 floats (zeros between), so the
     kernel can copy a matrix to shared memory 16 bytes at a time.
     Batch norm is folded to scale = w / sqrt(var + eps), shift = b -
-    mean * scale; a BN-folded archive gets scale 1, shift 0."""
+    mean * scale; a BN-folded archive gets scale 1, shift 0. At a bf16 tier
+    the products' weights are packed as its operands, and in turbo the
+    weights of the bf16 encoder ops are rounded to bf16."""
 
-    def __init__(self, params: dict):
+    def __init__(self, params: dict, tier: Tier = FAITHFUL):
         pieces: list[torch.Tensor] = []
         offsets: list[int] = []
         cursor = 0
 
-        def put(t: torch.Tensor | None) -> None:
+        def put(t: torch.Tensor | None, slot: str) -> None:
             nonlocal cursor
             if t is None:
                 offsets.append(-1)
                 return
-            flat = t.detach().to(torch.float32).reshape(-1)
+            t = t.detach().to(torch.float32)
+            if slot in _PRODUCTS:
+                t = pack_operand(t, tier.products)
+            elif tier.bf16_storage and slot in _BF16_IN_TURBO:
+                t = bf16(t)
+            flat = t.reshape(-1)
             gap = -cursor % _ALIGN
             if gap:
                 pieces.append(flat.new_zeros(gap))
@@ -90,25 +110,25 @@ class PackedWeights:
                 )
             if ("proj_w" in p) != (cin != cout):
                 raise ValueError(f"stage {st + 1}: projection presence does not match widths")
+            scale, shift = _folded_bn(p)
             for slot in _STAGE_SLOTS:
                 if slot == "bn_scale":
-                    scale, shift = _folded_bn(p)
-                    put(scale)
+                    put(scale, slot)
                     continue
                 if slot == "bn_shift":
-                    put(shift)
+                    put(shift, slot)
                     continue
                 t = p.get(slot)
-                put(t.T if (t is not None and slot in _TRANSPOSED) else t)
+                put(t.T if (t is not None and slot in _TRANSPOSED) else t, slot)
         lstm_w, lstm_b = params["lstm_w"], params["lstm_b"]
         if tuple(lstm_w.shape) != (2, 4 * HIDDEN, 2 * HIDDEN):
             raise ValueError(f"lstm_w {tuple(lstm_w.shape)} is not [2, 256, 128]")
-        put(lstm_w[0].T)
-        put(lstm_w[1].T)
-        put(lstm_b[0])
-        put(lstm_b[1])
-        put(params["dec_w"])
-        put(params["dec_b"])
+        put(lstm_w[0].T, "lstm_w0")
+        put(lstm_w[1].T, "lstm_w1")
+        put(lstm_b[0], "lstm_b0")
+        put(lstm_b[1], "lstm_b1")
+        put(params["dec_w"], "dec_w")
+        put(params["dec_b"], "dec_b")
         assert len(offsets) == len(STAGE_WIDTHS) * len(_STAGE_SLOTS) + len(_TAIL_SLOTS)
         self.buffer = torch.cat(pieces).contiguous()
         self.offsets = np.asarray(offsets, np.int32)
@@ -127,20 +147,26 @@ def _folded_bn(p: dict) -> tuple[torch.Tensor, torch.Tensor]:
     return scale, p["bn_b"] - p["bn_mean"] * scale
 
 
-def pack_weights(params: Params) -> PackedWeights:
-    """The packed buffer of a param tree, built once per Params object."""
-    return params.derived("silero_v31_fused", lambda: PackedWeights(params))
+def pack_weights(params: Params, tier: Tier = FAITHFUL) -> PackedWeights:
+    """The packed buffer of a param tree for a tier, built once per Params
+    object and tier."""
+    return params.derived(
+        "silero_v31_fused" if tier is FAITHFUL else f"silero_v31_fused_{tier.name}",
+        lambda: PackedWeights(params, tier),
+    )
 
 
 def forward_fused2d_reference(
-    params: dict, feats: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+    params: dict, feats: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+    tier: Tier | str = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version: the four encoder stages, the LSTM and the v3 decoder
-    of nn/functional. feats [B, S0, 129]; h, c [2, B, 64] -> (probs [B],
-    hn, cn)."""
-    x = encode_fused_reference(params, feats)
-    out, hn, cn = F.lstm(x, h, c, params["lstm_w"], params["lstm_b"])
-    return F.decoder_v3_nlc(out, params["dec_w"], params["dec_b"]), hn, cn
+    of nn/functional at the tier. feats [B, S0, 129]; h, c [2, B, 64] ->
+    (probs [B], hn, cn)."""
+    tier = tier_of(tier)
+    x = encode_fused_reference(params, feats, tier)
+    out, hn, cn = F.lstm(x, h, c, params["lstm_w"], params["lstm_b"], tier)
+    return F.decoder_v3_nlc(out, params["dec_w"], params["dec_b"], tier), hn, cn
 
 
 def forward_fused2d(
@@ -151,22 +177,25 @@ def forward_fused2d(
     *,
     hn: torch.Tensor | None = None,
     cn: torch.Tensor | None = None,
+    tier: Tier | str = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Encoder + LSTM + decoder over normalized features.
+    """Encoder + LSTM + decoder over normalized features, at the precision
+    tier.
 
     feats [B, S0, 129] with S0 in 9..25; h, c [2, B, 64]. Returns (probs
     [B], hn, cn). The new state goes to `hn`/`cn` when given, which may BE
     `h`/`c` (the state is then updated in place, as the JAX runner's
     donated buffers are); otherwise to new tensors. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel or raises."""
+    tier = tier_of(tier)
     if feats.device.type == "cpu":
-        probs, h_new, c_new = forward_fused2d_reference(params, feats, h, c)
+        probs, h_new, c_new = forward_fused2d_reference(params, feats, h, c, tier)
         if hn is not None:
             h_new = hn.copy_(h_new)
         if cn is not None:
             c_new = cn.copy_(c_new)
         return probs, h_new, c_new
-    packed = pack_weights(params)
+    packed = pack_weights(params, tier)
     batch, seq0 = feats.shape[0], feats.shape[1]
     if hn is None:
         hn = torch.empty_like(h)
@@ -179,7 +208,7 @@ def forward_fused2d(
         packed.buffer.data_ptr(), packed._c_offsets, len(packed.offsets),
         feats.data_ptr(), h.data_ptr(), c.data_ptr(),
         probs.data_ptr(), hn.data_ptr(), cn.data_ptr(),
-        batch, seq0, torch.cuda.current_stream(feats.device).cuda_stream,
+        batch, seq0, tier.index, torch.cuda.current_stream(feats.device).cuda_stream,
     )
     _build.check(status, "forward_fused2d")
     forward_fused2d.launches += 1
@@ -197,31 +226,36 @@ def out_frames(seq0: int) -> int:
     return seq0
 
 
-def encode_fused_reference(params: dict, feats: torch.Tensor) -> torch.Tensor:
+def encode_fused_reference(
+    params: dict, feats: torch.Tensor, tier: Tier | str = FAITHFUL
+) -> torch.Tensor:
     """Plain version: the four encoder stages of nn/functional
-    (`silero_v31.encode_nlc` after the normalization). feats [R, S0, 129]
-    -> [R, T, 64]."""
-    x = feats
+    (`silero_v31.encode_nlc` after the normalization) at the tier, from the
+    features as the tier stores them. feats [R, S0, 129] -> [R, T, 64]."""
+    tier = tier_of(tier)
+    x = store(feats, tier)
     for p, stride in zip(params["layers"], V3_STRIDES):
-        x = F.transformer_layer_nlc(x, p, stride=stride)
+        x = F.transformer_layer_nlc(x, p, stride=stride, tier=tier)
     return x
 
 
-def encode_fused(params: Params, feats: torch.Tensor) -> torch.Tensor:
-    """The four encoder stages over normalized features: feats [R, S0, 129]
-    with S0 in 9..25 -> [R, T, 64], T = 3..7. The rows are independent (R
-    is streams x chunks on the slab route). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+def encode_fused(params: Params, feats: torch.Tensor, tier: Tier | str = FAITHFUL) -> torch.Tensor:
+    """The four encoder stages over normalized features at the precision
+    tier: feats [R, S0, 129] with S0 in 9..25 -> [R, T, 64], T = 3..7. The
+    rows are independent (R is streams x chunks on the slab route). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    tier = tier_of(tier)
     if feats.device.type == "cpu":
-        return encode_fused_reference(params, feats)
-    packed = pack_weights(params)
+        return encode_fused_reference(params, feats, tier)
+    packed = pack_weights(params, tier)
     _check_feats("encode_fused", packed, feats)
     rows, seq0 = feats.shape[0], feats.shape[1]
     out = torch.empty(rows, out_frames(seq0), HIDDEN, dtype=torch.float32, device=feats.device)
     lib = _build.library()
     status = lib.vadc_silero_v31_encode(
         packed.buffer.data_ptr(), packed._c_offsets, len(packed.offsets),
-        feats.data_ptr(), out.data_ptr(), rows, seq0,
+        feats.data_ptr(), out.data_ptr(), rows, seq0, tier.index,
         torch.cuda.current_stream(feats.device).cuda_stream,
     )
     _build.check(status, "encode_fused")

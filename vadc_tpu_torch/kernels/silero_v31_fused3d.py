@@ -14,13 +14,14 @@ from vadc_tpu_torch.kernels.silero_v31_fused2d import (
     forward_fused2d,
     forward_fused2d_reference,
 )
+from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, tier_of
 
 
 def forward_fused3d_reference(
-    params: dict, feats: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+    params: dict, feats: torch.Tensor, h: torch.Tensor, c: torch.Tensor, tier: Tier = FAITHFUL
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version (the same as forward_fused2d_reference)."""
-    return forward_fused2d_reference(params, feats, h, c)
+    return forward_fused2d_reference(params, feats, h, c, tier_of(tier))
 
 
 def forward_fused3d(
@@ -31,7 +32,8 @@ def forward_fused3d(
     *,
     hn: torch.Tensor | None = None,
     cn: torch.Tensor | None = None,
+    tier: Tier | str = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """feats [B, S0, 129]; h, c [2, B, 64] -> (probs [B], hn, cn); see
-    forward_fused2d for the state and device rules."""
-    return forward_fused2d(params, feats, h, c, hn=hn, cn=cn)
+    forward_fused2d for the state, device and tier rules."""
+    return forward_fused2d(params, feats, h, c, hn=hn, cn=cn, tier=tier)

@@ -4,8 +4,11 @@ magnitude fused in, so the full spectrum never reaches device memory.
 Counterpart of vadc_tpu/kernels/stft_dotmag.py (`dot_magnitude`,
 `split_basis`). The CUDA kernel is `csrc/stft_dotmag.cu`; its header says
 what bounds it on an H100 and how it is built. The JAX package routes only
-its bf16 tiers through the Pallas kernel, for Mosaic speed reasons; the
-function is the same, and the port runs it at the faithful tier in fp32.
+its bf16 tiers through the Pallas kernel, for Mosaic speed reasons; the port
+has an instance of each tier (`nn.precision`: fp32 products at faithful,
+bf16_3x on fp32 frames at balanced and fast, bf16 frames and bases at
+turbo, the JAX package's own bf16-operand use) and `models.silero_v31.
+features` passes its tier.
 
 The spectrum kernels (this one, `stft_mag.stft_magnitude` and the v3.1 step
 kernel) read the bases packed as `padded_basis` builds them; the wrappers
@@ -18,6 +21,7 @@ import torch
 
 from vadc_tpu_torch.kernels import _build
 from vadc_tpu_torch.nn import functional as F
+from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, pack_operand, tier_of
 
 #: (n_fft, cutoff) of the kernels' instances (csrc/stft_mag.cu,
 #: csrc/stft_dotmag.cu) -> frame rows a block computes at once
@@ -36,25 +40,31 @@ def bins_ld(cutoff: int) -> int:
     return -(-cutoff // 4) * 4
 
 
-def padded_basis(wr: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
+def padded_basis(wr: torch.Tensor, wi: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
     """(wr, wi) [n_fft, cutoff] -> [n_fft, 2, bins_ld(cutoff)]: tap k's real
     then imaginary basis row, each padded with zeros, so that a slice of
-    taps is one contiguous run of 16-byte aligned rows."""
+    taps is one contiguous run of 16-byte aligned rows; packed for products
+    of `mode` (nn.precision.pack_operand; a zero packs as zero)."""
     n_fft, cutoff = wr.shape
     out = torch.zeros(n_fft, 2, bins_ld(cutoff), dtype=torch.float32, device=wr.device)
-    out[:, 0, :cutoff] = wr
-    out[:, 1, :cutoff] = wi
+    out[:, 0, :cutoff] = pack_operand(wr, mode)
+    out[:, 1, :cutoff] = pack_operand(wi, mode)
     return out
 
 
-def packed_basis(wr: torch.Tensor, wi: torch.Tensor, who: str = "packed_basis") -> torch.Tensor:
-    """padded_basis(wr, wi), built once per pair of tensors (again if either
-    was written to since), after checking them: fp32, one [n_fft, cutoff]
-    shape, one device. Kept on wr itself, so it lives as long as wr, and
-    found again with one attribute read: the wrappers call this on every
-    launch."""
+def packed_basis(
+    wr: torch.Tensor, wi: torch.Tensor, who: str = "packed_basis", mode: str = "fp32"
+) -> torch.Tensor:
+    """padded_basis(wr, wi, mode), built once per pair of tensors and mode
+    (again if either was written to since), after checking them: fp32, one
+    [n_fft, cutoff] shape, one device. Kept on wr itself, so it lives as
+    long as wr, and found again with one attribute read: the wrappers call
+    this on every launch."""
     versions = (wr._version, wi._version)
-    hit = getattr(wr, "_vadc_packed_basis", None)
+    cache = getattr(wr, "_vadc_packed_basis", None)
+    if cache is None:
+        cache = wr._vadc_packed_basis = {}
+    hit = cache.get(mode)
     if hit is None or hit[0] is not wi or hit[1] != versions:
         for name, t in (("wr", wr), ("wi", wi)):
             if t.dtype != torch.float32:
@@ -64,8 +74,8 @@ def packed_basis(wr: torch.Tensor, wi: torch.Tensor, who: str = "packed_basis") 
                 f"{who}: bases {tuple(wr.shape)} on {wr.device}, {tuple(wi.shape)} on "
                 f"{wi.device} must be one [n_fft, cutoff] shape on one device"
             )
-        hit = (wi, versions, padded_basis(wr, wi))
-        wr._vadc_packed_basis = hit
+        hit = (wi, versions, padded_basis(wr, wi, mode))
+        cache[mode] = hit
     return hit[2]
 
 
@@ -79,32 +89,39 @@ def check_geometry(who: str, n_fft: int, cutoff: int) -> None:
 
 
 def dot_magnitude_reference(
-    frames: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor
+    frames: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor, tier: Tier = FAITHFUL
 ) -> torch.Tensor:
-    """Plain version: sqrt((frames @ wr)^2 + (frames @ wi)^2), fp32."""
-    return F.spectrum_magnitude(frames, wr, wi)
+    """Plain version: sqrt((frames @ wr)^2 + (frames @ wi)^2), fp32 sums, the
+    products at the tier's STFT operands."""
+    return F.spectrum_magnitude(frames, wr, wi, tier_of(tier).stft)
 
 
-def dot_magnitude(frames: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
+def dot_magnitude(
+    frames: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor, tier: Tier | str = FAITHFUL
+) -> torch.Tensor:
     """frames [B, F, n_fft] (or [rows, n_fft]) x (wr, wi) [n_fft, cutoff]
-    -> magnitude [B, F, cutoff] (or [rows, cutoff]), fp32.
+    -> magnitude [B, F, cutoff] (or [rows, cutoff]), fp32, the products at
+    the tier's STFT operands (the bf16 tiers at n_fft 256 only).
 
     frames may be a strided view, such as the unfold of the padded audio,
     as long as its last dim has unit stride: the kernel frames by address
     arithmetic. A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel (built at first use) or raises."""
+    tier = tier_of(tier)
     if frames.dim() == 2:  # the JAX signature's [rows, n_fft]
-        return dot_magnitude(frames[None], wr, wi)[0]
+        return dot_magnitude(frames[None], wr, wi, tier)[0]
     if frames.device.type == "cpu":
-        return dot_magnitude_reference(frames, wr, wi)
+        return dot_magnitude_reference(frames, wr, wi, tier)
     _check(frames, wr, wi)
     n_fft, cutoff = wr.shape
-    basis = packed_basis(wr, wi, "dot_magnitude")
+    if tier is not FAITHFUL and (n_fft, cutoff) != (256, 129):
+        raise ValueError(f"dot_magnitude: the {tier} instance takes n_fft 256 with 129 bins")
+    basis = packed_basis(wr, wi, "dot_magnitude", tier.stft)
     out = torch.empty(*frames.shape[:-1], cutoff, dtype=torch.float32, device=frames.device)
     lib = _build.library()
     status = lib.vadc_dot_magnitude(
         frames.data_ptr(), frames.shape[0], frames.shape[1], frames.stride(0), frames.stride(1),
-        basis.data_ptr(), n_fft, cutoff, out.data_ptr(),
+        basis.data_ptr(), n_fft, cutoff, out.data_ptr(), tier.index,
         torch.cuda.current_stream(frames.device).cuda_stream,
     )
     _build.check(status, "dot_magnitude")

@@ -48,12 +48,14 @@ def split_basis_of(params) -> tuple[torch.Tensor, torch.Tensor]:
     return params.derived("stft_split_basis", lambda: split_basis(params["stft_basis"]))
 
 
-def padded_basis_of(params) -> torch.Tensor:
+def padded_basis_of(params, mode: str = "fp32") -> torch.Tensor:
     """The STFT bases as the spectrum kernels read them: [n_fft, 2,
     bins_ld(cutoff)], tap k's real then imaginary basis row, each padded
-    with zeros to a multiple of 4 bins (stft_dotmag.padded_basis). Built once
-    per Params object."""
-    return params.derived("stft_padded_basis", lambda: padded_basis(*split_basis_of(params)))
+    with zeros to a multiple of 4 bins (stft_dotmag.padded_basis), packed for
+    products of `mode` (a tier's `stft`). Built once per Params object and
+    mode."""
+    key = "stft_padded_basis" if mode == "fp32" else f"stft_padded_basis_{mode}"
+    return params.derived(key, lambda: padded_basis(*split_basis_of(params), mode))
 
 
 def staged_floats(n_frames: int, hop: int, n_fft: int) -> int:

@@ -29,8 +29,11 @@ Which path launches which kernel:
   * `forward_minibatched`, the CLI's path through `MinibatchRunner`, is
     `forward_scan` at B = 1 over the window's N chunks.
 
-On a CUDA tensor the wrappers launch the CUDA kernels; on a CPU tensor they
-run their plain versions. `forward_reference` and
+Every function takes the precision tier (`nn.precision`: faithful,
+balanced, fast, turbo; a name or a Tier, default faithful) and passes it to
+every kernel it launches, each of which has an instance of each tier. On a
+CUDA tensor the wrappers launch the CUDA kernels; on a CPU tensor they run
+their plain versions. `forward_reference` and
 `forward_minibatched_reference` are the JAX package's `forward` and
 `forward_minibatched` written with the plain ops of nn/functional, on any
 device.
@@ -47,6 +50,7 @@ from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
 from vadc_tpu_torch.kernels.stft_mag import split_basis_of
 from vadc_tpu_torch.models.weights import V3_STRIDES, Params
 from vadc_tpu_torch.nn import functional as F
+from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, tier_of
 
 SAMPLE_RATE = 16000
 CHUNK_SAMPLES_DEFAULT = 1536  # 96 ms; any multiple of 256 in [512, 1536]
@@ -68,8 +72,8 @@ def init_state(n_streams: int, device="cpu") -> tuple[torch.Tensor, torch.Tensor
     )
 
 
-def features(params: Params, audio: torch.Tensor) -> torch.Tensor:
-    """Front-end: audio [B, S] -> normalized features [B, F, 129].
+def features(params: Params, audio: torch.Tensor, tier: Tier | str = FAITHFUL) -> torch.Tensor:
+    """Front-end at the tier: audio [B, S] -> normalized features [B, F, 129].
 
     The framing is a view (reflect pad, then unfold); the spectrum product
     and its magnitude are the dot_magnitude kernel; the adaptive
@@ -77,20 +81,24 @@ def features(params: Params, audio: torch.Tensor) -> torch.Tensor:
     The front-end for callers of `forward_fused2d` and `encode_fused`; the
     model's own paths run theirs inside `forward_fused` and
     `encode_fused_audio`."""
+    tier = tier_of(tier)
     basis = params["stft_basis"]
     frames = F.frame(F.reflect_pad_last(audio, STFT_PAD, STFT_PAD), basis.shape[1], STFT_HOP)
     wr, wi = split_basis_of(params)
-    return F.adaptive_audio_normalization_nlc(dot_magnitude(frames, wr, wi))
+    return F.adaptive_audio_normalization_nlc(dot_magnitude(frames, wr, wi, tier), tier)
 
 
-def encode_nlc(params: dict, audio: torch.Tensor) -> torch.Tensor:
-    """Plain front-end + encoder: audio [B, S] -> features [B, T, 64]."""
+def encode_nlc(params: dict, audio: torch.Tensor, tier: Tier | str = FAITHFUL) -> torch.Tensor:
+    """Plain front-end + encoder at the tier: audio [B, S] -> features [B,
+    T, 64] (the JAX package's `encode_nlc` under `precision_mode(tier)`)."""
+    tier = tier_of(tier)
     spect = F.stft_magnitude_nlc(
-        audio, params["stft_basis"], pad_left=STFT_PAD, pad_right=STFT_PAD, hop=STFT_HOP
+        audio, params["stft_basis"], pad_left=STFT_PAD, pad_right=STFT_PAD, hop=STFT_HOP,
+        tier=tier,
     )
-    x = F.adaptive_audio_normalization_nlc(spect)
+    x = F.adaptive_audio_normalization_nlc(spect, tier)
     for layer_params, stride in zip(params["layers"], V3_STRIDES):
-        x = F.transformer_layer_nlc(x, layer_params, stride=stride)
+        x = F.transformer_layer_nlc(x, layer_params, stride=stride, tier=tier)
     return x
 
 
@@ -102,11 +110,12 @@ def forward(
     *,
     hn: torch.Tensor | None = None,
     cn: torch.Tensor | None = None,
+    tier: Tier | str = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched independent-stream forward: audio [B, S]; h, c [2, B, 64]
     -> (probs [B], hn, cn). `hn`/`cn` may be `h`/`c` to update the state
     in place (see forward_fused)."""
-    return forward_fused(params, audio, h, c, hn=hn, cn=cn)
+    return forward_fused(params, audio, h, c, hn=hn, cn=cn, tier=tier)
 
 
 def forward_scan(
@@ -117,6 +126,7 @@ def forward_scan(
     *,
     hn: torch.Tensor | None = None,
     cn: torch.Tensor | None = None,
+    tier: Tier | str = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A slab of K consecutive chunks of each of B independent streams:
     audio [B, K, S]; h, c [2, B, 64] -> (probs [B, K], hn, cn), equal to K
@@ -126,23 +136,26 @@ def forward_scan(
     The front-end and the encoder are per chunk, so they run over the B*K
     chunks as one batch; the LSTM and the decoder then walk each stream's K
     chunks in order in one kernel. `hn`/`cn` may be `h`/`c` to update the
-    state in place."""
+    state in place. Both kernels run the tier's instance, which share its
+    products and tanh, so the slab still equals the loop of steps."""
+    tier = tier_of(tier)
     n_streams, n_chunks, samples = audio.shape
     flat = audio.reshape(n_streams * n_chunks, samples)
     pieces = [
-        encode_fused_audio(params, flat[r0 : r0 + SCAN_ROWS])
+        encode_fused_audio(params, flat[r0 : r0 + SCAN_ROWS], tier)
         for r0 in range(0, flat.shape[0], SCAN_ROWS)
     ]
     enc = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
     x = enc.reshape(n_streams, n_chunks, enc.shape[1], HIDDEN)
     return lstm_decoder_fused(
         x, h, c, params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"],
-        hn=hn, cn=cn, wt=transposed_weight_of(params),
+        hn=hn, cn=cn, wt=transposed_weight_of(params, tier.products), tier=tier,
     )
 
 
 def forward_minibatched(
-    params: Params, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+    params: Params, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+    tier: Tier | str = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Reference-parity forward: the N rows of audio [N, S] are consecutive
     chunks of ONE stream; h, c [2, 1, 64]. Returns (probs [N], hn, cn).
@@ -154,24 +167,31 @@ def forward_minibatched(
     chunks at once, then the LSTM and the decoder through the chunks in
     order in one launch. That is exactly the flattened-sequence semantics
     (forward_minibatched_reference computes it the flattened way)."""
-    probs, hn, cn = forward_scan(params, audio[None], h, c)
+    probs, hn, cn = forward_scan(params, audio[None], h, c, tier=tier)
     return probs[0], hn, cn
 
 
 def forward_reference(
-    params: dict, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+    params: dict, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+    tier: Tier | str = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain independent-stream forward (the JAX package's `forward`)."""
-    out, hn, cn = F.lstm(encode_nlc(params, audio), h, c, params["lstm_w"], params["lstm_b"])
-    return F.decoder_v3_nlc(out, params["dec_w"], params["dec_b"]), hn, cn
+    """Plain independent-stream forward (the JAX package's `forward`) at the
+    tier."""
+    tier = tier_of(tier)
+    out, hn, cn = F.lstm(
+        encode_nlc(params, audio, tier), h, c, params["lstm_w"], params["lstm_b"], tier
+    )
+    return F.decoder_v3_nlc(out, params["dec_w"], params["dec_b"], tier), hn, cn
 
 
 def forward_minibatched_reference(
-    params: dict, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+    params: dict, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+    tier: Tier | str = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain minibatched forward (the JAX package's `forward_minibatched`):
-    the N chunks' frames flattened into one LSTM sequence."""
+    """Plain minibatched forward (the JAX package's `forward_minibatched`)
+    at the tier: the N chunks' frames flattened into one LSTM sequence."""
+    tier = tier_of(tier)
     out, hn, cn = F.lstm_minibatched(
-        encode_nlc(params, audio), h, c, params["lstm_w"], params["lstm_b"]
+        encode_nlc(params, audio, tier), h, c, params["lstm_w"], params["lstm_b"], tier
     )
-    return F.decoder_v3_nlc(out, params["dec_w"], params["dec_b"]), hn, cn
+    return F.decoder_v3_nlc(out, params["dec_w"], params["dec_b"], tier), hn, cn

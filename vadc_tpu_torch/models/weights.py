@@ -241,21 +241,32 @@ def load_params_from_tensors(
     return family, silero_v4_params(tensors, sample_rate, device)
 
 
-def load_params(path: str | Path, device="cpu") -> tuple[str, Params]:
-    """Load model weights from a .testtensor archive (any family) or a
-    plain v3 .onnx graph (through the numpy extractor of export/), returning
-    (family, params)."""
+def load_params(
+    path: str | Path, device="cpu", sample_rate: int = 16000
+) -> tuple[str, Params]:
+    """Load model weights from a .testtensor archive (any family) or an
+    .onnx graph (through the numpy extractors of export/), returning
+    (family, params).
+
+    sample_rate selects the branch of fused v4/v5 .onnx graphs, which carry
+    both rates (vadc_tpu/models/weights.py load_params routes it the same
+    way); a plain v3 graph has only 16 kHz. Testtensor archives record their
+    rate in `meta.sample_rate` and ignore this argument."""
     path = Path(path)
     if path.suffix.lower() == ".onnx":
         from vadc_tpu_torch.export.onnx_extract import classify_model
         from vadc_tpu_torch.export.silero_v3_from_onnx import extract_silero_v3
+        from vadc_tpu_torch.export.silero_v4_from_onnx import extract_silero_v4
+        from vadc_tpu_torch.export.silero_v5_from_onnx import extract_silero_v5
 
         family = classify_model(path)
-        if family != "v3":
-            raise NotImplementedError(
-                f"loading a {family!r} .onnx graph is not ported yet (ROADMAP.md, "
-                "Queue 1: 'v4/v5 .onnx loading and --sr', which waits for a v4 "
-                ".onnx in the repository); load a .testtensor archive instead"
-            )
-        return load_params_from_tensors(extract_silero_v3(path), device)
+        if family == "v5":
+            tensors = extract_silero_v5(path, sample_rate)
+        elif family == "v4":
+            tensors = extract_silero_v4(path, sample_rate)
+        else:
+            if sample_rate != 16000:
+                raise ValueError("v3 models have no 8 kHz branch (16 kHz only)")
+            tensors = extract_silero_v3(path)
+        return load_params_from_tensors(tensors, device)
     return load_params_from_tensors(load_testtensor(path), device)

@@ -5,10 +5,14 @@ and layouts ([batch, length, channels]) so the tests compare like with like.
 These are the plain versions that the CPU runs and that the CUDA kernels are
 held against on the card.
 
-Only the faithful tier exists here: every product runs in fp32 (on the card
-with TF32 off, vadc_tpu_torch.runtime.require_cuda), tanh and log1p are the
-accurate forms the JAX package selects at that tier. Precision is an
-argument of the callers (runners, CLI), never a module global.
+The ops of the v3.1 path take the precision tier as an argument (a
+`nn.precision.Tier`, default faithful; never a module global): the tier's
+products, tanh, log1p and, in turbo, bf16 storage of the encoder's
+activations, as nn/precision.py defines them. At the faithful tier every
+product runs in fp32 (on the card with TF32 off,
+vadc_tpu_torch.runtime.require_cuda), and tanh and log1p are the accurate
+forms the JAX package selects at that tier. The v4 and v5 ops are faithful
+only.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import math
 
 import torch
 import torch.nn.functional as tnf
+
+from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, bf16, matmul_at, store, tanh_at
 
 # 7-tap smoothing filter of AdaptiveAudioNormalization (reference
 # misc.c:5-13; the v3 checkpoint's `adaptive_normalization.filter_`).
@@ -34,12 +40,24 @@ LAYER_NORM_EPS = 1e-5
 BATCH_NORM_EPS = 1e-5
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """`x @ w.T + b` with PyTorch weight convention w: [out, in]."""
-    y = torch.matmul(x, w.T)
+def linear(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, tier: Tier = FAITHFUL
+) -> torch.Tensor:
+    """`x @ w.T + b` with PyTorch weight convention w: [out, in], the
+    product at the tier, fp32 out."""
+    y = matmul_at(x, w.T, tier.products)
     if b is not None:
         y = y + b
     return y
+
+
+def linear_at(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, tier: Tier) -> torch.Tensor:
+    """The encoder's linear: `linear`, and in turbo the JAX package's bf16
+    result, bf16(bf16(x @ w.T) + bf16(b))."""
+    if not tier.bf16_storage:
+        return linear(x, w, b, tier)
+    y = bf16(matmul_at(x, w.T, tier.products))
+    return y if b is None else bf16(y + bf16(b))
 
 
 def reflect_pad_last(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
@@ -55,17 +73,25 @@ def frame(x: torch.Tensor, frame_len: int, hop: int) -> torch.Tensor:
     return x.unfold(-1, frame_len, hop)
 
 
-def spectrum_magnitude(frames: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
-    """sqrt((frames @ wr)^2 + (frames @ wi)^2), fp32: frames [..., n_fft],
-    wr/wi [n_fft, cutoff] the real and imaginary halves of the basis,
-    transposed."""
-    real = torch.matmul(frames, wr)
-    imag = torch.matmul(frames, wi)
+def spectrum_magnitude(
+    frames: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor, mode: str = "fp32"
+) -> torch.Tensor:
+    """sqrt((frames @ wr)^2 + (frames @ wi)^2), fp32 sums: frames [...,
+    n_fft], wr/wi [n_fft, cutoff] the real and imaginary halves of the
+    basis, transposed; the products' operands of `mode` (a tier's `stft`)."""
+    real = matmul_at(frames, wr, mode)
+    imag = matmul_at(frames, wi, mode)
     return torch.sqrt(real * real + imag * imag)
 
 
 def stft_magnitude_nlc(
-    audio: torch.Tensor, basis: torch.Tensor, *, pad_left: int, pad_right: int, hop: int
+    audio: torch.Tensor,
+    basis: torch.Tensor,
+    *,
+    pad_left: int,
+    pad_right: int,
+    hop: int,
+    tier: Tier = FAITHFUL,
 ) -> torch.Tensor:
     """STFT magnitude, frames-major: audio [B, S] -> [B, F, cutoff].
 
@@ -75,11 +101,17 @@ def stft_magnitude_nlc(
     kernel's plain version computes it: log1p(2^20 x) downstream (v3, v4)
     turns any rounding difference at a near-zero bin into a large feature
     difference, so the two must not differ in rounding. This function is
-    also the plain version of the stft_magnitude kernel."""
+    also the plain version of the stft_magnitude kernel. At a bf16 tier the
+    products take the v3.1 STFT's operands of the tier (bf16_3x on fp32
+    samples at balanced and fast, where log1p(2^20 x) downstream would
+    amplify bf16's noise floor; bf16 samples and basis at turbo: the JAX
+    package's `_stft_precision`)."""
     n_fft = basis.shape[1]
     cutoff = basis.shape[0] // 2
     frames = frame(reflect_pad_last(audio, pad_left, pad_right), n_fft, hop)
-    return spectrum_magnitude(frames, basis[:cutoff].T.contiguous(), basis[cutoff:].T.contiguous())
+    return spectrum_magnitude(
+        frames, basis[:cutoff].T.contiguous(), basis[cutoff:].T.contiguous(), tier.stft
+    )
 
 
 def accurate_log1p(y: torch.Tensor) -> torch.Tensor:
@@ -107,28 +139,44 @@ def accurate_log1p(y: torch.Tensor) -> torch.Tensor:
 
 def accurate_tanh(x: torch.Tensor) -> torch.Tensor:
     """fp32 tanh to ~2e-6 abs: sign(x) * (1 - e) / (1 + e), e = exp(-2|x|)."""
-    e = torch.exp(-2.0 * torch.abs(x))
-    return torch.sign(x) * (1.0 - e) / (1.0 + e)
+    return tanh_at(x, FAITHFUL)
 
 
-def adaptive_audio_normalization_nlc(spect: torch.Tensor) -> torch.Tensor:
+def log1p_at(y: torch.Tensor, tier: Tier) -> torch.Tensor:
+    """The tier's log1p: the 1-ulp series at faithful, the builtin at the
+    bf16 tiers (vadc_tpu functional._log1p)."""
+    return accurate_log1p(y) if tier.series_log1p else torch.log1p(y)
+
+
+def adaptive_audio_normalization_nlc(spect: torch.Tensor, tier: Tier = FAITHFUL) -> torch.Tensor:
     """Adaptive normalization over [B, F, C] (channels last): log1p(2^20 x),
-    per-frame channel mean, reflect-pad 3, 7-tap smoothing, frame mean,
-    subtracted from the whole spectrogram (reference misc.c:1-124)."""
-    spect_e = accurate_log1p(spect * 1048576.0)
+    per-frame channel mean, reflect-pad 3, 7-tap smoothing (fp32 at every
+    tier: nn/precision.py), frame mean, subtracted from the whole
+    spectrogram (reference misc.c:1-124); turbo stores the result as bf16,
+    where its bf16 encoder begins."""
+    spect_e = log1p_at(spect * 1048576.0, tier)
     mean = torch.mean(spect_e, dim=-1)  # [B, F]
     mean_padded = reflect_pad_last(mean, 3, 3)
     taps = torch.tensor(ADAPTIVE_NORM_FILTER, dtype=spect.dtype, device=spect.device)
     smoothed = torch.matmul(frame(mean_padded, 7, 1), taps)  # [B, F]
     mean_mean = torch.mean(smoothed, dim=-1)[:, None, None]
-    return spect_e - mean_mean
+    return store(spect_e - mean_mean, tier)
 
 
-def depthwise_conv5_nlc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def depthwise_conv5_nlc(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tier: Tier = FAITHFUL
+) -> torch.Tensor:
     """Depthwise k5 pad2 conv over [B, L, C]; w [C, 5] (cross-correlation,
-    five shifted scales summed in tap order)."""
+    five shifted scales summed in tap order). Elementwise, so fp32 at every
+    tier but turbo, where each product and sum is a bf16 op."""
     xp = tnf.pad(x, (0, 0, 2, 2))
     length = x.shape[1]
+    if tier.bf16_storage:
+        w, b = bf16(w), bf16(b)
+        y = bf16(xp[:, 0:length, :] * w[:, 0])
+        for k in range(1, 5):
+            y = bf16(y + bf16(xp[:, k : k + length, :] * w[:, k]))
+        return bf16(y + b)
     y = xp[:, 0:length, :] * w[:, 0]
     for k in range(1, 5):
         y = y + xp[:, k : k + length, :] * w[:, k]
@@ -143,15 +191,16 @@ def conv_block_nlc(
     pw_b: torch.Tensor,
     proj_w: torch.Tensor | None,
     proj_b: torch.Tensor | None,
+    tier: Tier = FAITHFUL,
 ) -> torch.Tensor:
     """ConvBlock over [B, L, C]: relu(pw(relu(dw(x))) + proj(x)); the
     residual is the identity where the stage has no projection (stage 3)."""
-    h = torch.relu(depthwise_conv5_nlc(x, dw_w, dw_b))
-    h = linear(h, pw_w, pw_b)
+    h = torch.relu(depthwise_conv5_nlc(x, dw_w, dw_b, tier))
+    h = linear_at(h, pw_w, pw_b, tier)
     if proj_w is not None:
-        h = h + linear(x, proj_w, proj_b)
+        h = store(h + linear_at(x, proj_w, proj_b, tier), tier)
     else:
-        h = h + x
+        h = store(h + x, tier)
     return torch.relu(h)
 
 
@@ -163,6 +212,7 @@ def attention(
     proj_b: torch.Tensor,
     *,
     n_heads: int = 2,
+    tier: Tier = FAITHFUL,
 ) -> torch.Tensor:
     """Silero's 2-head self-attention over [B, S, D], k.q^T order.
 
@@ -170,67 +220,88 @@ def attention(
     axis; out = alpha @ v. The score matrix is k-major, unlike the usual
     q-major form, and the two are not equivalent (silero_vad.py:102-124,
     reference transformer.c:13-153). qkv columns are [q | k | v], each split
-    into heads by contiguous column blocks."""
+    into heads by contiguous column blocks. The scores and the mix are fp32
+    at every tier (the JAX package sums them elementwise, outside its matmul
+    precision); turbo stores alpha and the heads' output as bf16."""
     bsz, seq, dim = x.shape
     head_dim = dim // n_heads
-    qkv = linear(x, qkv_w, qkv_b)
+    qkv = linear_at(x, qkv_w, qkv_b, tier)
 
     def heads(t):  # [B, S, D] -> [B, H, S, hd]
         return t.reshape(bsz, seq, n_heads, head_dim).transpose(1, 2)
 
     q, k, v = (heads(t) for t in qkv.split(dim, dim=-1))
     scores = torch.matmul(k, q.transpose(-1, -2)) / math.sqrt(head_dim)  # [B, H, S(k), S(q)]
-    alpha = torch.softmax(scores, dim=-1)
-    out = torch.matmul(alpha, v)  # [B, H, S, hd]
-    return linear(out.transpose(1, 2).reshape(bsz, seq, dim), proj_w, proj_b)
+    alpha = store(torch.softmax(scores, dim=-1), tier)
+    out = store(torch.matmul(alpha, v), tier)  # [B, H, S, hd]
+    return linear_at(out.transpose(1, 2).reshape(bsz, seq, dim), proj_w, proj_b, tier)
 
 
-def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """LayerNorm over the last dim, eps 1e-5, biased variance."""
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tier: Tier = FAITHFUL) -> torch.Tensor:
+    """LayerNorm over the last dim, eps 1e-5, biased variance; statistics in
+    fp32 at every tier, the result stored as the tier stores it."""
     mean = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x - mean), dim=-1, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + LAYER_NORM_EPS) * w + b
+    return store((x - mean) * torch.rsqrt(var + LAYER_NORM_EPS) * w + b, tier)
 
 
-def transformer_block_nlc(x: torch.Tensor, p: dict) -> torch.Tensor:
+def transformer_block_nlc(x: torch.Tensor, p: dict, tier: Tier = FAITHFUL) -> torch.Tensor:
     """Post-norm transformer block over [B, S, C]:
     x + attn(x) -> LN1 -> + linear2(relu(linear1(.))) -> LN2."""
-    h = x + attention(x, p["qkv_w"], p["qkv_b"], p["att_proj_w"], p["att_proj_b"])
-    h = layer_norm(h, p["norm1_w"], p["norm1_b"])
-    ff = linear(torch.relu(linear(h, p["lin1_w"], p["lin1_b"])), p["lin2_w"], p["lin2_b"])
-    return layer_norm(h + ff, p["norm2_w"], p["norm2_b"])
+    att = attention(x, p["qkv_w"], p["qkv_b"], p["att_proj_w"], p["att_proj_b"], tier=tier)
+    h = layer_norm(store(x + att, tier), p["norm1_w"], p["norm1_b"], tier)
+    ff = torch.relu(linear_at(h, p["lin1_w"], p["lin1_b"], tier))
+    ff = linear_at(ff, p["lin2_w"], p["lin2_b"], tier)
+    return layer_norm(store(h + ff, tier), p["norm2_w"], p["norm2_b"], tier)
 
 
-def transformer_layer_nlc(x: torch.Tensor, p: dict, *, stride: int) -> torch.Tensor:
+def transformer_layer_nlc(x: torch.Tensor, p: dict, *, stride: int, tier: Tier = FAITHFUL) -> torch.Tensor:
     """Encoder stage over [B, S, C]: ConvBlock -> TransformerBlock ->
     stride slicing -> 1x1 conv -> BatchNorm (absent in folded archives)
-    -> ReLU."""
+    -> ReLU. In turbo the batch norm is the JAX package's bf16 form: the
+    affine folded in fp32, rounded, applied as two bf16 ops."""
     h = conv_block_nlc(
-        x, p["dw_w"], p["dw_b"], p["pw_w"], p["pw_b"], p.get("proj_w"), p.get("proj_b")
+        x, p["dw_w"], p["dw_b"], p["pw_w"], p["pw_b"], p.get("proj_w"), p.get("proj_b"), tier
     )
-    h = transformer_block_nlc(h, p)
+    h = transformer_block_nlc(h, p, tier)
     if stride != 1:
         h = h[:, ::stride, :]
-    h = linear(h, p["conv_w"], p["conv_b"])
+    h = linear_at(h, p["conv_w"], p["conv_b"], tier)
     if "bn_w" in p:
-        h = batch_norm1d_nlc(h, p["bn_mean"], p["bn_var"], p["bn_w"], p["bn_b"])
+        if tier.bf16_storage:
+            scale = p["bn_w"] * torch.rsqrt(p["bn_var"] + BATCH_NORM_EPS)
+            shift = p["bn_b"] - p["bn_mean"] * scale
+            h = bf16(bf16(h * bf16(scale)) + bf16(shift))
+        else:
+            h = batch_norm1d_nlc(h, p["bn_mean"], p["bn_var"], p["bn_w"], p["bn_b"])
     return torch.relu(h)
 
 
 def lstm_cell(
-    x: torch.Tensor, h: torch.Tensor, c: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+    x: torch.Tensor,
+    h: torch.Tensor,
+    c: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    tier: Tier = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One LSTM step. x, h, c: [B, H]; w: [4H, 2H] fused on cat[x, h];
-    b: [4H] pre-summed ih+hh. Gate order i, f, g, o."""
-    gates = torch.matmul(torch.cat([x, h], dim=-1), w.T) + b
+    b: [4H] pre-summed ih+hh. Gate order i, f, g, o. The gates' product and
+    tanh at the tier; the state fp32."""
+    gates = matmul_at(torch.cat([x, h], dim=-1), w.T, tier.products) + b
     i, f, g, o = gates.chunk(4, dim=-1)
-    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * accurate_tanh(g)
-    h_new = torch.sigmoid(o) * accurate_tanh(c_new)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * tanh_at(g, tier)
+    h_new = torch.sigmoid(o) * tanh_at(c_new, tier)
     return h_new, c_new
 
 
 def lstm(
-    x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+    x: torch.Tensor,
+    h0: torch.Tensor,
+    c0: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    tier: Tier = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Multi-layer LSTM over [B, T, H]; h0, c0: [L, B, H]; w: [L, 4H, 2H];
     b: [L, 4H]. Returns (top-layer output [B, T, H], hn, cn)."""
@@ -239,20 +310,25 @@ def lstm(
     for t in range(x.shape[1]):
         inp = x[:, t]
         for layer in range(w.shape[0]):
-            hs[layer], cs[layer] = lstm_cell(inp, hs[layer], cs[layer], w[layer], b[layer])
+            hs[layer], cs[layer] = lstm_cell(inp, hs[layer], cs[layer], w[layer], b[layer], tier)
             inp = hs[layer]
         outs.append(inp)
     return torch.stack(outs, dim=1), torch.stack(hs), torch.stack(cs)
 
 
 def lstm_minibatched(
-    x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+    x: torch.Tensor,
+    h0: torch.Tensor,
+    c0: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    tier: Tier = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reference's minibatched LSTM: the N chunks of ONE stream
     flattened into one sequence, so the state threads chunk to chunk.
     x: [N, T, H]; h0, c0: [L, 1, H] (reference lstm.c:228-341)."""
     n, t, feat = x.shape
-    out, hn, cn = lstm(x.reshape(1, n * t, feat), h0, c0, w, b)
+    out, hn, cn = lstm(x.reshape(1, n * t, feat), h0, c0, w, b, tier)
     return out.reshape(n, t, feat), hn, cn
 
 
@@ -297,8 +373,15 @@ def decoder_v5_nlc(out: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch
     return torch.mean(torch.sigmoid(logits[:, :, 0]), dim=1)
 
 
-def decoder_v3_nlc(out: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def decoder_v3_nlc(
+    out: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tier: Tier = FAITHFUL
+) -> torch.Tensor:
     """v3 decoder over LSTM output [B, T, H] -> probs [B]: relu, 64->2
-    projection, frame mean, sigmoid, channel 1."""
-    logits = linear(torch.relu(out), w, b)  # [B, T, 2]
-    return torch.sigmoid(torch.mean(logits, dim=1))[:, 1]
+    projection, frame mean, sigmoid, channel 1. At the bf16 tiers the frame
+    mean of relu(out) comes first and then its product at the tier, as in
+    the JAX package's fused kernel (dot(dec_acc / seq, dec_w),
+    vadc_tpu/kernels/silero_v31_fused2d.py:224) and the port's kernels."""
+    if tier.products == "fp32":
+        logits = linear(torch.relu(out), w, b)  # [B, T, 2]
+        return torch.sigmoid(torch.mean(logits, dim=1))[:, 1]
+    return torch.sigmoid(linear(torch.mean(torch.relu(out), dim=1), w, b, tier))[:, 1]

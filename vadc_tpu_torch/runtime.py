@@ -1,4 +1,5 @@
-"""Device selection and the numeric settings of the faithful tier.
+"""Device selection, the numeric settings of the card, and which model
+families run which precision tier.
 
 The port names its device explicitly everywhere (the counterpart of
 `JAX_PLATFORMS` in the JAX package). A CUDA device that is asked for and
@@ -10,7 +11,7 @@ from __future__ import annotations
 import torch
 
 #: precision tiers of the JAX package (vadc_tpu/nn/functional.py
-#: PRECISION_MODES); the port implements the first so far.
+#: PRECISION_MODES), defined for the port in nn/precision.py
 PRECISIONS = ("faithful", "balanced", "fast", "turbo")
 
 
@@ -23,8 +24,9 @@ def require_cuda() -> torch.device:
 
     Every fp32 product stays full fp32 on the card: cuBLAS defaults to
     that, but cuDNN defaults to TF32 (about three decimal digits), which
-    would break the faithful tier's 1e-4 contract. Both switches are set
-    explicitly."""
+    would break the faithful tier's 1e-4 contract, and the bf16 tiers'
+    plain versions compute their products as fp32 products of bf16-rounded
+    values. Both switches are set explicitly."""
     if not torch.cuda.is_available():
         raise NoCudaDeviceError(
             "no CUDA device is visible to PyTorch "
@@ -49,14 +51,15 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
-def check_precision(precision: str) -> None:
-    """Raise for any tier but faithful (ROADMAP, Queue 1: the bf16 tiers)."""
-    if precision == "faithful":
-        return
-    if precision in PRECISIONS:
+def check_precision(precision: str, family: str) -> None:
+    """Raise for a tier the family does not run: Silero v3.1 ('v3') runs all
+    four, v4 and v5 (and their 8 kHz twins) the faithful tier only (ROADMAP,
+    Queue 1: 'bf16 tiers: v4 and v5'), on every device."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
+    if precision != "faithful" and family != "v3":
         raise NotImplementedError(
-            f"precision {precision!r} is not ported yet "
-            "(ROADMAP.md, Queue 1: 'bf16 tiers: balanced, fast, turbo'); "
-            "only 'faithful' runs in vadc_tpu_torch"
+            f"precision {precision!r} is not ported for the {family} model yet "
+            "(ROADMAP.md, Queue 1: 'bf16 tiers: v4 and v5'); it runs 'faithful', "
+            "and Silero v3.1 runs every tier"
         )
-    raise ValueError(f"unknown precision {precision!r}")

@@ -24,11 +24,12 @@ Architecture:
   * the segmentation FSM is the native NativeFsm with per-stream chunk
     counters; pad/merge and the EOF snap run on the host per event.
 
-Every family the port loads serves, at the faithful tier. Not in the port
+Every family the port loads serves; Silero v3.1 at any precision tier
+(`--precision`, `--fast`), the others at the faithful tier. Not in the port
 yet: checkpoint/resume (ROADMAP Queue 1, 'Checkpoint') and serving over
 several devices ('Multi-GPU'); `--resume` and `--shard` say so and exit 1.
 
-    python -m vadc_tpu_torch.server --port 7355 --max_streams 64 [--device cuda]
+    python -m vadc_tpu_torch.server --port 7355 --max_streams 64 [--device cuda] [--fast]
     # then: cat audio.s16le | nc -q1 localhost 7355
 """
 
@@ -117,9 +118,8 @@ class VadServer:
         from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
         from vadc_tpu_torch.engine.runner import StreamRunner
         from vadc_tpu_torch.models.weights import clamp_sequence_count, load_params
-        from vadc_tpu_torch.runtime import check_precision, resolve_device
+        from vadc_tpu_torch.runtime import resolve_device
 
-        check_precision(precision)
         if not native.available():
             raise RuntimeError("native library required (make -C native)")
         self.device = resolve_device(device)
@@ -651,7 +651,8 @@ def main(argv: list[str] | None = None) -> int:
                         "(default: bundled Silero v3.1 16k)")
     p.add_argument("--fast", action="store_true", help="shorthand for --precision fast")
     p.add_argument("--precision", choices=PRECISIONS, default=None,
-                   help="precision tier; only faithful (fp32) is ported")
+                   help="precision tier (default faithful, fp32); the bf16 tiers "
+                        "balanced, fast and turbo run Silero v3.1")
     p.add_argument("--sequence_count", type=int, default=1536)
     p.add_argument("--device", default="cuda", help="torch device: cuda (default), cuda:N or cpu")
     p.add_argument("--shard", action=argparse.BooleanOptionalAction, default=None,
