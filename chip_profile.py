@@ -147,7 +147,7 @@ def spectrum_variants(models, device) -> None:
         for i, (name, (edit, constants, *_)) in enumerate(builds.items()):
             d = Path(tmp) / str(i)
             d.mkdir()
-            for f in ("stft_tile.cuh", "stft_mag.cu", "errors.cu"):
+            for f in ("stft_tile.cuh", "tier.cuh", "stft_mag.cu", "errors.cu"):
                 shutil.copy(_build.CSRC / f, d / f)
             if edit is not None:
                 header = (d / "stft_tile.cuh").read_text()
@@ -198,7 +198,7 @@ def spectrum_variants(models, device) -> None:
                     status = lib.vadc_stft_magnitude(
                         audio.data_ptr(), BATCH, audio.stride(0), samples, kw["pad_left"],
                         kw["pad_right"], kw["hop"], basis.data_ptr(), n_fft, cutoff, streams,
-                        out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+                        out.data_ptr(), KS.MODES["fp32"], torch.cuda.current_stream(device).cuda_stream)
                     _build.check(status, f"spectrum variant {name}")
 
                 run()

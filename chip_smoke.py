@@ -84,6 +84,20 @@ Phases, each of which raises on failure (exit code 1):
      (forward_fused, encode_fused_audio, lstm_decoder_fused > 0); at fast,
      the batch CLI (--fast) over the corpus and the server (--precision
      fast) over its clients, counted, their lines logged beside faithful's;
+  3c. the bf16 tiers of v4 and v5: stft_magnitude's instance of each
+     products' mode (nn/precision.py: stft_mode) at the four family
+     geometries at B=2048 and 37, lstm_fused's instance of each tier at v4
+     B=2048 x T=3 and B=1 x T=288, v5 B=2048 x T=1 and B=1 x T=96 (both
+     variants and the cluster kernel), each against its plain version at the
+     tier by kernels/tier_check.py beside a control (the fp32 or faithful
+     instance, which must break the limits at bf16 operands), the spectrum
+     bit for bit against dot_magnitude's instance of the same operands and
+     the two LSTM variants against each other, their digests in
+     TIER_DIGESTS; per tier, counted (stft_magnitude, lstm_fused > 0):
+     StreamRunner.scan 256 x 8 of v4, v4_8k, v5 and v5_8k and MinibatchRunner
+     of v5 and v5_8k card vs CPU within tier_check's PATH_MAX, each family
+     over the 12 speech tracks (12 streams of one scan) within its
+     SPEECH_BOUND, and at fast the v4 CLI card vs CPU;
   4. timings with CUDA events: each kernel against its plain version
      (stft_magnitude at every family geometry at B=2048 and at the v4 CLI
      window, each with its own bound; beside the two spectrum kernels,
@@ -103,14 +117,18 @@ Phases, each of which raises on failure (exit code 1):
      per tier beside faithful in one call: each tier instance against its
      plain version, forward_fused at B=1, the v3.1 step, the 64 x 64 and
      2048 x 8 slabs, the CLI window, the server's ticks at 2048 slots, and
-     cuBLAS's bf16 product of the frames beside the fast spectrum.
+     cuBLAS's bf16 product of the frames beside the fast spectrum; per tier
+     the v4/v5 instances (stft_magnitude at the four geometries, lstm_fused)
+     against their plain versions and the v4 and v5 B=2048 steps; cuFFT
+     (torch.stft, torch.fft.rfft) beside the two spectrum kernels, their
+     library_ms where the basis is the Hann DFT.
 
 Prints a JSON line of per-kernel results, a row per tier instance too
 ("forward_fused[fast]", ...: its tier's bound, the bf16 tensor-core peak
 at the bf16 tiers) (time, plain version's time, the
-bound from this run's shapes, the library call's time where there is one,
-and `cublas_product_only_ms` beside the spectrum kernels: no PyTorch call
-computes their function, so that is not a library time;
+bound from this run's shapes, the library call's time where there is one
+(cuFFT beside the spectrum kernels), and `cublas_product_only_ms` beside
+them (the product alone, no library time);
 launches 0 for a kernel that no main path runs any more: dot_magnitude and
 forward_fused2d stay public functions, checked and timed here),
 then the card's name and power limit, then as its last line
@@ -202,6 +220,9 @@ PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
 # each instance is held to its plain version, and each tier to faithful on
 # speech, by the limits of vadc_tpu_torch/kernels/tier_check.py
 TIERS = ("balanced", "fast", "turbo")
+# streams of the v4/v5 tiers' scans card against CPU (the CPU's plain
+# versions at a bf16 tier cost more than at faithful)
+TIER_PATH_BATCH = 256
 # the speech tracks of the tiers' check against faithful (utterance_track(4,
 # seed)): seed 0 is the material of the JAX package's recorded deviations
 SPEECH_SEEDS = range(12)
@@ -215,7 +236,21 @@ TIER_DIGESTS = {
     "forward_fused2d[fast]": "33e28073d2fc07c7", "forward_fused[fast]": "8dc74bea4f5741ee",
     "forward_fused_ragged[fast]": "481e3e197ca5b179",
     "forward_fused2d[turbo]": "870e6ab5197b4818", "forward_fused[turbo]": "812807f7fc028f26",
-    "forward_fused_ragged[turbo]": "8b57c57494b2d5a1"}
+    "forward_fused_ragged[turbo]": "8b57c57494b2d5a1",
+    # the v4/v5 paths' instances (tier_v45_digests): stft_magnitude by its
+    # products' mode, lstm_fused by tier (fast and turbo: one arithmetic)
+    "stft_magnitude_v4[bf16]": "278c65b74b78407f", "stft_magnitude_v4[bf16_3x]": "1097d4abea777fc8",
+    "stft_magnitude_v4_8k[bf16]": "b777981eb0ae0d85",
+    "stft_magnitude_v4_8k[bf16_3x]": "d19e0854a3f764ee",
+    "stft_magnitude_v5[bf16]": "d7c20c9597a5a3bf", "stft_magnitude_v5[bf16_3x]": "46967924144a6388",
+    "stft_magnitude_v5_8k[bf16]": "d7cc916725180655",
+    "stft_magnitude_v5_8k[bf16_3x]": "201fb53c0f73106b",
+    "lstm_fused_v4[balanced]": "d12e1f2665a553c8", "lstm_fused_v4_long[balanced]": "bf2ae650d9a3c565",
+    "lstm_fused_v4[fast]": "69fd212d61d25e2b", "lstm_fused_v4_long[fast]": "a31dbab8be04f791",
+    "lstm_fused_v4[turbo]": "69fd212d61d25e2b", "lstm_fused_v4_long[turbo]": "a31dbab8be04f791",
+    "lstm_fused_v5[balanced]": "f902c97e46a07664", "lstm_fused_v5_long[balanced]": "ff03fa1c12b46918",
+    "lstm_fused_v5[fast]": "1f287d9835d79dfd", "lstm_fused_v5_long[fast]": "7d31c3bed8678ed5",
+    "lstm_fused_v5[turbo]": "1f287d9835d79dfd", "lstm_fused_v5_long[turbo]": "7d31c3bed8678ed5"}
 
 
 def log(msg: str) -> None:
@@ -680,17 +715,19 @@ def check_stft_magnitude(params, audio, label: str, *, pad_left: int, pad_right:
     return err
 
 
-def lstm_variants(x, h, c, wt, b) -> dict:
-    """lstm_fused's variants launched explicitly through the wrapper's
-    private launch functions (not counted): name -> (y, hn, cn)."""
+def lstm_variants(x, h, c, wt, b, tier=None) -> dict:
+    """lstm_fused's variants (their instances of the tier, default faithful)
+    launched explicitly through the wrapper's private launch functions (not
+    counted): name -> (y, hn, cn)."""
     import torch
 
     from vadc_tpu_torch.kernels import lstm as KL
+    from vadc_tpu_torch.nn.precision import FAITHFUL
 
     out = {}
     for name, launch in (("streaming", KL._launch_streaming), ("resident", KL._launch_resident)):
         y, hn, cn = torch.empty_like(x), torch.empty_like(h), torch.empty_like(c)
-        launch(x, h, c, wt, b, y, hn, cn)
+        launch(x, h, c, wt, b, y, hn, cn, tier or FAITHFUL)
         out[name] = (y, hn, cn)
     torch.cuda.synchronize()
     return out
@@ -769,12 +806,13 @@ def check_lstm(params, x, h, c, label: str, chunk_frames: int = 0) -> float:
     return max(errs.values())
 
 
-def lstm_inputs(module, params, audio, n_seq: int, device):
-    """Encoder features of `audio` reshaped to n_seq sequences, and a
-    realistic carried state: one plain forward on other audio first."""
-    import torch
+def lstm_inputs(module, params, audio, n_seq: int, device, tier=None):
+    """Encoder features of `audio` at the tier (default faithful) reshaped to
+    n_seq sequences, and a realistic carried state: one plain forward on
+    other audio first."""
+    from vadc_tpu_torch.nn.precision import FAITHFUL
 
-    feats = module.encode(params, audio)
+    feats = module.encode(params, audio, tier=tier or FAITHFUL)
     x = feats.reshape(n_seq, -1, feats.shape[-1]).contiguous()
     h0, c0 = module.init_state(audio.shape[0], device)
     _, h, c = module.forward_reference(params, audio.flip(0).contiguous(), h0, c0)
@@ -1933,8 +1971,9 @@ def phase_kernels_tiers(params, device) -> dict:
         check_tier(params, audio[:, :512].contiguous(), tier, f"B={B_MAIN} x 512")
     got = tier_digests(params, device)
     log(f"tier digests: {json.dumps(got)}")
-    for name, want in TIER_DIGESTS.items():
-        require(got[name] == want, f"{name}: digest {got[name]} differs from {want}")
+    for name, value in got.items():
+        want = TIER_DIGESTS.get(name)
+        require(value == want, f"{name}: digest {value} differs from {want}")
     return errs
 
 
@@ -1954,11 +1993,11 @@ def speech_file(path: Path) -> None:
     np.clip(speech_track().ravel() * 32768, -32768, 32767).astype("<i2").tofile(path)
 
 
-def speech_segments(probs) -> list:
+def speech_segments(probs, chunk: int = CHUNK, sr: int = SR) -> list:
     """The CLI's segmenter over one stream's probabilities."""
     from vadc_tpu_torch.cli.segmenter import Segmenter, SegmenterConfig
 
-    seg = Segmenter(SegmenterConfig.from_ms(chunk_samples=CHUNK, sample_rate=SR))
+    seg = Segmenter(SegmenterConfig.from_ms(chunk_samples=chunk, sample_rate=sr))
     return [e for p in probs.tolist() for e in seg.feed(p)] + list(seg.finish())
 
 
@@ -1976,7 +2015,7 @@ def speech_probs(params, device, precision: str) -> list:
 def tier_on_speech(params, device, tier: str, speech: Path, faithful: list) -> float:
     """The tier against faithful (`faithful`: speech_probs at faithful) on
     the card over the speech tracks of SPEECH_SEEDS: the largest deviation
-    within SPEECH_BOUND[tier]; the segments identical at balanced and fast,
+    within SPEECH_BOUND["v3"][tier]; the segments identical at balanced and fast,
     and at turbo of the same count with each boundary within one chunk
     (turbo moves one start by one chunk on seeds 1 and 6, as the JAX
     package's own turbo does: tests/test_torch_tiers.py); and the CLI's
@@ -1997,9 +2036,9 @@ def tier_on_speech(params, device, tier: str, speech: Path, faithful: list) -> f
     cli = [run_cli(["--device", "cuda", "--precision", p], speech) for p in ("faithful", tier)]
     log(f"tier {tier} on speech, seeds {list(SPEECH_SEEDS)}: max abs deviation from faithful "
         + ", ".join(f"{d:.3e}" for d in devs) + f" (largest {max(devs):.3e}, bound "
-        f"{SPEECH_BOUND[tier]:g}); seeds whose segments moved by a chunk: {moved}; CLI segments "
+        f"{SPEECH_BOUND['v3'][tier]:g}); seeds whose segments moved by a chunk: {moved}; CLI segments "
         f"on seed 0 {cli[1].split()}, the same as faithful's: {cli[1] == cli[0]}")
-    require(max(devs) <= SPEECH_BOUND[tier], f"tier {tier}: deviation {max(devs):.3e} on speech")
+    require(max(devs) <= SPEECH_BOUND["v3"][tier], f"tier {tier}: deviation {max(devs):.3e} on speech")
     require(cli[1] == cli[0] and len(cli[0].split()) >= 3, f"tier {tier}: CLI segments differ")
     return max(devs)
 
@@ -2048,21 +2087,26 @@ def phase_main_path_tiers(params, device, speech: Path, totals: dict) -> dict:
     return deviations
 
 
+def products_bound_ms(nbytes: float, *terms: tuple[float, str]) -> tuple[float, str]:
+    """The least time of an instance whose operations are `terms`, (flops,
+    the products' operands: "fp32", "bf16_3x" or "bf16"): fp32 FMAs against
+    the CUDA cores' peak; bf16 products against the bf16 dense tensor-core
+    peak, three times over where they are split (bf16_3x); bytes as at
+    fp32 (the activations stay on the chip)."""
+    if all(mode == "fp32" for _, mode in terms):
+        return bound_ms(sum(flops for flops, _ in terms), nbytes)
+    ops = sum(flops * (3 if mode == "bf16_3x" else 1) for flops, mode in terms)
+    by_ops, by_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
 def tier_bound_ms(spectrum: float, body: float, nbytes: float, tier: str) -> tuple[float, str]:
-    """The least time of a tier instance: at faithful fp32 FMAs against the
-    CUDA cores' peak; at the bf16 tiers the same products against the bf16
-    dense tensor-core peak, three times over where the tier splits them
-    (bf16_3x: the spectrum at balanced and fast, every product at
-    balanced); bytes as at faithful (the activations stay on the chip)."""
+    """products_bound_ms of a v3.1 tier instance: its spectrum at the tier's
+    STFT operands, the rest at its products'."""
     from vadc_tpu_torch.nn.precision import tier_of
 
     t = tier_of(tier)
-    if t.products == "fp32":
-        return bound_ms(spectrum + body, nbytes)
-    ops = (spectrum * (3 if t.stft == "bf16_3x" else 1)
-           + body * (3 if t.products == "bf16_3x" else 1))
-    by_ops, by_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+    return products_bound_ms(nbytes, (spectrum, t.stft), (body, t.products))
 
 
 def phase_timing_tiers(params, device) -> dict:
@@ -2143,6 +2187,516 @@ def phase_timing_tiers(params, device) -> dict:
     return out
 
 
+# ---- the bf16 tiers of v4 and v5: stft_magnitude and lstm_fused ------------
+
+
+def stft_mode_of(family: str, tier: str) -> str:
+    """The products' operands of stft_magnitude on a family's path at a tier
+    (nn/precision.py: stft_mode; v4's spectrum feeds log1p(2^20 x))."""
+    from vadc_tpu_torch.nn.precision import stft_mode, tier_of
+
+    return stft_mode(tier_of(tier), log_sensitive=family.startswith("v4"))
+
+
+def tier_v45_digests(models: dict, device) -> dict:
+    """Digests of the v4/v5 tier instances: stft_magnitude at the four family
+    geometries (B=B_MAIN chunks of speech, as stft_digests) at each mode a
+    tier gives the family, and lstm_fused at each tier on seeded random
+    inputs (v4 B=2048 x T=3 and B=1 x T=288, v5 B=2048 x T=1 and B=1 x T=96:
+    both variants, the cluster kernel): name[mode or tier] -> digest."""
+    import torch
+
+    from vadc_tpu_torch.kernels.lstm import lstm_fused, transposed_weight_of
+    from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude
+    from vadc_tpu_torch.nn.precision import tier_of
+
+    out = {}
+    for family, (module, params) in models.items():
+        samples, kw = stft_geometry(family, module)
+        audio = torch.from_numpy(speech_chunks(B_MAIN, samples, seed=SEED + 11)).to(device)
+        for mode in sorted({stft_mode_of(family, tier) for tier in TIERS}):
+            out[f"stft_magnitude_{family}[{mode}]"] = digest(
+                stft_magnitude(audio, *split_basis_of(params), **kw, mode=mode))
+    for family, hidden, layers, shapes in (("v4", 64, 2, ((B_MAIN, 3), (1, 288))),
+                                           ("v5", 128, 1, ((B_MAIN, 1), (1, CLI_WINDOW)))):
+        params = models[family][1]
+        for tier in TIERS:
+            t = tier_of(tier)
+            for batch, steps in shapes:
+                rng = np.random.default_rng(SEED + 12)
+                x, h, c = (torch.from_numpy(a.astype(np.float32)).to(device) for a in (
+                    rng.normal(size=(batch, steps, hidden)), 0.5 * rng.normal(size=(layers, batch, hidden)),
+                    2.0 * rng.normal(size=(layers, batch, hidden))))
+                name = f"lstm_fused_{family}" + ("" if batch > 1 else "_long")
+                out[f"{name}[{tier}]"] = digest(*lstm_fused(
+                    x, h, c, params["lstm_w"], params["lstm_b"],
+                    wt=transposed_weight_of(params, t.products), tier=t))
+    return out
+
+
+def check_stft_magnitude_tier(params, audio, family: str, tier: str, label: str, kw: dict,
+                              control: bool) -> float:
+    """stft_magnitude's instance of the mode the tier gives the family
+    against its plain version at that mode, held to kernels/tier_check.py
+    (the spectrum's largest difference relative to its largest value); at
+    n_fft 256, bit for bit against dot_magnitude's instance of the same
+    operands on the reflect-padded unfold. With `control`, the fp32
+    instance against the same plain version, which must break the limits
+    where the mode is bf16 (bf16_3x and fp32 spectra cannot be told apart:
+    tier_check)."""
+    import torch
+
+    from vadc_tpu_torch.kernels import tier_check
+    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
+    from vadc_tpu_torch.kernels.stft_mag import (
+        split_basis_of, stft_magnitude, stft_magnitude_reference,
+    )
+    from vadc_tpu_torch.nn import functional as F
+
+    mode = stft_mode_of(family, tier)
+    wr, wi = split_basis_of(params)
+    out = stft_magnitude(audio, wr, wi, **kw, mode=mode)
+    ref = stft_magnitude_reference(audio, wr, wi, **kw, mode=mode)
+    torch.cuda.synchronize()
+    require(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+            f"stft_magnitude[{mode}] {label}: shape {tuple(out.shape)} or non-finite")
+    scale = float(ref.abs().max())
+    errs = {"mag": tier_check.errors(out, ref, tier, scale)}
+    broken = tier_check.breaches(tier, "stft_magnitude", audio.shape[0], errs)
+    same = None
+    if wr.shape == (256, 129):
+        # dot_magnitude's instance of the same operands: the tier whose STFT they are
+        as_tier = {"fp32": "faithful", "bf16_3x": "fast", "bf16": "turbo"}[mode]
+        frames = F.frame(F.reflect_pad_last(audio, kw["pad_left"], kw["pad_right"]), 256, kw["hop"])
+        same = torch.equal(out, dot_magnitude(frames, wr, wi, as_tier))
+    line = (f"tier {tier} stft_magnitude[{mode}] {label}: largest difference "
+            f"{errs['mag'][0]:.3e} of the largest magnitude; bit-equal to dot_magnitude[{mode}]: "
+            f"{same}")
+    if control:
+        fp32 = stft_magnitude(audio, wr, wi, **kw)
+        caught = bool(tier_check.breaches(tier, "stft_magnitude", audio.shape[0],
+                                          {"mag": tier_check.errors(fp32, ref, tier, scale)}))
+        line += (f"; control, the fp32 instance: {tier_check.errors(fp32, ref, tier, scale)[0]:.3e}"
+                 f", breaks the limits: {caught}")
+        require(caught or mode != "bf16", f"stft_magnitude control at {mode}: the fp32 instance "
+                "passes the limits")
+    log(line)
+    require(not broken, f"stft_magnitude[{mode}] {label}: " + "; ".join(broken))
+    require(same is not False, f"stft_magnitude[{mode}] {label}: differs from dot_magnitude[{mode}]")
+    return errs["mag"][0] * scale
+
+
+def check_lstm_tier(params, x, h, c, tier: str, label: str, control: bool) -> float:
+    """lstm_fused's instance of the tier against its plain version
+    (F.lstm at the tier) from a carried state, held to kernels/tier_check.py;
+    both variants launched explicitly at the tier, the resident one also in
+    passes, bit for bit against the wrapper's call. With `control` (at fast
+    and turbo, where bf16 products differ from fp32 ones), the faithful
+    instance against the same plain version must break the limits. Returns
+    the largest difference."""
+    import torch
+
+    from vadc_tpu_torch.kernels import tier_check
+    from vadc_tpu_torch.kernels.lstm import lstm_fused, lstm_fused_reference, transposed_weight_of
+    from vadc_tpu_torch.nn.precision import FAITHFUL, tier_of
+
+    t = tier_of(tier)
+    w, b = params["lstm_w"], params["lstm_b"]
+    wt = transposed_weight_of(params, t.products)
+    got = lstm_fused(x, h, c, w, b, wt=wt, tier=t)
+    want = lstm_fused_reference(x, h, c, w, b, t)
+    torch.cuda.synchronize()
+    require(all(bool(torch.isfinite(g).all()) for g in got), f"lstm_fused[{tier}] {label}: not finite")
+
+    def errs_of(out):
+        scale = max(1.0, float(want[2].abs().max()))
+        return {name: tier_check.errors(g, r, tier, scale if name == "c" else 1.0)
+                for name, g, r in zip(("y", "h", "c"), out, want)}
+
+    errs = errs_of(got)
+    broken = tier_check.breaches(tier, "lstm_fused", x.shape[0], errs)
+    variants = lstm_variants(x, h, c, wt, b, t)
+    with small_pre_scratch(16 * x.shape[2] * x.shape[0] * max(1, x.shape[1] // 3)):
+        variants["resident, in passes"] = lstm_variants(x, h, c, wt, b, t)["resident"]
+    same = {name: same_bits(out, got) for name, out in variants.items()}
+    line = (f"tier {tier} lstm_fused {label} (the wrapper runs {variant_of(*x.shape[:2])}; largest "
+            f"difference / share above {tier_check.TAU[tier]:g}): "
+            + ", ".join(f"{k} {m:.3e}/{s:.4f}" for k, (m, s) in errs.items())
+            + f"; bit-equal to the wrapper's call: {same}")
+    if control:
+        faithful = lstm_fused(x, h, c, w, b, wt=transposed_weight_of(params), tier=FAITHFUL)
+        control_errs = errs_of(faithful)
+        caught = bool(tier_check.breaches(tier, "lstm_fused", x.shape[0], control_errs))
+        line += ("; control, the faithful instance: "
+                 + ", ".join(f"{k} {m:.3e}/{s:.4f}" for k, (m, s) in control_errs.items())
+                 + f", breaks the limits: {caught}")
+        require(caught, f"lstm_fused control at {tier} {label}: the faithful instance passes")
+    log(line)
+    if not all(same.values()):
+        log(f"lstm_fused[{tier}] {label}: differences from the wrapper's call: "
+            + variant_diffs(variants, got, ("y", "hn", "cn")))
+    require(not broken, f"lstm_fused[{tier}] {label}: " + "; ".join(broken))
+    for name, ok in same.items():
+        require(ok, f"lstm_fused[{tier}] {label}: the {name} variant differs from the wrapper's call")
+    return max(m for m, _ in errs.values())
+
+
+def phase_kernels_tiers_v45(models: dict, device) -> dict:
+    """The v4/v5 tier instances against their plain versions at the shapes
+    the paths give them: stft_magnitude at the four family geometries at
+    B=2048 and B=37, lstm_fused at v4 B=2048 x T=3 and B=1 x T=288, v5
+    B=2048 x T=1 and B=1 x T=96 (the streaming variant, the wavefront and the
+    cluster kernel), each beside the control; the digests held to
+    TIER_DIGESTS. tier -> kernel -> the largest difference."""
+    import torch
+
+    from vadc_tpu_torch.nn.precision import tier_of
+
+    errs = {}
+    for tier in TIERS:
+        e = errs.setdefault(tier, {"stft_magnitude": 0.0, "lstm_fused": 0.0})
+        for seed, (family, (module, params)) in enumerate(models.items(), SEED + 500):
+            samples, kw = stft_geometry(family, module)
+            chunks = torch.from_numpy(speech_chunks(B_MAIN, samples, seed=seed)).to(device)
+            for b in (B_MAIN, 37):
+                err = check_stft_magnitude_tier(params, chunks[:b], family, tier,
+                                                f"{family} B={b} x {samples}", kw, b == B_MAIN)
+                e["stft_magnitude"] = max(e["stft_magnitude"], err)
+        t = tier_of(tier)
+        control = t.products == "bf16"
+        for family, chunk, n_frames in (("v4", V4_CHUNK, 3), ("v5", V5_CHUNK, 1)):
+            module, params = models[family]
+            ctx = getattr(module, "CONTEXT_SAMPLES", 0)
+            audio = torch.from_numpy(speech_chunks(B_MAIN, ctx + chunk, seed=SEED + 510)).to(device)
+            x, h, c = lstm_inputs(module, params, audio, B_MAIN, device, t)
+            e["lstm_fused"] = max(e["lstm_fused"], check_lstm_tier(
+                params, x, h, c, tier, f"{family} B={B_MAIN} x T={x.shape[1]}", control))
+            window = torch.from_numpy(speech_chunks(CLI_WINDOW, ctx + chunk, seed=SEED + 511)
+                                      ).to(device)
+            x, h, c = lstm_inputs(module, params, window, 1, device, t)
+            e["lstm_fused"] = max(e["lstm_fused"], check_lstm_tier(
+                params, x, h, c, tier, f"{family} B=1 x T={x.shape[1]}", control))
+    got = tier_v45_digests(models, device)
+    log(f"v4/v5 tier digests: {json.dumps(got)}")
+    for name, value in got.items():
+        want = TIER_DIGESTS.get(name)
+        require(value == want, f"{name}: digest {value} differs from {want}")
+    return errs
+
+
+def scan_card_vs_cpu_tier(family: str, params, device, chunk: int, seed: int, tier: str) -> None:
+    """StreamRunner.scan at the tier over TIER_PATH_BATCH streams x
+    SCAN_CHUNKS chunks on the card against the CPU (plain versions), held to
+    kernels/tier_check.py's PATH_MAX (the kernels and the plain versions sum
+    in other orders, and a bf16 rounding flip carries on through the
+    recurrence)."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels import tier_check
+
+    b = TIER_PATH_BATCH
+    chunks = speech_chunks(b * SCAN_CHUNKS, chunk, seed=seed).reshape(b, SCAN_CHUNKS, chunk)
+    gpu = StreamRunner(family, params, device=device, precision=tier)
+    probs_gpu, state = gpu.scan(chunks, gpu.init_state(b))
+    torch.cuda.synchronize()
+    cpu = StreamRunner(family, params, device="cpu", precision=tier)
+    probs_cpu, cstate = cpu.scan(chunks, cpu.init_state(b))
+    require(bool(torch.isfinite(probs_gpu).all()), f"scan {family} at {tier}: not finite")
+    errs = {"probs": max_abs(probs_gpu.cpu(), probs_cpu), "h": max_abs(state.h.cpu(), cstate.h),
+            "c": max_abs(state.c.cpu(), cstate.c) / max(1.0, float(cstate.c.abs().max()))}
+    limits = tier_check.PATH_MAX[tier]
+    log(f"tier {tier} scan {family} {b}x{SCAN_CHUNKS} card vs CPU: "
+        + ", ".join(f"{k} {v:.3e} (bound {limits[k]:g})" for k, v in errs.items())
+        + f"; speech share p>0.5: {float((probs_gpu > 0.5).float().mean()):.3f}")
+    for k, v in errs.items():
+        require(v <= limits[k], f"tier {tier} scan {family} card vs CPU: {k} {v:.3e}")
+
+
+def minibatch_card_vs_cpu_tier(family: str, params, device, chunk: int, seed: int,
+                               tier: str) -> None:
+    """MinibatchRunner at the tier over one window of CLI_WINDOW chunks
+    (lstm_fused at B=1 over the window's frames: the resident variant; for
+    v5 the cluster kernel), card against CPU, held to PATH_MAX."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import MinibatchRunner
+    from vadc_tpu_torch.kernels import tier_check
+
+    window = speech_chunks(CLI_WINDOW, chunk, seed=seed).reshape(-1)
+    kw = dict(batch_size=CLI_WINDOW, chunk_samples=chunk, precision=tier)
+    gpu = MinibatchRunner(family, params, device=device, **kw)
+    cpu = MinibatchRunner(family, params, device="cpu", **kw)
+    pg, pc = torch.tensor(gpu.process_window(window)), torch.tensor(cpu.process_window(window))
+    err = max_abs(pg, pc)
+    log(f"tier {tier} MinibatchRunner {family} window of {CLI_WINDOW} card vs CPU: probs {err:.3e} "
+        f"(bound {tier_check.PATH_MAX[tier]['probs']:g})")
+    require(err <= tier_check.PATH_MAX[tier]["probs"], f"tier {tier} MinibatchRunner {family}: {err}")
+
+
+def cli_card_vs_cpu_tier(extra: list[str], stdin_path: Path, tier: str) -> str:
+    """The CLI at --precision tier with --device cuda and --device cpu: the
+    same segments, raw probabilities within PATH_MAX. Returns the card's
+    segment lines."""
+    from vadc_tpu_torch.kernels import tier_check
+
+    argv = ["--precision", tier, *extra]
+    seg_gpu = run_cli(["--device", "cuda", *argv], stdin_path)
+    seg_cpu = run_cli(["--device", "cpu", *argv], stdin_path)
+    raw_gpu = run_cli(["--device", "cuda", "--raw_probabilities", *argv], stdin_path)
+    raw_cpu = run_cli(["--device", "cpu", "--raw_probabilities", *argv], stdin_path)
+    pg = np.array([float(x) for x in raw_gpu.split()])
+    pc = np.array([float(x) for x in raw_cpu.split()])
+    require(pg.shape == pc.shape and pg.size > 0, f"raw probabilities {pg.shape} vs {pc.shape}")
+    err = float(np.abs(pg - pc).max())
+    log(f"CLI {' '.join(argv)}: segments cuda {seg_gpu.split()}, cpu {seg_cpu.split()}; raw "
+        f"probabilities max abs diff {err:.3e} over {pg.size} chunks (bound "
+        f"{tier_check.PATH_MAX[tier]['probs']:g})")
+    require(seg_gpu == seg_cpu and len(seg_gpu.split()) >= 3, f"CLI {argv}: segments differ")
+    require(err <= tier_check.PATH_MAX[tier]["probs"], f"CLI {argv}: raw probabilities differ")
+    return seg_gpu
+
+
+# family -> (sample rate, chunk samples) of the v4/v5 paths on speech
+V45_RATES = {"v4": (SR, V4_CHUNK), "v4_8k": (SR // 2, V4_8K_CHUNK), "v5": (SR, V5_CHUNK),
+             "v5_8k": (SR // 2, V5_8K_CHUNK)}
+
+
+def family_tracks(family: str) -> tuple[np.ndarray, list]:
+    """The speech tracks of SPEECH_SEEDS at the family's rate and chunk as
+    streams of one scan: [12, N, chunk] (each track zero-padded at its end
+    to the longest), and each track's chunk count."""
+    from vadc_tpu_torch.io.synthaudio import utterance_track
+
+    sr, chunk = V45_RATES[family]
+    tracks = []
+    for seed in SPEECH_SEEDS:
+        audio, _ = utterance_track(4, sr=sr, seed=seed)
+        n = len(audio) // chunk
+        tracks.append(audio[: n * chunk].reshape(n, chunk))
+    lengths = [len(t) for t in tracks]
+    out = np.zeros((len(tracks), max(lengths), chunk), np.float32)
+    for i, t in enumerate(tracks):
+        out[i, : len(t)] = t
+    return out, lengths
+
+
+def family_speech_probs(family: str, params, device, precision: str, tracks) -> "torch.Tensor":
+    from vadc_tpu_torch.engine.runner import StreamRunner
+
+    runner = StreamRunner(family, params, device=device, precision=precision)
+    return runner.scan(tracks, runner.init_state(tracks.shape[0]))[0].double().cpu()
+
+
+def tier_on_speech_v45(family: str, params, device, tier: str, faithful, tracks,
+                       lengths) -> float:
+    """A v4/v5 family at the tier against faithful on the card over the
+    speech tracks of SPEECH_SEEDS at its rate, the 12 tracks as 12 streams
+    of one StreamRunner.scan (a stream's padding comes after its track, so
+    it changes none of the track's chunks): the largest deviation within
+    SPEECH_BOUND[family]. v4 and v4_8k (official weights) keep faithful's
+    segments as tier_on_speech holds v3.1's: identical at balanced and
+    fast, at turbo of the same count with each boundary within one chunk.
+    v5 and v5_8k run synthetic weights, whose probabilities hover near the
+    threshold: the seeds whose segments moved are logged. Returns the
+    largest deviation."""
+    from vadc_tpu_torch.kernels.tier_check import SPEECH_BOUND
+
+    sr, chunk = V45_RATES[family]
+    got_all = family_speech_probs(family, params, device, tier, tracks)
+    chunk_s = chunk / sr
+    devs, moved = [], []
+    for seed, n, want, got in zip(SPEECH_SEEDS, lengths, faithful, got_all):
+        want, got = want[:n], got[:n]
+        devs.append(float((got - want).abs().max()))
+        seg, seg_want = speech_segments(got, chunk, sr), speech_segments(want, chunk, sr)
+        if seg != seg_want:
+            moved.append(seed)
+            require(family.startswith("v5") or tier == "turbo" and len(seg) == len(seg_want) and all(
+                abs(a - b) <= chunk_s + 1e-9 for s, w in zip(seg, seg_want) for a, b in zip(s, w)),
+                f"{family} tier {tier}: the segments of speech seed {seed} differ: {seg} vs {seg_want}")
+    bound = SPEECH_BOUND[family][tier]
+    log(f"{family} tier {tier} on speech, seeds {list(SPEECH_SEEDS)} ({len(lengths)} streams of one "
+        "scan): max "
+        "abs deviation from faithful " + ", ".join(f"{d:.3e}" for d in devs)
+        + f" (largest {max(devs):.3e}, bound {bound:g}); seeds whose segments moved: {moved}")
+    require(max(devs) <= bound, f"{family} tier {tier}: deviation {max(devs):.3e} on speech")
+    return max(devs)
+
+
+def phase_main_path_tiers_v45(models: dict, archives: dict, device, speech: Path,
+                              totals: dict) -> dict:
+    """Each tier's v4 and v5 paths, counted on their own (stft_magnitude and
+    lstm_fused > 0 per tier): StreamRunner.scan card vs CPU for v4, v4_8k,
+    v5 and v5_8k, MinibatchRunner card vs CPU for v5 and v5_8k, each family
+    on the 12 speech tracks against faithful; at fast, the v4 CLI card vs
+    CPU. Returns tier -> family -> the deviation on speech."""
+    speech_runs = {}
+    for family in V45_RATES:
+        tracks, lengths = family_tracks(family)
+        faithful = family_speech_probs(family, models[family][1], device, "faithful", tracks)
+        speech_runs[family] = (faithful, tracks, lengths)
+    chunks = {family: chunk for family, (_, chunk) in V45_RATES.items()}
+    deviations = {}
+    for tier in TIERS:
+        counts = totals.setdefault(tier, {})
+        zero_launches()
+        for seed, family in enumerate(("v4", "v4_8k", "v5", "v5_8k"), SEED + 520):
+            scan_card_vs_cpu_tier(family, models[family][1], device, chunks[family], seed, tier)
+        for seed, family in enumerate(("v5", "v5_8k"), SEED + 530):
+            minibatch_card_vs_cpu_tier(family, models[family][1], device, chunks[family], seed, tier)
+        deviations[tier] = {family: tier_on_speech_v45(family, models[family][1], device, tier,
+                                                       *speech_runs[family])
+                            for family in V45_RATES}
+        read_launches(f"{tier}: v4/v5 StreamRunner.scan, MinibatchRunner, on speech", counts,
+                      ("stft_magnitude", "lstm_fused"))
+    zero_launches()
+    cli_card_vs_cpu_tier(["--model", str(archives["v4"])], speech, "fast")
+    read_launches("fast: v4 CLI", totals["fast"], ("stft_magnitude", "lstm_fused"))
+    return deviations
+
+
+def cufft_stft(audio, n_fft: int, pad_left: int, pad_right: int, hop: int):
+    """The spectrum's magnitude by cuFFT: the reflect pad, torch.stft of a
+    periodic Hann window without centring, |.|: stft_magnitude's function
+    where the basis is the Hann-windowed DFT. [B, bins, frames] (torch's
+    layout). A yardstick timed here; the port never calls it."""
+    import torch
+
+    from vadc_tpu_torch.nn import functional as F
+
+    window = torch.hann_window(n_fft, periodic=True, device=audio.device)
+    return torch.stft(F.reflect_pad_last(audio, pad_left, pad_right), n_fft, hop_length=hop,
+                      window=window, center=False, return_complex=True).abs()
+
+
+def hann_dft_gap(basis) -> float:
+    """The largest difference between an STFT basis [2 * bins, n_fft] and the
+    periodic-Hann-windowed DFT (cos rows, then -sin rows): where it is at
+    the fp32 rounding floor, cuFFT computes the spectrum kernels' function."""
+    import torch
+
+    n_fft = basis.shape[1]
+    bins = n_fft // 2 + 1
+    n = torch.arange(n_fft, dtype=torch.float64, device=basis.device)
+    k = torch.arange(bins, dtype=torch.float64, device=basis.device)[:, None]
+    hann = torch.hann_window(n_fft, periodic=True, dtype=torch.float64, device=basis.device)
+    angle = 2 * np.pi * k * n / n_fft
+    want = torch.cat([torch.cos(angle) * hann, -torch.sin(angle) * hann])
+    return float((basis.double() - want).abs().max())
+
+
+def phase_timing_library(params, models: dict, device) -> dict:
+    """The library route beside the two spectrum kernels: cuFFT
+    (torch.stft of the reflect-padded audio, and torch.fft.rfft of the
+    windowed frames for dot_magnitude) at the shapes the kernels are timed
+    at, each against the kernel's output where the basis is the Hann DFT.
+    cuFFT rounds otherwise than the fmaf chains, and log1p(2^20 x) would
+    amplify that: a yardstick, not a substitute. name -> ms (and the
+    geometries' dict for stft_magnitude)."""
+    import torch
+
+    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude, split_basis
+    from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude
+    from vadc_tpu_torch.nn import functional as F
+
+    out = {"stft_magnitude_at": {}}
+    for family, (module, fparams) in models.items():
+        samples, kw = stft_geometry(family, module)
+        audio = torch.from_numpy(speech_chunks(B_MAIN, samples, seed=SEED + 400)).to(device)
+        n_fft = fparams["stft_basis"].shape[1]
+        gap = hann_dft_gap(fparams["stft_basis"])
+        kernel = stft_magnitude(audio, *split_basis_of(fparams), **kw)
+        lib = cufft_stft(audio, n_fft, **kw).transpose(1, 2)
+        diff = max_abs(lib, kernel) / float(kernel.abs().max())
+        ms = cuda_ms(lambda: cufft_stft(audio, n_fft, **kw))
+        out["stft_magnitude_at"][f"{family} B={B_MAIN} x {samples}"] = {
+            "library_ms": ms, "basis_vs_hann_dft": gap, "library_vs_kernel_rel": diff}
+        log(f"time cuFFT (reflect pad, torch.stft, abs) {family} B={B_MAIN} x {samples}: {ms:.4f} ms; "
+            f"the basis against the Hann DFT {gap:.2e}, cuFFT against stft_magnitude {diff:.2e} of "
+            "the largest magnitude" + ("" if gap < 1e-6 else " (another basis: not the same function)"))
+        if family == "v4":
+            out["stft_magnitude"] = ms
+    audio = torch.from_numpy(speech_chunks(B_MAIN, CHUNK, seed=SEED + 200)).to(device)
+    frames = F.frame(F.reflect_pad_last(audio, 128, 128), 256, 64)
+    wr, wi = split_basis(params["stft_basis"])
+    window = torch.hann_window(256, periodic=True, device=device)
+
+    def rfft():
+        return torch.fft.rfft(frames * window, dim=-1).abs()
+
+    kernel = dot_magnitude(frames, wr, wi)
+    diff = max_abs(rfft(), kernel) / float(kernel.abs().max())
+    out["dot_magnitude"] = cuda_ms(rfft)
+    log(f"time cuFFT (frames x window, torch.fft.rfft, abs) beside dot_magnitude B={B_MAIN} x "
+        f"{CHUNK}: {out['dot_magnitude']:.4f} ms; the v3.1 basis against the Hann DFT "
+        f"{hann_dft_gap(params['stft_basis']):.2e}, cuFFT against dot_magnitude {diff:.2e} of the "
+        "largest magnitude")
+    return out
+
+
+def phase_timing_tiers_v45(models: dict, device) -> dict:
+    """Per tier beside faithful in one call: stft_magnitude's instance at the
+    four family geometries at B=2048 against its plain version, lstm_fused at
+    v4 B=2048 x T=3 against its plain version, and the v4 and v5 B=2048 step
+    (StreamRunner.step). tier -> name -> (kernel ms, plain ms) or ms."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels.lstm import lstm_fused, lstm_fused_reference, transposed_weight_of
+    from vadc_tpu_torch.kernels.stft_mag import (
+        split_basis_of, stft_magnitude, stft_magnitude_reference,
+    )
+    from vadc_tpu_torch.nn.precision import tier_of
+
+    audio = {}
+    for family, (module, params) in models.items():
+        samples, kw = stft_geometry(family, module)
+        audio[family] = (torch.from_numpy(speech_chunks(B_MAIN, samples, seed=SEED + 400)
+                                          ).to(device), kw)
+    v4, p4 = models["v4"]
+    x, h, c = lstm_inputs(v4, p4, audio["v4"][0], B_MAIN, device)
+    out = {}
+    for name in ("faithful", *TIERS):
+        tier = tier_of(name)
+        t = {"stft_magnitude_at": {}}
+        for family, (chunks, kw) in audio.items():
+            mode = stft_mode_of(family, name)
+            wr, wi = split_basis_of(models[family][1])
+            ms, plain_ms = cuda_ms_pair(lambda: stft_magnitude(chunks, wr, wi, **kw, mode=mode),
+                                        lambda: stft_magnitude_reference(chunks, wr, wi, **kw,
+                                                                         mode=mode))
+            spect = stft_magnitude(chunks, wr, wi, **kw, mode=mode)
+            n_fft, bins = wr.shape
+            bound, by = products_bound_ms(
+                4 * (chunks.numel() + 2 * n_fft * bins + spect.numel()),
+                (spectrum_flops(spect.shape[0] * spect.shape[1], n_fft, bins), mode))
+            t["stft_magnitude_at"][f"{family} B={B_MAIN} x {chunks.shape[1]}"] = {
+                "mode": mode, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+            if family == "v4":
+                t["stft_magnitude"] = (ms, plain_ms)
+                t["stft_magnitude_bound"] = (bound, by)
+        w, b = p4["lstm_w"], p4["lstm_b"]
+        wt = transposed_weight_of(p4, tier.products)
+        t["lstm_fused"] = cuda_ms_pair(lambda: lstm_fused(x, h, c, w, b, wt=wt, tier=tier),
+                                       lambda: lstm_fused_reference(x, h, c, w, b, tier))
+        for family, chunk in (("v4", V4_CHUNK), ("v5", V5_CHUNK)):
+            module, params = models[family]
+            runner = StreamRunner(family, params, device=device, precision=name)
+            state = runner.init_state(B_MAIN)
+            steps = torch.from_numpy(speech_chunks(B_MAIN, chunk, seed=SEED + 401)).to(device)
+            t[f"step_{family}"] = cuda_ms(lambda: runner.step(steps, state))
+        out[name] = t
+        log(f"time tier {name} (v4/v5): stft_magnitude "
+            + ", ".join(f"{k} [{v['mode']}] {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound "
+                        f"{v['bound_ms']:.4f} by {v['bound_by']})"
+                        for k, v in t["stft_magnitude_at"].items())
+            + f"; lstm_fused v4 B={B_MAIN} x T={x.shape[1]} {t['lstm_fused'][0]:.4f} ms (plain "
+            f"{t['lstm_fused'][1]:.4f}); step v4 B={B_MAIN} {t['step_v4']:.4f} ms, v5 "
+            f"{t['step_v5']:.4f} ms")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2153,6 +2707,11 @@ def main() -> int:
     from vadc_tpu_torch.models.synthetic import random_v5_archive, save_archive
     from vadc_tpu_torch.models.weights import load_params
     from vadc_tpu_torch.runtime import require_cuda
+
+    start = time.perf_counter()
+
+    def elapsed(what: str) -> None:
+        log(f"elapsed after {what}: {time.perf_counter() - start:.1f} s")
 
     smi = nvidia_smi()
     log(f"card: {smi}")
@@ -2167,6 +2726,8 @@ def main() -> int:
     errs.update(phase_kernels_lstm_decoder(params, device))
     errs.update(phase_kernels_v45(models, device))
     tier_errs = phase_kernels_tiers(params, device)
+    tier_errs_v45 = phase_kernels_tiers_v45(models, device)
+    elapsed("the kernel checks")
     launches: dict = {}
     tier_launches: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2177,20 +2738,25 @@ def main() -> int:
         speech = Path(tmp) / "speech.s16le"
         speech_file(speech)
         phase_main_path_tiers(params, device, speech, tier_launches)
+        phase_main_path_tiers_v45(models, archives, device, speech, tier_launches)
     phase_main_path_v5(models, device, launches)
     corpus = phase_main_path_batch(device, launches)
     phase_server(device, launches)
     log(f"launches on the main paths, all phases: {launches}; at the bf16 tiers: {tier_launches}")
+    elapsed("the main paths")
     timing = phase_timing(params, device)
     timing.update(phase_timing_v45(models, device))
     slab = phase_timing_slab(params, device, corpus)
     phase_timing_variants(models, params, device)
     tier_timing = phase_timing_tiers(params, device)
+    library = phase_timing_library(params, models, device)
+    tier_timing_v45 = phase_timing_tiers_v45(models, device)
     with tempfile.TemporaryDirectory() as tmp:
         v5_archive = Path(tmp) / "v5_synthetic.testtensor"
         save_archive(v5_archive, random_v5_archive(0))
         time_ticks(str(DEFAULT_WEIGHTS), device, "v3.1")
         time_ticks(str(v5_archive), device, "v5 (synthetic weights)")
+    elapsed("the timings")
 
     # The bound of each kernel at the shape it was timed at: bytes are each
     # input read once and each output written once (fp32), operations the
@@ -2217,7 +2783,7 @@ def main() -> int:
     table = [
         ("dot_magnitude", "vadc_tpu_torch/kernels/csrc/stft_dotmag.cu",
          "vadc_tpu/kernels/stft_dotmag.py:56", launches["dot_magnitude"], errs["dot_magnitude"],
-         *timing["dot_magnitude"], None,
+         *timing["dot_magnitude"], library["dot_magnitude"],
          bound_ms(spectrum_flops(rows), B_MAIN * (CHUNK + 256) * 4 + basis + rows * 129 * 4),
          f"B={B_MAIN} x {CHUNK}", {"cublas_product_only_ms": timing["dot_magnitude_cublas"]}),
         ("silero_v31_fused", fused_src, "vadc_tpu/kernels/silero_v31_fused2d.py:232",
@@ -2229,10 +2795,11 @@ def main() -> int:
          {"launches_by_entry": by_entry, "same_kernel_as": "silero_v31_fused"}),
         ("stft_magnitude", "vadc_tpu_torch/kernels/csrc/stft_mag.cu",
          "vadc_tpu/kernels/stft_mag.py:91", launches["stft_magnitude"], errs["stft_magnitude"],
-         *timing["stft_magnitude"], None, timing["stft_magnitude_bound"],
+         *timing["stft_magnitude"], library["stft_magnitude"], timing["stft_magnitude_bound"],
          f"v4 B={B_MAIN} x {V4_CHUNK}",
          {"cublas_product_only_ms": timing["stft_magnitude_cublas"],
-          "geometries": timing["stft_magnitude_at"]}),
+          "geometries": {label: {**at, **library["stft_magnitude_at"].get(label, {})}
+                         for label, at in timing["stft_magnitude_at"].items()}}),
         ("lstm_fused", "vadc_tpu_torch/kernels/csrc/lstm.cu", "vadc_tpu/kernels/lstm.py:181",
          launches["lstm_fused"], errs["lstm_fused"], lstm_ms, lstm_plain, lstm_lib,
          bound_ms(lstm_shape[0] * lstm_flops(lstm_shape[1], 2, 64),
@@ -2296,6 +2863,24 @@ def main() -> int:
             table.append((f"{name}[{tier}]", src, replaces, tier_launches[tier].get(counter, 0),
                           tier_errs[tier][counter],
                           ms, plain_ms, None, tier_bound_ms(spec, body, nbytes, tier), shape, extra))
+    # each tier instance of the v4/v5 paths' kernels (the v4 shapes; every
+    # family geometry of stft_magnitude under "geometries")
+    lstm_bytes = 2 * lstm_shape[0] * lstm_shape[1] * 64 * 4 + state_bytes + lstm_weights
+    for tier in TIERS:
+        tv = tier_timing_v45[tier]
+        table.append((f"stft_magnitude[{tier}]", "vadc_tpu_torch/kernels/csrc/stft_mag.cu",
+                      "vadc_tpu/kernels/stft_mag.py:91", tier_launches[tier].get("stft_magnitude", 0),
+                      tier_errs_v45[tier]["stft_magnitude"], *tv["stft_magnitude"], None,
+                      tv["stft_magnitude_bound"], f"v4 B={B_MAIN} x {V4_CHUNK}",
+                      {"tier": tier, "mode": stft_mode_of("v4", tier),
+                       "geometries": tv["stft_magnitude_at"]}))
+        table.append((f"lstm_fused[{tier}]", "vadc_tpu_torch/kernels/csrc/lstm.cu",
+                      "vadc_tpu/kernels/lstm.py:181", tier_launches[tier].get("lstm_fused", 0),
+                      tier_errs_v45[tier]["lstm_fused"], *tv["lstm_fused"], None,
+                      tier_bound_ms(0.0, lstm_shape[0] * lstm_flops(lstm_shape[1], 2, 64), lstm_bytes,
+                                    tier),
+                      f"v4 B={lstm_shape[0]} x T={lstm_shape[1]}",
+                      {"tier": tier, "variant": variant_of(*lstm_shape[:2])}))
     kernels = []
     for name, src, replaces, n, err, ms, plain_ms, library_ms, (bound, by), shape, extra in table:
         if name.split("[")[0] in OFF_PATH_KERNELS:

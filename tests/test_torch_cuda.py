@@ -18,6 +18,10 @@ lstm_decoder_fused the fused kernel's bounds, equal bit for bit to K single
 calls and, on encode_fused's output, to the fused kernel. The two variants
 of lstm_fused and lstm_decoder_fused (streaming and resident weights),
 launched explicitly, equal each other and the wrapper's call bit for bit.
+The bf16 tiers' instances are held to their plain versions at the tier by
+vadc_tpu_torch/kernels/tier_check.py (which says why they are not
+bit-equal); at every tier stft_magnitude equals dot_magnitude's instance
+of the same operands, and the two lstm_fused variants equal each other.
 """
 
 from pathlib import Path
@@ -704,3 +708,126 @@ def test_tiers_leave_the_faithful_instance_alone(params, device):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(default, named))
     assert not torch.equal(default[1], fast[1])
+
+
+# ---- the bf16 tiers of the v4 and v5 paths --------------------------------
+# stft_magnitude's instance of the products' mode the tier gives the family
+# and lstm_fused's instance of the tier, each against its plain version at
+# the tier, held to kernels/tier_check.py; the spectrum bit-equal to
+# dot_magnitude's instance of the same operands, the two LSTM variants to
+# each other; the paths on the card against the CPU within its PATH_MAX
+
+TIERS = ("balanced", "fast", "turbo")
+# family -> (samples the spectrum sees, pad_left, pad_right, hop)
+V45_STFT = {"v4": (1536, 96, 96, 64), "v4_8k": (768, 96, 96, 64), "v5": (576, 0, 64, 128),
+            "v5_8k": (288, 0, 32, 64)}
+# dot_magnitude's tier of each spectrum mode: the tier whose STFT it is
+DOTMAG_TIER = {"fp32": "faithful", "bf16_3x": "fast", "bf16": "turbo"}
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("family", ["v4", "v4_8k", "v5", "v5_8k"])
+def test_stft_magnitude_tier_instances_match_plain(family_params, device, family, tier):
+    from vadc_tpu_torch.kernels import stft_dotmag as KD
+    from vadc_tpu_torch.kernels import stft_mag as KS
+    from vadc_tpu_torch.kernels import tier_check
+    from vadc_tpu_torch.nn import functional as F
+    from vadc_tpu_torch.nn.precision import stft_mode, tier_of
+
+    _, params = family_params[family]
+    samples, pad_left, pad_right, hop = V45_STFT[family]
+    mode = stft_mode(tier_of(tier), log_sensitive=family.startswith("v4"))
+    audio = torch.from_numpy(speech(256, chunk=samples, seed=70)).to(device)
+    wr, wi = KS.split_basis_of(params)
+    kw = dict(pad_left=pad_left, pad_right=pad_right, hop=hop)
+    before = KS.stft_magnitude.launches
+    got = KS.stft_magnitude(audio, wr, wi, **kw, mode=mode)
+    want = KS.stft_magnitude_reference(audio, wr, wi, **kw, mode=mode)
+    torch.cuda.synchronize()
+    assert KS.stft_magnitude.launches == before + 1
+    errs = {"mag": tier_check.errors(got, want, tier, float(want.abs().max()))}
+    assert not tier_check.breaches(tier, "stft_magnitude", 256, errs), errs
+    if wr.shape == (256, 129):
+        frames = F.frame(F.reflect_pad_last(audio, pad_left, pad_right), 256, hop)
+        assert torch.equal(got, KD.dot_magnitude(frames, wr, wi, DOTMAG_TIER[mode]))
+
+
+def _lstm_inputs_at(module, params, device, tier, batch: int, steps: int, seed: int):
+    """Encoder features of speech at the tier as `batch` sequences of
+    `steps` frames, and a carried state (a plain forward on noise first)."""
+    context = getattr(module, "CONTEXT_SAMPLES", 0)
+    chunk = {64: 1536, 128: 512}[module.HIDDEN]
+    frames = module.encode(params, torch.zeros(1, context + chunk, device=device)).shape[1]
+    n = batch * steps // frames
+    audio = torch.from_numpy(speech(n, chunk=context + chunk, seed=seed)).to(device)
+    x = module.encode(params, audio, tier=tier).reshape(batch, steps, module.HIDDEN).contiguous()
+    h0, c0 = module.init_state(n, device)
+    other = torch.from_numpy(noise(n, chunk=context + chunk, seed=seed + 1)).to(device)
+    _, h, c = module.forward_reference(params, other, h0, c0)
+    return x, h[:, :batch].contiguous(), c[:, :batch].contiguous()
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("family,batch,steps", [("v4", 2048, 3), ("v4", 1, 288), ("v5", 2048, 1),
+                                                ("v5", 1, 96)])
+def test_lstm_fused_tier_instances_match_plain(family_params, device, family, batch, steps, tier):
+    """The wrapper's instance of the tier against F.lstm at the tier; the
+    streaming and the resident variant, launched explicitly at the tier,
+    bit for bit against the wrapper's call."""
+    from vadc_tpu_torch.kernels import lstm as KL
+    from vadc_tpu_torch.kernels import tier_check
+    from vadc_tpu_torch.nn.precision import tier_of
+
+    module, params = family_params[family]
+    t = tier_of(tier)
+    x, h, c = _lstm_inputs_at(module, params, device, t, batch, steps, 71)
+    w, b, wt = params["lstm_w"], params["lstm_b"], KL.transposed_weight_of(params, t.products)
+    got = KL.lstm_fused(x, h, c, w, b, wt=wt, tier=t)
+    want = KL.lstm_fused_reference(x, h, c, w, b, t)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want[2].abs().max()))
+    errs = {name: tier_check.errors(g, r, tier, scale if name == "c" else 1.0)
+            for name, g, r in zip(("y", "h", "c"), got, want)}
+    assert not tier_check.breaches(tier, "lstm_fused", batch, errs), errs
+    for launch in (KL._launch_streaming, KL._launch_resident):
+        out = (torch.empty_like(x), torch.empty_like(h), torch.empty_like(c))
+        launch(x, h, c, wt, b, *out, t)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, r) for a, r in zip(out, got)), launch.__name__
+
+
+def test_lstm_fused_refuses_a_weight_packed_for_another_tier(family_params, device):
+    from vadc_tpu_torch.kernels import lstm as KL
+
+    _, params = family_params["v4"]
+    x, h = torch.zeros(2, 3, 64, device=device), torch.zeros(2, 2, 64, device=device)
+    w, b = params["lstm_w"], params["lstm_b"]
+    with pytest.raises(ValueError, match="packed for bf16 products"):
+        KL.lstm_fused(x, h, h.clone(), w, b, wt=KL.transposed_weight_of(params), tier="fast")
+    with pytest.raises(ValueError, match="packed for fp32 products"):
+        KL.lstm_fused(x, h, h.clone(), w, b, wt=KL.transposed_weight_of(params, "bf16"))
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("family", ["v4", "v4_8k", "v5", "v5_8k"])
+def test_v4_v5_runners_at_a_tier_on_the_card(family_params, device, family, tier):
+    """The stream runner at the tier on the card against the plain path at
+    the tier on the CPU, through both kernels' tier instances."""
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels import tier_check
+    from vadc_tpu_torch.kernels.lstm import lstm_fused
+    from vadc_tpu_torch.kernels.stft_mag import stft_magnitude
+
+    chunk = {"v4": 1536, "v4_8k": 768, "v5": 512, "v5_8k": 256}[family]
+    _, params = family_params[family]
+    chunks = speech(32 * 3, chunk=chunk, seed=72).reshape(32, 3, -1)
+    gpu = StreamRunner(family, params, device=device, precision=tier)
+    cpu = StreamRunner(family, params, device="cpu", precision=tier)
+    stft_magnitude.launches = lstm_fused.launches = 0
+    p_gpu, st = gpu.scan(chunks, gpu.init_state(32))
+    torch.cuda.synchronize()
+    assert stft_magnitude.launches == 3 and lstm_fused.launches >= 3
+    p_cpu, st_cpu = cpu.scan(chunks, cpu.init_state(32))
+    limits = tier_check.PATH_MAX[tier]
+    assert _max_abs(p_gpu.cpu(), p_cpu) <= limits["probs"]
+    assert _max_abs(st.h.cpu(), st_cpu.h) <= limits["h"]

@@ -235,18 +235,19 @@ def test_minibatch_runner_matches_jax_with_padded_final_batch(params):
 def test_runners_refuse_unported_tiers_families_and_missing_cards(params):
     _, tp = params
     for tier in ("balanced", "fast", "turbo"):
-        # v3.1 runs every tier; v4 and v5 (and the 8 kHz twins) refuse the
-        # bf16 ones, naming the ROADMAP item, before they touch the weights
-        assert TR.StreamRunner("v3", tp, device="cpu", precision=tier).precision == tier
-        runner = TR.MinibatchRunner("v3", tp, batch_size=2, chunk_samples=1536,
-                                    device="cpu", precision=tier)
-        assert runner.precision == tier
-        for family in ("v4", "v4_8k", "v5", "v5_8k"):
-            with pytest.raises(NotImplementedError, match="ROADMAP.*'bf16 tiers: v4 and v5'"):
-                TR.StreamRunner(family, tp, device="cpu", precision=tier)
-            with pytest.raises(NotImplementedError, match="ROADMAP.*'bf16 tiers: v4 and v5'"):
-                TR.MinibatchRunner(family, tp, batch_size=2, chunk_samples=512,
-                                   device="cpu", precision=tier)
+        # every family runs every tier (tests/test_torch_tiers.py,
+        # tests/test_torch_tiers_v45.py run them); the runner hands the tier
+        # to the model functions
+        for family in ("v3", "v4", "v4_8k", "v5", "v5_8k"):
+            runner = TR.StreamRunner(family, tp, device="cpu", precision=tier)
+            assert runner.precision == tier and runner.tier.name == tier
+            runner = TR.MinibatchRunner(family, tp, batch_size=2, chunk_samples=512,
+                                        device="cpu", precision=tier)
+            assert runner.precision == tier and runner.tier.name == tier
+    # an unknown tier is refused for every family, before the weights are touched
+    for family in ("v3", "v4", "v5_8k"):
+        with pytest.raises(ValueError, match="unknown precision 'bf8'"):
+            TR.StreamRunner(family, tp, device="cpu", precision="bf8")
     # every family of the JAX package is ported; an unknown one is refused
     with pytest.raises(ValueError, match="unknown model family"):
         TR.StreamRunner("v6", tp, device="cpu")

@@ -582,10 +582,6 @@ V4_ARCHIVE = DATA / "silero_v4_16k.testtensor"
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--fast", "--model", str(V4_ARCHIVE), "--device", "cpu"],
-     "precision 'fast' is not ported for the v4 model"),
-    (["--precision", "balanced", "--model", str(V4_ARCHIVE), "--device", "cpu"],
-     "precision 'balanced' is not ported for the v4 model"),
     (["--resume", "x.ckpt"], "Queue 1: 'Checkpoint'"),
     (["--shard"], "Queue 1: 'Multi-GPU'"),
     (["--model", "/nonexistent/w.testtensor", "--device", "cpu"], "no weight archive"),
@@ -594,6 +590,21 @@ def test_main_refuses_what_is_not_ported(argv, message, capsys):
     assert main(argv) == 1
     err = capsys.readouterr().err
     assert err.startswith("Error: ") and message in err and err.count("\n") == 1
+
+
+@pytest.mark.parametrize("argv,precision", [
+    (["--fast", "--model", str(V4_ARCHIVE), "--device", "cpu"], "fast"),
+    (["--precision", "balanced", "--model", str(V4_ARCHIVE), "--device", "cpu"], "balanced"),
+])
+def test_main_serves_v4_at_a_bf16_tier(argv, precision, monkeypatch):
+    """The command line takes every tier for the v4 model (refused before
+    the v4/v5 tiers were ported): the server it builds runs the tier."""
+    served = []
+    monkeypatch.setattr(VadServer, "serve_forever", lambda self: served.append(self))
+    assert main(["--port", "0", *argv]) == 0
+    (srv,) = served
+    assert srv.runner.family == "v4" and srv.runner.precision == precision
+    srv.pool.close()
 
 
 def test_main_without_a_card_exits_1(capsys, monkeypatch):
@@ -623,3 +634,21 @@ def test_bf16_tiers_serve_the_faithful_segment_lines(precision):
     with serving(srv) as port:
         got = _exchange(port, audio)
     assert want.count(b"\n") >= 3 and got == want
+
+
+def test_v4_at_fast_serves_the_faithful_segment_lines():
+    """The v4 model at fast on every tick: the faithful tier's segment lines
+    for the same client (the v4 track of seed 0, whose segments no tier but
+    turbo moves: tests/torch_tier_survey.py)."""
+    from vadc_tpu.io.synthaudio import utterance_track
+
+    track, _ = utterance_track(4, seed=0)
+    audio = f32_to_s16le(track.astype(np.float32))
+    lines = {}
+    for precision in ("faithful", "fast"):
+        srv = VadServer(port=0, max_streams=2, model=str(V4_ARCHIVE), device="cpu",
+                        precision=precision)
+        assert srv.runner.family == "v4" and srv.runner.precision == precision
+        with serving(srv) as port:
+            lines[precision] = _exchange(port, audio)
+    assert lines["faithful"].count(b"\n") >= 3 and lines["fast"] == lines["faithful"]

@@ -17,6 +17,8 @@ Usage:
         [--neg_threshold_relative P] [--speech_pad MS] [--stats]
         [--cut_dir DIR] [--device cuda|cpu] [--fast | --precision TIER]
 
+Every family runs every precision tier (--fast is --precision fast).
+
 Output (stdout): `<filename>\\t<start>,<end>` per segment. With --cut_dir,
 additionally writes one speech-only file per input. Inputs are raw mono
 model-rate s16le files or .wav at any rate/bits/channels (decoded natively).
@@ -59,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shorthand for --precision fast")
     p.add_argument("--precision", choices=PRECISIONS, default=None,
                    help="precision tier (default faithful, fp32); the bf16 tiers "
-                        "balanced, fast and turbo run Silero v3.1")
+                        "balanced, fast and turbo run every family")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default), cuda:N or cpu")
     return p

@@ -11,9 +11,9 @@ Counterpart of vadc_tpu/cli/main.py with the reference's 13 flags
          [--raw_probabilities] [--stats] [--output_centi_seconds]
          [--model PATH]
 
-plus the JAX CLI's [--precision faithful|balanced|fast|turbo] (the bf16
-tiers for Silero v3.1; v4 and v5 run faithful only), [--sr 16000|8000] and
-[--onnx_exec], and [--device cuda|cpu] (default cuda). With --device cuda
+plus the JAX CLI's [--precision faithful|balanced|fast|turbo] (every tier
+for every family), [--sr 16000|8000] and [--onnx_exec], and [--device
+cuda|cpu] (default cuda). With --device cuda
 and no card the CLI exits 1 with a one-line error; it never runs on the CPU
 instead.
 
@@ -57,8 +57,13 @@ from vadc_tpu_torch.runtime import PRECISIONS, NoCudaDeviceError
 WINDOW_CHUNKS = 96
 # What --raw_probabilities at fast/turbo says of the deviation from fp32:
 # the port's own measurement on the card, with the card named (chip_smoke.py's
-# survey of twelve synthetic speech tracks, the largest deviation of each tier)
-RAW_NOTE = {"fast": "up to 2.2e-2", "turbo": "up to 1.7e-1"}
+# survey of twelve synthetic speech tracks, the largest deviation of each
+# tier and family; v5's weights were synthetic ones of the official shapes)
+RAW_NOTE = {"v3": {"fast": "2.2e-2", "turbo": "1.7e-1"},
+            "v4": {"fast": "6.2e-3", "turbo": "7.1e-2"},
+            "v4_8k": {"fast": "8.6e-3", "turbo": "5.5e-2"},
+            "v5": {"fast": "2.5e-2", "turbo": "5.0e-2"},
+            "v5_8k": {"fast": "2.1e-2", "turbo": "2.0e-2"}}
 RAW_NOTE_CARD = "over 12 synthetic speech tracks on an NVIDIA H100 80GB HBM3 at 700.00 W"
 
 
@@ -102,7 +107,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default: bundled Silero v3.1 16k)")
     p.add_argument("--precision", choices=PRECISIONS, default="faithful",
                    help="precision tier (default faithful, fp32); the bf16 "
-                        "tiers balanced, fast and turbo run Silero v3.1")
+                        "tiers balanced, fast and turbo run every family")
     p.add_argument("--sr", type=int, choices=(16000, 8000), default=None,
                    help="sample-rate branch of fused v4/v5 .onnx models "
                         "(they carry both). Testtensor archives carry their "
@@ -122,7 +127,7 @@ def main(argv: list[str] | None = None) -> int:
         return _main(argv)
     except (FileNotFoundError, ValueError, NotImplementedError, NoCudaDeviceError) as e:
         # one-line errors for the common failure modes (missing model file,
-        # unported family or tier, no card), as the reference does
+        # unknown family or tier, no card), as the reference does
         print(f"Error: {e}", file=sys.stderr)
         return 1
     except BrokenPipeError:
@@ -215,9 +220,10 @@ def _main(argv: list[str] | None = None) -> int:
         seq = runner.chunk_samples
         print(f"Running with sequence count {seq} (graph-executor backend)", file=sys.stderr)
     if args.raw_probabilities and args.precision in ("fast", "turbo"):
+        measured = RAW_NOTE.get(getattr(runner, "family", None), {}).get(args.precision)
+        reading = f" (up to {measured} {RAW_NOTE_CARD})" if measured else ""
         print(f"note: --raw_probabilities at --precision {args.precision}: "
-              f"probabilities deviate from fp32 on speech material ({RAW_NOTE[args.precision]} "
-              f"{RAW_NOTE_CARD}); use "
+              f"probabilities deviate from fp32 on speech material{reading}; use "
               "balanced or faithful for probability-faithful output", file=sys.stderr)
     # the 8 kHz families time chunks (and decode wav input) at their own rate
     model_sr = runner.module.SAMPLE_RATE

@@ -21,9 +21,9 @@ ported.
 
 Every runner takes its device explicitly. On a CUDA device the model runs
 through the package's CUDA kernels; on the CPU through their plain
-versions. Every runner takes its precision tier too (`nn.precision`): v3
-runs all four, the other families faithful only
-(`runtime.check_precision`).
+versions. Every runner takes its precision tier too (`nn.precision`), and
+every family runs all four (`runtime.check_precision` refuses an unknown
+one).
 """
 
 from __future__ import annotations
@@ -108,11 +108,10 @@ def _as_audio(chunks, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(chunks, dtype=torch.float32).to(device)
 
 
-def _tier_kwargs(family: str, precision: str) -> dict:
-    """The model functions' tier argument: v3's take one; the other
-    families' run faithful only and take none."""
+def _tier(family: str, precision: str):
+    """The model functions' tier argument (every family takes one)."""
     check_precision(precision, family)
-    return {"tier": tier_of(precision)} if family == "v3" else {}
+    return tier_of(precision)
 
 
 class StreamRunner:
@@ -120,7 +119,7 @@ class StreamRunner:
     device, at one precision tier."""
 
     def __init__(self, family: str, params: dict, *, device, precision: str = "faithful"):
-        self._tier = _tier_kwargs(family, precision)
+        self.tier = _tier(family, precision)
         self.family = family
         self.module = get_family_module(family)
         self.precision = precision
@@ -149,7 +148,7 @@ class StreamRunner:
             audio, tail = self.module.attach_context(audio, state.context)
             out.context.copy_(tail)
         probs, _, _ = self.module.forward(
-            self.params, audio, state.h, state.c, hn=out.h, cn=out.c, **self._tier
+            self.params, audio, state.h, state.c, hn=out.h, cn=out.c, tier=self.tier
         )
         return probs
 
@@ -159,7 +158,7 @@ class StreamRunner:
         audio = _as_audio(chunks, self.device)
         if hasattr(self.module, "forward_scan"):
             probs, _, _ = self.module.forward_scan(
-                self.params, audio, state.h, state.c, hn=state.h, cn=state.c, **self._tier
+                self.params, audio, state.h, state.c, hn=state.h, cn=state.c, tier=self.tier
             )
             return probs, state
         probs = torch.empty(audio.shape[:2], dtype=torch.float32, device=self.device)
@@ -183,7 +182,7 @@ class MinibatchRunner:
         device,
         precision: str = "faithful",
     ):
-        self._tier = _tier_kwargs(family, precision)
+        self.tier = _tier(family, precision)
         self.family = family
         self.module = get_family_module(family)
         self.precision = precision
@@ -197,14 +196,14 @@ class MinibatchRunner:
 
     def _forward(self, chunks: torch.Tensor):
         if self.context is None:
-            return self.module.forward_minibatched(self.params, chunks, self.h, self.c, **self._tier)
+            return self.module.forward_minibatched(self.params, chunks, self.h, self.c, self.tier)
         # per-chunk context prefix: chunk i gets the tail of chunk i-1,
         # chunk 0 the carried context (process_chunks_v5, vadc.c:105-162)
         ctx = self.module.CONTEXT_SAMPLES
         tails = torch.cat([self.context, chunks[:-1, -ctx:]], dim=0)
         self.context = chunks[-1:, -ctx:].clone()
         inp = torch.cat([tails, chunks], dim=-1)
-        return self.module.forward_minibatched(self.params, inp, self.h, self.c)
+        return self.module.forward_minibatched(self.params, inp, self.h, self.c, self.tier)
 
     def process_window(self, samples) -> list[float]:
         """Process a window of samples (zero-padded multiple of the chunk

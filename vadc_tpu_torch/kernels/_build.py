@@ -59,16 +59,17 @@ _SIGNATURES = {
     # n_norm_w, audio, rows, stride_b, samples, basis, y, tier, stream
     "vadc_silero_v31_encode_audio": [_P, _P, _I, _P, _I, _P, _I, _L, _I, _P, _P, _I, _P],
     # audio, batch, stride_b, samples, pad_left, pad_right, hop, padded
-    # basis, n_fft, cutoff, streams a block, out, stream
-    "vadc_stft_magnitude": [_P, _I, _L, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P],
-    # x, h0, c0, wt, bias, y, hn, cn, batch, seq, hidden, layers, stream
-    "vadc_lstm_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # basis, n_fft, cutoff, streams a block, out, mode, stream
+    "vadc_stft_magnitude": [_P, _I, _L, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _P],
+    # x, h0, c0, wt, bias, y, hn, cn, batch, seq, hidden, layers, tier, stream
+    "vadc_lstm_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, h0, c0, wt, bias, dec_w, dec_b, probs, hn, cn, batch, chunks,
     # frames, stream
     "vadc_lstm_decoder_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, h0, c0, wt, bias, pre, pre_rows, y, hn, cn, batch, seq, hidden,
-    # layers, launched (out: kernels launched), stream
-    "vadc_lstm_fused_resident": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _IP, _P],
+    # layers, tier, launched (out: kernels launched), stream
+    "vadc_lstm_fused_resident": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _IP,
+                                 _P],
     # x, h0, c0, wt, bias, dec_w, dec_b, pre, pre_rows, probs, hn, cn, batch,
     # chunks, frames, tier, launched (out: kernels launched), stream
     "vadc_lstm_decoder_fused_resident": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I,

@@ -35,9 +35,17 @@
 // then (the fmaf chains, the shared-memory pipe, the latency of the
 // activations) is in that header. kernels/lstm.py chooses between the two from the shapes.
 //
-// Numerics are the faithful tier's: fp32 sums in k order (inputs, then
-// recurrent units, then the bias), sigmoid as 1/(1+expf(-x)), the accurate
-// tanh of vadc_tpu/nn/functional.py accurate_tanh, no --use_fast_math.
+// Numerics: fp32 sums in k order (inputs, then recurrent units, then the
+// bias), sigmoid as 1/(1+expf(-x)), no --use_fast_math. Both variants take
+// the precision tier T as a template parameter (tier.cuh), an instance each:
+// each x and h value an Operand<Tier<T>::kProducts> where it is read, the
+// weights packed for the tier by the wrapper, the tier's tanh (the accurate
+// tanh of vadc_tpu/nn/functional.py accurate_tanh at faithful and balanced,
+// tanhf at fast and turbo; lstm_cell.cuh). The sums keep the faithful order
+// at every tier, so the two variants give the same bits at every tier. The
+// JAX package's Pallas lstm_fused has no tier (it sums at HIGHEST); its
+// v4/v5 models run nn.functional.lstm, whose gates take the tier's
+// products: the tier instances compute that.
 #include <cuda_runtime.h>
 
 #include "lstm_cell.cuh"
@@ -47,7 +55,7 @@ namespace {
 
 constexpr int NB = 4;  // streams per block
 
-template <int H>
+template <int H, int T>
 __global__ void __launch_bounds__(4 * H)
 lstm_kernel(const float* __restrict__ x, const float* h0, const float* c0,
             const float* __restrict__ wt, const float* __restrict__ bias,
@@ -84,6 +92,7 @@ lstm_kernel(const float* __restrict__ x, const float* h0, const float* c0,
       float* h_l = hs + layer * NB * H;
       float* c_l = cs + layer * NB * H;
       {
+        using Op = Operand<Tier<T>::kProducts>;
         const int j = tid;
         float acc[NB];
 #pragma unroll
@@ -92,13 +101,13 @@ lstm_kernel(const float* __restrict__ x, const float* h0, const float* c0,
         for (int k = 0; k < H; ++k) {
           const float wv = __ldg(w + k * G + j);
 #pragma unroll
-          for (int s = 0; s < NB; ++s) acc[s] = fmaf(in[s * H + k], wv, acc[s]);
+          for (int s = 0; s < NB; ++s) acc[s] = Op(in[s * H + k]).fma(wv, acc[s]);
         }
 #pragma unroll 8
         for (int k = 0; k < H; ++k) {
           const float wv = __ldg(w + (H + k) * G + j);
 #pragma unroll
-          for (int s = 0; s < NB; ++s) acc[s] = fmaf(h_l[s * H + k], wv, acc[s]);
+          for (int s = 0; s < NB; ++s) acc[s] = Op(h_l[s * H + k]).fma(wv, acc[s]);
         }
         const float b = __ldg(bias + layer * G + j);
 #pragma unroll
@@ -109,12 +118,11 @@ lstm_kernel(const float* __restrict__ x, const float* h0, const float* c0,
         const int s = i / H;
         const int u = i % H;
         const float* g = gates + s * G;
-        const float ig = sigmoidf(g[u]);
-        const float fg = sigmoidf(g[H + u]);
-        const float gg = accurate_tanhf(g[2 * H + u]);
-        const float og = sigmoidf(g[3 * H + u]);
-        const float c_new = fg * c_l[i] + ig * gg;
-        const float h_new = og * accurate_tanhf(c_new);
+        float c_new = c_l[i];
+        const float h_new =
+            lstm_cell<T>(gate_activation<T>(0, g[u]), gate_activation<T>(1, g[H + u]),
+                         gate_activation<T>(2, g[2 * H + u]), gate_activation<T>(3, g[3 * H + u]),
+                         c_new);
         c_l[i] = c_new;
         h_l[i] = h_new;
         if (layer == layers - 1 && b0 + s < batch) {
@@ -136,7 +144,7 @@ lstm_kernel(const float* __restrict__ x, const float* h0, const float* c0,
   }
 }
 
-template <int H>
+template <int H, int T>
 int launch(const float* x, const float* h0, const float* c0, const float* wt,
            const float* bias, float* y, float* hn, float* cn, int batch, int seq,
            int layers, cudaStream_t stream) {
@@ -144,13 +152,14 @@ int launch(const float* x, const float* h0, const float* c0, const float* wt,
   const size_t bytes = floats * sizeof(float);
   if (bytes > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const int grid = (batch + NB - 1) / NB;
-  lstm_kernel<H><<<grid, 4 * H, bytes, stream>>>(x, h0, c0, wt, bias, y, hn, cn, batch,
-                                                 seq, layers);
+  lstm_kernel<H, T><<<grid, 4 * H, bytes, stream>>>(x, h0, c0, wt, bias, y, hn, cn, batch,
+                                                    seq, layers);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One launch of the H=128, L=1 recurrent kernel over pre [batch, frames, 512],
-// at 1, 2 or 4 streams a cluster.
+// at 1, 2 or 4 streams a cluster, tier T.
+template <int T>
 cudaError_t launch_cluster(const float* pre, const float* h0, const float* c0, const float* wt,
                            const float* bias, float* y, long long y_stride_b, float* hn,
                            float* cn, int batch, int frames, cudaStream_t stream) {
@@ -159,63 +168,87 @@ cudaError_t launch_cluster(const float* pre, const float* h0, const float* c0, c
   const cudaError_t err = resident::streams_per_block(batch, &nb);
   if (err != cudaSuccess) return err;
   if (nb == 1) {
-    return launch_cluster1<1>(pre, h0, c0, wt, bias, y, y_stride_b, hn, cn, batch, frames, stream);
+    return launch_cluster1<1, T>(pre, h0, c0, wt, bias, y, y_stride_b, hn, cn, batch, frames,
+                                 stream);
   }
   if (nb == 2) {
-    return launch_cluster1<2>(pre, h0, c0, wt, bias, y, y_stride_b, hn, cn, batch, frames, stream);
+    return launch_cluster1<2, T>(pre, h0, c0, wt, bias, y, y_stride_b, hn, cn, batch, frames,
+                                 stream);
   }
-  return launch_cluster1<4>(pre, h0, c0, wt, bias, y, y_stride_b, hn, cn, batch, frames, stream);
+  return launch_cluster1<4, T>(pre, h0, c0, wt, bias, y, y_stride_b, hn, cn, batch, frames,
+                               stream);
+}
+
+// The resident-weights variant at tier T (vadc_lstm_fused_resident).
+template <int T>
+int fused_resident(const float* x, const float* h0, const float* c0, const float* wt,
+                   const float* bias, float* pre, long long pre_rows, float* y, float* hn,
+                   float* cn, int batch, int seq, int hidden, int layers, int* launched,
+                   cudaStream_t s) {
+  using namespace resident;
+  if (hidden == 64 && layers == 2) {
+    return run_in_passes<H2, T>(
+        x, h0, c0, wt, pre, pre_rows, hn, cn, batch, seq, 1,
+        [=](int f0, int n, const float* h, const float* c) {
+          const StoreY<T> top{y + static_cast<long long>(f0) * H2,
+                              static_cast<long long>(seq) * H2};
+          return launch_wavefront(pre, h, c, wt, bias, hn, cn, batch, n, top, s);
+        },
+        launched, s);
+  }
+  if (hidden == 128 && layers == 1) {
+    return run_in_passes<H1, T>(
+        x, h0, c0, wt, pre, pre_rows, hn, cn, batch, seq, 1,
+        [=](int f0, int n, const float* h, const float* c) {
+          return launch_cluster<T>(pre, h, c, wt, bias, y + static_cast<long long>(f0) * H1,
+                                   static_cast<long long>(seq) * H1, hn, cn, batch, n, s);
+        },
+        launched, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // x [batch, seq, hidden]; h0, c0, hn, cn [layers, batch, hidden] (hn, cn
 // may alias h0, c0); wt [layers, 2*hidden, 4*hidden]; bias [layers,
-// 4*hidden]; y [batch, seq, hidden]; all contiguous fp32. hidden is 64 or
-// 128. Returns cudaGetLastError() after the launch.
+// 4*hidden]; y [batch, seq, hidden]; all contiguous fp32, wt packed for
+// the tier's products (nn/precision.py: pack_operand). hidden is 64 or 128;
+// tier: 0 faithful, 1 balanced, 2 fast, 3 turbo. Returns cudaGetLastError()
+// after the launch.
 extern "C" int vadc_lstm_fused(const float* x, const float* h0, const float* c0,
                                const float* wt, const float* bias, float* y, float* hn,
-                               float* cn, int batch, int seq, int hidden, int layers,
+                               float* cn, int batch, int seq, int hidden, int layers, int tier,
                                void* stream) {
   if (batch <= 0 || seq <= 0 || layers <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hidden == 64) return launch<64>(x, h0, c0, wt, bias, y, hn, cn, batch, seq, layers, s);
-  if (hidden == 128) return launch<128>(x, h0, c0, wt, bias, y, hn, cn, batch, seq, layers, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_tier(tier, [&](auto t) {
+    constexpr int T = decltype(t)::value;
+    if (hidden == 64) return launch<64, T>(x, h0, c0, wt, bias, y, hn, cn, batch, seq, layers, s);
+    if (hidden == 128) {
+      return launch<128, T>(x, h0, c0, wt, bias, y, hn, cn, batch, seq, layers, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 // The same function by the resident-weights variant. Beyond vadc_lstm_fused:
 // pre is scratch of pre_rows x 4*hidden floats (pre_rows >= batch; fewer
 // rows than batch * seq make passes over the frames); hidden 64 takes
-// layers 2, hidden 128 layers 1; *launched receives the number of kernels it
-// launched (the pre-pass and the recurrent kernel of every pass). Returns
-// the first CUDA error of its launches.
+// layers 2, hidden 128 layers 1; tier as vadc_lstm_fused's; *launched
+// receives the number of kernels it launched (the pre-pass and the
+// recurrent kernel of every pass). Returns the first CUDA error of its
+// launches.
 extern "C" int vadc_lstm_fused_resident(const float* x, const float* h0, const float* c0,
                                         const float* wt, const float* bias, float* pre,
                                         long long pre_rows, float* y, float* hn, float* cn,
-                                        int batch, int seq, int hidden, int layers,
+                                        int batch, int seq, int hidden, int layers, int tier,
                                         int* launched, void* stream) {
   *launched = 0;
   if (batch <= 0 || seq <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using namespace resident;
-  if (hidden == 64 && layers == 2) {
-    return run_in_passes<H2>(
-        x, h0, c0, wt, pre, pre_rows, hn, cn, batch, seq, 1,
-        [=](int f0, int n, const float* h, const float* c) {
-          const StoreY top{y + static_cast<long long>(f0) * H2, static_cast<long long>(seq) * H2};
-          return launch_wavefront(pre, h, c, wt, bias, hn, cn, batch, n, top, s);
-        },
-        launched, s);
-  }
-  if (hidden == 128 && layers == 1) {
-    return run_in_passes<H1>(
-        x, h0, c0, wt, pre, pre_rows, hn, cn, batch, seq, 1,
-        [=](int f0, int n, const float* h, const float* c) {
-          return launch_cluster(pre, h, c, wt, bias, y + static_cast<long long>(f0) * H1,
-                                static_cast<long long>(seq) * H1, hn, cn, batch, n, s);
-        },
-        launched, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_tier(tier, [&](auto t) {
+    return fused_resident<decltype(t)::value>(x, h0, c0, wt, bias, pre, pre_rows, y, hn, cn,
+                                              batch, seq, hidden, layers, launched, s);
+  });
 }

@@ -6,8 +6,7 @@
 // Numerics: sigmoid as 1/(1+expf(-x)) at every tier; tanh by the tier
 // (tier.cuh): the accurate tanh of vadc_tpu/nn/functional.py accurate_tanh
 // (the exp form) at faithful and balanced, tanhf at fast and turbo; fp32
-// state, no --use_fast_math. The templates default to the faithful tier,
-// the only one lstm.cu runs.
+// state, no --use_fast_math. The templates default to the faithful tier.
 #pragma once
 
 #include <cuda_runtime.h>

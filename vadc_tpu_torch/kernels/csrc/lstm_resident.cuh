@@ -69,8 +69,9 @@
 // the tier's products where it is read, against weights the wrapper packed
 // for the tier, in the same chains, with the tier's tanh, exactly as
 // silero_v31_body.cuh's step LSTM does, so a slab still equals the loop of
-// steps bit for bit. lstm.cu's instances (StoreY, the cluster kernel) are
-// faithful only.
+// steps bit for bit. lstm.cu's instances take the tier the same way
+// (StoreY<T>, cluster1_kernel<NB, T>), the v4/v5 models' F.lstm at the
+// tier, and give the bits of lstm.cu's streaming variant at every tier.
 //
 // The scratch `pre` is the wrapper's (rows x 4H fp32); when it holds fewer
 // rows than the call has, the launchers below walk the frames in passes,
@@ -216,10 +217,12 @@ constexpr int G2 = 4 * H2;        // gate columns a layer
 constexpr int THREADS2 = 2 * G2;  // one gate column of one layer each
 
 // What is done with the top layer's h of frame f of stream b, unit u: store
-// it (lstm_fused's y [batch, seq, 64], stride_b = seq * 64) ...
+// it (lstm_fused's y [batch, seq, 64], stride_b = seq * 64; tier T's
+// products and tanh) ...
+template <int T>
 struct StoreY {
   static constexpr bool kDecoder = false;
-  static constexpr int kTier = TIER_FAITHFUL;
+  static constexpr int kTier = T;
   float* y;
   long long stride_b;
   __device__ void frame(int b, int f, int u, float h) const {
@@ -556,8 +559,8 @@ constexpr int THREADS1 = 4 * HALF;  // one gate column each
 // seq * 128. Block `rank` of a cluster owns units rank * 64 .. + 63: thread
 // (gate, uu) their column gate * 128 + rank * 64 + uu. Both blocks hold all
 // of h (double-buffered: a block writes the next step's h into its peer
-// while the peer may still read this step's).
-template <int NB>
+// while the peer may still read this step's). Tier T's products and tanh.
+template <int NB, int T>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS1, 1)
 cluster1_kernel(const float* __restrict__ pre, const float* h0, const float* c0,
                 const float* __restrict__ wt, const float* __restrict__ bias,
@@ -609,15 +612,16 @@ cluster1_kernel(const float* __restrict__ pre, const float* h0, const float* c0,
     float acc[NB];
 #pragma unroll
     for (int s = 0; s < NB; ++s) acc[s] = cur[s];
-    gate_terms<NB, H1>(hs + buf * NB * H1, [&wreg](int k) { return wreg[k]; }, acc);
+    gate_terms<NB, H1, Tier<T>::kProducts>(hs + buf * NB * H1, [&wreg](int k) { return wreg[k]; },
+                                           acc);
 #pragma unroll
     for (int s = 0; s < NB; ++s) {
-      gates[s * THREADS1 + tid] = gate_activation(tid / HALF, acc[s] + bj);
+      gates[s * THREADS1 + tid] = gate_activation<T>(tid / HALF, acc[s] + bj);
     }
     __syncthreads();
     if (has_pair) {
       const float* g = gates + ps * THREADS1 + tid % HALF;
-      const float h_new = lstm_cell(g[0], g[HALF], g[2 * HALF], g[3 * HALF], c_reg);
+      const float h_new = lstm_cell<T>(g[0], g[HALF], g[2 * HALF], g[3 * HALF], c_reg);
       const int at = (buf ^ 1) * NB * H1 + ps * H1 + pu;
       hs[at] = h_new;
       peer[at] = h_new;
@@ -635,13 +639,13 @@ cluster1_kernel(const float* __restrict__ pre, const float* h0, const float* c0,
   }
 }
 
-template <int NB>
+template <int NB, int T>
 cudaError_t launch_cluster1(const float* pre, const float* h0, const float* c0, const float* wt,
                             const float* bias, float* y, long long y_stride_b, float* hn,
                             float* cn, int batch, int frames, cudaStream_t stream) {
   const int clusters = (batch + NB - 1) / NB;
-  cluster1_kernel<NB><<<2 * clusters, THREADS1, 0, stream>>>(pre, h0, c0, wt, bias, y, y_stride_b,
-                                                            hn, cn, batch, frames);
+  cluster1_kernel<NB, T><<<2 * clusters, THREADS1, 0, stream>>>(pre, h0, c0, wt, bias, y,
+                                                               y_stride_b, hn, cn, batch, frames);
   return cudaGetLastError();
 }
 

@@ -26,11 +26,25 @@
 // of BK = 32 taps (one barrier per 32 taps) in a ring of two filled by
 // cp.async, two blocks of 256 threads an SM, and each pass's magnitudes
 // gathered in shared memory and written out in whole sectors. ptxas: 122
-// registers, no spill, no stack, in both instances; at v4 B=2048 a block
-// owns 2 streams (48 rows, one pass) in 106.6 KB, two blocks an SM. On one
+// registers at fp32, 124 at bf16_3x, 120 at bf16, no spill, no stack, at
+// both geometries; at v4 B=2048 a block owns 2 streams (48 rows, one pass)
+// in 106.6 KB, two blocks an SM. On one
 // H100 80GB HBM3 at 700 W (chip_smoke.py): 0.1828 ms at v4 B=2048 x 1536,
 // 53 % of the bound (the first design, a 64 x 32 tile: 0.32); what holds
 // it there is measured in PERF.md (chip_profile.py: spectrum_variants).
+//
+// Precision tiers (tier.cuh): the kernel is templated on the products'
+// operand mode M as well, 3 modes x 2 geometries = 6 instances: fp32 (the
+// faithful tier), bf16_3x on fp32 samples (each staged sample split where it
+// is read, the bases packed as hi/lo pairs, three fmafs a term) and bf16
+// samples and bases. The wrapper chooses the mode from the tier and the
+// family (nn/precision.py: stft_mode: v4 bf16_3x at balanced and fast, bf16
+// at turbo; v5 bf16_3x at balanced, bf16 at fast and turbo) and packs the
+// bases for it. The JAX package's Pallas kernel has no mode: these are the
+// counterparts of its models' XLA spectrum at the tier, on the ported kernel.
+// On the same H100: 0.5736 ms at v4 B=2048 in bf16_3x (three fmafs a
+// term: 3.1x the fp32 instance), 0.2131 in bf16 (1.16x: the rounding of
+// each staged sample where it is read).
 #include <cuda_runtime.h>
 
 #include "stft_tile.cuh"
@@ -41,7 +55,7 @@ namespace {
 using Spectrum256 = stft_block::Geometry<256, 129, 32, 8, 6, 2>;
 using Spectrum128 = stft_block::Geometry<128, 65, 32, 8, 6, 2>;
 
-template <class G>
+template <class G, int M>
 __global__ void __launch_bounds__(G::THREADS, 2)
 stft_magnitude_kernel(const float* __restrict__ audio, int batch, long long stride_b, int samples,
                       int pad_left, int hop, int n_frames, int streams, int pad_ld,
@@ -66,10 +80,10 @@ stft_magnitude_kernel(const float* __restrict__ audio, int batch, long long stri
   // the staging lands with the first slice of the bases
   const stft_block::CoalescedStore<G> store{
       tile, out + static_cast<long long>(b0) * n_frames * G::BINS};
-  stft_block::magnitudes<G>(pad, pad_ld, hop, live * n_frames, n_frames, basis, bbuf, store);
+  stft_block::magnitudes<G, M>(pad, pad_ld, hop, live * n_frames, n_frames, basis, bbuf, store);
 }
 
-template <class G>
+template <class G, int M>
 int launch(const float* audio, int batch, long long stride_b, int samples, int pad_left,
            int hop, int n_frames, int streams, const float* basis, float* out,
            cudaStream_t stream) {
@@ -82,10 +96,10 @@ int launch(const float* audio, int batch, long long stride_b, int samples, int p
   const size_t bytes = sizeof(float) * (G::BASIS_FLOATS + G::ROWS_PASS * G::BINS +
                                         static_cast<size_t>(streams) * pad_ld);
   if (bytes > stft_block::MAX_SHARED_BYTES) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = stft_block::allow_shared_memory<stft_magnitude_kernel<G>>();
+  const cudaError_t err = stft_block::allow_shared_memory<stft_magnitude_kernel<G, M>>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (batch + streams - 1) / streams;
-  stft_magnitude_kernel<G><<<grid, G::THREADS, bytes, stream>>>(
+  stft_magnitude_kernel<G, M><<<grid, G::THREADS, bytes, stream>>>(
       audio, batch, stride_b, samples, pad_left, hop, n_frames, streams, pad_ld, basis, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -95,16 +109,18 @@ int launch(const float* audio, int batch, long long stride_b, int samples, int p
 // audio: chunk b at audio + b*stride_b, `samples` fp32 each (unit stride);
 // basis: [n_fft][2][BINS_LD], tap k's real then imaginary basis row, each
 // `cutoff` bins padded with zeros to a multiple of 4 (kernels/stft_mag.py:
-// padded_basis); out: [batch, n_frames, cutoff] row-major; streams: the
-// streams a block owns (kernels/stft_mag.py: launch_plan). Takes (n_fft,
-// cutoff) = (256, 129) or (128, 65), hop a multiple of 32 dividing n_fft,
-// padded length a multiple of hop, each pad < samples (one reflection), and
-// the block's staged chunks within shared memory. Returns
-// cudaGetLastError() after the launch.
+// padded_basis) and packed for the mode; out: [batch, n_frames, cutoff]
+// row-major; streams: the streams a block owns (kernels/stft_mag.py:
+// launch_plan); mode: the products' operands, 0 fp32, 1 bf16_3x, 2 bf16
+// (tier.cuh ProductMode). Takes (n_fft, cutoff) = (256, 129) or (128, 65)
+// at every mode, hop a multiple of 32 dividing n_fft, padded length a
+// multiple of hop, each pad < samples (one reflection), and the block's
+// staged chunks within shared memory. Returns cudaGetLastError() after the
+// launch.
 extern "C" int vadc_stft_magnitude(const float* audio, int batch, long long stride_b,
                                    int samples, int pad_left, int pad_right, int hop,
                                    const float* basis, int n_fft, int cutoff, int streams,
-                                   float* out, void* stream) {
+                                   float* out, int mode, void* stream) {
   const int padded = samples + pad_left + pad_right;
   if (batch <= 0 || samples <= 0 || hop <= 0 || streams <= 0 || pad_left < 0 ||
       pad_right < 0 || pad_left >= samples || pad_right >= samples || padded < n_fft ||
@@ -113,13 +129,16 @@ extern "C" int vadc_stft_magnitude(const float* audio, int batch, long long stri
   }
   const int n_frames = (padded - n_fft) / hop + 1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_fft == 256 && cutoff == 129) {
-    return launch<Spectrum256>(audio, batch, stride_b, samples, pad_left, hop, n_frames, streams,
-                               basis, out, s);
-  }
-  if (n_fft == 128 && cutoff == 65) {
-    return launch<Spectrum128>(audio, batch, stride_b, samples, pad_left, hop, n_frames, streams,
-                               basis, out, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_mode(mode, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    if (n_fft == 256 && cutoff == 129) {
+      return launch<Spectrum256, M>(audio, batch, stride_b, samples, pad_left, hop, n_frames,
+                                    streams, basis, out, s);
+    }
+    if (n_fft == 128 && cutoff == 65) {
+      return launch<Spectrum128, M>(audio, batch, stride_b, samples, pad_left, hop, n_frames,
+                                    streams, basis, out, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }

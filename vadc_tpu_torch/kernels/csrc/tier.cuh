@@ -1,13 +1,17 @@
-// The precision tiers as template parameters of the v3.1 kernels (the
-// fused body, the spectrum tile, the resident LSTM), and the arithmetic of
+// The precision tiers as template parameters of the kernels (the v3.1 fused
+// body, the spectrum tile, both variants of the LSTM), and the arithmetic of
 // one product term at a tier. vadc_tpu_torch/nn/precision.py defines the
 // tiers; the kernels' plain versions compute the same thing with torch ops.
 //
-//   tier      products               v3.1 STFT          tanh      log1p    encoder storage
-//   faithful  fp32                   fp32               exp form  series   fp32
-//   balanced  bf16_3x                bf16_3x            exp form  log1pf   fp32
-//   fast      bf16 operands          bf16_3x            tanhf     log1pf   fp32
-//   turbo     bf16 operands          bf16 operands      tanhf     log1pf   bf16
+//   tier      products       v3.1/v4 STFT    v5 STFT  tanh      log1p    encoder storage
+//   faithful  fp32           fp32            fp32     exp form  series   fp32
+//   balanced  bf16_3x        bf16_3x         bf16_3x  exp form  log1pf   fp32
+//   fast      bf16 operands  bf16_3x         bf16     tanhf     log1pf   fp32
+//   turbo     bf16 operands  bf16 operands   bf16     tanhf     log1pf   bf16
+//
+// Tier<T>::kStft is the log-sensitive (v3.1, v4) column; stft_mag.cu, which
+// both families run, takes the product mode itself (by_mode), chosen by the
+// wrapper (nn/precision.py: stft_mode).
 //
 // A product term a * w adds to an fp32 sum by fmaf. At the bf16 tiers a is
 // rounded to bf16 (nearest even) where it is read, and w was rounded when
@@ -102,6 +106,24 @@ int by_tier(int tier, F&& f) {
       return f(std::integral_constant<int, TIER_FAST>{});
     case TIER_TURBO:
       return f(std::integral_constant<int, TIER_TURBO>{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// f(std::integral_constant<int, M>{}) for the product mode's M: how a C
+// entry point that takes a mode (the spectrum's operands, which depend on
+// the family as well as the tier) launches its instance; an unknown mode is
+// cudaErrorInvalidValue.
+template <class F>
+int by_mode(int mode, F&& f) {
+  switch (mode) {
+    case P_FP32:
+      return f(std::integral_constant<int, P_FP32>{});
+    case P_SPLIT:
+      return f(std::integral_constant<int, P_SPLIT>{});
+    case P_BF16:
+      return f(std::integral_constant<int, P_BF16>{});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

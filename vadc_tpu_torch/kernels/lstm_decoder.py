@@ -130,7 +130,7 @@ def lstm_decoder_fused(
             c_new = cn.copy_(c_new)
         return probs, h_new, c_new
     if wt is None:
-        wt = pack_operand(transpose_weight(w), tier.products)
+        wt = transpose_weight(w, tier.products)
     dec_w = pack_operand(dec_w, tier.products)
     if hn is None:
         hn = torch.empty_like(h0)

@@ -143,8 +143,7 @@ def _folded_bn(p: dict) -> tuple[torch.Tensor, torch.Tensor]:
     if "bn_w" not in p:
         ones = torch.ones_like(p["conv_b"])
         return ones, torch.zeros_like(p["conv_b"])
-    scale = p["bn_w"] * torch.rsqrt(p["bn_var"] + F.BATCH_NORM_EPS)
-    return scale, p["bn_b"] - p["bn_mean"] * scale
+    return F.folded_batch_norm(p["bn_mean"], p["bn_var"], p["bn_w"], p["bn_b"])
 
 
 def pack_weights(params: Params, tier: Tier = FAITHFUL) -> PackedWeights:

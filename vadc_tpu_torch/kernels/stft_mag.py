@@ -11,6 +11,11 @@ the port the v4 and v5 front-ends run this kernel. Its plain version is
 `nn.functional.stft_magnitude_nlc`, the same function the port's CPU path
 and the v3.1 tests use, so the port never differs from itself in STFT
 rounding.
+
+The products' operands are a `mode` (`nn.precision.stft_mode` of the tier
+and the family: "fp32", "bf16_3x" or "bf16"), an instance of the kernel
+each, the bases packed for it. The JAX package's Pallas kernel has no mode:
+the instances are the counterparts of its models' spectrum at the tier.
 """
 
 from __future__ import annotations
@@ -25,6 +30,10 @@ from vadc_tpu_torch.kernels.stft_dotmag import (
 )
 from vadc_tpu_torch.nn import functional as F
 
+#: the products' operand modes of the kernel's instances -> the C entry's
+#: `mode` (csrc/tier.cuh: ProductMode)
+MODES = {"fp32": 0, "bf16_3x": 1, "bf16": 2}
+
 # the kernel's constants (csrc/stft_mag.cu): taps a slice, slices in the
 # ring, and the shared memory of one block, and of each of two blocks on
 # one SM (228 KB an SM, 1 KB of it the system's per block), on an H100
@@ -33,14 +42,25 @@ SMEM_ONE_BLOCK = 232_448
 SMEM_TWO_BLOCKS = 233_472 // 2 - 1024
 
 
+def _mode_index(mode: str) -> int:
+    try:
+        return MODES[mode]
+    except KeyError:
+        raise ValueError(
+            f"stft_magnitude: unknown mode {mode!r} (it takes {list(MODES)})"
+        ) from None
+
+
 def stft_magnitude_reference(
     audio: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor, *, pad_left: int, pad_right: int,
-    hop: int,
+    hop: int, mode: str = "fp32",
 ) -> torch.Tensor:
     """Plain version: reflect pad, unfold, sqrt((frames @ wr)^2 + (frames
-    @ wi)^2), fp32 (nn.functional.stft_magnitude_nlc on the split basis)."""
+    @ wi)^2), the products' operands of `mode`, fp32 sums
+    (nn.functional.stft_magnitude_nlc on the split basis)."""
+    _mode_index(mode)
     frames = F.frame(F.reflect_pad_last(audio, pad_left, pad_right), wr.shape[0], hop)
-    return F.spectrum_magnitude(frames, wr, wi)
+    return F.spectrum_magnitude(frames, wr, wi, mode)
 
 
 def split_basis_of(params) -> tuple[torch.Tensor, torch.Tensor]:
@@ -108,17 +128,20 @@ def _sm_count(device: torch.device) -> int:
 
 def stft_magnitude(
     audio: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor, *, pad_left: int, pad_right: int,
-    hop: int,
+    hop: int, mode: str = "fp32",
 ) -> torch.Tensor:
     """audio [B, S] x (wr, wi) [n_fft, cutoff] -> magnitude [B, F, cutoff],
-    F = (S + pad_left + pad_right - n_fft) // hop + 1, fp32.
+    F = (S + pad_left + pad_right - n_fft) // hop + 1, fp32; the products'
+    operands of `mode` ("fp32", "bf16_3x", "bf16").
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (built at first use) or raises."""
+    mode_index = _mode_index(mode)
     if audio.device.type == "cpu":
-        return stft_magnitude_reference(audio, wr, wi, pad_left=pad_left, pad_right=pad_right, hop=hop)
+        return stft_magnitude_reference(audio, wr, wi, pad_left=pad_left, pad_right=pad_right,
+                                        hop=hop, mode=mode)
     _check(audio)
-    basis = packed_basis(wr, wi, "stft_magnitude")
+    basis = packed_basis(wr, wi, "stft_magnitude", mode)
     if basis.device != audio.device:
         raise ValueError(f"stft_magnitude: bases on {basis.device}, audio on {audio.device}")
     batch, samples = audio.shape
@@ -130,7 +153,7 @@ def stft_magnitude(
     lib = _build.library()
     status = lib.vadc_stft_magnitude(
         audio.data_ptr(), batch, audio.stride(0), samples, pad_left, pad_right, hop,
-        basis.data_ptr(), n_fft, cutoff, streams, out.data_ptr(),
+        basis.data_ptr(), n_fft, cutoff, streams, out.data_ptr(), mode_index,
         torch.cuda.current_stream(audio.device).cuda_stream,
     )
     _build.check(status, "stft_magnitude")

@@ -1,7 +1,7 @@
 """How a bf16 tier's kernel instance is held to its plain version at the
-same tier, and how far each tier may move the v3.1 probabilities on speech:
-the one place chip_smoke.py and the `cuda`-marked tests take these limits
-from. Arithmetic on tensors that are already computed; nothing here
+same tier, and how far each tier may move each family's probabilities on
+speech: the one place chip_smoke.py and the `cuda`-marked tests take these
+limits from. Arithmetic on tensors that are already computed; nothing here
 launches a kernel.
 
 A tier instance and its plain version are not bit-equal. They sum in other
@@ -28,10 +28,26 @@ plain version fed the kernel's own spectrum (chip_smoke.py, check_tier):
     within 2^-17 of the fp32 one, and no check of the outputs tells the two
     apart.
 
+The v4/v5 paths' instances (readings on the same card, chip_smoke.py:
+check_stft_magnitude_tier, check_lstm_tier): stft_magnitude's spectrum at
+most 1.05e-6 of its largest value at bf16_3x and 4.7e-7 at bf16; the fp32
+instance against the bf16 plain version (the control) 1.6e-3 to 2.2e-3,
+against the bf16_3x one 3.1e-6 to 4.6e-6, which no limit can tell from a
+right instance. lstm_fused at balanced at most 5.7e-6 with no output above
+1e-5; at fast and turbo, whose LSTM arithmetic is one (the same bits on the
+same inputs), y 2.3e-3, h 1.4e-3, c 2.9e-4, at 2048 streams a share of at
+most 0.0002 above 1e-4, and the faithful instance (the control) 0.37 to
+0.70 of its outputs. Their limits are one class a kernel, fast and turbo
+the same.
+
 The largest differences are held too, at three times the largest reading
 of each batch class, rounded up. B=1 has no flip in its readings. B=37 and
-the batches of 2048 do. lstm_decoder_fused has a class of its own.
-Shares are held only where there are many streams (SHARE_MIN_BATCH).
+the batches of 2048 do. lstm_decoder_fused has a class of its own, and so
+have the v4/v5 paths' kernels, stft_magnitude (the spectrum's largest
+difference relative to its largest value, at every geometry and batch)
+and lstm_fused (y, h and c at v4 B=2048 x T=3 and B=1 x T=288, v5 B=2048 x
+T=1 and B=1 x T=96). Shares are held only where there are many streams
+(SHARE_MIN_BATCH).
 """
 
 from __future__ import annotations
@@ -42,11 +58,14 @@ TAU = {"balanced": 1e-5, "fast": 1e-4, "turbo": 1e-4}
 #: the largest share of outputs that may differ: "state" is probabilities,
 #: h and c of forward_fused and forward_fused2d, "enc" the encoder's output
 #: of encode_fused_audio, "lstm" lstm_decoder_fused's probabilities, h and c
-SHARE = {"balanced": {"state": 0.15, "enc": 0.15, "lstm": 0.02},
-         "fast": {"state": 0.25, "enc": 0.12, "lstm": 0.02},
-         "turbo": {"state": 0.25, "enc": 0.12, "lstm": 0.02}}
+SHARE = {"balanced": {"state": 0.15, "enc": 0.15, "lstm": 0.02, "lstm_fused": 0.02},
+         "fast": {"state": 0.25, "enc": 0.12, "lstm": 0.02, "lstm_fused": 0.02},
+         "turbo": {"state": 0.25, "enc": 0.12, "lstm": 0.02, "lstm_fused": 0.02}}
 #: shares are held from this many streams on
 SHARE_MIN_BATCH = 1024
+#: the kernels whose limits are a class of their own, at every batch
+OWN_CLASS = {"lstm_decoder_fused": "lstm", "stft_magnitude": "stft_magnitude",
+             "lstm_fused": "lstm_fused"}
 #: the largest difference by tier and batch class ("1", "small": below
 #: SHARE_MIN_BATCH, "large"; "lstm": lstm_decoder_fused at every batch),
 #: three times the largest reading of the class, rounded up
@@ -56,26 +75,55 @@ MAX = {
         "small": {"probs": 2.5e-5, "h": 3.5e-4, "c": 6e-5, "enc": 4e-4, "mag": 5e-6},
         "large": {"probs": 2e-4, "h": 1.5e-3, "c": 5e-4, "enc": 3e-3, "mag": 5e-6},
         "lstm": {"probs": 1.5e-5, "h": 6e-5, "c": 2e-5},
+        "stft_magnitude": {"mag": 3.5e-6},
+        "lstm_fused": {"y": 2e-5, "h": 2e-5, "c": 1.5e-5},
     },
     "fast": {
         "1": {"probs": 1e-6, "h": 2e-6, "c": 1e-6, "enc": 2e-6, "mag": 5e-6},
         "small": {"probs": 3.5e-3, "h": 5e-2, "c": 7e-3, "enc": 0.11, "mag": 5e-6},
         "large": {"probs": 2e-2, "h": 0.2, "c": 6e-2, "enc": 0.6, "mag": 5e-6},
         "lstm": {"probs": 2.5e-4, "h": 3e-3, "c": 4.5e-3},
+        "stft_magnitude": {"mag": 3.5e-6},
+        "lstm_fused": {"y": 7.5e-3, "h": 4.5e-3, "c": 9e-4},
     },
     "turbo": {
         "1": {"probs": 1e-6, "h": 1e-6, "c": 1e-6, "enc": 1e-6, "mag": 1e-6},
         "small": {"probs": 9e-3, "h": 0.25, "c": 3e-2, "enc": 0.25, "mag": 1e-6},
         "large": {"probs": 3.5e-2, "h": 0.4, "c": 8e-2, "enc": 0.6, "mag": 1e-6},
         "lstm": {"probs": 1.5e-6, "h": 9e-3, "c": 1e-3},
+        "stft_magnitude": {"mag": 1.5e-6},
+        "lstm_fused": {"y": 7.5e-3, "h": 4.5e-3, "c": 9e-4},
     },
 }
-#: each tier's largest deviation from faithful on speech (StreamRunner over
-#: vadc_tpu_torch.io.synthaudio.utterance_track(4, seed), one stream). The
-#: port's plain versions on the CPU read at most 1.25e-3 (balanced), 2.38e-2
-#: (fast) and 1.64e-1 (turbo) over seeds 0-11; the kernels on an H100 read
-#: 1.19e-3, 2.22e-2 and 1.68e-1. Rounded up.
-SPEECH_BOUND = {"balanced": 1.5e-3, "fast": 3e-2, "turbo": 2e-1}
+#: the v4/v5 paths at a tier, the card's kernels against the CPU's plain
+#: versions (chip_smoke.py: StreamRunner.scan over 256 streams x 8 chunks,
+#: MinibatchRunner over a 96-chunk window, the v4 CLI's raw probabilities):
+#: probabilities, h, and c relative to max(1, its largest value), three
+#: times the largest reading on an H100, rounded up (balanced 3.1e-5,
+#: 2.4e-4, 3.6e-5; fast 2.3e-3, 1.1e-2, 1.1e-3; turbo 9.7e-4, 6.1e-3,
+#: 8.8e-4)
+PATH_MAX = {"balanced": {"probs": 1e-4, "h": 7.5e-4, "c": 1.1e-4},
+            "fast": {"probs": 7e-3, "h": 3.5e-2, "c": 3.5e-3},
+            "turbo": {"probs": 3e-3, "h": 2e-2, "c": 3e-3}}
+#: each family's largest deviation from faithful on speech at each tier
+#: (vadc_tpu_torch.io.synthaudio.utterance_track(4, seed) at the family's
+#: rate, one stream, seeds 0-11; tests/torch_tier_survey.py), rounded up.
+#: v3 (Silero v3.1): the port's plain versions on the CPU read at most
+#: 1.25e-3 (balanced), 2.38e-2 (fast) and 1.64e-1 (turbo); the kernels on an
+#: H100 read 1.19e-3, 2.22e-2 and 1.68e-1. The others, the CPU's plain
+#: versions / the kernels on the same H100 (chip_smoke.py:
+#: tier_on_speech_v45): v4 2.47e-4 / 2.48e-4, 6.37e-3 / 6.19e-3, 7.07e-2 /
+#: 7.06e-2; v4_8k 2.07e-3 / 2.07e-3, 8.63e-3 / 8.57e-3, 5.54e-2 / 5.54e-2;
+#: v5 (synthetic weights) 8.20e-5 / 7.34e-5, 2.52e-2 / 2.52e-2, 4.98e-2 /
+#: 4.98e-2; v5_8k (synthetic weights) 4.97e-5 / 5.56e-5, 2.08e-2 / 2.08e-2,
+#: 2.05e-2 / 2.05e-2.
+SPEECH_BOUND = {
+    "v3": {"balanced": 1.5e-3, "fast": 3e-2, "turbo": 2e-1},
+    "v4": {"balanced": 3e-4, "fast": 8e-3, "turbo": 8.5e-2},
+    "v4_8k": {"balanced": 2.5e-3, "fast": 1e-2, "turbo": 7e-2},
+    "v5": {"balanced": 1e-4, "fast": 3e-2, "turbo": 6e-2},
+    "v5_8k": {"balanced": 6e-5, "fast": 2.5e-2, "turbo": 2.5e-2},
+}
 
 
 def errors(got, want, tier: str, scale: float = 1.0) -> tuple[float, float]:
@@ -95,20 +143,21 @@ def state_errors(got, want, tier: str) -> dict:
 def breaches(tier: str, kernel: str, batch: int, errs: dict, envelope: bool = False) -> list:
     """The limits that `errs` (output -> (max, share), from errors or
     state_errors) break, as text; empty when within. `kernel` is
-    forward_fused, encode_fused_audio, forward_fused2d, lstm_decoder_fused
-    or dot_magnitude. `envelope` holds the largest differences to the large
-    batches' limits at every batch: for inputs other than chip_smoke.py's,
-    whose readings set the tighter classes."""
-    lstm = kernel == "lstm_decoder_fused"
-    cls = "lstm" if lstm else ("large" if envelope or batch >= SHARE_MIN_BATCH else
-                               ("1" if batch == 1 else "small"))
+    forward_fused, encode_fused_audio, forward_fused2d, lstm_decoder_fused,
+    dot_magnitude, stft_magnitude or lstm_fused. `envelope` holds the
+    largest differences to the large batches' limits at every batch: for
+    inputs other than chip_smoke.py's, whose readings set the tighter
+    classes."""
+    own = OWN_CLASS.get(kernel)
+    cls = own or ("large" if envelope or batch >= SHARE_MIN_BATCH else
+                  ("1" if batch == 1 else "small"))
     out = []
     for name, (largest, share) in errs.items():
         limit = MAX[tier][cls][name]
         if not largest <= limit:  # NaN breaks it too
             out.append(f"{kernel} {name}: largest difference {largest:.3e} > {limit:g}")
         if name != "mag" and batch >= SHARE_MIN_BATCH:
-            most = SHARE[tier]["lstm" if lstm else ("enc" if name == "enc" else "state")]
+            most = SHARE[tier][own or ("enc" if name == "enc" else "state")]
             if share > most:
                 out.append(f"{kernel} {name}: {share:.4f} of the outputs differ by more than "
                            f"{TAU[tier]:g} > {most:g}")

@@ -20,6 +20,15 @@ kernel wrappers `kernels.stft_mag.stft_magnitude` and
 nn/functional. The context is the caller's: the runners attach it
 (`attach_context`) before the model sees the audio.
 
+Every function takes the precision tier (`nn.precision`; a name or a Tier,
+default faithful), as the JAX package's model code computes at it under
+`precision_mode`: the spectrum at `stft_mode(tier, log_sensitive=False)`
+(no log follows: bf16 operands from fast on), every product (the convs'
+taps, the LSTM's gates, the decoder) at the tier's, the tier's tanh, and in
+turbo the spectrum and every conv's taps, partial sums and bias stored bf16;
+the LSTM, the decoder and the state stay fp32. The two kernels run the
+tier's instances.
+
 Only synthetic weights of the official shapes exist in the repository
 (models/synthetic.py); results on them are labelled so.
 """
@@ -32,6 +41,7 @@ from vadc_tpu_torch.kernels.lstm import lstm_fused, transposed_weight_of
 from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude
 from vadc_tpu_torch.models.weights import Params
 from vadc_tpu_torch.nn import functional as F
+from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, stft_mode, store, tier_of
 
 SAMPLE_RATE = 16000
 CONTEXT_SAMPLES = 64  # reference SILERO_V5_CONTEXT_SIZE (vadc.h:90)
@@ -70,59 +80,74 @@ def attach_context(
     return torch.cat([context, chunks], dim=-1), chunks[:, -context.shape[-1] :]
 
 
-def _convs(params: dict, x: torch.Tensor) -> torch.Tensor:
+def _convs(params: dict, spect: torch.Tensor, tier: Tier) -> torch.Tensor:
+    x = store(spect, tier)  # turbo: the encoder starts in bf16
     for p, stride in zip(params["encoder"], ENCODER_STRIDES):
-        x = torch.relu(F.conv1d_nlc(x, p["w"], p["b"], stride=stride, padding=1))
+        x = torch.relu(F.conv1d_nlc(x, p["w"], p["b"], stride=stride, padding=1, tier=tier))
     return x
 
 
 def encode(
-    params: Params, audio: torch.Tensor, *, pad_right: int = STFT_PAD_RIGHT, hop: int = STFT_HOP
+    params: Params, audio: torch.Tensor, *, pad_right: int = STFT_PAD_RIGHT, hop: int = STFT_HOP,
+    tier: Tier | str = FAITHFUL,
 ) -> torch.Tensor:
-    """audio [B, ctx + window] -> features [B, frames, 128]; the spectrum
-    is the stft_magnitude kernel (no left pad)."""
+    """audio [B, ctx + window] -> features [B, frames, 128] at the tier; the
+    spectrum is the stft_magnitude kernel's instance of the tier's v5 STFT
+    operands (no left pad)."""
+    tier = tier_of(tier)
     wr, wi = split_basis_of(params)
-    return _convs(params, stft_magnitude(audio, wr, wi, pad_left=0, pad_right=pad_right, hop=hop))
+    spect = stft_magnitude(audio, wr, wi, pad_left=0, pad_right=pad_right, hop=hop,
+                           mode=stft_mode(tier, log_sensitive=False))
+    return _convs(params, spect, tier)
 
 
 def encode_reference(
-    params: dict, audio: torch.Tensor, *, pad_right: int = STFT_PAD_RIGHT, hop: int = STFT_HOP
+    params: dict, audio: torch.Tensor, *, pad_right: int = STFT_PAD_RIGHT, hop: int = STFT_HOP,
+    tier: Tier | str = FAITHFUL,
 ) -> torch.Tensor:
-    """Plain front-end + encoder (the JAX package's `encode`)."""
-    spect = F.stft_magnitude_nlc(audio, params["stft_basis"], pad_left=0, pad_right=pad_right, hop=hop)
-    return _convs(params, spect)
+    """Plain front-end + encoder at the tier (the JAX package's `encode`
+    under `precision_mode(tier)`)."""
+    tier = tier_of(tier)
+    spect = F.stft_magnitude_nlc(audio, params["stft_basis"], pad_left=0, pad_right=pad_right,
+                                 hop=hop, tier=tier, log_sensitive=False)
+    return _convs(params, spect, tier)
 
 
-def _forward(params, audio, h, c, hn, cn, geometry):
-    feats = encode(params, audio, **geometry)
+def _forward(params, audio, h, c, hn, cn, geometry, tier):
+    tier = tier_of(tier)
+    feats = encode(params, audio, **geometry, tier=tier)
     out, hn, cn = lstm_fused(
         feats, h, c, params["lstm_w"], params["lstm_b"], hn=hn, cn=cn,
-        wt=transposed_weight_of(params),
+        wt=transposed_weight_of(params, tier.products), tier=tier,
     )
-    return F.decoder_v5_nlc(out, params["dec_w"], params["dec_b"]), hn, cn
+    return F.decoder_v5_nlc(out, params["dec_w"], params["dec_b"], tier), hn, cn
 
 
-def _forward_minibatched(params, audio, h, c, geometry):
-    feats = encode(params, audio, **geometry)  # [N, T, 128]
+def _forward_minibatched(params, audio, h, c, geometry, tier):
+    tier = tier_of(tier)
+    feats = encode(params, audio, **geometry, tier=tier)  # [N, T, 128]
     n, t, width = feats.shape
     # the N chunks' frames as one sequence: one launch at batch 1
     out, hn, cn = lstm_fused(
         feats.reshape(1, n * t, width), h, c, params["lstm_w"], params["lstm_b"],
-        wt=transposed_weight_of(params),
+        wt=transposed_weight_of(params, tier.products), tier=tier,
     )
-    return F.decoder_v5_nlc(out.reshape(n, t, width), params["dec_w"], params["dec_b"]), hn, cn
+    probs = F.decoder_v5_nlc(out.reshape(n, t, width), params["dec_w"], params["dec_b"], tier)
+    return probs, hn, cn
 
 
-def _forward_reference(params, audio, h, c, geometry):
-    out, hn, cn = F.lstm(encode_reference(params, audio, **geometry), h, c,
-                         params["lstm_w"], params["lstm_b"])
-    return F.decoder_v5_nlc(out, params["dec_w"], params["dec_b"]), hn, cn
+def _forward_reference(params, audio, h, c, geometry, tier):
+    tier = tier_of(tier)
+    out, hn, cn = F.lstm(encode_reference(params, audio, **geometry, tier=tier), h, c,
+                         params["lstm_w"], params["lstm_b"], tier)
+    return F.decoder_v5_nlc(out, params["dec_w"], params["dec_b"], tier), hn, cn
 
 
-def _forward_minibatched_reference(params, audio, h, c, geometry):
-    out, hn, cn = F.lstm_minibatched(encode_reference(params, audio, **geometry), h, c,
-                                     params["lstm_w"], params["lstm_b"])
-    return F.decoder_v5_nlc(out, params["dec_w"], params["dec_b"]), hn, cn
+def _forward_minibatched_reference(params, audio, h, c, geometry, tier):
+    tier = tier_of(tier)
+    out, hn, cn = F.lstm_minibatched(encode_reference(params, audio, **geometry, tier=tier), h, c,
+                                     params["lstm_w"], params["lstm_b"], tier)
+    return F.decoder_v5_nlc(out, params["dec_w"], params["dec_b"], tier), hn, cn
 
 
 _GEOMETRY_16K = {"pad_right": STFT_PAD_RIGHT, "hop": STFT_HOP}
@@ -136,30 +161,34 @@ def forward(
     *,
     hn: torch.Tensor | None = None,
     cn: torch.Tensor | None = None,
+    tier: Tier | str = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Independent-stream forward: audio [B, 576] (context attached); h, c
-    [1, B, 128] -> (probs [B], hn, cn). `hn`/`cn` may be `h`/`c` to update
-    the state in place."""
-    return _forward(params, audio, h, c, hn, cn, _GEOMETRY_16K)
+    """Independent-stream forward at the tier: audio [B, 576] (context
+    attached); h, c [1, B, 128] -> (probs [B], hn, cn). `hn`/`cn` may be
+    `h`/`c` to update the state in place."""
+    return _forward(params, audio, h, c, hn, cn, _GEOMETRY_16K, tier)
 
 
 def forward_minibatched(
-    params: Params, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor
+    params: Params, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+    tier: Tier | str = FAITHFUL,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Consecutive chunks of ONE stream, each with its context attached:
     audio [N, 576]; h, c [1, 1, 128]. One lstm_fused launch over the N
-    chunks' frames. Returns (probs [N], hn, cn)."""
-    return _forward_minibatched(params, audio, h, c, _GEOMETRY_16K)
+    chunks' frames, at the tier. Returns (probs [N], hn, cn)."""
+    return _forward_minibatched(params, audio, h, c, _GEOMETRY_16K, tier)
 
 
-def forward_reference(params, audio, h, c):
-    """Plain independent-stream forward (the JAX package's `forward`)."""
-    return _forward_reference(params, audio, h, c, _GEOMETRY_16K)
+def forward_reference(params, audio, h, c, tier=FAITHFUL):
+    """Plain independent-stream forward (the JAX package's `forward`) at the
+    tier."""
+    return _forward_reference(params, audio, h, c, _GEOMETRY_16K, tier)
 
 
-def forward_minibatched_reference(params, audio, h, c):
-    """Plain minibatched forward (the JAX package's `forward_minibatched`)."""
-    return _forward_minibatched_reference(params, audio, h, c, _GEOMETRY_16K)
+def forward_minibatched_reference(params, audio, h, c, tier=FAITHFUL):
+    """Plain minibatched forward (the JAX package's `forward_minibatched`)
+    at the tier."""
+    return _forward_minibatched_reference(params, audio, h, c, _GEOMETRY_16K, tier)
 
 
 class _V58k:
@@ -184,24 +213,28 @@ class _V58k:
         return torch.zeros((n_streams, _V58k.CONTEXT_SAMPLES), dtype=torch.float32, device=device)
 
     @staticmethod
-    def encode(params, audio):
-        return encode(params, audio, **_V58k._GEOMETRY)
+    def encode(params, audio, tier=FAITHFUL):
+        return encode(params, audio, **_V58k._GEOMETRY, tier=tier)
 
     @staticmethod
-    def forward(params, audio, h, c, *, hn=None, cn=None):
-        return _forward(params, audio, h, c, hn, cn, _V58k._GEOMETRY)
+    def encode_reference(params, audio, tier=FAITHFUL):
+        return encode_reference(params, audio, **_V58k._GEOMETRY, tier=tier)
 
     @staticmethod
-    def forward_minibatched(params, audio, h, c):
-        return _forward_minibatched(params, audio, h, c, _V58k._GEOMETRY)
+    def forward(params, audio, h, c, *, hn=None, cn=None, tier=FAITHFUL):
+        return _forward(params, audio, h, c, hn, cn, _V58k._GEOMETRY, tier)
 
     @staticmethod
-    def forward_reference(params, audio, h, c):
-        return _forward_reference(params, audio, h, c, _V58k._GEOMETRY)
+    def forward_minibatched(params, audio, h, c, tier=FAITHFUL):
+        return _forward_minibatched(params, audio, h, c, _V58k._GEOMETRY, tier)
 
     @staticmethod
-    def forward_minibatched_reference(params, audio, h, c):
-        return _forward_minibatched_reference(params, audio, h, c, _V58k._GEOMETRY)
+    def forward_reference(params, audio, h, c, tier=FAITHFUL):
+        return _forward_reference(params, audio, h, c, _V58k._GEOMETRY, tier)
+
+    @staticmethod
+    def forward_minibatched_reference(params, audio, h, c, tier=FAITHFUL):
+        return _forward_minibatched_reference(params, audio, h, c, _V58k._GEOMETRY, tier)
 
 
 v5_8k = _V58k()

@@ -5,14 +5,13 @@ and layouts ([batch, length, channels]) so the tests compare like with like.
 These are the plain versions that the CPU runs and that the CUDA kernels are
 held against on the card.
 
-The ops of the v3.1 path take the precision tier as an argument (a
-`nn.precision.Tier`, default faithful; never a module global): the tier's
-products, tanh, log1p and, in turbo, bf16 storage of the encoder's
-activations, as nn/precision.py defines them. At the faithful tier every
-product runs in fp32 (on the card with TF32 off,
+Every op whose arithmetic a tier changes takes the precision tier as an
+argument (a `nn.precision.Tier`, default faithful; never a module global):
+the tier's products, tanh, log1p and, in turbo, bf16 storage of the
+encoder's activations, as nn/precision.py defines them. At the faithful
+tier every product runs in fp32 (on the card with TF32 off,
 vadc_tpu_torch.runtime.require_cuda), and tanh and log1p are the accurate
-forms the JAX package selects at that tier. The v4 and v5 ops are faithful
-only.
+forms the JAX package selects at that tier.
 """
 
 from __future__ import annotations
@@ -22,7 +21,9 @@ import math
 import torch
 import torch.nn.functional as tnf
 
-from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, bf16, matmul_at, store, tanh_at
+from vadc_tpu_torch.nn.precision import (
+    FAITHFUL, Tier, bf16, matmul_at, stft_mode, store, tanh_at,
+)
 
 # 7-tap smoothing filter of AdaptiveAudioNormalization (reference
 # misc.c:5-13; the v3 checkpoint's `adaptive_normalization.filter_`).
@@ -92,6 +93,7 @@ def stft_magnitude_nlc(
     pad_right: int,
     hop: int,
     tier: Tier = FAITHFUL,
+    log_sensitive: bool = True,
 ) -> torch.Tensor:
     """STFT magnitude, frames-major: audio [B, S] -> [B, F, cutoff].
 
@@ -102,15 +104,17 @@ def stft_magnitude_nlc(
     turns any rounding difference at a near-zero bin into a large feature
     difference, so the two must not differ in rounding. This function is
     also the plain version of the stft_magnitude kernel. At a bf16 tier the
-    products take the v3.1 STFT's operands of the tier (bf16_3x on fp32
-    samples at balanced and fast, where log1p(2^20 x) downstream would
-    amplify bf16's noise floor; bf16 samples and basis at turbo: the JAX
-    package's `_stft_precision`)."""
+    products take the operands of `nn.precision.stft_mode(tier,
+    log_sensitive)`, the JAX package's `_stft_precision`: where log1p(2^20
+    x) follows (v3.1, v4) bf16_3x on fp32 samples at balanced and fast,
+    since the log would amplify bf16's noise floor, and bf16 samples and
+    basis at turbo; v5 (log_sensitive False) bf16 from fast on."""
     n_fft = basis.shape[1]
     cutoff = basis.shape[0] // 2
     frames = frame(reflect_pad_last(audio, pad_left, pad_right), n_fft, hop)
     return spectrum_magnitude(
-        frames, basis[:cutoff].T.contiguous(), basis[cutoff:].T.contiguous(), tier.stft
+        frames, basis[:cutoff].T.contiguous(), basis[cutoff:].T.contiguous(),
+        stft_mode(tier, log_sensitive),
     )
 
 
@@ -268,12 +272,7 @@ def transformer_layer_nlc(x: torch.Tensor, p: dict, *, stride: int, tier: Tier =
         h = h[:, ::stride, :]
     h = linear_at(h, p["conv_w"], p["conv_b"], tier)
     if "bn_w" in p:
-        if tier.bf16_storage:
-            scale = p["bn_w"] * torch.rsqrt(p["bn_var"] + BATCH_NORM_EPS)
-            shift = p["bn_b"] - p["bn_mean"] * scale
-            h = bf16(bf16(h * bf16(scale)) + bf16(shift))
-        else:
-            h = batch_norm1d_nlc(h, p["bn_mean"], p["bn_var"], p["bn_w"], p["bn_b"])
+        h = batch_norm1d_nlc(h, p["bn_mean"], p["bn_var"], p["bn_w"], p["bn_b"], tier)
     return torch.relu(h)
 
 
@@ -333,12 +332,20 @@ def lstm_minibatched(
 
 
 def conv1d_nlc(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, *, stride: int = 1, padding: int = 0
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None,
+    *,
+    stride: int = 1,
+    padding: int = 0,
+    tier: Tier = FAITHFUL,
 ) -> torch.Tensor:
     """Small-kernel conv over [B, L, C]; w [O, C, K]. K shifted strided
-    products summed in tap order, as the JAX package writes it (not
-    torch's conv1d: cuDNN is no kernel of this repo, and it would sum in
-    another order)."""
+    products at the tier summed in tap order, as the JAX package writes it
+    (not torch's conv1d: cuDNN is no kernel of this repo, and it would sum
+    in another order). In turbo, where x is stored bf16, each tap's product
+    is a bf16 result, the taps are summed in bf16 and the bias is added in
+    bf16, as the JAX package's ops on bf16 operands do."""
     k = w.shape[-1]
     if padding:
         x = tnf.pad(x, (0, 0, padding, padding))
@@ -346,11 +353,20 @@ def conv1d_nlc(
     y = None
     for tap in range(k):
         xs = x[:, tap : tap + (out_len - 1) * stride + 1 : stride, :]
-        term = torch.matmul(xs, w[:, :, tap].T)
-        y = term if y is None else y + term
+        term = store(matmul_at(xs, w[:, :, tap].T, tier.products), tier)
+        y = term if y is None else store(y + term, tier)
     if b is not None:
-        y = y + b
+        y = store(y + store(b, tier), tier)
     return y
+
+
+def folded_batch_norm(
+    running_mean: torch.Tensor, running_var: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """An inference BatchNorm as one affine (scale, shift), folded in fp32:
+    turbo's form of the norm and the v3.1 kernels' packed one."""
+    scale = w * torch.rsqrt(running_var + BATCH_NORM_EPS)
+    return scale, b - running_mean * scale
 
 
 def batch_norm1d_nlc(
@@ -359,17 +375,25 @@ def batch_norm1d_nlc(
     running_var: torch.Tensor,
     w: torch.Tensor,
     b: torch.Tensor,
+    tier: Tier = FAITHFUL,
 ) -> torch.Tensor:
-    """Inference BatchNorm over the channel (last) dim of [B, L, C], fp32."""
+    """Inference BatchNorm over the channel (last) dim of [B, L, C]: fp32,
+    and in turbo the JAX package's bf16 form, the affine folded in fp32,
+    rounded, applied as two bf16 ops."""
+    if tier.bf16_storage:
+        scale, shift = folded_batch_norm(running_mean, running_var, w, b)
+        return bf16(bf16(x * bf16(scale)) + bf16(shift))
     inv = torch.rsqrt(running_var + BATCH_NORM_EPS)
     return (x - running_mean) * inv * w + b
 
 
-def decoder_v5_nlc(out: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def decoder_v5_nlc(
+    out: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tier: Tier = FAITHFUL
+) -> torch.Tensor:
     """v4/v5 decoder over LSTM output [B, T, H] -> probs [B]: relu, H->1
-    projection, sigmoid, then the frame mean (the sigmoid comes first,
-    silero_vad.py:331-341)."""
-    logits = linear(torch.relu(out), w, b)  # [B, T, 1]
+    projection at the tier, sigmoid, then the frame mean (the sigmoid comes
+    first, silero_vad.py:331-341)."""
+    logits = linear(torch.relu(out), w, b, tier)  # [B, T, 1]
     return torch.mean(torch.sigmoid(logits[:, :, 0]), dim=1)
 
 

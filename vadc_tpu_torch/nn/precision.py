@@ -7,11 +7,20 @@ flags, its tiers compute in fp32. The port passes the tier down explicitly
 (a `Tier`, never a global) and emulates the TPU arithmetic that the JAX
 package documents for it, so the CPU and the card compute the same thing:
 
-  tier      products (linear, LSTM gates, decoder)    v3.1 STFT         tanh     log1p    encoder storage
-  faithful  fp32                                      fp32              exp form series   fp32
-  balanced  bf16_3x: hi*hi + hi*lo + lo*hi, fp32 sum  bf16_3x           exp form builtin  fp32
-  fast      bf16 operands, fp32 sum                   bf16_3x (fp32 in) builtin  builtin  fp32
-  turbo     bf16 operands, fp32 sum                   bf16 operands     builtin  builtin  bf16
+  tier      products        v3.1/v4 STFT       v5 STFT  tanh      log1p    encoder storage
+  faithful  fp32            fp32               fp32     exp form  series   fp32
+  balanced  bf16_3x         bf16_3x            bf16_3x  exp form  builtin  fp32
+  fast      bf16 operands   bf16_3x (fp32 in)  bf16     builtin   builtin  fp32
+  turbo     bf16 operands   bf16 operands      bf16     builtin   builtin  bf16
+
+The products are every linear, conv tap, LSTM gate and decoder product, with
+fp32 sums; bf16_3x is hi*hi + hi*lo + lo*hi.
+
+The STFT's column follows the JAX package's `_stft_precision`: where the
+spectrum feeds log1p(2^20 x) (v3.1 and v4, `log_sensitive`), fast keeps it
+at bf16_3x on fp32 samples, since the log would amplify bf16's noise floor
+at near-zero bins; v5's spectrum feeds convs directly and takes bf16
+operands from fast on (`stft_mode`).
 
 hi = bf16(x) and lo = bf16(x - hi), both rounded to nearest even (on the
 card __float2bfloat16_rn). A product of bf16 values is exact in fp32, so a
@@ -19,8 +28,10 @@ plain version computes each product as an fp32 `matmul` of bf16-rounded
 values (never a bf16 `matmul`: cuBLAS may reduce bf16 in reduced precision,
 and the CPU's bf16 GEMM is other arithmetic). Turbo's bf16 storage is
 emulated by rounding an fp32 value where the JAX package stores bf16
-(`store`); the softmax and layer-norm statistics, the attention's two sums,
-the LSTM, the decoder and the state stay fp32.
+(`store`): v3.1's encoder, v4's spectrum channel, normalized half and conv
+stages, v5's spectrum and convs. The softmax and layer-norm statistics, the
+attention's two sums, the LSTM (its input promoted to fp32, as the JAX
+package's concatenate with h does), the decoder and the state stay fp32.
 
 The adaptive normalization's 7-tap smoothing, a product of each frame's
 window of means with one vector of taps, stays fp32 at every tier. XLA
@@ -33,8 +44,8 @@ faithful; the port's plain versions measure 7.4e-3 with the smoothing in
 fp32 and 2.5e-2 with its operands at bf16
 (tests/test_torch_tiers.py::test_the_smoothing_product_stays_fp32_at_every_tier).
 
-Only Silero v3.1 runs the bf16 tiers; v4 and v5 refuse them
-(`vadc_tpu_torch.runtime.check_precision`).
+Every family runs every tier: Silero v3.1, v4 (16 and 8 kHz) and v5 (16
+and 8 kHz).
 """
 
 from __future__ import annotations
@@ -52,7 +63,7 @@ class Tier:
     name: str
     index: int
     products: str  # "fp32", "bf16_3x" or "bf16"
-    stft: str  # the v3.1 STFT's products: "fp32", "bf16_3x" or "bf16"
+    stft: str  # the log-sensitive (v3.1, v4) STFT's products: "fp32", "bf16_3x" or "bf16"
     exp_tanh: bool  # the exp-form tanh (else the builtin)
     series_log1p: bool  # the 1-ulp log1p series (else the builtin)
     bf16_storage: bool  # the encoder's activations stored as bf16
@@ -77,6 +88,15 @@ def tier_of(precision: str | Tier) -> Tier:
         return TIERS[precision]
     except KeyError:
         raise ValueError(f"unknown precision {precision!r}") from None
+
+
+def stft_mode(tier: Tier, log_sensitive: bool = True) -> str:
+    """The STFT products' operands at the tier (the JAX package's
+    `_stft_precision`): the tier's `stft` where log1p(2^20 x) follows (v3.1,
+    v4), else (v5) bf16 wherever the tier's products are bf16."""
+    if log_sensitive or tier.products != "bf16":
+        return tier.stft
+    return "bf16"
 
 
 def bf16(x: torch.Tensor) -> torch.Tensor:

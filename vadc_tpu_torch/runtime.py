@@ -1,5 +1,5 @@
-"""Device selection, the numeric settings of the card, and which model
-families run which precision tier.
+"""Device selection, the numeric settings of the card, and the precision
+tiers.
 
 The port names its device explicitly everywhere (the counterpart of
 `JAX_PLATFORMS` in the JAX package). A CUDA device that is asked for and
@@ -52,14 +52,9 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 def check_precision(precision: str, family: str) -> None:
-    """Raise for a tier the family does not run: Silero v3.1 ('v3') runs all
-    four, v4 and v5 (and their 8 kHz twins) the faithful tier only (ROADMAP,
-    Queue 1: 'bf16 tiers: v4 and v5'), on every device."""
+    """Raise for an unknown tier. Every family (Silero v3.1, v4 and v5, and
+    the 8 kHz twins) runs all four, on every device; `family` names the
+    model in the message."""
     if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}")
-    if precision != "faithful" and family != "v3":
-        raise NotImplementedError(
-            f"precision {precision!r} is not ported for the {family} model yet "
-            "(ROADMAP.md, Queue 1: 'bf16 tiers: v4 and v5'); it runs 'faithful', "
-            "and Silero v3.1 runs every tier"
-        )
+        raise ValueError(f"unknown precision {precision!r} for the {family} model "
+                         f"(one of {', '.join(PRECISIONS)})")

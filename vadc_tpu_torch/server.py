@@ -24,8 +24,8 @@ Architecture:
   * the segmentation FSM is the native NativeFsm with per-stream chunk
     counters; pad/merge and the EOF snap run on the host per event.
 
-Every family the port loads serves; Silero v3.1 at any precision tier
-(`--precision`, `--fast`), the others at the faithful tier. Not in the port
+Every family the port loads serves, at any precision tier (`--precision`,
+`--fast`). Not in the port
 yet: checkpoint/resume (ROADMAP Queue 1, 'Checkpoint') and serving over
 several devices ('Multi-GPU'); `--resume` and `--shard` say so and exit 1.
 
@@ -652,7 +652,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--fast", action="store_true", help="shorthand for --precision fast")
     p.add_argument("--precision", choices=PRECISIONS, default=None,
                    help="precision tier (default faithful, fp32); the bf16 tiers "
-                        "balanced, fast and turbo run Silero v3.1")
+                        "balanced, fast and turbo run every family")
     p.add_argument("--sequence_count", type=int, default=1536)
     p.add_argument("--device", default="cuda", help="torch device: cuda (default), cuda:N or cpu")
     p.add_argument("--shard", action=argparse.BooleanOptionalAction, default=None,
