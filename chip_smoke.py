@@ -66,6 +66,21 @@ Phases, each of which raises on failure (exit code 1):
        on localhost: 8 clients send 20 s of seeded speech each, unpaced;
        each client's segment lines equal those of the same server on the
        CPU (forward_fused); logs tick_count, catchup_ticks, tick p50/p99;
+     - server checkpoints: the same clients cut near their middle; part 1
+       into a server, save_checkpoint while it serves once every chunk is
+       through (a segment held pending in some slot), stop; a fresh server
+       restored from the file takes part 2 from the clients reconnecting in
+       the same order: each client's lines those of the uninterrupted run,
+       card to card, card to CPU and CPU to card (forward_fused), then card
+       to card at --precision fast and with the synthetic v5 archive (the
+       audio context in the state; stft_magnitude, lstm_fused);
+     - the Python API (vadc_tpu_torch.api) for v3.1, v4, v4_8k, v5 and
+       v5_8k on 30 s of seeded speech at each family's rate, card against
+       CPU: speech_probabilities within 1e-4 (the synthetic v5 weights
+       1e-5), detect_speech_samples and stream_segments the same segments
+       on both devices and as each other; detect_speech on a 44.1 kHz wav;
+     - the cutter (vadc_tpu_torch.cli.cut) on a seeded wav and on raw
+       s16le, --device cuda against --device cpu: identical output bytes;
   3b. the bf16 tiers (balanced, fast, turbo) of the v3.1 path: each tier
      instance (forward_fused, encode_fused_audio, forward_fused2d,
      lstm_decoder_fused, dot_magnitude) against its plain version at the
@@ -121,7 +136,11 @@ Phases, each of which raises on failure (exit code 1):
      the v4/v5 instances (stft_magnitude at the four geometries, lstm_fused)
      against their plain versions and the v4 and v5 B=2048 steps; cuFFT
      (torch.stft, torch.fft.rfft) beside the two spectrum kernels, their
-     library_ms where the basis is the Hann DFT.
+     library_ms where the basis is the Hann DFT; save_checkpoint and
+     restore_checkpoint of a 2048-slot v3.1 server (wall time), the ticks'
+     p50/p99 while saves run beside them against the ticks no save
+     overlaps, and api.speech_probabilities' audio seconds per wall second
+     over 60 s of speech for v3.1 and v4.
 
 Prints a JSON line of per-kernel results, a row per tier instance too
 ("forward_fused[fast]", ...: its tier's bound, the bf16 tensor-core peak
@@ -199,7 +218,17 @@ V4_CHUNK, V4_8K_CHUNK, V5_CHUNK, V5_8K_CHUNK = 1536, 768, 512, 256
 CLI_WINDOW = 96  # chunks per CLI window (the CLI's --batch default)
 # the server phase: slots, clients, seconds of speech per client
 SERVER_SLOTS, SERVER_CLIENTS, SERVER_AUDIO_S = 64, 8, 20.0
-TICK_SLOTS = 2048  # the slots of the timed server ticks
+TICK_SLOTS = 2048  # the slots of the timed server ticks (and the timed checkpoints)
+# the server's ticks timed against saves running beside them
+OVERLAP_TICKS = 600
+# the Python API and the cutter: seconds of seeded speech; the API's card
+# against CPU bound on probabilities (TOL_PATH, and the synthetic v5
+# weights' own, that of the CPU parity tests), and the kernels each
+# family's path must launch
+API_SECONDS, API_TIMED_SECONDS, CUT_SECONDS = 30.0, 60.0, 20.0
+TOL_API = {"v5": 1e-5, "v5_8k": 1e-5}
+API_KERNELS = {"v3": ("encode_fused_audio", "lstm_decoder_fused"),
+               **{f: ("stft_magnitude", "lstm_fused") for f in ("v4", "v4_8k", "v5", "v5_8k")}}
 # the corpus path: files, their lengths in seconds, the slab
 CORPUS_FILES, CORPUS_SECONDS, SLAB_CHUNKS = 24, (5.0, 40.0), 64
 # encode_fused against the plain encoder stages: fp32 both, other orders of
@@ -1308,62 +1337,95 @@ def client_pcm(index: int) -> bytes:
     return np.clip(audio * 32768, -32768, 32767).astype("<i2").tobytes()
 
 
-def serve_clients(device, payloads: list[bytes], **server_kw):
-    """A VadServer (the bundled v3.1 archive, SERVER_SLOTS slots) on
-    `device` through serve_forever on a free localhost port; one client
-    thread per payload sends it unpaced, half-closes and reads the segment
-    lines until the server closes. Returns (lines per client, server)."""
-    import socket
+def start_server(device, ckpt: Path | None = None, **server_kw):
+    """A VadServer (SERVER_SLOTS slots; the bundled v3.1 archive unless
+    `model` names another) on `device`, restored from the checkpoint `ckpt`
+    when one is given, serving through serve_forever (its warm-up included)
+    on a free localhost port in a thread. Returns (server, stop): stop()
+    ends it and raises if it failed."""
     import threading
 
     from vadc_tpu_torch.server import VadServer
 
     srv = VadServer(port=0, max_streams=SERVER_SLOTS, device=device, **server_kw)
+    if ckpt is not None:
+        srv.restore_checkpoint(ckpt)
     failure = []
 
     def serve():
         try:
             srv.serve_forever()
-        except Exception as e:  # noqa: BLE001 - reported below
+        except Exception as e:  # noqa: BLE001 - reported by stop()
             failure.append(e)
             srv.ready.set()
 
     server_thread = threading.Thread(target=serve, daemon=True)
     server_thread.start()
-    try:
-        require(srv.ready.wait(timeout=600) and not failure, f"server did not start: {failure}")
-        results: list[bytes | None] = [None] * len(payloads)
 
-        def client(i):
-            c = socket.create_connection(srv.address, timeout=120)
-            try:
-                c.sendall(payloads[i])
-                c.shutdown(socket.SHUT_WR)
-                data = b""
-                while chunk := c.recv(4096):
-                    data += chunk
-                results[i] = data
-            finally:
-                c.close()
-
-        threads = [threading.Thread(target=client, args=(i,), daemon=True)
-                   for i in range(len(payloads))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        require(all(r is not None for r in results), f"a client got no answer on {device}")
-    finally:
+    def stop():
         srv.stop()
         server_thread.join(timeout=60)
-    require(not failure, f"server on {device} failed: {failure}")
+        require(not failure, f"server on {device} failed: {failure}")
+
+    if not srv.ready.wait(timeout=600) or failure:
+        stop()
+        raise AssertionError(f"server on {device} did not start")
+    return srv, stop
+
+
+def exchange(address, payload: bytes, sock=None) -> bytes:
+    """Send the payload on a new connection (or on `sock`), half-close and
+    read until the server closes."""
+    import socket
+
+    c = sock or socket.create_connection(address, timeout=120)
+    try:
+        c.sendall(payload)
+        c.shutdown(socket.SHUT_WR)
+        data = b""
+        while chunk := c.recv(4096):
+            data += chunk
+        return data
+    finally:
+        c.close()
+
+
+def in_threads(fn, n: int) -> list:
+    """fn(i) for i < n, each in its own thread; the results in order."""
+    import threading
+
+    results = [None] * n
+
+    def run(i):
+        results[i] = fn(i)
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    require(all(r is not None for r in results), "a client got no answer")
+    return results
+
+
+def serve_clients(device, payloads: list[bytes], **server_kw):
+    """A VadServer (the bundled v3.1 archive, SERVER_SLOTS slots) on
+    `device` through serve_forever on a free localhost port; one client
+    thread per payload sends it unpaced, half-closes and reads the segment
+    lines until the server closes. Returns (lines per client, server)."""
+    srv, stop = start_server(device, **server_kw)
+    try:
+        results = in_threads(lambda i: exchange(srv.address, payloads[i]), len(payloads))
+    finally:
+        stop()
     return [r.decode().splitlines() for r in results], srv
 
 
-def phase_server(device, totals: dict) -> None:
+def phase_server(device, totals: dict) -> list:
     """The serving daemon on the card against itself on the CPU: SERVER_CLIENTS
     clients send seeded speech faster than realtime (so catch-up ticks
-    happen); each client's segment lines must be the same on both."""
+    happen); each client's segment lines must be the same on both. Returns
+    the lines."""
     payloads = [client_pcm(i) for i in range(SERVER_CLIENTS)]
     zero_launches()
     t0 = time.perf_counter()
@@ -1384,6 +1446,358 @@ def phase_server(device, totals: dict) -> None:
         require(g == c, f"server client {i}: segment lines differ: cuda {g} cpu {c}")
         require(len(g) > 0 and not any(line.startswith("error") for line in g),
                 f"server client {i}: {g}")
+    return lines_gpu
+
+
+def connect_in_order(srv, n: int) -> list:
+    """n client sockets, each connected once the one before it holds its
+    slot. A fresh server hands its slots out from the top down, so the i-th
+    client of every run lands on slot SERVER_SLOTS - 1 - i: the slot whose
+    saved stream a restored server continues."""
+    import socket
+
+    socks = []
+    for i in range(n):
+        socks.append(socket.create_connection(srv.address, timeout=120))
+        deadline = time.monotonic() + 60
+        while srv.slots[SERVER_SLOTS - 1 - i] is None and time.monotonic() < deadline:
+            time.sleep(0.002)
+        require(srv.slots[SERVER_SLOTS - 1 - i] is not None, f"client {i} got no slot")
+    return socks
+
+
+def resume_run(payloads: list[bytes], chunk: int, first: dict, second: dict) -> tuple[list, dict]:
+    """Each payload cut at the chunk boundary nearest below its middle.
+    Part 1 goes into a server made by start_server(**first), each client on
+    its own slot with its connection held open; once every chunk is through,
+    save_checkpoint runs while the server serves, each client takes what it
+    was sent, and the server stops. Part 2 goes into a fresh server made by
+    start_server(**second) and restored from the file, the clients
+    reconnecting in the same order. Returns each client's lines (part 1's,
+    then part 2's) and what the run saw: the segments held pending at the
+    save, the save's wall seconds, the file's bytes."""
+    chunk_bytes = 2 * chunk
+    cuts = [len(p) // 2 // chunk_bytes * chunk_bytes for p in payloads]
+    slots = [SERVER_SLOTS - 1 - i for i in range(len(payloads))]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "server.ckpt"
+        srv, stop = start_server(**first)
+        socks: list = []
+        try:
+            socks = connect_in_order(srv, len(payloads))
+            for c, p, cut in zip(socks, payloads, cuts):
+                c.sendall(p[:cut])
+            want = [cut // chunk_bytes for cut in cuts]
+            deadline = time.monotonic() + 300
+            while (time.monotonic() < deadline
+                   and [int(srv.fsm.chunk_index[s]) for s in slots] != want):
+                time.sleep(0.005)
+            fed = [int(srv.fsm.chunk_index[s]) for s in slots]
+            require(fed == want, f"part 1 not through: {fed} of {want} chunks")
+            held = [srv.slots[s].pending for s in slots]
+            t0 = time.perf_counter()
+            srv.save_checkpoint(path)
+            save_s = time.perf_counter() - t0
+            # all a client was sent before the save is in its receive buffer
+            before = []
+            for c in socks:
+                c.setblocking(False)
+                got = b""
+                with contextlib.suppress(BlockingIOError):
+                    while data := c.recv(4096):
+                        got += data
+                before.append(got)
+        finally:
+            stop()
+            for c in socks:
+                c.close()
+        saved = {"held": held, "save_s": save_s, "bytes": path.stat().st_size,
+                 "part1_lines": sum(b.count(b"\n") for b in before)}
+        srv2, stop2 = start_server(ckpt=path, **second)
+        try:
+            socks = connect_in_order(srv2, len(payloads))
+            after = in_threads(lambda i: exchange(None, payloads[i][cuts[i]:], socks[i]),
+                               len(payloads))
+        finally:
+            stop2()
+    return [(b + a).decode().splitlines() for b, a in zip(before, after)], saved
+
+
+def check_resumed(label: str, lines: list, saved: dict, want: list, need_held: bool = True) -> None:
+    """A resumed run's lines against the uninterrupted run's, client by
+    client."""
+    n_held = sum(p is not None for p in saved["held"])
+    log(f"server checkpoint {label}: {len(want)} clients, {n_held} segments held pending at "
+        f"the save, {saved['part1_lines']} lines sent before it; save_checkpoint "
+        f"{1e3 * saved['save_s']:.2f} ms while serving, {saved['bytes']} bytes")
+    require(n_held > 0 or not need_held, f"server checkpoint {label}: no segment held pending")
+    for i, (got, ref) in enumerate(zip(lines, want)):
+        require(got == ref, f"server checkpoint {label}, client {i}: {got} vs uninterrupted {ref}")
+    log(f"server checkpoint {label}: every client's lines equal the uninterrupted run's")
+
+
+def phase_server_checkpoint(device, want: list, totals: dict, tier_totals: dict) -> None:
+    """Save and resume across a restart of the server (bundled v3.1,
+    SERVER_SLOTS slots, SERVER_CLIENTS clients of seeded speech, each cut
+    near its middle): card to card, card to CPU and CPU to card, each
+    client's lines those of the uninterrupted run (`want`, phase_server's,
+    which are the CPU server's too); then card to card at --precision fast
+    and with the synthetic v5 archive (the audio context in the state),
+    each against its own uninterrupted run on the card."""
+    from vadc_tpu_torch.models.synthetic import random_v5_archive, save_archive
+
+    payloads = [client_pcm(i) for i in range(SERVER_CLIENTS)]
+    for label, a, b in (("card -> card", device, device), ("card -> cpu", device, "cpu"),
+                        ("cpu -> card", "cpu", device)):
+        zero_launches()
+        lines, saved = resume_run(payloads, CHUNK, {"device": a}, {"device": b})
+        read_launches(f"server checkpoint {label}", totals, ("forward_fused",))
+        check_resumed(label, lines, saved, want)
+    fast = {"device": device, "precision": "fast"}
+    want_fast, _ = serve_clients(**fast, payloads=payloads)
+    zero_launches()
+    lines, saved = resume_run(payloads, CHUNK, fast, fast)
+    read_launches("fast: server checkpoint card -> card", tier_totals["fast"], ("forward_fused",))
+    check_resumed("card -> card at fast", lines, saved, want_fast)
+    with tempfile.TemporaryDirectory() as tmp:
+        archive = Path(tmp) / "v5_synthetic.testtensor"
+        save_archive(archive, random_v5_archive(0))
+        v5 = {"device": device, "model": str(archive)}
+        want_v5, _ = serve_clients(**v5, payloads=payloads)
+        zero_launches()
+        lines, saved = resume_run(payloads, V5_CHUNK, v5, v5)
+        read_launches("v5 server checkpoint card -> card", totals, ("stft_magnitude", "lstm_fused"))
+    # the synthetic weights' probabilities hover near the threshold: a held
+    # segment is not required of them
+    check_resumed("card -> card, v5 (synthetic weights)", lines, saved, want_v5, need_held=False)
+
+
+def api_track(sr: int, seconds: float, seed: int) -> np.ndarray:
+    """`seconds` of synthetic speech at `sr` with a noise floor: utterance
+    tracks of successive seeds, end to end."""
+    from vadc_tpu_torch.io.synthaudio import utterance_track
+
+    parts, need, k = [], int(seconds * sr), 0
+    while sum(map(len, parts)) < need:
+        parts.append(utterance_track(4, sr=sr, seed=seed + k)[0])
+        k += 1
+    return np.concatenate(parts)[:need].astype(np.float32)
+
+
+def to_s16(audio: np.ndarray) -> np.ndarray:
+    return np.clip(audio * 32768, -32768, 32767).astype("<i2")
+
+
+def api_models(archives: dict, root: Path) -> dict:
+    """family -> the weight file the API takes: the bundled v3.1, v4 and v4
+    8 kHz archives, the synthetic v5 ones written under `root`."""
+    from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
+    from vadc_tpu_torch.models.synthetic import (
+        random_v5_8k_archive, random_v5_archive, save_archive,
+    )
+
+    save_archive(root / "v5.testtensor", random_v5_archive(0))
+    save_archive(root / "v5_8k.testtensor", random_v5_8k_archive(1))
+    return {"v3": str(DEFAULT_WEIGHTS), "v4": str(archives["v4"]), "v4_8k": str(archives["v4_8k"]),
+            "v5": str(root / "v5.testtensor"), "v5_8k": str(root / "v5_8k.testtensor")}
+
+
+def phase_api(device, archives: dict, totals: dict) -> None:
+    """The Python API (vadc_tpu_torch.api) on the card against the CPU, each
+    family counted on its own: speech_probabilities on API_SECONDS of seeded
+    speech within TOL_API; detect_speech_samples and stream_segments give
+    the same segments on the card as on the CPU and as each other; then
+    detect_speech on the v3.1 track as a 44.1 kHz wav."""
+    from vadc_tpu_torch import api
+    from vadc_tpu_torch.io.wav import write_wav
+
+    with tempfile.TemporaryDirectory() as tmp:
+        models = api_models(archives, Path(tmp))
+        for family, model in models.items():
+            sr = SR // 2 if family.endswith("_8k") else SR
+            # s16 round trip: the stream generator reads s16le, the others
+            # take the same samples as floats
+            pcm = to_s16(api_track(sr, API_SECONDS, SEED + 900))
+            track = pcm.astype(np.float32) / 32768.0
+            got, seconds = {}, {}
+            for dev in ("cuda", "cpu"):
+                zero_launches()
+                t0 = time.perf_counter()
+                got[dev] = (api.speech_probabilities(track, model=model, device=dev),
+                            api.detect_speech_samples(track, model=model, device=dev),
+                            list(api.stream_segments(io.BytesIO(pcm.tobytes()), model=model,
+                                                     device=dev)))
+                seconds[dev] = time.perf_counter() - t0
+                if dev == "cuda":
+                    read_launches(f"api {family}", totals, API_KERNELS[family])
+            (pg, seg_g, stream_g), (pc, seg_c, stream_c) = got["cuda"], got["cpu"]
+            err = float(np.abs(pg - pc).max())
+            bound = TOL_API.get(family, TOL_PATH)
+            log(f"api {family}: {API_SECONDS:g} s at {sr} Hz, {pg.size} probabilities, max abs "
+                f"diff cuda vs cpu {err:.3e} (bound {bound:g}); {len(seg_g)} segments; the three "
+                f"calls {seconds['cuda']:.2f} s on cuda (weights loaded), "
+                f"{seconds['cpu']:.2f} s on cpu")
+            require(pg.shape == pc.shape and bool(np.isfinite(pg).all()), f"api {family}: probs")
+            require(err <= bound, f"api {family}: probabilities differ by {err:.3e}")
+            require(seg_g == seg_c, f"api {family}: detect_speech_samples cuda {seg_g} cpu {seg_c}")
+            require(stream_g == stream_c, f"api {family}: stream_segments cuda vs cpu")
+            require(len(stream_g) == len(seg_g) and all(
+                abs(a - b) <= 1e-6 for s, t in zip(stream_g, seg_g) for a, b in zip(s, t)),
+                f"api {family}: stream_segments {stream_g} vs detect_speech_samples {seg_g}")
+            require(len(seg_g) > 0 or family.startswith("v5"), f"api {family}: no segment")
+        # the v3.1 track at 44.1 kHz in a wav: decoded and resampled natively
+        audio = api_track(SR, API_SECONDS, SEED + 900)
+        at = np.arange(int(API_SECONDS * 44100)) * (SR / 44100)
+        wav = Path(tmp) / "speech_44k.wav"
+        write_wav(wav, to_s16(np.interp(at, np.arange(audio.size), audio)), sample_rate=44100)
+        zero_launches()
+        seg_g = api.detect_speech(wav, device="cuda")
+        read_launches("api detect_speech (44.1 kHz wav)", totals, V3_SLAB_KERNELS)
+        seg_c = api.detect_speech(wav, device="cpu")
+        log(f"api detect_speech on a 44.1 kHz wav: cuda {seg_g}")
+        require(seg_g == seg_c and len(seg_g) > 0, f"api detect_speech: cuda {seg_g} cpu {seg_c}")
+
+
+def phase_cutter(device, totals: dict) -> None:
+    """vadc-torch-cut --device cuda against --device cpu on a seeded wav and
+    on raw s16le: identical output bytes."""
+    from vadc_tpu_torch.cli import cut
+    from vadc_tpu_torch.io.wav import write_wav
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        pcm = to_s16(api_track(SR, CUT_SECONDS, SEED + 950))
+        write_wav(root / "in.wav", pcm, sample_rate=SR)
+        pcm.tofile(root / "in.s16le")
+        for name in ("in.wav", "in.s16le"):
+            out = {}
+            for dev in ("cuda", "cpu"):
+                dst = root / f"out_{dev}_{name}"
+                err = io.StringIO()
+                zero_launches()
+                with contextlib.redirect_stderr(err):
+                    rc = cut.main([str(root / name), str(dst), "--device", dev, "--stats"])
+                if dev == "cuda":
+                    read_launches(f"cutter {name}", totals, V3_SLAB_KERNELS)
+                require(rc == 0, f"cutter --device {dev} {name}: exit {rc}: {err.getvalue()}")
+                out[dev] = dst.read_bytes()
+            log(f"cutter {name}: {err.getvalue().strip()}; {len(out['cuda'])} bytes out of "
+                f"{(root / name).stat().st_size}, identical on cuda and cpu: "
+                f"{out['cuda'] == out['cpu']}")
+            require(out["cuda"] == out["cpu"], f"cutter {name}: outputs differ")
+            require(0 < len(out["cuda"]) < (root / name).stat().st_size, f"cutter {name}: size")
+
+
+def percentile_ms(seconds: list, q: float) -> float:
+    return float(np.percentile(np.array(seconds) * 1e3, q)) if seconds else float("nan")
+
+
+def phase_timing_checkpoint(device) -> dict:
+    """save_checkpoint and restore_checkpoint of a TICK_SLOTS-slot v3.1
+    server on the card, wall time (file I/O to a temporary directory
+    included); then OVERLAP_TICKS ticks with every slot active (_process:
+    the tick, the FSM feed) while another thread saves checkpoints back to
+    back with 20 ms gaps: the p50/p99 of the ticks that overlap a save
+    against those that do not."""
+    import threading
+
+    import torch
+
+    from vadc_tpu_torch.server import VadServer, _Gathered
+
+    srv = VadServer(port=0, max_streams=TICK_SLOTS, device=device)
+    other = VadServer(port=0, max_streams=TICK_SLOTS, device=device)
+    try:
+        rng = np.random.default_rng(SEED + 700)
+        for t in (srv.state.h, srv.state.c):
+            t.copy_(torch.from_numpy(rng.normal(size=tuple(t.shape)).astype(np.float32)))
+        srv.fsm.chunk_index[:] = rng.integers(1, 10**6, size=TICK_SLOTS)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "server.ckpt"
+            saves, restores = [], []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                srv.save_checkpoint(path)
+                saves.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                other.restore_checkpoint(path)
+                torch.cuda.synchronize()
+                restores.append(time.perf_counter() - t0)
+            require(torch.equal(other.state.h, srv.state.h)
+                    and torch.equal(other.state.c, srv.state.c),
+                    "restore at 2048 slots: the state differs")
+            nbytes = path.stat().st_size
+            batch = to_s16(speech_chunks(TICK_SLOTS, srv.chunk, seed=SEED + 600))
+            g = _Gathered(batch, np.ones(TICK_SLOTS, bool), TICK_SLOTS, None, None,
+                          np.zeros(TICK_SLOTS, bool))
+            for _ in range(10):
+                srv._process(g)
+            ticks, windows = [], []
+            done = threading.Event()
+
+            def saver():
+                while not done.is_set():
+                    t0 = time.perf_counter()
+                    srv.save_checkpoint(path)
+                    windows.append((t0, time.perf_counter()))
+                    time.sleep(0.02)
+
+            thread = threading.Thread(target=saver, daemon=True)
+            thread.start()
+            for _ in range(OVERLAP_TICKS):
+                t0 = time.perf_counter()
+                srv._process(g)
+                ticks.append((t0, time.perf_counter()))
+            done.set()
+            thread.join(timeout=60)
+    finally:
+        srv.pool.close()
+        other.pool.close()
+    over = [b - a for a, b in ticks if any(s < b and a < e for s, e in windows)]
+    clear = [b - a for a, b in ticks if not any(s < b and a < e for s, e in windows)]
+    out = {"save_ms": percentile_ms(saves, 50), "restore_ms": percentile_ms(restores, 50),
+           "bytes": nbytes, "tick_p50_overlap_ms": percentile_ms(over, 50),
+           "tick_p99_overlap_ms": percentile_ms(over, 99),
+           "tick_p50_clear_ms": percentile_ms(clear, 50),
+           "tick_p99_clear_ms": percentile_ms(clear, 99), "ticks_overlap": len(over),
+           "ticks_clear": len(clear), "saves_beside_ticks": len(windows),
+           "save_beside_ticks_ms": percentile_ms([e - s for s, e in windows], 50)}
+    log(f"time checkpoint v3.1 {TICK_SLOTS} slots ({nbytes} bytes): save_checkpoint median "
+        f"{out['save_ms']:.3f} ms (min {1e3 * min(saves):.3f}, max {1e3 * max(saves):.3f}), "
+        f"restore_checkpoint median {out['restore_ms']:.3f} ms (min {1e3 * min(restores):.3f}, max "
+        f"{1e3 * max(restores):.3f}), 10 each, wall time, file I/O included")
+    log(f"time ticks beside saves, {TICK_SLOTS} slots all active: {len(over)} ticks overlapping "
+        f"one of {len(windows)} saves (median save {out['save_beside_ticks_ms']:.3f} ms): p50 "
+        f"{out['tick_p50_overlap_ms']:.4f} ms, p99 {out['tick_p99_overlap_ms']:.4f} ms; "
+        f"{len(clear)} ticks overlapping none: p50 {out['tick_p50_clear_ms']:.4f} ms, p99 "
+        f"{out['tick_p99_clear_ms']:.4f} ms")
+    return out
+
+
+def phase_timing_api(device, archives: dict) -> dict:
+    """speech_probabilities on the card over API_TIMED_SECONDS of seeded
+    speech, v3.1 and v4: audio seconds per wall second (host clock around
+    the call, which ends in the copy of the probabilities to the host), the
+    median of 3 calls after one untimed call."""
+    from vadc_tpu_torch import api
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        models = api_models(archives, Path(tmp))
+        track = api_track(SR, API_TIMED_SECONDS, SEED + 960)
+        for family in ("v3", "v4"):
+            api.speech_probabilities(track, model=models[family], device="cuda")
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                api.speech_probabilities(track, model=models[family], device="cuda")
+                walls.append(time.perf_counter() - t0)
+            wall = float(np.median(walls))
+            out[family] = API_TIMED_SECONDS / wall
+            log(f"time api.speech_probabilities {family} over {API_TIMED_SECONDS:g} s of speech: "
+                f"{1e3 * wall:.2f} ms median of 3 (" + ", ".join(f"{1e3 * w:.2f}" for w in walls)
+                + f"): {out[family]:.1f} audio s per wall s")
+    return out
 
 
 def time_ticks(model: str, device, label: str, precision: str = "faithful") -> tuple[float, float]:
@@ -2741,7 +3155,13 @@ def main() -> int:
         phase_main_path_tiers_v45(models, archives, device, speech, tier_launches)
     phase_main_path_v5(models, device, launches)
     corpus = phase_main_path_batch(device, launches)
-    phase_server(device, launches)
+    server_lines = phase_server(device, launches)
+    elapsed("the server")
+    phase_server_checkpoint(device, server_lines, launches, tier_launches)
+    elapsed("the server checkpoints")
+    phase_api(device, archives, launches)
+    phase_cutter(device, launches)
+    elapsed("the API and the cutter")
     log(f"launches on the main paths, all phases: {launches}; at the bf16 tiers: {tier_launches}")
     elapsed("the main paths")
     timing = phase_timing(params, device)
@@ -2756,6 +3176,8 @@ def main() -> int:
         save_archive(v5_archive, random_v5_archive(0))
         time_ticks(str(DEFAULT_WEIGHTS), device, "v3.1")
         time_ticks(str(v5_archive), device, "v5 (synthetic weights)")
+    phase_timing_checkpoint(device)
+    phase_timing_api(device, archives)
     elapsed("the timings")
 
     # The bound of each kernel at the shape it was timed at: bytes are each

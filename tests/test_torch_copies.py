@@ -1,9 +1,10 @@
 """The port's copies of vadc_tpu's numpy-only modules give what the
 originals give. The port imports nothing of vadc_tpu, so it keeps its own
-`io/*`, `cli/segmenter.py`, `cli/stats.py`, `native.py` and the ONNX readers
-of `export/`; each is held here to its original on seeded inputs, case by
-case. Everything is integer or bitwise logic, or the same float arithmetic
-in the same order: the results are required equal, not close."""
+`io/*`, `cli/segmenter.py`, `cli/stats.py`, `cli/filter_script.py`,
+`native.py` and the ONNX readers of `export/`; each is held here to its
+original on seeded inputs, case by case. Everything is integer or bitwise
+logic, or the same float arithmetic in the same order: the results are
+required equal, not close."""
 
 import inspect
 import io
@@ -14,6 +15,7 @@ import pytest
 
 from tests.torch_port_util import V31_ARCHIVE
 from vadc_tpu import native as j_native
+from vadc_tpu.cli import filter_script as j_filter
 from vadc_tpu.cli import segmenter as j_segmenter
 from vadc_tpu.cli import stats as j_stats
 from vadc_tpu.export import onnx_build
@@ -31,6 +33,7 @@ from vadc_tpu.io import testtensor as j_tt
 from vadc_tpu.io import wav as j_wav
 from vadc_tpu.models.synthetic import random_v5_8k_archive, random_v5_archive
 from vadc_tpu_torch import native as t_native
+from vadc_tpu_torch.cli import filter_script as t_filter
 from vadc_tpu_torch.cli import segmenter as t_segmenter
 from vadc_tpu_torch.cli import stats as t_stats
 from vadc_tpu_torch.export import onnx_extract as t_extract
@@ -54,6 +57,7 @@ PAIRS = {
     "export.silero_v3_from_onnx": (j_v3, t_v3), "export.silero_v4_from_onnx": (j_v4, t_v4),
     "export.silero_v5_from_onnx": (j_v5, t_v5), "export.onnx_exec": (j_exec, t_exec),
     "engine.onnx_backend": (j_backend, t_backend), "io.synthaudio": (j_synth, t_synth),
+    "cli.filter_script": (j_filter, t_filter),
 }
 
 
@@ -427,3 +431,21 @@ def test_synthetic_speech_is_the_same_track(seed):
     package's, sample for sample."""
     (a, ra), (b, rb) = t_synth.utterance_track(4, seed=seed), j_synth.utterance_track(4, seed=seed)
     assert a.dtype == b.dtype and np.array_equal(a, b) and ra == rb and a.size > 16000
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_filter_script(seed):
+    """The filter-script tool: the same ffmpeg filtergraph from the same
+    segment lines (blank lines skipped), through main on streams too."""
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.uniform(0, 600, size=7)).round(2)
+    lines = "".join(f"{a:.2f},{a + d:.2f}\n\n" for a, d in zip(starts, rng.uniform(0.3, 4, 7)))
+    outs = []
+    for mod in (j_filter, t_filter):
+        segs = list(mod.parse_segments(io.StringIO(lines)))
+        out = io.StringIO()
+        assert mod.main(io.StringIO(lines), out) == 0
+        assert out.getvalue() == mod.build_filterscript(segs)
+        outs.append(out.getvalue())
+    assert outs[0] == outs[1] and outs[1].count("between(t,") == 7
+    assert t_filter.build_filterscript([]) == j_filter.build_filterscript([])

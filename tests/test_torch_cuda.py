@@ -22,6 +22,10 @@ The bf16 tiers' instances are held to their plain versions at the tier by
 vadc_tpu_torch/kernels/tier_check.py (which says why they are not
 bit-equal); at every tier stft_magnitude equals dot_magnitude's instance
 of the same operands, and the two lstm_fused variants equal each other.
+A server checkpoint saved on the card restores on the CPU and the other
+way round with the state bit for bit (the next tick within the
+whole-model bounds), and the Python API on the card gives the CPU's
+probabilities within 1e-4 and its segments.
 """
 
 from pathlib import Path
@@ -831,3 +835,60 @@ def test_v4_v5_runners_at_a_tier_on_the_card(family_params, device, family, tier
     limits = tier_check.PATH_MAX[tier]
     assert _max_abs(p_gpu.cpu(), p_cpu) <= limits["probs"]
     assert _max_abs(st.h.cpu(), st_cpu.h) <= limits["h"]
+
+
+# ---- checkpoints and the Python API across the card and the CPU ------------
+
+
+@pytest.mark.parametrize("saver,loader", [("card", "cpu"), ("cpu", "card")])
+def test_server_checkpoint_moves_between_card_and_cpu(device, saver, loader, tmp_path):
+    """A server checkpoint saved on one device restores on the other with
+    the state bit for bit; the next tick of both servers on the same chunk
+    agrees within the whole-model bounds (probabilities 1e-4, h 3e-4)."""
+    from vadc_tpu_torch import native
+
+    if not native.available():
+        pytest.skip("native library unavailable (make -C native)")
+    from vadc_tpu_torch.server import VadServer
+
+    on = {"card": device, "cpu": "cpu"}
+    src = VadServer(port=0, max_streams=8, model=str(V31_ARCHIVE), device=on[saver])
+    dst = VadServer(port=0, max_streams=8, model=str(V31_ARCHIVE), device=on[loader])
+    try:
+        rng = np.random.default_rng(31)
+        h = torch.from_numpy((0.3 * rng.normal(size=tuple(src.state.h.shape))).astype(np.float32))
+        c = torch.from_numpy(rng.normal(size=tuple(src.state.c.shape)).astype(np.float32))
+        src.state.h.copy_(h)
+        src.state.c.copy_(c)
+        src.fsm.chunk_index[:] = np.arange(8) * 7
+        src.save_checkpoint(tmp_path / "srv.ckpt")
+        dst.restore_checkpoint(tmp_path / "srv.ckpt")
+        assert dst.state.h.device.type == dst.device.type
+        assert torch.equal(dst.state.h.cpu(), h) and torch.equal(dst.state.c.cpu(), c)
+        assert dst.fsm.chunk_index.tolist() == (np.arange(8) * 7).tolist()
+        dst.warmup()
+        assert torch.equal(dst.state.h.cpu(), h) and torch.equal(dst.state.c.cpu(), c)
+        batch = np.clip(speech(8, seed=32) * 32768, -32768, 32767).astype(np.int16)
+        on_mask, off = np.ones(8, bool), np.zeros(8, bool)
+        p_src, p_dst = src._tick(batch, on_mask, off), dst._tick(batch, on_mask, off)
+        assert float(np.abs(p_src - p_dst).max()) <= 1e-4
+        assert _max_abs(src.state.h.cpu(), dst.state.h.cpu()) <= 3e-4
+    finally:
+        src.pool.close()
+        dst.pool.close()
+
+
+@pytest.mark.parametrize("family", ["v3", "v4"])
+def test_api_on_the_card_matches_the_cpu(device, family):
+    """speech_probabilities on the card within 1e-4 of the CPU, and the same
+    segments from detect_speech_samples, on 20 s of synthetic speech."""
+    from vadc_tpu_torch import api
+
+    model = str(V31_ARCHIVE if family == "v3" else DATA / "silero_v4_16k.testtensor")
+    track, _ = utterance_track(n_utterances=6, seed=33)
+    track = track.astype(np.float32)
+    p_gpu = api.speech_probabilities(track, model=model, device="cuda")
+    p_cpu = api.speech_probabilities(track, model=model, device="cpu")
+    assert p_gpu.shape == p_cpu.shape and float(np.abs(p_gpu - p_cpu).max()) <= 1e-4
+    assert (api.detect_speech_samples(track, model=model, device="cuda")
+            == api.detect_speech_samples(track, model=model, device="cpu"))

@@ -37,7 +37,9 @@ assert len(modules) > 30 and "vadc_tpu_torch.cli.batch" in modules, modules
 assert {"vadc_tpu_torch.nn.precision", "vadc_tpu_torch.engine.onnx_backend",
         "vadc_tpu_torch.export.onnx_exec", "vadc_tpu_torch.export.silero_v5_from_onnx",
         "vadc_tpu_torch.export.silero_v4_from_onnx",
-        "vadc_tpu_torch.kernels.tier_check"} <= set(modules), modules
+        "vadc_tpu_torch.kernels.tier_check", "vadc_tpu_torch.engine.checkpoint",
+        "vadc_tpu_torch.api", "vadc_tpu_torch.cli.cut",
+        "vadc_tpu_torch.cli.filter_script"} <= set(modules), modules
 for name in modules:
     importlib.import_module(name)
 for script in ("chip_smoke.py", "chip_profile.py", "chip_ab.py"):
@@ -88,6 +90,8 @@ with tempfile.TemporaryDirectory() as tmp:
     with contextlib.redirect_stdout(io.StringIO()) as out:
         assert batch.main([pcm, "--device", "cpu"]) == 0
     assert out.getvalue() == ""
+from vadc_tpu_torch import api
+assert api.speech_probabilities(np.zeros(3072, np.float32), device="cpu").shape == (2,)
 loaded = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in ("jax", "jaxlib", "vadc_tpu"))
 assert not loaded, loaded
@@ -102,8 +106,8 @@ def _python(code: str, cwd: Path = ROOT) -> subprocess.CompletedProcess:
 
 def test_package_imports_and_runs_without_jax():
     """Also without vadc_tpu: every module of the port (found by walking the
-    package), chip_smoke.py and chip_profile.py import; the runners, the CLI
-    and the batch CLI run on the CPU."""
+    package), chip_smoke.py and chip_profile.py import; the runners, the CLI,
+    the batch CLI and the Python API run on the CPU."""
     proc = _python(_DRIVE)
     assert proc.returncode == 0, proc.stderr
     probs = np.array(proc.stdout.split(), float)

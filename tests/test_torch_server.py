@@ -11,7 +11,8 @@ tests/test_torch_fused_audio.py (measured here: probabilities 4.5e-8, h
 bit, reset slots are computed from zeros.
 
 End to end over localhost sockets: the behaviour tests of
-tests/test_server.py that need no checkpoint and no second device, with
+tests/test_server.py that need no checkpoint (those are in
+tests/test_torch_server_checkpoint.py) and no second device, with
 the bundled v3.1 archive; the catch-up tick's reset race; and one client's
 segment lines from the port's server against the JAX server's.
 
@@ -582,7 +583,8 @@ V4_ARCHIVE = DATA / "silero_v4_16k.testtensor"
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--resume", "x.ckpt"], "Queue 1: 'Checkpoint'"),
+    (["--resume", "/nonexistent/x.ckpt", "--device", "cpu"],
+     "--resume /nonexistent/x.ckpt: [Errno 2] No such file or directory"),
     (["--shard"], "Queue 1: 'Multi-GPU'"),
     (["--model", "/nonexistent/w.testtensor", "--device", "cpu"], "no weight archive"),
 ])

@@ -63,3 +63,22 @@ def speech(n_chunks: int, chunk: int = 1536, seed: int = 0) -> np.ndarray:
 def noise(n_chunks: int, chunk: int = 1536, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return (0.1 * rng.normal(size=(n_chunks, chunk))).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_cache_kept():
+    """The JAX package's entry points (its api, cli.cut, server) point jax's
+    compile cache at VADC_TPU_CACHE_DIR, else a directory under HOME: keep
+    it on the suite's own cache while a module runs, and put the settings
+    back afterwards."""
+    import jax
+
+    names = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
+             "jax_persistent_cache_min_entry_size_bytes")
+    saved = {name: getattr(jax.config, name) for name in names}
+    with pytest.MonkeyPatch.context() as mp:
+        if saved["jax_compilation_cache_dir"]:
+            mp.setenv("VADC_TPU_CACHE_DIR", saved["jax_compilation_cache_dir"])
+        yield
+    for name, value in saved.items():
+        jax.config.update(name, value)

@@ -25,12 +25,16 @@ Architecture:
     counters; pad/merge and the EOF snap run on the host per event.
 
 Every family the port loads serves, at any precision tier (`--precision`,
-`--fast`). Not in the port
-yet: checkpoint/resume (ROADMAP Queue 1, 'Checkpoint') and serving over
-several devices ('Multi-GPU'); `--resume` and `--shard` say so and exit 1.
+`--fast`). `save_checkpoint` snapshots every slot's resumable state (the
+engine/checkpoint.py container, the JAX server's bytes) while the server
+runs; `restore_checkpoint` (`--resume`) loads one into a fresh server
+before it serves, on any device: the next client accepted on a saved slot
+continues that stream. Not in the port yet: serving over several devices
+(ROADMAP Queue 1, 'Multi-GPU'); `--shard` says so and exits 1.
 
     python -m vadc_tpu_torch.server --port 7355 --max_streams 64 [--device cuda] [--fast]
     # then: cat audio.s16le | nc -q1 localhost 7355
+    python -m vadc_tpu_torch.server --device cpu --resume server.ckpt
 """
 
 from __future__ import annotations
@@ -168,6 +172,13 @@ class VadServer:
         # _state_lock, then _lock.
         self._state_lock = threading.Lock()
         self._reset_requests: list[int] = []
+        # slots restored from a checkpoint: the next client accepted on such
+        # a slot continues the saved stream (no state reset; it inherits the
+        # held pending segment) instead of starting fresh
+        self._resume_slots: dict[int, tuple[int, int] | None] = {}
+        # rendered but unsent bytes restored from a checkpoint, re-queued
+        # when the slot's client reconnects (at-least-once delivery)
+        self._resume_sendbuf: dict[int, bytes] = {}
         # segment lines dropped to unresponsive clients (outbox cap / EOF
         # flush timeout)
         self.segments_dropped = 0
@@ -277,15 +288,41 @@ class VadServer:
                 # previous client's drained pool state
                 self._attached[slot] = False
                 self.slots[slot] = _Slot(conn)
-                # appended BEFORE add_fd makes the client's chunks
-                # gatherable: any chunk a gather returns has its reset
-                # visible to the capture after that gather
-                self._reset_requests.append(slot)
+                if slot in self._resume_slots:
+                    # checkpoint continuation: no reset, so the slot keeps
+                    # its LSTM state, FSM fields and v5 context. No client
+                    # used the slot in this process, so no gather holds a
+                    # row of an earlier client for it
+                    self._continue_slot(slot)
+                else:
+                    # appended BEFORE add_fd makes the client's chunks
+                    # gatherable: any chunk a gather returns has its reset
+                    # visible to the capture after that gather
+                    self._reset_requests.append(slot)
             # intake runs off-thread: it may block up to the sniff timeout
             # peeking for a wav magic, and for wav clients it becomes the
             # long-lived decoder; raw clients get their socket fd handed to
             # the GIL-free pool untouched (the peek consumes nothing)
             threading.Thread(target=self._intake, args=(slot, conn), daemon=True).start()
+
+    def _continue_slot(self, slot: int) -> None:
+        """Give the slot's new client the saved stream's held pending
+        segment and its unsent bytes. Under _lock."""
+        s = self.slots[slot]
+        s.pending = self._resume_slots.pop(slot)
+        buf = self._resume_sendbuf.pop(slot, b"")
+        if buf:
+            # re-queued as separate lines, not one blob: the outbox cap
+            # counts entries, and drop accounting must count real lines.
+            # The blob may START with a partial line's unsent suffix (the
+            # checkpoint was taken mid-send), kept whole; it always ENDS on
+            # a line boundary.
+            now = time.perf_counter()
+            parts = buf.split(b"\n")
+            tail = parts.pop()  # b"" on a boundary
+            s.outbox.extend((p + b"\n", now) for p in parts)
+            if tail:
+                s.outbox.append((tail, now))
 
     def _intake(self, slot: int, conn: socket.socket) -> None:
         """Sniff the client's first bytes: raw s16le goes straight to the
@@ -512,6 +549,101 @@ class VadServer:
         else:
             closer()
 
+    # ---- checkpoint / resume ----------------------------------------------
+
+    def save_checkpoint(self, path) -> None:
+        """Snapshot every slot's resumable state (SURVEY §5.4): LSTM h/c (and
+        the v5 context), the FSM fields, the per-slot chunk counters, each
+        slot's held pending segment and its unsent output bytes. Client
+        sockets do not survive a restart; `restore_checkpoint` marks the
+        saved slots so that reconnecting clients continue their streams.
+
+        One critical section takes the whole view of one tick: the state,
+        the FSM arrays, the pendings and outboxes (and those a restore still
+        holds for clients not back yet), under _state_lock then _lock. Only
+        cheap work happens there: clones of the state on the device, queued
+        on the tick's stream ahead of the next tick, copies of the host
+        arrays, and a pass over the connected slots alone. The copies of
+        the clones to the host and the per-slot lists run after the lock is
+        released, so the ticks do not wait for them."""
+        from vadc_tpu_torch.engine.checkpoint import EngineCheckpoint
+        from vadc_tpu_torch.engine.runner import StreamState
+        from vadc_tpu_torch.engine.vectorized_segmenter import FsmState
+
+        fsm = self.fsm
+        with self._state_lock:
+            with self._lock:
+                # a connected slot's own pending and unsent bytes, where it
+                # has them, else those a restore holds for it
+                held = dict(self._resume_slots)
+                unsent = dict(self._resume_sendbuf)
+                for slot, s in enumerate(self.slots):
+                    if s is None:
+                        continue
+                    if s.pending is not None:
+                        held[slot] = s.pending
+                    if s.outbox:
+                        # the partly sent head line keeps only its unsent
+                        # suffix: resending sent bytes would corrupt the
+                        # reconnecting client's stream
+                        unsent[slot] = b"".join(line for line, _t in s.outbox)[s.head_off :]
+            st = self.state
+            h, c = st.h.clone(), st.c.clone()
+            context = None if st.context is None else st.context.clone()
+            triggered = fsm.triggered.astype(bool)
+            speech_start = fsm.speech_start.astype(np.int32)
+            temp_end = fsm.temp_end.astype(np.int32)
+            chunk_indices = fsm.chunk_index.astype(np.int32)
+        chunk_index = int(chunk_indices.max(initial=0))
+        EngineCheckpoint(
+            family=self.family,
+            model_state=StreamState(h.cpu(), c.cpu(), None if context is None else context.cpu()),
+            fsm_state=FsmState(torch.from_numpy(triggered), torch.from_numpy(speech_start),
+                               torch.from_numpy(temp_end), chunk_index),
+            chunk_index=chunk_index,
+            pending=[held.get(slot) for slot in range(self.n)],
+            chunk_indices=chunk_indices,
+            sendbuf=[unsent.get(slot, b"") for slot in range(self.n)],
+        ).save(path)
+
+    def restore_checkpoint(self, path) -> None:
+        """Load a snapshot into this server before serve_forever: the state
+        into the existing device buffers (so both halves of the double
+        buffer keep their shapes and device), the FSM arrays, and a
+        continuation marker for every slot that held a stream. A checkpoint
+        of another family or another slot count is refused."""
+        from vadc_tpu_torch.engine.checkpoint import EngineCheckpoint
+
+        ckpt = EngineCheckpoint.load(path)
+        if ckpt.family != self.family:
+            raise ValueError(f"checkpoint family {ckpt.family!r} != server {self.family!r}")
+        if ckpt.model_state.n_streams != self.n:
+            raise ValueError(f"checkpoint of {ckpt.model_state.n_streams} slots != server's "
+                             f"{self.n} (--max_streams)")
+        if ckpt.fsm_state is None:
+            raise ValueError("checkpoint has no segmentation state")
+        saved, fsm = ckpt.model_state, self.fsm
+        with self._state_lock:
+            self.state.h.copy_(saved.h)
+            self.state.c.copy_(saved.c)
+            if self.state.context is not None:
+                self.state.context.copy_(saved.context)
+            fsm.triggered[:] = ckpt.fsm_state.triggered.numpy()
+            fsm.speech_start[:] = ckpt.fsm_state.speech_start.numpy()
+            fsm.temp_end[:] = ckpt.fsm_state.temp_end.numpy()
+            fsm.chunk_index[:] = (
+                ckpt.chunk_indices if ckpt.chunk_indices is not None else ckpt.chunk_index
+            )
+            pending = ckpt.pending or [None] * self.n
+            sendbuf = ckpt.sendbuf or [b""] * self.n
+            with self._lock:
+                for slot in range(self.n):
+                    if (pending[slot] is not None or sendbuf[slot] or fsm.chunk_index[slot] > 0
+                            or fsm.triggered[slot]):
+                        self._resume_slots[slot] = pending[slot]
+                        if sendbuf[slot]:
+                            self._resume_sendbuf[slot] = sendbuf[slot]
+
     # ---- engine loop ------------------------------------------------------
 
     def _take_resets(self) -> list[int]:
@@ -658,15 +790,12 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--shard", action=argparse.BooleanOptionalAction, default=None,
                    help="serve over several devices (not ported yet)")
     p.add_argument("--resume", default=None, metavar="CKPT",
-                   help="restore a server checkpoint (not ported yet)")
+                   help="restore a server checkpoint (save_checkpoint's file, of this "
+                        "package or of vadc_tpu, saved on any device); saved slots "
+                        "continue their streams when clients reconnect")
     args = p.parse_args(argv)
     precision = args.precision or ("fast" if args.fast else "faithful")
     try:
-        if args.resume:
-            raise NotImplementedError(
-                "--resume: server checkpoints are not ported yet (ROADMAP.md, Queue 1: "
-                "'Checkpoint')"
-            )
         if args.shard:
             raise NotImplementedError(
                 "--shard: serving over several devices is not ported yet (ROADMAP.md, "
@@ -685,6 +814,13 @@ def main(argv: list[str] | None = None) -> int:
             RuntimeError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    if args.resume:
+        try:
+            server.restore_checkpoint(args.resume)
+        except (OSError, ValueError) as e:
+            server.pool.close()
+            print(f"Error: --resume {args.resume}: {e}", file=sys.stderr)
+            return 1
     try:
         server.serve_forever()
     except KeyboardInterrupt:
