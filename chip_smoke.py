@@ -113,6 +113,28 @@ Phases, each of which raises on failure (exit code 1):
      of v5 and v5_8k card vs CPU within tier_check's PATH_MAX, each family
      over the 12 speech tracks (12 streams of one scan) within its
      SPEECH_BOUND, and at fast the v4 CLI card vs CPU;
+  3d. stream sharding (multi-device): ShardedStreamRunner over two
+     shards of the card (["cuda:0", "cuda:0"]) against the unsharded
+     runner bit for bit: the v3.1 step at B=2048 x 1536 and the 2048 x 8
+     scan, the v4 step at B=2048, and the v5 step within TOL_SHARDED (its
+     encoder's torch products; its spectrum kernel by halves bit for bit),
+     counted (forward_fused,
+     encode_fused_audio, lstm_decoder_fused, stft_magnitude, lstm_fused >
+     0); the batch CLI over the 24-file corpus on the two shards against
+     one device (identical lines and cut files); the server with its slots
+     on the two shards, the 8 clients of the server phase (each client's
+     lines those of the unsharded server), its checkpoint resumed sharded
+     -> unsharded and back (the uninterrupted run's lines, and the sharded
+     save byte for byte the unsharded one); tools/torch_multidevice_dryrun.py
+     --device cuda (2 processes x 2 devices over gloo); with two cards or
+     more the same over distinct cards and a step on cuda:1 launched under
+     cuda:0 against cuda:0's bits (else one line says they were skipped);
+     one v3.1 step under tracing.profile, whose trace must name
+     forward_fused; then, in turns over 7 repeats (median and spread), ms
+     per chunk-step at B=2048 for v3.1 and v4 on 2 shards against
+     unsharded, _tick at 2048 slots sharded and unsharded, and the v3.1
+     StreamRunner.step (its device guard and zone, no profile) against
+     forward_fused alone;
   4. timings with CUDA events: each kernel against its plain version
      (stft_magnitude at every family geometry at B=2048 and at the v4 CLI
      window, each with its own bound; beside the two spectrum kernels,
@@ -1475,7 +1497,7 @@ def resume_run(payloads: list[bytes], chunk: int, first: dict, second: dict) -> 
     start_server(**second) and restored from the file, the clients
     reconnecting in the same order. Returns each client's lines (part 1's,
     then part 2's) and what the run saw: the segments held pending at the
-    save, the save's wall seconds, the file's bytes."""
+    save, the save's wall seconds, the file's size and its bytes."""
     chunk_bytes = 2 * chunk
     cuts = [len(p) // 2 // chunk_bytes * chunk_bytes for p in payloads]
     slots = [SERVER_SLOTS - 1 - i for i in range(len(payloads))]
@@ -1512,7 +1534,7 @@ def resume_run(payloads: list[bytes], chunk: int, first: dict, second: dict) -> 
             for c in socks:
                 c.close()
         saved = {"held": held, "save_s": save_s, "bytes": path.stat().st_size,
-                 "part1_lines": sum(b.count(b"\n") for b in before)}
+                 "data": path.read_bytes(), "part1_lines": sum(b.count(b"\n") for b in before)}
         srv2, stop2 = start_server(ckpt=path, **second)
         try:
             socks = connect_in_order(srv2, len(payloads))
@@ -1686,6 +1708,320 @@ def phase_cutter(device, totals: dict) -> None:
                 f"{out['cuda'] == out['cpu']}")
             require(out["cuda"] == out["cpu"], f"cutter {name}: outputs differ")
             require(0 < len(out["cuda"]) < (root / name).stat().st_size, f"cutter {name}: size")
+
+
+MULTI_REPEATS = 7  # repeats of each timing of the multi-device phase
+
+
+@contextlib.contextmanager
+def cards_as(devices: list):
+    """Within the block, "every visible card" (engine/shard.py:
+    stream_devices(), the device list of the batch CLI's --device cuda) is
+    `devices`: two shards of one card stand in for two cards."""
+    from vadc_tpu_torch.engine import shard
+
+    resolve = shard.stream_devices
+    shard.stream_devices = lambda given=None: resolve(devices if given is None else given)
+    try:
+        yield
+    finally:
+        shard.stream_devices = resolve
+
+
+# v5's sharded step against its unsharded one: its encoder's k3 convs are
+# torch.matmul products (cuBLAS), whose algorithm cuBLAS picks by the number
+# of rows, so half the streams sum in another order; held at the v5 parity
+# bounds (tests/test_torch_v5.py: probabilities 1e-5, h and c 5e-5), its
+# spectrum kernel on each shard's rows bit for bit
+TOL_SHARDED = {"v5": (1e-5, 5e-5)}
+
+
+def v5_stages_by_halves(params, x) -> str:
+    """Which stage of the v5 step gives other bits on half the streams:
+    stft_magnitude on each half against the whole (required equal: the
+    kernel's arithmetic is per stream), then the encoder's convs."""
+    import torch
+
+    from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude
+    from vadc_tpu_torch.models import silero_v5
+
+    audio = torch.cat([torch.zeros(x.shape[0], silero_v5.CONTEXT_SAMPLES, device=x.device), x],
+                      dim=-1)
+    wr, wi = split_basis_of(params)
+
+    def spect(a):
+        return stft_magnitude(a, wr, wi, pad_left=0, pad_right=silero_v5.STFT_PAD_RIGHT,
+                              hop=silero_v5.STFT_HOP)
+
+    half = x.shape[0] // 2
+    whole = spect(audio)
+    halves = torch.cat([spect(audio[:half]), spect(audio[half:])])
+    require(torch.equal(whole, halves), "v5: stft_magnitude on half the streams differs")
+    convs = silero_v5._convs(params, whole, silero_v5.FAITHFUL)
+    conv_halves = torch.cat([silero_v5._convs(params, whole[:half], silero_v5.FAITHFUL),
+                             silero_v5._convs(params, whole[half:], silero_v5.FAITHFUL)])
+    return (f"stft_magnitude on each half: the whole's bits; the encoder's convs (torch.matmul) "
+            f"on each half: max abs diff {max_abs(convs, conv_halves):.3e}")
+
+
+def sharded_vs_unsharded(family: str, params, devices: list, chunk: int, seed: int,
+                         scan_chunks: int = 0) -> None:
+    """ShardedStreamRunner over `devices` against the unsharded StreamRunner
+    on the first, B_MAIN streams: one step, then (scan_chunks > 0) one scan
+    of that many chunks; probabilities, h, c and a v5 context bit for bit
+    (v5: within TOL_SHARDED, the context bit for bit)."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.engine.shard import ShardedStreamRunner
+
+    x = torch.from_numpy(speech_chunks(B_MAIN * (1 + scan_chunks), chunk, seed=seed)).reshape(
+        B_MAIN, 1 + scan_chunks, chunk)
+    sharded = ShardedStreamRunner(family, params, devices)
+    plain = StreamRunner(family, params, device=devices[0])
+    s_state, p_state = sharded.init_state(B_MAIN), plain.init_state(B_MAIN)
+    got = [sharded.step(x[:, 0].to(devices[0]), s_state)[0]]
+    want = [plain.step(x[:, 0].to(devices[0]), p_state)[0]]
+    if scan_chunks:
+        got.append(sharded.scan(x[:, 1:].to(devices[0]), s_state)[0])
+        want.append(plain.scan(x[:, 1:].to(devices[0]), p_state)[0])
+    got += [s_state.h, s_state.c] + ([s_state.context] if p_state.context is not None else [])
+    want += [p_state.h, p_state.c] + ([p_state.context] if p_state.context is not None else [])
+    names = ["step probs"] + (["scan probs"] if scan_chunks else []) + ["h", "c", "context"]
+    torch.cuda.synchronize()
+    got, want = [t.cpu() for t in got], [t.cpu() for t in want]
+    label = (f"{family} sharded over {[str(d) for d in devices]}: step"
+             + (f" and scan {B_MAIN}x{scan_chunks}" if scan_chunks else "") + f" at B={B_MAIN}")
+    if same_bits(got, want):
+        log(f"{label}: the unsharded runner's bits")
+        return
+    diffs = variant_diffs({"sharded": got}, want, names)
+    require(family in TOL_SHARDED, f"{label}: not the unsharded bits ({diffs})")
+    tol_p, tol_s = TOL_SHARDED[family]
+    errs = [max_abs(g, w) for g, w in zip(got, want)]
+    require(errs[0] <= tol_p and max(errs[1:3]) <= tol_s and torch.equal(got[-1], want[-1]),
+            f"{label}: beyond {TOL_SHARDED[family]} of the unsharded run ({diffs})")
+    log(f"{label}: within {TOL_SHARDED[family]} of the unsharded runner ({diffs}; "
+        f"{v5_stages_by_halves(params, x[:, 0].to(devices[0]))})")
+
+
+def batch_cli_sharded(root: Path, paths: list, devices: list | None, totals: dict) -> None:
+    """The batch CLI over the corpus with --cut_dir, --device cuda over
+    `devices` (None: every visible card) against --device cuda:0 (one
+    device): identical lines and cut files."""
+    argv = [*paths, "--slab_chunks", str(SLAB_CHUNKS)]
+    label = f"batch CLI over {[str(d) for d in devices] if devices else 'every card'}"
+    out_one, _ = run_batch_cli([*argv, "--device", "cuda:0", "--cut_dir", str(root / "one")])
+    zero_launches()
+    with cards_as(devices) if devices else contextlib.nullcontext():
+        out_sharded, seconds = run_batch_cli([*argv, "--device", "cuda",
+                                              "--cut_dir", str(root / "sharded")])
+    read_launches(label, totals, V3_SLAB_KERNELS)
+    cut = [{p.name: p.read_bytes() for p in sorted((root / d).iterdir())}
+           for d in ("one", "sharded")]
+    require(out_sharded == out_one, f"{label}: lines differ from one device's")
+    require(cut[0] == cut[1] and len(cut[0]) == len(paths), f"{label}: cut files differ")
+    log(f"{label}: {len(out_one.splitlines())} lines and {len(cut[0])} cut files equal one "
+        f"device's ({seconds:.3f} s)")
+    for d in ("one", "sharded"):
+        for f in (root / d).iterdir():
+            f.unlink()
+
+
+def server_sharded(device, devices: list, want: list, totals: dict) -> None:
+    """The server over `devices` (SERVER_SLOTS slots, the SERVER_CLIENTS
+    clients of phase_server): each client's lines those of the unsharded
+    server (`want`); then resumes sharded -> unsharded and unsharded ->
+    sharded, each client's lines the uninterrupted run's, and the sharded
+    server's save byte for byte the unsharded one's."""
+    payloads = [client_pcm(i) for i in range(SERVER_CLIENTS)]
+    label = f"server over {[str(d) for d in devices]}"
+    zero_launches()
+    lines, srv = serve_clients(device, payloads, devices=devices)
+    read_launches(label, totals, ("forward_fused",))
+    require(len(srv._shards) == len(devices), f"{label}: {len(srv._shards)} shards")
+    for i, (got, ref) in enumerate(zip(lines, want)):
+        require(got == ref, f"{label}, client {i}: {got} vs unsharded {ref}")
+    log(f"{label}: every client's lines equal the unsharded server's; tick_count "
+        f"{srv.tick_count}, catchup_ticks {srv.catchup_ticks}")
+    runs = {}
+    for first, second in (("sharded", "unsharded"), ("unsharded", "sharded")):
+        kw = {"sharded": {"device": device, "devices": devices}, "unsharded": {"device": device}}
+        zero_launches()
+        lines, saved = resume_run(payloads, CHUNK, kw[first], kw[second])
+        read_launches(f"{label} checkpoint {first} -> {second}", totals, ("forward_fused",))
+        check_resumed(f"{first} -> {second} ({label})", lines, saved, want)
+        runs[first] = saved["data"]
+    require(runs["sharded"] == runs["unsharded"],
+            f"{label}: the sharded save's bytes differ from the unsharded one's")
+    log(f"{label}: the sharded save holds the unsharded save's {len(runs['sharded'])} bytes")
+
+
+def dryrun_on_the_card() -> None:
+    """tools/torch_multidevice_dryrun.py --device cuda: 2 processes of 2
+    devices over gloo, each bit for bit against an unsharded run."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "tools" / "torch_multidevice_dryrun.py"),
+                           "--device", "cuda"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    for line in proc.stdout.splitlines():
+        log(f"dry run: {line}")
+    require(proc.returncode == 0 and proc.stdout.splitlines()[-1:] == ["MULTIDEVICE DRYRUN OK"],
+            f"multi-device dry run exited {proc.returncode}: {proc.stderr[-3000:]}")
+    log(f"dry run: {time.perf_counter() - t0:.1f} s, processes included")
+
+
+def trace_names_the_kernel(params, device) -> None:
+    """One v3.1 step under tracing.profile: the trace names forward_fused."""
+    import torch
+
+    from vadc_tpu_torch import tracing
+    from vadc_tpu_torch.engine.runner import StreamRunner
+
+    runner = StreamRunner("v3", params, device=device)
+    state = runner.init_state(B_MAIN)
+    x = torch.from_numpy(speech_chunks(B_MAIN, CHUNK, seed=SEED + 1100)).to(device)
+    runner.step(x, state)
+    with tempfile.TemporaryDirectory() as tmp:
+        with tracing.profile(tmp):
+            runner.step(x, state)
+            torch.cuda.synchronize()
+        (trace,) = list(Path(tmp).glob("vadc_trace_*.json"))
+        events = json.loads(trace.read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    require("forward_fused" in names, f"trace names {sorted(n for n in names if n)[:40]}")
+    log(f"tracing.profile: a v3.1 step's trace has {len(events)} events, the zone "
+        f"forward_fused and the device kernels {kernels}")
+
+
+def spread(label: str, times: list) -> dict:
+    """Median and spread of repeated timings (ms), logged."""
+    med, lo, hi = float(np.median(times)), float(min(times)), float(max(times))
+    log(f"time {label}: median {med:.4f} ms over {len(times)} repeats (min {lo:.4f}, "
+        f"max {hi:.4f})")
+    return {"median_ms": med, "min_ms": lo, "max_ms": hi}
+
+
+def phase_timing_multi_device(params, models: dict, device) -> dict:
+    """Repeats, in turns: ms per chunk-step at B_MAIN, 2 shards of the card
+    against unsharded, for v3.1 and v4; _tick at TICK_SLOTS slots sharded
+    and unsharded; the v3.1 StreamRunner.step (the device guard and the
+    `forward_fused` zone, no profile active) against forward_fused called
+    alone."""
+    import torch
+
+    from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.engine.shard import ShardedStreamRunner
+    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
+    from vadc_tpu_torch.server import VadServer
+
+    out = {}
+    two = [device, device]
+    for family, p, chunk in (("v3", params, CHUNK), ("v4", models["v4"][1], V4_CHUNK)):
+        x = torch.from_numpy(speech_chunks(B_MAIN, chunk, seed=SEED + 1200)).to(device)
+        sharded, plain = ShardedStreamRunner(family, p, two), StreamRunner(family, p, device=device)
+        s_state, p_state = sharded.init_state(B_MAIN), plain.init_state(B_MAIN)
+        times = {"2 shards": [], "unsharded": []}
+        for _ in range(MULTI_REPEATS):
+            a, b = cuda_ms_pair(lambda: sharded.step(x, s_state), lambda: plain.step(x, p_state),
+                                iters=20)
+            times["2 shards"].append(a)
+            times["unsharded"].append(b)
+        for kind, t in times.items():
+            out[f"{family} step, {kind}"] = spread(f"{family} step B={B_MAIN}, {kind}", t)
+    batch = np.clip(speech_chunks(TICK_SLOTS, CHUNK, seed=SEED + 600) * 32768,
+                    -32768, 32767).astype(np.int16)
+    on, off = np.ones(TICK_SLOTS, bool), np.zeros(TICK_SLOTS, bool)
+    servers = {kind: VadServer(port=0, max_streams=TICK_SLOTS, model=str(DEFAULT_WEIGHTS),
+                               devices=devs) for kind, devs in (("2 shards", two),
+                                                                 ("unsharded", [device]))}
+    try:
+        times = {kind: [] for kind in servers}
+        for _ in range(MULTI_REPEATS):
+            a, b = cuda_ms_pair(lambda: servers["2 shards"]._tick(batch, on, off),
+                                lambda: servers["unsharded"]._tick(batch, on, off), iters=20)
+            times["2 shards"].append(a)
+            times["unsharded"].append(b)
+        for kind, t in times.items():
+            out[f"_tick, {kind}"] = spread(f"server _tick N={TICK_SLOTS}, {kind}", t)
+    finally:
+        for srv in servers.values():
+            srv.pool.close()
+    runner = StreamRunner("v3", params, device=device)
+    state = runner.init_state(B_MAIN)
+    x = torch.from_numpy(speech_chunks(B_MAIN, CHUNK, seed=SEED + 1300)).to(device)
+    times = {"StreamRunner.step": [], "forward_fused alone": []}
+    for _ in range(MULTI_REPEATS):
+        a, b = cuda_ms_pair(lambda: runner.step(x, state),
+                            lambda: forward_fused(params, x, state.h, state.c, hn=state.h,
+                                                  cn=state.c), iters=50)
+        times["StreamRunner.step"].append(a)
+        times["forward_fused alone"].append(b)
+    for kind, t in times.items():
+        out[f"v3 {kind}"] = spread(f"v3.1 {kind} B={B_MAIN} (zones imported, no profile)", t)
+    log(f"multi-device timings on {nvidia_smi()}")
+    return out
+
+
+def phase_multi_device(params, models: dict, device, server_lines: list, totals: dict) -> dict:
+    """Stream sharding on the card: two shards of it (and distinct cards
+    where there are two or more) against the unsharded paths, the dry run
+    of 2 processes x 2 devices, a trace, and the phase's timings."""
+    import torch
+
+    def runners_on(devices: list, label: str) -> None:
+        zero_launches()
+        sharded_vs_unsharded("v3", params, devices, CHUNK, SEED + 1000, scan_chunks=SCAN_CHUNKS)
+        sharded_vs_unsharded("v4", models["v4"][1], devices, V4_CHUNK, SEED + 1001)
+        sharded_vs_unsharded("v5", models["v5"][1], devices, V5_CHUNK, SEED + 1002)
+        read_launches(f"multi-device runners ({label})", totals,
+                      ("forward_fused", "encode_fused_audio", "lstm_decoder_fused",
+                       "stft_magnitude", "lstm_fused"))
+
+    two = [device, device]
+    runners_on(two, "2 shards of the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        paths, _ = write_corpus(root)
+        batch_cli_sharded(root, paths, two, totals)
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if len(cards) >= 2:
+            batch_cli_sharded(root, paths, None, totals)
+    server_sharded(device, two, server_lines, totals)
+    dryrun_on_the_card()
+    if len(cards) >= 2:
+        pair = cards[:2]
+        runners_on(pair, "two cards")
+        server_sharded(device, pair, server_lines, totals)
+        on_second_card(params, pair)
+    else:
+        log(f"multi-device: {len(cards)} card visible; the checks over distinct cards and the "
+            "cuda:1 device-guard check were skipped for want of a second card")
+    trace_names_the_kernel(params, device)
+    return phase_timing_multi_device(params, models, device)
+
+
+def on_second_card(params, cards: list) -> None:
+    """A v3.1 step and scan on cuda:1, launched while cuda:0 is current,
+    give the bits of the same on cuda:0 (the runners' device guard)."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import StreamRunner
+
+    x = torch.from_numpy(speech_chunks(B_MAIN, CHUNK, seed=SEED + 1004))
+    out = []
+    for dev in cards:
+        torch.cuda.set_device(cards[0])
+        runner = StreamRunner("v3", params, device=dev)
+        state = runner.init_state(B_MAIN)
+        probs, _ = runner.step(x, state)
+        probs2, _ = runner.scan(x.reshape(B_MAIN // 8, 8, CHUNK), runner.init_state(B_MAIN // 8))
+        torch.cuda.synchronize(dev)
+        out.append([t.cpu() for t in (probs, state.h, state.c, probs2)])
+    require(same_bits(*out), "a step on cuda:1 differs from the same step on cuda:0")
+    log("device guard: a v3.1 step and scan on cuda:1, launched under cuda:0, give cuda:0's bits")
 
 
 def percentile_ms(seconds: list, q: float) -> float:
@@ -3162,6 +3498,8 @@ def main() -> int:
     phase_api(device, archives, launches)
     phase_cutter(device, launches)
     elapsed("the API and the cutter")
+    phase_multi_device(params, models, device, server_lines, launches)
+    elapsed("the multi-device phase")
     log(f"launches on the main paths, all phases: {launches}; at the bf16 tiers: {tier_launches}")
     elapsed("the main paths")
     timing = phase_timing(params, device)

@@ -1,7 +1,8 @@
 """The port's offline corpus CLI (`vadc_tpu_torch.cli.batch`, --device cpu)
 against `vadc_tpu.cli.batch` on the same files (raw s16le of unequal length,
 one pure silence, one 44.1 kHz wav), with the bundled archives given by
-path: identical stdout lines and identical --cut_dir files. Without a card
+path: identical stdout lines and identical --cut_dir files, unsharded and
+with the streams sharded over a list of CPU devices. Without a card
 `--device cuda` (the default) exits 1 with one line."""
 
 import numpy as np
@@ -71,6 +72,44 @@ def test_v31_lines_and_cut_files_equal_the_jax_cli(corpus, tmp_path, capsys, sla
         assert cut_t[name] == cut_j[name], name
     assert cut_t["quiet.s16le"] == b""
     assert "5 files" in err_t and "x realtime" in err_t
+
+
+def test_sharded_over_three_devices_prints_the_unsharded_lines(corpus, tmp_path, capsys,
+                                                                monkeypatch):
+    """--device cuda shards the streams over every visible device: three
+    CPU devices stand in for three cards, so the 5 files are padded to 6
+    streams, 2 a shard. The lines and the cut files equal the unsharded
+    run's (--device cpu) and the JAX batch CLI's (over its 8 virtual
+    devices, 5 files padded to 8)."""
+    from vadc_tpu_torch.engine import shard
+
+    resolve, built = shard.stream_devices, []
+    monkeypatch.setattr(shard, "stream_devices",
+                        lambda devices=None: resolve(["cpu"] * 3 if devices is None else devices))
+    monkeypatch.setattr(shard.ShardedStreamRunner, "init_state",
+                        _recording(shard.ShardedStreamRunner.init_state, built))
+    model = ["--model", str(V31_ARCHIVE), "--slab_chunks", "16"]
+    rc_j, out_j, _ = _run(JB, [*corpus, *model, "--cut_dir", str(tmp_path / "jax")], capsys)
+    rc_u, out_u, _ = _run(TB, [*corpus, *model, "--cut_dir", str(tmp_path / "one"),
+                               "--device", "cpu"], capsys)
+    assert built == [(1, 5)]
+    rc_s, out_s, _ = _run(TB, [*corpus, *model, "--cut_dir", str(tmp_path / "three"),
+                               "--device", "cuda"], capsys)
+    assert built == [(1, 5), (3, 6)]
+    assert rc_j == rc_u == rc_s == 0
+    assert out_s == out_u == out_j and len(out_s.splitlines()) >= 4
+    assert _cut_files(tmp_path / "three") == _cut_files(tmp_path / "one") \
+        == _cut_files(tmp_path / "jax")
+
+
+def _recording(init_state, into: list):
+    """ShardedStreamRunner.init_state that records (shards, streams)."""
+
+    def record(self, n_streams):
+        into.append((self.n_shards, n_streams))
+        return init_state(self, n_streams)
+
+    return record
 
 
 def test_default_model_is_the_bundled_archive(corpus, capsys):

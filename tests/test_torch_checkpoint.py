@@ -10,9 +10,11 @@ packages' models compute a state, the state is held at the whole-model
 bounds of tests/test_torch_fused_audio.py: probabilities 1e-4, (h, c) 3e-4
 (v5, synthetic weights: 1e-5 and 5e-5, those of tests/test_torch_v5.py).
 
-Not ported here: test_sharded_checkpoint_resume_on_mesh and
-test_checkpoint_refuses_nonaddressable_state, which go with the
-multi-device engine (ROADMAP.md, Queue 1: 'Multi-GPU').
+test_sharded_checkpoint_resume_on_mesh runs on the port's
+MultiHostStreamEngine over eight CPU devices, and
+test_checkpoint_refuses_nonaddressable_state on a state marked as one
+process's slice; a one-process `save_sharded` file holds the bytes of the
+JAX package's for the same state and segmenter.
 """
 
 import numpy as np
@@ -428,3 +430,113 @@ def test_restore_segmenter_refuses_a_checkpoint_without_fsm_state():
     seg = BatchSegmenter(SegmenterConfig(), 2, device="cpu", backend="device")
     with pytest.raises(ValueError, match="no segmentation state"):
         T.EngineCheckpoint("v3", init_stream_state("v3", 2)).restore_segmenter(seg)
+
+
+def test_sharded_checkpoint_resume_on_devices(v31, tmp_path):
+    """tests/test_checkpoint.py's test_sharded_checkpoint_resume_on_mesh on
+    the port: save and restore a MultiHostStreamEngine's state over 8 CPU
+    devices by save_sharded/load_sharded; the resumed continuation equals
+    the live one bit for bit, and the segmenter state rides along."""
+    from vadc_tpu_torch.cli.segmenter import SegmenterConfig
+    from vadc_tpu_torch.engine.distributed import MultiHostStreamEngine
+    from vadc_tpu_torch.engine.vectorized_segmenter import BatchSegmenter
+
+    engine = MultiHostStreamEngine("v3", v31[1], devices=["cpu"] * 8)
+    n = 16
+    rng = np.random.default_rng(4)
+    head = (rng.normal(size=(n, 2, 1536)) * 0.1).astype(np.float32)
+    tail = (rng.normal(size=(n, 2, 1536)) * 0.1).astype(np.float32)
+
+    state = engine.init_state(n)
+    probs, state = engine.scan(head, state)
+    seg = BatchSegmenter(SegmenterConfig(), n, device="cpu")
+    seg.feed(torch.from_numpy(probs))
+
+    prefix = tmp_path / "ckpt"
+    path = T.save_sharded(engine, state, prefix, segmenter=seg)
+    assert path.name == "ckpt.proc0of1.testtensor"
+    live, _ = engine.scan(tail, state)  # updates the state in place
+
+    restored_state, ckpt = T.load_sharded(engine, prefix)
+    assert ckpt.family == "v3" and len(restored_state.shards) == 8
+    seg2 = BatchSegmenter(SegmenterConfig(), n, device="cpu")
+    ckpt.restore_segmenter(seg2)
+    assert seg2._raw == seg._raw
+    resumed, _ = engine.scan(tail, restored_state)
+    np.testing.assert_array_equal(resumed, live)
+
+    # a layout mismatch is a one-line diagnosis, not a silent misassignment
+    class _OtherLayout:
+        process_id, n_processes = 0, 4
+
+    with pytest.raises(FileNotFoundError, match="saved layout differs") as port_error:
+        T.load_sharded(_OtherLayout(), prefix)
+    with pytest.raises(FileNotFoundError) as jax_error:
+        J.load_sharded(_OtherLayout(), prefix)
+    assert str(port_error.value) == str(jax_error.value)
+
+
+def test_checkpoint_refuses_a_state_sharded_over_processes(v31):
+    """tests/test_checkpoint.py's test_checkpoint_refuses_nonaddressable_state:
+    one process's slice of a state sharded over processes that reaches
+    EngineCheckpoint directly raises the JAX package's pointed diagnosis,
+    naming save_sharded. A state sharded over one process's devices is
+    gathered and saved whole."""
+    from vadc_tpu_torch.engine.shard import ShardedStreamRunner
+
+    runner = ShardedStreamRunner("v3", v31[1], ["cpu"] * 2)
+    state = runner.init_state(4)
+    whole = T.EngineCheckpoint("v3", state).to_bytes()
+    assert T.EngineCheckpoint.from_bytes(whole).model_state.n_streams == 4
+    state.n_processes = 2
+    with pytest.raises(ValueError, match="save_sharded") as port_error:
+        T.EngineCheckpoint("v3", state).to_bytes()
+    assert "sharded across processes" in str(port_error.value)
+
+
+@pytest.mark.parametrize("family", ["v3", "v5"])
+def test_save_sharded_file_is_the_jax_packages(family, v31, v5, tmp_path):
+    """For the same state (from seeded arrays) and a segmenter fed the same
+    probabilities, the port's one-process save_sharded file over 8 CPU
+    devices holds exactly the bytes of the JAX package's over its 8
+    virtual devices."""
+    import jax.numpy as jnp
+
+    from vadc_tpu.cli.segmenter import SegmenterConfig as JConfig
+    from vadc_tpu.engine.distributed import MultiHostStreamEngine as JEngine
+    from vadc_tpu.engine.runner import StreamState as JState
+    from vadc_tpu.engine.vectorized_segmenter import BatchSegmenter as JSegmenter
+    from vadc_tpu_torch.cli.segmenter import SegmenterConfig
+    from vadc_tpu_torch.engine.distributed import MultiHostStreamEngine
+    from vadc_tpu_torch.engine.runner import StreamState
+    from vadc_tpu_torch.engine.vectorized_segmenter import BatchSegmenter
+
+    jp, tp = v31 if family == "v3" else v5
+    n = 16
+    rng = np.random.default_rng(14)
+    layers, hidden = (2, 64) if family == "v3" else (1, 128)
+    h = rng.normal(size=(layers, n, hidden)).astype(np.float32)
+    c = rng.normal(size=(layers, n, hidden)).astype(np.float32)
+    ctx = None if family == "v3" else rng.normal(size=(n, 64)).astype(np.float32)
+    probs = np.zeros((n, 30), np.float32)
+    probs[:, 2:8] = 0.9
+    probs[::3, 12:18] = 0.9
+    pending = [None if i % 4 else (i, i + 3) for i in range(n)]
+
+    je = JEngine(family, jp)
+    j_state = je.state_from_local(JState(jnp.asarray(h), jnp.asarray(c),
+                                         None if ctx is None else jnp.asarray(ctx)))
+    j_seg = JSegmenter(JConfig(), n)
+    j_seg.feed(jnp.asarray(probs))
+    j_path = J.save_sharded(je, j_state, tmp_path / "jax", segmenter=j_seg, pending=pending)
+
+    te = MultiHostStreamEngine(family, tp, devices=["cpu"] * 8)
+    t_state = te.state_from_local(StreamState(
+        torch.from_numpy(h), torch.from_numpy(c), None if ctx is None else torch.from_numpy(ctx)))
+    t_seg = BatchSegmenter(SegmenterConfig(), n, device="cpu")
+    t_seg.feed(torch.from_numpy(probs))
+    t_path = T.save_sharded(te, t_state, tmp_path / "port", segmenter=t_seg, pending=pending)
+
+    assert any(t_seg._raw) and t_seg._raw == j_seg._raw
+    assert t_path.name == "port.proc0of1.testtensor" and j_path.name == "jax.proc0of1.testtensor"
+    assert t_path.read_bytes() == j_path.read_bytes()

@@ -892,3 +892,147 @@ def test_api_on_the_card_matches_the_cpu(device, family):
     assert p_gpu.shape == p_cpu.shape and float(np.abs(p_gpu - p_cpu).max()) <= 1e-4
     assert (api.detect_speech_samples(track, model=model, device="cuda")
             == api.detect_speech_samples(track, model=model, device="cpu"))
+
+
+# ---- stream sharding over devices ------------------------------------------
+# The shards run the kernels of the unsharded runner on their own rows and
+# CUDA streams; each stream's computation does not depend on the batch it is
+# in, so the bits are the unsharded runner's.
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def _sharded_against_unsharded(family, params, devices, batch, chunk, seed):
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.engine.shard import ShardedStreamRunner
+
+    sharded = ShardedStreamRunner(family, params, devices)
+    plain = StreamRunner(family, params, device=devices[0])
+    x = speech(batch * 3, chunk=chunk, seed=seed).reshape(batch, 3, chunk).astype(np.float32)
+    s_state, p_state = sharded.init_state(batch), plain.init_state(batch)
+    ps, _ = sharded.step(x[:, 0], s_state)
+    pp, _ = plain.step(x[:, 0], p_state)
+    ps2, _ = sharded.scan(x[:, 1:], s_state)
+    pp2, _ = plain.scan(x[:, 1:], p_state)
+    torch.cuda.synchronize()
+    assert torch.equal(ps.cpu(), pp.cpu()) and torch.equal(ps2.cpu(), pp2.cpu())
+    assert torch.equal(s_state.h.cpu(), p_state.h.cpu())
+    assert torch.equal(s_state.c.cpu(), p_state.c.cpu())
+    if p_state.context is not None:
+        assert torch.equal(s_state.context.cpu(), p_state.context.cpu())
+
+
+@pytest.mark.parametrize("family", ["v3", "v4"])
+def test_sharded_runner_on_one_card_holds_the_unsharded_bits(params, family_params, device,
+                                                             family):
+    """Two shards of one card at B=2048: a step and a 2-chunk scan equal the
+    unsharded runner's bit for bit."""
+    p = params if family == "v3" else family_params[family][1]
+    _sharded_against_unsharded(family, p, [device, device], 2048, 1536, seed=31)
+
+
+def test_sharded_v5_on_one_card_is_held_to_its_bounds(family_params, device):
+    """v5 on two shards of one card at B=2048: its spectrum kernel gives each
+    shard's rows the whole batch's bits; its encoder's convs are
+    torch.matmul products, whose algorithm cuBLAS picks by the number of
+    rows, so the step is held to the v5 parity bounds (probabilities 1e-5,
+    h and c 5e-5) and its context bit for bit."""
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.engine.shard import ShardedStreamRunner
+    from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude
+    from vadc_tpu_torch.models import silero_v5
+
+    params = family_params["v5"][1]
+    x = torch.from_numpy(speech(2048, chunk=512, seed=37).astype(np.float32)).to(device)
+    sharded = ShardedStreamRunner("v5", params, [device, device])
+    plain = StreamRunner("v5", params, device=device)
+    s_state, p_state = sharded.init_state(2048), plain.init_state(2048)
+    ps, _ = sharded.step(x, s_state)
+    pp, _ = plain.step(x, p_state)
+    torch.cuda.synchronize()
+    assert _max_abs(ps, pp) <= 1e-5
+    assert _max_abs(s_state.h, p_state.h) <= 5e-5 and _max_abs(s_state.c, p_state.c) <= 5e-5
+    assert torch.equal(s_state.context, p_state.context)
+    audio = torch.cat([torch.zeros(2048, silero_v5.CONTEXT_SAMPLES, device=device), x], dim=-1)
+    wr, wi = split_basis_of(params)
+    kw = dict(pad_left=0, pad_right=silero_v5.STFT_PAD_RIGHT, hop=silero_v5.STFT_HOP)
+    whole = stft_magnitude(audio, wr, wi, **kw)
+    halves = torch.cat([stft_magnitude(audio[:1024], wr, wi, **kw),
+                        stft_magnitude(audio[1024:], wr, wi, **kw)])
+    assert torch.equal(whole, halves)
+
+
+def test_step_on_the_second_card_gives_the_first_cards_bits(params, device):
+    """The runners make the tensors' device current for the kernels' C
+    entries (runtime.on_device): a v3.1 step on cuda:1, launched while
+    cuda:0 is current, equals the same step on cuda:0 bit for bit."""
+    from vadc_tpu_torch.engine.runner import StreamRunner
+
+    first, second = _two_cards()
+    x = speech(256, seed=32).astype(np.float32)
+    out = []
+    for dev in (first, second):
+        torch.cuda.set_device(first)
+        runner = StreamRunner("v3", params, device=dev)
+        state = runner.init_state(256)
+        probs, _ = runner.step(x, state)
+        probs2, _ = runner.scan(x.reshape(64, 4, -1), runner.init_state(64))
+        torch.cuda.synchronize(dev)
+        out.append([probs.cpu(), state.h.cpu(), state.c.cpu(), probs2.cpu()])
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+
+
+def test_sharded_runner_over_two_cards_holds_the_unsharded_bits(params):
+    _sharded_against_unsharded("v3", params, _two_cards(), 2048, 1536, seed=33)
+
+
+def test_sharded_server_ticks_hold_the_unsharded_bits(device):
+    """A server's slots sharded over two shards of the card: _tick and
+    _tick2 equal the unsharded server's bit for bit, state included."""
+    from vadc_tpu_torch.server import VadServer
+
+    servers = [VadServer(port=0, max_streams=64, model=str(V31_ARCHIVE), devices=devs)
+               for devs in ([device], [device, device])]
+    try:
+        assert [len(s._shards) for s in servers] == [1, 2]
+        rng = np.random.default_rng(34)
+        n, chunk = 64, servers[0].chunk
+        ba = np.clip(speech(n, seed=35) * 32768, -32768, 32767).astype(np.int16)
+        bb = (rng.normal(size=(n, chunk)) * 3000).astype(np.int16)
+        act_a, act_b, reset = (rng.random(n) < 0.7, rng.random(n) < 0.7, rng.random(n) < 0.2)
+        out = []
+        for srv in servers:
+            p1 = srv._tick(ba, act_a, reset)
+            p2 = srv._tick2(bb, ba, act_b, act_a, np.zeros(n, bool))
+            out.append((p1, p2, srv.state.h.cpu(), srv.state.c.cpu()))
+        (a1, a2, ah, ac), (b1, b2, bh, bc) = out
+        np.testing.assert_array_equal(a1, b1)
+        np.testing.assert_array_equal(a2, b2)
+        assert torch.equal(ah, bh) and torch.equal(ac, bc)
+    finally:
+        for srv in servers:
+            srv.pool.close()
+
+
+def test_profile_on_the_card_names_the_kernel(params, device, tmp_path):
+    """A v3.1 step under tracing.profile writes a trace that names its zone,
+    forward_fused, beside the device's kernels."""
+    import json
+
+    from vadc_tpu_torch import tracing
+    from vadc_tpu_torch.engine.runner import StreamRunner
+
+    runner = StreamRunner("v3", params, device=device)
+    state = runner.init_state(64)
+    x = speech(64, seed=36).astype(np.float32)
+    runner.step(x, state)
+    with tracing.profile(str(tmp_path)):
+        runner.step(x, state)
+        torch.cuda.synchronize()
+    (trace,) = list(tmp_path.glob("vadc_trace_*.json"))
+    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert "forward_fused" in names

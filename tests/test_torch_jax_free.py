@@ -3,7 +3,8 @@ imported (the machine with the card has no JAX, and the port imports nothing
 of vadc_tpu, not even its numpy-only modules: it keeps its own copies): in a
 fresh interpreter where `import jax` and `import vadc_tpu` both fail, every
 module of the package imports, the CPU path runs, the CLI and the batch CLI
-answer and the server serves a client.
+answer and the server serves a client. tools/torch_multidevice_dryrun.py
+imports neither either.
 chip_smoke.py, chip_profile.py and chip_ab.py, which drive the port on the
 card, import neither, and without a card they exit non-zero with no result
 line."""
@@ -39,11 +40,13 @@ assert {"vadc_tpu_torch.nn.precision", "vadc_tpu_torch.engine.onnx_backend",
         "vadc_tpu_torch.export.silero_v4_from_onnx",
         "vadc_tpu_torch.kernels.tier_check", "vadc_tpu_torch.engine.checkpoint",
         "vadc_tpu_torch.api", "vadc_tpu_torch.cli.cut",
-        "vadc_tpu_torch.cli.filter_script"} <= set(modules), modules
+        "vadc_tpu_torch.cli.filter_script", "vadc_tpu_torch.engine.shard",
+        "vadc_tpu_torch.engine.distributed", "vadc_tpu_torch.tracing"} <= set(modules), modules
 for name in modules:
     importlib.import_module(name)
-for script in ("chip_smoke.py", "chip_profile.py", "chip_ab.py"):
-    spec = importlib.util.spec_from_file_location(script[:-3], script)
+for script in ("chip_smoke.py", "chip_profile.py", "chip_ab.py",
+               "tools/torch_multidevice_dryrun.py"):
+    spec = importlib.util.spec_from_file_location(script.split("/")[-1][:-3], script)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for blocked in ("jax", "vadc_tpu"):
     try:
@@ -60,6 +63,10 @@ _, params = load_params(DEFAULT_WEIGHTS)
 runner = StreamRunner("v3", params, device="cpu")
 probs, _ = runner.scan(np.zeros((2, 2, 1536), np.float32), runner.init_state(2))
 assert probs.shape == (2, 2) and bool(torch.isfinite(probs).all())
+from vadc_tpu_torch.engine.distributed import MultiHostStreamEngine
+engine = MultiHostStreamEngine("v3", params, devices=["cpu", "cpu"])
+p, _ = engine.scan(np.zeros((2, 2, 1536), np.float32), engine.init_state(2))
+assert p.shape == (2, 2)
 for tier in ("balanced", "fast", "turbo"):
     r = StreamRunner("v3", params, device="cpu", precision=tier)
     p, _ = r.scan(np.zeros((2, 2, 1536), np.float32), r.init_state(2))
@@ -106,8 +113,9 @@ def _python(code: str, cwd: Path = ROOT) -> subprocess.CompletedProcess:
 
 def test_package_imports_and_runs_without_jax():
     """Also without vadc_tpu: every module of the port (found by walking the
-    package), chip_smoke.py and chip_profile.py import; the runners, the CLI,
-    the batch CLI and the Python API run on the CPU."""
+    package), chip_smoke.py, chip_profile.py, chip_ab.py and
+    tools/torch_multidevice_dryrun.py import; the runners (the sharded one
+    too), the CLI, the batch CLI and the Python API run on the CPU."""
     proc = _python(_DRIVE)
     assert proc.returncode == 0, proc.stderr
     probs = np.array(proc.stdout.split(), float)
@@ -115,11 +123,13 @@ def test_package_imports_and_runs_without_jax():
 
 
 def test_no_source_of_the_port_names_jax():
-    """No file of the port, nor the card's three scripts, imports jax or
-    anything of vadc_tpu, at module level or inside a function."""
+    """No file of the port, nor the card's three scripts and the multi-device
+    dry run, imports jax or anything of vadc_tpu, at module level or inside
+    a function."""
     pattern = re.compile(r"^\s*(import jax|from jax|import vadc_tpu|from vadc_tpu)\b", re.M)
     sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
-                                               ROOT / "chip_ab.py"]
+                                               ROOT / "chip_ab.py",
+                                               ROOT / "tools" / "torch_multidevice_dryrun.py"]
     assert len(sources) > 30
     for path in sources:
         assert not pattern.search(path.read_text()), path

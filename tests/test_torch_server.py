@@ -12,9 +12,11 @@ bit, reset slots are computed from zeros.
 
 End to end over localhost sockets: the behaviour tests of
 tests/test_server.py that need no checkpoint (those are in
-tests/test_torch_server_checkpoint.py) and no second device, with
-the bundled v3.1 archive; the catch-up tick's reset race; and one client's
-segment lines from the port's server against the JAX server's.
+tests/test_torch_server_checkpoint.py), with the bundled v3.1 archive; the
+catch-up tick's reset race; and one client's segment lines from the port's
+server against the JAX server's. The sharded cases run the slots over a
+list of CPU devices, the counterpart of the JAX tests' virtual-device
+mesh.
 
 No test may hang: every socket has a timeout, every thread is a daemon and
 is joined with a timeout, and every server is stopped in `finally`.
@@ -256,7 +258,7 @@ def test_ticks_match_the_jax_server(family, v5_archive, jax_server):
         # the reset slot 1 from zeros: one step of its chunk from the
         # initial state, on the same batch
         fresh = ts.runner.init_state(ts.n)
-        ts.runner.step(ts._audio[0].clone(), fresh)
+        ts.runner.step(ts._shards[0].audio[0].clone(), fresh)
         assert torch.equal(ts.state.h[:, 1], fresh.h[:, 1])
         assert torch.equal(ts.state.c[:, 1], fresh.c[:, 1])
 
@@ -511,6 +513,137 @@ def test_segment_lines_equal_the_jax_server(audio, jax_server):
     assert got == want
 
 
+# ---- slots sharded over devices ---------------------------------------------
+
+
+def _set_sharded_state(srv, start) -> None:
+    """The starting state into each shard's rows (a sharded server's
+    `state.h` reads a gathered copy)."""
+    h0, c0, ctx0 = start
+    for sh in srv._shards:
+        rows = slice(sh.lo, sh.hi)
+        sh.state.h.copy_(torch.from_numpy(h0[:, rows]))
+        sh.state.c.copy_(torch.from_numpy(c0[:, rows]))
+        if ctx0 is not None:
+            sh.state.context.copy_(torch.from_numpy(ctx0[rows]))
+
+
+@pytest.mark.parametrize("family", ["v3", "v5"])
+def test_sharded_ticks_match_the_unsharded_server(family, v5_archive):
+    """_tick and _tick2 with the slots sharded over two CPU devices against
+    the unsharded server on the same inputs: probabilities within 1e-6 and
+    (h, c) within 1e-5 (tests/test_torch_shard.py's bounds: the CPU sums a
+    2-row LSTM batch in another order than a 4-row one), idle slots held
+    and reset slots zeroed bit for bit, the v5 context exactly."""
+    from vadc_tpu_torch.engine.shard import ShardedStreamRunner
+
+    model = _model(family, v5_archive)
+    plain = VadServer(port=0, max_streams=4, model=model, device="cpu")
+    sharded = VadServer(port=0, max_streams=4, model=model, devices=["cpu", "cpu"])
+    try:
+        assert isinstance(sharded.runner, ShardedStreamRunner) and len(sharded._shards) == 2
+        ba, bb, start = _tick_inputs(plain, seed=7)
+        for tick in ("tick", "tick2"):
+            _set_state(plain, start)
+            _set_sharded_state(sharded, start)
+            if tick == "tick":
+                want, got = (srv._tick(ba, ACTIVE_A, RESET) for srv in (plain, sharded))
+                held, zeroed = [2], [3]
+            else:
+                want, got = (srv._tick2(ba, bb, ACTIVE_A, ACTIVE_B, RESET)
+                             for srv in (plain, sharded))
+                held, zeroed = [], [3]
+            assert got.shape == want.shape and got.dtype == np.float32
+            assert_close(got, want, 1e-6, f"{family} sharded {tick} probs")
+            assert_close(sharded.state.h, plain.state.h, 1e-5, f"{family} sharded {tick} h")
+            assert_close(sharded.state.c, plain.state.c, 1e-5, f"{family} sharded {tick} c")
+            if start[2] is not None:
+                assert torch.equal(sharded.state.context, plain.state.context)
+            _assert_slots(sharded, start, held=held, zeroed=zeroed)
+        assert sharded.tick_count == plain.tick_count == 2
+    finally:
+        plain.pool.close()
+        sharded.pool.close()
+
+
+def test_sharding_follows_the_jax_servers_rules():
+    """Automatic when there is more than one device and the slots divide
+    over them; unsharded on the first device when they do not, or with
+    shard=False; shard=True with slots that do not divide is the JAX
+    server's ValueError (with one device, shard=True is a mesh of one, as
+    in the JAX server)."""
+    from vadc_tpu_torch.engine.shard import ShardedStreamRunner
+
+    cases = [(["cpu"] * 3, 6, None, 3), (["cpu"] * 3, 4, None, 0), (["cpu"] * 2, 4, False, 0),
+             (["cpu"], 4, True, 1)]
+    for devices, slots, shard, n_shards in cases:
+        srv = VadServer(port=0, max_streams=slots, model=str(V31_ARCHIVE), devices=devices,
+                        shard=shard)
+        try:
+            assert len(srv._shards) == max(n_shards, 1), (devices, slots, shard)
+            assert isinstance(srv.runner, ShardedStreamRunner) == (n_shards > 0)
+            assert [(sh.lo, sh.hi) for sh in srv._shards][-1][1] == slots
+        finally:
+            srv.pool.close()
+    with pytest.raises(ValueError) as e:
+        VadServer(port=0, max_streams=4, model=str(V31_ARCHIVE), devices=["cpu"] * 3, shard=True)
+    assert str(e.value) == "max_streams 4 must divide evenly over 3 devices to shard"
+
+
+def test_sharded_server_matches_unsharded(audio, jax_server):
+    """tests/test_server.py's test_sharded_server_matches_unsharded on the
+    port: the slots sharded over four CPU devices (automatically) serve
+    three concurrent clients the JAX server's segment lines, byte for byte
+    (the unsharded port's too: test_segment_lines_equal_the_jax_server)."""
+    from vadc_tpu_torch.engine.shard import ShardedStreamRunner
+
+    js = jax_server(port=0, max_streams=2, model=str(V31_ARCHIVE), shard=False)
+    with serving(js) as port:
+        want = _exchange(port, audio)
+    srv = VadServer(port=0, max_streams=4, model=str(V31_ARCHIVE), devices=["cpu"] * 4)
+    assert isinstance(srv.runner, ShardedStreamRunner) and srv.runner.n_shards == 4
+    results = {}
+
+    def go(i):
+        results[i] = _exchange(port, audio)
+
+    with serving(srv) as port:
+        threads = [threading.Thread(target=go, args=(i,), daemon=True) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=2 * SOCKET_TIMEOUT)
+    assert sorted(results) == [0, 1, 2]
+    assert want.count(b"\n") == 1, want
+    for got in results.values():
+        assert got == want
+        _one_segment([tuple(float(x) for x in got.decode().strip().split(","))])
+
+
+def test_sharded_catchup_tick_drains_backlog_exactly(audio):
+    """tests/test_server.py's test_catchup_tick_drains_backlog_exactly[shard]
+    on the port: slowed ticks of a server sharded over two CPU devices back
+    the rings up; the engine takes catch-up ticks (the sharded _tick2) and
+    still delivers the exact segment."""
+    srv = VadServer(port=0, max_streams=2, model=str(V31_ARCHIVE), devices=["cpu"] * 2)
+    assert len(srv._shards) == 2
+    tick, tick2 = srv._tick, srv._tick2
+
+    def slow_tick(*a):
+        time.sleep(0.05)
+        return tick(*a)
+
+    def slow_tick2(*a):
+        time.sleep(0.05)
+        return tick2(*a)
+
+    srv._tick, srv._tick2 = slow_tick, slow_tick2
+    with serving(srv) as port:
+        _one_segment(_run_client(port, audio))  # unpaced: faster than realtime
+    assert srv.catchup_ticks > 0, "backlog never hit the catch-up path"
+    assert srv.tick_count >= len(srv.tick_times) > 0
+
+
 def _bare_outbox_server():
     """A VadServer shell with just the outbox machinery (no pool, no
     model)."""
@@ -585,13 +718,26 @@ V4_ARCHIVE = DATA / "silero_v4_16k.testtensor"
 @pytest.mark.parametrize("argv,message", [
     (["--resume", "/nonexistent/x.ckpt", "--device", "cpu"],
      "--resume /nonexistent/x.ckpt: [Errno 2] No such file or directory"),
-    (["--shard"], "Queue 1: 'Multi-GPU'"),
     (["--model", "/nonexistent/w.testtensor", "--device", "cpu"], "no weight archive"),
 ])
 def test_main_refuses_what_is_not_ported(argv, message, capsys):
     assert main(argv) == 1
     err = capsys.readouterr().err
     assert err.startswith("Error: ") and message in err and err.count("\n") == 1
+
+
+def test_main_shard_refuses_slots_that_do_not_divide(capsys, monkeypatch):
+    """--shard with max_streams that do not divide over the devices exits 1
+    with the JAX server's message (three CPU devices stand in for three
+    cards; --device cuda takes every visible one)."""
+    from vadc_tpu_torch.engine import shard
+
+    resolve = shard.stream_devices
+    monkeypatch.setattr(shard, "stream_devices",
+                        lambda devices=None: resolve(["cpu"] * 3 if devices is None else devices))
+    assert main(["--shard", "--max_streams", "4", "--port", "0"]) == 1
+    err = capsys.readouterr().err
+    assert err == "Error: max_streams 4 must divide evenly over 3 devices to shard\n"
 
 
 @pytest.mark.parametrize("argv,precision", [

@@ -9,7 +9,9 @@ what is the port's own: warmup after a restore keeps the state bit for bit;
 a checkpoint of another family or slot count is refused; the server's
 bytes are the JAX server's for the same state; a checkpoint saved by
 either package's server resumes in the other's with the uninterrupted run's
-lines, byte for byte; --resume on the command line.
+lines, byte for byte; --resume on the command line. A server whose slots
+are sharded over CPU devices saves the unsharded server's bytes, and either
+kind resumes the other's checkpoint with the uninterrupted run's lines.
 
 Segment lines are compared byte for byte and restored state bit for bit
 (the container is float32 both ways); no bound is needed. No test may hang:
@@ -64,11 +66,12 @@ def _port_server(model=str(V31_ARCHIVE), max_streams=1):
     return VadServer(port=0, max_streams=max_streams, model=model, device="cpu")
 
 
-def _part1_and_save(srv, part1: bytes, path) -> bytes:
-    """Stream part 1 into slot 0 with the connection held open, wait until
-    every chunk is through and the closed segment is held pending, save the
-    checkpoint while the server runs, then stop it. Returns what the client
-    received before the stop."""
+def _part1_and_save(srv, part1: bytes, path, slot: int = 0) -> bytes:
+    """Stream part 1 into `slot` (the first a fresh server hands out: its
+    last) with the connection held open, wait until every chunk is through
+    and the closed segment is held pending, save the checkpoint while the
+    server runs, then stop it. Returns what the client received before the
+    stop."""
     n_chunks = len(part1) // CHUNK_BYTES
     with serving(srv) as port:
         a = socket.create_connection(("127.0.0.1", port), timeout=SOCKET_TIMEOUT)
@@ -76,11 +79,11 @@ def _part1_and_save(srv, part1: bytes, path) -> bytes:
             a.sendall(part1)
             deadline = time.monotonic() + DRAIN_TIMEOUT
             while time.monotonic() < deadline:
-                s = srv.slots[0]
-                if int(srv.fsm.chunk_index[0]) >= n_chunks and s is not None and s.pending:
+                s = srv.slots[slot]
+                if int(srv.fsm.chunk_index[slot]) >= n_chunks and s is not None and s.pending:
                     break
                 time.sleep(0.02)
-            s = srv.slots[0]
+            s = srv.slots[slot]
             assert s is not None and s.pending is not None, (
                 "segment 1 must be closed and held pending at the save point")
             srv.save_checkpoint(path)
@@ -363,3 +366,47 @@ def test_main_resume_of_a_bad_checkpoint_exits_1(content, message, tmp_path, cap
                  "--resume", str(path)]) == 1
     err = capsys.readouterr().err
     assert err.startswith("Error: --resume") and message in err and err.count("\n") == 1
+
+
+def _sharded_server(model=str(V31_ARCHIVE), max_streams=2, devices=2):
+    return VadServer(port=0, max_streams=max_streams, model=model, devices=["cpu"] * devices)
+
+
+@pytest.mark.parametrize("family", ["v3", "v5"])
+def test_sharded_server_saves_the_unsharded_bytes(family, v5_archive, tmp_path):
+    """The same state, FSM arrays, held pendings and unsent bytes restored
+    into a server sharded over two CPU devices: its save is the unsharded
+    server's file byte for byte, each shard holding its rows."""
+    model = str(V31_ARCHIVE) if family == "v3" else v5_archive
+    plain, sharded = _port_server(model, 4), _sharded_server(model, 4)
+    try:
+        assert len(sharded._shards) == 2 and len(plain._shards) == 1
+        state = _random_state(plain, 31)
+        _put_state(plain, state)
+        plain.fsm.chunk_index[:] = [4, 0, 77, 9]
+        plain.fsm.triggered[:] = [1, 0, 0, 1]
+        plain._resume_slots.update({0: (1, 2), 3: None})
+        plain._resume_sendbuf[3] = b"4.10,5.00\n"
+        plain.save_checkpoint(tmp_path / "plain.ckpt")
+        sharded.restore_checkpoint(tmp_path / "plain.ckpt")
+        h, c, _ = state
+        assert torch.equal(sharded._shards[1].state.h, torch.from_numpy(h[:, 2:]))
+        assert torch.equal(sharded.state.c, torch.from_numpy(c))
+        sharded.save_checkpoint(tmp_path / "sharded.ckpt")
+        assert (tmp_path / "sharded.ckpt").read_bytes() == (tmp_path / "plain.ckpt").read_bytes()
+    finally:
+        plain.pool.close()
+        sharded.pool.close()
+
+
+@pytest.mark.parametrize("first,second", [("sharded", "plain"), ("plain", "sharded")])
+def test_resume_across_sharded_and_unsharded(first, second, split_audio, uninterrupted, tmp_path):
+    """Part 1 into one kind of 2-slot server (its client on slot 1, the
+    first handed out; on the second shard when sharded), save, part 2 from
+    a fresh server of the other kind: the uninterrupted run's lines."""
+    _, part1, part2 = split_audio
+    make = {"sharded": _sharded_server, "plain": lambda: _port_server(max_streams=2)}
+    path = tmp_path / f"{first}.ckpt"
+    assert _part1_and_save(make[first](), part1, path, slot=1) == b""
+    assert EngineCheckpoint.load(path).pending[1] is not None
+    assert _resume_part2(make[second](), part2, path) == uninterrupted

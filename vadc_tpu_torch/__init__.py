@@ -13,7 +13,9 @@ paths (`io/*`, `cli/segmenter.py`, `cli/stats.py`, the ONNX readers in
 bundled weight archives under `vadc_tpu/data` are read by path.
 
 Layering (bottom to top):
-  runtime   device selection, TF32 off, which families run which tier
+  runtime   device selection (and the device guard of a launch), TF32 off,
+            the precision tiers' names
+  tracing   profiling zones (free without a profile) and torch.profiler traces
   io/       PCM, wav, resampler, ffmpeg source, .testtensor archives
   export/   numpy readers and the numpy executor of the official .onnx
             graphs (v3, fused v4/v5)
@@ -25,8 +27,9 @@ Layering (bottom to top):
   models/   weight loading, the Silero v3.1, v4 and v5 forwards (16 kHz,
             and 8 kHz for v4 and v5), synthetic v5 archives
   engine/   stream runner (independent streams, step and slab scan),
-            minibatch runner, vectorized segmentation FSM, the numpy
-            graph-executor runner (--onnx_exec)
+            minibatch runner, vectorized segmentation FSM, checkpoints,
+            stream sharding over devices (shard.py) and processes
+            (distributed.py), the numpy graph-executor runner (--onnx_exec)
   cli/      the vadc-compatible command line and the offline corpus tool
   server    the multi-client serving daemon (TCP in, segment lines out)
 """

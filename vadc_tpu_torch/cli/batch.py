@@ -7,8 +7,11 @@ with the state carried from slab to slab, and the segmentation FSM runs
 vectorized on the device. For Silero v3.1 a slab is one `forward_scan`: the
 front-end and the encoder of every chunk of the slab at once, then one
 kernel that walks each stream's chunks in order; the v4 and v5 families scan
-a slab as a loop of steps. One device: the JAX package's stream sharding
-over a device mesh is not ported (ROADMAP.md, Queue 1: multi-GPU).
+a slab as a loop of steps. With --device cuda the streams are sharded over
+every visible card (engine/shard.py, the JAX package's mesh over the
+stream axis), the stream count padded to a multiple of the card count;
+with --device cuda:N or cpu they run on that one device. The lines and cut
+files do not depend on the sharding.
 
 Usage:
     python -m vadc_tpu_torch.cli.batch FILE.s16le [FILE.s16le ...]
@@ -63,8 +66,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="precision tier (default faithful, fp32); the bf16 tiers "
                         "balanced, fast and turbo run every family")
     p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default), cuda:N or cpu")
+                   help="torch device: cuda (default: every visible card, the streams "
+                        "sharded over them), cuda:N or cpu (that one device)")
     return p
+
+
+def batch_devices(device: str) -> list:
+    """The devices the corpus runs on: every visible card for 'cuda', else
+    the one device named."""
+    from vadc_tpu_torch.engine.shard import stream_devices
+
+    return stream_devices(None if device == "cuda" else [device])
 
 
 def load_streams(
@@ -114,20 +126,20 @@ def _main(argv: list[str] | None = None) -> int:
     import torch
 
     from vadc_tpu_torch.cli.segmenter import SegmenterConfig, slice_segments
-    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.engine.shard import ShardedStreamRunner
     from vadc_tpu_torch.engine.vectorized_segmenter import BatchSegmenter
     from vadc_tpu_torch.io.wav import write_wav
     from vadc_tpu_torch.models.weights import DEFAULT_WEIGHTS, clamp_sequence_count, load_params
-    from vadc_tpu_torch.runtime import resolve_device
 
     precision = "fast" if args.fast else (args.precision or "faithful")
-    device = resolve_device(args.device)
+    devices = batch_devices(args.device)
+    device = devices[0]
     weights_path = Path(args.model) if args.model else DEFAULT_WEIGHTS
     if not weights_path.exists():
         raise FileNotFoundError(f"no weight archive at {weights_path}")
     family, params = load_params(weights_path, device=device)
     seq = clamp_sequence_count(family, int(args.sequence_count))
-    runner = StreamRunner(family, params, device=device, precision=precision)
+    runner = ShardedStreamRunner(family, params, devices, precision=precision)
     # the 8 kHz families take 8 kHz input (raw files are presumed at the
     # model rate, as on the streaming CLI; wav files resample to it) and
     # time chunks at their own rate
@@ -138,20 +150,24 @@ def _main(argv: list[str] | None = None) -> int:
     n_files, t_chunks = grid.shape[:2]
     slab = max(1, min(args.slab_chunks, t_chunks))
     n_slabs = -(-t_chunks // slab)
+    # pad the stream count to a multiple of the device count with silent
+    # streams that emit nothing (valid 0)
+    n_streams = -(-n_files // runner.n_shards) * runner.n_shards
+    valid_all = np.concatenate([valid, np.zeros(n_streams - n_files, valid.dtype)])
 
     # The corpus slab by slab, [n_slabs, B, slab, chunk] int16 with the time
     # axis zero-padded to a slab multiple, in pinned host memory when the
-    # device is a card: each slab is then one contiguous run that an
-    # asynchronous copy takes to the device.
+    # devices are cards: each shard's rows of a slab are then one contiguous
+    # run that an asynchronous copy takes to its device.
     on_card = device.type == "cuda"
-    slabs = torch.zeros((n_slabs, n_files, slab, seq), dtype=torch.int16, pin_memory=on_card)
+    slabs = torch.zeros((n_slabs, n_streams, slab, seq), dtype=torch.int16, pin_memory=on_card)
     slabs_np = slabs.numpy()
     for k in range(n_slabs):
         piece = grid[:, k * slab : (k + 1) * slab]
-        slabs_np[k, :, : piece.shape[1]] = piece
+        slabs_np[k, :n_files, : piece.shape[1]] = piece
     del grid
 
-    state = runner.init_state(n_files)
+    state = runner.init_state(n_streams)
     seg_config = SegmenterConfig.from_ms(
         chunk_samples=seq,
         sample_rate=model_sr,
@@ -165,42 +181,56 @@ def _main(argv: list[str] | None = None) -> int:
     # device->host boundary per slab. pending_depth=2 defers each slab's
     # event readback until two more slabs have been enqueued, so the
     # readback overlaps the next slabs' transfer and compute.
+    # the vectorized FSM runs on the first device over the gathered slab
+    # probabilities of every stream
     segmenter = BatchSegmenter(
-        seg_config, n_files, device=device, backend="device", pending_depth=2,
+        seg_config, n_streams, device=device, backend="device", pending_depth=2,
         # mask each file's zero-padded tail out of the FSM: pad chunks
         # must not confirm closes the scalar segmenter would EOF-snap
-        valid_chunks=valid,
+        valid_chunks=valid_all,
     )
 
-    # double-buffered host->device pipeline: slab k+1's copy is enqueued on
-    # a second CUDA stream before slab k's scan, so the link and the card
-    # work concurrently (the reference's single-thread loop, vadc.c:852-999,
-    # is their sum). The s16 -> f32 conversion runs on the device
-    # (reference vadc.c:873-901 does it on the host).
-    copy_stream = torch.cuda.Stream(device) if on_card else None
+    # double-buffered host->device pipeline: slab k+1's copies (a shard's
+    # rows to its device each) are enqueued on copy streams before slab k's
+    # scan, so the links and the cards work concurrently (the reference's
+    # single-thread loop, vadc.c:852-999, is their sum). The s16 -> f32
+    # conversion runs on each shard's device, on its stream (reference
+    # vadc.c:873-901 does it on the host).
+    per = n_streams // runner.n_shards
+    copy_streams = [torch.cuda.Stream(d) if on_card else None for d in runner.devices]
 
-    def h2d(k: int):
-        if not on_card:
-            return slabs[k], None
-        with torch.cuda.stream(copy_stream):
-            dev = slabs[k].to(device, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(copy_stream)
-        return dev, copied
+    def h2d(k: int) -> list:
+        parts = []
+        for j, (dev, stream) in enumerate(zip(runner.devices, copy_streams)):
+            rows = slabs[k, j * per : (j + 1) * per]
+            if stream is None:
+                parts.append((rows, None))
+                continue
+            with torch.cuda.stream(stream):
+                copied = torch.cuda.Event()
+                parts.append((rows.to(dev, non_blocking=True), copied))
+                copied.record(stream)
+        return parts
+
+    def dequant(parts: list) -> list:
+        audio = []
+        for j, (s16, copied) in enumerate(parts):
+            with runner.on_shard(j):
+                if copied is not None:
+                    compute = torch.cuda.current_stream(s16.device)
+                    compute.wait_event(copied)
+                    s16.record_stream(compute)
+                audio.append(s16.to(torch.float32) * (1.0 / 32768.0))
+        return audio
 
     pending = h2d(0) if n_slabs else None
     for k in range(n_slabs):
         nxt = h2d(k + 1) if k + 1 < n_slabs else None
-        s16, copied = pending
-        if copied is not None:
-            compute = torch.cuda.current_stream(device)
-            compute.wait_event(copied)
-            s16.record_stream(compute)
-        probs, state = runner.scan(s16.to(torch.float32) * (1.0 / 32768.0), state)
+        probs, state = runner.scan(dequant(pending), state)
         segmenter.feed(probs)
         pending = nxt
 
-    segments = segmenter.finish(valid_chunks=valid)
+    segments = segmenter.finish(valid_chunks=valid_all)[:n_files]
     for path, segs in zip(args.files, segments):
         for start, end in segs:
             sys.stdout.write(f"{path}\t{start:.2f},{end:.2f}\n")

@@ -16,9 +16,11 @@ Serialization is the .testtensor container (io/testtensor.py), with
 integer state stored as float32 (small counters and flags, exactly
 representable below 2^24; to_bytes refuses a value past that).
 
-The JAX package's per-process files of a state sharded over processes
-(`save_sharded`, `load_sharded`) come with the multi-device engine
-(ROADMAP.md, Queue 1: 'Multi-GPU'); `shard_path`, their file name, is here.
+A state sharded over devices (engine/shard.py) is saved whole, gathered.
+A state sharded over processes (engine/distributed.py) is not: each
+process saves its own slice to its own file (`save_sharded`, `load_sharded`,
+the JAX package's file names and bytes), and EngineCheckpoint refuses such a
+state whole.
 """
 
 from __future__ import annotations
@@ -39,6 +41,18 @@ def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _addressable(state) -> None:
+    """Refuse one process's slice of a state sharded over processes, with
+    the pointed diagnosis of the JAX package's `_host`: written whole it
+    would look like a checkpoint of every stream."""
+    if getattr(state, "n_processes", 1) > 1:
+        raise ValueError(
+            "model state is sharded across processes; checkpoint each "
+            "process's own slice: engine.local_state(state) -> "
+            "EngineCheckpoint, or use checkpoint.save_sharded/load_sharded"
+        )
 
 
 def _tensor(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
@@ -68,6 +82,7 @@ class EngineCheckpoint:
     sendbuf: list[bytes] | None = None
 
     def to_bytes(self) -> bytes:
+        _addressable(self.model_state)
         tensors: dict[str, np.ndarray] = {
             # header carries family id (ascii codes) and chunk index
             "meta.family": np.frombuffer(self.family.encode("ascii"), dtype=np.uint8).astype(
@@ -246,7 +261,63 @@ class EngineCheckpoint:
         return cls.from_bytes(Path(path).read_bytes(), device)
 
 
+# -- multi-process sharded checkpointing ---------------------------------
+#
+# A MultiHostStreamEngine's state is one slice per process: each process
+# saves ITS OWN stream slice, no cross-process traffic, to
+# `<prefix>.proc<i>of<n>.testtensor`, and restores it symmetrically. The
+# host-side segmentation state (BatchSegmenter raw segments, pending merges)
+# is per process by construction, since each process segments only the
+# streams it feeds, so it rides in the same file.
+
+
 def shard_path(prefix: str | Path, process_id: int, n_processes: int) -> Path:
     """The file of one process's slice of a checkpoint sharded over
     processes (the JAX package's name, `<prefix>.proc<i>of<n>.testtensor`)."""
     return Path(f"{prefix}.proc{process_id}of{n_processes}.testtensor")
+
+
+def save_sharded(
+    engine,
+    state,
+    prefix: str | Path,
+    *,
+    segmenter: BatchSegmenter | None = None,
+    pending: list[tuple[int, int] | None] | None = None,
+) -> Path:
+    """Checkpoint this process's slice of a MultiHostStreamEngine.
+
+    Every process must call this (with its own engine and segmenter): the
+    processes meet at a barrier before and after, so every file under the
+    shared `prefix` is of one step and all are written when any call
+    returns."""
+    engine.barrier()
+    local = engine.local_state(state)
+    family = engine.runner.family
+    if segmenter is not None:
+        ckpt = EngineCheckpoint.capture(family, local, segmenter, pending=pending)
+    else:
+        ckpt = EngineCheckpoint(family, local, pending=pending)
+    path = shard_path(prefix, engine.process_id, engine.n_processes)
+    ckpt.save(path)
+    engine.barrier()
+    return path
+
+
+def load_sharded(engine, prefix: str | Path):
+    """Load this process's slice and rebuild the engine's state from it.
+
+    Returns (state, checkpoint); the checkpoint carries the segmentation
+    fields for `restore_segmenter` on this process's BatchSegmenter. The
+    saved process count must match the running cluster (a resharding
+    restore would silently misassign streams to processes)."""
+    path = shard_path(prefix, engine.process_id, engine.n_processes)
+    if not path.exists():
+        existing = sorted(Path(path).parent.glob(f"{Path(prefix).name}.proc*"))
+        raise FileNotFoundError(
+            f"{path} not found — saved layout differs from the running "
+            f"cluster ({engine.n_processes} processes); on disk: "
+            f"{[p.name for p in existing] or 'nothing'}"
+        )
+    ckpt = EngineCheckpoint.load(path)
+    return engine.state_from_local(ckpt.model_state), ckpt

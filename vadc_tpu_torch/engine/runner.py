@@ -20,8 +20,9 @@ before the model sees the audio. The JAX package's chunk-blocked scan
 ported.
 
 Every runner takes its device explicitly. On a CUDA device the model runs
-through the package's CUDA kernels; on the CPU through their plain
-versions. Every runner takes its precision tier too (`nn.precision`), and
+through the package's CUDA kernels, with that device made current for the
+call (`runtime.on_device`: the kernels' C entries act on the current
+device); on the CPU through their plain versions. Every runner takes its precision tier too (`nn.precision`), and
 every family runs all four (`runtime.check_precision` refuses an unknown
 one).
 """
@@ -36,7 +37,7 @@ import torch
 from vadc_tpu_torch.models import silero_v4, silero_v5, silero_v31
 from vadc_tpu_torch.models.weights import Params
 from vadc_tpu_torch.nn.precision import tier_of
-from vadc_tpu_torch.runtime import check_precision, resolve_device
+from vadc_tpu_torch.runtime import check_precision, on_device, resolve_device
 
 _FAMILIES = {
     "v3": silero_v31,
@@ -143,27 +144,29 @@ class StreamRunner:
         context, tensors of the state's shapes) and returns probs [B].
         `out` may be `state` (the in-place `step`); a distinct `out` keeps
         the old state, as the server's masked merge needs."""
-        audio = _as_audio(chunks, self.device)
-        if state.context is not None:
-            audio, tail = self.module.attach_context(audio, state.context)
-            out.context.copy_(tail)
-        probs, _, _ = self.module.forward(
-            self.params, audio, state.h, state.c, hn=out.h, cn=out.c, tier=self.tier
-        )
+        with on_device(self.device):
+            audio = _as_audio(chunks, self.device)
+            if state.context is not None:
+                audio, tail = self.module.attach_context(audio, state.context)
+                out.context.copy_(tail)
+            probs, _, _ = self.module.forward(
+                self.params, audio, state.h, state.c, hn=out.h, cn=out.c, tier=self.tier
+            )
         return probs
 
     def scan(self, chunks, state: StreamState) -> tuple[torch.Tensor, StreamState]:
         """chunks: [B, T, chunk_samples] -> (probs [B, T], final state),
         T steps in order; the state is updated in place as in `step`."""
-        audio = _as_audio(chunks, self.device)
-        if hasattr(self.module, "forward_scan"):
-            probs, _, _ = self.module.forward_scan(
-                self.params, audio, state.h, state.c, hn=state.h, cn=state.c, tier=self.tier
-            )
-            return probs, state
-        probs = torch.empty(audio.shape[:2], dtype=torch.float32, device=self.device)
-        for t in range(audio.shape[1]):
-            probs[:, t], state = self.step(audio[:, t], state)
+        with on_device(self.device):
+            audio = _as_audio(chunks, self.device)
+            if hasattr(self.module, "forward_scan"):
+                probs, _, _ = self.module.forward_scan(
+                    self.params, audio, state.h, state.c, hn=state.h, cn=state.c, tier=self.tier
+                )
+                return probs, state
+            probs = torch.empty(audio.shape[:2], dtype=torch.float32, device=self.device)
+            for t in range(audio.shape[1]):
+                probs[:, t], state = self.step(audio[:, t], state)
         return probs, state
 
 
@@ -195,15 +198,18 @@ class MinibatchRunner:
         self.context = mod.init_context(1, self.device) if hasattr(mod, "init_context") else None
 
     def _forward(self, chunks: torch.Tensor):
-        if self.context is None:
-            return self.module.forward_minibatched(self.params, chunks, self.h, self.c, self.tier)
-        # per-chunk context prefix: chunk i gets the tail of chunk i-1,
-        # chunk 0 the carried context (process_chunks_v5, vadc.c:105-162)
-        ctx = self.module.CONTEXT_SAMPLES
-        tails = torch.cat([self.context, chunks[:-1, -ctx:]], dim=0)
-        self.context = chunks[-1:, -ctx:].clone()
-        inp = torch.cat([tails, chunks], dim=-1)
-        return self.module.forward_minibatched(self.params, inp, self.h, self.c, self.tier)
+        with on_device(self.device):
+            if self.context is None:
+                return self.module.forward_minibatched(
+                    self.params, chunks, self.h, self.c, self.tier
+                )
+            # per-chunk context prefix: chunk i gets the tail of chunk i-1,
+            # chunk 0 the carried context (process_chunks_v5, vadc.c:105-162)
+            ctx = self.module.CONTEXT_SAMPLES
+            tails = torch.cat([self.context, chunks[:-1, -ctx:]], dim=0)
+            self.context = chunks[-1:, -ctx:].clone()
+            inp = torch.cat([tails, chunks], dim=-1)
+            return self.module.forward_minibatched(self.params, inp, self.h, self.c, self.tier)
 
     def process_window(self, samples) -> list[float]:
         """Process a window of samples (zero-padded multiple of the chunk

@@ -47,6 +47,7 @@ from vadc_tpu_torch.kernels.stft_mag import bins_ld, padded_basis_of
 from vadc_tpu_torch.models.weights import Params
 from vadc_tpu_torch.nn import functional as F
 from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, store, tier_of
+from vadc_tpu_torch.tracing import zone
 
 N_FFT = 256
 HOP = 64
@@ -94,13 +95,15 @@ def features_reference(
     kernel is held to its plain version without the spectrum's rounding,
     which log1p(2^20 x) amplifies at near-zero bins."""
     tier = tier_of(tier)
-    spect = spectrum if spectrum is not None else F.stft_magnitude_nlc(
-        audio, params["stft_basis"], pad_left=PAD, pad_right=PAD, hop=HOP, tier=tier
-    )
-    loge = F.log1p_at(spect * 1048576.0, tier)
-    norm_w = torch.from_numpy(norm_weights(spect.shape[1]).copy()).to(audio.device)
-    mean_mean = torch.sum(torch.mean(loge, dim=-1) * norm_w, dim=-1)
-    return store(loge - mean_mean[:, None, None], tier)
+    with zone("stft"):
+        spect = spectrum if spectrum is not None else F.stft_magnitude_nlc(
+            audio, params["stft_basis"], pad_left=PAD, pad_right=PAD, hop=HOP, tier=tier
+        )
+    with zone("adaptive_norm"):
+        loge = F.log1p_at(spect * 1048576.0, tier)
+        norm_w = torch.from_numpy(norm_weights(spect.shape[1]).copy()).to(audio.device)
+        mean_mean = torch.sum(torch.mean(loge, dim=-1) * norm_w, dim=-1)
+        return store(loge - mean_mean[:, None, None], tier)
 
 
 def forward_fused_reference(

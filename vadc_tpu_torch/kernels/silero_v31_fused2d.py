@@ -38,6 +38,7 @@ from vadc_tpu_torch.kernels import _build
 from vadc_tpu_torch.models.weights import V3_STRIDES, Params
 from vadc_tpu_torch.nn import functional as F
 from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, bf16, pack_operand, store, tier_of
+from vadc_tpu_torch.tracing import zone
 
 HIDDEN = 64
 N_FEAT = 129
@@ -164,8 +165,10 @@ def forward_fused2d_reference(
     (probs [B], hn, cn)."""
     tier = tier_of(tier)
     x = encode_fused_reference(params, feats, tier)
-    out, hn, cn = F.lstm(x, h, c, params["lstm_w"], params["lstm_b"], tier)
-    return F.decoder_v3_nlc(out, params["dec_w"], params["dec_b"], tier), hn, cn
+    with zone("lstm"):
+        out, hn, cn = F.lstm(x, h, c, params["lstm_w"], params["lstm_b"], tier)
+    with zone("decoder"):
+        return F.decoder_v3_nlc(out, params["dec_w"], params["dec_b"], tier), hn, cn
 
 
 def forward_fused2d(
@@ -233,8 +236,9 @@ def encode_fused_reference(
     features as the tier stores them. feats [R, S0, 129] -> [R, T, 64]."""
     tier = tier_of(tier)
     x = store(feats, tier)
-    for p, stride in zip(params["layers"], V3_STRIDES):
-        x = F.transformer_layer_nlc(x, p, stride=stride, tier=tier)
+    for i, (p, stride) in enumerate(zip(params["layers"], V3_STRIDES)):
+        with zone(f"encoder_layer_{i + 1}"):
+            x = F.transformer_layer_nlc(x, p, stride=stride, tier=tier)
     return x
 
 

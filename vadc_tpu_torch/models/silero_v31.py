@@ -37,6 +37,12 @@ their plain versions. `forward_reference` and
 `forward_minibatched_reference` are the JAX package's `forward` and
 `forward_minibatched` written with the plain ops of nn/functional, on any
 device.
+
+Profiling zones (tracing.zone) sit where the JAX package puts them:
+`stft`, `adaptive_norm`, `encoder_layer_1..4`, `lstm` and `decoder` on the
+plain path; on the kernel path a zone is the kernel's name (`forward_fused`,
+`encode_fused_audio`, `lstm_decoder_fused`), around its plain version's
+zones on the CPU.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from vadc_tpu_torch.kernels.stft_mag import split_basis_of
 from vadc_tpu_torch.models.weights import V3_STRIDES, Params
 from vadc_tpu_torch.nn import functional as F
 from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, tier_of
+from vadc_tpu_torch.tracing import zone
 
 SAMPLE_RATE = 16000
 CHUNK_SAMPLES_DEFAULT = 1536  # 96 ms; any multiple of 256 in [512, 1536]
@@ -92,13 +99,16 @@ def encode_nlc(params: dict, audio: torch.Tensor, tier: Tier | str = FAITHFUL) -
     """Plain front-end + encoder at the tier: audio [B, S] -> features [B,
     T, 64] (the JAX package's `encode_nlc` under `precision_mode(tier)`)."""
     tier = tier_of(tier)
-    spect = F.stft_magnitude_nlc(
-        audio, params["stft_basis"], pad_left=STFT_PAD, pad_right=STFT_PAD, hop=STFT_HOP,
-        tier=tier,
-    )
-    x = F.adaptive_audio_normalization_nlc(spect, tier)
-    for layer_params, stride in zip(params["layers"], V3_STRIDES):
-        x = F.transformer_layer_nlc(x, layer_params, stride=stride, tier=tier)
+    with zone("stft"):
+        spect = F.stft_magnitude_nlc(
+            audio, params["stft_basis"], pad_left=STFT_PAD, pad_right=STFT_PAD, hop=STFT_HOP,
+            tier=tier,
+        )
+    with zone("adaptive_norm"):
+        x = F.adaptive_audio_normalization_nlc(spect, tier)
+    for i, (layer_params, stride) in enumerate(zip(params["layers"], V3_STRIDES)):
+        with zone(f"encoder_layer_{i + 1}"):
+            x = F.transformer_layer_nlc(x, layer_params, stride=stride, tier=tier)
     return x
 
 
@@ -115,7 +125,8 @@ def forward(
     """Batched independent-stream forward: audio [B, S]; h, c [2, B, 64]
     -> (probs [B], hn, cn). `hn`/`cn` may be `h`/`c` to update the state
     in place (see forward_fused)."""
-    return forward_fused(params, audio, h, c, hn=hn, cn=cn, tier=tier)
+    with zone("forward_fused"):
+        return forward_fused(params, audio, h, c, hn=hn, cn=cn, tier=tier)
 
 
 def forward_scan(
@@ -141,16 +152,18 @@ def forward_scan(
     tier = tier_of(tier)
     n_streams, n_chunks, samples = audio.shape
     flat = audio.reshape(n_streams * n_chunks, samples)
-    pieces = [
-        encode_fused_audio(params, flat[r0 : r0 + SCAN_ROWS], tier)
-        for r0 in range(0, flat.shape[0], SCAN_ROWS)
-    ]
+    with zone("encode_fused_audio"):
+        pieces = [
+            encode_fused_audio(params, flat[r0 : r0 + SCAN_ROWS], tier)
+            for r0 in range(0, flat.shape[0], SCAN_ROWS)
+        ]
     enc = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
     x = enc.reshape(n_streams, n_chunks, enc.shape[1], HIDDEN)
-    return lstm_decoder_fused(
-        x, h, c, params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"],
-        hn=hn, cn=cn, wt=transposed_weight_of(params, tier.products), tier=tier,
-    )
+    with zone("lstm_decoder_fused"):
+        return lstm_decoder_fused(
+            x, h, c, params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"],
+            hn=hn, cn=cn, wt=transposed_weight_of(params, tier.products), tier=tier,
+        )
 
 
 def forward_minibatched(
@@ -178,10 +191,11 @@ def forward_reference(
     """Plain independent-stream forward (the JAX package's `forward`) at the
     tier."""
     tier = tier_of(tier)
-    out, hn, cn = F.lstm(
-        encode_nlc(params, audio, tier), h, c, params["lstm_w"], params["lstm_b"], tier
-    )
-    return F.decoder_v3_nlc(out, params["dec_w"], params["dec_b"], tier), hn, cn
+    x = encode_nlc(params, audio, tier)
+    with zone("lstm"):
+        out, hn, cn = F.lstm(x, h, c, params["lstm_w"], params["lstm_b"], tier)
+    with zone("decoder"):
+        return F.decoder_v3_nlc(out, params["dec_w"], params["dec_b"], tier), hn, cn
 
 
 def forward_minibatched_reference(

@@ -8,6 +8,8 @@ absent is an error, never a silent run on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 #: precision tiers of the JAX package (vadc_tpu/nn/functional.py
@@ -49,6 +51,18 @@ def resolve_device(device: str | torch.device) -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+_NO_GUARD = contextlib.nullcontext()
+
+
+def on_device(device: torch.device):
+    """A context in which `device` is the current CUDA device; nothing for
+    the CPU. The kernels' C entries raise their shared-memory limits and
+    read the device through the CUDA runtime, which acts on the current
+    device, not on the tensors': a launch on cuda:1 under cuda:0 raises the
+    limits on the wrong card and mixes the devices' streams."""
+    return torch.cuda.device(device) if device.type == "cuda" else _NO_GUARD
 
 
 def check_precision(precision: str, family: str) -> None:

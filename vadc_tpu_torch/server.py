@@ -12,15 +12,19 @@ Architecture:
   * client sockets are drained GIL-free by the native StreamPool
     (native.py over native/stream_pool.cpp) into per-stream chunk rings; wav clients
     go through a per-connection decoder thread feeding the pool via a pipe;
-  * one engine loop advances ALL slots per tick in one batched step on the
-    one device it is given: the s16 batch goes from a pinned host buffer to
-    the device once per gather and is dequantized there (x / 32768, a power
-    of two, so bit-identical to io/pcm.py); reset slots are zeroed,
-    the step writes the new state into a second set of state buffers, and a
-    masked merge keeps every idle slot's state (and v5 context) bit for bit;
-    one device-to-host copy of the probabilities ends the tick. When the
-    rings hold a backlog, a catch-up tick runs two chunks per slot and
-    returns one stacked [N, 2] copy;
+  * one engine loop advances ALL slots per tick in one batched step per
+    shard: the slots are one shard on one device, or split evenly over
+    several devices (`shard`, `devices`; the counterpart of the JAX
+    server's mesh over the slot axis), each shard a StreamRunner on its
+    device and, when sharded, on a CUDA stream of its own
+    (engine/shard.py). Per shard, its rows of the pinned s16 batch go to
+    its device once per gather and are dequantized there (x / 32768, a
+    power of two, so bit-identical to io/pcm.py); reset slots are zeroed,
+    the step writes the new state into a second set of state buffers, a
+    masked merge keeps every idle slot's state (and v5 context) bit for
+    bit, and the probabilities are copied into one pinned host buffer; one
+    synchronization ends the tick. When the rings hold a backlog, a
+    catch-up tick runs two chunks per slot and returns one [N, 2] array;
   * the segmentation FSM is the native NativeFsm with per-stream chunk
     counters; pad/merge and the EOF snap run on the host per event.
 
@@ -29,10 +33,12 @@ Every family the port loads serves, at any precision tier (`--precision`,
 engine/checkpoint.py container, the JAX server's bytes) while the server
 runs; `restore_checkpoint` (`--resume`) loads one into a fresh server
 before it serves, on any device: the next client accepted on a saved slot
-continues that stream. Not in the port yet: serving over several devices
-(ROADMAP Queue 1, 'Multi-GPU'); `--shard` says so and exits 1.
+continues that stream. A sharded server's checkpoint holds the same bytes
+as an unsharded one's for the same streams, and either resumes the other's.
 
     python -m vadc_tpu_torch.server --port 7355 --max_streams 64 [--device cuda] [--fast]
+    # --device cuda shards the slots over every visible card when they divide
+    python -m vadc_tpu_torch.server --max_streams 64 --shard
     # then: cat audio.s16le | nc -q1 localhost 7355
     python -m vadc_tpu_torch.server --device cpu --resume server.ckpt
 """
@@ -40,6 +46,8 @@ continues that stream. Not in the port yet: serving over several devices
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import os
 import select
 import socket
@@ -54,6 +62,8 @@ import numpy as np
 import torch
 
 from vadc_tpu_torch.runtime import PRECISIONS, NoCudaDeviceError
+
+_NO_CONTEXT = contextlib.nullcontext()
 
 
 class _Slot:
@@ -86,6 +96,24 @@ class _Gathered:
     reset: np.ndarray
 
 
+class _Shard:
+    """One device's share of the slots, rows [lo, hi): its runner, its CUDA
+    stream (None: the caller's current stream), the double-buffered state,
+    its rows of the pinned staging buffers and their device twins."""
+
+    def __init__(self, runner, context, stream, lo: int, hi: int, host_batch, host_masks):
+        self.runner, self.stream, self.lo, self.hi = runner, stream, lo, hi
+        self.on = context  # () -> a context for work on the shard
+        self.host_batch, self.host_masks = host_batch, host_masks
+        with self.on():
+            self.state = runner.init_state(hi - lo)
+            self.spare = runner.init_state(hi - lo)
+            # on the CPU the staging rows are the device rows
+            self.batch = host_batch.to(runner.device)
+            self.masks = host_masks.to(runner.device)
+            self.audio = torch.empty(host_batch.shape, dtype=torch.float32, device=runner.device)
+
+
 def _masked_zero(state, mask: torch.Tensor) -> None:
     """Zero the state of the slots in `mask`, in place: a recycled slot's
     first chunk is computed from zeros, not from the previous client's
@@ -116,37 +144,77 @@ class VadServer:
         precision: str = "faithful",
         sequence_count: int = 1536,
         device="cuda",
+        shard: bool | None = None,
+        devices=None,
     ):
         from vadc_tpu_torch import native
         from vadc_tpu_torch.cli.segmenter import SegmenterConfig
         from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
         from vadc_tpu_torch.engine.runner import StreamRunner
+        from vadc_tpu_torch.engine.shard import ShardedStreamRunner, stream_devices
         from vadc_tpu_torch.models.weights import clamp_sequence_count, load_params
-        from vadc_tpu_torch.runtime import resolve_device
 
         if not native.available():
             raise RuntimeError("native library required (make -C native)")
-        self.device = resolve_device(device)
+        # the devices to serve on: every visible card under 'cuda', else the
+        # one device; a `devices` list (repeats allowed) stands in for the
+        # JAX tests' virtual-device mesh
+        if devices is None:
+            devices = None if str(device) == "cuda" else [device]
+        devices = stream_devices(devices)
+        self.device = devices[0]
+        self.n = max_streams
+        # shard the SLOT axis over the devices (pure stream data
+        # parallelism): automatic when there are several and the slots
+        # divide evenly over them (vadc_tpu/server.py:88-105)
+        if shard is None:
+            shard = len(devices) > 1 and self.n % len(devices) == 0
+        if shard and self.n % len(devices):
+            raise ValueError(
+                f"max_streams {self.n} must divide evenly over {len(devices)} devices to shard"
+            )
+        if not shard:
+            devices = devices[:1]
         weights = Path(model) if model else DEFAULT_WEIGHTS
         if not weights.exists():
             raise FileNotFoundError(f"no weight archive at {weights}")
         self.family, params = load_params(weights, device=self.device)
         self.chunk = clamp_sequence_count(self.family, sequence_count)
-        self.n = max_streams
-        self.runner = StreamRunner(self.family, params, device=self.device, precision=precision)
-        # double-buffered state: a tick steps from self.state into
-        # self._spare, merges, and swaps the two
-        self.state = self.runner.init_state(self.n)
-        self._spare = self.runner.init_state(self.n)
         # host staging for the tick inputs (pinned on a card, so the copies
-        # to the device run asynchronously) and their device twins: up to
-        # two s16 batches, and the masks active_a, active_b, reset
+        # to the devices run asynchronously), shard-major so that each
+        # shard's rows are one block: up to two s16 batches [S, 2, n/S,
+        # chunk], the masks active_a, active_b, reset [S, 3, n/S], and the
+        # probabilities of a tick [n] and of a catch-up tick [n, 2]
+        n_shards, per = len(devices), self.n // len(devices)
         pin = self.device.type == "cuda"
-        self._host_batch = torch.empty((2, self.n, self.chunk), dtype=torch.int16, pin_memory=pin)
-        self._host_masks = torch.empty((3, self.n), dtype=torch.bool, pin_memory=pin)
-        self._dev_batch = self._host_batch.to(self.device)
-        self._dev_masks = self._host_masks.to(self.device)
-        self._audio = torch.empty((2, self.n, self.chunk), dtype=torch.float32, device=self.device)
+        self._host_batch = torch.empty((n_shards, 2, per, self.chunk), dtype=torch.int16,
+                                       pin_memory=pin)
+        self._host_masks = torch.empty((n_shards, 3, per), dtype=torch.bool, pin_memory=pin)
+        self._host_probs = torch.empty(self.n, dtype=torch.float32, pin_memory=pin)
+        self._host_probs2 = torch.empty((self.n, 2), dtype=torch.float32, pin_memory=pin)
+        if shard:
+            self.runner = ShardedStreamRunner(self.family, params, devices, precision=precision)
+            parts = [(r, functools.partial(self.runner.on_shard, k), self.runner.streams[k])
+                     for k, r in enumerate(self.runner.runners)]
+            self._join = self.runner.join
+        else:
+            self.runner = StreamRunner(self.family, params, device=self.device,
+                                       precision=precision)
+            parts = [(self.runner, lambda: _NO_CONTEXT, None)]
+            self._join = lambda: None
+        # one synchronization per card ends a tick
+        self._cards = list(dict.fromkeys(d for d in devices if d.type == "cuda"))
+        # per shard, double-buffered state: a tick steps from its state
+        # into its spare, merges, and swaps the two
+        self._shards = [
+            _Shard(runner, context, stream, k * per, (k + 1) * per, self._host_batch[k],
+                   self._host_masks[k])
+            for k, (runner, context, stream) in enumerate(parts)
+        ]
+        # a first tick waits for each shard before it launches the next: the
+        # kernels derive their packed weights on the first shard's stream,
+        # and a second shard of the same device reads them
+        self._warm = len(self._shards) == 1
         # the 8 kHz families time their chunks at 8 kHz (the JAX server's
         # config assumes 16 kHz for every family)
         self.sample_rate = self.runner.module.SAMPLE_RATE
@@ -203,35 +271,73 @@ class VadServer:
 
     # ---- device ticks -------------------------------------------------------
 
-    def _stage(self, batches: list[np.ndarray], masks: list[np.ndarray]) -> None:
-        """The tick's inputs to the device: each s16 batch into the pinned
-        buffer, one copy; the masks likewise; the batches dequantized on the
-        device into self._audio."""
-        k = len(batches)
+    @property
+    def state(self):
+        """The slots' model state: the StreamState of an unsharded server
+        (its live tensors), a ShardedState of a sharded one (its `h`, `c`
+        and `context` read gathered copies)."""
+        from vadc_tpu_torch.engine.shard import ShardedState
+
+        if len(self._shards) == 1:
+            return self._shards[0].state
+        return ShardedState([sh.state for sh in self._shards])
+
+    def _stage_host(self, batches: list[np.ndarray], masks: list[np.ndarray]) -> None:
+        """The tick's inputs into the pinned staging buffers, each shard's
+        rows one block."""
+        n_shards = len(self._shards)
         host = self._host_batch.numpy()
         for i, b in enumerate(batches):
-            host[i] = b
+            host[:, i] = b.reshape(n_shards, -1, self.chunk)
         host_masks = self._host_masks.numpy()
         for i, m in enumerate(masks):
-            host_masks[i] = m
-        if self.device.type != "cpu":
-            self._dev_batch[:k].copy_(self._host_batch[:k], non_blocking=True)
-            self._dev_masks.copy_(self._host_masks, non_blocking=True)
-        torch.mul(self._dev_batch[:k], 1.0 / 32768.0, out=self._audio[:k])
+            host_masks[:, i] = m.reshape(n_shards, -1)
+
+    def _stage(self, sh: _Shard, k: int) -> None:
+        """A shard's rows of the k staged batches and the masks to its
+        device, one copy each, and the batches dequantized there."""
+        if sh.runner.device.type != "cpu":
+            sh.batch[:k].copy_(sh.host_batch[:k], non_blocking=True)
+            sh.masks.copy_(sh.host_masks, non_blocking=True)
+        torch.mul(sh.batch[:k], 1.0 / 32768.0, out=sh.audio[:k])
+
+    def _per_shard(self, fn) -> None:
+        """fn(shard) on each shard, in its context, one after another; then
+        the caller's streams join the shards' and one synchronization per
+        device ends the tick. The first tick of a sharded server waits for
+        each shard before the next (see __init__)."""
+        for sh in self._shards:
+            with sh.on():
+                fn(sh)
+            if not self._warm and sh.stream is not None:
+                sh.stream.synchronize()
+        self._warm = True
+        self._end_tick()
+
+    def _end_tick(self) -> None:
+        self._join()
+        for dev in self._cards:
+            torch.cuda.current_stream(dev).synchronize()
 
     def _tick(self, batch: np.ndarray, active: np.ndarray, reset: np.ndarray) -> np.ndarray:
         """One chunk per slot: batch [N, chunk] s16; active, reset [N] bool.
         Zeroes the reset slots, steps every slot, keeps the state of the
-        slots not active. Returns probs [N] on the host (one copy)."""
-        self._stage([batch], [active, reset])
-        active_d, reset_d = self._dev_masks[0], self._dev_masks[1]
-        old, new = self.state, self._spare
-        _masked_zero(old, reset_d)
-        probs = self.runner.step_into(self._audio[0], old, new)
-        _masked_merge(new, old, active_d)
-        self.state, self._spare = new, old
+        slots not active. Returns probs [N] on the host (one copy a shard)."""
+        self._stage_host([batch], [active, reset])
+
+        def tick(sh: _Shard) -> None:
+            self._stage(sh, 1)
+            active_d, reset_d = sh.masks[0], sh.masks[1]
+            old, new = sh.state, sh.spare
+            _masked_zero(old, reset_d)
+            probs = sh.runner.step_into(sh.audio[0], old, new)
+            _masked_merge(new, old, active_d)
+            sh.state, sh.spare = new, old
+            self._host_probs[sh.lo : sh.hi].copy_(probs, non_blocking=True)
+
+        self._per_shard(tick)
         self.tick_count += 1
-        return probs.cpu().numpy()
+        return self._host_probs.numpy().copy()
 
     def _tick2(
         self,
@@ -245,17 +351,24 @@ class VadServer:
         for an engine behind the chunk cadence. The same as two sequential
         ticks: reset applies before sub-step 0 only, and each sub-step
         merges under its own active mask. Returns probs [N, 2] on the host
-        (one stacked copy)."""
-        self._stage([batch_a, batch_b], [active_a, active_b, reset])
-        active_a_d, active_b_d, reset_d = self._dev_masks
-        s0, s1 = self.state, self._spare
-        _masked_zero(s0, reset_d)
-        probs_a = self.runner.step_into(self._audio[0], s0, s1)
-        _masked_merge(s1, s0, active_a_d)
-        probs_b = self.runner.step_into(self._audio[1], s1, s0)
-        _masked_merge(s0, s1, active_b_d)
+        (one stacked copy a shard)."""
+        self._stage_host([batch_a, batch_b], [active_a, active_b, reset])
+
+        def tick2(sh: _Shard) -> None:
+            self._stage(sh, 2)
+            active_a_d, active_b_d, reset_d = sh.masks
+            s0, s1 = sh.state, sh.spare
+            _masked_zero(s0, reset_d)
+            probs_a = sh.runner.step_into(sh.audio[0], s0, s1)
+            _masked_merge(s1, s0, active_a_d)
+            probs_b = sh.runner.step_into(sh.audio[1], s1, s0)
+            _masked_merge(s0, s1, active_b_d)
+            self._host_probs2[sh.lo : sh.hi].copy_(torch.stack([probs_a, probs_b], dim=1),
+                                                   non_blocking=True)
+
+        self._per_shard(tick2)
         self.tick_count += 1
-        return torch.stack([probs_a, probs_b], dim=1).cpu().numpy()
+        return self._host_probs2.numpy().copy()
 
     def warmup(self) -> None:
         """One all-idle tick and one all-idle catch-up tick before the first
@@ -562,10 +675,12 @@ class VadServer:
         the FSM arrays, the pendings and outboxes (and those a restore still
         holds for clients not back yet), under _state_lock then _lock. Only
         cheap work happens there: clones of the state on the device, queued
-        on the tick's stream ahead of the next tick, copies of the host
-        arrays, and a pass over the connected slots alone. The copies of
-        the clones to the host and the per-slot lists run after the lock is
-        released, so the ticks do not wait for them."""
+        on the caller's stream, which the next tick's shards wait on, copies
+        of the host arrays, and a pass over the connected slots alone. A
+        sharded server's state is gathered (the clones are the gather), so
+        its file holds an unsharded server's bytes. The copies of the clones
+        to the host and the per-slot lists run after the lock is released,
+        so the ticks do not wait for them."""
         from vadc_tpu_torch.engine.checkpoint import EngineCheckpoint
         from vadc_tpu_torch.engine.runner import StreamState
         from vadc_tpu_torch.engine.vectorized_segmenter import FsmState
@@ -614,7 +729,7 @@ class VadServer:
         of another family or another slot count is refused."""
         from vadc_tpu_torch.engine.checkpoint import EngineCheckpoint
 
-        ckpt = EngineCheckpoint.load(path)
+        ckpt = EngineCheckpoint.load(path)  # on the CPU, scattered below
         if ckpt.family != self.family:
             raise ValueError(f"checkpoint family {ckpt.family!r} != server {self.family!r}")
         if ckpt.model_state.n_streams != self.n:
@@ -624,10 +739,14 @@ class VadServer:
             raise ValueError("checkpoint has no segmentation state")
         saved, fsm = ckpt.model_state, self.fsm
         with self._state_lock:
-            self.state.h.copy_(saved.h)
-            self.state.c.copy_(saved.c)
-            if self.state.context is not None:
-                self.state.context.copy_(saved.context)
+            # each shard's rows into its existing buffers, on the caller's
+            # stream, which the next tick's shards wait on
+            for sh in self._shards:
+                rows = slice(sh.lo, sh.hi)
+                sh.state.h.copy_(saved.h[:, rows])
+                sh.state.c.copy_(saved.c[:, rows])
+                if sh.state.context is not None:
+                    sh.state.context.copy_(saved.context[rows])
             fsm.triggered[:] = ckpt.fsm_state.triggered.numpy()
             fsm.speech_start[:] = ckpt.fsm_state.speech_start.numpy()
             fsm.temp_end[:] = ckpt.fsm_state.temp_end.numpy()
@@ -752,7 +871,8 @@ class VadServer:
             self.address = server_sock.getsockname()[:2]
             print(
                 f"vadc-torch server on {self.address[0]}:{self.address[1]} ({self.family}, "
-                f"chunk {self.chunk}, {self.n} slots, {self.device})",
+                f"chunk {self.chunk}, {self.n} slots, "
+                + ", ".join(str(sh.runner.device) for sh in self._shards) + ")",
                 file=sys.stderr, flush=True,
             )
             self.ready.set()
@@ -788,7 +908,9 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--sequence_count", type=int, default=1536)
     p.add_argument("--device", default="cuda", help="torch device: cuda (default), cuda:N or cpu")
     p.add_argument("--shard", action=argparse.BooleanOptionalAction, default=None,
-                   help="serve over several devices (not ported yet)")
+                   help="shard slots over all local devices (default: auto, on when "
+                        "--device cuda sees more than one card and max_streams "
+                        "divides evenly over them)")
     p.add_argument("--resume", default=None, metavar="CKPT",
                    help="restore a server checkpoint (save_checkpoint's file, of this "
                         "package or of vadc_tpu, saved on any device); saved slots "
@@ -796,11 +918,6 @@ def main(argv: list[str] | None = None) -> int:
     args = p.parse_args(argv)
     precision = args.precision or ("fast" if args.fast else "faithful")
     try:
-        if args.shard:
-            raise NotImplementedError(
-                "--shard: serving over several devices is not ported yet (ROADMAP.md, "
-                "Queue 1: 'Multi-GPU'); the server serves on the one --device"
-            )
         server = VadServer(
             args.host,
             args.port,
@@ -809,9 +926,9 @@ def main(argv: list[str] | None = None) -> int:
             precision=precision,
             sequence_count=args.sequence_count,
             device=args.device,
+            shard=args.shard,
         )
-    except (FileNotFoundError, ValueError, NotImplementedError, NoCudaDeviceError,
-            RuntimeError) as e:
+    except (FileNotFoundError, ValueError, NoCudaDeviceError, RuntimeError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
     if args.resume:
