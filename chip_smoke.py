@@ -116,16 +116,22 @@ Phases, each of which raises on failure (exit code 1):
   3d. stream sharding (multi-device): ShardedStreamRunner over two
      shards of the card (["cuda:0", "cuda:0"]) against the unsharded
      runner bit for bit: the v3.1 step at B=2048 x 1536 and the 2048 x 8
-     scan, the v4 step at B=2048, and the v5 step within TOL_SHARDED (its
-     encoder's torch products; its spectrum kernel by halves bit for bit),
-     counted (forward_fused,
-     encode_fused_audio, lstm_decoder_fused, stft_magnitude, lstm_fused >
-     0); the batch CLI over the 24-file corpus on the two shards against
-     one device (identical lines and cut files); the server with its slots
+     scan, the v4 step at B=2048, and the v5 step and 2048 x 8 scan within
+     tier_check's SHARD_BOUND (its encoder's torch products; its spectrum
+     kernel by halves bit for bit), beside two controls that must break it
+     (half the streams by the plain versions, and by the fast tier); each
+     call's launches read alone, the sharded call's n_shards times the
+     unsharded call's (forward_fused; encode_fused_audio and
+     lstm_decoder_fused; stft_magnitude and lstm_fused); the batch CLI over
+     the 24-file corpus on the two shards against one device (identical
+     lines and cut files, twice the launches); the server with its slots
      on the two shards, the 8 clients of the server phase (each client's
      lines those of the unsharded server), its checkpoint resumed sharded
      -> unsharded and back (the uninterrupted run's lines, and the sharded
-     save byte for byte the unsharded one); tools/torch_multidevice_dryrun.py
+     save byte for byte the unsharded one), each server's launches those
+     of one step per chunk-step of each shard; the v5 server (synthetic
+     weights) on the two shards, each client's lines the unsharded v5
+     server's; tools/torch_multidevice_dryrun.py
      --device cuda (2 processes x 2 devices over gloo); with two cards or
      more the same over distinct cards and a step on cuda:1 launched under
      cuda:0 against cuda:0's bits (else one line says they were skipped);
@@ -1177,16 +1183,50 @@ def zero_launches() -> None:
         fn.launches = 0
 
 
-def read_launches(label: str, totals: dict, required: tuple) -> dict:
-    """The launch counts since zero_launches, logged, each of `required`
-    held > 0, and added into `totals`."""
-    counts = {name: fn.launches for name, fn in wrappers().items()}
-    log(f"{label} launches: { {k: v for k, v in counts.items() if v} }")
-    for name in required:
-        require(counts[name] > 0, f"{name}: no launch on the path: {label}")
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def counted(fn):
+    """fn() with the launch counts set to 0 just before it and read just
+    after it: (fn's result, the counts of its launches alone)."""
+    zero_launches()
+    out = fn()
+    return out, launch_counts()
+
+
+def add_launches(totals: dict, counts: dict) -> None:
     for name, n in counts.items():
         totals[name] = totals.get(name, 0) + n
+
+
+def read_launches(label: str, totals: dict, required: tuple, counts: dict | None = None) -> dict:
+    """The launch counts since zero_launches (or `counts`), logged, each of
+    `required` held > 0, and added into `totals`."""
+    counts = launch_counts() if counts is None else counts
+    log(f"{label} launches: {nonzero(counts)}")
+    for name in required:
+        require(counts[name] > 0, f"{name}: no launch on the path: {label}")
+    add_launches(totals, counts)
     return counts
+
+
+def require_scaled(label: str, got: dict, one: dict, n: int, required: tuple,
+                   totals: dict) -> None:
+    """A run over n shards launched each kernel n times as often as the
+    unsharded run of the same work (`one`), which launched every kernel of
+    `required`; both runs' launches go into `totals`."""
+    for name in required:
+        require(one[name] > 0, f"{name}: no launch in the unsharded run: {label}")
+    require(got == {k: n * v for k, v in one.items()},
+            f"{label}: launches {nonzero(got)}, not {n} x the unsharded run's {nonzero(one)}")
+    log(f"{label} launches: {nonzero(got)}, {n} x the unsharded run's {nonzero(one)}")
+    add_launches(totals, got)
+    add_launches(totals, one)
 
 
 V3_SLAB_KERNELS = ("encode_fused_audio", "lstm_decoder_fused")
@@ -1359,6 +1399,54 @@ def client_pcm(index: int) -> bytes:
     return np.clip(audio * 32768, -32768, 32767).astype("<i2").tobytes()
 
 
+def count_shard_steps(srv) -> list:
+    """Wraps each shard runner's step_into (one chunk-step of the shard's
+    slots) of a server that has not started. Returns the shards' call
+    counts, which the wrappers add to."""
+    steps = [0] * len(srv._shards)
+    for k, sh in enumerate(srv._shards):
+        def step_into(*args, k=k, inner=sh.runner.step_into):
+            steps[k] += 1
+            return inner(*args)
+
+        sh.runner.step_into = step_into
+    return steps
+
+
+def require_server_launches(label: str, srv, counts: dict, totals: dict,
+                            required: tuple) -> None:
+    """One server's run (`counts`: its launches alone) launched, for each
+    chunk-step of each shard (every shard steps at every tick), what one
+    unsharded step of the family on a shard's slots launches: every step of
+    every shard went through the kernels."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import StreamRunner
+
+    read_launches(label, totals, required, counts)
+    steps = srv.shard_steps
+    require(len(set(steps)) == 1 and steps[0] > 0, f"{label}: chunk-steps per shard {steps}")
+    one, rows = srv.runner.runners[0], srv.n // len(steps)
+    probe = StreamRunner(srv.family, one.params, device=one.device, precision=one.precision)
+    state = probe.init_state(rows)
+    audio = torch.zeros(rows, srv.chunk, device=one.device)
+    _, per_step = counted(lambda: probe.step(audio, state))
+    require(one.device.type == "cpu" or any(per_step.values()),
+            f"{label}: an unsharded step launches nothing")
+    require(counts == {k: sum(steps) * v for k, v in per_step.items()},
+            f"{label}: launches {nonzero(counts)}, not {sum(steps)} chunk-steps ({steps} by "
+            f"shard) x one step's {nonzero(per_step)}")
+    log(f"{label}: {steps} chunk-steps by shard, each launching one step's {nonzero(per_step)}")
+
+
+def require_resume_launches(label: str, saved: dict, totals: dict, required: tuple) -> None:
+    """require_server_launches for each of a resume run's two servers."""
+    for part, (srv, counts) in zip(("part 1", "part 2"), saved["parts"]):
+        on_card = srv.runner.devices[0].type == "cuda"
+        require_server_launches(f"{label}, {part} on {srv.runner.devices[0]}", srv, counts,
+                                totals, required if on_card else ())
+
+
 def start_server(device, ckpt: Path | None = None, **server_kw):
     """A VadServer (SERVER_SLOTS slots; the bundled v3.1 archive unless
     `model` names another) on `device`, restored from the checkpoint `ckpt`
@@ -1370,6 +1458,7 @@ def start_server(device, ckpt: Path | None = None, **server_kw):
     from vadc_tpu_torch.server import VadServer
 
     srv = VadServer(port=0, max_streams=SERVER_SLOTS, device=device, **server_kw)
+    srv.shard_steps = count_shard_steps(srv)
     if ckpt is not None:
         srv.restore_checkpoint(ckpt)
     failure = []
@@ -1453,7 +1542,8 @@ def phase_server(device, totals: dict) -> list:
     t0 = time.perf_counter()
     lines_gpu, srv = serve_clients(device, payloads)
     wall = time.perf_counter() - t0
-    launches = read_launches("server", totals, ("forward_fused",))
+    launches = launch_counts()
+    require_server_launches("server", srv, launches, totals, ("forward_fused",))
     ticks_ms = np.array(srv.tick_times) * 1e3
     log(f"server on {device}: {SERVER_CLIENTS} clients x {SERVER_AUDIO_S:g} s in {wall:.2f} s "
         f"(build and warm-up included); launches {launches}; tick_count {srv.tick_count}, "
@@ -1497,12 +1587,14 @@ def resume_run(payloads: list[bytes], chunk: int, first: dict, second: dict) -> 
     start_server(**second) and restored from the file, the clients
     reconnecting in the same order. Returns each client's lines (part 1's,
     then part 2's) and what the run saw: the segments held pending at the
-    save, the save's wall seconds, the file's size and its bytes."""
+    save, the save's wall seconds, the file's size and its bytes, and each
+    part's server with the launches of its run alone."""
     chunk_bytes = 2 * chunk
     cuts = [len(p) // 2 // chunk_bytes * chunk_bytes for p in payloads]
     slots = [SERVER_SLOTS - 1 - i for i in range(len(payloads))]
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "server.ckpt"
+        zero_launches()
         srv, stop = start_server(**first)
         socks: list = []
         try:
@@ -1533,8 +1625,11 @@ def resume_run(payloads: list[bytes], chunk: int, first: dict, second: dict) -> 
             stop()
             for c in socks:
                 c.close()
+        parts = [(srv, launch_counts())]
         saved = {"held": held, "save_s": save_s, "bytes": path.stat().st_size,
-                 "data": path.read_bytes(), "part1_lines": sum(b.count(b"\n") for b in before)}
+                 "data": path.read_bytes(), "part1_lines": sum(b.count(b"\n") for b in before),
+                 "parts": parts}
+        zero_launches()
         srv2, stop2 = start_server(ckpt=path, **second)
         try:
             socks = connect_in_order(srv2, len(payloads))
@@ -1542,6 +1637,7 @@ def resume_run(payloads: list[bytes], chunk: int, first: dict, second: dict) -> 
                                len(payloads))
         finally:
             stop2()
+        parts.append((srv2, launch_counts()))
     return [(b + a).decode().splitlines() for b, a in zip(before, after)], saved
 
 
@@ -1558,40 +1654,41 @@ def check_resumed(label: str, lines: list, saved: dict, want: list, need_held: b
     log(f"server checkpoint {label}: every client's lines equal the uninterrupted run's")
 
 
-def phase_server_checkpoint(device, want: list, totals: dict, tier_totals: dict) -> None:
+def phase_server_checkpoint(device, want: list, totals: dict, tier_totals: dict) -> list:
     """Save and resume across a restart of the server (bundled v3.1,
     SERVER_SLOTS slots, SERVER_CLIENTS clients of seeded speech, each cut
     near its middle): card to card, card to CPU and CPU to card, each
     client's lines those of the uninterrupted run (`want`, phase_server's,
     which are the CPU server's too); then card to card at --precision fast
     and with the synthetic v5 archive (the audio context in the state),
-    each against its own uninterrupted run on the card."""
+    each against its own uninterrupted run on the card. Each server's
+    launches are read alone. Returns the v5 server's uninterrupted lines."""
     from vadc_tpu_torch.models.synthetic import random_v5_archive, save_archive
 
     payloads = [client_pcm(i) for i in range(SERVER_CLIENTS)]
     for label, a, b in (("card -> card", device, device), ("card -> cpu", device, "cpu"),
                         ("cpu -> card", "cpu", device)):
-        zero_launches()
         lines, saved = resume_run(payloads, CHUNK, {"device": a}, {"device": b})
-        read_launches(f"server checkpoint {label}", totals, ("forward_fused",))
+        require_resume_launches(f"server checkpoint {label}", saved, totals, ("forward_fused",))
         check_resumed(label, lines, saved, want)
     fast = {"device": device, "precision": "fast"}
     want_fast, _ = serve_clients(**fast, payloads=payloads)
-    zero_launches()
     lines, saved = resume_run(payloads, CHUNK, fast, fast)
-    read_launches("fast: server checkpoint card -> card", tier_totals["fast"], ("forward_fused",))
+    require_resume_launches("fast: server checkpoint card -> card", saved, tier_totals["fast"],
+                            ("forward_fused",))
     check_resumed("card -> card at fast", lines, saved, want_fast)
     with tempfile.TemporaryDirectory() as tmp:
         archive = Path(tmp) / "v5_synthetic.testtensor"
         save_archive(archive, random_v5_archive(0))
         v5 = {"device": device, "model": str(archive)}
         want_v5, _ = serve_clients(**v5, payloads=payloads)
-        zero_launches()
         lines, saved = resume_run(payloads, V5_CHUNK, v5, v5)
-        read_launches("v5 server checkpoint card -> card", totals, ("stft_magnitude", "lstm_fused"))
+        require_resume_launches("v5 server checkpoint card -> card", saved, totals,
+                                ("stft_magnitude", "lstm_fused"))
     # the synthetic weights' probabilities hover near the threshold: a held
     # segment is not required of them
     check_resumed("card -> card, v5 (synthetic weights)", lines, saved, want_v5, need_held=False)
+    return want_v5
 
 
 def api_track(sr: int, seconds: float, seed: int) -> np.ndarray:
@@ -1728,12 +1825,10 @@ def cards_as(devices: list):
         shard.stream_devices = resolve
 
 
-# v5's sharded step against its unsharded one: its encoder's k3 convs are
-# torch.matmul products (cuBLAS), whose algorithm cuBLAS picks by the number
-# of rows, so half the streams sum in another order; held at the v5 parity
-# bounds (tests/test_torch_v5.py: probabilities 1e-5, h and c 5e-5), its
-# spectrum kernel on each shard's rows bit for bit
-TOL_SHARDED = {"v5": (1e-5, 5e-5)}
+# which kernels each call of the runners launches, by family
+STEP_KERNELS = {"v3": ("forward_fused",), "v4": ("stft_magnitude", "lstm_fused"),
+                "v5": ("stft_magnitude", "lstm_fused")}
+SCAN_KERNELS = {**STEP_KERNELS, "v3": V3_SLAB_KERNELS}
 
 
 def v5_stages_by_halves(params, x) -> str:
@@ -1764,59 +1859,133 @@ def v5_stages_by_halves(params, x) -> str:
             f"on each half: max abs diff {max_abs(convs, conv_halves):.3e}")
 
 
+def shard_errs(got, want) -> dict:
+    """The largest differences of (probs, h, c) from the unsharded run's:
+    of the probabilities, and of the state (h and c)."""
+    return {"probs": max_abs(got[0], want[0]),
+            "state": max(max_abs(got[1], want[1]), max_abs(got[2], want[2]))}
+
+
+def v5_first_half_by(first, params, x, device) -> tuple:
+    """The v5 step and the steps after it over x [B, 1+T, chunk], the first
+    half of the streams through `first` (audio, h, c) -> (probs, hn, cn),
+    the second half through the kernels: (probs [B, 1+T], h, c)."""
+    import torch
+
+    from vadc_tpu_torch.models import silero_v5
+
+    half = x.shape[0] // 2
+    h, c = silero_v5.init_state(x.shape[0], device)
+    context = silero_v5.init_context(x.shape[0], device)
+    probs = []
+    for t in range(x.shape[1]):
+        audio, context = silero_v5.attach_context(x[:, t].to(device), context)
+        p0, h0, c0 = first(audio[:half], h[:, :half], c[:, :half])
+        p1, h1, c1 = silero_v5.forward(params, audio[half:], h[:, half:], c[:, half:])
+        probs.append(torch.cat([p0, p1]))
+        h, c = torch.cat([h0, h1], dim=1), torch.cat([c0, c1], dim=1)
+    return torch.stack(probs, dim=1), h, c
+
+
+def v5_within_bound(label: str, params, x, device, got: list, want: list,
+                    after_step: dict) -> None:
+    """v5's sharded run (`got`: probs [B, 1+T], h, c) against the unsharded
+    one (`want`) within SHARD_BOUND, beside two controls: the first half of
+    the streams through the kernels at the fast tier, which must break it,
+    and through the plain versions (the plain spectrum and LSTM), which
+    reads just above the sound run and is logged only: the launch counts,
+    not a limit, tell a shard of plain versions from one of kernels."""
+    from vadc_tpu_torch.kernels.tier_check import SHARD_BOUND
+    from vadc_tpu_torch.models import silero_v5
+
+    bound = SHARD_BOUND["v5"]
+    sound = shard_errs(got, want)
+    controls = {
+        "the fast tier": lambda a, h, c: silero_v5.forward(params, a, h, c, tier="fast"),
+        "the plain versions": lambda a, h, c: silero_v5.forward_reference(params, a, h, c),
+    }
+    readings = {name: shard_errs([t.cpu() for t in v5_first_half_by(first, params, x, device)],
+                                 want)
+                for name, first in controls.items()}
+    log(f"{label}: largest differences from the unsharded run after the step {after_step}, "
+        f"after {x.shape[1]} steps {sound}; SHARD_BOUND {bound}; "
+        f"{v5_stages_by_halves(params, x[:, 0].to(device))}")
+    for name, errs in readings.items():
+        log(f"{label}: control, the first half's streams by {name}: {errs}")
+    errs = readings["the fast tier"]
+    require(errs["probs"] > bound["probs"] and errs["state"] > bound["state"],
+            f"{label}: the control at the fast tier ({errs}) does not break SHARD_BOUND {bound}")
+    require(sound["probs"] <= bound["probs"] and sound["state"] <= bound["state"],
+            f"{label}: {sound} beyond SHARD_BOUND {bound}")
+
+
 def sharded_vs_unsharded(family: str, params, devices: list, chunk: int, seed: int,
-                         scan_chunks: int = 0) -> None:
+                         totals: dict, scan_chunks: int = 0) -> None:
     """ShardedStreamRunner over `devices` against the unsharded StreamRunner
     on the first, B_MAIN streams: one step, then (scan_chunks > 0) one scan
-    of that many chunks; probabilities, h, c and a v5 context bit for bit
-    (v5: within TOL_SHARDED, the context bit for bit)."""
+    of that many chunks. Each call's launches are read alone, and the
+    sharded call's are n_shards times the unsharded call's. Probabilities,
+    h, c and a v5 context bit for bit, except v5's probabilities and state:
+    held to SHARD_BOUND beside its controls (v5_within_bound)."""
     import torch
 
     from vadc_tpu_torch.engine.runner import StreamRunner
     from vadc_tpu_torch.engine.shard import ShardedStreamRunner
+    from vadc_tpu_torch.kernels.tier_check import SHARD_BOUND
 
+    n = len(devices)
     x = torch.from_numpy(speech_chunks(B_MAIN * (1 + scan_chunks), chunk, seed=seed)).reshape(
         B_MAIN, 1 + scan_chunks, chunk)
     sharded = ShardedStreamRunner(family, params, devices)
     plain = StreamRunner(family, params, device=devices[0])
     s_state, p_state = sharded.init_state(B_MAIN), plain.init_state(B_MAIN)
-    got = [sharded.step(x[:, 0].to(devices[0]), s_state)[0]]
-    want = [plain.step(x[:, 0].to(devices[0]), p_state)[0]]
-    if scan_chunks:
-        got.append(sharded.scan(x[:, 1:].to(devices[0]), s_state)[0])
-        want.append(plain.scan(x[:, 1:].to(devices[0]), p_state)[0])
-    got += [s_state.h, s_state.c] + ([s_state.context] if p_state.context is not None else [])
-    want += [p_state.h, p_state.c] + ([p_state.context] if p_state.context is not None else [])
-    names = ["step probs"] + (["scan probs"] if scan_chunks else []) + ["h", "c", "context"]
-    torch.cuda.synchronize()
-    got, want = [t.cpu() for t in got], [t.cpu() for t in want]
     label = (f"{family} sharded over {[str(d) for d in devices]}: step"
              + (f" and scan {B_MAIN}x{scan_chunks}" if scan_chunks else "") + f" at B={B_MAIN}")
+    first = x[:, 0].to(devices[0])
+    (got_step, _), s_counts = counted(lambda: sharded.step(first, s_state))
+    (want_step, _), p_counts = counted(lambda: plain.step(first, p_state))
+    require_scaled(f"{label}, the step", s_counts, p_counts, n, STEP_KERNELS[family], totals)
+    after_step = shard_errs((got_step, s_state.h, s_state.c), (want_step, p_state.h, p_state.c))
+    got, want = [got_step[:, None]], [want_step[:, None]]
+    if scan_chunks:
+        rest = x[:, 1:].to(devices[0])
+        (got_scan, _), s_counts = counted(lambda: sharded.scan(rest, s_state))
+        (want_scan, _), p_counts = counted(lambda: plain.scan(rest, p_state))
+        require_scaled(f"{label}, the scan", s_counts, p_counts, n, SCAN_KERNELS[family], totals)
+        got.append(got_scan)
+        want.append(want_scan)
+    got = [torch.cat(got, dim=1), s_state.h, s_state.c, s_state.context]
+    want = [torch.cat(want, dim=1), p_state.h, p_state.c, p_state.context]
+    if want[-1] is None:
+        got, want = got[:-1], want[:-1]
+    torch.cuda.synchronize()
+    got, want = [t.cpu() for t in got], [t.cpu() for t in want]
     if same_bits(got, want):
         log(f"{label}: the unsharded runner's bits")
         return
-    diffs = variant_diffs({"sharded": got}, want, names)
-    require(family in TOL_SHARDED, f"{label}: not the unsharded bits ({diffs})")
-    tol_p, tol_s = TOL_SHARDED[family]
-    errs = [max_abs(g, w) for g, w in zip(got, want)]
-    require(errs[0] <= tol_p and max(errs[1:3]) <= tol_s and torch.equal(got[-1], want[-1]),
-            f"{label}: beyond {TOL_SHARDED[family]} of the unsharded run ({diffs})")
-    log(f"{label}: within {TOL_SHARDED[family]} of the unsharded runner ({diffs}; "
-        f"{v5_stages_by_halves(params, x[:, 0].to(devices[0]))})")
+    diffs = variant_diffs({"sharded": got}, want, ["probs", "h", "c", "context"])
+    require(family in SHARD_BOUND, f"{label}: not the unsharded bits ({diffs})")
+    require(torch.equal(got[-1], want[-1]), f"{label}: the context differs ({diffs})")
+    v5_within_bound(label, params, x, devices[0], got, want, after_step)
 
 
 def batch_cli_sharded(root: Path, paths: list, devices: list | None, totals: dict) -> None:
     """The batch CLI over the corpus with --cut_dir, --device cuda over
     `devices` (None: every visible card) against --device cuda:0 (one
-    device): identical lines and cut files."""
+    device): identical lines and cut files, each run's launches read alone
+    and the sharded run's n_shards times the one device's."""
+    import torch
+
     argv = [*paths, "--slab_chunks", str(SLAB_CHUNKS)]
+    n = len(devices) if devices else torch.cuda.device_count()
     label = f"batch CLI over {[str(d) for d in devices] if devices else 'every card'}"
-    out_one, _ = run_batch_cli([*argv, "--device", "cuda:0", "--cut_dir", str(root / "one")])
-    zero_launches()
+    (out_one, _), one = counted(
+        lambda: run_batch_cli([*argv, "--device", "cuda:0", "--cut_dir", str(root / "one")]))
     with cards_as(devices) if devices else contextlib.nullcontext():
-        out_sharded, seconds = run_batch_cli([*argv, "--device", "cuda",
-                                              "--cut_dir", str(root / "sharded")])
-    read_launches(label, totals, V3_SLAB_KERNELS)
+        (out_sharded, seconds), got = counted(
+            lambda: run_batch_cli([*argv, "--device", "cuda", "--cut_dir",
+                                   str(root / "sharded")]))
+    require_scaled(label, got, one, n, V3_SLAB_KERNELS, totals)
     cut = [{p.name: p.read_bytes() for p in sorted((root / d).iterdir())}
            for d in ("one", "sharded")]
     require(out_sharded == out_one, f"{label}: lines differ from one device's")
@@ -1833,12 +2002,13 @@ def server_sharded(device, devices: list, want: list, totals: dict) -> None:
     clients of phase_server): each client's lines those of the unsharded
     server (`want`); then resumes sharded -> unsharded and unsharded ->
     sharded, each client's lines the uninterrupted run's, and the sharded
-    server's save byte for byte the unsharded one's."""
+    server's save byte for byte the unsharded one's. Each server's
+    launches are read alone."""
     payloads = [client_pcm(i) for i in range(SERVER_CLIENTS)]
     label = f"server over {[str(d) for d in devices]}"
     zero_launches()
     lines, srv = serve_clients(device, payloads, devices=devices)
-    read_launches(label, totals, ("forward_fused",))
+    require_server_launches(label, srv, launch_counts(), totals, ("forward_fused",))
     require(len(srv._shards) == len(devices), f"{label}: {len(srv._shards)} shards")
     for i, (got, ref) in enumerate(zip(lines, want)):
         require(got == ref, f"{label}, client {i}: {got} vs unsharded {ref}")
@@ -1847,14 +2017,35 @@ def server_sharded(device, devices: list, want: list, totals: dict) -> None:
     runs = {}
     for first, second in (("sharded", "unsharded"), ("unsharded", "sharded")):
         kw = {"sharded": {"device": device, "devices": devices}, "unsharded": {"device": device}}
-        zero_launches()
         lines, saved = resume_run(payloads, CHUNK, kw[first], kw[second])
-        read_launches(f"{label} checkpoint {first} -> {second}", totals, ("forward_fused",))
+        require_resume_launches(f"{label} checkpoint {first} -> {second}", saved, totals,
+                                ("forward_fused",))
         check_resumed(f"{first} -> {second} ({label})", lines, saved, want)
         runs[first] = saved["data"]
     require(runs["sharded"] == runs["unsharded"],
             f"{label}: the sharded save's bytes differ from the unsharded one's")
     log(f"{label}: the sharded save holds the unsharded save's {len(runs['sharded'])} bytes")
+
+
+def server_sharded_v5(device, devices: list, want: list, totals: dict) -> None:
+    """The v5 server (the synthetic archive) over `devices`: each client's
+    lines those of the unsharded v5 server (`want`, phase_server_checkpoint's
+    uninterrupted run), its launches read alone."""
+    from vadc_tpu_torch.models.synthetic import random_v5_archive, save_archive
+
+    payloads = [client_pcm(i) for i in range(SERVER_CLIENTS)]
+    label = f"v5 server over {[str(d) for d in devices]}"
+    with tempfile.TemporaryDirectory() as tmp:
+        archive = Path(tmp) / "v5_synthetic.testtensor"
+        save_archive(archive, random_v5_archive(0))
+        zero_launches()
+        lines, srv = serve_clients(device, payloads, model=str(archive), devices=devices)
+        require_server_launches(label, srv, launch_counts(), totals,
+                                ("stft_magnitude", "lstm_fused"))
+    for i, (got, ref) in enumerate(zip(lines, want)):
+        require(got == ref, f"{label}, client {i}: {got} vs unsharded {ref}")
+    log(f"{label}: every client's {sum(map(len, lines))} lines in all equal the unsharded "
+        f"server's")
 
 
 def dryrun_on_the_card() -> None:
@@ -1965,23 +2156,22 @@ def phase_timing_multi_device(params, models: dict, device) -> dict:
     return out
 
 
-def phase_multi_device(params, models: dict, device, server_lines: list, totals: dict) -> dict:
+def phase_multi_device(params, models: dict, device, server_lines: list, v5_lines: list,
+                       totals: dict) -> dict:
     """Stream sharding on the card: two shards of it (and distinct cards
     where there are two or more) against the unsharded paths, the dry run
     of 2 processes x 2 devices, a trace, and the phase's timings."""
     import torch
 
-    def runners_on(devices: list, label: str) -> None:
-        zero_launches()
-        sharded_vs_unsharded("v3", params, devices, CHUNK, SEED + 1000, scan_chunks=SCAN_CHUNKS)
-        sharded_vs_unsharded("v4", models["v4"][1], devices, V4_CHUNK, SEED + 1001)
-        sharded_vs_unsharded("v5", models["v5"][1], devices, V5_CHUNK, SEED + 1002)
-        read_launches(f"multi-device runners ({label})", totals,
-                      ("forward_fused", "encode_fused_audio", "lstm_decoder_fused",
-                       "stft_magnitude", "lstm_fused"))
+    def runners_on(devices: list) -> None:
+        sharded_vs_unsharded("v3", params, devices, CHUNK, SEED + 1000, totals,
+                             scan_chunks=SCAN_CHUNKS)
+        sharded_vs_unsharded("v4", models["v4"][1], devices, V4_CHUNK, SEED + 1001, totals)
+        sharded_vs_unsharded("v5", models["v5"][1], devices, V5_CHUNK, SEED + 1002, totals,
+                             scan_chunks=SCAN_CHUNKS)
 
     two = [device, device]
-    runners_on(two, "2 shards of the card")
+    runners_on(two)
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         paths, _ = write_corpus(root)
@@ -1990,11 +2180,13 @@ def phase_multi_device(params, models: dict, device, server_lines: list, totals:
         if len(cards) >= 2:
             batch_cli_sharded(root, paths, None, totals)
     server_sharded(device, two, server_lines, totals)
+    server_sharded_v5(device, two, v5_lines, totals)
     dryrun_on_the_card()
     if len(cards) >= 2:
         pair = cards[:2]
-        runners_on(pair, "two cards")
+        runners_on(pair)
         server_sharded(device, pair, server_lines, totals)
+        server_sharded_v5(device, pair, v5_lines, totals)
         on_second_card(params, pair)
     else:
         log(f"multi-device: {len(cards)} card visible; the checks over distinct cards and the "
@@ -2827,7 +3019,7 @@ def phase_main_path_tiers(params, device, speech: Path, totals: dict) -> dict:
     want_lines, _ = serve_clients(device, payloads)
     zero_launches()
     got_lines, srv = serve_clients(device, payloads, precision="fast")
-    read_launches("fast: server", counts, ("forward_fused",))
+    require_server_launches("fast: server", srv, launch_counts(), counts, ("forward_fused",))
     same = sum(g == w for g, w in zip(got_lines, want_lines))
     log(f"server --precision fast: tick_count {srv.tick_count}; clients whose lines equal "
         f"faithful's: {same} of {SERVER_CLIENTS}")
@@ -3493,12 +3685,12 @@ def main() -> int:
     corpus = phase_main_path_batch(device, launches)
     server_lines = phase_server(device, launches)
     elapsed("the server")
-    phase_server_checkpoint(device, server_lines, launches, tier_launches)
+    v5_lines = phase_server_checkpoint(device, server_lines, launches, tier_launches)
     elapsed("the server checkpoints")
     phase_api(device, archives, launches)
     phase_cutter(device, launches)
     elapsed("the API and the cutter")
-    phase_multi_device(params, models, device, server_lines, launches)
+    phase_multi_device(params, models, device, server_lines, v5_lines, launches)
     elapsed("the multi-device phase")
     log(f"launches on the main paths, all phases: {launches}; at the bf16 tiers: {tier_launches}")
     elapsed("the main paths")

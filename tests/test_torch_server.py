@@ -581,7 +581,8 @@ def test_sharding_follows_the_jax_servers_rules():
                         shard=shard)
         try:
             assert len(srv._shards) == max(n_shards, 1), (devices, slots, shard)
-            assert isinstance(srv.runner, ShardedStreamRunner) == (n_shards > 0)
+            assert isinstance(srv.runner, ShardedStreamRunner)
+            assert srv.runner.n_shards == max(n_shards, 1)
             assert [(sh.lo, sh.hi) for sh in srv._shards][-1][1] == slots
         finally:
             srv.pool.close()

@@ -12,7 +12,10 @@ caller's current streams by an event before they return.
 
 A device may be repeated (`["cuda:0", "cuda:0"]`, `["cpu"] * 8`): one card
 or the CPU then exercises the split, the per-shard streams and the merge,
-as the JAX tests' virtual CPU devices do for the mesh.
+as the JAX tests' virtual CPU devices do for the mesh. A lone shard has no
+stream of its own: it runs on the caller's, as a StreamRunner does. The
+shards of one card share one Params; what the kernels derive from it is
+complete before another shard's stream can read it (`Params.derived`).
 
 Every shard operation starts on its stream after the caller's work on that
 device (the stream waits on the caller's current stream) and every public
@@ -97,11 +100,7 @@ class ShardedStreamRunner:
     The params are moved once per distinct device (`params_to`), so a
     repeated device shares one Params and what the kernels derive from it.
     Shard k owns streams [k*B/n, (k+1)*B/n); n_streams must be a multiple
-    of the number of devices. The first call of `step` and of `scan` waits
-    for each shard before it launches the next: the weights the kernels
-    derive on first use are built on the first shard's stream, and a
-    second shard of the same device must not read them before they are
-    complete."""
+    of the number of devices."""
 
     def __init__(self, family: str, params: dict, devices, *, precision: str = "faithful"):
         self.family = family
@@ -114,9 +113,9 @@ class ShardedStreamRunner:
             if dev not in moved:
                 moved[dev] = params_to(params, dev)
             self.runners.append(StreamRunner(family, moved[dev], device=dev, precision=precision))
-        self.streams = [torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        alone = len(self.devices) == 1
+        self.streams = [torch.cuda.Stream(dev) if dev.type == "cuda" and not alone else None
                         for dev in self.devices]
-        self._warm: set[str] = set()
 
     @property
     def n_shards(self) -> int:
@@ -124,7 +123,8 @@ class ShardedStreamRunner:
 
     def on_shard(self, k: int):
         """A context for work on shard k: its device current and its stream
-        the current one, after the caller's work on that device."""
+        the current one, after the caller's work on that device (a lone
+        shard: the caller's stream, as it is)."""
         stream = self.streams[k]
         return _NO_STREAM if stream is None else _on_stream(stream)
 
@@ -181,19 +181,18 @@ class ShardedStreamRunner:
         """chunks [B, chunk] -> (probs [B] on the first device, state); the
         state is updated in place. `chunks` may also be the list of the
         shards' rows, each on its shard's device."""
-        return self._run("step", chunks, state, lambda r, x, st: r.step_into(x, st, st))
+        return self._run(chunks, state, lambda r, x, st: r.step_into(x, st, st))
 
     def scan(self, chunks, state: ShardedState) -> tuple[torch.Tensor, ShardedState]:
         """chunks [B, T, chunk] -> (probs [B, T] on the first device, final
         state), T steps in order; the state is updated in place."""
-        return self._run("scan", chunks, state, lambda r, x, st: r.scan(x, st)[0])
+        return self._run(chunks, state, lambda r, x, st: r.scan(x, st)[0])
 
-    def _run(self, kind: str, chunks, state: ShardedState, fn):
+    def _run(self, chunks, state: ShardedState, fn):
         parts = chunks if isinstance(chunks, (list, tuple)) else self._split(chunks)
         if len(parts) != self.n_shards or len(state.shards) != self.n_shards:
             raise ValueError(f"{len(parts)} inputs and {len(state.shards)} states for "
                              f"{self.n_shards} shards")
-        warm = kind in self._warm
         outs = []
         for k, (runner, part, shard) in enumerate(zip(self.runners, parts, state.shards)):
             stream = self.streams[k]
@@ -202,9 +201,6 @@ class ShardedStreamRunner:
                         and part.device == stream.device:
                     part.record_stream(stream)  # the caller's tensor, read on this stream
                 outs.append(fn(runner, part, shard))
-            if stream is not None and not warm:
-                stream.synchronize()
-        self._warm.add(kind)
         self.join()
         return self._gather(outs), state
 

@@ -76,13 +76,29 @@ class Params(dict):
     It differs from a plain dict only in caching what the kernels derive
     from it once (the fused kernel's packed weight buffer, the split STFT
     basis), so a tree must not be changed after it is built. The model's
-    kernel paths take a Params; every loader here returns one."""
+    kernel paths take a Params; every loader here returns one.
+
+    A derived value on a card is complete before it is cached: it is built
+    on the current stream, and the shards of one card (engine/shard.py) read
+    the same Params from streams of their own."""
 
     def derived(self, key: str, build: Callable[[], object]):
         cache = self.__dict__.setdefault("_derived", {})
         if key not in cache:
-            cache[key] = build()
+            value = build()
+            device = _device_of(value)
+            if device is not None and device.type == "cuda":
+                torch.cuda.current_stream(device).synchronize()
+            cache[key] = value
         return cache[key]
+
+
+def _device_of(value) -> torch.device | None:
+    """The device of a derived value: a tensor, an object with a `device`
+    (a packed buffer), or a tuple of them."""
+    if isinstance(value, (tuple, list)):
+        return _device_of(value[0]) if value else None
+    return getattr(value, "device", None)
 
 
 def _tensor(arr, device) -> torch.Tensor:

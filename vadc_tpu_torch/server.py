@@ -46,7 +46,6 @@ as an unsharded one's for the same streams, and either resumes the other's.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import functools
 import os
 import select
@@ -62,8 +61,6 @@ import numpy as np
 import torch
 
 from vadc_tpu_torch.runtime import PRECISIONS, NoCudaDeviceError
-
-_NO_CONTEXT = contextlib.nullcontext()
 
 
 class _Slot:
@@ -97,12 +94,12 @@ class _Gathered:
 
 
 class _Shard:
-    """One device's share of the slots, rows [lo, hi): its runner, its CUDA
-    stream (None: the caller's current stream), the double-buffered state,
-    its rows of the pinned staging buffers and their device twins."""
+    """One device's share of the slots, rows [lo, hi): its runner, the
+    double-buffered state, its rows of the pinned staging buffers and their
+    device twins."""
 
-    def __init__(self, runner, context, stream, lo: int, hi: int, host_batch, host_masks):
-        self.runner, self.stream, self.lo, self.hi = runner, stream, lo, hi
+    def __init__(self, runner, context, lo: int, hi: int, host_batch, host_masks):
+        self.runner, self.lo, self.hi = runner, lo, hi
         self.on = context  # () -> a context for work on the shard
         self.host_batch, self.host_masks = host_batch, host_masks
         with self.on():
@@ -150,7 +147,6 @@ class VadServer:
         from vadc_tpu_torch import native
         from vadc_tpu_torch.cli.segmenter import SegmenterConfig
         from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
-        from vadc_tpu_torch.engine.runner import StreamRunner
         from vadc_tpu_torch.engine.shard import ShardedStreamRunner, stream_devices
         from vadc_tpu_torch.models.weights import clamp_sequence_count, load_params
 
@@ -192,29 +188,17 @@ class VadServer:
         self._host_masks = torch.empty((n_shards, 3, per), dtype=torch.bool, pin_memory=pin)
         self._host_probs = torch.empty(self.n, dtype=torch.float32, pin_memory=pin)
         self._host_probs2 = torch.empty((self.n, 2), dtype=torch.float32, pin_memory=pin)
-        if shard:
-            self.runner = ShardedStreamRunner(self.family, params, devices, precision=precision)
-            parts = [(r, functools.partial(self.runner.on_shard, k), self.runner.streams[k])
-                     for k, r in enumerate(self.runner.runners)]
-            self._join = self.runner.join
-        else:
-            self.runner = StreamRunner(self.family, params, device=self.device,
-                                       precision=precision)
-            parts = [(self.runner, lambda: _NO_CONTEXT, None)]
-            self._join = lambda: None
+        # one shard per device (a lone one on the caller's stream)
+        self.runner = ShardedStreamRunner(self.family, params, devices, precision=precision)
         # one synchronization per card ends a tick
         self._cards = list(dict.fromkeys(d for d in devices if d.type == "cuda"))
         # per shard, double-buffered state: a tick steps from its state
         # into its spare, merges, and swaps the two
         self._shards = [
-            _Shard(runner, context, stream, k * per, (k + 1) * per, self._host_batch[k],
-                   self._host_masks[k])
-            for k, (runner, context, stream) in enumerate(parts)
+            _Shard(runner, functools.partial(self.runner.on_shard, k), k * per, (k + 1) * per,
+                   self._host_batch[k], self._host_masks[k])
+            for k, runner in enumerate(self.runner.runners)
         ]
-        # a first tick waits for each shard before it launches the next: the
-        # kernels derive their packed weights on the first shard's stream,
-        # and a second shard of the same device reads them
-        self._warm = len(self._shards) == 1
         # the 8 kHz families time their chunks at 8 kHz (the JAX server's
         # config assumes 16 kHz for every family)
         self.sample_rate = self.runner.module.SAMPLE_RATE
@@ -304,18 +288,11 @@ class VadServer:
     def _per_shard(self, fn) -> None:
         """fn(shard) on each shard, in its context, one after another; then
         the caller's streams join the shards' and one synchronization per
-        device ends the tick. The first tick of a sharded server waits for
-        each shard before the next (see __init__)."""
+        card ends the tick."""
         for sh in self._shards:
             with sh.on():
                 fn(sh)
-            if not self._warm and sh.stream is not None:
-                sh.stream.synchronize()
-        self._warm = True
-        self._end_tick()
-
-    def _end_tick(self) -> None:
-        self._join()
+        self.runner.join()
         for dev in self._cards:
             torch.cuda.current_stream(dev).synchronize()
 
