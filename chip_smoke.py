@@ -141,6 +141,26 @@ Phases, each of which raises on failure (exit code 1):
      unsharded, _tick at 2048 slots sharded and unsharded, and the v3.1
      StreamRunner.step (its device guard and zone, no profile) against
      forward_fused alone;
+  3e. the tools (phase_tools), their launches counted in that window alone
+     (bf16_dot, bf16_dot_wgmma and concat_dot each > 0), under 120 s:
+     tools/gpu_check.run_checks on the card, "ok" required (tpu_check's
+     checks under its names and bounds, forward_fused, encode_fused_audio
+     and stft_magnitude at v4 and v5 beside them, and the two probes of
+     tools/tpu_check.py as tensor-core kernels, kernels/probes.py: exact
+     6.0 and within 1e-3 of fp32 at the probe's inputs, within 1e-5 of
+     their plain versions at seeded shapes, both controls broken);
+     tools/torch_accuracy_eval at every tier on v3.1 (16 utterances;
+     balanced and fast score as faithful, turbo's row logged); the
+     degradation matrix at faithful, card against CPU, identical rows; a
+     pack of the bundled v3.1 archive (export/pack.py) loaded on the card,
+     its step the bundled params' bits; export/torch_export.py on a state
+     dict built from the bundled archive, the archive's bytes;
+     tools/torch_serve_bench.py (64 clients, 10 s at rtf 4, faults and
+     checkpoints; every client's segments, RSS growth after the first tick
+     at full occupancy within 64 MB); 10 minutes of audio through
+     tools/torch_soak.py; then the probes timed at the probe's shapes and
+     at the v4 gate product's (2048 x [64 | 64] x 256), kernel, plain
+     version and library call by their device time (torch.profiler);
   4. timings with CUDA events: each kernel against its plain version
      (stft_magnitude at every family geometry at B=2048 and at the v4 CLI
      window, each with its own bound; beside the two spectrum kernels,
@@ -177,8 +197,10 @@ bound from this run's shapes, the library call's time where there is one
 (cuFFT beside the spectrum kernels), and `cublas_product_only_ms` beside
 them (the product alone, no library time);
 launches 0 for a kernel that no main path runs any more: dot_magnitude and
-forward_fused2d stay public functions, checked and timed here),
-then the card's name and power limit, then as its last line
+forward_fused2d stay public functions, checked and timed here; the three
+probe kernels at the v4 gate product's shape, by device time, their
+launches those of the tools phase, replacing tools/tpu_check.py:54 and
+:77), then the card's name and power limit, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX. Needs one card; exits 1 without one.
 """
@@ -1166,6 +1188,7 @@ def wrappers() -> dict:
     """name -> the wrapper that counts that kernel's launches."""
     from vadc_tpu_torch.kernels.lstm import lstm_fused
     from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused
+    from vadc_tpu_torch.kernels.probes import bf16_dot, bf16_dot_wgmma, concat_dot
     from vadc_tpu_torch.kernels.silero_v31_fused import encode_fused_audio, forward_fused
     from vadc_tpu_torch.kernels.silero_v31_fused2d import encode_fused, forward_fused2d
     from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
@@ -1175,7 +1198,8 @@ def wrappers() -> dict:
             "encode_fused": encode_fused, "forward_fused": forward_fused,
             "encode_fused_audio": encode_fused_audio,
             "stft_magnitude": stft_magnitude, "lstm_fused": lstm_fused,
-            "lstm_decoder_fused": lstm_decoder_fused}
+            "lstm_decoder_fused": lstm_decoder_fused, "bf16_dot": bf16_dot,
+            "bf16_dot_wgmma": bf16_dot_wgmma, "concat_dot": concat_dot}
 
 
 def zero_launches() -> None:
@@ -3639,6 +3663,201 @@ def phase_timing_tiers_v45(models: dict, device) -> dict:
     return out
 
 
+# ---- the tools (phase_tools): the regression tier, its two probes, the
+# accuracy evaluation, the export modules, the serving bench and the soak
+
+#: the probes' kernels: name -> the Pallas call each replaces
+PROBE_KERNELS = {"bf16_dot": "tools/tpu_check.py:54", "bf16_dot_wgmma": "tools/tpu_check.py:54",
+                 "concat_dot": "tools/tpu_check.py:77"}
+#: the phase's serving bench (clients, seconds, rtf) and soak (minutes of audio)
+TOOLS_SERVE = (64, 10.0, 4.0)
+TOOLS_SOAK_MINUTES = 10.0
+TOOLS_UTTERANCES = 16  # the accuracy evaluation's utterances, v3.1
+TOOLS_DEGRADATION_UTTERANCES = 4  # the degradation matrix's (the CPU's rows cost most)
+TOOLS_PHASE_LIMIT_S = 120.0
+
+
+def v31_state_dict_from_archive(archive: dict) -> dict:
+    """A plain Silero v3.1 state_dict (`encoder.sequential.{i}` names) that
+    export/torch_export.py's v31_archive_from_state_dict maps back onto
+    `archive`: the inverse of its mapping. The fused LSTM weight is split
+    into its ih and hh halves; the fused bias becomes bias_ih with a bias_hh
+    of -0.0, whose sum gives every value back bit for bit."""
+    from vadc_tpu_torch.export import torch_export as te
+
+    sd = {"feature_extractor.forward_basis_buffer": archive["forward_basis_buffer"]}
+    for i, (base, has_proj) in enumerate(zip(te._V3_STAGE_BASES, te._V3_HAS_PROJ)):
+        prefix = f"transformer_l{i + 1}."
+        cb = "first_layer." if i == 0 else f"encoder.sequential.{base}."
+        for key, sub in te._CONVBLOCK_SUBKEYS.items():
+            if has_proj or not key.startswith("proj"):
+                sd[cb + sub] = archive[prefix + key]
+        tl = base if i == 0 else base + 1
+        for key, sub in te._TRANSFORMER_SUBKEYS.items():
+            sd[f"encoder.sequential.{tl}.{sub}"] = archive[prefix + key]
+        sd[f"encoder.sequential.{tl + 1}.weight"] = archive[prefix + "conv_weights"]
+        sd[f"encoder.sequential.{tl + 1}.bias"] = archive[prefix + "conv_biases"]
+        for key, sub in te._BN_SUBKEYS.items():
+            sd[f"encoder.sequential.{tl + 2}.{sub}"] = archive[prefix + key]
+    half = archive["weights"].shape[-1] // 2
+    for layer in range(archive["weights"].shape[0]):
+        sd[f"lstm.weight_ih_l{layer}"] = archive["weights"][layer][:, :half]
+        sd[f"lstm.weight_hh_l{layer}"] = archive["weights"][layer][:, half:]
+        sd[f"lstm.bias_ih_l{layer}"] = archive["biases"][layer]
+        sd[f"lstm.bias_hh_l{layer}"] = np.full_like(archive["biases"][layer], -0.0)
+    sd["decoder.1.weight"] = archive["decoder_weights"]
+    sd["decoder.1.bias"] = archive["decoder_biases"]
+    return sd
+
+
+def tools_accuracy(device) -> None:
+    """torch_accuracy_eval's evaluate at every tier on v3.1: balanced and
+    fast score as faithful; turbo's row is logged."""
+    from tools import torch_accuracy_eval as acc
+
+    keys = ("frame_f1", "segment_precision", "segment_recall")
+    rows = {tier: acc.evaluate(n_utterances=TOOLS_UTTERANCES, precision=tier, device=device)
+            for tier in ("faithful",) + TIERS}
+    for tier, row in rows.items():
+        log(f"accuracy {tier} ({TOOLS_UTTERANCES} utterances, {row['audio_seconds']} s): "
+            + ", ".join(f"{k} {row[k]}" for k in keys)
+            + ("" if tier != "turbo" else " (logged, not held)"))
+    for tier in ("balanced", "fast"):
+        require(all(rows[tier][k] == rows["faithful"][k] for k in keys),
+                f"accuracy: {tier} scores {[rows[tier][k] for k in keys]}, faithful "
+                f"{[rows['faithful'][k] for k in keys]}")
+
+
+def tools_degradation(device) -> None:
+    """The degradation matrix at faithful on the card against the CPU:
+    identical rows."""
+    from tools import torch_accuracy_eval as acc
+
+    card = acc.degradation_matrix(n_utterances=TOOLS_DEGRADATION_UTTERANCES, device=device)
+    cpu = acc.degradation_matrix(n_utterances=TOOLS_DEGRADATION_UTTERANCES, device="cpu")
+    for row in card["rows"]:
+        log(f"degradation {row['degradation']}: frame_f1 {row['frame_f1']}, segments "
+            f"{row['segments_matched']}/{row['segments_truth']} (detected "
+            f"{row['segments_detected']})")
+    require(card["rows"] == cpu["rows"], "degradation matrix: the card's rows differ from the CPU's")
+    log(f"degradation matrix: {len(card['rows'])} rows, card identical to CPU")
+
+
+def tools_pack_and_export(device, root: Path) -> None:
+    """A pack of the bundled v3.1 archive, imported and loaded on the card:
+    its params the bundled ones and its step their bits; then torch_export
+    of a state dict built from the archive: the archive's bytes."""
+    import importlib.util
+
+    import torch
+
+    from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.export.pack import pack
+    from vadc_tpu_torch.export.torch_export import v31_archive_from_state_dict
+    from vadc_tpu_torch.io.testtensor import load_testtensor, save_testtensor
+    from vadc_tpu_torch.models.weights import load_params
+
+    pack(DEFAULT_WEIGHTS, root / "embedded_v31.py")
+    spec = importlib.util.spec_from_file_location("embedded_v31", root / "embedded_v31.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    family, packed = module.load(device=device)
+    want_family, bundled = load_params(DEFAULT_WEIGHTS, device=device)
+    require(family == want_family == "v3", f"pack: family {family}")
+    require(packed["lstm_w"].device == device, f"pack: params on {packed['lstm_w'].device}")
+    chunks = torch.from_numpy(speech_chunks(B_MAIN, CHUNK, seed=SEED + 1200)).to(device)
+    got = []
+    for p in (packed, bundled):
+        runner = StreamRunner("v3", p, device=device)
+        state = runner.init_state(B_MAIN)
+        probs, state = runner.step(chunks, state)
+        got.append((probs, state.h, state.c))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(*got)),
+            "pack: the packed params' step differs from the bundled params'")
+    log(f"pack: {DEFAULT_WEIGHTS.name} as a module of {(root / 'embedded_v31.py').stat().st_size} "
+        f"bytes, loaded on {device}: the v3.1 step at B={B_MAIN} bit for bit the bundled params'")
+    sd = v31_state_dict_from_archive(load_testtensor(DEFAULT_WEIGHTS))
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    save_testtensor(root / "exported.testtensor", v31_archive_from_state_dict(sd))
+    same = (root / "exported.testtensor").read_bytes() == DEFAULT_WEIGHTS.read_bytes()
+    require(same, "torch_export: the exported archive's bytes differ from the bundled archive's")
+    log(f"torch_export: a state dict of {len(sd)} tensors from the bundled archive exports "
+        "its bytes exactly")
+
+
+def tools_serving(device) -> dict:
+    from tools.torch_serve_bench import run_serving_bench
+
+    clients, seconds, rtf = TOOLS_SERVE
+    r = run_serving_bench(n_clients=clients, seconds=seconds, rtf=rtf, faults=True,
+                          checkpoint=True, device=device)
+    log(f"serve bench ({clients} clients, {seconds} s, rtf {rtf}, {r['precision']}, faults and "
+        f"checkpoints on): tick p50 {r['tick_p50_ms']} ms, p99 {r['tick_p99_ms']} ms over "
+        f"{r['ticks_measured']} ticks (tick_count {r['tick_count']}, catch-up "
+        f"{r['catchup_ticks']}), {r['aggregate_realtime_x']} x realtime in all, RSS warm-up "
+        f"{r['rss_warmup_mb']} MB, growth after {r['rss_postwarm_growth_mb']} MB; "
+        f"delivery exact {r['delivery_exact']}/{clients}, checkpoint saves {r['ckpt_saves']} "
+        f"(p50 {r['ckpt_save_p50_ms']} ms)")
+    log(f"serve bench result: {json.dumps(r)}")
+    require(r["delivery_exact"] == clients and r["client_errors"] == 0,
+            f"serve bench: {r['delivery_exact']}/{clients} clients got every segment, "
+            f"{r['client_errors']} errors")
+    require(r["rss_postwarm_ok"], f"serve bench: RSS grew {r['rss_postwarm_growth_mb']} MB")
+    require(r["fault_slowreader_delivery_exact"] and r["post_fault_delivery_exact"]
+            and r["fault_malformed_diagnosed"] == r["fault_malformed"],
+            "serve bench: a fault client broke delivery")
+    return r
+
+
+def tools_soak(device) -> dict:
+    from tools.torch_soak import soak
+
+    r = soak(minutes=TOOLS_SOAK_MINUTES, device=device)
+    log(f"soak: {r['audio_seconds'] / 60:.1f} min of audio ({r['family']}, {r['precision']}) in "
+        f"{r['wall_seconds']:.2f} s, {r['realtime_x']:.1f} x realtime, {r['segments']} segments, "
+        f"RSS {r['rss_warm_mb']:.0f} -> {r['rss_end_mb']:.0f} MB")
+    require(r["rss_growth_mb"] <= 64.0, f"soak: RSS grew {r['rss_growth_mb']:.1f} MB")
+    return r
+
+
+def phase_tools(device, totals: dict) -> dict:
+    """The regression tier and the tools on the card, their launches counted
+    in this window alone (each probe > 0): tools/gpu_check.run_checks (ok
+    required; the probes exact at their own inputs, within their limits at
+    seeded shapes, both controls broken), the accuracy evaluation at every
+    tier, the degradation matrix card against CPU, a pack loaded on the
+    card, torch_export's bytes, the serving bench and the soak; then the
+    probes timed (outside the counted window). Returns the probes' rows:
+    name -> (max_abs_err, timings)."""
+    from tools import gpu_check
+
+    t0 = time.perf_counter()
+    zero_launches()
+    summary = gpu_check.run_checks(device)
+    require(summary["ok"], f"gpu_check: failures {summary['failures']}")
+    log(f"gpu_check: {json.dumps(summary)}")
+    tools_accuracy(device)
+    tools_degradation(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        tools_pack_and_export(device, Path(tmp))
+    tools_serving(device)
+    tools_soak(device)
+    counts = read_launches("tools", totals, tuple(PROBE_KERNELS))
+    log(f"elapsed in the tools phase before the probes' timings: {time.perf_counter() - t0:.1f} s")
+    timings = gpu_check.probe_timings(device)
+    seconds = time.perf_counter() - t0
+    log(f"the tools phase took {seconds:.1f} s (limit {TOOLS_PHASE_LIMIT_S:.0f} s)")
+    require(seconds < TOOLS_PHASE_LIMIT_S, f"the tools phase took {seconds:.1f} s")
+    res = summary["results"]
+    errs = {"bf16_dot": res["probe_bf16_dot_seeded"],
+            "bf16_dot_wgmma": res["probe_bf16_dot_wgmma_seeded"],
+            "concat_dot": res["probe_concat_dot_vs_bf16_3x_seeded"]}
+    return {name: (counts[name], errs[name], timings[name]) for name in PROBE_KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -3692,6 +3911,8 @@ def main() -> int:
     elapsed("the API and the cutter")
     phase_multi_device(params, models, device, server_lines, v5_lines, launches)
     elapsed("the multi-device phase")
+    probe_rows = phase_tools(device, launches)
+    elapsed("the tools phase")
     log(f"launches on the main paths, all phases: {launches}; at the bf16 tiers: {tier_launches}")
     elapsed("the main paths")
     timing = phase_timing(params, device)
@@ -3833,6 +4054,14 @@ def main() -> int:
                                     tier),
                       f"v4 B={lstm_shape[0]} x T={lstm_shape[1]}",
                       {"tier": tier, "variant": variant_of(*lstm_shape[:2])}))
+    # the two probes of tools/tpu_check.py, at the v4 gate product's shape;
+    # every shape they were timed at under "at"
+    for name, (n, err, at) in probe_rows.items():
+        gate = next(label for label in at if label.startswith("gate"))
+        g = at[gate]
+        table.append((name, "vadc_tpu_torch/kernels/csrc/probes.cu", PROBE_KERNELS[name], n, err,
+                      g["ms"], g["plain_ms"], g["library_ms"], (g["bound_ms"], g["bound_by"]),
+                      gate, {"at": at, "ms_is": "device time (torch.profiler)"}))
     kernels = []
     for name, src, replaces, n, err, ms, plain_ms, library_ms, (bound, by), shape, extra in table:
         if name.split("[")[0] in OFF_PATH_KERNELS:

@@ -19,12 +19,14 @@ from vadc_tpu.cli import filter_script as j_filter
 from vadc_tpu.cli import segmenter as j_segmenter
 from vadc_tpu.cli import stats as j_stats
 from vadc_tpu.export import onnx_build
+from vadc_tpu.export import torch_export as j_torch_export
 from vadc_tpu.export import onnx_extract as j_extract
 from vadc_tpu.export import silero_v3_from_onnx as j_v3
 from vadc_tpu.engine import onnx_backend as j_backend
 from vadc_tpu.export import onnx_exec as j_exec
 from vadc_tpu.export import silero_v4_from_onnx as j_v4
 from vadc_tpu.export import silero_v5_from_onnx as j_v5
+from vadc_tpu.io import degrade as j_degrade
 from vadc_tpu.io import ffmpeg as j_ffmpeg
 from vadc_tpu.io import pcm as j_pcm
 from vadc_tpu.io import resample as j_resample
@@ -36,12 +38,15 @@ from vadc_tpu_torch import native as t_native
 from vadc_tpu_torch.cli import filter_script as t_filter
 from vadc_tpu_torch.cli import segmenter as t_segmenter
 from vadc_tpu_torch.cli import stats as t_stats
+from vadc_tpu_torch.export import onnx_build as t_onnx_build
 from vadc_tpu_torch.export import onnx_extract as t_extract
+from vadc_tpu_torch.export import torch_export as t_torch_export
 from vadc_tpu_torch.export import silero_v3_from_onnx as t_v3
 from vadc_tpu_torch.engine import onnx_backend as t_backend
 from vadc_tpu_torch.export import onnx_exec as t_exec
 from vadc_tpu_torch.export import silero_v4_from_onnx as t_v4
 from vadc_tpu_torch.export import silero_v5_from_onnx as t_v5
+from vadc_tpu_torch.io import degrade as t_degrade
 from vadc_tpu_torch.io import ffmpeg as t_ffmpeg
 from vadc_tpu_torch.io import pcm as t_pcm
 from vadc_tpu_torch.io import resample as t_resample
@@ -57,7 +62,9 @@ PAIRS = {
     "export.silero_v3_from_onnx": (j_v3, t_v3), "export.silero_v4_from_onnx": (j_v4, t_v4),
     "export.silero_v5_from_onnx": (j_v5, t_v5), "export.onnx_exec": (j_exec, t_exec),
     "engine.onnx_backend": (j_backend, t_backend), "io.synthaudio": (j_synth, t_synth),
-    "cli.filter_script": (j_filter, t_filter),
+    "cli.filter_script": (j_filter, t_filter), "io.degrade": (j_degrade, t_degrade),
+    "export.onnx_build": (onnx_build, t_onnx_build),
+    "export.torch_export": (j_torch_export, t_torch_export),
 }
 
 
@@ -88,6 +95,9 @@ def test_copies_import_the_ports_siblings():
     assert t_v5.extract_initializers is t_extract.extract_initializers
     assert t_exec.parse_model is t_extract.parse_model
     assert t_backend.OnnxExecutor is t_exec.OnnxExecutor
+    assert t_degrade._ima_expand is t_wav._ima_expand
+    assert t_degrade._ULAW_F32 is t_wav._ULAW_F32 and t_degrade._ALAW_F32 is t_wav._ALAW_F32
+    assert t_torch_export.save_testtensor is t_tt.save_testtensor
 
 
 def _pcm(n: int, seed: int) -> np.ndarray:
@@ -449,3 +459,65 @@ def test_filter_script(seed):
         outs.append(out.getvalue())
     assert outs[0] == outs[1] and outs[1].count("between(t,") == 7
     assert t_filter.build_filterscript([]) == j_filter.build_filterscript([])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_degradations(seed):
+    """Every transform of io/degrade.py gives the original's samples on
+    seeded speech (the codecs through the port's own G.711 and IMA tables)."""
+    audio, truth = j_synth.utterance_track(2, seed=seed)
+    cases = {
+        "synthetic_rir": lambda m: m.synthetic_rir(16000, 0.6, seed=seed),
+        "reverb": lambda m: m.reverb(audio, 16000, 0.4, seed=seed),
+        "bandlimit": lambda m: m.bandlimit(audio, 16000),
+        "bandlimit_wide": lambda m: m.bandlimit(audio, 16000, 100.0, 7000.0),
+        "clip": lambda m: m.clip(audio, 0.25),
+        "g711_mu": lambda m: m.g711_roundtrip(audio, law="mu"),
+        "g711_a": lambda m: m.g711_roundtrip(audio, law="a"),
+        # the IMA encoder is a sample loop in Python: 1.5 s of the track
+        "adpcm": lambda m: m.adpcm_roundtrip(audio[:24000]),
+        "babble": lambda m: m.mix_background(audio, truth, m.babble(3.0, seed=seed + 7), 10.0,
+                                             16000),
+        "music": lambda m: m.mix_background(audio, truth, m.music(3.0, seed=seed + 8), 10.0,
+                                            16000),
+    }
+    for name, case in cases.items():
+        got, want = case(t_degrade), case(j_degrade)
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+
+
+def test_onnx_build_writes_the_originals_bytes(tmp_path):
+    a16, a8 = random_v5_archive(3), random_v5_8k_archive(4)
+    onnx_build.build_silero_v5_onnx(tmp_path / "j.onnx", a16, a8)
+    t_onnx_build.build_silero_v5_onnx(tmp_path / "t.onnx", a16, a8)
+    assert (tmp_path / "t.onnx").read_bytes() == (tmp_path / "j.onnx").read_bytes()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_torch_export_maps_state_dicts_as_the_original(seed):
+    """The v5 mapping at both rates (a synthetic upstream state dict, keys
+    with and without the `_l0` suffix) and the fused LSTM."""
+    rng = np.random.default_rng(seed)
+    r = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+    sd = {}
+    for prefix, basis in (("_model.", 258), ("_model_8k.", 130)):
+        sd[prefix + "stft.forward_basis_buffer"] = r(basis, 1, basis - 2)
+        for i, s in enumerate([(128, basis // 2, 3), (64, 128, 3), (64, 64, 3), (128, 64, 3)]):
+            sd[f"{prefix}encoder.{i}.reparam_conv.weight"] = r(*s)
+            sd[f"{prefix}encoder.{i}.reparam_conv.bias"] = r(s[0])
+        suffix = "_l0" if seed == 0 else ""
+        for part, shape in (("weight_ih", (512, 128)), ("weight_hh", (512, 128)),
+                            ("bias_ih", (512,)), ("bias_hh", (512,))):
+            sd[f"{prefix}decoder.rnn.{part}{suffix}"] = r(*shape)
+        sd[prefix + "decoder.decoder.2.weight"] = r(1, 128, 1)
+        sd[prefix + "decoder.decoder.2.bias"] = r(1)
+    for rate in (16000, 8000):
+        got = t_torch_export.v5_archive_from_state_dict(sd, rate)
+        want = j_torch_export.v5_archive_from_state_dict(sd, rate)
+        assert list(got) == list(want)
+        assert all(np.array_equal(got[k], want[k]) for k in want)
+    lstm = {f"lstm.{p}_l{i}": r(*s) for i in range(2)
+            for p, s in (("weight_ih", (256, 64)), ("weight_hh", (256, 64)), ("bias_ih", (256,)),
+                         ("bias_hh", (256,)))}
+    got, want = t_torch_export.fuse_lstm(lstm, "lstm.", 2), j_torch_export.fuse_lstm(lstm, "lstm.", 2)
+    assert all(np.array_equal(got[k], want[k]) for k in want)

@@ -25,7 +25,12 @@ of the same operands, and the two lstm_fused variants equal each other.
 A server checkpoint saved on the card restores on the CPU and the other
 way round with the state bit for bit (the next tick within the
 whole-model bounds), and the Python API on the card gives the CPU's
-probabilities within 1e-4 and its segments.
+probabilities within 1e-4 and its segments. The two probes of
+tools/tpu_check.py on tensor cores (kernels/probes.py): bf16_dot (mma.sync)
+and bf16_dot_wgmma give 6.0 exactly at the probe's inputs and agree with
+their plain version within 1e-5 (and with each other) at seeded shapes,
+concat_dot within 1e-3 of fp32 at the probe's inputs and 1e-5 of bf16_3x
+at seeded shapes.
 """
 
 from pathlib import Path
@@ -1041,3 +1046,71 @@ def test_profile_on_the_card_names_the_kernel(params, device, tmp_path):
     (trace,) = list(tmp_path.glob("vadc_trace_*.json"))
     names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
     assert "forward_fused" in names
+
+
+def _probe_bf16(rows: int, k: int, n: int, seed: int, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(rows, k)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32))
+    return x.to(device, torch.bfloat16), w.to(device, torch.bfloat16)
+
+
+def test_probe_kernels_at_the_probes_inputs(device):
+    from vadc_tpu_torch.kernels.probes import (
+        bf16_dot, bf16_dot_wgmma, concat_dot, concat_dot_reference,
+    )
+
+    x = torch.full((2, 8, 48), 0.5, dtype=torch.bfloat16, device=device)
+    w = torch.full((48, 16), 0.25, dtype=torch.bfloat16, device=device)
+    for entry in (bf16_dot, bf16_dot_wgmma):
+        before = entry.launches
+        out = entry(x, w)
+        assert entry.launches == before + 1
+        assert out.shape == (2, 8, 16) and out.dtype == torch.float32
+        assert bool((out == 6.0).all())
+    rng = np.random.default_rng(1)
+    xc, hc, wc = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+                  for s in ((8, 4, 64), (8, 64), (128, 32)))
+    got = concat_dot(xc, 1, hc, wc)
+    assert _max_abs(got, concat_dot_reference(xc, 1, hc, wc)) <= 1e-3
+
+
+@pytest.mark.parametrize("rows", [16, 37, 2048])
+@pytest.mark.parametrize("k,n", [(40, 24), (48, 16), (128, 256)])
+def test_probe_kernels_at_seeded_shapes(device, rows, k, n):
+    from vadc_tpu_torch.kernels.probes import (
+        bf16_dot, bf16_dot_reference, bf16_dot_wgmma, concat_dot,
+    )
+    from vadc_tpu_torch.nn.precision import matmul_at
+
+    x, w = _probe_bf16(rows, k, n, rows + k, device)
+    want = bf16_dot_reference(x, w)
+    a, b = bf16_dot(x, w), bf16_dot_wgmma(x, w)
+    assert _max_abs(a, want) <= 1e-5 and _max_abs(b, want) <= 1e-5
+    assert _max_abs(a, b) <= 1e-5
+    rng = np.random.default_rng(rows * k)
+    scale = np.float32(1 / np.sqrt(k))
+    xc = torch.from_numpy(rng.normal(size=(rows, 3, k - k // 2)).astype(np.float32) * scale)
+    hc = torch.from_numpy(rng.normal(size=(rows, k // 2)).astype(np.float32) * scale)
+    wc = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32) * scale)
+    xc, hc, wc = xc.to(device), hc.to(device), wc.to(device)
+    got = concat_dot(xc, 2, hc, wc)
+    assert _max_abs(got, matmul_at(torch.cat([xc[:, 2], hc], -1), wc, "bf16_3x")) <= 1e-5
+
+
+def test_probe_kernels_refuse_what_they_do_not_take(device):
+    from vadc_tpu_torch.kernels.probes import bf16_dot, bf16_dot_wgmma, concat_dot
+
+    x, w = _probe_bf16(16, 48, 16, 0, device)
+    for entry in (bf16_dot, bf16_dot_wgmma):
+        with pytest.raises(TypeError):
+            entry(x.float(), w)
+        with pytest.raises(ValueError, match="contraction"):
+            entry(*_probe_bf16(16, 264, 16, 0, device))
+        with pytest.raises(ValueError, match="contiguous"):
+            entry(x, w.t().contiguous().t())
+    xc = torch.zeros(4, 3, 64, device=device)
+    with pytest.raises(IndexError):
+        concat_dot(xc, 3, torch.zeros(4, 64, device=device), torch.zeros(128, 8, device=device))
+    with pytest.raises(ValueError):
+        concat_dot(xc, 0, torch.zeros(4, 64, device=device), torch.zeros(127, 8, device=device))

@@ -3,8 +3,8 @@ imported (the machine with the card has no JAX, and the port imports nothing
 of vadc_tpu, not even its numpy-only modules: it keeps its own copies): in a
 fresh interpreter where `import jax` and `import vadc_tpu` both fail, every
 module of the package imports, the CPU path runs, the CLI and the batch CLI
-answer and the server serves a client. tools/torch_multidevice_dryrun.py
-imports neither either.
+answer and the server serves a client. The port's tools (TOOLS) import
+neither either.
 chip_smoke.py, chip_profile.py and chip_ab.py, which drive the port on the
 card, import neither, and without a card they exit non-zero with no result
 line."""
@@ -27,6 +27,10 @@ PACKAGE = ROOT / "vadc_tpu_torch"
 
 # `import jax`, `import vadc_tpu` and any `from vadc_tpu.x import y` raise
 # ImportError in the interpreter this prefixes
+#: the port's tools: none imports jax or vadc_tpu
+TOOLS = ("torch_multidevice_dryrun.py", "gpu_check.py", "torch_fidelity_report.py",
+         "torch_accuracy_eval.py", "torch_serve_bench.py", "torch_soak.py")
+
 _BLOCK_JAX = "import sys; sys.modules['jax'] = None; sys.modules['vadc_tpu'] = None\n"
 
 _DRIVE = _BLOCK_JAX + """
@@ -41,11 +45,16 @@ assert {"vadc_tpu_torch.nn.precision", "vadc_tpu_torch.engine.onnx_backend",
         "vadc_tpu_torch.kernels.tier_check", "vadc_tpu_torch.engine.checkpoint",
         "vadc_tpu_torch.api", "vadc_tpu_torch.cli.cut",
         "vadc_tpu_torch.cli.filter_script", "vadc_tpu_torch.engine.shard",
-        "vadc_tpu_torch.engine.distributed", "vadc_tpu_torch.tracing"} <= set(modules), modules
+        "vadc_tpu_torch.engine.distributed", "vadc_tpu_torch.tracing",
+        "vadc_tpu_torch.kernels.probes", "vadc_tpu_torch.io.degrade",
+        "vadc_tpu_torch.export.pack", "vadc_tpu_torch.export.onnx_build",
+        "vadc_tpu_torch.export.torch_export"} <= set(modules), modules
 for name in modules:
     importlib.import_module(name)
 for script in ("chip_smoke.py", "chip_profile.py", "chip_ab.py",
-               "tools/torch_multidevice_dryrun.py"):
+               "tools/torch_multidevice_dryrun.py", "tools/gpu_check.py",
+               "tools/torch_fidelity_report.py", "tools/torch_accuracy_eval.py",
+               "tools/torch_serve_bench.py", "tools/torch_soak.py"):
     spec = importlib.util.spec_from_file_location(script.split("/")[-1][:-3], script)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for blocked in ("jax", "vadc_tpu"):
@@ -113,8 +122,8 @@ def _python(code: str, cwd: Path = ROOT) -> subprocess.CompletedProcess:
 
 def test_package_imports_and_runs_without_jax():
     """Also without vadc_tpu: every module of the port (found by walking the
-    package), chip_smoke.py, chip_profile.py, chip_ab.py and
-    tools/torch_multidevice_dryrun.py import; the runners (the sharded one
+    package), chip_smoke.py, chip_profile.py, chip_ab.py and the port's
+    tools import; the runners (the sharded one
     too), the CLI, the batch CLI and the Python API run on the CPU."""
     proc = _python(_DRIVE)
     assert proc.returncode == 0, proc.stderr
@@ -123,13 +132,14 @@ def test_package_imports_and_runs_without_jax():
 
 
 def test_no_source_of_the_port_names_jax():
-    """No file of the port, nor the card's three scripts and the multi-device
-    dry run, imports jax or anything of vadc_tpu, at module level or inside
-    a function."""
+    """No file of the port, nor the card's three scripts and the port's tools
+    (the multi-device dry run, the regression tier, the fidelity report, the
+    accuracy evaluation, the serving bench and the soak), imports jax or
+    anything of vadc_tpu, at module level or inside a function."""
     pattern = re.compile(r"^\s*(import jax|from jax|import vadc_tpu|from vadc_tpu)\b", re.M)
     sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
-                                               ROOT / "chip_ab.py",
-                                               ROOT / "tools" / "torch_multidevice_dryrun.py"]
+                                               ROOT / "chip_ab.py"] + [
+        ROOT / "tools" / name for name in TOOLS]
     assert len(sources) > 30
     for path in sources:
         assert not pattern.search(path.read_text()), path

@@ -20,10 +20,11 @@ sum a 2-row batch in another order than an 8-row one, and the recurrent
 state carries the difference: 1.1e-5 on c after 7 steps). Prints `MULTIDEVICE DRYRUN OK` when every process
 passed; exits 1 otherwise.
 
-    python tools/torch_multidevice_dryrun.py --device cpu    # ["cpu", "cpu"] a process
-    python tools/torch_multidevice_dryrun.py --device cuda   # ["cuda:0", "cuda:0"] a process
-                                                             # on one card; distinct cards
-                                                             # where there are four
+    python tools/torch_multidevice_dryrun.py                # --device cuda (the default):
+                                                            # ["cuda:0", "cuda:0"] a process
+                                                            # on one card; distinct cards
+                                                            # where there are four
+    python tools/torch_multidevice_dryrun.py --device cpu   # ["cpu", "cpu"] a process
 """
 
 from __future__ import annotations
@@ -134,7 +135,7 @@ def free_port() -> int:
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    p.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--prefix", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)

@@ -74,6 +74,11 @@ _SIGNATURES = {
     # chunks, frames, tier, launched (out: kernels launched), stream
     "vadc_lstm_decoder_fused_resident": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I,
                                          _I, _I, _IP, _P],
+    # x, w, out, rows, k, n, stream (the two bf16 probe products)
+    "vadc_bf16_dot": [_P, _P, _P, _I, _I, _I, _P],
+    "vadc_bf16_dot_wgmma": [_P, _P, _P, _I, _I, _I, _P],
+    # x, seq, d, t, h, dh, w, out, rows, n, stream
+    "vadc_concat_dot": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()
