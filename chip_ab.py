@@ -38,9 +38,12 @@ speech are chip_smoke.py's, taken from beside this script):
     depend on the values);
   - in a tree with the bf16 tiers (`vadc_tpu_torch.nn.precision`), each of
     balanced, fast and turbo: `forward_fused` at B = 2048 and 1 x 1536,
-    `encode_fused_audio` at 4096 rows, `dot_magnitude` at 2048 x 1536,
-    `lstm_decoder_fused` at 64 x 64 x 7, the 64 x 64 and 2048 x 8 slabs and
-    the CLI's window at the tier.
+    `forward_fused2d` at 2048 x 25 frames, `encode_fused_audio` at 4096
+    rows, `dot_magnitude` at 2048 x 1536, the v3.1 `StreamRunner.step` at
+    B = 2048, `lstm_decoder_fused` at 64 x 64 x 7, the 64 x 64 and 2048 x 8
+    slabs, the CLI's window and the server's `_tick` at 2048 slots at the
+    tier, and `stft_magnitude` at the four family geometries (B = 2048) at
+    the products' mode the tier gives each family.
 
 Imports nothing of JAX. Exits 1 without a card.
 """
@@ -208,12 +211,17 @@ def main() -> int:
         x, hs, cs = rand(64, 64, 7, 64), rand(2, 64, 64, scale=0.3), rand(2, 64, 64)
         for tier in ("balanced", "fast", "turbo"):
             t_runner = StreamRunner("v3", params, device=device, precision=tier)
+            feats = silero_v31.features(params, audio, tier)
+            step_state = t_runner.init_state(2048)
             times = {
                 "forward_fused B=2048": ms(lambda: KA.forward_fused(params, audio, h, c, tier=tier)),
                 "forward_fused B=1": ms(lambda: KA.forward_fused(params, audio[:1], h1, c1, tier=tier)),
+                "forward_fused2d B=2048 x 25": ms(
+                    lambda: forward_fused2d(params, feats, h, c, tier=tier)),
                 "encode_fused_audio 4096 rows": ms(
                     lambda: KA.encode_fused_audio(params, big[:4096], tier), iters=20),
                 "dot_magnitude B=2048": ms(lambda: dot_magnitude(frames, wr, wi, tier)),
+                "step B=2048": ms(lambda: t_runner.step(audio, step_state), iters=20),
                 "lstm_decoder_fused 64 x 64 x 7": ms(
                     lambda: lstm_decoder_fused(x, hs, cs, params["lstm_w"], params["lstm_b"],
                                                params["dec_w"], params["dec_b"], tier=tier),
@@ -225,6 +233,16 @@ def main() -> int:
                 slab = big[: streams * chunks].reshape(streams, chunks, CHUNK)
                 state = t_runner.init_state(streams)
                 times[f"scan {streams} x {chunks}"] = ms(lambda: t_runner.scan(slab, state), iters=10)
+            times["_tick 2048 slots"] = chip_smoke.time_ticks(
+                str(DEFAULT_WEIGHTS), device, f"v3.1 {tier}", tier)[0]
+            # stft_magnitude's instance of each products' mode the tier gives a family
+            for family, (module, p) in models.items():
+                mode = chip_smoke.stft_mode_of(family, tier)
+                samples, kw = chip_smoke.stft_geometry(family, module)
+                fam_audio = speech(2048, samples, SEED + 3)
+                fwr, fwi = split_basis_of(p)
+                times[f"stft_magnitude {family} B=2048 x {samples} ({mode})"] = ms(
+                    lambda: stft_magnitude(fam_audio, fwr, fwi, **kw, mode=mode))
             out += [f"{name} [{TIERS[tier]}]: {t:.4f}" for name, t in times.items()]
     print(f"{os.path.basename(os.getcwd())} ({chip_smoke.nvidia_smi()}), ms per call | "
           + "; ".join(out), flush=True)
@@ -235,7 +253,7 @@ def main() -> int:
     for line in _build.build_info.get("log", "").splitlines():
         if line.startswith("Compiling "):
             unit = line.split()[1]
-        elif unit.startswith(("stft_", "silero_v31_fused_audio")) and (
+        elif unit.startswith(("stft_", "silero_v31_fused")) and (
                 "registers" in line or "spill" in line or "entry function" in line):
             ptxas.append(f"{unit}: {line.strip()}")
     print(f"{os.path.basename(os.getcwd())} ptxas | " + " | ".join(ptxas), flush=True)

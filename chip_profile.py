@@ -3,6 +3,7 @@
 PyTorch/CUDA port on one card.
 
     python3 chip_profile.py
+    python3 chip_profile.py split    # the step kernel's phase split alone
 
 Runs 20 steps of `StreamRunner.step` over 2048 streams of 1536-sample
 chunks of synthetic speech (chip_smoke.speech_chunks, seed 300) with the
@@ -16,13 +17,14 @@ encode_fused_audio and one lstm_decoder_fused). Prints for each:
     call, and the idle share 1 - busy / wall;
   - the 30 device events that take the most time, per call;
   - host wall ms per call of the same loop without the profiler.
-Then the step kernel's time by phase (`phase_split`): a second library of
-the same source, built with -DVADC_PHASE_PROBE, stamps clock64() at every
-phase boundary in the first 512 blocks; printed per phase as the mean over
-those blocks, in microseconds (cycles scaled by each block's own span on the
-card's nanosecond timer) and as a share of the block's life, at B=2048 x
-1536 (all blocks resident together with their neighbours) and at B=4 (one
-block alone). The package's own library carries no stamp. Then
+Then the step kernel's time by phase (`phase_split`), for the instance of
+each precision tier: a second library of the same source, built with
+-DVADC_PHASE_PROBE, stamps clock64() at every phase boundary in the first
+512 blocks; printed per phase as the mean over those blocks, in
+microseconds (cycles scaled by each block's own span on the card's
+nanosecond timer) and as a share of the block's life, at B=2048 x 1536 (all
+blocks resident together with their neighbours) and at B=4 (one block
+alone). With the argument `split`, only that. The package's own library carries no stamp. Then
 stft_magnitude at the v4 step (B=2048), the v4 CLI window (96 chunks) and
 the v5_8k step the same way (device time against host time), and
 `spectrum_variants`: the standalone spectrum built with other template
@@ -45,6 +47,7 @@ BATCH = 2048
 CHUNK = 1536
 STEPS = 20
 SLAB_STREAMS, SLAB_CHUNKS = 64, 64  # one slab of the offline corpus path
+TIERS = ("faithful", "balanced", "fast", "turbo")  # the step kernel's instances
 
 
 def profile_calls(label: str, call, shape: str = f"B={BATCH} x {CHUNK}") -> bool:
@@ -147,7 +150,7 @@ def spectrum_variants(models, device) -> None:
         for i, (name, (edit, constants, *_)) in enumerate(builds.items()):
             d = Path(tmp) / str(i)
             d.mkdir()
-            for f in ("stft_tile.cuh", "tier.cuh", "stft_mag.cu", "errors.cu"):
+            for f in ("stft_tile.cuh", "mma.cuh", "tier.cuh", "stft_mag.cu", "errors.cu"):
                 shutil.copy(_build.CSRC / f, d / f)
             if edit is not None:
                 header = (d / "stft_tile.cuh").read_text()
@@ -229,9 +232,10 @@ def spectrum_constants(instance: tuple, rows_pass: int, taps: int, stages: int, 
         KS.launch_plan.cache_clear()
 
 
-def phase_split(params, audio, label: str) -> None:
-    """One launch of the stamped step kernel over `audio` [B, S] from a zero
-    state; prints the mean time of each phase over the stamped blocks."""
+def phase_split(params, audio, label: str, tier: str = "faithful") -> None:
+    """One launch of the stamped step kernel's instance of `tier` over
+    `audio` [B, S] from a zero state; prints the mean time of each phase
+    over the stamped blocks."""
     import ctypes
 
     import torch
@@ -239,6 +243,7 @@ def phase_split(params, audio, label: str) -> None:
     from vadc_tpu_torch.kernels import _build
     from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused, step_args
     from vadc_tpu_torch.models import silero_v31
+    from vadc_tpu_torch.nn.precision import tier_of
 
     lib = _build.probe_library()
     n_blocks, n_slots = ctypes.c_int(), ctypes.c_int()
@@ -249,7 +254,7 @@ def phase_split(params, audio, label: str) -> None:
     probs = torch.empty(batch, device=audio.device)
     hn, cn = torch.empty_like(h), torch.empty_like(c)
     for _ in range(3):  # the last launch's stamps are read
-        args = step_args(params, audio, h, c, probs, hn, cn)
+        args = step_args(params, audio, h, c, probs, hn, cn, tier=tier_of(tier))
         _build.check(lib.vadc_silero_v31_fused_audio(*args), "probe step")
     clocks = np.zeros((n_blocks, n_slots), np.int64)
     ids = np.zeros((n_blocks, n_slots), np.int32)
@@ -258,7 +263,7 @@ def phase_split(params, audio, label: str) -> None:
     status = lib.vadc_phase_probe_read(clocks.ctypes.data, ids.ctypes.data, counts.ctypes.data,
                                        ns.ctypes.data)
     _build.check(status, "probe read")
-    if not torch.equal(forward_fused(params, audio, h, c)[0], probs):
+    if not torch.equal(forward_fused(params, audio, h, c, tier=tier)[0], probs):
         raise AssertionError("the stamped kernel's probabilities differ from the package's")
     blocks = min(n_blocks, -(-batch // 4))  # NB = 4 streams a block
     n = int(counts[0])
@@ -269,7 +274,7 @@ def phase_split(params, audio, label: str) -> None:
     us = np.diff(clocks[:blocks, :n], axis=1) * (span_us / span_cycles)[:, None]
     mean_us = us.mean(axis=0)
     total = float(span_us.mean())
-    print(f"phase split of the step kernel, {label}: {blocks} blocks stamped, a block lives "
+    print(f"phase split of the step kernel [{tier}], {label}: {blocks} blocks stamped, a block lives "
           f"{total:.1f} us (min {span_us.min():.1f}, max {span_us.max():.1f}), "
           f"{span_cycles.mean() / total:.0f} cycles a us")
     rows, stage = [], 0  # (encoder stage or 0, phase name, us)
@@ -294,6 +299,53 @@ def phase_split(params, audio, label: str) -> None:
         print(f"  sum encoder stage {st}: {t:.2f} us, {100 * t / total:.1f} %")
 
 
+def print_ptxas(log: str) -> None:
+    """Registers, spills and stack of every kernel instance, from the nvcc
+    -Xptxas -v output `log` of a build of the package's library."""
+    unit = ""
+    for line in log.splitlines():
+        if line.startswith("Compiling "):
+            unit = line.split()[1]
+        elif "entry function" in line or "registers" in line or "spill" in line:
+            print(f"ptxas {unit}: {line.strip()}")
+
+
+def print_hmma() -> None:
+    """The tensor-core instructions of each kernel instance of the package's
+    library: `cuobjdump -sass` of it, the HMMA lines counted per function
+    (the tier instances of the spectrum and the v3.1 body issue them, the
+    faithful instances none)."""
+    import subprocess
+
+    from vadc_tpu_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    name, counts = "", {}
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            name = line.split(" : ", 1)[1]
+            counts[name] = 0
+        elif "HMMA" in line and name:
+            counts[name] += 1
+    try:
+        demangled = subprocess.run(["c++filt"], input="\n".join(counts), capture_output=True,
+                                   text=True).stdout.splitlines()
+    except OSError:  # no demangler on the machine: the mangled names
+        demangled = list(counts)
+    for (mangled, n), pretty in zip(counts.items(), demangled or list(counts)):
+        print(f"sass HMMA {n:5d}  {pretty[:150]}")
+
+
+def phase_splits(params, audio) -> None:
+    """phase_split of each tier's instance at B=2048 and for one block alone."""
+    for tier in TIERS:
+        phase_split(params, audio, f"B={BATCH} x {CHUNK}", tier)
+        phase_split(params, audio[:4], f"B=4 x {CHUNK} (one block alone)", tier)
+
+
 def main() -> int:
     import torch
 
@@ -310,6 +362,15 @@ def main() -> int:
     device = require_cuda()
     _, params = load_params(DEFAULT_WEIGHTS, device=device)
     audio = torch.from_numpy(chip_smoke.speech_chunks(BATCH, CHUNK, seed=300)).to(device)
+    if sys.argv[1:] == ["split"]:
+        from vadc_tpu_torch.kernels import _build
+
+        _build.library()
+        ptxas = _build.build_info.get("log", "")
+        phase_splits(params, audio)
+        print_ptxas(ptxas)
+        print_hmma()
+        return 0
     runner = StreamRunner("v3", params, device=device)
     state = runner.init_state(BATCH)
     for _ in range(10):
@@ -341,8 +402,7 @@ def main() -> int:
     if not profile_calls("StreamRunner.scan (one slab)", lambda: runner.scan(slab, slab_state),
                          shape=f"B={SLAB_STREAMS} x K={SLAB_CHUNKS} x {CHUNK}"):
         return 1
-    phase_split(params, audio, f"B={BATCH} x {CHUNK}")
-    phase_split(params, audio[:4], f"B=4 x {CHUNK} (one block alone)")
+    phase_splits(params, audio)
 
     # the standalone spectrum: device time against host time at the v4 step,
     # the v4 CLI window and the v5_8k step, then its alternatives

@@ -91,7 +91,10 @@ Phases, each of which raises on failure (exit code 1):
      which must fail those limits; the step kernel's spectrum bit for bit
      against dot_magnitude's instance and lstm_decoder_fused on either
      encoder entry's rows bit for bit against the fused kernel; the
-     instances' digests (TIER_DIGESTS); per tier, the loop of
+     instances' digests (TIER_DIGESTS); the tensor-core spectrum at its
+     tiles' edges (phase_spectrum_edges: B=37 x 1536 and x 512, the step
+     kernel's, dot_magnitude's and stft_magnitude's spectra bit for bit and
+     each held to tier_check; v5 8 kHz's 65 bins at each bf16 mode); per tier, the loop of
      StreamRunner.step against StreamRunner.scan 2048 x 8 bit for bit, and
      the tier against faithful on the speech tracks of seeds 0-11
      (StreamRunner.scan within tier_check's SPEECH_BOUND, the segments as
@@ -306,24 +309,26 @@ TIER_PATH_BATCH = 256
 # seed)): seed 0 is the material of the JAX package's recorded deviations
 SPEECH_SEEDS = range(12)
 # digests of the tier instances' outputs (tier_digests), recorded on an
-# NVIDIA H100 80GB HBM3 (700 W) when the instances were written: a later
+# NVIDIA H100 80GB HBM3 (700 W) when the instances were written and again
+# when the encoder's products and the bf16_3x spectrum moved to the tensor
+# cores (the lstm_fused and the bf16 stft_magnitude entries held): a later
 # change of their device code must keep them, as PARENT_DIGESTS holds the
 # faithful instances
 TIER_DIGESTS = {
-    "forward_fused2d[balanced]": "ad1c2c8d0071a6b2", "forward_fused[balanced]": "e5b0c283474b9913",
-    "forward_fused_ragged[balanced]": "f1fa738c4373f9a1",
-    "forward_fused2d[fast]": "33e28073d2fc07c7", "forward_fused[fast]": "8dc74bea4f5741ee",
-    "forward_fused_ragged[fast]": "481e3e197ca5b179",
-    "forward_fused2d[turbo]": "870e6ab5197b4818", "forward_fused[turbo]": "812807f7fc028f26",
+    "forward_fused2d[balanced]": "7c64c8d2f928a964", "forward_fused[balanced]": "cc4afb3f806ae5df",
+    "forward_fused_ragged[balanced]": "a9b6daeea3205ebd",
+    "forward_fused2d[fast]": "0306370a4fac86b9", "forward_fused[fast]": "a97d4110340ee7d1",
+    "forward_fused_ragged[fast]": "2e10553b52f978ff",
+    "forward_fused2d[turbo]": "172a5345453aa290", "forward_fused[turbo]": "bb956bfa433192e8",
     "forward_fused_ragged[turbo]": "8b57c57494b2d5a1",
     # the v4/v5 paths' instances (tier_v45_digests): stft_magnitude by its
     # products' mode, lstm_fused by tier (fast and turbo: one arithmetic)
-    "stft_magnitude_v4[bf16]": "278c65b74b78407f", "stft_magnitude_v4[bf16_3x]": "1097d4abea777fc8",
+    "stft_magnitude_v4[bf16]": "278c65b74b78407f", "stft_magnitude_v4[bf16_3x]": "33ccf8c8500137e0",
     "stft_magnitude_v4_8k[bf16]": "b777981eb0ae0d85",
-    "stft_magnitude_v4_8k[bf16_3x]": "d19e0854a3f764ee",
-    "stft_magnitude_v5[bf16]": "d7c20c9597a5a3bf", "stft_magnitude_v5[bf16_3x]": "46967924144a6388",
+    "stft_magnitude_v4_8k[bf16_3x]": "afd10d17df97b45f",
+    "stft_magnitude_v5[bf16]": "d7c20c9597a5a3bf", "stft_magnitude_v5[bf16_3x]": "706cb64b683c039f",
     "stft_magnitude_v5_8k[bf16]": "d7cc916725180655",
-    "stft_magnitude_v5_8k[bf16_3x]": "201fb53c0f73106b",
+    "stft_magnitude_v5_8k[bf16_3x]": "a7ff720c9f70caad",
     "lstm_fused_v4[balanced]": "d12e1f2665a553c8", "lstm_fused_v4_long[balanced]": "bf2ae650d9a3c565",
     "lstm_fused_v4[fast]": "69fd212d61d25e2b", "lstm_fused_v4_long[fast]": "a31dbab8be04f791",
     "lstm_fused_v4[turbo]": "69fd212d61d25e2b", "lstm_fused_v4_long[turbo]": "a31dbab8be04f791",
@@ -2943,6 +2948,63 @@ def phase_kernels_tiers(params, device) -> dict:
     return errs
 
 
+def phase_spectrum_edges(params, models: dict, device) -> None:
+    """The tensor-core spectrum at its tiles' edges, per tier: rows that are
+    no multiple of 16 (B=37), the shortest v3.1 chunks (512 samples, 9
+    frames) and v5 8 kHz's 65 bins (the Nyquist bin on a padded n8 tile).
+    At the v3.1 geometry the step kernel's spectrum, dot_magnitude's and
+    stft_magnitude's (pads 128/128, the tier's STFT operands) bit for bit,
+    each against its plain version by kernels/tier_check.py; v5 8 kHz's
+    stft_magnitude at each bf16 mode against its plain version."""
+    import torch
+
+    from vadc_tpu_torch.kernels import tier_check
+    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused
+    from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude, split_basis
+    from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude, stft_magnitude_reference
+    from vadc_tpu_torch.nn import functional as F
+    from vadc_tpu_torch.nn.precision import tier_of
+
+    wr, wi = split_basis(params["stft_basis"])
+    module, p8 = models["v5_8k"]
+    samples8, kw8 = stft_geometry("v5_8k", module)
+    audio8 = torch.from_numpy(speech_chunks(37, samples8, seed=SEED + 520)).to(device)
+    wr8, wi8 = split_basis_of(p8)
+    for tier in TIERS:
+        t = tier_of(tier)
+        line = []
+        for samples in (CHUNK, 512):
+            audio = torch.from_numpy(speech_chunks(37, samples, seed=SEED + 521)).to(device)
+            h = torch.zeros(2, 37, 64, device=device)
+            spect = torch.empty(37, samples // 64 + 1, 129, device=device)
+            forward_fused(params, audio, h, h.clone(), spectrum=spect, tier=t)
+            mag = dot_magnitude(F.frame(F.reflect_pad_last(audio, 128, 128), 256, 64), wr, wi, t)
+            kw = dict(pad_left=128, pad_right=128, hop=64)
+            got = stft_magnitude(audio, wr, wi, **kw, mode=t.stft)
+            want = stft_magnitude_reference(audio, wr, wi, **kw, mode=t.stft)
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            errs = {"stft_magnitude": tier_check.errors(got, want, tier, scale),
+                    "dot_magnitude": tier_check.errors(mag, want, tier, scale)}
+            broken = [m for k, e in errs.items() for m in tier_check.breaches(tier, k, 37, {"mag": e})]
+            same = torch.equal(spect, mag) and torch.equal(got, mag)
+            line.append(f"B=37 x {samples}: stft_magnitude {errs['stft_magnitude'][0]:.3e}, "
+                        f"dot_magnitude {errs['dot_magnitude'][0]:.3e}, the three bit for bit: {same}")
+            require(not broken, f"tier {tier} spectrum at B=37 x {samples}: " + "; ".join(broken))
+            require(same, f"tier {tier} spectrum at B=37 x {samples}: the step kernel's, "
+                    "dot_magnitude's and stft_magnitude's differ")
+        for mode in sorted({stft_mode_of("v5_8k", tier), t.stft}):
+            got = stft_magnitude(audio8, wr8, wi8, **kw8, mode=mode)
+            want = stft_magnitude_reference(audio8, wr8, wi8, **kw8, mode=mode)
+            torch.cuda.synchronize()
+            err = tier_check.errors(got, want, tier, float(want.abs().max()))
+            line.append(f"v5_8k B=37 x {samples8} ({mode}) {err[0]:.3e}")
+            broken = tier_check.breaches(tier, "stft_magnitude", 37, {"mag": err})
+            require(not broken, f"tier {tier} v5_8k spectrum ({mode}): " + "; ".join(broken))
+        log(f"tier {tier} spectrum at the tiles' edges (largest difference of the largest "
+            "magnitude): " + "; ".join(line))
+
+
 def speech_track(seed: int = 0) -> np.ndarray:
     """The whole chunks of the track of four synthetic utterances of `seed`
     (the JAX package's generator; seed 0 is the material of the JAX
@@ -3887,6 +3949,7 @@ def main() -> int:
     errs.update(phase_kernels_lstm_decoder(params, device))
     errs.update(phase_kernels_v45(models, device))
     tier_errs = phase_kernels_tiers(params, device)
+    phase_spectrum_edges(params, models, device)
     tier_errs_v45 = phase_kernels_tiers_v45(models, device)
     elapsed("the kernel checks")
     launches: dict = {}

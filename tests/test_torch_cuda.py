@@ -761,6 +761,61 @@ def test_stft_magnitude_tier_instances_match_plain(family_params, device, family
         assert torch.equal(got, KD.dot_magnitude(frames, wr, wi, DOTMAG_TIER[mode]))
 
 
+# the tensor-core spectrum's edges: rows that are no multiple of 16 (a
+# ragged B=37), the shortest chunks (512 samples, 9 frames a stream) and
+# v5 8 kHz's 65 bins, whose Nyquist bin sits on a padded n8 tile
+EDGE_CASES = {"v3.1 B=37 x 1536": ("v3", 37, 1536), "v3.1 B=37 x 512": ("v3", 37, 512),
+              "v5_8k B=37 x 288": ("v5_8k", 37, 288)}
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_tensor_core_spectrum_at_the_tile_edges(params, family_params, device, case, tier):
+    """Each spectrum kernel's instance at the tier's operands against its
+    plain version by kernels/tier_check.py, and the three kernels of the
+    v3.1 geometry bit for bit: the step kernel's spectrum, dot_magnitude's
+    and stft_magnitude's at the same operands. v5 8 kHz at both bf16 modes
+    (stft_magnitude alone has 65-bin instances)."""
+    from vadc_tpu_torch.kernels import silero_v31_fused as KF
+    from vadc_tpu_torch.kernels import stft_dotmag as KD
+    from vadc_tpu_torch.kernels import stft_mag as KS
+    from vadc_tpu_torch.kernels import tier_check
+    from vadc_tpu_torch.nn import functional as F
+    from vadc_tpu_torch.nn.precision import stft_mode, tier_of
+
+    family, batch, samples = EDGE_CASES[case]
+    t = tier_of(tier)
+    audio = torch.from_numpy(speech(batch, chunk=samples, seed=71)).to(device)
+
+    def held(got, want):
+        errs = {"mag": tier_check.errors(got, want, tier, float(want.abs().max()))}
+        assert not tier_check.breaches(tier, "stft_magnitude", batch, errs), (case, errs)
+
+    if family == "v5_8k":
+        _, p5 = family_params[family]
+        wr, wi = KS.split_basis_of(p5)
+        _, pad_left, pad_right, hop = V45_STFT[family]
+        kw = dict(pad_left=pad_left, pad_right=pad_right, hop=hop)
+        for mode in sorted({stft_mode(t, log_sensitive=False), t.stft}):
+            got = KS.stft_magnitude(audio, wr, wi, **kw, mode=mode)
+            held(got, KS.stft_magnitude_reference(audio, wr, wi, **kw, mode=mode))
+        return
+    wr, wi = KD.split_basis(params["stft_basis"])
+    h = torch.zeros(2, batch, 64, device=device)
+    spect = torch.empty(batch, samples // 64 + 1, 129, device=device)
+    KF.forward_fused(params, audio, h, h.clone(), spectrum=spect, tier=t)
+    frames = F.frame(F.reflect_pad_last(audio, 128, 128), 256, 64)
+    mag = KD.dot_magnitude(frames, wr, wi, t)
+    kw = dict(pad_left=128, pad_right=128, hop=64)
+    got = KS.stft_magnitude(audio, wr, wi, **kw, mode=t.stft)
+    want = KS.stft_magnitude_reference(audio, wr, wi, **kw, mode=t.stft)
+    torch.cuda.synchronize()
+    held(got, want)
+    errs = {"mag": tier_check.errors(mag, want, tier, float(want.abs().max()))}
+    assert not tier_check.breaches(tier, "dot_magnitude", batch, errs), errs
+    assert torch.equal(spect, mag) and torch.equal(got, mag)
+
+
 def _lstm_inputs_at(module, params, device, tier, batch: int, steps: int, seed: int):
     """Encoder features of speech at the tier as `batch` sequences of
     `steps` frames, and a carried state (a plain forward on noise first)."""

@@ -258,10 +258,11 @@ def test_kernel_sources_and_build_flags():
     # model body (forward_fused2d, encode_fused, forward_fused,
     # lstm_decoder_fused), the LSTM's activations and cell (every kernel
     # that runs an LSTM step), the resident-weights variant of the two
-    # recurrent kernels (lstm_fused, lstm_decoder_fused) and the precision
-    # tiers' arithmetic (the v3.1 kernels' instances)
+    # recurrent kernels (lstm_fused, lstm_decoder_fused), the precision
+    # tiers' arithmetic (the v3.1 kernels' instances) and the tensor-core
+    # fragments (the probes, the spectrum tile and the body at the bf16 tiers)
     assert [p.name for p in _build.headers()] == [
-        "lstm_cell.cuh", "lstm_resident.cuh", "silero_v31_body.cuh", "stft_tile.cuh",
+        "lstm_cell.cuh", "lstm_resident.cuh", "mma.cuh", "silero_v31_body.cuh", "stft_tile.cuh",
         "tier.cuh"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags

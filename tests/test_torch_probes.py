@@ -123,13 +123,17 @@ def test_concat_dot_is_the_concatenated_product():
 
 def test_the_kernels_are_built_and_bound():
     """probes.cu is one of the library's sources, with its three C entries
-    bound; it computes with the instructions the kernels are named for, and
+    bound; it computes with the instructions the kernels are named for (the
+    mma.sync fragments from the header the spectrum and the body share), and
     calls no library kernel."""
-    assert ROOT / "vadc_tpu_torch/kernels/csrc/probes.cu" in _build.sources()
-    src = (ROOT / "vadc_tpu_torch/kernels/csrc/probes.cu").read_text()
+    csrc = ROOT / "vadc_tpu_torch/kernels/csrc"
+    assert csrc / "probes.cu" in _build.sources() and csrc / "mma.cuh" in _build.headers()
+    probes = (csrc / "probes.cu").read_text()
+    assert '#include "mma.cuh"' in probes
+    src = probes + (csrc / "mma.cuh").read_text()
     for entry in ("vadc_bf16_dot", "vadc_bf16_dot_wgmma", "vadc_concat_dot"):
         assert entry in _build._SIGNATURES
-        assert re.search(rf'extern "C" int {entry}\(', src)
+        assert re.search(rf'extern "C" int {entry}\(', probes)
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
     assert "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16" in src
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in src

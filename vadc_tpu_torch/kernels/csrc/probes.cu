@@ -43,6 +43,8 @@
 
 #include <cstdint>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;  // 4 warps; one warpgroup
@@ -52,44 +54,7 @@ constexpr int PAD = 8;        // bf16 of padding a shared row (16 bytes)
 
 __host__ __device__ constexpr int round16(int k) { return (k + 15) / 16 * 16; }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mma.sync m16n8k16 -------------------------------------------------------
-
-// A fragment of a 16 x 16 bf16 tile of a row-major [.][ld] array at `tile`:
-// lane l gives the address of row l % 16, columns (l / 16) * 8 ..
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld,
-                                       int lane) {
-  const uint32_t addr = smem_addr(tile + (lane % 16) * ld + (lane / 16) * 8);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-// B fragment of a 16 (k) x 8 (n) tile of a row-major [K][ld] array at
-// `tile`: lanes 0-15 give the addresses of rows k = 0..15 (lanes 16-31
-// repeat them; .x2 reads only the first 16); .trans hands lane l the pairs
-// (k = 2 (l % 4) + {0, 1}, n = l / 4), the col operand's layout.
-__device__ __forceinline__ void load_b(uint32_t (&b)[2], const __nv_bfloat16* tile, int ld,
-                                       int lane) {
-  const uint32_t addr = smem_addr(tile + (lane % 16) * ld);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(addr));
-}
-
-// d += a @ b, fp32 sums. d: rows lane/4 and lane/4 + 8, columns 2 (lane % 4)
-// and 2 (lane % 4) + 1: d[0], d[1] on the first row, d[2], d[3] on the second.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// ---- mma.sync m16n8k16 (mma.cuh's fragments) ------------------------------
 
 // A warp's 16 x (8 x n8) fp32 accumulators out to [M, N], masked at the
 // edges.
@@ -151,11 +116,6 @@ bf16_dot_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
 
 // The same, on fp32 operands split into bf16 hi + lo, for cat(x[:, t], h) @ w:
 // hi*hi + hi*lo + lo*hi into one fp32 sum, k slice by k slice.
-__device__ __forceinline__ void split_store(__nv_bfloat16* hi, __nv_bfloat16* lo, float v) {
-  const __nv_bfloat16 h = __float2bfloat16_rn(v);
-  *hi = h;
-  *lo = __float2bfloat16_rn(v - __bfloat162float(h));
-}
 
 __global__ void __launch_bounds__(THREADS)
 concat_dot_kernel(const float* __restrict__ x, int T, int D, int t, const float* __restrict__ h,

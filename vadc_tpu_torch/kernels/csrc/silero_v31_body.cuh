@@ -59,11 +59,13 @@
 // instance is the code it was (fp32 products on the CUDA cores, accurate
 // tanh, the exp form of vadc_tpu/nn/functional.py accurate_tanh, sigmoid as
 // 1/(1+expf(-x)), 1/sqrtf for the norms, no --use_fast_math and no TF32);
-// the bf16 tiers round or split each product's activation where it is read,
-// against weights the wrapper packed for the tier, in the same fmaf chains
-// on the CUDA cores, and turbo rounds the encoder's activations where they
-// are stored. The tensor cores are later work, where the tier itself moves
-// the bound (67 TFLOP/s fp32 here). Tried on the card and not kept (chip_ab.py, PERF.md):
+// at the bf16 tiers the encoder's products run on the tensor cores
+// (linear_mma: mma.sync m16n8k16 from the staged fragment blocks the
+// wrapper packs, each activation rounded or split once as it is read), the
+// LSTM's gates and the decoder round or split each activation where it is
+// read against weights packed for the tier, in the same fmaf chains on the
+// CUDA cores (their tensor-core form is later work), and turbo rounds the
+// encoder's activations where they are stored. Tried on the card and not kept (chip_ab.py, PERF.md):
 // the phase functions as __noinline__ (13 % slower), a software-pipelined k
 // loop, float4 sample loads in the spectrum, 48 rows of layer 1's weight
 // resident in shared memory (each within 2 % either way).
@@ -71,7 +73,10 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "lstm_cell.cuh"  // sigmoidf, accurate_tanhf, tanh_at, lstm_cell
+#include "mma.cuh"
 #include "tier.cuh"
 
 namespace {
@@ -172,6 +177,10 @@ __device__ __forceinline__ void block_sync() {
   asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();
 }
+// Start the copy of n floats (a multiple of 4) from src to dst.
+__device__ __forceinline__ void stage_contiguous(float* dst, const float* __restrict__ src, int n) {
+  for (int i = threadIdx.x; i < n / 4; i += blockDim.x) cp_async16(dst + 4 * i, src + 4 * i);
+}
 // Start the copy of columns [0, ncols) of K rows of a row-major matrix with
 // row length ldw (src at its first column) into dst [K][ncols]. ncols, ldw
 // and src's offset are multiples of 4 floats.
@@ -214,6 +223,7 @@ struct Act {
 
 enum : int { EP_ACC = 1, EP_RELU = 2, EP_AFFINE = 4 };
 
+// The faithful tier's product (the bf16 tiers' is linear_mma below):
 // out(s, f, col0 + n) = epilogue(sum_k in(s, f * in_step, k) * ws[k * N + n]
 // + b[n]) for f < S, n < N. ws is the staged matrix in shared memory, b its
 // bias in global memory. Epilogue in order: + out (EP_ACC), * scale + shift
@@ -221,11 +231,8 @@ enum : int { EP_ACC = 1, EP_RELU = 2, EP_AFFINE = 4 };
 // of k one float4 of weights and R activations for 4 R FMAs; neighbouring
 // threads take neighbouring columns, so a warp reads a run of weights and
 // broadcasts its few activations. Each sum is one fmaf chain from 0.f in k
-// order, whatever R. At tier T each activation is an operand of the tier's
-// products (split once for its 4 columns), and in turbo each result is
-// stored as the JAX package's bf16 ops give it: the product, the bias, the
-// residual and the affine each rounded.
-template <int T, int R>
+// order, whatever R.
+template <int R>
 __device__ void linear_tiled(const float* ws, const float* __restrict__ b, Act in, int in_step,
                              Act out, int col0, int S, int K, int N, int flags,
                              const float* __restrict__ scale, const float* __restrict__ shift) {
@@ -263,11 +270,11 @@ __device__ void linear_tiled(const float* ws, const float* __restrict__ b, Act i
       const float4 w = *reinterpret_cast<const float4*>(wcol + k * N);
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const Operand<Tier<T>::kProducts> a(src[j][k]);
-        acc[j][0] = a.fma(w.x, acc[j][0]);
-        acc[j][1] = a.fma(w.y, acc[j][1]);
-        acc[j][2] = a.fma(w.z, acc[j][2]);
-        acc[j][3] = a.fma(w.w, acc[j][3]);
+        const float a = src[j][k];
+        acc[j][0] = fmaf(a, w.x, acc[j][0]);
+        acc[j][1] = fmaf(a, w.y, acc[j][1]);
+        acc[j][2] = fmaf(a, w.z, acc[j][2]);
+        acc[j][3] = fmaf(a, w.w, acc[j][3]);
       }
     }
 #pragma unroll
@@ -275,16 +282,9 @@ __device__ void linear_tiled(const float* ws, const float* __restrict__ b, Act i
       if (j >= valid) break;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        float v;
-        if constexpr (Tier<T>::kStore) {
-          v = bf16_rn(__fadd_rn(bf16_rn(acc[j][c]), bias[c]));
-          if (flags & EP_ACC) v = bf16_rn(__fadd_rn(v, dst[j][c]));
-          if (flags & EP_AFFINE) v = bf16_rn(__fadd_rn(bf16_rn(__fmul_rn(v, sc[c])), sf[c]));
-        } else {
-          v = acc[j][c] + bias[c];
-          if (flags & EP_ACC) v += dst[j][c];
-          if (flags & EP_AFFINE) v = v * sc[c] + sf[c];
-        }
+        float v = acc[j][c] + bias[c];
+        if (flags & EP_ACC) v += dst[j][c];
+        if (flags & EP_AFFINE) v = v * sc[c] + sf[c];
         if (flags & EP_RELU) v = fmaxf(v, 0.f);
         dst[j][c] = v;
       }
@@ -292,20 +292,146 @@ __device__ void linear_tiled(const float* ws, const float* __restrict__ b, Act i
   }
 }
 
-// linear_tiled with the largest R that still gives half the block a tile.
+// 32-bit words of one (n8 tile, k16 step) block of a product's weights as
+// the wrapper packs them at the bf16 tiers (kernels/silero_v31_fused2d.py:
+// pack_fragments): the mma.sync B fragments of the 32 lanes, lane l's two
+// bf16x2 words (b0: rows k 2t, 2t + 1; b1: rows 2t + 8, 2t + 9; column g),
+// then at bf16_3x its two lo words. A matrix [K][N] is [N / 8][ceil(K / 16)]
+// such blocks, so a block of columns is one contiguous run.
+template <int T>
+__host__ __device__ constexpr int frag_words() {
+  return Tier<T>::kProducts == P_SPLIT ? 128 : 64;
+}
+
+// linear_tiled's function at the bf16 tiers, on the tensor cores (mma.cuh):
+// a warp takes 16 rows x 16 columns (two n8 tiles) at a time, its A
+// fragments read from the fp32 activations at their odd pitch and rounded
+// (split at balanced) once per element, its B fragments from the staged
+// fragment blocks (ws), 8 or 16 bytes a lane; K is walked in k16 steps,
+// each MMA (bf16_3x: lo*hi, hi*lo, hi*hi) from zero and added to the fp32
+// sum, the tail of a K that is no multiple of 16 (stage 1's 129) read as
+// zeros. The epilogue is linear_tiled's, on the C fragments; in turbo each
+// result is stored as the JAX package's bf16 ops give it: the product, the
+// bias, the residual and the affine each rounded.
+template <int T>
+__device__ void linear_mma(const float* ws, const float* __restrict__ b, Act in, int in_step,
+                           Act out, int col0, int S, int K, int N, int flags,
+                           const float* __restrict__ scale, const float* __restrict__ shift) {
+  constexpr int FW = frag_words<T>();
+  constexpr bool SPLIT = Tier<T>::kProducts == P_SPLIT;
+  const int rows = NB * S;
+  const int m_tiles = (rows + 15) / 16;
+  const int k_steps = (K + 15) / 16;
+  const int n_pairs = N / 16;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const FastDiv by_S(S);
+  const uint32_t* frags = reinterpret_cast<const uint32_t*>(ws) + lane * (FW / 32);
+  for (int item = threadIdx.x >> 5; item < m_tiles * n_pairs; item += THREADS / 32) {
+    const int mt = item / n_pairs;
+    const int np = item - mt * n_pairs;
+    // rows 16 mt + g and + 8; rows past the end compute on the last row
+    const float* src[2];
+    float* dst[2];
+    int row[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      row[h] = 16 * mt + g + 8 * h;
+      const int r = min(row[h], rows - 1);
+      const int s = by_S.div(r);
+      src[h] = in.at(s, (r - s * S) * in_step);
+      dst[h] = out.at(s, r - s * S) + col0;
+    }
+    float acc[2][4] = {};
+    const uint32_t* fb = frags + 2 * np * k_steps * FW;
+#pragma unroll 2
+    for (int kb = 0; kb < k_steps; ++kb) {
+      // A: a0 (row g, k 2t..), a1 (row g + 8), a2 (row g, k 2t + 8..), a3 (row g + 8)
+      float x[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 16 * kb + 2 * t + 8 * (i / 2);
+        const float* p = src[i % 2] + k;
+        x[i][0] = k < K ? p[0] : 0.f;
+        x[i][1] = k + 1 < K ? p[1] : 0.f;
+      }
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (SPLIT) {
+          split_bf16x2(x[i][0], x[i][1], ah[i], al[i]);
+        } else {
+          ah[i] = pack_bf16x2(x[i][0], x[i][1]);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const uint32_t* f = fb + (jj * k_steps + kb) * FW;
+        if constexpr (SPLIT) {
+          const uint4 w = *reinterpret_cast<const uint4*>(f);
+          const uint32_t bh[2] = {w.x, w.y};
+          const uint32_t bl[2] = {w.z, w.w};
+          mma_add3(acc[jj], ah, al, bh, bl);
+        } else {
+          const uint2 w = *reinterpret_cast<const uint2*>(f);
+          const uint32_t bh[2] = {w.x, w.y};
+          mma_add(acc[jj], ah, bh);
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int c0 = 16 * np + 8 * jj + 2 * t;
+      float bias[2], sc[2], sf[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        bias[c] = __ldg(b + c0 + c);
+        sc[c] = (flags & EP_AFFINE) ? __ldg(scale + c0 + c) : 1.f;
+        sf[c] = (flags & EP_AFFINE) ? __ldg(shift + c0 + c) : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        const int c = e % 2;
+        if (row[h] >= rows) continue;
+        float* d = dst[h] + c0 + c;
+        float v;
+        if constexpr (Tier<T>::kStore) {
+          v = bf16_rn(__fadd_rn(bf16_rn(acc[jj][e]), bias[c]));
+          if (flags & EP_ACC) v = bf16_rn(__fadd_rn(v, *d));
+          if (flags & EP_AFFINE) v = bf16_rn(__fadd_rn(bf16_rn(__fmul_rn(v, sc[c])), sf[c]));
+        } else {
+          v = acc[jj][e] + bias[c];
+          if (flags & EP_ACC) v += *d;
+          if (flags & EP_AFFINE) v = v * sc[c] + sf[c];
+        }
+        if (flags & EP_RELU) v = fmaxf(v, 0.f);
+        *d = v;
+      }
+    }
+  }
+}
+
+// The tier's product: at faithful linear_tiled with the largest R that still
+// gives half the block a tile, at the bf16 tiers linear_mma.
 template <int T>
 __device__ void linear(const float* ws, const float* __restrict__ b, Act in, int in_step, Act out,
                        int col0, int S, int K, int N, int flags,
                        const float* __restrict__ scale = nullptr,
                        const float* __restrict__ shift = nullptr) {
-  const int rows = NB * S;
-  const int ncg = N / 4;
-  if (((rows + 3) / 4) * ncg >= THREADS / 2) {
-    linear_tiled<T, 4>(ws, b, in, in_step, out, col0, S, K, N, flags, scale, shift);
-  } else if (((rows + 1) / 2) * ncg >= THREADS / 2) {
-    linear_tiled<T, 2>(ws, b, in, in_step, out, col0, S, K, N, flags, scale, shift);
+  if constexpr (T != TIER_FAITHFUL) {
+    linear_mma<T>(ws, b, in, in_step, out, col0, S, K, N, flags, scale, shift);
   } else {
-    linear_tiled<T, 1>(ws, b, in, in_step, out, col0, S, K, N, flags, scale, shift);
+    const int rows = NB * S;
+    const int ncg = N / 4;
+    if (((rows + 3) / 4) * ncg >= THREADS / 2) {
+      linear_tiled<4>(ws, b, in, in_step, out, col0, S, K, N, flags, scale, shift);
+    } else if (((rows + 1) / 2) * ncg >= THREADS / 2) {
+      linear_tiled<2>(ws, b, in, in_step, out, col0, S, K, N, flags, scale, shift);
+    } else {
+      linear_tiled<1>(ws, b, in, in_step, out, col0, S, K, N, flags, scale, shift);
+    }
   }
 }
 
@@ -558,8 +684,17 @@ struct WeightStage {
   float* buf;
   int cur;
   __device__ const float* now() const { return buf + cur * WBUF; }
+  // at the bf16 tiers the columns' fragment blocks, one contiguous run
+  template <int T>
   __device__ void prefetch(const float* __restrict__ W, const int* off, WeightOp op) {
-    stage_weights(buf + (cur ^ 1) * WBUF, W + off[op.slot] + op.col0, op.K, op.ncols, op.ldw);
+    if constexpr (T == TIER_FAITHFUL) {
+      stage_weights(buf + (cur ^ 1) * WBUF, W + off[op.slot] + op.col0, op.K, op.ncols, op.ldw);
+    } else {
+      const int k_steps = (op.K + 15) / 16;
+      stage_contiguous(buf + (cur ^ 1) * WBUF,
+                       W + off[op.slot] + (op.col0 / 8) * k_steps * frag_words<T>(),
+                       (op.ncols / 8) * k_steps * frag_words<T>());
+    }
   }
   __device__ void flip() { cur ^= 1; }
 };
@@ -585,7 +720,7 @@ __device__ void encoder_stage(int st, const float* __restrict__ W, const int* of
   const WeightOp square{0, 0, cout, cout, cout};
 
   if (off[PROJ_WT] >= 0) {
-    ws.prefetch(W, off, pw);
+    ws.prefetch<T>(W, off, pw);
     linear<T>(ws.now(), W + off[PROJ_B], x, 1, h, 0, S, cin, cout, 0);
     block_sync();
     ws.flip();
@@ -596,7 +731,7 @@ __device__ void encoder_stage(int st, const float* __restrict__ W, const int* of
   PHASE_STAMP(PH_PROJ);
   // each copy starts as soon as its buffer is free, a phase or more before
   // the product that waits for it
-  ws.prefetch(W, off, WeightOp{QKV_WT, 0, qkv_cols, cout, 3 * cout});
+  ws.prefetch<T>(W, off, WeightOp{QKV_WT, 0, qkv_cols, cout, 3 * cout});
   depthwise_relu_inplace<T>(x, S, cin, W + off[DW_W], W + off[DW_B]);
   __syncthreads();
   PHASE_STAMP(PH_DW);
@@ -616,7 +751,7 @@ __device__ void encoder_stage(int st, const float* __restrict__ W, const int* of
     } else {
       next.slot = AP_WT;
     }
-    ws.prefetch(W, off, next);
+    ws.prefetch<T>(W, off, next);
     linear<T>(ws.now(), W + off[QKV_B] + col0, h, 1, qkv, col0, S, cout, qkv_cols, 0);
     block_sync();
     ws.flip();
@@ -624,7 +759,7 @@ __device__ void encoder_stage(int st, const float* __restrict__ W, const int* of
   PHASE_STAMP(PH_QKV);
   WeightOp next = square;
   next.slot = L1_WT;
-  ws.prefetch(W, off, next);
+  ws.prefetch<T>(W, off, next);
   attention<T>(qkv, sc, sa, ao, S, cout);
   __syncthreads();
   PHASE_STAMP(PH_MIX);
@@ -633,7 +768,7 @@ __device__ void encoder_stage(int st, const float* __restrict__ W, const int* of
   ws.flip();
   PHASE_STAMP(PH_OUT_PROJ);
   next.slot = L2_WT;
-  ws.prefetch(W, off, next);
+  ws.prefetch<T>(W, off, next);
   layer_norm<T>(h, S, cout, W + off[N1_W], W + off[N1_B]);
   __syncthreads();
   PHASE_STAMP(PH_LN1);
@@ -643,12 +778,12 @@ __device__ void encoder_stage(int st, const float* __restrict__ W, const int* of
   ws.flip();
   PHASE_STAMP(PH_LIN1);
   next.slot = CONV_WT;
-  ws.prefetch(W, off, next);
+  ws.prefetch<T>(W, off, next);
   linear<T>(ws.now(), W + off[L2_B], ff, 1, h, 0, S, cout, cout, EP_ACC);
   block_sync();
   ws.flip();
   PHASE_STAMP(PH_LIN2);
-  if (next_off != nullptr) ws.prefetch(W, next_off, first_op(st + 1, next_off));
+  if (next_off != nullptr) ws.prefetch<T>(W, next_off, first_op(st + 1, next_off));
   layer_norm<T>(h, S, cout, W + off[N2_W], W + off[N2_B]);
   __syncthreads();
   PHASE_STAMP(PH_LN2);
@@ -697,7 +832,7 @@ __device__ void store_state(const Block& m, int b0, int batch, float* hn, float*
 template <int T>
 __device__ int encode(const float* __restrict__ W, const Offsets& o, const Block& m, int seq0) {
   WeightStage ws{m.wbuf, 1};
-  ws.prefetch(W, o.v, first_op(0, o.v));
+  ws.prefetch<T>(W, o.v, first_op(0, o.v));
   block_sync();
   ws.flip();
   int S = seq0;

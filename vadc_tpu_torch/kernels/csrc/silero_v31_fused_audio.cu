@@ -35,17 +35,20 @@
 //
 // Both entries take the precision tier (tier.cuh) and launch its instance:
 // the spectrum at the tier's STFT operands (bf16_3x on fp32 samples at
-// balanced and fast, bf16 at turbo), log1pf in place of the series at the
-// bf16 tiers, turbo's features stored as bf16, then the body's instance;
+// balanced and fast, on the tensor cores: stft_tile.cuh's mma.sync tile,
+// the samples split once into bf16 planes; bf16 at turbo, on the CUDA-core
+// tile), log1pf in place of the series at the bf16 tiers, turbo's features
+// stored as bf16, then the body's instance (its encoder products on the
+// tensor cores at every bf16 tier);
 // mean_mean stays fp32 at every tier (nn/precision.py says why). The JAX
 // package has no tier form of this kernel; the instances are held to the
 // plain versions at the tier (kernels/silero_v31_fused.py).
 //
 // What bounds it on an H100: the spectrum's fp32 FMAs (51,200 frames x 256
 // x 258 x 2 = 6.8 GFLOP at batch 2048 x 1536, on the CUDA cores: the
-// faithful tier keeps fp32 products, no TF32; the tensor cores come with the
-// bf16 tiers, where the tier itself moves the bound) beside the body's chain
-// of dependent small steps (4.3 GFLOP). The first design spent 39 % of a
+// faithful tier keeps fp32 products, no TF32; balanced and fast take the
+// tensor cores, where the three products of bf16_3x bound it at 0.0206
+// ms) beside the body's chain of dependent small steps (4.3 GFLOP). The first design spent 39 % of a
 // block's life in the spectrum (chip_profile.py's phase split): 10 passes of
 // a 64 x 32 tile over 128 x 160 for 100 x 129 results, each of its 80
 // slices refilled by scalar loads between two barriers with nothing in
@@ -71,6 +74,12 @@ constexpr int PAD = 128;
 using Spectrum = stft_block::Geometry<N_FFT, N_FEAT, 8, 32, 7, 2>;
 static_assert(THREADS == Spectrum::THREADS, "one block of threads for the spectrum and the body");
 static_assert(HOP % Spectrum::BK == 0, "whole slices a hop");
+// The spectrum by bf16_3x (balanced, fast) on the tensor cores
+// (stft_tile.cuh's mma.sync tile, the products of stft_mag.cu's and
+// stft_dotmag.cu's instances): 4 m-tiles (64 rows) a pass, so the 100 rows
+// of 4 streams x 25 frames take 2 passes; slices of 8 taps in a ring of two,
+// the ring of the fp32 instance in bytes
+using SpectrumMma = stft_block::MmaGeometry<N_FFT, N_FEAT, 8, 4, 2>;
 
 // the collapsed normalization weights of one chunk size, by value
 struct NormW {
@@ -126,6 +135,27 @@ __host__ __device__ inline int staged_chunk_floats(int samples) {
   return (stft_block::skewed_len(samples + 2 * PAD, HOP) + 3) & ~3;
 }
 
+// bf16 values of one stream's staged plane at the bf16 tiers: the skewed
+// padded samples, rounded up to whole 16 bytes and on until the next
+// stream's frames continue the skew's bank groups (F * (HOP + 8) mod 64)
+__host__ __device__ inline int staged_plane_bf16(int samples) {
+  const int padded = samples + 2 * PAD;
+  const int len = (stft_block::skewed_bf16(padded - 1, HOP) + 1 + 7) / 8 * 8;
+  const int frames = samples / HOP + 1;
+  return len + ((frames * (HOP + 8) - len) % 64 + 64) % 64;
+}
+
+// floats of the front-end's staging after region A: the staged chunks and
+// the basis ring of tier T's spectrum
+template <int T>
+int front_floats(int samples) {
+  if constexpr (Tier<T>::kStft == P_SPLIT) {
+    return (4 * NB * staged_plane_bf16(samples) + SpectrumMma::BASIS_BYTES + 3) / 4;
+  } else {
+    return NB * staged_chunk_floats(samples) + Spectrum::BASIS_FLOATS;
+  }
+}
+
 // The front-end of both entries, so the two cannot drift: the spectrum of
 // the block's live streams into region A, then the adaptive normalization
 // in place; streams past `batch` (a ragged last block) get a zero stage-1
@@ -135,7 +165,7 @@ __host__ __device__ inline int staged_chunk_floats(int samples) {
 template <int T>
 __device__ void audio_features(const Block& m, const NormW& norm_w,
                                const float* __restrict__ audio, long long stride_b, int samples,
-                               const float* __restrict__ basis, float* spect, int b0, int batch,
+                               const void* __restrict__ basis, float* spect, int b0, int batch,
                                int seq0) {
   const int tid = threadIdx.x;
   const int live = min(NB, batch - b0);
@@ -151,23 +181,49 @@ __device__ void audio_features(const Block& m, const NormW& norm_w,
   // 1. the live streams' chunks through the reflect pad into shared memory
   // (padded sample i is audio[j], j = i - PAD reflected at both edges, edge
   // excluded), then their spectrum into A
-  float* pad = m.H;
-  const int pad_ld = staged_chunk_floats(samples);
-  float* bbuf = pad + NB * pad_ld;  // 16-byte aligned: pad_ld is a multiple of 4
   const int padded = samples + 2 * PAD;
   const FastDiv by_padded(padded);
-  for (int i = tid; i < live * padded; i += blockDim.x) {
-    const int s = by_padded.div(i);
-    const int p = i - s * padded;
-    int j = p - PAD;
-    j = j < 0 ? -j : j;
-    j = j >= samples ? 2 * samples - 2 - j : j;
-    pad[s * pad_ld + stft_block::skewed(p, HOP)] = audio[(b0 + s) * stride_b + j];
+  constexpr int M = Tier<T>::kStft;
+  if constexpr (M != P_SPLIT) {
+    float* pad = m.H;
+    const int pad_ld = staged_chunk_floats(samples);
+    float* bbuf = pad + NB * pad_ld;  // 16-byte aligned: pad_ld is a multiple of 4
+    for (int i = tid; i < live * padded; i += blockDim.x) {
+      const int s = by_padded.div(i);
+      const int p = i - s * padded;
+      int j = p - PAD;
+      j = j < 0 ? -j : j;
+      j = j >= samples ? 2 * samples - 2 - j : j;
+      pad[s * pad_ld + stft_block::skewed(p, HOP)] = audio[(b0 + s) * stride_b + j];
+    }
+    __syncthreads();
+    const ToStageInput store{m.A, sa, by_seq, spect, static_cast<long long>(b0) * seq0};
+    stft_block::magnitudes<Spectrum, M>(pad, pad_ld, HOP, live * seq0, seq0,
+                                        static_cast<const float*>(basis), bbuf, store);
+  } else {
+    // the samples as bf16 hi and lo planes, split once
+    __nv_bfloat16* pad = reinterpret_cast<__nv_bfloat16*>(m.H);
+    const int pad_ld = staged_plane_bf16(samples);
+    const int lo_at = NB * pad_ld;
+    // 16-byte aligned: pad_ld is a multiple of 8
+    __nv_bfloat16* bbuf = pad + 2 * lo_at;
+    for (int i = tid; i < live * padded; i += blockDim.x) {
+      const int s = by_padded.div(i);
+      const int p = i - s * padded;
+      int j = p - PAD;
+      j = j < 0 ? -j : j;
+      j = j >= samples ? 2 * samples - 2 - j : j;
+      const int at = s * pad_ld + stft_block::skewed_bf16(p, HOP);
+      split_store(pad + at, pad + lo_at + at, audio[(b0 + s) * stride_b + j]);
+    }
+    const auto row_at = [=](int r) {
+      const int s = by_seq.div(r);
+      return s * pad_ld + (r - s * seq0) * (HOP + 8);
+    };
+    const ToStageInput store{m.A, sa, by_seq, spect, static_cast<long long>(b0) * seq0};
+    stft_block::magnitudes_mma<SpectrumMma>(pad, lo_at, row_at, HOP, live * seq0,
+                                  static_cast<const __nv_bfloat16*>(basis), bbuf, store);
   }
-  __syncthreads();
-  const ToStageInput store{m.A, sa, by_seq, spect, static_cast<long long>(b0) * seq0};
-  stft_block::magnitudes<Spectrum, Tier<T>::kStft>(pad, pad_ld, HOP, live * seq0, seq0, basis,
-                                                   bbuf, store);
   __syncthreads();
   PHASE_STAMP(PH_SPECTRUM);
 
@@ -213,7 +269,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 silero_v31_fused_audio_kernel(const float* __restrict__ W, const __grid_constant__ Offsets o,
                                const __grid_constant__ NormW norm_w,
                               const float* __restrict__ audio, long long stride_b, int samples,
-                              const float* __restrict__ basis, const float* h0, const float* c0, float* probs, float* hn,
+                              const void* __restrict__ basis, const float* h0, const float* c0, float* probs, float* hn,
                               float* cn, float* spect, int batch, int seq0, int sa, int sh) {
   extern __shared__ __align__(16) float smem[];
   const Block m = carve(smem, sa, sh);
@@ -234,7 +290,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 silero_v31_encode_audio_kernel(const float* __restrict__ W, const __grid_constant__ Offsets o,
                                const __grid_constant__ NormW norm_w,
                                const float* __restrict__ audio, long long stride_b, int samples,
-                               const float* __restrict__ basis, float* __restrict__ y, int rows, int seq0, int sa, int sh) {
+                               const void* __restrict__ basis, float* __restrict__ y, int rows, int seq0, int sa, int sh) {
   extern __shared__ __align__(16) float smem[];
   const Block m = carve(smem, sa, sh);
   const int b0 = blockIdx.x * NB;
@@ -246,7 +302,7 @@ silero_v31_encode_audio_kernel(const float* __restrict__ W, const __grid_constan
 // Checks the arguments both entries share, fills the by-value tables and
 // raises the kernel's dynamic shared memory; returns its bytes, or 0 with
 // *err set.
-template <class Kernel>
+template <int T, class Kernel>
 size_t prepare(Kernel kernel, const int* offsets, int n_offsets, const float* norm_w,
                int n_norm_w, int batch, long long stride_b, int samples, Offsets* o, NormW* nw,
                int* seq0, int* sa, int* sh, cudaError_t* err) {
@@ -261,7 +317,7 @@ size_t prepare(Kernel kernel, const int* offsets, int n_offsets, const float* no
   std::memcpy(nw->v, norm_w, sizeof(float) * *seq0);
   plan(*seq0, sa, sh);
   // the staged chunks and the basis buffers lie over everything after region A
-  const int front = NB * staged_chunk_floats(samples) + Spectrum::BASIS_FLOATS;
+  const int front = front_floats<T>(samples);
   const int floats = NB * *sa + std::max(tail_floats(*sh), front);
   const size_t bytes = static_cast<size_t>(floats) * sizeof(float);
   *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -272,13 +328,13 @@ size_t prepare(Kernel kernel, const int* offsets, int n_offsets, const float* no
 template <int T>
 int launch_step(const float* weights, const int* offsets, int n_offsets, const float* norm_w,
                 int n_norm_w, const float* audio, int batch, long long stride_b, int samples,
-                const float* basis, const float* h, const float* c, float* probs, float* hn,
+                const void* basis, const float* h, const float* c, float* probs, float* hn,
                 float* cn, float* spect, cudaStream_t stream) {
   Offsets o;
   NormW nw;
   int seq0 = 0, sa = 0, sh = 0;
   cudaError_t err = cudaSuccess;
-  const size_t bytes = prepare(silero_v31_fused_audio_kernel<T>, offsets, n_offsets, norm_w,
+  const size_t bytes = prepare<T>(silero_v31_fused_audio_kernel<T>, offsets, n_offsets, norm_w,
                                n_norm_w, batch, stride_b, samples, &o, &nw, &seq0, &sa, &sh, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (batch + NB - 1) / NB;
@@ -291,13 +347,13 @@ int launch_step(const float* weights, const int* offsets, int n_offsets, const f
 template <int T>
 int launch_encode_audio(const float* weights, const int* offsets, int n_offsets,
                         const float* norm_w, int n_norm_w, const float* audio, int rows,
-                        long long stride_b, int samples, const float* basis, float* y,
+                        long long stride_b, int samples, const void* basis, float* y,
                         cudaStream_t stream) {
   Offsets o;
   NormW nw;
   int seq0 = 0, sa = 0, sh = 0;
   cudaError_t err = cudaSuccess;
-  const size_t bytes = prepare(silero_v31_encode_audio_kernel<T>, offsets, n_offsets, norm_w,
+  const size_t bytes = prepare<T>(silero_v31_encode_audio_kernel<T>, offsets, n_offsets, norm_w,
                                n_norm_w, rows, stride_b, samples, &o, &nw, &seq0, &sa, &sh, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (rows + NB - 1) / NB;
@@ -311,16 +367,17 @@ int launch_encode_audio(const float* weights, const int* offsets, int n_offsets,
 // weights, offsets, n_offsets: as vadc_silero_v31_fused (packed for the
 // tier); norm_w: host float[n_norm_w], the F collapsed normalization
 // weights; audio: chunk
-// b at audio + b*stride_b, `samples` fp32 each; basis: [256][2][132], tap
-// k's real then imaginary basis row, each 129 bins padded with zeros to 132,
-// packed for the tier's STFT; h, c, hn, cn [2, batch, 64] (hn, cn may alias
+// b at audio + b*stride_b, `samples` fp32 each; basis: packed for the
+// tier's STFT as kernels/stft_dotmag.py: padded_basis packs it ([256][2][132]
+// fp32, tap k's real then imaginary basis row, each 129 bins padded with
+// zeros to 132; at bf16_3x [256][552] bf16); h, c, hn, cn [2, batch, 64] (hn, cn may alias
 // h, c); probs [batch]; spect: [batch, F, 129] for a copy of the
 // magnitudes, or null; tier: 0 faithful, 1 balanced, 2 fast, 3 turbo.
 // Returns cudaGetLastError() after the launch.
 extern "C" int vadc_silero_v31_fused_audio(const float* weights, const int* offsets,
                                            int n_offsets, const float* norm_w, int n_norm_w,
                                            const float* audio, int batch, long long stride_b,
-                                           int samples, const float* basis, const float* h,
+                                           int samples, const void* basis, const float* h,
                                            const float* c, float* probs, float* hn, float* cn,
                                            float* spect, int tier, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -337,7 +394,7 @@ extern "C" int vadc_silero_v31_fused_audio(const float* weights, const int* offs
 extern "C" int vadc_silero_v31_encode_audio(const float* weights, const int* offsets,
                                             int n_offsets, const float* norm_w, int n_norm_w,
                                             const float* audio, int rows, long long stride_b,
-                                            int samples, const float* basis, float* y, int tier,
+                                            int samples, const void* basis, float* y, int tier,
                                             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return by_tier(tier, [&](auto t) {

@@ -11,10 +11,15 @@
 // What bounds it on an H100: the fp32 FMAs. At batch 2048 of 1536-sample
 // chunks (the v3.1 unfold) a call is 51,200 rows x 256 x 258 x 2 = 6.8
 // GFLOP, 0.1013 ms at 67 TFLOP/s, against about 13 MB of audio in and 26 MB
-// of magnitude out. Each tier's instance (tier.cuh: fp32 products at
-// faithful, bf16_3x on fp32 frames at balanced and fast, bf16 frames and
-// bases at turbo, the JAX package's bf16-operand use of this kernel) runs
-// on the CUDA cores, not on tensor cores (a wgmma path is later work).
+// of magnitude out. Each tier's instance (tier.cuh): fp32 products at
+// faithful and bf16 frames and bases at turbo (the JAX package's
+// bf16-operand use of this kernel) on the CUDA cores as described below;
+// bf16_3x on fp32 frames at balanced and fast on the tensor cores,
+// stft_tile.cuh's mma.sync tile: a block splits its 64 rows into bf16 hi and
+// lo planes once, [64][n_fft + 8] each, and walks the packed bases in slices
+// of 16 taps; the pass's magnitudes are gathered over the rows' planes, then
+// written out in whole sectors. That instance's bound is the bytes (0.0123
+// ms at B=2048; its three products take 0.0206 ms at 989 TFLOP/s).
 //
 // Design: stft_tile.cuh's spectrum, the inner loop of stft_mag.cu and of
 // the step kernel. A block owns ROWS_PASS rows. Each ring stage holds a
@@ -39,6 +44,8 @@ namespace {
 
 using Spectrum256 = stft_block::Geometry<256, 129, 32, 8, 6, 2>;
 using Spectrum128 = stft_block::Geometry<128, 65, 32, 8, 6, 2>;
+// bf16_3x on the tensor cores: 4 m-tiles (64 rows) a block, 16 taps a slice
+using SpectrumMma256 = stft_block::MmaGeometry<256, 129, 16, 4, 2>;
 
 template <class G>
 struct Rows {
@@ -118,6 +125,55 @@ dot_magnitude_kernel(const float* __restrict__ frames, int n_frames, long long s
   store.pass_done(0, live);
 }
 
+// bf16_3x on the tensor cores: the block's rows as bf16 planes [hi |
+// lo][ROWS_PASS][LD], row p's tap k at p * LD + k, split from the frames
+// once; the pass's magnitudes are gathered over the planes (a barrier after
+// the last slice) and written out in whole sectors.
+template <class G>
+struct RowsMma {
+  static constexpr int LD = G::NFFT + 8;  // bf16; rows 16 bytes apart modulo 128
+  static constexpr int PLANE = G::ROWS_PASS * LD;
+  static constexpr size_t SMEM_BYTES = G::BASIS_BYTES + 4 * static_cast<size_t>(PLANE);
+  static_assert(4 * PLANE >= 4 * G::ROWS_PASS * G::BINS, "the magnitudes fit the rows");
+};
+
+template <class G>
+__global__ void __launch_bounds__(G::THREADS, 2)
+dot_magnitude_mma_kernel(const float* __restrict__ frames, int n_frames, long long stride_b,
+                         long long stride_f, int rows, const __nv_bfloat16* __restrict__ basis,
+                         float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* bbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* a_hi = bbuf + G::STAGES * G::SLICE;
+  const int row0 = blockIdx.x * G::ROWS_PASS;
+  const int live = min(G::ROWS_PASS, rows - row0);
+  // rows past the end are not staged: the tile computes them on the last row
+  for (int i = threadIdx.x; i < live * G::NFFT; i += G::THREADS) {
+    const int p = i / G::NFFT;
+    const int k = i - p * G::NFFT;
+    const int r = row0 + p;
+    const int b = r / n_frames;
+    const float v = frames[b * stride_b + (r - b * n_frames) * stride_f + k];
+    split_store(a_hi + p * RowsMma<G>::LD + k, a_hi + RowsMma<G>::PLANE + p * RowsMma<G>::LD + k, v);
+  }
+  const stft_block::CoalescedStore<G> store{reinterpret_cast<float*>(a_hi),
+                                            out + static_cast<long long>(row0) * G::BINS};
+  const auto row_at = [](int r) { return r * RowsMma<G>::LD; };
+  stft_block::magnitudes_mma<G>(a_hi, RowsMma<G>::PLANE, row_at, G::NFFT, live, basis, bbuf,
+                                store);
+}
+
+template <class G>
+int launch_mma(const float* frames, int n_frames, long long stride_b, long long stride_f,
+               int rows, const void* basis, float* out, cudaStream_t stream) {
+  const cudaError_t err = stft_block::allow_shared_memory<dot_magnitude_mma_kernel<G>>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (rows + G::ROWS_PASS - 1) / G::ROWS_PASS;
+  dot_magnitude_mma_kernel<G><<<grid, G::THREADS, RowsMma<G>::SMEM_BYTES, stream>>>(
+      frames, n_frames, stride_b, stride_f, rows, static_cast<const __nv_bfloat16*>(basis), out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <class G, bool ALIGNED, int M>
 int launch(const float* frames, int n_frames, long long stride_b, long long stride_f, int rows,
            const float* basis, float* out, cudaStream_t stream) {
@@ -143,27 +199,35 @@ int launch(const float* frames, int n_frames, long long stride_b, long long stri
 }  // namespace
 
 // frames: row (b, f) of the frame matrix at frames + b*stride_b + f*stride_f
-// (unit stride along n_fft); basis: [n_fft][2][BINS_LD], tap k's real then
-// imaginary basis row, each `cutoff` bins padded with zeros to a multiple of
-// 4 (kernels/stft_mag.py: padded_basis) and packed for the tier; out:
+// (unit stride along n_fft); basis: packed for the tier's STFT operands as
+// kernels/stft_dotmag.py: padded_basis packs them (faithful: [n_fft][2][BINS_LD]
+// fp32, tap k's real then imaginary basis row, each `cutoff` bins padded
+// with zeros to a multiple of 4, and so at turbo; balanced and fast:
+// [n_fft][LDB] bf16); out:
 // [batch * n_frames, cutoff] row-major; tier: 0 faithful, 1 balanced, 2
 // fast, 3 turbo. Takes (n_fft, cutoff) = (256, 129) at every tier, (128, 65)
 // at faithful. Returns cudaGetLastError() after the launch.
 extern "C" int vadc_dot_magnitude(const float* frames, int batch, int n_frames,
-                                  long long stride_b, long long stride_f, const float* basis,
+                                  long long stride_b, long long stride_f, const void* basis,
                                   int n_fft, int cutoff, float* out, int tier, void* stream) {
   const int rows = batch * n_frames;
   if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* fbasis = static_cast<const float*>(basis);
   if (n_fft == 256 && cutoff == 129) {
     // the tier's instance: its STFT operands (tier.cuh)
     return by_tier(tier, [&](auto t) {
-      return launch<Spectrum256, Tier<decltype(t)::value>::kStft>(frames, n_frames, stride_b,
-                                                                 stride_f, rows, basis, out, s);
+      constexpr int M = Tier<decltype(t)::value>::kStft;
+      if constexpr (M == P_SPLIT) {
+        return launch_mma<SpectrumMma256>(frames, n_frames, stride_b, stride_f, rows, basis,
+                                          out, s);
+      } else {
+        return launch<Spectrum256, M>(frames, n_frames, stride_b, stride_f, rows, fbasis, out, s);
+      }
     });
   }
   if (n_fft == 128 && cutoff == 65 && tier == TIER_FAITHFUL) {
-    return launch<Spectrum128, P_FP32>(frames, n_frames, stride_b, stride_f, rows, basis, out, s);
+    return launch<Spectrum128, P_FP32>(frames, n_frames, stride_b, stride_f, rows, fbasis, out, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

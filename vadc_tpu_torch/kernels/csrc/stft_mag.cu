@@ -35,16 +35,22 @@
 //
 // Precision tiers (tier.cuh): the kernel is templated on the products'
 // operand mode M as well, 3 modes x 2 geometries = 6 instances: fp32 (the
-// faithful tier), bf16_3x on fp32 samples (each staged sample split where it
-// is read, the bases packed as hi/lo pairs, three fmafs a term) and bf16
-// samples and bases. The wrapper chooses the mode from the tier and the
-// family (nn/precision.py: stft_mode: v4 bf16_3x at balanced and fast, bf16
-// at turbo; v5 bf16_3x at balanced, bf16 at fast and turbo) and packs the
+// faithful tier) and bf16 samples and bases on the CUDA-core tile above,
+// and bf16_3x on fp32 samples on the tensor cores (stft_tile.cuh's
+// mma.sync tile: each staged sample split once into bf16 hi and lo planes,
+// the bases packed by the wrapper as bf16 planes, 64 rows a pass, slices of
+// 16 taps in a ring of two; stft_tile.cuh says why the bf16 mode stays on
+// the CUDA cores). The wrapper chooses the mode from the tier and the family
+// (nn/precision.py: stft_mode: v4 bf16_3x at balanced and fast, bf16 at
+// turbo; v5 bf16_3x at balanced, bf16 at fast and turbo) and packs the
 // bases for it. The JAX package's Pallas kernel has no mode: these are the
-// counterparts of its models' XLA spectrum at the tier, on the ported kernel.
-// On the same H100: 0.5736 ms at v4 B=2048 in bf16_3x (three fmafs a
-// term: 3.1x the fp32 instance), 0.2131 in bf16 (1.16x: the rounding of
-// each staged sample where it is read).
+// counterparts of its models' XLA spectrum at the tier, on the ported
+// kernel. On the same H100: 0.2131 ms at v4 B=2048 in bf16 (1.16x the fp32
+// instance: the rounding of each staged sample where it is read). What
+// bounds the bf16_3x instance: the bytes (the same 12.6 MB in and 25.4 MB
+// out at v4 B=2048, 0.0113 ms) and, on the chip, the bases: a pass of 64
+// rows walks all of them (283 KB) from L2. The CUDA-core instance it
+// replaces took 0.5736 ms there (PERF.md).
 #include <cuda_runtime.h>
 
 #include "stft_tile.cuh"
@@ -54,6 +60,10 @@ namespace {
 // the two instances: n_fft 256 with 129 bins, n_fft 128 with 65 bins
 using Spectrum256 = stft_block::Geometry<256, 129, 32, 8, 6, 2>;
 using Spectrum128 = stft_block::Geometry<128, 65, 32, 8, 6, 2>;
+// and by bf16_3x on the tensor cores: 4 m-tiles (64 rows) a pass, 16 taps a
+// slice
+using SpectrumMma256 = stft_block::MmaGeometry<256, 129, 16, 4, 2>;
+using SpectrumMma128 = stft_block::MmaGeometry<128, 65, 16, 4, 2>;
 
 template <class G, int M>
 __global__ void __launch_bounds__(G::THREADS, 2)
@@ -83,6 +93,70 @@ stft_magnitude_kernel(const float* __restrict__ audio, int batch, long long stri
   stft_block::magnitudes<G, M>(pad, pad_ld, hop, live * n_frames, n_frames, basis, bbuf, store);
 }
 
+// The same by bf16_3x, on the tensor cores: the streams' chunks are staged
+// as bf16 planes (hi, then lo, each stream at s * pad_ld of a plane, padded
+// sample i at skewed_bf16(i, hop)).
+template <class G>
+__global__ void __launch_bounds__(G::THREADS, 2)
+stft_magnitude_mma_kernel(const float* __restrict__ audio, int batch, long long stride_b,
+                          int samples, int pad_left, int hop, int n_frames, int streams,
+                          int pad_ld, const __nv_bfloat16* __restrict__ basis,
+                          float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* bbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  float* tile = reinterpret_cast<float*>(smem_raw + G::BASIS_BYTES);
+  __nv_bfloat16* pad = reinterpret_cast<__nv_bfloat16*>(tile + G::ROWS_PASS * G::BINS);
+  const int lo_at = streams * pad_ld;  // the lo plane after the hi plane
+  const int b0 = blockIdx.x * streams;
+  const int live = min(streams, batch - b0);
+  const int staged = (n_frames - 1) * hop + G::NFFT;  // padded samples the frames read
+  for (int s = 0; s < live; ++s) {
+    const float* chunk = audio + (b0 + s) * stride_b;
+    __nv_bfloat16* dst = pad + s * pad_ld;
+    for (int p = threadIdx.x; p < staged; p += G::THREADS) {
+      int j = p - pad_left;
+      j = j < 0 ? -j : j;
+      j = j >= samples ? 2 * samples - 2 - j : j;
+      const int at = stft_block::skewed_bf16(p, hop);
+      split_store(dst + at, dst + lo_at + at, chunk[j]);
+    }
+  }
+  const stft_block::CoalescedStore<G> store{
+      tile, out + static_cast<long long>(b0) * n_frames * G::BINS};
+  const auto row_at = [=](int r) {
+    const int s = r / n_frames;
+    return s * pad_ld + (r - s * n_frames) * (hop + 8);
+  };
+  stft_block::magnitudes_mma<G>(pad, lo_at, row_at, hop, live * n_frames, basis, bbuf, store);
+}
+
+// bf16 values of a stream's staged plane: its skewed samples, rounded up to
+// whole 16 bytes and on until the next stream's rows continue the skew's
+// bank groups (pad_ld = F * (hop + 8) mod 64)
+inline int staged_plane_ld(int n_frames, int hop, int n_fft) {
+  const int staged = (n_frames - 1) * hop + n_fft;
+  const int len = (stft_block::skewed_bf16(staged - 1, hop) + 1 + 7) / 8 * 8;
+  return len + ((n_frames * (hop + 8) - len) % 64 + 64) % 64;
+}
+
+template <class G>
+int launch_mma(const float* audio, int batch, long long stride_b, int samples, int pad_left,
+               int hop, int n_frames, int streams, const void* basis, float* out,
+               cudaStream_t stream) {
+  if (hop % G::BK != 0 || hop % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int pad_ld = staged_plane_ld(n_frames, hop, G::NFFT);
+  const size_t bytes = G::BASIS_BYTES + sizeof(float) * G::ROWS_PASS * G::BINS +
+                       4 * static_cast<size_t>(streams) * pad_ld;
+  if (bytes > stft_block::MAX_SHARED_BYTES) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = stft_block::allow_shared_memory<stft_magnitude_mma_kernel<G>>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (batch + streams - 1) / streams;
+  stft_magnitude_mma_kernel<G><<<grid, G::THREADS, bytes, stream>>>(
+      audio, batch, stride_b, samples, pad_left, hop, n_frames, streams, pad_ld,
+      static_cast<const __nv_bfloat16*>(basis), out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <class G, int M>
 int launch(const float* audio, int batch, long long stride_b, int samples, int pad_left,
            int hop, int n_frames, int streams, const float* basis, float* out,
@@ -107,9 +181,10 @@ int launch(const float* audio, int batch, long long stride_b, int samples, int p
 }  // namespace
 
 // audio: chunk b at audio + b*stride_b, `samples` fp32 each (unit stride);
-// basis: [n_fft][2][BINS_LD], tap k's real then imaginary basis row, each
-// `cutoff` bins padded with zeros to a multiple of 4 (kernels/stft_mag.py:
-// padded_basis) and packed for the mode; out: [batch, n_frames, cutoff]
+// basis: at fp32 and bf16 [n_fft][2][BINS_LD] fp32, tap k's real then
+// imaginary basis row, each `cutoff` bins padded with zeros to a multiple
+// of 4; at bf16_3x [n_fft][LDB] bf16 (stft_tile.cuh: MmaGeometry); both as
+// kernels/stft_dotmag.py: padded_basis packs them; out: [batch, n_frames, cutoff]
 // row-major; streams: the streams a block owns (kernels/stft_mag.py:
 // launch_plan); mode: the products' operands, 0 fp32, 1 bf16_3x, 2 bf16
 // (tier.cuh ProductMode). Takes (n_fft, cutoff) = (256, 129) or (128, 65)
@@ -119,7 +194,7 @@ int launch(const float* audio, int batch, long long stride_b, int samples, int p
 // launch.
 extern "C" int vadc_stft_magnitude(const float* audio, int batch, long long stride_b,
                                    int samples, int pad_left, int pad_right, int hop,
-                                   const float* basis, int n_fft, int cutoff, int streams,
+                                   const void* basis, int n_fft, int cutoff, int streams,
                                    float* out, int mode, void* stream) {
   const int padded = samples + pad_left + pad_right;
   if (batch <= 0 || samples <= 0 || hop <= 0 || streams <= 0 || pad_left < 0 ||
@@ -131,13 +206,25 @@ extern "C" int vadc_stft_magnitude(const float* audio, int batch, long long stri
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return by_mode(mode, [&](auto m) {
     constexpr int M = decltype(m)::value;
-    if (n_fft == 256 && cutoff == 129) {
-      return launch<Spectrum256, M>(audio, batch, stride_b, samples, pad_left, hop, n_frames,
-                                    streams, basis, out, s);
-    }
-    if (n_fft == 128 && cutoff == 65) {
-      return launch<Spectrum128, M>(audio, batch, stride_b, samples, pad_left, hop, n_frames,
-                                    streams, basis, out, s);
+    if constexpr (M == P_SPLIT) {
+      if (n_fft == 256 && cutoff == 129) {
+        return launch_mma<SpectrumMma256>(audio, batch, stride_b, samples, pad_left, hop,
+                                          n_frames, streams, basis, out, s);
+      }
+      if (n_fft == 128 && cutoff == 65) {
+        return launch_mma<SpectrumMma128>(audio, batch, stride_b, samples, pad_left, hop,
+                                          n_frames, streams, basis, out, s);
+      }
+    } else {
+      const float* fbasis = static_cast<const float*>(basis);
+      if (n_fft == 256 && cutoff == 129) {
+        return launch<Spectrum256, M>(audio, batch, stride_b, samples, pad_left, hop, n_frames,
+                                      streams, fbasis, out, s);
+      }
+      if (n_fft == 128 && cutoff == 65) {
+        return launch<Spectrum128, M>(audio, batch, stride_b, samples, pad_left, hop, n_frames,
+                                      streams, fbasis, out, s);
+      }
     }
     return static_cast<int>(cudaErrorInvalidValue);
   });

@@ -43,7 +43,7 @@ from vadc_tpu_torch.kernels.silero_v31_fused2d import (
     out_frames,
     pack_weights,
 )
-from vadc_tpu_torch.kernels.stft_mag import bins_ld, padded_basis_of
+from vadc_tpu_torch.kernels.stft_mag import bins_ld, mma_ld, padded_basis_of
 from vadc_tpu_torch.models.weights import Params
 from vadc_tpu_torch.nn import functional as F
 from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, store, tier_of
@@ -181,7 +181,7 @@ def step_args(params: Params, audio, h, c, probs, hn, cn, spectrum=None,
     stamped build of the same source)."""
     packed = pack_weights(params, tier)
     basis = padded_basis_of(params, tier.stft)
-    _check("forward_fused", packed, audio, basis, h, c, hn, cn, spectrum)
+    _check("forward_fused", packed, audio, basis, tier, h, c, hn, cn, spectrum)
     batch, samples = audio.shape
     _, c_norm_w = _norm_weights(samples // HOP + 1)
     return (
@@ -211,7 +211,7 @@ def encode_fused_audio(
         return encode_fused_audio_reference(params, audio, tier)
     packed = pack_weights(params, tier)
     basis = padded_basis_of(params, tier.stft)
-    _check("encode_fused_audio", packed, audio, basis)
+    _check("encode_fused_audio", packed, audio, basis, tier)
     rows, samples = audio.shape
     frames = samples // HOP + 1
     _, c_norm_w = _norm_weights(frames)
@@ -241,25 +241,33 @@ def _check_chunks(audio: torch.Tensor, who: str = "forward_fused") -> None:
         )
 
 
-def _check(who, packed, audio, basis, h=None, c=None, hn=None, cn=None, spectrum=None) -> None:
+def _check(who, packed, audio, basis, tier, h=None, c=None, hn=None, cn=None,
+           spectrum=None) -> None:
     """The tensors of one launch: the step's (state and, optionally, the
-    spectrum copy) or the encoder entry's (audio and weights alone)."""
+    spectrum copy) or the encoder entry's (audio and weights alone); the
+    basis packed for the tier's STFT operands."""
     if audio.dim() != 2 or audio.stride(1) != 1 or (audio.shape[0] > 1 and
                                                     audio.stride(0) < audio.shape[1]):
         raise ValueError(
             f"{who}: audio must be [B, S] with unit-stride samples and rows that do not "
             f"overlap, got shape {tuple(audio.shape)} strides {audio.stride()}"
         )
+    mma = tier.stft == "bf16_3x"  # the tensor-core spectrum's bases
+    want = (N_FFT, mma_ld(N_FEAT)) if mma else (N_FFT, 2, BASIS_LD)
+    dtype = torch.bfloat16 if mma else torch.float32
+    if tuple(basis.shape) != want or basis.dtype != dtype or not basis.is_contiguous():
+        raise ValueError(
+            f"{who}: padded STFT basis {tuple(basis.shape)} {basis.dtype} is not a contiguous "
+            f"{list(want)} {dtype} (the {tier} instance's)")
     if audio.dtype != torch.float32:
         raise TypeError(f"{who}: audio must be float32, got {audio.dtype}")
     if audio.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {audio.device}")
+    if basis.device != audio.device:
+        raise ValueError(f"{who}: basis on {basis.device}, audio on {audio.device}")
     batch, samples = audio.shape
-    if tuple(basis.shape) != (N_FFT, 2, BASIS_LD):
-        raise ValueError(
-            f"{who}: padded STFT basis {tuple(basis.shape)} is not [{N_FFT}, 2, {BASIS_LD}]")
     state_shape = (2, batch, HIDDEN)
-    tensors = [("audio", audio), ("weights", packed.buffer), ("basis", basis)]
+    tensors = [("audio", audio), ("weights", packed.buffer)]
     if h is not None:
         tensors += [("h", h), ("c", c), ("hn", hn), ("cn", cn)]
     if spectrum is not None:

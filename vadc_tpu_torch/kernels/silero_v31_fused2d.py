@@ -37,7 +37,9 @@ import torch
 from vadc_tpu_torch.kernels import _build
 from vadc_tpu_torch.models.weights import V3_STRIDES, Params
 from vadc_tpu_torch.nn import functional as F
-from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, bf16, pack_operand, store, tier_of
+from vadc_tpu_torch.nn.precision import (
+    FAITHFUL, Tier, bf16, pack_operand, split, store, tier_of,
+)
 from vadc_tpu_torch.tracing import zone
 
 HIDDEN = 64
@@ -61,9 +63,42 @@ _TRANSPOSED = {"dw_w", "pw_w", "proj_w", "qkv_w", "att_proj_w", "lin1_w", "lin2_
 # the weights of products, packed as the tier's operands (csrc/tier.cuh)
 _PRODUCTS = {"pw_w", "proj_w", "qkv_w", "att_proj_w", "lin1_w", "lin2_w", "conv_w",
              "lstm_w0", "lstm_w1", "dec_w"}
+# the encoder's products, which the bf16 tiers run on the tensor cores
+# (csrc/silero_v31_body.cuh: linear_mma) from fragment blocks
+_FRAGMENTS = {"pw_w", "proj_w", "qkv_w", "att_proj_w", "lin1_w", "lin2_w", "conv_w"}
 # what turbo's bf16 encoder ops read as bf16 (the JAX package's `astype`s)
 _BF16_IN_TURBO = {"dw_w", "dw_b", "pw_b", "proj_b", "qkv_b", "att_proj_b", "lin1_b", "lin2_b",
                   "conv_b", "bn_scale", "bn_shift"}
+
+
+def pack_fragments(wt: torch.Tensor, mode: str) -> torch.Tensor:
+    """A product's transposed weight wt [K, N] (N a multiple of 8) as the
+    bf16 tiers' tensor-core products read it (csrc/silero_v31_body.cuh:
+    frag_words): K zero-padded to Kp, a multiple of 16; for each n8 tile j,
+    each k16 step kb and each lane l (g = l // 4, t = l % 4) the mma.sync B
+    fragment's two 32-bit words, rows k = 16 kb + 2t (+ 8) and k + 1 of
+    column n = 8j + g as bf16 in the lower and the upper half; at bf16_3x
+    (mode) hi = bf16(w) then lo = bf16(w - hi), four words a lane; at bf16
+    the two of bf16(w). Returned flat, as an fp32 tensor of the words'
+    bits: [N / 8, Kp / 16, 32, 2 or 4] words in that order."""
+    k, n = wt.shape
+    if n % 8:
+        raise ValueError(f"pack_fragments: {n} columns are not whole n8 tiles")
+    kp = -(-k // 16) * 16
+    w = torch.zeros(kp, n, dtype=torch.float32, device=wt.device)
+    w[:k] = wt
+    planes = list(split(w)) if mode == "bf16_3x" else [bf16(w)]
+    lane = torch.arange(32, device=wt.device)
+    g, t = lane // 4, lane % 4
+    rows = (16 * torch.arange(kp // 16, device=wt.device)[:, None, None]
+            + 2 * t[None, :, None] + 8 * torch.arange(2, device=wt.device)[None, None, :])
+    cols = 8 * torch.arange(n // 8, device=wt.device)[:, None, None, None] + g[None, None, :, None]
+    words = []
+    for plane in planes:
+        bits = plane.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+        low, high = bits[rows[None], cols], bits[rows[None] + 1, cols]
+        words.append(low | (high << 16))  # [N / 8, Kp / 16, 32, 2]
+    return torch.cat(words, dim=-1).reshape(-1).view(torch.float32)
 
 
 class PackedWeights:
@@ -73,8 +108,10 @@ class PackedWeights:
     kernel can copy a matrix to shared memory 16 bytes at a time.
     Batch norm is folded to scale = w / sqrt(var + eps), shift = b -
     mean * scale; a BN-folded archive gets scale 1, shift 0. At a bf16 tier
-    the products' weights are packed as its operands, and in turbo the
-    weights of the bf16 encoder ops are rounded to bf16."""
+    the encoder's products' weights are packed as tensor-core fragments
+    (pack_fragments) and the LSTM's and the decoder's as the tier's
+    operands, and in turbo the weights of the bf16 encoder ops are rounded
+    to bf16."""
 
     def __init__(self, params: dict, tier: Tier = FAITHFUL):
         pieces: list[torch.Tensor] = []
@@ -87,7 +124,9 @@ class PackedWeights:
                 offsets.append(-1)
                 return
             t = t.detach().to(torch.float32)
-            if slot in _PRODUCTS:
+            if slot in _FRAGMENTS and tier.products != "fp32":
+                t = pack_fragments(t, tier.products)
+            elif slot in _PRODUCTS:
                 t = pack_operand(t, tier.products)
             elif tier.bf16_storage and slot in _BF16_IN_TURBO:
                 t = bf16(t)

@@ -12,7 +12,11 @@ features` passes its tier.
 
 The spectrum kernels (this one, `stft_mag.stft_magnitude` and the v3.1 step
 kernel) read the bases packed as `padded_basis` builds them; the wrappers
-take (wr, wi) and pack them once per pair of tensors (`packed_basis`).
+take (wr, wi) and pack them once per pair of tensors (`packed_basis`). At
+fp32 and bf16 the bases are fp32 rows of bins for the CUDA-core tile; at
+bf16_3x, whose instances run on the tensor cores (csrc/stft_tile.cuh:
+MmaGeometry), they are bf16 hi and lo planes, the bins padded to whole n8
+tiles.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 
 from vadc_tpu_torch.kernels import _build
 from vadc_tpu_torch.nn import functional as F
-from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, pack_operand, tier_of
+from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, pack_operand, split, tier_of
 
 #: (n_fft, cutoff) of the kernels' instances (csrc/stft_mag.cu,
 #: csrc/stft_dotmag.cu) -> frame rows a block computes at once
@@ -40,15 +44,42 @@ def bins_ld(cutoff: int) -> int:
     return -(-cutoff // 4) * 4
 
 
+def bins_pad(cutoff: int) -> int:
+    """cutoff bins padded to whole n8 tiles of the tensor cores
+    (stft_block::MmaGeometry::BINS_PAD): 129 -> 136, 65 -> 72."""
+    return -(-cutoff // 8) * 8
+
+
+def mma_ld(cutoff: int) -> int:
+    """bf16 values of one tap of the bases as the bf16_3x instances read them
+    (stft_block::MmaGeometry::LDB): the real then the imaginary bins of hi,
+    the same of lo, each padded to bins_pad, then 8 zeros."""
+    return 4 * bins_pad(cutoff) + 8
+
+
 def padded_basis(wr: torch.Tensor, wi: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
-    """(wr, wi) [n_fft, cutoff] -> [n_fft, 2, bins_ld(cutoff)]: tap k's real
-    then imaginary basis row, each padded with zeros, so that a slice of
-    taps is one contiguous run of 16-byte aligned rows; packed for products
-    of `mode` (nn.precision.pack_operand; a zero packs as zero)."""
+    """(wr, wi) [n_fft, cutoff] packed for the spectrum kernels' products of
+    `mode`, so that a slice of taps is one contiguous run of 16-byte aligned
+    rows:
+
+    - fp32 and bf16 (the CUDA-core tile): [n_fft, 2, bins_ld(cutoff)] fp32,
+      tap k's real then imaginary basis row, each padded with zeros, packed
+      as nn.precision.pack_operand does (a zero packs as zero);
+    - bf16_3x (the tensor-core tile): [n_fft, mma_ld(cutoff)] bf16, tap k's
+      row of hi = bf16(w): the real bins, zeros to bins_pad(cutoff), the
+      imaginary bins, zeros; then lo = bf16(w - hi) the same way; then 8
+      zeros (nn.precision.split)."""
     n_fft, cutoff = wr.shape
-    out = torch.zeros(n_fft, 2, bins_ld(cutoff), dtype=torch.float32, device=wr.device)
-    out[:, 0, :cutoff] = pack_operand(wr, mode)
-    out[:, 1, :cutoff] = pack_operand(wi, mode)
+    if mode != "bf16_3x":
+        out = torch.zeros(n_fft, 2, bins_ld(cutoff), dtype=torch.float32, device=wr.device)
+        out[:, 0, :cutoff] = pack_operand(wr, mode)
+        out[:, 1, :cutoff] = pack_operand(wi, mode)
+        return out
+    (wr_hi, wr_lo), (wi_hi, wi_lo) = split(wr), split(wi)
+    width = bins_pad(cutoff)
+    out = torch.zeros(n_fft, mma_ld(cutoff), dtype=torch.bfloat16, device=wr.device)
+    for i, plane in enumerate((wr_hi, wi_hi, wr_lo, wi_lo)):
+        out[:, i * width:i * width + cutoff] = plane.to(torch.bfloat16)
     return out
 
 

@@ -26,7 +26,7 @@ import torch
 
 from vadc_tpu_torch.kernels import _build
 from vadc_tpu_torch.kernels.stft_dotmag import (
-    ROWS_PASS, bins_ld, check_geometry, packed_basis, padded_basis, split_basis,
+    ROWS_PASS, bins_ld, check_geometry, mma_ld, packed_basis, padded_basis, split_basis,
 )
 from vadc_tpu_torch.nn import functional as F
 
@@ -40,6 +40,9 @@ MODES = {"fp32": 0, "bf16_3x": 1, "bf16": 2}
 SLICE_TAPS, STAGES = 32, 2
 SMEM_ONE_BLOCK = 232_448
 SMEM_TWO_BLOCKS = 233_472 // 2 - 1024
+# the tensor-core instances' (bf16_3x; csrc/stft_mag.cu: SpectrumMma256/128):
+# rows a pass (4 m-tiles), taps a slice, slices in the ring
+MMA_ROWS_PASS, MMA_SLICE_TAPS, MMA_STAGES = 64, 16, 2
 
 
 def _mode_index(mode: str) -> int:
@@ -69,13 +72,22 @@ def split_basis_of(params) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def padded_basis_of(params, mode: str = "fp32") -> torch.Tensor:
-    """The STFT bases as the spectrum kernels read them: [n_fft, 2,
-    bins_ld(cutoff)], tap k's real then imaginary basis row, each padded
-    with zeros to a multiple of 4 bins (stft_dotmag.padded_basis), packed for
-    products of `mode` (a tier's `stft`). Built once per Params object and
-    mode."""
+    """The STFT bases as the spectrum kernels read them for products of
+    `mode` (a tier's `stft`): stft_dotmag.padded_basis of the split bases.
+    Built once per Params object and mode."""
     key = "stft_padded_basis" if mode == "fp32" else f"stft_padded_basis_{mode}"
     return params.derived(key, lambda: padded_basis(*split_basis_of(params), mode))
+
+
+def staged_plane_ld(n_frames: int, hop: int, n_fft: int) -> int:
+    """bf16 values of one stream's staged plane (hi or lo) in the tensor-core
+    instances' shared memory: the padded samples its frames read, skewed by
+    8 values a hop (stft_block::skewed_bf16), in whole 16 bytes, rounded up
+    so that the next stream's skew runs on from this one's frames
+    (csrc/stft_mag.cu: staged_plane_ld)."""
+    staged = (n_frames - 1) * hop + n_fft
+    length = -(-(staged - 1 + (staged - 1) // hop * 8 + 1) // 8) * 8
+    return length + (n_frames * (hop + 8) - length) % 64
 
 
 def staged_floats(n_frames: int, hop: int, n_fft: int) -> int:
@@ -90,17 +102,26 @@ def staged_floats(n_frames: int, hop: int, n_fft: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(batch: int, n_frames: int, hop: int, n_fft: int, cutoff: int,
-                sms: int) -> tuple[int, int]:
+                sms: int, mode: str = "fp32") -> tuple[int, int]:
     """(streams a block owns, shared memory bytes of a block) of one launch
-    on a card of `sms` SMs. A block walks the bases once for each pass of
-    ROWS_PASS rows over its streams' frames, and blocks on one SM share its
-    FMAs, so the plan minimizes the passes of the busiest SM, ceil(blocks /
-    sms) x passes a block: streams whose rows fill whole passes, the fewest
-    streams among equals."""
-    rows_pass = ROWS_PASS[(n_fft, cutoff)]
-    # the ring of basis slices and a pass's magnitudes, then the chunks
-    basis = 4 * (STAGES * SLICE_TAPS * 2 * bins_ld(cutoff) + rows_pass * cutoff)
-    stream = 4 * staged_floats(n_frames, hop, n_fft)
+    of the instance of `mode` on a card of `sms` SMs. A block walks the
+    bases once for each pass of rows over its streams' frames (ROWS_PASS
+    on the CUDA-core tile, fp32 and bf16; MMA_ROWS_PASS on the tensor-core
+    one, bf16_3x), and blocks on one SM share its arithmetic, so the plan
+    minimizes the passes of the busiest SM, ceil(blocks / sms) x passes a
+    block: streams whose rows fill whole passes, the fewest streams among
+    equals."""
+    _mode_index(mode)
+    if mode != "bf16_3x":
+        rows_pass = ROWS_PASS[(n_fft, cutoff)]
+        # the ring of basis slices and a pass's magnitudes, then the chunks
+        basis = 4 * (STAGES * SLICE_TAPS * 2 * bins_ld(cutoff) + rows_pass * cutoff)
+        stream = 4 * staged_floats(n_frames, hop, n_fft)
+    else:
+        rows_pass = MMA_ROWS_PASS
+        # the same, the chunks as hi and lo bf16 planes
+        basis = 2 * MMA_STAGES * MMA_SLICE_TAPS * mma_ld(cutoff) + 4 * rows_pass * cutoff
+        stream = 4 * staged_plane_ld(n_frames, hop, n_fft)
     if basis + stream > SMEM_ONE_BLOCK:
         raise ValueError(
             f"stft_magnitude: a chunk of {n_frames} frames does not fit in one block's "
@@ -148,7 +169,7 @@ def stft_magnitude(
     n_fft, cutoff = wr.shape
     check_call_geometry(samples, n_fft, cutoff, pad_left, pad_right, hop)
     n_frames = (samples + pad_left + pad_right - n_fft) // hop + 1
-    streams, _ = launch_plan(batch, n_frames, hop, n_fft, cutoff, _sm_count(audio.device))
+    streams, _ = launch_plan(batch, n_frames, hop, n_fft, cutoff, _sm_count(audio.device), mode)
     out = torch.empty(batch, n_frames, cutoff, dtype=torch.float32, device=audio.device)
     lib = _build.library()
     status = lib.vadc_stft_magnitude(
