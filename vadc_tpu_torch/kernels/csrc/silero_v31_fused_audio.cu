@@ -194,12 +194,18 @@ __device__ void audio_features(const Block& m, const NormW& norm_w,
       int j = p - PAD;
       j = j < 0 ? -j : j;
       j = j >= samples ? 2 * samples - 2 - j : j;
-      pad[s * pad_ld + stft_block::skewed(p, HOP)] = audio[(b0 + s) * stride_b + j];
+      if constexpr (M == P_BF16) {
+        // turbo's samples rounded once, here, for the fp32 tile: a product
+        // of bf16 values is exact, so these are the bf16 mode's sums
+        pad[s * pad_ld + stft_block::skewed(p, HOP)] = bf16_rn(audio[(b0 + s) * stride_b + j]);
+      } else {
+        pad[s * pad_ld + stft_block::skewed(p, HOP)] = audio[(b0 + s) * stride_b + j];
+      }
     }
     __syncthreads();
     const ToStageInput store{m.A, sa, by_seq, spect, static_cast<long long>(b0) * seq0};
-    stft_block::magnitudes<Spectrum, M>(pad, pad_ld, HOP, live * seq0, seq0,
-                                        static_cast<const float*>(basis), bbuf, store);
+    stft_block::magnitudes<Spectrum, P_FP32>(pad, pad_ld, HOP, live * seq0, seq0,
+                                             static_cast<const float*>(basis), bbuf, store);
   } else {
     // the samples as bf16 hi and lo planes, split once
     __nv_bfloat16* pad = reinterpret_cast<__nv_bfloat16*>(m.H);

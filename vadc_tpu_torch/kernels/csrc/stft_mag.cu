@@ -45,8 +45,9 @@
 // turbo; v5 bf16_3x at balanced, bf16 at fast and turbo) and packs the
 // bases for it. The JAX package's Pallas kernel has no mode: these are the
 // counterparts of its models' XLA spectrum at the tier, on the ported
-// kernel. On the same H100: 0.2131 ms at v4 B=2048 in bf16 (1.16x the fp32
-// instance: the rounding of each staged sample where it is read). What
+// kernel. The bf16 instance rounds each staged sample once and runs the
+// fp32 tile (a product of bf16 values is exact in fp32: the same bits as a
+// rounding at every read, which cost 16 % more, PERF.md). What
 // bounds the bf16_3x instance: the bytes (the same 12.6 MB in and 25.4 MB
 // out at v4 B=2048, 0.0113 ms) and, on the chip, the bases: a pass of 64
 // rows walks all of them (283 KB) from L2. The CUDA-core instance it
@@ -87,10 +88,20 @@ stft_magnitude_kernel(const float* __restrict__ audio, int batch, long long stri
       stft_block::cp_async4(dst + stft_block::skewed(p, hop), chunk + j);
     }
   }
+  if constexpr (M == P_BF16) {
+    // the samples rounded once, in place, for the fp32 tile to read: a
+    // product of bf16 values is exact in fp32, so its sums are the bf16
+    // mode's, bit for bit, without a rounding at every read
+    stft_block::cp_async_commit();
+    stft_block::cp_async_wait<0>();
+    __syncthreads();
+    for (int i = threadIdx.x; i < live * pad_ld; i += G::THREADS) pad[i] = bf16_rn(pad[i]);
+  }
   // the staging lands with the first slice of the bases
   const stft_block::CoalescedStore<G> store{
       tile, out + static_cast<long long>(b0) * n_frames * G::BINS};
-  stft_block::magnitudes<G, M>(pad, pad_ld, hop, live * n_frames, n_frames, basis, bbuf, store);
+  stft_block::magnitudes<G, M == P_BF16 ? P_FP32 : M>(pad, pad_ld, hop, live * n_frames,
+                                                      n_frames, basis, bbuf, store);
 }
 
 // The same by bf16_3x, on the tensor cores: the streams' chunks are staged

@@ -12,7 +12,9 @@
 // --use_fast_math). No split-K, no reordering, no TF32. The products'
 // operands are a template parameter M (tier.cuh): fp32 (the faithful tier)
 // and bf16 samples and bases (turbo, and v5's fast) on the CUDA cores in
-// this tile (Tile, magnitudes); bf16_3x on fp32 samples (the balanced and
+// this tile (Tile, magnitudes; stft_mag.cu and the step kernel round the
+// samples once where they stage them and run it at fp32, the same bits);
+// bf16_3x on fp32 samples (the balanced and
 // fast tiers of the v3.1 and v4 spectrum, v5's balanced) on the tensor
 // cores, in the tile at the end of this file (TileMma, magnitudes_mma),
 // whose own account, and why the bf16 mode stays here, are there.
