@@ -40,10 +40,13 @@ speech are chip_smoke.py's, taken from beside this script):
     balanced, fast and turbo: `forward_fused` at B = 2048 and 1 x 1536,
     `forward_fused2d` at 2048 x 25 frames, `encode_fused_audio` at 4096
     rows, `dot_magnitude` at 2048 x 1536, the v3.1 `StreamRunner.step` at
-    B = 2048, `lstm_decoder_fused` at 64 x 64 x 7, the 64 x 64 and 2048 x 8
-    slabs, the CLI's window and the server's `_tick` at 2048 slots at the
-    tier, and `stft_magnitude` at the four family geometries (B = 2048) at
-    the products' mode the tier gives each family.
+    B = 2048, the 64 x 64 and 2048 x 8 slabs, the CLI's window and the
+    server's `_tick` at 2048 slots at the tier, `stft_magnitude` at the four
+    family geometries (B = 2048) at the products' mode the tier gives each
+    family, and the tier instances of the recurrent kernels, each weight
+    packed once as the tree packs it for the tier: `lstm_fused` at v4 B=2048
+    x T=3, v4 B=1 x T=288 and v5 B=2048 x T=1, `lstm_decoder_fused` at 64 x
+    64 x 7 and 2048 x 8 x 7.
 
 Imports nothing of JAX. Exits 1 without a card.
 """
@@ -63,6 +66,10 @@ LSTM_SHAPES = (("v4", 64, 2, 2048, 3), ("v4", 64, 2, 2048, 1), ("v5", 128, 1, 20
                ("v4", 64, 2, 1, 288), ("v5", 128, 1, 1, 96))
 # (batch, chunks) at 7 frames a chunk
 DECODER_SHAPES = ((2048, 1), (2048, 8), (64, 64), (1, 96))
+# the recurrent kernels' tier instances: lstm_fused's (label, hidden, layers,
+# batch, steps) and lstm_decoder_fused's (batch, chunks) at 7 frames a chunk
+TIER_LSTM_SHAPES = (("v4", 64, 2, 2048, 3), ("v4", 64, 2, 1, 288), ("v5", 128, 1, 2048, 1))
+TIER_DECODER_SHAPES = ((64, 64), (2048, 8))
 # (batch, samples) of forward_fused
 STEP_SHAPES = ((2048, 1536), (64, 1536), (1, 1536), (2048, 512))
 # (streams, chunks) of StreamRunner.scan
@@ -88,6 +95,8 @@ def main() -> int:
     from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
     from vadc_tpu_torch.engine.runner import StreamRunner
     from vadc_tpu_torch.kernels import silero_v31_fused as KA
+    from vadc_tpu_torch.kernels import lstm as KL
+    from vadc_tpu_torch.kernels import lstm_decoder as KD
     from vadc_tpu_torch.kernels.lstm import lstm_fused, transpose_weight
     from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused
     from vadc_tpu_torch.kernels.silero_v31_fused2d import encode_fused, forward_fused2d
@@ -209,6 +218,22 @@ def main() -> int:
         h, c = silero_v31.init_state(2048, device)
         h1, c1 = silero_v31.init_state(1, device)
         x, hs, cs = rand(64, 64, 7, 64), rand(2, 64, 64, scale=0.3), rand(2, 64, 64)
+
+        def packed(w, tier, kernel):
+            """The weight the tree's tier instance of `kernel` (a module with
+            the kernel's wrapper) reads, packed once."""
+            if hasattr(kernel, "kernel_weight"):
+                return kernel.kernel_weight(w, TIERS[tier])
+            return transpose_weight(w, TIERS[tier].products)
+
+        lstm_in = {}
+        for name, hidden, layers, batch, seq in TIER_LSTM_SHAPES:
+            lstm_in[name, batch, seq] = (
+                rand(layers, 4 * hidden, 2 * hidden, scale=0.1), rand(layers, 4 * hidden, scale=0.1),
+                rand(batch, seq, hidden), rand(layers, batch, hidden, scale=0.3),
+                rand(layers, batch, hidden))
+        dec_in = {(batch, chunks): (rand(batch, chunks, 7, 64), rand(2, batch, 64, scale=0.3),
+                                    rand(2, batch, 64)) for batch, chunks in TIER_DECODER_SHAPES}
         for tier in ("balanced", "fast", "turbo"):
             t_runner = StreamRunner("v3", params, device=device, precision=tier)
             feats = silero_v31.features(params, audio, tier)
@@ -222,10 +247,6 @@ def main() -> int:
                     lambda: KA.encode_fused_audio(params, big[:4096], tier), iters=20),
                 "dot_magnitude B=2048": ms(lambda: dot_magnitude(frames, wr, wi, tier)),
                 "step B=2048": ms(lambda: t_runner.step(audio, step_state), iters=20),
-                "lstm_decoder_fused 64 x 64 x 7": ms(
-                    lambda: lstm_decoder_fused(x, hs, cs, params["lstm_w"], params["lstm_b"],
-                                               params["dec_w"], params["dec_b"], tier=tier),
-                    iters=20, warmup=20),
                 "CLI window": ms(lambda: silero_v31.forward_minibatched(
                     params, big[:CLI_WINDOW], h1, c1, tier), iters=10),
             }
@@ -235,6 +256,17 @@ def main() -> int:
                 times[f"scan {streams} x {chunks}"] = ms(lambda: t_runner.scan(slab, state), iters=10)
             times["_tick 2048 slots"] = chip_smoke.time_ticks(
                 str(DEFAULT_WEIGHTS), device, f"v3.1 {tier}", tier)[0]
+            for (name, batch, seq), (w, b, x1, h1_, c1_) in lstm_in.items():
+                wt = packed(w, tier, KL)
+                times[f"lstm_fused {name} B={batch} x T={seq}"] = ms(
+                    lambda: lstm_fused(x1, h1_, c1_, w, b, wt=wt, tier=tier),
+                    iters=200 if batch > 1 else 20, warmup=20)
+            wt = packed(params["lstm_w"], tier, KD)
+            for (batch, chunks), (x1, h1_, c1_) in dec_in.items():
+                times[f"lstm_decoder_fused {batch} x {chunks} x 7"] = ms(
+                    lambda: lstm_decoder_fused(x1, h1_, c1_, params["lstm_w"], params["lstm_b"],
+                                               params["dec_w"], params["dec_b"], wt=wt, tier=tier),
+                    iters=20, warmup=20)
             # stft_magnitude's instance of each products' mode the tier gives a family
             for family, (module, p) in models.items():
                 mode = chip_smoke.stft_mode_of(family, tier)
@@ -246,14 +278,15 @@ def main() -> int:
             out += [f"{name} [{TIERS[tier]}]: {t:.4f}" for name, t in times.items()]
     print(f"{os.path.basename(os.getcwd())} ({chip_smoke.nvidia_smi()}), ms per call | "
           + "; ".join(out), flush=True)
-    # registers, spills and stack of the spectrum kernels, from nvcc -Xptxas -v
+    # registers, spills and stack of the spectrum, fused and recurrent
+    # kernels, from nvcc -Xptxas -v
     from vadc_tpu_torch.kernels import _build
 
     unit, ptxas = "", []
     for line in _build.build_info.get("log", "").splitlines():
         if line.startswith("Compiling "):
             unit = line.split()[1]
-        elif unit.startswith(("stft_", "silero_v31_fused")) and (
+        elif unit.startswith(("stft_", "silero_v31_fused", "lstm")) and (
                 "registers" in line or "spill" in line or "entry function" in line):
             ptxas.append(f"{unit}: {line.strip()}")
     print(f"{os.path.basename(os.getcwd())} ptxas | " + " | ".join(ptxas), flush=True)

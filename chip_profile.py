@@ -24,7 +24,10 @@ each precision tier: a second library of the same source, built with
 microseconds (cycles scaled by each block's own span on the card's
 nanosecond timer) and as a share of the block's life, at B=2048 x 1536 (all
 blocks resident together with their neighbours) and at B=4 (one block
-alone). With the argument `split`, only that. The package's own library carries no stamp. Then
+alone). With the argument `split`, only that, the `ptxas` registers and
+spills and `HMMA` counts of every instance, and the bf16 tiers' recurrent
+kernels at B=2048 with 1, 2, 4 and 8 streams a block (`lstm_streams`). The
+package's own library carries no stamp. Then
 stft_magnitude at the v4 step (B=2048), the v4 CLI window (96 chunks) and
 the v5_8k step the same way (device time against host time), and
 `spectrum_variants`: the standalone spectrum built with other template
@@ -339,6 +342,48 @@ def print_hmma() -> None:
         print(f"sass HMMA {n:5d}  {pretty[:150]}")
 
 
+def lstm_streams(params, device) -> None:
+    """The bf16 tiers' recurrent kernels at B=2048 with 1, 2, 4 and 8 streams
+    a block (the wrappers take the fewest that leave no more blocks than
+    SMs: 8 at this batch), CUDA events: lstm_fused at v4 T=3 and
+    lstm_decoder_fused at 8 chunks of 7 frames, on seeded random inputs."""
+    import torch
+
+    import chip_smoke
+    from vadc_tpu_torch.kernels import lstm as KL
+    from vadc_tpu_torch.kernels import lstm_decoder as KD
+    from vadc_tpu_torch.models import silero_v4
+    from vadc_tpu_torch.nn.precision import tier_of
+
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=device, generator=gen)
+
+    _, models = chip_smoke.family_models(device)
+    p4 = models["v4"][1]
+    x, h, c = rand(BATCH, 3, silero_v4.HIDDEN), rand(2, BATCH, 64, scale=0.3), rand(2, BATCH, 64)
+    xd = rand(BATCH, 8, 7, 64)
+    rule = KL.mma_streams
+    try:
+        for tier in TIERS[1:]:
+            t = tier_of(tier)
+            w4, wd = KL.weight_of(p4, t), KD.weight_of(params, t)
+            times = []
+            for nb in (1, 2, 4, 8):
+                KL.mma_streams = lambda batch, sms, nb=nb: nb
+                a = chip_smoke.cuda_ms(lambda: KL.lstm_fused(x, h, c, p4["lstm_w"], p4["lstm_b"],
+                                                             wt=w4, tier=t), iters=50)
+                d = chip_smoke.cuda_ms(lambda: KD.lstm_decoder_fused(
+                    xd, h, c, params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"],
+                    wt=wd, tier=t), iters=10)
+                times.append(f"{nb}: lstm_fused {a:.4f} ms, lstm_decoder_fused {d:.4f} ms")
+            print(f"streams a block [{tier}], B={BATCH} (v4 T=3; 8 x 7 frames): "
+                  + "; ".join(times), flush=True)
+    finally:
+        KL.mma_streams = rule
+
+
 def phase_splits(params, audio) -> None:
     """phase_split of each tier's instance at B=2048 and for one block alone."""
     for tier in TIERS:
@@ -370,6 +415,7 @@ def main() -> int:
         phase_splits(params, audio)
         print_ptxas(ptxas)
         print_hmma()
+        lstm_streams(params, device)
         return 0
     runner = StreamRunner("v3", params, device=device)
     state = runner.init_state(BATCH)

@@ -38,11 +38,14 @@ Phases, each of which raises on failure (exit code 1):
      - lstm_decoder_fused (the LSTM with the v3 decoder folded in, over K
        chunks of each stream in order) on encode_fused's output at B=2048
        x K=1 x T=7, B=37 x K=5 x T=3..7 (a ragged block, every chunk
-       size), B=1 x K=96 x T=7 and B=333 x K=3 x T=7: against its plain
-       version, in place, both variants launched explicitly bit for bit,
-       the K-chunk call against K single calls bit for bit, and
-       lstm_decoder_fused(encode_fused(feats)) against forward_fused2d
-       bit for bit; encode_fused against the plain encoder stages;
+       size), B=1 x K=96 x T=7, B=333 x K=3 x T=7 and with the chunks cut
+       to 1 and 2 frames (B=37 x K=5, B=2048 x K=1): against its plain
+       version, in place, its one entry launched explicitly in one pass and
+       in several bit for bit, the K-chunk call against K single calls bit
+       for bit, its state against lstm_fused's over the same frames bit for
+       bit, and (whole chunks) lstm_decoder_fused(encode_fused(feats))
+       against forward_fused2d bit for bit; encode_fused against the plain
+       encoder stages;
   3. the main paths, each with the kernels' launch counts set to 0 just
      before and read just after (each kernel of the path must be > 0):
      - v3.1: StreamRunner.scan over 2048 streams x 8 chunks on the card
@@ -177,15 +180,19 @@ Phases, each of which raises on failure (exit code 1):
      lstm_decoder_fused alone at those shapes,
      the CLI's window of 96 chunks against 96 launches of forward_fused2d,
      the batch CLI's audio seconds per wall second, torch.nn.LSTM
-     (cuDNN) on the LSTM kernels' inputs as the library's time, and both
-     variants of the two recurrent kernels at B = 1, 64, 2048 over a range
-     of steps (the crossover behind kernels/lstm.py's RESIDENT_MIN_STEPS);
+     (cuDNN) on the LSTM kernels' inputs as the library's time, both
+     variants of lstm_fused (and lstm_decoder_fused's one) at B = 1, 64,
+     2048 over a range of steps (the crossover behind kernels/lstm.py's
+     RESIDENT_MIN_STEPS);
      per tier beside faithful in one call: each tier instance against its
      plain version, forward_fused at B=1, the v3.1 step, the 64 x 64 and
      2048 x 8 slabs, the CLI window, the server's ticks at 2048 slots, and
      cuBLAS's bf16 product of the frames beside the fast spectrum; per tier
      the v4/v5 instances (stft_magnitude at the four geometries, lstm_fused)
-     against their plain versions and the v4 and v5 B=2048 steps; cuFFT
+     against their plain versions and the v4 and v5 B=2048 steps; cuDNN's
+     torch.nn.LSTM in bf16 (weights, inputs and state) beside the tiers'
+     lstm_fused and lstm_decoder_fused rows as a yardstick, not the same
+     function (its state is bf16); cuFFT
      (torch.stft, torch.fft.rfft) beside the two spectrum kernels, their
      library_ms where the basis is the Hann DFT; save_checkpoint and
      restore_checkpoint of a 2048-slot v3.1 server (wall time), the ticks'
@@ -266,6 +273,10 @@ PARENT_DIGESTS = {"forward_fused2d": "6d6e602fd6f5405b", "forward_fused2d_ragged
                   # was fitted to streams
                   "stft_magnitude_v4": "fe673efd6c1997d2", "stft_magnitude_v4_8k": "3926a382740d2ea4",
                   "stft_magnitude_v5": "b54fae0a7716f353", "stft_magnitude_v5_8k": "2f4f7898f725909c"}
+# streams of the recurrent kernels' calls on part of a batch at a tier: 3 a
+# block at 132 SMs, the last block ragged; their bits those of the same
+# streams in the whole call
+RAGGED_STREAMS = 301
 # v4 and v5 chunk sizes of the paths below (model samples)
 V4_CHUNK, V4_8K_CHUNK, V5_CHUNK, V5_8K_CHUNK = 1536, 768, 512, 256
 CLI_WINDOW = 96  # chunks per CLI window (the CLI's --batch default)
@@ -309,16 +320,17 @@ TIER_PATH_BATCH = 256
 # seed)): seed 0 is the material of the JAX package's recorded deviations
 SPEECH_SEEDS = range(12)
 # digests of the tier instances' outputs (tier_digests), recorded on an
-# NVIDIA H100 80GB HBM3 (700 W) when the instances were written and again
+# NVIDIA H100 80GB HBM3 (700 W) when the instances were written, again
 # when the encoder's products and the bf16_3x spectrum moved to the tensor
-# cores (the lstm_fused and the bf16 stft_magnitude entries held): a later
-# change of their device code must keep them, as PARENT_DIGESTS holds the
-# faithful instances
+# cores (the lstm_fused and the bf16 stft_magnitude entries held), and again
+# when the LSTMs' gate sums did (the turbo v3.1 and the stft_magnitude
+# entries held): a later change of their device code must keep them, as
+# PARENT_DIGESTS holds the faithful instances
 TIER_DIGESTS = {
-    "forward_fused2d[balanced]": "7c64c8d2f928a964", "forward_fused[balanced]": "cc4afb3f806ae5df",
-    "forward_fused_ragged[balanced]": "a9b6daeea3205ebd",
-    "forward_fused2d[fast]": "0306370a4fac86b9", "forward_fused[fast]": "a97d4110340ee7d1",
-    "forward_fused_ragged[fast]": "2e10553b52f978ff",
+    "forward_fused2d[balanced]": "a03d5c74f33c472c", "forward_fused[balanced]": "71f6ed37e31c4ce4",
+    "forward_fused_ragged[balanced]": "0162b6a8312945f7",
+    "forward_fused2d[fast]": "2f63a4a6f84384d7", "forward_fused[fast]": "af7af7ada5391b7d",
+    "forward_fused_ragged[fast]": "9ea09a8f5dcf965f",
     "forward_fused2d[turbo]": "172a5345453aa290", "forward_fused[turbo]": "bb956bfa433192e8",
     "forward_fused_ragged[turbo]": "8b57c57494b2d5a1",
     # the v4/v5 paths' instances (tier_v45_digests): stft_magnitude by its
@@ -329,12 +341,12 @@ TIER_DIGESTS = {
     "stft_magnitude_v5[bf16]": "d7c20c9597a5a3bf", "stft_magnitude_v5[bf16_3x]": "706cb64b683c039f",
     "stft_magnitude_v5_8k[bf16]": "d7cc916725180655",
     "stft_magnitude_v5_8k[bf16_3x]": "a7ff720c9f70caad",
-    "lstm_fused_v4[balanced]": "d12e1f2665a553c8", "lstm_fused_v4_long[balanced]": "bf2ae650d9a3c565",
-    "lstm_fused_v4[fast]": "69fd212d61d25e2b", "lstm_fused_v4_long[fast]": "a31dbab8be04f791",
-    "lstm_fused_v4[turbo]": "69fd212d61d25e2b", "lstm_fused_v4_long[turbo]": "a31dbab8be04f791",
-    "lstm_fused_v5[balanced]": "f902c97e46a07664", "lstm_fused_v5_long[balanced]": "ff03fa1c12b46918",
-    "lstm_fused_v5[fast]": "1f287d9835d79dfd", "lstm_fused_v5_long[fast]": "7d31c3bed8678ed5",
-    "lstm_fused_v5[turbo]": "1f287d9835d79dfd", "lstm_fused_v5_long[turbo]": "7d31c3bed8678ed5"}
+    "lstm_fused_v4[balanced]": "ac54394b07ccc15f", "lstm_fused_v4_long[balanced]": "c860595818a72fb0",
+    "lstm_fused_v4[fast]": "15e5cd1febb26d54", "lstm_fused_v4_long[fast]": "ce23bd494cb0c30b",
+    "lstm_fused_v4[turbo]": "15e5cd1febb26d54", "lstm_fused_v4_long[turbo]": "ce23bd494cb0c30b",
+    "lstm_fused_v5[balanced]": "c3e5f23aa90c21bb", "lstm_fused_v5_long[balanced]": "e4eb0f7f4a1a2801",
+    "lstm_fused_v5[fast]": "f2553cb2e82e9cb7", "lstm_fused_v5_long[fast]": "ef4490b21d777379",
+    "lstm_fused_v5[turbo]": "f2553cb2e82e9cb7", "lstm_fused_v5_long[turbo]": "ef4490b21d777379"}
 
 
 def log(msg: str) -> None:
@@ -947,18 +959,21 @@ def phase_kernels_v45(models: dict, device) -> dict:
     return errs
 
 
-def check_lstm_decoder(params, audio, n_streams: int, label: str) -> float:
+def check_lstm_decoder(params, audio, n_streams: int, label: str, frames_kept: int = 0) -> float:
     """encode_fused and lstm_decoder_fused at audio [n_streams * K, S], the
     K chunks of a stream in consecutive rows: encode_fused against the plain
-    encoder stages; lstm_decoder_fused on its output, from a carried state,
-    against its plain version (the plain version on the CPU beside it as the
-    floor), in place, the K-chunk call against K single calls bit for bit,
-    and chunk 0 of lstm_decoder_fused(encode_fused(feats)) against
-    forward_fused2d(feats) bit for bit."""
+    encoder stages; lstm_decoder_fused on its output (its first frames_kept
+    frames a chunk when given), from a carried state, against its plain
+    version (the plain version on the CPU beside it as the floor), in place,
+    the K-chunk call against K single calls bit for bit, its state bit for
+    bit that of lstm_fused over the same frames (the faithful kernels' fmaf
+    chains in one order), and unless frames are cut chunk 0 of
+    lstm_decoder_fused(encode_fused(feats)) against forward_fused2d(feats)
+    bit for bit."""
     import torch
 
     from vadc_tpu_torch.kernels import lstm_decoder as KD
-    from vadc_tpu_torch.kernels.lstm import transposed_weight_of
+    from vadc_tpu_torch.kernels.lstm import lstm_fused, transposed_weight_of
     from vadc_tpu_torch.kernels.lstm_decoder import (
         lstm_decoder_fused, lstm_decoder_fused_reference,
     )
@@ -976,8 +991,8 @@ def check_lstm_decoder(params, audio, n_streams: int, label: str) -> float:
     require(bool(torch.isfinite(enc).all()), f"encode_fused {label}: non-finite output")
     enc_err = max_abs(enc, enc_ref)
     enc_max = float(enc_ref.abs().max().item())
-    frames = enc.shape[1]
-    x = enc.reshape(n_streams, n_chunks, frames, 64)
+    frames = frames_kept or enc.shape[1]
+    x = enc.reshape(n_streams, n_chunks, enc.shape[1], 64)[:, :, :frames].contiguous()
     # a realistic carried state: one plain step on other audio first
     h0, c0 = silero_v31.init_state(n_streams, audio.device)
     first = feats.reshape(n_streams, n_chunks, *feats.shape[1:])[:, 0].contiguous()
@@ -1007,32 +1022,36 @@ def check_lstm_decoder(params, audio, n_streams: int, label: str) -> float:
     h2, c2 = h.clone(), c.clone()
     p2, _, _ = lstm_decoder_fused(x, h2, c2, *args, hn=h2, cn=c2, wt=wt)
     same_in_place = torch.equal(p2, got[0]) and torch.equal(h2, got[1]) and torch.equal(c2, got[2])
-    # each variant launched explicitly (not counted), the resident one also
-    # in passes over the chunks
+    # the entry launched explicitly (not counted), in one pass and in
+    # passes over the chunks
     variants = {}
-    for name, launch, limit in (
-            ("streaming", KD._launch_streaming, None),
-            ("resident", KD._launch_resident, None),
-            ("resident, in passes", KD._launch_resident,
-             1024 * n_streams * frames * max(1, n_chunks // 3))):
+    for name, limit in (("one pass", None),
+                        ("in passes", 1024 * n_streams * frames * max(1, n_chunks // 3))):
         out = (torch.empty_like(got[0]), torch.empty_like(h), torch.empty_like(c))
         with small_pre_scratch(limit) if limit else contextlib.nullcontext():
-            launch(x, h, c, wt, *args[1:], *out)
+            KD._launch(x, h, c, wt, *args[1:], *out)
         variants[name] = out
+    # the same frames through lstm_fused (its streaming kernel below 3
+    # steps, its resident ones from 3 on): the same state
+    _, h_lf, c_lf = lstm_fused(x.reshape(n_streams, n_chunks * frames, 64), h, c, args[0], args[1],
+                               wt=wt)
     torch.cuda.synchronize()
     same_variants = {name: same_bits(out, got) for name, out in variants.items()}
+    same_lstm_fused = torch.equal(h_lf, got[1]) and torch.equal(c_lf, got[2])
     # chunk 0 through the fused kernel, which runs the same device code
-    fused = forward_fused2d(params, first, h, c)
-    split = lstm_decoder_fused(x[:, 0].contiguous(), h, c, *args, wt=wt)
-    torch.cuda.synchronize()
-    same_fused = all(torch.equal(a, b) for a, b in zip(fused, split))
+    same_fused = None
+    if not frames_kept:
+        fused = forward_fused2d(params, first, h, c)
+        split = lstm_decoder_fused(x[:, 0].contiguous(), h, c, *args, wt=wt)
+        torch.cuda.synchronize()
+        same_fused = all(torch.equal(a, b) for a, b in zip(fused, split))
     log(f"lstm_decoder_fused {label} (x {tuple(x.shape)}): encode_fused max abs err {enc_err:.3e} "
         f"(bound {TOL_ENCODE:g}; largest activation {enc_max:.3f}); max abs err "
         + ", ".join(f"{k} {v:.3e} (bound {bounds[k]:.3e}, plain card vs CPU {floors[k]:.3e})"
                     for k, v in errs.items())
-        + f"; the wrapper runs {variant_of(n_streams, n_chunks * frames)}; bit-equal to its "
-        f"call: {same_variants}; "
+        + f"; launched explicitly, bit-equal to the wrapper's call: {same_variants}; "
         f"K single calls bit-equal: {same_singles}; in place bit-equal: {same_in_place}; "
+        f"state bit-equal to lstm_fused's: {same_lstm_fused}; "
         f"lstm_decoder_fused(encode_fused) bit-equal to forward_fused2d: {same_fused}")
     if not all(same_variants.values()):
         log(f"lstm_decoder_fused {label}: differences from the wrapper's call: "
@@ -1044,7 +1063,9 @@ def check_lstm_decoder(params, audio, n_streams: int, label: str) -> float:
         require(ok, f"lstm_decoder {label}: the {name} variant differs from the wrapper's call")
     require(same_singles, f"lstm_decoder {label}: the K-chunk call differs from K single calls")
     require(same_in_place, f"lstm_decoder {label}: in place differs")
-    require(same_fused, f"lstm_decoder {label}: differs from forward_fused2d on the same features")
+    require(same_lstm_fused, f"lstm_decoder {label}: its state differs from lstm_fused's")
+    require(same_fused is not False,
+            f"lstm_decoder {label}: differs from forward_fused2d on the same features")
     return max(errs.values())
 
 
@@ -1063,6 +1084,12 @@ def phase_kernels_lstm_decoder(params, device) -> dict:
                        f"B=1 x K={CLI_WINDOW} x {CHUNK}")
     # a ragged block of the resident variant at 4 streams a block
     check_lstm_decoder(params, audio(333 * 3, CHUNK, SEED + 703), 333, f"B=333 x K=3 x {CHUNK}")
+    # chunks of 1 and 2 frames, which the streaming kernel took until it went
+    for kept in (1, 2):
+        check_lstm_decoder(params, audio(37 * 5, CHUNK, SEED + 704), 37,
+                           f"B=37 x K=5 x T={kept} (frames cut)", kept)
+        check_lstm_decoder(params, audio(B_MAIN, CHUNK, SEED + 705), B_MAIN,
+                           f"B={B_MAIN} x K=1 x T={kept} (frames cut)", kept)
     return {"lstm_decoder_fused": err}
 
 
@@ -2541,6 +2568,19 @@ def time_cudnn_lstm(label: str, w, b, x, h, c, y_ref, iters: int) -> float:
     return ms
 
 
+def cudnn_bf16_lstm_ms(w, b, x, h, c) -> float:
+    """ms of one torch.nn.LSTM call (cuDNN) with bf16 weights, inputs and
+    state at the shape of x: a yardstick beside the bf16 tiers' LSTMs, not
+    the same function (its state and its output are bf16; the tiers keep
+    them fp32). Timed here only; nothing on a path calls it."""
+    import torch
+
+    lstm = cudnn_lstm(w, b).to(torch.bfloat16)
+    xb, hb, cb = (t.to(torch.bfloat16).contiguous() for t in (x, h, c))
+    with torch.no_grad():
+        return cuda_ms(lambda: lstm(xb, (hb, cb)), iters=20)
+
+
 def phase_timing_slab(params, device, corpus: dict) -> dict:
     """The slab route: StreamRunner.scan by slab against the loop of steps,
     encode_fused_audio and lstm_decoder_fused alone (kernel, plain,
@@ -2728,11 +2768,12 @@ def phase_timing_v45(models: dict, device) -> dict:
 
 
 def phase_timing_variants(models: dict, params, device) -> None:
-    """The crossover of the two variants of the recurrent kernels: each
-    timed at B = 1, 64, 2048 over a range of steps on seeded random inputs
-    (the times do not depend on the values), lstm_fused at the v4 and v5
-    shapes and lstm_decoder_fused at T=7 frames a chunk, with torch.nn.LSTM
-    beside them. kernels/lstm.py's RESIDENT_MIN_STEPS is read from this."""
+    """The crossover of lstm_fused's two variants: each timed at B = 1, 64,
+    2048 over a range of steps on seeded random inputs (the times do not
+    depend on the values) at the v4 and v5 shapes, and lstm_decoder_fused
+    (its one entry, the resident kernels) at T=7 frames a chunk, with
+    torch.nn.LSTM beside them. kernels/lstm.py's RESIDENT_MIN_STEPS is read
+    from this."""
     import torch
 
     from vadc_tpu_torch.kernels import lstm as KL
@@ -2775,14 +2816,12 @@ def phase_timing_variants(models: dict, params, device) -> None:
             out = (torch.empty(batch, chunks, device=device), torch.empty_like(h),
                    torch.empty_like(c))
             rest = (wt, b, dec_w, dec_b, *out)
-            runs = {"streaming": lambda: KD._launch_streaming(x, h, c, *rest),
-                    "resident": lambda: KD._launch_resident(x, h, c, *rest)}
-            times = {k: cuda_ms(fn, iters=10, warmup=2) for k, fn in runs.items()}
+            times = {"resident": cuda_ms(lambda: KD._launch(x, h, c, *rest), iters=10, warmup=2)}
             seq = x.reshape(batch, chunks * 7, 64)
             with torch.no_grad():
                 lib_ms = cuda_ms(lambda: lib(seq, (h, c)), iters=10, warmup=2)
             line(f"lstm_decoder_fused B={batch} x K={chunks} x T=7", times, lib_ms,
-                 variant_of(batch, chunks * 7))
+                 "resident weights (its one kernel)")
 
 
 # ---- the bf16 tiers (balanced, fast, turbo) of the v3.1 path -----------------
@@ -2832,8 +2871,9 @@ def check_tier(params, audio, tier: str, label: str) -> dict:
     import torch
 
     from vadc_tpu_torch.kernels import tier_check
-    from vadc_tpu_torch.kernels.lstm import transposed_weight_of
-    from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused, lstm_decoder_fused_reference
+    from vadc_tpu_torch.kernels.lstm_decoder import (
+        lstm_decoder_fused, lstm_decoder_fused_reference, weight_of,
+    )
     from vadc_tpu_torch.kernels.silero_v31_fused import (
         encode_fused_audio, encode_fused_audio_reference, forward_fused, forward_fused_reference,
     )
@@ -2848,7 +2888,7 @@ def check_tier(params, audio, tier: str, label: str) -> dict:
     t = tier_of(tier)
     b, samples = audio.shape
     args = (params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"])
-    wt = transposed_weight_of(params, t.products)
+    wt = weight_of(params, t)
     h0, c0 = silero_v31.init_state(b, audio.device)
     _, h, c = forward_fused_reference(params, audio.flip(0).contiguous(), h0, c0, t)
     spect = torch.empty(b, samples // 64 + 1, 129, device=audio.device)
@@ -2879,6 +2919,9 @@ def check_tier(params, audio, tier: str, label: str) -> dict:
              "dot_magnitude": dot_magnitude_reference(frames, wr, wi, t)}
     split = lstm_decoder_fused(enc[:, None], h, c, *args, wt=wt, tier=t)
     split2d = lstm_decoder_fused(encode_fused(params, feats, t)[:, None], h, c, *args, wt=wt, tier=t)
+    n = min(RAGGED_STREAMS, b // k)
+    part = lstm_decoder_fused(x[:n].contiguous(), hk[:, :n].contiguous(), ck[:, :n].contiguous(),
+                              *args, wt=wt, tier=t)
     torch.cuda.synchronize()
     for name in ("forward_fused", "forward_fused2d", "lstm_decoder_fused"):
         require(bool(torch.isfinite(got[name][0]).all()), f"{tier} {label}: {name} not finite")
@@ -2905,14 +2948,17 @@ def check_tier(params, audio, tier: str, label: str) -> dict:
             "lstm_decoder_fused(encode_fused_audio) = forward_fused": same_bits(
                 (split[0][:, 0], split[1], split[2]), got["forward_fused"]),
             "lstm_decoder_fused(encode_fused) = forward_fused2d": same_bits(
-                (split2d[0][:, 0], split2d[1], split2d[2]), got["forward_fused2d"])}
+                (split2d[0][:, 0], split2d[1], split2d[2]), got["forward_fused2d"]),
+            f"lstm_decoder_fused on {n} of the streams = those streams of the whole call": same_bits(
+                part, (got["lstm_decoder_fused"][0][:n], got["lstm_decoder_fused"][1][:, :n],
+                       got["lstm_decoder_fused"][2][:, :n]))}
     log(f"tier {tier} {label} (largest difference / share above {tier_check.TAU[tier]:g}): "
         + show(errs) + "; " + ", ".join(f"{k}: {v}" for k, v in bits.items()))
     require(not broken, f"{tier} {label}: " + "; ".join(broken))
     for what, ok in bits.items():
         require(ok, f"{tier} {label}: {what} is not bit for bit")
     if b == B_MAIN and samples == CHUNK:
-        control = errs_of(run(FAITHFUL, transposed_weight_of(params, "fp32"), x))
+        control = errs_of(run(FAITHFUL, weight_of(params, FAITHFUL), x))
         caught = {name: bool(tier_check.breaches(tier, name, b, e)) for name, e in control.items()}
         log(f"tier {tier} {label} control, the faithful instances against the plain versions "
             f"at {tier}: " + show(control) + f"; breaks the limits: {caught}")
@@ -3149,8 +3195,9 @@ def phase_timing_tiers(params, device) -> dict:
 
     from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
     from vadc_tpu_torch.engine.runner import StreamRunner
-    from vadc_tpu_torch.kernels.lstm import transposed_weight_of
-    from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused, lstm_decoder_fused_reference
+    from vadc_tpu_torch.kernels.lstm_decoder import (
+        lstm_decoder_fused, lstm_decoder_fused_reference, weight_of,
+    )
     from vadc_tpu_torch.kernels.silero_v31_fused import (
         encode_fused_audio, encode_fused_audio_reference, forward_fused, forward_fused_reference,
     )
@@ -3172,13 +3219,17 @@ def phase_timing_tiers(params, device) -> dict:
     window = torch.from_numpy(speech_chunks(CLI_WINDOW, CHUNK, seed=SEED + 901)).to(device)
     args = (params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"])
     hs, cs = silero_v31.init_state(SLAB_CHUNKS, device)
+    seq = encode_fused_audio(params, slab.reshape(-1, CHUNK)).reshape(SLAB_CHUNKS, -1, 64)
+    yardstick = cudnn_bf16_lstm_ms(args[0], args[1], seq, hs, cs)
+    log(f"time torch.nn.LSTM (cuDNN) in bf16, v3.1 B={SLAB_CHUNKS} x T={seq.shape[1]} (a "
+        f"yardstick: bf16 state, no decoder): {yardstick:.4f} ms")
     out = {}
     for name in ("faithful", *TIERS):
         tier = tier_of(name)
         feats = silero_v31.features(params, audio, tier)
         x = encode_fused_audio(params, slab.reshape(-1, CHUNK), tier).reshape(
             SLAB_CHUNKS, SLAB_CHUNKS, -1, 64)
-        wt = transposed_weight_of(params, tier.products)
+        wt = weight_of(params, tier)
         runner = StreamRunner("v3", params, device=device, precision=name)
         state, state_slab, state_wide = (runner.init_state(n) for n in (B_MAIN, SLAB_CHUNKS, B_MAIN))
         t = {
@@ -3203,10 +3254,11 @@ def phase_timing_tiers(params, device) -> dict:
                 lambda: silero_v31.forward_minibatched(params, window, h1, c1, tier), iters=10),
         }
         t["tick"], t["tick2"] = time_ticks(str(DEFAULT_WEIGHTS), device, f"v3.1 {name}", name)
+        t["cudnn_bf16_lstm"] = yardstick
         out[name] = t
         log(f"time tier {name}: " + ", ".join(
             f"{k} {v[0]:.4f} ms (plain {v[1]:.4f})" if isinstance(v, tuple) else f"{k} {v:.4f} ms"
-            for k, v in t.items()))
+            for k, v in t.items() if k != "cudnn_bf16_lstm"))
     a, b = bf16(frames.reshape(-1, 256)).to(torch.bfloat16), bf16(
         torch.cat([wr, wi], dim=1)).to(torch.bfloat16)
     out["fast"]["cublas_bf16"] = cuda_ms(lambda: torch.matmul(a, b))
@@ -3234,7 +3286,7 @@ def tier_v45_digests(models: dict, device) -> dict:
     both variants, the cluster kernel): name[mode or tier] -> digest."""
     import torch
 
-    from vadc_tpu_torch.kernels.lstm import lstm_fused, transposed_weight_of
+    from vadc_tpu_torch.kernels.lstm import lstm_fused, weight_of
     from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude
     from vadc_tpu_torch.nn.precision import tier_of
 
@@ -3258,7 +3310,7 @@ def tier_v45_digests(models: dict, device) -> dict:
                 name = f"lstm_fused_{family}" + ("" if batch > 1 else "_long")
                 out[f"{name}[{tier}]"] = digest(*lstm_fused(
                     x, h, c, params["lstm_w"], params["lstm_b"],
-                    wt=transposed_weight_of(params, t.products), tier=t))
+                    wt=weight_of(params, t), tier=t))
     return out
 
 
@@ -3325,12 +3377,12 @@ def check_lstm_tier(params, x, h, c, tier: str, label: str, control: bool) -> fl
     import torch
 
     from vadc_tpu_torch.kernels import tier_check
-    from vadc_tpu_torch.kernels.lstm import lstm_fused, lstm_fused_reference, transposed_weight_of
+    from vadc_tpu_torch.kernels.lstm import lstm_fused, lstm_fused_reference, weight_of
     from vadc_tpu_torch.nn.precision import FAITHFUL, tier_of
 
     t = tier_of(tier)
     w, b = params["lstm_w"], params["lstm_b"]
-    wt = transposed_weight_of(params, t.products)
+    wt = weight_of(params, t)
     got = lstm_fused(x, h, c, w, b, wt=wt, tier=t)
     want = lstm_fused_reference(x, h, c, w, b, t)
     torch.cuda.synchronize()
@@ -3346,13 +3398,23 @@ def check_lstm_tier(params, x, h, c, tier: str, label: str, control: bool) -> fl
     variants = lstm_variants(x, h, c, wt, b, t)
     with small_pre_scratch(16 * x.shape[2] * x.shape[0] * max(1, x.shape[1] // 3)):
         variants["resident, in passes"] = lstm_variants(x, h, c, wt, b, t)["resident"]
+    if x.shape[0] > RAGGED_STREAMS:
+        # fewer streams a block and a ragged last block: a stream's bits do
+        # not depend on the other streams of its block
+        n = RAGGED_STREAMS
+        part = lstm_fused(x[:n].contiguous(), h[:, :n].contiguous(), c[:, :n].contiguous(), w, b,
+                          wt=wt, tier=t)
+        variants[f"first {n} streams alone"] = (
+            torch.cat([part[0], got[0][n:]]), torch.cat([part[1], got[1][:, n:]], 1),
+            torch.cat([part[2], got[2][:, n:]], 1))
+        torch.cuda.synchronize()
     same = {name: same_bits(out, got) for name, out in variants.items()}
     line = (f"tier {tier} lstm_fused {label} (the wrapper runs {variant_of(*x.shape[:2])}; largest "
             f"difference / share above {tier_check.TAU[tier]:g}): "
             + ", ".join(f"{k} {m:.3e}/{s:.4f}" for k, (m, s) in errs.items())
             + f"; bit-equal to the wrapper's call: {same}")
     if control:
-        faithful = lstm_fused(x, h, c, w, b, wt=transposed_weight_of(params), tier=FAITHFUL)
+        faithful = lstm_fused(x, h, c, w, b, wt=weight_of(params), tier=FAITHFUL)
         control_errs = errs_of(faithful)
         caught = bool(tier_check.breaches(tier, "lstm_fused", x.shape[0], control_errs))
         line += ("; control, the faithful instance: "
@@ -3671,7 +3733,7 @@ def phase_timing_tiers_v45(models: dict, device) -> dict:
     import torch
 
     from vadc_tpu_torch.engine.runner import StreamRunner
-    from vadc_tpu_torch.kernels.lstm import lstm_fused, lstm_fused_reference, transposed_weight_of
+    from vadc_tpu_torch.kernels.lstm import lstm_fused, lstm_fused_reference, weight_of
     from vadc_tpu_torch.kernels.stft_mag import (
         split_basis_of, stft_magnitude, stft_magnitude_reference,
     )
@@ -3684,10 +3746,13 @@ def phase_timing_tiers_v45(models: dict, device) -> dict:
                                           ).to(device), kw)
     v4, p4 = models["v4"]
     x, h, c = lstm_inputs(v4, p4, audio["v4"][0], B_MAIN, device)
+    yardstick = cudnn_bf16_lstm_ms(p4["lstm_w"], p4["lstm_b"], x, h, c)
+    log(f"time torch.nn.LSTM (cuDNN) in bf16, v4 B={B_MAIN} x T={x.shape[1]} (a yardstick: bf16 "
+        f"state): {yardstick:.4f} ms")
     out = {}
     for name in ("faithful", *TIERS):
         tier = tier_of(name)
-        t = {"stft_magnitude_at": {}}
+        t = {"stft_magnitude_at": {}, "cudnn_bf16_lstm": yardstick}
         for family, (chunks, kw) in audio.items():
             mode = stft_mode_of(family, name)
             wr, wi = split_basis_of(models[family][1])
@@ -3705,7 +3770,7 @@ def phase_timing_tiers_v45(models: dict, device) -> dict:
                 t["stft_magnitude"] = (ms, plain_ms)
                 t["stft_magnitude_bound"] = (bound, by)
         w, b = p4["lstm_w"], p4["lstm_b"]
-        wt = transposed_weight_of(p4, tier.products)
+        wt = weight_of(p4, tier)
         t["lstm_fused"] = cuda_ms_pair(lambda: lstm_fused(x, h, c, w, b, wt=wt, tier=tier),
                                        lambda: lstm_fused_reference(x, h, c, w, b, tier))
         for family, chunk in (("v4", V4_CHUNK), ("v5", V5_CHUNK)):
@@ -4096,6 +4161,8 @@ def main() -> int:
             extra = {"tier": tier}
             if name == "dot_magnitude" and tier == "fast":
                 extra["cublas_bf16_product_only_ms"] = tier_timing["fast"]["cublas_bf16"]
+            if name == "lstm_decoder_fused":
+                extra["cudnn_bf16_lstm_yardstick_ms"] = tier_timing[tier]["cudnn_bf16_lstm"]
             table.append((f"{name}[{tier}]", src, replaces, tier_launches[tier].get(counter, 0),
                           tier_errs[tier][counter],
                           ms, plain_ms, None, tier_bound_ms(spec, body, nbytes, tier), shape, extra))
@@ -4116,7 +4183,8 @@ def main() -> int:
                       tier_bound_ms(0.0, lstm_shape[0] * lstm_flops(lstm_shape[1], 2, 64), lstm_bytes,
                                     tier),
                       f"v4 B={lstm_shape[0]} x T={lstm_shape[1]}",
-                      {"tier": tier, "variant": variant_of(*lstm_shape[:2])}))
+                      {"tier": tier, "variant": variant_of(*lstm_shape[:2]),
+                       "cudnn_bf16_lstm_yardstick_ms": tv["cudnn_bf16_lstm"]}))
     # the two probes of tools/tpu_check.py, at the v4 gate product's shape;
     # every shape they were timed at under "at"
     for name, (n, err, at) in probe_rows.items():

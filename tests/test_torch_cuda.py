@@ -16,8 +16,10 @@ the whole-model bounds 1e-4 on probabilities and 3e-4 on h and c (c
 relative), and its spectrum bit-equal to dot_magnitude's;
 lstm_decoder_fused the fused kernel's bounds, equal bit for bit to K single
 calls and, on encode_fused's output, to the fused kernel. The two variants
-of lstm_fused and lstm_decoder_fused (streaming and resident weights),
-launched explicitly, equal each other and the wrapper's call bit for bit.
+of lstm_fused (streaming and resident weights), launched explicitly, equal
+each other and the wrapper's call bit for bit, and lstm_decoder_fused's one
+entry, launched explicitly in one pass and in several at every tier, its
+wrapper's call.
 The bf16 tiers' instances are held to their plain versions at the tier by
 vadc_tpu_torch/kernels/tier_check.py (which says why they are not
 bit-equal); at every tier stft_magnitude equals dot_magnitude's instance
@@ -598,14 +600,29 @@ def test_lstm_decoder_variants_give_the_same_bits(params, device, batch, chunks,
     h = (0.5 * torch.from_numpy(noise(2 * batch, chunk=64, seed=19))).to(device)
     c = (20 * torch.from_numpy(noise(2 * batch, chunk=64, seed=20))).to(device)
     h, c = h.reshape(2, batch, 64), c.reshape(2, batch, 64)
-    args = (params["lstm_b"], params["dec_w"], params["dec_b"])
-    wt = KL.transposed_weight_of(params)
-    want = KD.lstm_decoder_fused(x, h, c, params["lstm_w"], *args, wt=wt)
-    for launch in (KD._launch_streaming, KD._launch_resident):
-        out = (torch.empty_like(want[0]), torch.empty_like(h), torch.empty_like(c))
-        launch(x, h, c, wt, *args, *out)
+    from vadc_tpu_torch.nn.precision import pack_operand, tier_of
+
+    # the one entry (the streaming kernel is gone), launched explicitly at
+    # every tier and in passes over a small scratch, against the wrapper
+    for tier in ("faithful", *TIERS):
+        t = tier_of(tier)
+        wt = KD.weight_of(params, t)
+        args = (params["lstm_b"], pack_operand(params["dec_w"], t.products), params["dec_b"])
+        want = KD.lstm_decoder_fused(x, h, c, params["lstm_w"], params["lstm_b"], params["dec_w"],
+                                     params["dec_b"], wt=wt, tier=t)
+        outs = {}
+        for name, limit in (("one pass", None), ("passes", 1024 * batch * enc.shape[1])):
+            out = (torch.empty_like(want[0]), torch.empty_like(h), torch.empty_like(c))
+            saved = KL.PRE_BYTES_MAX
+            KL.PRE_BYTES_MAX = limit or saved
+            try:
+                KD._launch(x, h, c, wt, *args, *out, t)
+            finally:
+                KL.PRE_BYTES_MAX = saved
+            outs[name] = out
         torch.cuda.synchronize()
-        assert all(torch.equal(a, r) for a, r in zip(out, want)), launch.__name__
+        for name, out in outs.items():
+            assert all(torch.equal(a, r) for a, r in zip(out, want)), (tier, name)
 
 
 @pytest.mark.parametrize("family", ["v4", "v4_8k", "v5", "v5_8k"])
@@ -845,7 +862,7 @@ def test_lstm_fused_tier_instances_match_plain(family_params, device, family, ba
     module, params = family_params[family]
     t = tier_of(tier)
     x, h, c = _lstm_inputs_at(module, params, device, t, batch, steps, 71)
-    w, b, wt = params["lstm_w"], params["lstm_b"], KL.transposed_weight_of(params, t.products)
+    w, b, wt = params["lstm_w"], params["lstm_b"], KL.weight_of(params, t)
     got = KL.lstm_fused(x, h, c, w, b, wt=wt, tier=t)
     want = KL.lstm_fused_reference(x, h, c, w, b, t)
     torch.cuda.synchronize()
@@ -866,10 +883,18 @@ def test_lstm_fused_refuses_a_weight_packed_for_another_tier(family_params, devi
     _, params = family_params["v4"]
     x, h = torch.zeros(2, 3, 64, device=device), torch.zeros(2, 2, 64, device=device)
     w, b = params["lstm_w"], params["lstm_b"]
-    with pytest.raises(ValueError, match="packed for bf16 products"):
+    # the tiers' gate fragments differ in shape from the faithful weight and
+    # from each other (one plane at bf16, two at bf16_3x)
+    with pytest.raises(ValueError, match="wt"):
         KL.lstm_fused(x, h, h.clone(), w, b, wt=KL.transposed_weight_of(params), tier="fast")
-    with pytest.raises(ValueError, match="packed for fp32 products"):
-        KL.lstm_fused(x, h, h.clone(), w, b, wt=KL.transposed_weight_of(params, "bf16"))
+    with pytest.raises(ValueError, match="wt"):
+        KL.lstm_fused(x, h, h.clone(), w, b, wt=KL.weight_of(params, "fast"))
+    with pytest.raises(ValueError, match="wt"):
+        KL.lstm_fused(x, h, h.clone(), w, b, wt=KL.weight_of(params, "fast"), tier="balanced")
+    # a tensor of the right shape packed for another mode
+    wt = KL.weight_of(params, "fast").clone()
+    with pytest.raises(ValueError, match="packed for bf16 products"):
+        KL.lstm_fused(x, h, h.clone(), w, b, wt=wt, tier="fast")
 
 
 @pytest.mark.parametrize("tier", TIERS)

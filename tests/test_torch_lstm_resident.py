@@ -175,18 +175,25 @@ def test_scratch_rows(batch, steps, unit, rows):
 
 def test_both_variants_have_declared_c_signatures():
     """ctypes cuts a pointer passed without argtypes: each entry point of
-    the two variants is declared, with as many arguments as its launch
-    function passes: the streaming variant's, and the scratch, its rows
-    and the count of kernels launched (and the decoder's precision tier)."""
+    the two recurrent kernels is declared, with as many arguments as its C
+    definition takes: lstm_fused's two variants (the resident one adds the
+    scratch, its rows and the count of kernels launched) and
+    lstm_decoder_fused's one, the resident kernels (its streaming entry is
+    gone with its kernel)."""
+    import re
+
     sig = _build._SIGNATURES
     assert len(sig["vadc_lstm_fused_resident"]) == len(sig["vadc_lstm_fused"]) + 3
-    assert (len(sig["vadc_lstm_decoder_fused_resident"])
-            == len(sig["vadc_lstm_decoder_fused"]) + 4)
+    assert "vadc_lstm_decoder_fused" not in sig
     sources = {p.name for p in _build.sources()} | {p.name for p in _build.headers()}
-    assert {"lstm.cu", "lstm_decoder.cu", "lstm_resident.cuh", "lstm_cell.cuh"} <= sources
-    for name in ("vadc_lstm_fused_resident", "vadc_lstm_decoder_fused_resident"):
-        text = "".join(p.read_text() for p in _build.sources())
-        assert f'extern "C" int {name}(' in text
+    assert {"lstm.cu", "lstm_decoder.cu", "lstm_resident.cuh", "lstm_cell.cuh",
+            "lstm_mma.cuh"} <= sources
+    text = "".join(p.read_text() for p in _build.sources())
+    assert 'extern "C" int vadc_lstm_decoder_fused(' not in text
+    for name in ("vadc_lstm_fused", "vadc_lstm_fused_resident", "vadc_lstm_decoder_fused_resident"):
+        found = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+        assert found, name
+        assert found.group(1).count(",") + 1 == len(sig[name]), name
 
 
 @pytest.mark.parametrize("steps", [1, 96])

@@ -164,8 +164,12 @@ def _slots(packed):
 @pytest.mark.parametrize("tier", ["balanced", "fast", "turbo"])
 def test_packed_weights_at_a_tier_hold_fragments_of_the_split_products(family_params, tier):
     """The encoder's seven products of each stage as fragments of the tier's
-    operands, K padded with zero rows; the LSTM's and the decoder's weights
-    packed as before (nn/precision.pack_operand); offsets 16-byte aligned."""
+    operands, K padded with zero rows; each LSTM layer at balanced and fast
+    as its gate fragments (kernels/lstm.gate_fragments, which
+    tests/test_torch_lstm_mma.py unpacks), at turbo and the decoder's
+    weight packed as before (nn/precision.pack_operand); offsets 16-byte
+    aligned."""
+    from vadc_tpu_torch.kernels.lstm import gate_fragments
     from vadc_tpu_torch.nn.precision import pack_operand, tier_of
 
     t = tier_of(tier)
@@ -188,10 +192,13 @@ def test_packed_weights_at_a_tier_hold_fragments_of_the_split_products(family_pa
             for got, w in zip(planes, (hi, lo)):
                 np.testing.assert_array_equal(got[:k], w)
                 assert not got[k:].any()
-    for name, w in (("lstm_w0", params["lstm_w"][0].T), ("lstm_w1", params["lstm_w"][1].T),
-                    ("dec_w", params["dec_w"])):
-        want = pack_operand(w.contiguous(), t.products).reshape(-1).numpy()
+    for layer, name in enumerate(("lstm_w0", "lstm_w1")):
+        w = params["lstm_w"][layer : layer + 1]
+        want = (gate_fragments(w, t.products) if tier != "turbo"
+                else pack_operand(w[0].T.contiguous(), t.products)).reshape(-1).numpy()
         assert slots[name][:want.size].tobytes() == want.tobytes()
+    want = pack_operand(params["dec_w"].contiguous(), t.products).reshape(-1).numpy()
+    assert slots["dec_w"][:want.size].tobytes() == want.tobytes()
 
 
 def test_packed_weights_at_faithful_are_what_they_were(family_params):

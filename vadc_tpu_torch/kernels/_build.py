@@ -61,19 +61,18 @@ _SIGNATURES = {
     # audio, batch, stride_b, samples, pad_left, pad_right, hop, padded
     # basis, n_fft, cutoff, streams a block, out, mode, stream
     "vadc_stft_magnitude": [_P, _I, _L, _I, _I, _I, _I, _P, _I, _I, _I, _P, _I, _P],
-    # x, h0, c0, wt, bias, y, hn, cn, batch, seq, hidden, layers, tier, stream
-    "vadc_lstm_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, h0, c0, wt, bias, dec_w, dec_b, probs, hn, cn, batch, chunks,
-    # frames, stream
-    "vadc_lstm_decoder_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, h0, c0, wt, bias, y, hn, cn, batch, seq, hidden, layers, tier,
+    # streams a block (the bf16 tiers'), stream
+    "vadc_lstm_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, h0, c0, wt, bias, pre, pre_rows, y, hn, cn, batch, seq, hidden,
-    # layers, tier, launched (out: kernels launched), stream
-    "vadc_lstm_fused_resident": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _IP,
-                                 _P],
+    # layers, tier, streams a block, launched (out: kernels launched), stream
+    "vadc_lstm_fused_resident": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _IP, _P],
     # x, h0, c0, wt, bias, dec_w, dec_b, pre, pre_rows, probs, hn, cn, batch,
-    # chunks, frames, tier, launched (out: kernels launched), stream
+    # chunks, frames, tier, streams a block, launched (out: kernels
+    # launched), stream
     "vadc_lstm_decoder_fused_resident": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I,
-                                         _I, _I, _IP, _P],
+                                         _I, _I, _I, _IP, _P],
     # x, w, out, rows, k, n, stream (the two bf16 probe products)
     "vadc_bf16_dot": [_P, _P, _P, _I, _I, _I, _P],
     "vadc_bf16_dot_wgmma": [_P, _P, _P, _I, _I, _I, _P],

@@ -1,10 +1,12 @@
-// The resident-weights variant of the two recurrent kernels, for chains of
-// three steps and more (kernels/lstm.py holds the measured crossover).
-// lstm.cu (replaces the Pallas kernel vadc_tpu/kernels/lstm.py: lstm_fused)
-// and lstm_decoder.cu (replaces vadc_tpu/kernels/lstm.py:
-// lstm_decoder_fused) launch it; their headers describe the functions. It
-// gives the bits of the streaming-weights variant (lstm.cu's lstm_kernel,
-// silero_v31_body.cuh's lstm_decoder_steps).
+// The resident-weights variant of the two recurrent kernels: lstm_fused's
+// for chains of three steps and more (kernels/lstm.py holds the measured
+// crossover), lstm_decoder_fused's at every shape. lstm.cu (replaces the
+// Pallas kernel vadc_tpu/kernels/lstm.py: lstm_fused) and lstm_decoder.cu
+// (replaces vadc_tpu/kernels/lstm.py: lstm_decoder_fused) launch it; their
+// headers describe the functions. It gives the bits of the
+// streaming-weights variant (lstm.cu's lstm_kernel and lstm_mma_kernel) and
+// of the step kernels' LSTM (silero_v31_body.cuh:
+// lstm_decoder_steps_hoisted) at every tier.
 //
 // What bounded the streaming variant on an H100 at few streams: every
 // layer-step read its layer's weights again from L2 (128 KB at H=64, 512 KB
@@ -65,13 +67,16 @@
 //
 // Precision tiers (tier.cuh): lstm_decoder.cu's instances take the tier of
 // the v3.1 model (its `Top`, DecoderSum<T>, carries it, and the pre-pass
-// takes it as a template parameter): each x and h value is an operand of
-// the tier's products where it is read, against weights the wrapper packed
-// for the tier, in the same chains, with the tier's tanh, exactly as
-// silero_v31_body.cuh's step LSTM does, so a slab still equals the loop of
-// steps bit for bit. lstm.cu's instances take the tier the same way
-// (StoreY<T>, cluster1_kernel<NB, T>), the v4/v5 models' F.lstm at the
-// tier, and give the bits of lstm.cu's streaming variant at every tier.
+// takes it as a template parameter), lstm.cu's the same way (StoreY<T>,
+// the cluster kernel's T), the v4/v5 models' F.lstm at the tier. The
+// kernels above are the faithful instances, and turbo's of
+// lstm_decoder.cu. Where a tier's gates run on the tensor cores (a Top's
+// kMma) the pre-pass is input_gates_mma_kernel and the recurrent kernels
+// wavefront_mma_kernel and cluster_mma_kernel (below): the gate sums of
+// lstm_mma.cuh, the one order of those instances (the step kernels' LSTM
+// and lstm.cu's streaming kernel too), so a slab still equals the loop of
+// steps and the variants one another bit for bit, with the tier's tanh and
+// the same cell update.
 //
 // The scratch `pre` is the wrapper's (rows x 4H fp32); when it holds fewer
 // rows than the call has, the launchers below walk the frames in passes,
@@ -83,6 +88,7 @@
 #include <cuda_runtime.h>
 
 #include "lstm_cell.cuh"
+#include "lstm_mma.cuh"
 
 namespace {
 namespace resident {
@@ -140,11 +146,84 @@ input_gates_kernel(const float* __restrict__ x, long long stride_b, int frames,
   }
 }
 
+// The pre-pass at the bf16 tiers: the same sums by the gate-sum function of
+// lstm_mma.cuh, from wt0 = layer 0's packed fragments (its input k steps).
+// A block stages MMA_PRE_ROWS rows of x in shared memory; warp w holds the
+// A fragments of TPW gate tiles in registers and runs them over the rows'
+// n8 tiles, each sum from 0.f over the input steps in order, stored to
+// pre [rows, 4H] in the natural gate order.
+constexpr int MMA_PRE_ROWS = 64;
+
 template <int H, int T>
+__global__ void __launch_bounds__(PRE_THREADS)
+input_gates_mma_kernel(const float* __restrict__ x, long long stride_b, int frames,
+                       const float* __restrict__ wt0, float* __restrict__ pre, long long rows) {
+  using namespace gate_mma;
+  constexpr int M = Tier<T>::kProducts;
+  constexpr int K = Geometry<H>::kInSteps;
+  constexpr int LD = H + 8;
+  constexpr int TPW = 128 / H;  // the warp's tiles: 8 fragments a warp at H = 64 and 128
+  __shared__ float4 xs4[MMA_PRE_ROWS * LD / 4];
+  float* xs = reinterpret_cast<float*>(xs4);
+  const long long r0 = static_cast<long long>(blockIdx.x) * MMA_PRE_ROWS;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane_id() >> 2;
+  for (int i = threadIdx.x; i < MMA_PRE_ROWS * H; i += PRE_THREADS) {
+    const long long r = r0 + i / H;
+    float v = 0.f;
+    if (r < rows) {
+      const long long b = r / frames;
+      v = x[b * stride_b + (r - b * frames) * H + i % H];
+    }
+    xs[(i / H) * LD + i % H] = v;
+  }
+  uint4 hi[TPW][K], lo[TPW][K];
+#pragma unroll
+  for (int k = 0; k < TPW; ++k) {
+    const int m = (blockIdx.y * (PRE_THREADS / 32) + warp) * TPW + k;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      hi[k][s] = frag_global<H>(wt0, 0, m, s);
+      if constexpr (M == P_SPLIT) lo[k][s] = frag_global<H>(wt0, 1, m, s);
+    }
+  }
+  __syncthreads();
+  for (int n = 0; n < MMA_PRE_ROWS / 8; ++n) {
+    uint32_t bh[K][2], bl[K][2];
+#pragma unroll
+    for (int s = 0; s < K; ++s) b_frag<M>(xs + (8 * n + g) * LD, 16 * s, bh[s], bl[s]);
+#pragma unroll
+    for (int k = 0; k < TPW; ++k) {
+      const int m = (blockIdx.y * (PRE_THREADS / 32) + warp) * TPW + k;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      gate_sum<M, K>(
+          acc, [&](int s, int p) { return p == 0 ? hi[k][s] : lo[k][s]; },
+          [&](int s, uint32_t(&h)[2], uint32_t(&l)[2]) {
+            h[0] = bh[s][0], h[1] = bh[s][1], l[0] = bl[s][0], l[1] = bl[s][1];
+          });
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long long r = r0 + 8 * n + 2 * (lane_id() & 3) + (e & 1);
+        if (r < rows) pre[r * 4 * H + gate_row<H>(m, g + 8 * (e >> 1))] = acc[e];
+      }
+    }
+  }
+}
+
+template <int H, int T, bool MMA>
 cudaError_t launch_input_gates(const float* x, long long stride_b, int frames, const float* wt0,
                                float* pre, long long rows, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((rows + PRE_ROWS - 1) / PRE_ROWS), 4 * H / PRE_THREADS);
-  input_gates_kernel<H, T><<<grid, PRE_THREADS, 0, stream>>>(x, stride_b, frames, wt0, pre, rows);
+  if constexpr (!MMA) {
+    const dim3 grid(static_cast<unsigned>((rows + PRE_ROWS - 1) / PRE_ROWS), 4 * H / PRE_THREADS);
+    input_gates_kernel<H, T><<<grid, PRE_THREADS, 0, stream>>>(x, stride_b, frames, wt0, pre,
+                                                               rows);
+  } else {
+    constexpr int tiles_a_block = (PRE_THREADS / 32) * (128 / H);
+    const dim3 grid(static_cast<unsigned>((rows + MMA_PRE_ROWS - 1) / MMA_PRE_ROWS),
+                    gate_mma::Geometry<H>::kTiles / tiles_a_block);
+    input_gates_mma_kernel<H, T><<<grid, PRE_THREADS, 0, stream>>>(x, stride_b, frames, wt0, pre,
+                                                                   rows);
+  }
   return cudaGetLastError();
 }
 
@@ -186,8 +265,9 @@ inline cudaError_t streams_per_block(int batch, int* nb) {
 // holds, each a multiple of `unit` (the decoder's chunk), the state going
 // through hn, cn from pass to pass. Adds one to *launched for every kernel
 // it launched (two a pass). Returns the first CUDA error. T: the pre-pass's
-// tier.
-template <int H, int T = TIER_FAITHFUL, class Recurrent>
+// tier; MMA: whether its sums are lstm_mma.cuh's (the recurrent kernel's
+// kMma).
+template <int H, int T, bool MMA, class Recurrent>
 int run_in_passes(const float* x, const float* h0, const float* c0, const float* wt, float* pre,
                   long long pre_rows, float* hn, float* cn, int batch, int frames, int unit,
                   Recurrent recurrent, int* launched, cudaStream_t stream) {
@@ -196,7 +276,7 @@ int run_in_passes(const float* x, const float* h0, const float* c0, const float*
   const int per = static_cast<int>(fit < frames ? fit : frames);
   for (int f0 = 0; f0 < frames; f0 += per) {
     const int n = min(per, frames - f0);
-    cudaError_t err = launch_input_gates<H, T>(x + static_cast<long long>(f0) * H,
+    cudaError_t err = launch_input_gates<H, T, MMA>(x + static_cast<long long>(f0) * H,
                                             static_cast<long long>(frames) * H, n, wt, pre,
                                             static_cast<long long>(batch) * n, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -223,6 +303,7 @@ template <int T>
 struct StoreY {
   static constexpr bool kDecoder = false;
   static constexpr int kTier = T;
+  static constexpr bool kMma = T != TIER_FAITHFUL;  // gate sums of lstm_mma.cuh
   float* y;
   long long stride_b;
   __device__ void frame(int b, int f, int u, float h) const {
@@ -238,6 +319,7 @@ template <int T>
 struct DecoderSum {
   static constexpr bool kDecoder = true;
   static constexpr int kTier = T;
+  static constexpr bool kMma = gate_mma::v31_gates_on_mma<T>();
   const float* dec_w1;  // [64], logit 1's row of dec_w
   const float* dec_b1;  // [1]
   float* probs;  // [batch, chunks], at the pass's first chunk
@@ -527,24 +609,265 @@ wavefront3_kernel(const float* __restrict__ pre, const float* h0, const float* c
   }
 }
 
+// ---- the bf16 tiers: the gate sums on the tensor cores (lstm_mma.cuh) -----
+//
+// The recurrent kernels of the tiers hold a block of nb <= 8 streams (one n8
+// tile: the MMAs cost a block the same whatever nb, so the wrapper gives a
+// block as many streams as leave no more blocks than SMs, 8 beyond that)
+// in 16 warps. A step is two phases and two barriers. Sums: warp w runs
+// gate tile w of its layer(s) and stores the sums of the real streams
+// (lstm_mma.cuh: store_gates). Cells: one thread a (layer, stream, unit)
+// applies the activations and updates the cell (lstm_mma.cuh:
+// cell_from_gates), c and the decoder's running sum in its registers, new
+// h to shared memory (fp32), rounded where the next step's sums read it.
+// A warp updating the cells of its own tile would run the activations for
+// all 8 columns of the n8 tile, 7 of 8 of them padding at one stream a
+// block; this way a block runs them for its real streams only. A warp's
+// bf16 hi fragments stay in its registers for the launch; at balanced the
+// lo fragments lie in shared memory, read once a step by each warp as one
+// 16-byte load a lane (bank-conflict free), since hi and lo together would
+// not leave the registers a step needs.
+constexpr int MMA_WARPS = 16;
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr int MMA_LD2 = H2 + 8;  // a stream's row of h: b_frag's float2 reads on distinct banks
+
+// A warp's A fragments over N k steps: hi in registers, lo in shared memory.
+template <int N>
+struct RegFrags {
+  uint4 hi[N];
+  const uint4* lo;  // [N][32 lanes], this warp's
+  __device__ __forceinline__ uint4 operator()(int s, int p) const {
+    return p == 0 ? hi[s] : lo[s * 32 + gate_mma::lane_id()];
+  }
+};
+
+// Loads fragment j (k step ks of tile m of a packed layer) of a warp: hi
+// into its registers, lo (bf16_3x) into its shared memory.
+template <int H, int M, int N>
+__device__ __forceinline__ void load_frag(RegFrags<N>& f, uint4* lo, int j, const float* layer,
+                                          int m, int ks) {
+  f.hi[j] = gate_mma::frag_global<H>(layer, 0, m, ks);
+  if constexpr (M == P_SPLIT) lo[j * 32 + gate_mma::lane_id()] = gate_mma::frag_global<H>(layer, 1, m, ks);
+}
+
+// at bf16_3x the lo fragments of the K k steps of each warp's tiles
+template <int M, int K>
+constexpr size_t mma_dynamic_smem_bytes() {
+  return M == P_SPLIT ? sizeof(uint4) * MMA_WARPS * K * 32 : 0;
+}
+
+// This lane's four input sums of gate tile m (rows g and g + 8, streams 2t
+// and 2t + 1 of the block's nb from b0) in pre [batch][frames][4H], the
+// natural gate order: their frame-0 offsets, zeros where there is none,
+// and each frame's read one step ahead of its use.
+template <int H>
+struct PreSums {
+  const float* pre;
+  long long at[4];
+  bool ok[4];
+  int frames;
+
+  __device__ __forceinline__ PreSums(const float* pre_, int m, int b0, int nb, int batch,
+                                     int frames_)
+      : pre(pre_), frames(frames_) {
+    const int g = gate_mma::lane_id() >> 2;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int s = 2 * (gate_mma::lane_id() & 3) + (e & 1);
+      ok[e] = s < nb && b0 + s < batch;
+      at[e] = static_cast<long long>(ok[e] ? b0 + s : 0) * frames * (4 * H) +
+              gate_mma::gate_row<H>(m, g + 8 * (e >> 1));
+    }
+  }
+  __device__ __forceinline__ void read(int f, float (&v)[4]) const {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = ok[e] && f < frames ? __ldg(pre + at[e] + static_cast<long long>(f) * (4 * H)) : 0.f;
+    }
+  }
+};
+
+// pre [batch, frames, 256] (layer 0's input gate sums, natural gate order);
+// h0, c0, hn, cn [2, batch, 64]; wt the two layers' packed fragments; bias
+// [2, 256]. Warp w: tile w of both layers. Iteration i runs layer 0's frame
+// i from h0(i - 1) and layer 1's frame i - 1 from the same h0(i - 1) and
+// h1(i - 2): F frames are F + 1 iterations. Layer 1's sum: 0.f, its input
+// steps, its recurrent steps, the bias, as every site sums it. Thread k
+// updates cells k and k + 512 of the block's 2 x nb x 64 (layer, stream,
+// unit).
+template <class Top>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+wavefront_mma_kernel(const float* __restrict__ pre, const float* h0, const float* c0,
+                     const float* __restrict__ wt, const float* __restrict__ bias, float* hn,
+                     float* cn, int batch, int frames, int nb, Top top) {
+  using namespace gate_mma;
+  using Geo = Geometry<H2>;
+  constexpr int T = Top::kTier;
+  constexpr int M = Tier<T>::kProducts;
+  constexpr int K = Geo::kInSteps;
+  constexpr int ROWS = kMaxStreams * MMA_LD2;
+  constexpr int GLD = kGatesLd<H2>;
+  __shared__ float4 hbuf4[2 * ROWS / 4];                // [layer][8][LD] h
+  __shared__ float4 gates4[2 * kMaxStreams * GLD / 4];  // [layer][8][GLD] the step's sums
+  __shared__ float mean[2][kMaxStreams * H2];           // a finished chunk's sum / T, by its parity
+  extern __shared__ uint4 lo_smem[];                    // [warp][3K][32] at balanced
+  float* hbuf = reinterpret_cast<float*>(hbuf4);
+  float* gates = reinterpret_cast<float*>(gates4);
+  const int tid = threadIdx.x;
+  const int m = tid >> 5;
+  const int g = lane_id() >> 2;
+  const int b0 = blockIdx.x * nb;
+
+  // fragments j: 0..K-1 layer 0's recurrent steps, K..2K-1 layer 1's input
+  // steps, 2K..3K-1 its recurrent steps
+  RegFrags<3 * K> f;
+  uint4* lo = lo_smem + m * 3 * K * 32;
+  f.lo = lo;
+  const float* w1 = wt + planes<M>() * Geo::kPlaneWords;
+#pragma unroll
+  for (int j = 0; j < 3 * K; ++j) {
+    load_frag<H2, M>(f, lo, j, j < K ? wt : w1, m, j < K ? K + j : j - K);
+  }
+  const TileBias bias0 = tile_bias<H2>(bias, m), bias1 = tile_bias<H2>(bias + G2, m);
+  for (int i = tid; i < 2 * ROWS; i += MMA_THREADS) hbuf[i] = 0.f;
+  __syncthreads();
+  // this thread's cells: (layer, stream, unit) of k = tid, tid + 512, of
+  // which at most one is layer 1's (the decoder's running sum d_reg); h
+  // stays in hbuf, c in c_reg
+  const int cells = 2 * nb * H2;
+  float c_reg[2], d_reg = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int k = tid + j * MMA_THREADS;
+    const int l = k / (nb * H2), s = (k / H2) % nb, u = k % H2;
+    const bool real = k < cells && b0 + s < batch;
+    const long long at = (static_cast<long long>(l) * batch + b0 + s) * H2 + u;
+    c_reg[j] = real ? c0[at] : 0.f;
+    if (k < cells) hbuf[l * ROWS + s * MMA_LD2 + u] = real ? h0[at] : 0.f;
+  }
+  // this lane's four input sums of layer 0
+  const PreSums<H2> sums(pre, m, b0, nb, batch, frames);
+  float cur[4];
+  sums.read(0, cur);
+  __syncthreads();
+
+  int t_in_chunk = 0, chunk = 0, pending = -1;  // the decoder's: uniform over the block
+  for (int i = 0; i <= frames; ++i) {
+    if constexpr (Top::kDecoder) {
+      if (pending >= 0) {
+        if (tid < nb && b0 + tid < batch) top.decode(mean[pending & 1] + tid * H2, b0 + tid, pending);
+        pending = -1;
+      }
+    }
+    float nxt[4];
+    sums.read(i + 1, nxt);
+    // the sums: h0(i - 1) feeds layer 0's recurrent half and layer 1's
+    // input half, h1(i - 2) layer 1's recurrent half; a layer with no frame
+    // in this iteration (layer 0 at i = frames, layer 1 at i = 0) sums what
+    // its cells will not use
+    {
+      uint32_t bh[K][2], bl[K][2];
+#pragma unroll
+      for (int s = 0; s < K; ++s) b_frag<M>(hbuf + g * MMA_LD2, 16 * s, bh[s], bl[s]);
+      auto b0v = [&](int s, uint32_t(&h)[2], uint32_t(&l)[2]) {
+        h[0] = bh[s][0], h[1] = bh[s][1], l[0] = bl[s][0], l[1] = bl[s][1];
+      };
+      const float* h1v = hbuf + ROWS + g * MMA_LD2;
+      float acc0[4] = {cur[0], cur[1], cur[2], cur[3]};
+      float acc1[4] = {0.f, 0.f, 0.f, 0.f};
+      gate_sum<M, K>(acc0, [&](int s, int p) { return f(s, p); }, b0v);
+      gate_sum<M, K>(acc1, [&](int s, int p) { return f(K + s, p); }, b0v);
+      gate_sum<M, K>(acc1, [&](int s, int p) { return f(2 * K + s, p); },
+                     [&](int s, uint32_t(&h)[2], uint32_t(&l)[2]) { b_frag<M>(h1v, 16 * s, h, l); });
+      add_bias(acc0, bias0);
+      add_bias(acc1, bias1);
+      store_gates<H2>(acc0, gates, GLD, m, nb);
+      store_gates<H2>(acc1, gates + kMaxStreams * GLD, GLD, m, nb);
+    }
+    __syncthreads();
+    // the cells
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int k = tid + j * MMA_THREADS;
+      const int l = k / (nb * H2), s = (k / H2) % nb, u = k % H2;
+      if (k < cells && (l == 0 ? i < frames : i > 0)) {
+        const float h = cell_from_gates<T, H2>(gates + (l * kMaxStreams + s) * GLD, u, c_reg[j]);
+        hbuf[l * ROWS + s * MMA_LD2 + u] = h;
+        if (l == 1) {
+          if constexpr (Top::kDecoder) {
+            d_reg += fmaxf(h, 0.f);
+            if (t_in_chunk + 1 == top.frames) {
+              mean[chunk & 1][s * H2 + u] = d_reg / top.frames;
+              d_reg = 0.f;
+            }
+          } else {
+            if (b0 + s < batch) top.frame(b0 + s, i - 1, u, h);
+          }
+        }
+      }
+    }
+    if constexpr (Top::kDecoder) {
+      if (i > 0 && ++t_in_chunk == top.frames) {
+        t_in_chunk = 0;
+        pending = chunk++;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cur[e] = nxt[e];
+  }
+  if constexpr (Top::kDecoder) {
+    if (pending >= 0 && tid < nb && b0 + tid < batch) {
+      top.decode(mean[pending & 1] + tid * H2, b0 + tid, pending);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int k = tid + j * MMA_THREADS;
+    const int l = k / (nb * H2), s = (k / H2) % nb, u = k % H2;
+    if (k < cells && b0 + s < batch) {
+      const long long at = (static_cast<long long>(l) * batch + b0 + s) * H2 + u;
+      hn[at] = hbuf[l * ROWS + s * MMA_LD2 + u];
+      cn[at] = c_reg[j];
+    }
+  }
+}
+
 // One launch of the H=64, L=2 recurrent kernel over pre [batch, frames, 256]:
+// where the Top's gates run on the tensor cores, wavefront_mma_kernel at nb
+// streams a block; else (faithful, and the v3.1 LSTM at turbo; nb ignored)
 // wavefront3_kernel at one stream a block, else wavefront2_kernel at 2 or 4.
 template <class Top>
 cudaError_t launch_wavefront(const float* pre, const float* h0, const float* c0, const float* wt,
                              const float* bias, float* hn, float* cn, int batch, int frames,
-                             Top top, cudaStream_t stream) {
-  int nb = 0;
-  const cudaError_t err = streams_per_block(batch, &nb);
-  if (err != cudaSuccess) return err;
-  if (nb == 1) {
-    wavefront3_kernel<<<batch, THREADS3, 0, stream>>>(pre, h0, c0, wt, bias, hn, cn, batch,
-                                                      frames, top);
+                             int streams, Top top, cudaStream_t stream) {
+  if constexpr (Top::kMma) {
+    constexpr size_t bytes = mma_dynamic_smem_bytes<Tier<Top::kTier>::kProducts,
+                                                    3 * gate_mma::Geometry<H2>::kInSteps>();
+    if (streams < 1 || streams > gate_mma::kMaxStreams) return cudaErrorInvalidValue;
+    auto kernel = wavefront_mma_kernel<Top>;
+    if (bytes > 0) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<(batch + streams - 1) / streams, MMA_THREADS, bytes, stream>>>(
+        pre, h0, c0, wt, bias, hn, cn, batch, frames, streams, top);
     return cudaGetLastError();
+  } else {
+    int nb = 0;
+    const cudaError_t err = streams_per_block(batch, &nb);
+    if (err != cudaSuccess) return err;
+    if (nb == 1) {
+      wavefront3_kernel<<<batch, THREADS3, 0, stream>>>(pre, h0, c0, wt, bias, hn, cn, batch,
+                                                        frames, top);
+      return cudaGetLastError();
+    }
+    if (nb == 2) {
+      return launch_wavefront2<2>(pre, h0, c0, wt, bias, hn, cn, batch, frames, top, stream);
+    }
+    return launch_wavefront2<4>(pre, h0, c0, wt, bias, hn, cn, batch, frames, top, stream);
   }
-  if (nb == 2) {
-    return launch_wavefront2<2>(pre, h0, c0, wt, bias, hn, cn, batch, frames, top, stream);
-  }
-  return launch_wavefront2<4>(pre, h0, c0, wt, bias, hn, cn, batch, frames, top, stream);
 }
 
 // ---- H = 128, L = 1: a cluster of two blocks, half of the units each -------
@@ -637,6 +960,111 @@ cluster1_kernel(const float* __restrict__ pre, const float* h0, const float* c0,
     hn[g] = hs[buf * NB * H1 + ps * H1 + pu];
     cn[g] = c_reg;
   }
+}
+
+// The same at the bf16 tiers: a cluster of two blocks of 16 warps, warp w
+// of block `rank` running gate tile 16 rank + w (units 64 rank + 4w .. + 3)
+// with its recurrent fragments (hi in registers, lo in shared memory at
+// balanced); a cluster takes nb <= 8 streams. Thread k < 64 nb of a block
+// updates its block's unit k % 64 of stream k / 64 and writes the new h
+// into both blocks' shared memory, a cluster barrier ending the step.
+constexpr int MMA_LD1 = H1 + 8;
+
+template <int T>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(MMA_THREADS, 1)
+cluster_mma_kernel(const float* __restrict__ pre, const float* h0, const float* c0,
+                   const float* __restrict__ wt, const float* __restrict__ bias,
+                   float* __restrict__ y, long long y_stride_b, float* hn, float* cn, int batch,
+                   int frames, int nb) {
+  using namespace gate_mma;
+  constexpr int M = Tier<T>::kProducts;
+  constexpr int K = Geometry<H1>::kInSteps;
+  constexpr int ROWS = kMaxStreams * MMA_LD1;
+  constexpr int GLD = kGatesLd<H1>;
+  __shared__ float4 hbuf4[2 * ROWS / 4];             // [buf][8][LD] h, all 128 units
+  __shared__ float4 gates4[kMaxStreams * GLD / 4];   // [8][GLD] the step's sums (this block's units)
+  extern __shared__ uint4 lo_smem[];                 // [warp][K][32] at balanced
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  float* hbuf = reinterpret_cast<float*>(hbuf4);
+  float* gates = reinterpret_cast<float*>(gates4);
+  float* peer = cluster.map_shared_rank(hbuf, rank ^ 1);
+  const int tid = threadIdx.x;
+  const int m = (MMA_THREADS / 32) * rank + (tid >> 5);
+  const int g = lane_id() >> 2;
+  const int b0 = (blockIdx.x / 2) * nb;
+  // this thread's cell: stream cs, unit cu (of this block's 64)
+  const int cs = tid / HALF;
+  const int cu = rank * HALF + tid % HALF;
+  const bool has_cell = cs < nb;
+  const bool real = has_cell && b0 + cs < batch;
+
+  RegFrags<K> f;
+  uint4* lo = lo_smem + (tid >> 5) * K * 32;
+  f.lo = lo;
+#pragma unroll
+  for (int j = 0; j < K; ++j) load_frag<H1, M>(f, lo, j, wt, m, K + j);
+  const TileBias tb = tile_bias<H1>(bias, m);
+  for (int i = tid; i < 2 * ROWS; i += MMA_THREADS) {
+    const int s = (i / MMA_LD1) % kMaxStreams;
+    const int k = i % MMA_LD1;
+    hbuf[i] = i < ROWS && k < H1 && s < nb && b0 + s < batch
+                  ? h0[static_cast<long long>(b0 + s) * H1 + k] : 0.f;
+  }
+  float c_reg = real ? c0[static_cast<long long>(b0 + cs) * H1 + cu] : 0.f;
+  float h_last = real ? h0[static_cast<long long>(b0 + cs) * H1 + cu] : 0.f;
+  const PreSums<H1> sums(pre, m, b0, nb, batch, frames);
+  float cur[4];
+  sums.read(0, cur);
+  // both blocks run and hold their state before either writes into the other
+  cluster.sync();
+
+  for (int t = 0; t < frames; ++t) {
+    float nxt[4];
+    sums.read(t + 1, nxt);
+    const int buf = t & 1;
+    const float* hv = hbuf + buf * ROWS + g * MMA_LD1;
+    float acc[4] = {cur[0], cur[1], cur[2], cur[3]};
+    gate_sum<M, K>(acc, [&](int s, int p) { return f(s, p); },
+                   [&](int s, uint32_t(&h)[2], uint32_t(&l)[2]) { b_frag<M>(hv, 16 * s, h, l); });
+    add_bias(acc, tb);
+    store_gates<H1>(acc, gates, GLD, m, nb);
+    __syncthreads();
+    if (has_cell) {
+      h_last = cell_from_gates<T, H1>(gates + cs * GLD, cu, c_reg);
+      const int at = (buf ^ 1) * ROWS + cs * MMA_LD1 + cu;
+      hbuf[at] = h_last;
+      peer[at] = h_last;
+      if (real) y[(b0 + cs) * y_stride_b + static_cast<long long>(t) * H1 + cu] = h_last;
+    }
+    cluster.sync();
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cur[e] = nxt[e];
+  }
+  if (real) {
+    hn[static_cast<long long>(b0 + cs) * H1 + cu] = h_last;
+    cn[static_cast<long long>(b0 + cs) * H1 + cu] = c_reg;
+  }
+}
+
+template <int T>
+cudaError_t launch_cluster_mma(const float* pre, const float* h0, const float* c0,
+                               const float* wt, const float* bias, float* y, long long y_stride_b,
+                               float* hn, float* cn, int batch, int frames, int streams,
+                               cudaStream_t stream) {
+  constexpr size_t bytes =
+      mma_dynamic_smem_bytes<Tier<T>::kProducts, gate_mma::Geometry<H1>::kInSteps>();
+  if (streams < 1 || streams > gate_mma::kMaxStreams) return cudaErrorInvalidValue;
+  auto kernel = cluster_mma_kernel<T>;
+  if (bytes > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
+  const int clusters = (batch + streams - 1) / streams;
+  kernel<<<2 * clusters, MMA_THREADS, bytes, stream>>>(pre, h0, c0, wt, bias, y, y_stride_b, hn,
+                                                       cn, batch, frames, streams);
+  return cudaGetLastError();
 }
 
 template <int NB, int T>

@@ -61,11 +61,13 @@
 // 1/(1+expf(-x)), 1/sqrtf for the norms, no --use_fast_math and no TF32);
 // at the bf16 tiers the encoder's products run on the tensor cores
 // (linear_mma: mma.sync m16n8k16 from the staged fragment blocks the
-// wrapper packs, each activation rounded or split once as it is read), the
-// LSTM's gates and the decoder round or split each activation where it is
-// read against weights packed for the tier, in the same fmaf chains on the
-// CUDA cores (their tensor-core form is later work), and turbo rounds the
-// encoder's activations where they are stored. Tried on the card and not kept (chip_ab.py, PERF.md):
+// wrapper packs, each activation rounded or split once as it is read), so
+// do the LSTM's gate sums at balanced and fast (lstm_decoder_steps_mma on
+// lstm_mma.cuh, from the gate fragments the wrapper packs; turbo's stay
+// fmaf chains of rounded operands, lstm_mma.cuh says why), the decoder's
+// one product rounds or splits each activation where it is read against
+// weights packed for the tier in the same fmaf chain on the CUDA cores, and
+// turbo rounds the encoder's activations where they are stored. Tried on the card and not kept (chip_ab.py, PERF.md):
 // the phase functions as __noinline__ (13 % slower), a software-pipelined k
 // loop, float4 sample loads in the spectrum, 48 rows of layer 1's weight
 // resident in shared memory (each within 2 % either way).
@@ -76,6 +78,7 @@
 #include <cstdint>
 
 #include "lstm_cell.cuh"  // sigmoidf, accurate_tanhf, tanh_at, lstm_cell
+#include "lstm_mma.cuh"
 #include "mma.cuh"
 #include "tier.cuh"
 
@@ -858,78 +861,16 @@ __device__ void store_encoded(const Block& m, int S, int b0, int rows, float* __
   }
 }
 
-// The 2-layer LSTM over S frames of NB streams with the decoder's running
-// sum: in(s, t) is frame t of stream s (64 floats), wt[l] the layer's
-// transposed weight [2H][4H], bias[l] its [4H]. Updates hs, cs in place and
-// adds relu(h_top) of every frame to dec. Expects hs, cs, dec loaded and a
-// barrier passed; ends on a barrier. The streaming form: every weight comes
-// from global memory (L2) at every step. lstm_decoder.cu's streaming kernel
-// runs it; the fused kernels run lstm_decoder_steps_hoisted below, the same
-// sums in the same order.
-template <class In>
-__device__ void lstm_decoder_steps(const float* const* wt_l, const float* const* bias_l, In in,
-                                   int S, const Block& m) {
-  const int tid = threadIdx.x;
-  float* hs = m.hs;
-  float* cs = m.cs;
-  float* gates = m.gates;
-  float* dec = m.dec;
-  for (int t = 0; t < S; ++t) {
-    for (int layer = 0; layer < 2; ++layer) {
-      const float* wt = wt_l[layer];  // [2H][4H]
-      float* h_l = hs + layer * NB * HIDDEN;
-      float* c_l = cs + layer * NB * HIDDEN;
-      {
-        const int j = tid;  // gate column
-        float acc[NB];
-#pragma unroll
-        for (int s = 0; s < NB; ++s) acc[s] = 0.f;
-        // unroll 8: eight weight loads from L2 in flight instead of one; each
-        // sum keeps its order of additions, so the bits do not change
-#pragma unroll 8
-        for (int k = 0; k < HIDDEN; ++k) {
-          const float w = __ldg(wt + k * GATES + j);
-#pragma unroll
-          for (int s = 0; s < NB; ++s) {
-            const float x = layer == 0 ? in(s, t)[k] : hs[s * HIDDEN + k];
-            acc[s] = fmaf(x, w, acc[s]);
-          }
-        }
-#pragma unroll 8
-        for (int k = 0; k < HIDDEN; ++k) {
-          const float w = __ldg(wt + (HIDDEN + k) * GATES + j);
-#pragma unroll
-          for (int s = 0; s < NB; ++s) acc[s] = fmaf(h_l[s * HIDDEN + k], w, acc[s]);
-        }
-        const float bias = __ldg(bias_l[layer] + j);
-#pragma unroll
-        for (int s = 0; s < NB; ++s) gates[s * GATES + j] = acc[s] + bias;
-      }
-      __syncthreads();
-      for (int i = tid; i < NB * HIDDEN; i += blockDim.x) {
-        const int s = i / HIDDEN;
-        const int u = i % HIDDEN;
-        const float* g = gates + s * GATES;
-        const float ig = sigmoidf(g[u]);
-        const float fg = sigmoidf(g[HIDDEN + u]);
-        const float gg = accurate_tanhf(g[2 * HIDDEN + u]);
-        const float og = sigmoidf(g[3 * HIDDEN + u]);
-        const float c_new = fg * c_l[i] + ig * gg;
-        const float h_new = og * accurate_tanhf(c_new);
-        c_l[i] = c_new;
-        h_l[i] = h_new;
-        if (layer == 1) dec[i] += fmaxf(h_new, 0.f);
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// The same LSTM for the fused kernels, on the encoder's output in region A
-// ([NB][S][ENC_LD]): the same sums in the same order as lstm_decoder_steps
-// (each gate one fmaf chain from 0.f over the 64 input terms and then the
-// 64 recurrent terms in k order, then the bias; the cell update of
-// lstm_cell.cuh), so the same bits. Thread j owns gate column j:
+// The 2-layer LSTM over S frames of the block's NB streams with the
+// decoder's running sum, on the encoder's output in region A ([NB][S]
+// [ENC_LD]); wt_l[l] is layer l's weight, bias_l[l] its [4H]. Updates hs,
+// cs in place and adds relu(h_top) of every frame to dec. Expects hs, cs,
+// dec loaded and a barrier passed; ends on a barrier. At balanced and fast
+// it is lstm_decoder_steps_mma below. Here each gate is one fmaf chain
+// from 0.f over the 64 input terms and then the 64 recurrent terms in k
+// order, then the bias, the cell update of lstm_cell.cuh, as
+// lstm_resident.cuh sums them, so the same bits. Thread j owns gate column
+// j:
 //   - layer 0's input half for all S frames first, its 64 weights in
 //     registers, each serving NB x S rows; the partial sums go to `pre`
 //     ([NB][S][GATES] in the weight buffers, which the encoder has left),
@@ -938,10 +879,13 @@ __device__ void lstm_decoder_steps(const float* const* wt_l, const float* const*
 //     layer-0 step reads only h (as float4) and its partial sum;
 //   - layer 1's 128 weights a frame from L2, sixteen loads in flight.
 // At tier T each x and h value is an operand of the tier's products, in the
-// same chains (lstm_resident.cuh does the same, so the bits stay equal).
+// same chains (lstm_resident.cuh does the same, so the bits stay equal);
+// the tiers whose v3.1 LSTM keeps these chains are faithful and turbo
+// (lstm_mma.cuh: v31_gates_on_mma). wt_l is the transposed weight [2H][4H]
+// of each layer, packed for the tier's products.
 template <int T>
-__device__ void lstm_decoder_steps_hoisted(const float* const* wt_l, const float* const* bias_l,
-                                           int S, const Block& m) {
+__device__ void lstm_decoder_steps_chains(const float* const* wt_l, const float* const* bias_l,
+                                          int S, const Block& m) {
   const int tid = threadIdx.x;
   const int j = tid;  // gate column
   float* hs = m.hs;
@@ -1046,23 +990,110 @@ __device__ void lstm_decoder_steps_hoisted(const float* const* wt_l, const float
   }
 }
 
-// The v3 decoder on one stream's running sum dec_s [64] over S frames:
-// sigmoid(mean_t relu(h_top) . dec_w1 + dec_b1), channel 1 of dec_w [2, 64].
-// One thread a stream: lstm_decoder.cu's streaming kernel calls it; the
-// fused kernels run decode_probs below, the same operations.
-__device__ float decode_prob(const float* dec_s, int S, const float* __restrict__ dec_w1,
-                             float dec_b1) {
-  float acc = 0.f;
-  for (int u = 0; u < HIDDEN; ++u) acc = fmaf(dec_s[u] / S, __ldg(dec_w1 + u), acc);
-  return sigmoidf(acc + dec_b1);
+// The step LSTM at balanced and fast: the gate sums of lstm_mma.cuh, added in
+// the order of every other site of the tier (layer 0: the input steps of
+// all S frames first, then the recurrent steps, then the bias; layer 1: its
+// input steps on layer 0's new h, its recurrent steps, the bias), so that
+// lstm_decoder_fused gives these bits. wt_l[l] is layer l's packed
+// fragments (kernels/lstm.py: gate_fragments, in the tier's slots of the
+// packed buffer), read from L2 where they are used. Warp w owns tiles 2w
+// and 2w + 1 of each layer; the NB streams are columns 0..NB-1 of the n8
+// tile (the rest are zeros). The input sums of every frame go to `pre`
+// ([NB][S][GATES] in the weight buffers, the natural gate order); then a
+// layer-step is the sums into `gates` ([NB][GATES]), a barrier, one thread
+// a cell (hs, cs and dec in shared memory as at faithful), a barrier.
+template <int T>
+__device__ void lstm_decoder_steps_mma(const float* const* wt_l, const float* const* bias_l,
+                                       int S, const Block& m) {
+  using namespace gate_mma;
+  using Geo = Geometry<HIDDEN>;
+  constexpr int M = Tier<T>::kProducts;
+  constexpr int K = Geo::kInSteps;
+  constexpr int TPW = Geo::kTiles / (THREADS / 32);
+  static_assert(NB <= kMaxStreams, "the block's streams fit one n8 tile");
+  static_assert(NB * 7 * GATES <= 2 * WBUF, "the hoisted sums fit the weight buffers");
+  const int warp = threadIdx.x >> 5;
+  const int g = lane_id() >> 2;
+  const int tq = lane_id() & 3;
+  float* pre = m.wbuf;
+  auto frags = [=](int layer, int tile, int ks0) {
+    return [=](int s, int p) { return frag_global<HIDDEN>(wt_l[layer], p, tile, ks0 + s); };
+  };
+
+  const int rows = NB * S;  // row r = s S + t
+  for (int n = 0; n < (rows + 7) / 8; ++n) {
+    const int r = 8 * n + g;
+    const float* x = r < rows ? m.A + (r / S) * m.sa + (r % S) * ENC_LD : nullptr;
+    uint32_t bh[K][2], bl[K][2];
+#pragma unroll
+    for (int s = 0; s < K; ++s) b_frag<M>(x, 16 * s, bh[s], bl[s]);
+#pragma unroll
+    for (int k = 0; k < TPW; ++k) {
+      const int tile = warp * TPW + k;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      gate_sum<M, K>(acc, frags(0, tile, 0), [&](int s, uint32_t(&h)[2], uint32_t(&l)[2]) {
+        h[0] = bh[s][0], h[1] = bh[s][1], l[0] = bl[s][0], l[1] = bl[s][1];
+      });
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = 8 * n + 2 * tq + (e & 1);
+        if (rr < rows) pre[rr * GATES + gate_row<HIDDEN>(tile, g + 8 * (e >> 1))] = acc[e];
+      }
+    }
+  }
+  __syncthreads();
+  PHASE_STAMP(PH_LSTM_PRE);
+
+  for (int t = 0; t < S; ++t) {
+    for (int layer = 0; layer < 2; ++layer) {
+      float* h_l = m.hs + layer * NB * HIDDEN;
+      float* c_l = m.cs + layer * NB * HIDDEN;
+      const float* h_row = g < NB ? h_l + g * HIDDEN : nullptr;
+      const float* in_row = g < NB ? m.hs + g * HIDDEN : nullptr;  // layer 0's new h
+      auto b_of = [](const float* row) {
+        return [=](int s, uint32_t(&h)[2], uint32_t(&l)[2]) { b_frag<M>(row, 16 * s, h, l); };
+      };
+#pragma unroll
+      for (int k = 0; k < TPW; ++k) {
+        const int tile = warp * TPW + k;
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        if (layer == 0) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int s = 2 * tq + (e & 1);
+            acc[e] = s < NB ? pre[(s * S + t) * GATES + gate_row<HIDDEN>(tile, g + 8 * (e >> 1))]
+                            : 0.f;
+          }
+        } else {
+          gate_sum<M, K>(acc, frags(1, tile, 0), b_of(in_row));
+        }
+        gate_sum<M, K>(acc, frags(layer, tile, K), b_of(h_row));
+        add_bias(acc, tile_bias<HIDDEN>(bias_l[layer], tile));
+        store_gates<HIDDEN>(acc, m.gates, GATES, tile, NB);
+      }
+      __syncthreads();
+      // one thread a cell: NB x 64 of them
+      for (int i = threadIdx.x; i < NB * HIDDEN; i += blockDim.x) {
+        const int s = i / HIDDEN;
+        float c = c_l[i];
+        const float h_new = cell_from_gates<T, HIDDEN>(m.gates + s * GATES, i % HIDDEN, c);
+        c_l[i] = c;
+        h_l[i] = h_new;
+        if (layer == 1) m.dec[i] += fmaxf(h_new, 0.f);
+      }
+      __syncthreads();
+    }
+  }
 }
 
 // Everything after the stage-1 input: the four encoder stages over A, the
 // 2-layer LSTM over the last stage's frames, the decoder; stores probs [B]
 // and hn, cn [2, B, 64] of the block's real streams. Expects A, hs, cs and
 // dec written (no barrier needed: encode passes one first).
-// decode_prob for the block's NB streams, the same operations spread over
-// the block: every unit's dec / S by a thread of its own (64 full-precision
+// The v3 decoder for the block's NB streams, sigmoid(mean_t relu(h_top) .
+// dec_w1 + dec_b1), the operations spread over the block (as
+// lstm_resident.cuh's DecoderSum computes them for one stream): every
+// unit's dec / S by a thread of its own (64 full-precision
 // divisions one after the other in one thread were 3 % of the step
 // kernel's time), then one thread a stream chains the 64 FMAs in order.
 // Expects a barrier passed since dec was written; gates is scratch. At tier
@@ -1084,6 +1115,16 @@ __device__ void decode_probs(const Block& m, int S, const float* __restrict__ de
       acc = Operand<Tier<T>::kProducts>(mean[s * HIDDEN + u]).fma(w[u], acc);
     }
     probs[b0 + s] = sigmoidf(acc + dec_b1);
+  }
+}
+
+template <int T>
+__device__ void lstm_decoder_steps_hoisted(const float* const* wt_l, const float* const* bias_l,
+                                           int S, const Block& m) {
+  if constexpr (gate_mma::v31_gates_on_mma<T>()) {
+    lstm_decoder_steps_mma<T>(wt_l, bias_l, S, m);
+  } else {
+    lstm_decoder_steps_chains<T>(wt_l, bias_l, S, m);
   }
 }
 

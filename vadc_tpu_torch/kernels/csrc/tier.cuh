@@ -13,14 +13,14 @@
 // both families run, takes the product mode itself (by_mode), chosen by the
 // wrapper (nn/precision.py: stft_mode).
 //
-// The v3.1 encoder's products at the bf16 tiers and the spectrum at
-// bf16_3x run on the tensor cores (mma.cuh; silero_v31_body.cuh:
-// linear_mma, stft_tile.cuh: TileMma): bf16 products summed in fp32,
-// bf16_3x as three MMAs (lo*hi, hi*lo, hi*hi) from zero, added to the fp32
-// sum once a k step, their operands staged as bf16 planes or fragment
-// blocks. The rest of this account is the CUDA-core form, which the
-// spectrum at bf16 operands (stft_tile.cuh says why), the LSTMs' gates and
-// the decoder still take:
+// The v3.1 encoder's products at the bf16 tiers, the spectrum at bf16_3x
+// and the LSTMs' gate sums (lstm_mma.cuh says which) run on the tensor
+// cores (mma.cuh; silero_v31_body.cuh: linear_mma, stft_tile.cuh: TileMma):
+// bf16 products summed in fp32, bf16_3x as three MMAs (lo*hi, hi*lo,
+// hi*hi) from zero, added to the fp32 sum once a k step, their operands
+// staged as bf16 planes or fragments. The rest of this account is the
+// CUDA-core form, which the spectrum at bf16 operands (stft_tile.cuh says
+// why), turbo's v3.1 LSTM and the decoder still take:
 //
 // A product term a * w adds to an fp32 sum by fmaf. At the bf16 tiers a is
 // rounded to bf16 (nearest even) where it is read, and w was rounded when

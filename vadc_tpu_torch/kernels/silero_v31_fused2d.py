@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from vadc_tpu_torch.kernels import _build
+from vadc_tpu_torch.kernels.lstm_decoder import kernel_weight
 from vadc_tpu_torch.models.weights import V3_STRIDES, Params
 from vadc_tpu_torch.nn import functional as F
 from vadc_tpu_torch.nn.precision import (
@@ -60,9 +61,11 @@ _ALIGN = 4  # floats: every packed tensor starts 16-byte aligned
 # stored transposed ([in, out]; dw_w as [5, C]) so neighbouring threads of
 # the kernel read neighbouring weights
 _TRANSPOSED = {"dw_w", "pw_w", "proj_w", "qkv_w", "att_proj_w", "lin1_w", "lin2_w", "conv_w"}
-# the weights of products, packed as the tier's operands (csrc/tier.cuh)
-_PRODUCTS = {"pw_w", "proj_w", "qkv_w", "att_proj_w", "lin1_w", "lin2_w", "conv_w",
-             "lstm_w0", "lstm_w1", "dec_w"}
+# the weights of products, packed as the tier's operands (csrc/tier.cuh);
+# the LSTM's two layers as lstm_decoder_fused reads them
+# (lstm_decoder.kernel_weight: at balanced and fast their gate fragments,
+# which csrc/lstm_mma.cuh reads)
+_PRODUCTS = {"pw_w", "proj_w", "qkv_w", "att_proj_w", "lin1_w", "lin2_w", "conv_w", "dec_w"}
 # the encoder's products, which the bf16 tiers run on the tensor cores
 # (csrc/silero_v31_body.cuh: linear_mma) from fragment blocks
 _FRAGMENTS = {"pw_w", "proj_w", "qkv_w", "att_proj_w", "lin1_w", "lin2_w", "conv_w"}
@@ -109,9 +112,9 @@ class PackedWeights:
     Batch norm is folded to scale = w / sqrt(var + eps), shift = b -
     mean * scale; a BN-folded archive gets scale 1, shift 0. At a bf16 tier
     the encoder's products' weights are packed as tensor-core fragments
-    (pack_fragments) and the LSTM's and the decoder's as the tier's
-    operands, and in turbo the weights of the bf16 encoder ops are rounded
-    to bf16."""
+    (pack_fragments), each LSTM layer as lstm_decoder_fused reads it
+    (lstm_decoder.kernel_weight) and the decoder's as the tier's operands,
+    and in turbo the weights of the bf16 encoder ops are rounded to bf16."""
 
     def __init__(self, params: dict, tier: Tier = FAITHFUL):
         pieces: list[torch.Tensor] = []
@@ -163,8 +166,8 @@ class PackedWeights:
         lstm_w, lstm_b = params["lstm_w"], params["lstm_b"]
         if tuple(lstm_w.shape) != (2, 4 * HIDDEN, 2 * HIDDEN):
             raise ValueError(f"lstm_w {tuple(lstm_w.shape)} is not [2, 256, 128]")
-        put(lstm_w[0].T, "lstm_w0")
-        put(lstm_w[1].T, "lstm_w1")
+        for layer, slot in enumerate(("lstm_w0", "lstm_w1")):
+            put(kernel_weight(lstm_w[layer : layer + 1].detach().float(), tier)[0], slot)
         put(lstm_b[0], "lstm_b0")
         put(lstm_b[1], "lstm_b1")
         put(params["dec_w"], "dec_w")

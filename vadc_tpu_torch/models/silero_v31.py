@@ -49,8 +49,8 @@ from __future__ import annotations
 
 import torch
 
-from vadc_tpu_torch.kernels.lstm import transposed_weight_of
 from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused
+from vadc_tpu_torch.kernels.lstm_decoder import weight_of as lstm_weight_of
 from vadc_tpu_torch.kernels.silero_v31_fused import encode_fused_audio, forward_fused
 from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
 from vadc_tpu_torch.kernels.stft_mag import split_basis_of
@@ -162,7 +162,7 @@ def forward_scan(
     with zone("lstm_decoder_fused"):
         return lstm_decoder_fused(
             x, h, c, params["lstm_w"], params["lstm_b"], params["dec_w"], params["dec_b"],
-            hn=hn, cn=cn, wt=transposed_weight_of(params, tier.products), tier=tier,
+            hn=hn, cn=cn, wt=lstm_weight_of(params, tier), tier=tier,
         )
 
 

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from vadc_tpu_torch.kernels.lstm import lstm_fused, transposed_weight_of
+from vadc_tpu_torch.kernels.lstm import lstm_fused, weight_of
 from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude
 from vadc_tpu_torch.models.weights import V4_STRIDES_16K, V4_STRIDES_8K, Params
 from vadc_tpu_torch.nn import functional as F
@@ -108,7 +108,7 @@ def _forward(params, audio, h, c, hn, cn, sample_rate, tier):
     feats = encode(params, audio, sample_rate=sample_rate, tier=tier)
     out, hn, cn = lstm_fused(
         feats, h, c, params["lstm_w"], params["lstm_b"], hn=hn, cn=cn,
-        wt=transposed_weight_of(params, tier.products), tier=tier,
+        wt=weight_of(params, tier), tier=tier,
     )
     return F.decoder_v5_nlc(out, params["dec_w"], params["dec_b"], tier), hn, cn
 
@@ -120,7 +120,7 @@ def _forward_minibatched(params, audio, h, c, sample_rate, tier):
     # the N chunks' frames as one sequence: one launch at batch 1
     out, hn, cn = lstm_fused(
         feats.reshape(1, n * t, width), h, c, params["lstm_w"], params["lstm_b"],
-        wt=transposed_weight_of(params, tier.products), tier=tier,
+        wt=weight_of(params, tier), tier=tier,
     )
     probs = F.decoder_v5_nlc(out.reshape(n, t, width), params["dec_w"], params["dec_b"], tier)
     return probs, hn, cn
