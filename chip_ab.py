@@ -48,6 +48,14 @@ speech are chip_smoke.py's, taken from beside this script):
     x T=3, v4 B=1 x T=288 and v5 B=2048 x T=1, `lstm_decoder_fused` at 64 x
     64 x 7 and 2048 x 8 x 7.
 
+With `--probes`, only the two probes of tools/tpu_check.py
+(`kernels/probes.py`: `bf16_dot`, `bf16_dot_wgmma`, `concat_dot`), from a
+library of the tree's `csrc/probes.cu` alone: at the probe's own shapes
+([2, 8, 48] x [48, 16]; x [8, 4, 64], h [8, 64], w [128, 32]) and at the v4
+gate product's (2048 x 128 x 256; x [2048, 3, 64], h [2048, 64]), each by
+its device time (torch.profiler over 50 calls, the median of three) and by
+CUDA events around back-to-back calls.
+
 Imports nothing of JAX. Exits 1 without a card.
 """
 
@@ -78,6 +86,64 @@ ENCODE_AUDIO_ROWS = (4096, 16384)
 CLI_WINDOW = 96
 
 
+def device_ms(fn, iters: int = 50) -> float:
+    """Device time of one call of fn: the busy time of its kernels under
+    torch.profiler over `iters` calls after a warm-up (0.0 when the profiler
+    saw none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 / iters
+
+
+def probes(chip_smoke) -> None:
+    """The --probes line (module docstring)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from vadc_tpu_torch.kernels import _build
+    from vadc_tpu_torch.kernels import probes as P
+
+    entries = ("vadc_bf16_dot", "vadc_bf16_dot_wgmma", "vadc_concat_dot")
+    _build._lib = _build._bind(ctypes.CDLL(str(_build.build((), ("probes.cu", "errors.cu")))),
+                               entries)
+    device = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+
+    def t(*shape, scale=1.0, dtype=torch.float32):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(device, dtype)
+
+    bf16 = {"probe": (torch.full((2, 8, 48), 0.5, dtype=torch.bfloat16, device=device),
+                      torch.full((48, 16), 0.25, dtype=torch.bfloat16, device=device)),
+            "gate": (t(2048, 128, dtype=torch.bfloat16),
+                     t(128, 256, scale=128 ** -0.5, dtype=torch.bfloat16))}
+    concat = {"probe": (t(8, 4, 64), 1, t(8, 64), t(128, 32)),
+              "gate": (t(2048, 3, 64, scale=0.09), 1, t(2048, 64, scale=0.09),
+                       t(128, 256, scale=0.09))}
+    calls = []
+    for shape in ("probe", "gate"):
+        x, w = bf16[shape]
+        calls += [(f"bf16_dot {shape}", lambda x=x, w=w: P.bf16_dot(x, w)),
+                  (f"bf16_dot_wgmma {shape}", lambda x=x, w=w: P.bf16_dot_wgmma(x, w))]
+        calls.append((f"concat_dot {shape}", lambda a=concat[shape]: P.concat_dot(*a)))
+    out = []
+    for label, call in calls:
+        dev = sorted(device_ms(call) for _ in range(3))[1]
+        out.append(f"{label}: {dev:.4f} ({chip_smoke.cuda_ms(call):.4f} events)")
+    print(f"{os.path.basename(os.getcwd())} | {chip_smoke.nvidia_smi()} | probes, ms device time "
+          "(CUDA events back to back) | " + " | ".join(out), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -92,6 +158,9 @@ def main() -> int:
     chip_smoke = importlib.util.module_from_spec(spec)
     sys.modules["chip_smoke"] = chip_smoke
     spec.loader.exec_module(chip_smoke)
+    if sys.argv[1:] == ["--probes"]:
+        probes(chip_smoke)
+        return 0
     from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
     from vadc_tpu_torch.engine.runner import StreamRunner
     from vadc_tpu_torch.kernels import silero_v31_fused as KA

@@ -4,6 +4,7 @@ PyTorch/CUDA port on one card.
 
     python3 chip_profile.py
     python3 chip_profile.py split    # the step kernel's phase split alone
+    python3 chip_profile.py probes   # the probes' knock-outs and phases alone
 
 Runs 20 steps of `StreamRunner.step` over 2048 streams of 1536-sample
 chunks of synthetic speech (chip_smoke.speech_chunks, seed 300) with the
@@ -32,6 +33,10 @@ stft_magnitude at the v4 step (B=2048), the v4 CLI window (96 chunks) and
 the v5_8k step the same way (device time against host time), and
 `spectrum_variants`: the standalone spectrum built with other template
 constants and with one part knocked out, timed against the shipped build.
+With the argument `probes`, only `probe_variants`: the two probes of
+tools/tpu_check.py (csrc/probes.cu) at the v4 gate product's shape, built
+with one part knocked out and timed against the shipped build, and built
+with clock64() stamps at their phase boundaries.
 Imports nothing of JAX. Exits 1 without a card.
 """
 
@@ -214,6 +219,162 @@ def spectrum_variants(models, device) -> None:
                       f"({streams} streams a block): " + " ".join(f"{t:.4f}" for t in times)
                       + f" ms; bit-equal to the package's kernel: {torch.equal(out, want)}",
                       flush=True)
+
+
+# The two probes of tools/tpu_check.py (csrc/probes.cu, probe_variants):
+# copies of the source with one part knocked out (wrong values; their time
+# says what the part costs): name -> pairs of (text of probes.cu, its
+# replacement) ...
+_ROW0 = "const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;"
+_STORE = "store_tile(d, so, &out_map, out, M, N, row0, col0, flags);"
+_PRODUCTS = ("product_wgmma<4 * PANELS>(d, sa, sb);", "product_mma<4 * PANELS>(d, sa, sb);",
+             "product_bf16x3<2 * KS>(d, sa, shi, slo);")
+PROBE_KNOCKOUTS = {
+    "no loads": ((_ROW0, _ROW0 + " flags &= OUT_TMA;"),
+                 ("if (!(flags & X_TMA)) copy_x_bf16", "if (false) copy_x_bf16"),
+                 ("if (!(flags & W_TMA)) copy_w_bf16", "if (false) copy_w_bf16"),
+                 ("if (!(flags & W_TMA)) copy_w_f32", "if (false) copy_w_f32"),
+                 ("if (!(flags & X_TMA)) {\n    copy_a_f32", "if (false) {\n    copy_a_f32"),
+                 ("if (!(flags & H_TMA)) copy_a_f32", "if (false) copy_a_f32")),
+    "no split of w": (("split_w(shi, slo, sw, L, D, Dh, K, col0, N);", ";"),),
+    "no product": tuple((p, ";") for p in _PRODUCTS),
+    "no store": ((_STORE, "if (d[0] == 12345.f && d[31] == 54321.f) " + _STORE),),
+}
+PROBE_KNOCKOUTS["nothing"] = sum(PROBE_KNOCKOUTS.values(), ())
+# ... copies with a part done twice (what it costs warm) and without the
+# proxy fences (what they cost) ...
+_SPLIT = "  split_w(shi, slo, sw, L, D, Dh, K, col0, N);\n"
+PROBE_KNOCKOUTS["no proxy fences"] = (("  fence_proxy_async();\n", ""),)
+PROBE_KNOCKOUTS["split twice"] = ((_SPLIT, _SPLIT + "  __syncthreads();\n" + _SPLIT),)
+PROBE_KNOCKOUTS["wgmma twice"] = tuple((p, p + " " + p) for p in _PRODUCTS
+                                  if not p.startswith("product_mma<"))
+# ... and a copy whose thread 0 stamps clock64() at the phase boundaries of
+# every block (and %globaltimer at the first and the last, for the clock),
+# read back by vadc_probe_stamps: the boundary each stamp ends
+PROBE_PHASES = ("start", "loads issued", "first barrier", "w split (concat_dot)",
+                "A's barrier (concat_dot)", "product", "tile in shared memory", "stored")
+_STAMPS = """
+__device__ long long probe_stamps[4096][10];
+__device__ __forceinline__ void stamp(int i) {
+  const int b = blockIdx.x * gridDim.y + blockIdx.y;
+  if (threadIdx.x != 0 || b >= 4096) return;
+  probe_stamps[b][i] = clock64();
+  if (i == 0 || i == 7) {
+    unsigned long long g;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+    probe_stamps[b][8 + (i == 7)] = static_cast<long long>(g);
+  }
+}
+"""
+PROBE_STAMPED = (
+    ("using bf16 = __nv_bfloat16;\n", "using bf16 = __nv_bfloat16;\n" + _STAMPS),
+    (_ROW0, _ROW0 + " stamp(0);"),
+    ("  mbar_wait(&bar, 0);\n", "  stamp(1);\n  mbar_wait(&bar, 0);\n  stamp(2);\n"),
+    ("  mbar_wait(&bar[0], 0);\n", "  stamp(1);\n  mbar_wait(&bar[0], 0);\n  stamp(2);\n"),
+    ("  mbar_wait(&bar[1], 0);\n", "  stamp(3);\n  mbar_wait(&bar[1], 0);\n  stamp(4);\n"),
+    *((p, p + " stamp(5);") for p in _PRODUCTS),
+    ("  __syncthreads();\n  if (flags & OUT_TMA) {",
+     "  __syncthreads();\n  stamp(6);\n  if (flags & OUT_TMA) {"),
+    ("      tma_store_drain();\n", "      tma_store_drain();\n      stamp(7);\n"),
+    ("// ---- host ----", """}  // namespace
+extern "C" int vadc_probe_stamps(long long* out, int blocks) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, probe_stamps, blocks * 10 * sizeof(long long)));
+}
+extern "C" int vadc_probe_stamps_clear() {
+  void* p = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&p, probe_stamps);
+  return static_cast<int>(err != cudaSuccess ? err : cudaMemset(p, 0, sizeof(probe_stamps)));
+}
+namespace {
+// ---- host ----"""),
+)
+
+
+def probe_variants(device) -> None:
+    """The three probe entries at the v4 gate product's shape (tools/gpu_check:
+    2048 x 128 x 256; concat_dot x [2048, 3, 64], h [2048, 64]) through
+    libraries of other builds of csrc/probes.cu: each of PROBE_KNOCKOUTS,
+    timed by device time (gpu_check.timed, three runs of 50 calls)
+    beside the shipped build, and the stamped copy: the mean over the blocks
+    of each phase's end, from the block's start, in cycles and in us (the
+    cycles a ns of %globaltimer over the blocks' lives), and the grid's span.
+    Nothing in the package loads these builds."""
+    import ctypes
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from tools import gpu_check
+    from vadc_tpu_torch.kernels import _build
+    from vadc_tpu_torch.kernels import probes as P
+
+    entries = ("vadc_bf16_dot", "vadc_bf16_dot_wgmma", "vadc_concat_dot")
+    builds = {"shipped": (), **PROBE_KNOCKOUTS, "stamped": PROBE_STAMPED}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source = (_build.CSRC / "probes.cu").read_text()
+    x, w = gpu_check.seeded_bf16(gpu_check.GATE_ROWS, 2 * gpu_check.GATE_D, gpu_check.GATE_N, 7,
+                                 device)
+    xc, t, hc, wc = gpu_check.seeded_concat(gpu_check.GATE_ROWS, 2 * gpu_check.GATE_D,
+                                            gpu_check.GATE_N, 8, device)
+    calls = {"bf16_dot": lambda: P.bf16_dot(x, w), "bf16_dot_wgmma": lambda: P.bf16_dot_wgmma(x, w),
+             "concat_dot": lambda: P.concat_dot(xc, t, hc, wc)}
+    saved = _build._lib
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        jobs = {}
+        for i, (name, edits) in enumerate(builds.items()):
+            d = Path(tmp) / str(i)
+            d.mkdir()
+            for f in ("mma.cuh", "wgmma.cuh", "errors.cu"):
+                shutil.copy(_build.CSRC / f, d / f)
+            text = source
+            for old, new in edits:
+                assert old in text, (name, old)
+                text = text.replace(old, new)
+            (d / "probes.cu").write_text(text)
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.LINK_FLAGS, "-I", str(d),
+                   "-o", str(d / "lib.so"), str(d / "probes.cu"), str(d / "errors.cu")]
+            jobs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True))
+        libs = {}
+        for name, (d, proc) in jobs.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"probe variant {name}: nvcc failed:\n{log}")
+            libs[name] = _build._bind(ctypes.CDLL(str(d / "lib.so")), entries)
+        try:
+            for name, lib in libs.items():
+                if name == "stamped":
+                    continue
+                _build._lib = lib
+                print(f"probe variant {name}: " + "; ".join(
+                    f"{entry} " + " ".join(f"{gpu_check.timed(call)['ms']:.4f}" for _ in range(3))
+                    + " ms" for entry, call in calls.items()), flush=True)
+            lib = _build._lib = libs["stamped"]
+            lib.vadc_probe_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            for entry, call in calls.items():
+                call()
+                torch.cuda.synchronize()
+                _build.check(lib.vadc_probe_stamps_clear(), "vadc_probe_stamps_clear")
+                call()
+                torch.cuda.synchronize()
+                blocks = (gpu_check.GATE_ROWS // 64) * (gpu_check.GATE_N // 64)
+                stamps = np.zeros((blocks, 10), np.int64)
+                _build.check(lib.vadc_probe_stamps(stamps.ctypes.data, blocks), "vadc_probe_stamps")
+                cycles = stamps[:, :8] - stamps[:, :1]
+                ns = stamps[:, 9] - stamps[:, 8]
+                per_ns = cycles[:, 7].sum() / max(1, ns.sum())
+                phases = ", ".join(
+                    f"{label} {cycles[:, i].mean():.0f} cycles ({cycles[:, i].mean() / per_ns / 1e3:.3f} us)"
+                    for i, label in enumerate(PROBE_PHASES) if i and stamps[:, i].any())
+                print(f"probe phases {entry} at the gate shape, the mean of {blocks} blocks from "
+                      f"each block's start ({per_ns:.3f} cycles a ns): {phases}; the grid's span "
+                      f"{(stamps[:, 9].max() - stamps[:, 8].min()) / 1e3:.3f} us, the blocks' "
+                      f"starts within {(stamps[:, 8].max() - stamps[:, 8].min()) / 1e3:.3f} us",
+                      flush=True)
+        finally:
+            _build._lib = saved
 
 
 @contextlib.contextmanager
@@ -407,6 +568,9 @@ def main() -> int:
     device = require_cuda()
     _, params = load_params(DEFAULT_WEIGHTS, device=device)
     audio = torch.from_numpy(chip_smoke.speech_chunks(BATCH, CHUNK, seed=300)).to(device)
+    if sys.argv[1:] == ["probes"]:
+        probe_variants(device)
+        return 0
     if sys.argv[1:] == ["split"]:
         from vadc_tpu_torch.kernels import _build
 

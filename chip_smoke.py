@@ -154,7 +154,9 @@ Phases, each of which raises on failure (exit code 1):
      and stft_magnitude at v4 and v5 beside them, and the two probes of
      tools/tpu_check.py as tensor-core kernels, kernels/probes.py: exact
      6.0 and within 1e-3 of fp32 at the probe's inputs, within 1e-5 of
-     their plain versions at seeded shapes, both controls broken);
+     their plain versions at seeded shapes, among them shapes whose
+     strides TMA cannot take, staged by the kernels' threads, both
+     controls broken);
      tools/torch_accuracy_eval at every tier on v3.1 (16 utterances;
      balanced and fast score as faithful, turbo's row logged); the
      degradation matrix at faithful, card against CPU, identical rows; a
@@ -166,7 +168,9 @@ Phases, each of which raises on failure (exit code 1):
      at full occupancy within 64 MB); 10 minutes of audio through
      tools/torch_soak.py; then the probes timed at the probe's shapes and
      at the v4 gate product's (2048 x [64 | 64] x 256), kernel, plain
-     version and library call by their device time (torch.profiler);
+     version and library call by their device time (torch.profiler; the
+     library call of bf16_dot's function torch.mm(x, w,
+     out_dtype=torch.float32), bf16 torch.matmul beside it);
   4. timings with CUDA events: each kernel against its plain version
      (stft_magnitude at every family geometry at B=2048 and at the v4 CLI
      window, each with its own bound; beside the two spectrum kernels,
@@ -4192,7 +4196,8 @@ def main() -> int:
         g = at[gate]
         table.append((name, "vadc_tpu_torch/kernels/csrc/probes.cu", PROBE_KERNELS[name], n, err,
                       g["ms"], g["plain_ms"], g["library_ms"], (g["bound_ms"], g["bound_by"]),
-                      gate, {"at": at, "ms_is": "device time (torch.profiler)"}))
+                      gate, {"at": at, "ms_is": "device time (torch.profiler)",
+                             "library_call": g["library_call"]}))
     kernels = []
     for name, src, replaces, n, err, ms, plain_ms, library_ms, (bound, by), shape, extra in table:
         if name.split("[")[0] in OFF_PATH_KERNELS:

@@ -32,7 +32,9 @@ tools/tpu_check.py on tensor cores (kernels/probes.py): bf16_dot (mma.sync)
 and bf16_dot_wgmma give 6.0 exactly at the probe's inputs and agree with
 their plain version within 1e-5 (and with each other) at seeded shapes,
 concat_dot within 1e-3 of fp32 at the probe's inputs and 1e-5 of bf16_3x
-at seeded shapes.
+at seeded shapes, among them shapes whose strides TMA cannot take (the
+kernels' threads copy those operands); the staging rule of
+kernels/probes.py is the C entries'.
 """
 
 from pathlib import Path
@@ -1155,9 +1157,12 @@ def test_probe_kernels_at_the_probes_inputs(device):
     assert _max_abs(got, concat_dot_reference(xc, 1, hc, wc)) <= 1e-3
 
 
-@pytest.mark.parametrize("rows", [16, 37, 2048])
-@pytest.mark.parametrize("k,n", [(40, 24), (48, 16), (128, 256)])
+@pytest.mark.parametrize("rows", [16, 37, 2048, 4096])
+@pytest.mark.parametrize("k,n", [(40, 24), (48, 16), (128, 256), (37, 24), (48, 13)])
 def test_probe_kernels_at_seeded_shapes(device, rows, k, n):
+    """(37, 24): x's rows (and concat_dot's x[:, t], D = 19, and h, Dh =
+    18) off 16 bytes, copied by the kernels' threads; (48, 13): w's and the
+    output's."""
     from vadc_tpu_torch.kernels.probes import (
         bf16_dot, bf16_dot_reference, bf16_dot_wgmma, concat_dot,
     )
@@ -1176,6 +1181,50 @@ def test_probe_kernels_at_seeded_shapes(device, rows, k, n):
     xc, hc, wc = xc.to(device), hc.to(device), wc.to(device)
     got = concat_dot(xc, 2, hc, wc)
     assert _max_abs(got, matmul_at(torch.cat([xc[:, 2], hc], -1), wc, "bf16_3x")) <= 1e-5
+
+
+def test_probe_staging_is_the_c_entries_rule_and_both_ways_agree(device):
+    """kernels/probes.py's mirror of the staging rule gives the C entries'
+    flags (vadc_*_staging) at aligned and misaligned operands, and the
+    kernels meet their plain versions whichever way each operand went."""
+    from vadc_tpu_torch.kernels.probes import (
+        W_TMA, X_TMA, bf16_dot, bf16_dot_reference, bf16_dot_staging, bf16_dot_wgmma,
+        concat_dot, concat_dot_staging, kernel_staging,
+    )
+    from vadc_tpu_torch.nn.precision import matmul_at
+
+    seen = set()
+    x0, _ = _probe_bf16(65, 48, 16, 5, device)
+    flat = x0.reshape(-1)
+    for x in (flat[:64 * 48].view(64, 48), flat[1:1 + 64 * 48].view(64, 48)):
+        for n in (16, 13):
+            _, w = _probe_bf16(1, 48, n, n, device)
+            out = torch.empty(64, n, device=device)
+            flags = bf16_dot_staging(x, w, out)
+            assert flags == kernel_staging("bf16_dot", x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                           48, n)
+            seen.add(flags & (X_TMA | W_TMA))
+            want = bf16_dot_reference(x, w)
+            for entry in (bf16_dot, bf16_dot_wgmma):
+                assert _max_abs(entry(x, w), want) <= 1e-5
+    assert seen == {0, X_TMA, W_TMA, X_TMA | W_TMA}
+    rng = np.random.default_rng(9)
+    for seq, d, t, dh, n, offset in ((3, 64, 1, 64, 256, 0), (3, 19, 1, 18, 24, 0),
+                                     (4, 37, 0, 36, 13, 0), (3, 22, 2, 0, 16, 0),
+                                     (3, 64, 1, 64, 32, 1)):
+        scale = np.float32(1 / np.sqrt(d + dh))
+        flat = torch.from_numpy(rng.normal(size=37 * seq * d + 1).astype(np.float32) * scale)
+        x = flat[offset:offset + 37 * seq * d].view(37, seq, d).to(device)
+        if offset:
+            x = torch.empty(37 * seq * d + 1, device=device)[offset:].view(37, seq, d).copy_(x)
+        h = torch.from_numpy(rng.normal(size=(37, dh)).astype(np.float32) * scale).to(device)
+        w = torch.from_numpy(rng.normal(size=(d + dh, n)).astype(np.float32) * scale).to(device)
+        out = torch.empty(37, n, device=device)
+        flags = concat_dot_staging(x, t, h, w, out)
+        assert flags == kernel_staging("concat_dot", x.data_ptr(), seq, d, t, h.data_ptr(), dh,
+                                       w.data_ptr(), out.data_ptr(), n)
+        want = matmul_at(torch.cat([x[:, t], h], -1), w, "bf16_3x")
+        assert _max_abs(concat_dot(x, t, h, w), want) <= 1e-5
 
 
 def test_probe_kernels_refuse_what_they_do_not_take(device):

@@ -260,11 +260,12 @@ def test_kernel_sources_and_build_flags():
     # that runs an LSTM step), the resident-weights variant of the two
     # recurrent kernels (lstm_fused, lstm_decoder_fused), the precision
     # tiers' arithmetic (the v3.1 kernels' instances), the tensor-core
-    # fragments (the probes, the spectrum tile and the body at the bf16 tiers)
-    # and the LSTMs' gate sums at the bf16 tiers (every recurrent kernel)
+    # fragments (the probes, the spectrum tile and the body at the bf16 tiers),
+    # the LSTMs' gate sums at the bf16 tiers (every recurrent kernel) and the
+    # TMA and wgmma core (the probes)
     assert [p.name for p in _build.headers()] == [
         "lstm_cell.cuh", "lstm_mma.cuh", "lstm_resident.cuh", "mma.cuh", "silero_v31_body.cuh",
-        "stft_tile.cuh", "tier.cuh"]
+        "stft_tile.cuh", "tier.cuh", "wgmma.cuh"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags
     assert "fast_math" not in flags and "fast-math" not in flags

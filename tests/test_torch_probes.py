@@ -25,7 +25,8 @@ from tests.torch_port_util import single_torch_thread  # noqa: F401
 from tools import gpu_check, tpu_check
 from vadc_tpu_torch.kernels import _build
 from vadc_tpu_torch.kernels.probes import (
-    MAX_K, bf16_dot, bf16_dot_reference, bf16_dot_wgmma, concat_dot, concat_dot_reference,
+    H_TMA, MAX_K, OUT_TMA, W_TMA, X_TMA, bf16_dot, bf16_dot_reference, bf16_dot_staging,
+    bf16_dot_wgmma, concat_dot, concat_dot_reference, concat_dot_staging,
 )
 from vadc_tpu_torch.nn.precision import matmul_at
 
@@ -123,24 +124,91 @@ def test_concat_dot_is_the_concatenated_product():
 
 def test_the_kernels_are_built_and_bound():
     """probes.cu is one of the library's sources, with its three C entries
-    bound; it computes with the instructions the kernels are named for (the
-    mma.sync fragments from the header the spectrum and the body share), and
-    calls no library kernel."""
+    bound, on the port's GEMM core (wgmma.cuh): operands copied by TMA into
+    128-byte-swizzled shared memory behind an mbarrier (the tensor maps
+    encoded through the driver's entry point, no -lcuda), the output stored
+    by TMA; products by the instructions the kernels are named for: mma.sync
+    with ldmatrix fragments, wgmma m64n64k16 on swizzled descriptors with w
+    read MN-major (transpose-B), and from registers for concat_dot's A; no
+    library kernel."""
     csrc = ROOT / "vadc_tpu_torch/kernels/csrc"
-    assert csrc / "probes.cu" in _build.sources() and csrc / "mma.cuh" in _build.headers()
+    assert csrc / "probes.cu" in _build.sources()
+    assert {csrc / "mma.cuh", csrc / "wgmma.cuh"} <= set(_build.headers())
     probes = (csrc / "probes.cu").read_text()
-    assert '#include "mma.cuh"' in probes
-    src = probes + (csrc / "mma.cuh").read_text()
+    assert '#include "mma.cuh"' in probes and '#include "wgmma.cuh"' in probes
+    src = probes + (csrc / "mma.cuh").read_text() + (csrc / "wgmma.cuh").read_text()
     for entry in ("vadc_bf16_dot", "vadc_bf16_dot_wgmma", "vadc_concat_dot"):
         assert entry in _build._SIGNATURES
         assert re.search(rf'extern "C" int {entry}\(', probes)
+    # TMA in and out, one mbarrier phase, the 128-byte swizzle
+    assert "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes" in src
+    assert "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group" in src
+    assert "mbarrier.arrive.expect_tx.shared::cta.b64" in src
+    assert "mbarrier.try_wait.parity.shared::cta.b64" in src
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in src and "__grid_constant__ CUtensorMap" in src
+    assert "cudaGetDriverEntryPoint" in src and "-lcuda" not in _build.LINK_FLAGS
+    assert "fence.proxy.async.shared::cta" in src
+    # a descriptor of layout 1 (128-byte swizzle, bits 62-63)
+    assert "static_cast<uint64_t>(1) << 62" in src
+    # mma.sync and its ldmatrix fragments
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
-    assert "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16" in src
-    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in src
-    assert "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16" in src
-    assert "wgmma.commit_group" in src and "wgmma.wait_group" in src
+    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in src
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in src
+    # wgmma: A and B by descriptors (transpose-A 0, transpose-B 1), and A
+    # from registers (transpose-B 1)
+    assert src.count("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16") == 2
+    assert ", %32, %33, p, 1, 1, 0, 1;" in src
+    assert ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;" in src
+    assert "wgmma.fence" in src and "wgmma.commit_group" in src and "wgmma.wait_group" in src
     assert not re.search(r"cublas|cutlass|#include <mma\.h>", src, re.I)
-    assert MAX_K == 256 and "K > 256" in src
+    assert MAX_K == 256 and "constexpr int MAX_K = 256;" in probes and "K > MAX_K" in probes
+
+
+@pytest.mark.parametrize("k,n,want", [
+    (48, 16, X_TMA | W_TMA | OUT_TMA),   # the probe's
+    (128, 256, X_TMA | W_TMA | OUT_TMA),  # the v4 gate product's
+    (37, 24, W_TMA | OUT_TMA),           # x's rows 74 bytes
+    (48, 13, X_TMA),                     # w's rows 26 bytes, the output's 52
+    (40, 12, X_TMA | OUT_TMA),           # w's rows 24 bytes, the output's 48
+    (1, 1, 0),
+])
+def test_bf16_staging_follows_the_row_strides(k, n, want):
+    """An operand goes by TMA where its row stride is a multiple of 16
+    bytes (and its base is: torch's CPU allocations are)."""
+    x = torch.zeros(5, k, dtype=torch.bfloat16)
+    w = torch.zeros(k, n, dtype=torch.bfloat16)
+    out = torch.zeros(5, n)
+    assert bf16_dot_staging(x, w, out) == want
+
+
+def test_staging_needs_16_byte_bases():
+    """A view that starts off 16 bytes is copied by the threads, whatever
+    its stride."""
+    flat = torch.zeros(8 + 64 * 48, dtype=torch.bfloat16)
+    x = flat[1:1 + 64 * 48].view(64, 48)
+    w = torch.zeros(48, 16, dtype=torch.bfloat16)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    assert bf16_dot_staging(x, w, torch.zeros(64, 16)) == W_TMA | OUT_TMA
+    assert bf16_dot_staging(flat[8:8 + 64 * 48].view(64, 48), w, torch.zeros(64, 16)) == 7
+    xc = torch.zeros(4 * 3 * 64 + 1)[1:].view(4, 3, 64)
+    hc, wc, out = torch.zeros(4, 64), torch.zeros(128, 32), torch.zeros(4, 32)
+    assert concat_dot_staging(xc, 1, hc, wc, out) == H_TMA | W_TMA | OUT_TMA
+
+
+@pytest.mark.parametrize("seq,d,t,dh,n,want", [
+    (3, 64, 1, 64, 256, X_TMA | H_TMA | W_TMA | OUT_TMA),  # the gate shape
+    (3, 20, 1, 20, 24, X_TMA | H_TMA | W_TMA | OUT_TMA),   # x[:, 1] 80 bytes in, stride 240
+    (3, 19, 1, 18, 24, W_TMA | OUT_TMA),                   # stride 228; h's rows 72 bytes
+    (4, 37, 0, 36, 13, X_TMA | H_TMA),                     # t = 0, stride 592: D need not be
+    (3, 22, 2, 0, 16, W_TMA | OUT_TMA),                    # stride 264; no h
+    (3, 24, 2, 8, 8, X_TMA | H_TMA | W_TMA | OUT_TMA),
+])
+def test_concat_staging_follows_the_view_of_x(seq, d, t, dh, n, want):
+    """x[:, t] is a 2-D view of row stride T D and base t D (fp32): both
+    must be multiples of 16 bytes for TMA; h by Dh, w and the output by N."""
+    x, h = torch.zeros(6, seq, d), torch.zeros(6, dh)
+    w, out = torch.zeros(d + dh, n), torch.zeros(6, n)
+    assert concat_dot_staging(x, t, h, w, out) == want
 
 
 def test_gpu_checks_probes_on_the_cpu():

@@ -18,8 +18,9 @@ and beside them forward_fused, encode_fused_audio and stft_magnitude (v4
 and v5 geometries) against their plain versions at 1e-5, and the two
 products that tpu_check probes (kernels/probes.py): bf16_dot (mma.sync)
 and bf16_dot_wgmma exact at the probe's own inputs, concat_dot within 1e-3
-of fp32, all three within 1e-5 of their plain versions at seeded shapes,
-and two controls that must break their limits.
+of fp32, all three within 1e-5 of their plain versions at seeded shapes
+(among them shapes whose strides TMA cannot take, which the kernels stage
+with their threads), and two controls that must break their limits.
 
 tpu_check's Mosaic-lowering canaries and its transfer-leak canary have no
 counterpart: the probes are their counterpart here, and unlike tpu_check's
@@ -48,10 +49,16 @@ from tools.torch_fidelity_report import TESTDATA  # noqa: E402
 #: tpu_check.py's bounds of the speech ladder, recorded on a TPU
 #: (tpu_check.py:247-252): printed beside the port's own, never held
 TPU_SPEECH_BOUND = {"balanced": 3e-3, "fast": 3e-2, "turbo": 1e-1}
-#: the probes' seeded shapes: rows, and K -> N (K = 40 is no multiple of 16;
-#: 48 is the probe's, 128 the v4 gate product's [x | h] = 64 + 64)
-PROBE_ROWS = (16, 37, 2048)
+#: the probes' seeded shapes: rows (4096: 64 row tiles), and K -> N (K = 40
+#: is no multiple of 16; 48 is the probe's, 128 the v4 gate product's
+#: [x | h] = 64 + 64)
+PROBE_ROWS = (16, 37, 2048, 4096)
 PROBE_N = {40: 24, 48: 16, 128: 256}
+#: (K, N) whose strides TMA cannot take, so that the kernels copy those
+#: operands with the block's threads (kernels/probes.py: bf16_dot_staging,
+#: concat_dot_staging): K = 37 leaves x's rows (and concat_dot's D = 19,
+#: Dh = 18) off 16 bytes, N = 13 w's and the output's
+PROBE_THREAD_STAGED = ((37, 24), (48, 13))
 #: the two timed shapes: the probe's own, and the v4 LSTM gate product's
 #: (2048 rows, [x | h] = 64 + 64, N = 4 x 64; x [B, T=3, 64], t = 1)
 GATE_ROWS, GATE_D, GATE_N, GATE_T = 2048, 64, 256, 3
@@ -133,6 +140,16 @@ def seeded_concat(rows: int, k: int, n: int, seed: int, device, seq: int = GATE_
     return to(x), 1, to(h), to(w)
 
 
+def staging_names(flags: int, operands: str) -> str:
+    """The operands (in the order of the flags' bits, kernels/probes.py)
+    staged by TMA and those copied by the threads, as words."""
+    names = operands.split()
+    tma = [n for i, n in enumerate(names) if flags >> i & 1]
+    threads = [n for i, n in enumerate(names) if not flags >> i & 1]
+    return (f"{', '.join(tma) or 'nothing'} by TMA"
+            + (f", {', '.join(threads)} by the threads" if threads else ""))
+
+
 def probe_checks(device, check: Checks) -> dict:
     """The two probes of tpu_check on the port's kernels: at the probe's
     own inputs, at seeded shapes, and two controls. Returns what is
@@ -141,7 +158,8 @@ def probe_checks(device, check: Checks) -> dict:
     import torch
 
     from vadc_tpu_torch.kernels.probes import (
-        bf16_dot, bf16_dot_reference, bf16_dot_wgmma, concat_dot, concat_dot_reference,
+        bf16_dot, bf16_dot_reference, bf16_dot_staging, bf16_dot_wgmma, concat_dot,
+        concat_dot_reference, concat_dot_staging,
     )
     from vadc_tpu_torch.nn.precision import matmul_at
 
@@ -165,16 +183,21 @@ def probe_checks(device, check: Checks) -> dict:
     worst = {"bf16_dot": 0.0, "bf16_dot_wgmma": 0.0, "concat_dot_vs_bf16_3x": 0.0,
              "concat_dot_vs_fp32": 0.0}
     between = 0.0
-    for seed, (rows, k) in enumerate((r, k) for r in PROBE_ROWS for k in PROBE_N):
-        n = PROBE_N[k]
+    staged: dict = {}  # (entry, operands by TMA) -> shapes
+    shapes = [(r, k, n) for r in PROBE_ROWS for k, n in (*PROBE_N.items(), *PROBE_THREAD_STAGED)]
+    for seed, (rows, k, n) in enumerate(shapes):
         xs, ws = seeded_bf16(rows, k, n, seed, device)
         want = bf16_dot_reference(xs, ws)
         a, b = bf16_dot(xs, ws), bf16_dot_wgmma(xs, ws)
+        key = ("bf16_dot", staging_names(bf16_dot_staging(xs, ws, a), "x w out"))
+        staged[key] = staged.get(key, 0) + 1
         worst["bf16_dot"] = max(worst["bf16_dot"], max_abs(a, want))
         worst["bf16_dot_wgmma"] = max(worst["bf16_dot_wgmma"], max_abs(b, want))
         between = max(between, max_abs(a, b))
         xc, t, hc, wc = seeded_concat(rows, k, n, seed, device)
         got = concat_dot(xc, t, hc, wc)
+        key = ("concat_dot", staging_names(concat_dot_staging(xc, t, hc, wc, got), "x w out h"))
+        staged[key] = staged.get(key, 0) + 1
         cat = torch.cat([xc[:, t], hc], -1)
         worst["concat_dot_vs_bf16_3x"] = max(worst["concat_dot_vs_bf16_3x"],
                                              max_abs(got, matmul_at(cat, wc, "bf16_3x")))
@@ -187,6 +210,9 @@ def probe_checks(device, check: Checks) -> dict:
     info["bf16_dot_vs_bf16_dot_wgmma"] = between
     print(f"{'probe bf16_dot against bf16_dot_wgmma':40s} {between:9.2e} (the two entries, "
           "seeded shapes)", flush=True)
+    for (entry, names), count in sorted(staged.items()):
+        print(f"probe staging {entry}: {names} at {count} of the {len(shapes)} seeded shapes",
+              flush=True)
     # the control: K cut to its last multiple of 16 loses the tail's products
     xs, ws = seeded_bf16(PROBE_ROWS[1], 40, PROBE_N[40], 99, device)
     cut = 40 // 16 * 16
@@ -234,7 +260,11 @@ def probe_timings(device) -> dict:
     """The probes timed at the probe's own shapes (launch-bound) and at the
     v4 gate product's: kernel, plain version, library call (each its device
     time, and its CUDA-event time back to back beside it) and bound. name
-    -> {shape label -> numbers}. The bound counts each input read once and
+    -> {shape label -> numbers}. The library call of bf16_dot's function is
+    torch.mm(x, w, out_dtype=torch.float32) (bf16 operands, an fp32 result)
+    where this torch has it, with bf16 torch.matmul (a bf16 result: not the
+    same function) beside it as `library_bf16_matmul`; concat_dot's is
+    torch.cat + fp32 torch.matmul. The bound counts each input read once and
     each output written once, and the operations at the bf16 tensor-core
     peak (bf16_3x three times): chip_smoke.py's products_bound_ms."""
     import torch
@@ -250,11 +280,26 @@ def probe_timings(device) -> dict:
     gate_k = 2 * GATE_D
     out: dict = {"bf16_dot": {}, "bf16_dot_wgmma": {}, "concat_dot": {}}
 
-    def row(kernel, plain, library, bound) -> dict:
-        k, pl, lib = timed(kernel), timed(plain), timed(library)
-        return {"ms": k["ms"], "plain_ms": pl["ms"], "library_ms": lib["ms"],
-                "bound_ms": bound[0], "bound_by": bound[1], "event_ms": k["event_ms"],
-                "plain_event_ms": pl["event_ms"], "library_event_ms": lib["event_ms"]}
+    def row(kernel, plain, library, bound, library_call, **yardsticks) -> dict:
+        k, pl = timed(kernel), timed(plain)
+        lib = timed(library) if library is not None else {"ms": None, "event_ms": None}
+        r = {"ms": k["ms"], "plain_ms": pl["ms"], "library_ms": lib["ms"],
+             "bound_ms": bound[0], "bound_by": bound[1], "event_ms": k["event_ms"],
+             "plain_event_ms": pl["event_ms"], "library_event_ms": lib["event_ms"],
+             "library_call": library_call}
+        for name, call in yardsticks.items():
+            y = timed(call)
+            r[f"{name}_ms"], r[f"{name}_event_ms"] = y["ms"], y["event_ms"]
+        return r
+
+    def mm_fp32(x2d, w):
+        """torch.mm with an fp32 output from bf16 operands (aten::mm.dtype),
+        the kernels' function in one call; None where this torch lacks it."""
+        try:
+            torch.mm(x2d, w, out_dtype=torch.float32)
+        except (TypeError, RuntimeError, NotImplementedError):
+            return None
+        return lambda: torch.mm(x2d, w, out_dtype=torch.float32)
 
     for label, (x, w) in (("probe [2, 8, 48] x [48, 16]", p["bf16"]),
                           (f"gate [{GATE_ROWS}, {gate_k}] x [{gate_k}, {GATE_N}]",
@@ -262,9 +307,12 @@ def probe_timings(device) -> dict:
         m, k = x.numel() // x.shape[-1], x.shape[-1]
         n = w.shape[1]
         bound = products_bound_ms(2 * m * k + 2 * k * n + 4 * m * n, (2.0 * m * k * n, "bf16"))
+        library = mm_fp32(x.reshape(m, k), w)
+        call = ("torch.mm(x, w, out_dtype=torch.float32)" if library is not None
+                else "none: no single call of this torch computes bf16 x bf16 -> fp32")
         for name, fn in (("bf16_dot", bf16_dot), ("bf16_dot_wgmma", bf16_dot_wgmma)):
-            out[name][label] = row(lambda: fn(x, w), lambda: bf16_dot_reference(x, w),
-                                   lambda: torch.matmul(x, w), bound)
+            out[name][label] = row(lambda: fn(x, w), lambda: bf16_dot_reference(x, w), library,
+                                   bound, call, library_bf16_matmul=lambda: torch.matmul(x, w))
     for label, (x, t, h, w) in (("probe x [8, 4, 64], h [8, 64], w [128, 32]", p["concat"]),
                                 (f"gate x [{GATE_ROWS}, {GATE_T}, {GATE_D}], h [{GATE_ROWS}, "
                                  f"{GATE_D}], w [{gate_k}, {GATE_N}]",
@@ -274,13 +322,19 @@ def probe_timings(device) -> dict:
                                   (2.0 * m * (d + dh) * n, "bf16_3x"))
         out["concat_dot"][label] = row(
             lambda: concat_dot(x, t, h, w), lambda: concat_dot_reference(x, t, h, w),
-            lambda: torch.matmul(torch.cat([x[:, t], h], -1), w), bound)
+            lambda: torch.matmul(torch.cat([x[:, t], h], -1), w), bound,
+            "torch.cat + fp32 torch.matmul")
     for name, at in out.items():
         for label, r in at.items():
+            library = ("none" if r["library_ms"] is None else
+                       f"{r['library_ms']:.4f} ({r['library_event_ms']:.4f})")
+            bf16_matmul = ("" if "library_bf16_matmul_ms" not in r else
+                           f", bf16 torch.matmul (a bf16 result) {r['library_bf16_matmul_ms']:.4f} "
+                           f"({r['library_bf16_matmul_event_ms']:.4f})")
             print(f"time {name} at {label}: {r['ms']:.4f} ms on the device "
                   f"({r['event_ms']:.4f} ms a call back to back), plain {r['plain_ms']:.4f} "
-                  f"({r['plain_event_ms']:.4f}), library {r['library_ms']:.4f} "
-                  f"({r['library_event_ms']:.4f}), bound {r['bound_ms']:.6f} ms by "
+                  f"({r['plain_event_ms']:.4f}), library {r['library_call']} {library}"
+                  f"{bf16_matmul}, bound {r['bound_ms']:.6f} ms by "
                   f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.2f} % of the kernel's time)"
                   + (" (launch-bound)" if label.startswith("probe") else ""), flush=True)
     return out

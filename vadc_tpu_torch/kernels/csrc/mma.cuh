@@ -2,9 +2,9 @@
 // m16n8k16 and m16n8k8 shapes, the ldmatrix loads that feed them from
 // shared memory, and the bf16 rounding and hi/lo split of fp32 operands
 // (nn/precision.py: hi = bf16(x), lo = bf16(x - hi), both nearest even).
-// probes.cu (the regression tier's two probes), stft_tile.cuh (the spectrum
-// at the bf16 modes) and silero_v31_body.cuh (the encoder's products at the
-// bf16 tiers) use it.
+// probes.cu (the regression tier's two probes, through wgmma.cuh),
+// stft_tile.cuh (the spectrum at the bf16 modes) and silero_v31_body.cuh
+// (the encoder's products at the bf16 tiers) use it.
 //
 // Fragments, g = lane / 4 and t = lane % 4 (PTX ISA, mma.m16n8k16 and
 // mma.m16n8k8 with .bf16 operands): A (row-major, 16 x k) holds rows g and
@@ -58,26 +58,24 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, u
 
 // ---- ldmatrix -----------------------------------------------------------------
 
-// A fragment of a 16 x 16 bf16 tile of a row-major [.][ld] array at `tile`:
-// lane l gives the address of row l % 16, columns (l / 16) * 8 ..
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld,
-                                       int lane) {
-  const uint32_t addr = smem_addr(tile + (lane % 16) * ld + (lane / 16) * 8);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-// B fragment of a 16 (k) x 8 (n) tile of a row-major [K][ld] array at
-// `tile`: lanes 0-15 give the addresses of rows k = 0..15 (lanes 16-31
-// repeat them; .x2 reads only the first 16); .trans hands lane l the pairs
-// (k = 2 (l % 4) + {0, 1}, n = l / 4), the col operand's layout.
-__device__ __forceinline__ void load_b(uint32_t (&b)[2], const __nv_bfloat16* tile, int ld,
-                                       int lane) {
-  const uint32_t addr = smem_addr(tile + (lane % 16) * ld);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(addr));
+// Four 8 x 8 bf16 matrices whose rows lanes 0-31 address themselves (lanes
+// 8i .. 8i + 7 the rows of matrix i; 16-byte aligned rows of 8 values): r[i]
+// as lane l's pair of matrix i, (row l / 4, columns 2 (l % 4) + {0, 1}), or
+// with TRANS (rows 2 (l % 4) + {0, 1}, column l / 4). Rows m (lanes 0-15)
+// and then the same rows 8 k on (lanes 16-31) give an m16n8k16 A fragment;
+// rows k of two n8 tiles, TRANS, two B fragments.
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const uint32_t addr = smem_addr(row);
+  if constexpr (TRANS) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+  }
 }
 
 // Two 8 x 8 bf16 matrices whose 8 rows each lane 0-15 addresses itself
