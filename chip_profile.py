@@ -74,8 +74,10 @@ def profile_calls(label: str, call, shape: str = f"B={BATCH} x {CHUNK}") -> bool
         wall = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # the CPU-side op rows would count their kernels twice
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation",
+                                                                       False):
+            continue  # the CPU-side op rows and the zones' device-side rows
+            # would count their kernels twice
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = e.self_cuda_time_total
@@ -398,57 +400,17 @@ def spectrum_constants(instance: tuple, rows_pass: int, taps: int, stages: int, 
 
 def phase_split(params, audio, label: str, tier: str = "faithful") -> None:
     """One launch of the stamped step kernel's instance of `tier` over
-    `audio` [B, S] from a zero state; prints the mean time of each phase
-    over the stamped blocks."""
-    import ctypes
+    `audio` [B, S] from a zero state (tools/torch_bench_stages.py:
+    phase_rows); prints the mean time of each phase over the stamped
+    blocks."""
+    from tools.torch_bench_stages import phase_rows
 
-    import torch
-
-    from vadc_tpu_torch.kernels import _build
-    from vadc_tpu_torch.kernels.silero_v31_fused import forward_fused, step_args
-    from vadc_tpu_torch.models import silero_v31
-    from vadc_tpu_torch.nn.precision import tier_of
-
-    lib = _build.probe_library()
-    n_blocks, n_slots = ctypes.c_int(), ctypes.c_int()
-    lib.vadc_phase_probe_shape(ctypes.byref(n_blocks), ctypes.byref(n_slots))
-    n_blocks, n_slots = n_blocks.value, n_slots.value
-    batch = audio.shape[0]
-    h, c = silero_v31.init_state(batch, audio.device)
-    probs = torch.empty(batch, device=audio.device)
-    hn, cn = torch.empty_like(h), torch.empty_like(c)
-    for _ in range(3):  # the last launch's stamps are read
-        args = step_args(params, audio, h, c, probs, hn, cn, tier=tier_of(tier))
-        _build.check(lib.vadc_silero_v31_fused_audio(*args), "probe step")
-    clocks = np.zeros((n_blocks, n_slots), np.int64)
-    ids = np.zeros((n_blocks, n_slots), np.int32)
-    counts = np.zeros(n_blocks, np.int32)
-    ns = np.zeros((n_blocks, 2), np.uint64)
-    status = lib.vadc_phase_probe_read(clocks.ctypes.data, ids.ctypes.data, counts.ctypes.data,
-                                       ns.ctypes.data)
-    _build.check(status, "probe read")
-    if not torch.equal(forward_fused(params, audio, h, c, tier=tier)[0], probs):
-        raise AssertionError("the stamped kernel's probabilities differ from the package's")
-    blocks = min(n_blocks, -(-batch // 4))  # NB = 4 streams a block
-    n = int(counts[0])
-    if not all(int(counts[b]) == n and (ids[b, :n] == ids[0, :n]).all() for b in range(blocks)):
-        raise AssertionError("blocks stamped different phase sequences")
-    span_cycles = (clocks[:blocks, n - 1] - clocks[:blocks, 0]).astype(np.float64)
-    span_us = (ns[:blocks, 1] - ns[:blocks, 0]).astype(np.float64) / 1e3
-    us = np.diff(clocks[:blocks, :n], axis=1) * (span_us / span_cycles)[:, None]
-    mean_us = us.mean(axis=0)
-    total = float(span_us.mean())
-    print(f"phase split of the step kernel [{tier}], {label}: {blocks} blocks stamped, a block lives "
-          f"{total:.1f} us (min {span_us.min():.1f}, max {span_us.max():.1f}), "
-          f"{span_cycles.mean() / total:.0f} cycles a us")
-    rows, stage = [], 0  # (encoder stage or 0, phase name, us)
-    for i, t in enumerate(mean_us):
-        name = _build.PHASES[ids[0, i + 1]]
-        if name == "proj":
-            stage += 1
-        elif name.startswith("lstm"):
-            stage = 0
-        rows.append((stage, name, float(t)))
+    split = phase_rows(params, audio, tier)
+    rows, total = split["rows"], split["life_us"]
+    print(f"phase split of the step kernel [{tier}], {label}: {split['blocks']} blocks stamped, a "
+          f"block lives {total:.1f} us (min {split['life_min_us']:.1f}, max "
+          f"{split['life_max_us']:.1f}), {split['cycles_per_us']:.0f} cycles a us")
+    for stage, name, t in rows:
         print(f"  {f'stage {stage} ' if stage else ''}{name:28s} {t:9.2f} us  {100 * t / total:5.1f} %")
     groups = {"spectrum": ("spectrum",), "normalization": ("log1p", "mean, subtract, state"),
               "products": ("proj", "pw", "qkv", "out_proj", "lin1", "lin2", "conv1x1"),

@@ -171,6 +171,19 @@ Phases, each of which raises on failure (exit code 1):
      version and library call by their device time (torch.profiler; the
      library call of bf16_dot's function torch.mm(x, w,
      out_dtype=torch.float32), bf16 torch.matmul beside it);
+  3f. the ported tools (phase_ported_tools), their launches counted in
+     that window alone (forward_fused, encode_fused_audio, stft_magnitude
+     and lstm_fused each > 0), under 150 s: tools/torch_bench_stages.py at
+     B=2048, fast, for v3.1, v4 and v5 at T 8/72 (the full prefix equal to
+     forward's output bit for bit; every row logged, wall and device time);
+     tools/torch_validate_v5.py on the synthetic v5 graph (onnx_build from
+     random_v5_archive(7) and random_v5_8k_archive(8)), PASSED at its
+     default atol 1e-5; tools/torch_rss_attrib.py with 8 clients for 6 s
+     at rtf 4 (0 client errors, ticks > 0; the three growth figures
+     logged); tools/torch_ingest_bench.run_ingest with and without the FSM
+     (512 pipes, 2 s each; the realtime-stream equivalents logged); and
+     tools/torch_tensor_image.py on the bundled v3.1 archive (a PGM file a
+     tensor);
   4. timings with CUDA events: each kernel against its plain version
      (stft_magnitude at every family geometry at B=2048 and at the v4 CLI
      window, each with its own bound; beside the two spectrum kernels,
@@ -3989,6 +4002,95 @@ def phase_tools(device, totals: dict) -> dict:
     return {name: (counts[name], errs[name], timings[name]) for name in PROBE_KERNELS}
 
 
+# ---- the ported tools (phase_ported_tools): per-stage timing, the v5
+# validation harness, the RSS attribution, the host-ingest ceiling, the
+# tensor image dump
+
+#: torch_bench_stages' loops in this phase (T short, T long; the tool's
+#: defaults are 16 and 336), at B=B_MAIN and fast
+PORTED_STAGES = (8, 72)
+PORTED_RSS = (8, 6.0, 4.0)  # torch_rss_attrib's clients, seconds, rtf
+PORTED_INGEST = (512, 2.0)  # run_ingest's pipes and seconds
+PORTED_TOOLS_PHASE_LIMIT_S = 150.0
+PORTED_KERNELS = ("forward_fused", "encode_fused_audio", "stft_magnitude", "lstm_fused")
+
+
+def ported_validate_v5() -> None:
+    """torch_validate_v5 on the synthetic v5 graph (the JAX tool's test's
+    seeds), on the card: PASSED at its default atol."""
+    from tools import torch_validate_v5
+
+    from vadc_tpu_torch.export.onnx_build import build_silero_v5_onnx
+    from vadc_tpu_torch.models.synthetic import random_v5_8k_archive, random_v5_archive
+
+    with tempfile.TemporaryDirectory() as tmp:
+        graph = Path(tmp) / "silero_v5_synthetic.onnx"
+        build_silero_v5_onnx(graph, random_v5_archive(7), random_v5_8k_archive(8))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = torch_validate_v5.main([str(graph)])
+    for line in out.getvalue().splitlines():
+        log(f"validate_v5: {line}")
+    require(rc == 0 and "V5 VALIDATION PASSED" in out.getvalue(),
+            f"torch_validate_v5 exited {rc} on the synthetic v5 graph")
+
+
+def ported_tensor_image() -> None:
+    """torch_tensor_image on the bundled v3.1 archive: a PGM file a tensor."""
+    from tools import torch_tensor_image
+
+    from vadc_tpu_torch.cli.main import DEFAULT_WEIGHTS
+    from vadc_tpu_torch.io.testtensor import load_testtensor
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = torch_tensor_image.main([str(DEFAULT_WEIGHTS), "", tmp])
+        n = len(list(Path(tmp).glob("*.pgm")))
+    want = len(load_testtensor(DEFAULT_WEIGHTS))
+    require(rc == 0 and n == want, f"tensor_image: {n} images of {want} tensors (exit {rc})")
+    log(f"tensor_image: {n} PGM images of {DEFAULT_WEIGHTS.name}'s {want} tensors")
+
+
+def phase_ported_tools(device, totals: dict) -> None:
+    """The five ported tools on the card, their launches counted in this
+    window alone (each of PORTED_KERNELS > 0)."""
+    from tools import torch_bench_stages, torch_ingest_bench, torch_rss_attrib
+
+    t0 = time.perf_counter()
+    zero_launches()
+    t_short, t_long = PORTED_STAGES
+    for family in ("v3", "v4", "v5"):
+        r = torch_bench_stages.run_stages(family, batch=B_MAIN, precision="fast",
+                                          t_short=t_short, t_long=t_long, device=device)
+        require(r["full_equals_forward"], f"bench_stages {family}: the full prefix is not forward")
+        torch_bench_stages.print_rows(r)
+    ported_validate_v5()
+    clients, seconds, rtf = PORTED_RSS
+    rss = torch_rss_attrib.run_rss_attrib(clients, seconds, rtf, precision="turbo", device=device)
+    log(f"rss_attrib ({clients} clients, {seconds} s at rtf {rtf}, turbo): post-warm "
+        f"{rss['postwarm_s']:.1f} s, {rss['postwarm_ticks']} ticks (tick_count "
+        f"{rss['tick_count']}); RSS growth {rss['rss_growth_mb']:.1f} MB "
+        f"({rss['rss_growth_mb_per_s']:.2f} MB/s), tracemalloc (Python) "
+        f"{rss['python_growth_mb']:.1f} MB, native residual {rss['native_residual_mb']:.1f} MB; "
+        f"RSS series {json.dumps(rss['rss_series'])}")
+    require(rss["client_errors"] == 0 and rss["postwarm_ticks"] > 0,
+            f"rss_attrib: {rss['client_errors']} client errors {rss['errors']}, "
+            f"{rss['postwarm_ticks']} ticks after warm-up")
+    streams, ingest_s = PORTED_INGEST
+    for with_fsm in (False, True):
+        r = torch_ingest_bench.run_ingest(streams, ingest_s, with_fsm=with_fsm)
+        log(f"ingest {'gather+fsm' if with_fsm else 'gather-only'}: {r['streams']} pipes, "
+            f"{r['mb_per_s_s16']} MB/s = {r['realtime_streams_equiv']} realtime streams equiv "
+            f"({r['chunks_drained']} chunks / {r['seconds']} s, {r['gathers']} gathers)")
+        require(r["chunks_drained"] > 0, "ingest: no chunk drained")
+    ported_tensor_image()
+    read_launches("ported tools", totals, PORTED_KERNELS)
+    seconds = time.perf_counter() - t0
+    log(f"the ported tools phase took {seconds:.1f} s (limit {PORTED_TOOLS_PHASE_LIMIT_S:.0f} s)")
+    require(seconds < PORTED_TOOLS_PHASE_LIMIT_S, f"the ported tools phase took {seconds:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4045,6 +4147,8 @@ def main() -> int:
     elapsed("the multi-device phase")
     probe_rows = phase_tools(device, launches)
     elapsed("the tools phase")
+    phase_ported_tools(device, launches)
+    elapsed("the ported tools phase")
     log(f"launches on the main paths, all phases: {launches}; at the bf16 tiers: {tier_launches}")
     elapsed("the main paths")
     timing = phase_timing(params, device)

@@ -13,7 +13,7 @@ import struct
 import numpy as np
 import pytest
 
-from tests.torch_port_util import V31_ARCHIVE
+from tests.torch_port_util import V31_ARCHIVE, build_v3_onnx
 from vadc_tpu import native as j_native
 from vadc_tpu.cli import filter_script as j_filter
 from vadc_tpu.cli import segmenter as j_segmenter
@@ -354,51 +354,10 @@ def test_classify_refuses_what_is_no_graph(tmp_path):
 
 @pytest.fixture(scope="module")
 def v3_onnx(tmp_path_factory):
-    """A graph with the markers of the official v3 export, made from the
-    bundled v3.1 archive with onnx_build's primitives: named conv-block,
-    norm, bias, decoder and basis initializers; per stage four MatMuls with
-    anonymous [in, out] weights and one square 1x1 Conv with a digit-named
-    weight; two one-layer LSTM nodes. Not executable (the nodes are not
-    wired): the extractor reads initializers and node order only."""
-    a = j_tt.load_testtensor(V31_ARCHIVE)
-    inits = {"feature_extractor.forward_basis_buffer": a["forward_basis_buffer"],
-             "decoder.1.weight": a["decoder_weights"], "decoder.1.bias": a["decoder_biases"]}
-    nodes = []
-    anon = 1000
-    for i, ((cb, tl), has_proj) in enumerate(zip(j_v3._STAGE_PREFIXES, j_v3._HAS_PROJ)):
-        src = f"transformer_l{i + 1}."
-        for ours, theirs in (("dw_conv_weights", "dw_conv.0.weight"), ("dw_conv_biases", "dw_conv.0.bias"),
-                             ("pw_conv_weights", "pw_conv.0.weight"), ("pw_conv_biases", "pw_conv.0.bias")):
-            inits[cb + theirs] = a[src + ours]
-        if has_proj:
-            inits[cb + "proj.weight"] = a[src + "proj_weights"]
-            inits[cb + "proj.bias"] = a[src + "proj_biases"]
-        for ours in ("attention_weights", "attention_proj_weights", "linear1_weights", "linear2_weights"):
-            name = f"onnx::MatMul_{anon}"
-            anon += 1
-            inits[name] = np.ascontiguousarray(a[src + ours].T)
-            nodes.append(onnx_build.node("MatMul", [f"x{anon}", name], [f"y{anon}"]))
-        for ours, theirs in (("attention_biases", "attention.QKV.bias"),
-                             ("attention_proj_biases", "attention.out_proj.bias"),
-                             ("linear1_biases", "linear1.bias"), ("linear2_biases", "linear2.bias"),
-                             ("norm1_weights", "norm1.weight"), ("norm1_biases", "norm1.bias"),
-                             ("norm2_weights", "norm2.weight"), ("norm2_biases", "norm2.bias")):
-            inits[tl + theirs] = a[src + ours]
-        w_name, b_name = str(anon), str(anon + 1)
-        anon += 2
-        inits[w_name], inits[b_name] = a[src + "conv_weights"], a[src + "conv_biases"]
-        nodes.append(onnx_build.node("Conv", [f"x{anon}", w_name, b_name], [f"y{anon}"]))
-    for layer in range(2):
-        W, R, B = onnx_build._onnx_lstm_weights(a["weights"][layer : layer + 1],
-                                                a["biases"][layer : layer + 1])
-        names = [f"lstm{layer}.{k}" for k in "WRB"]
-        inits.update(zip(names, (W, R, B)))
-        nodes.append(onnx_build.node("LSTM", [f"h{layer}", *names], [f"h{layer + 1}"], hidden_size=64))
-    path = tmp_path_factory.mktemp("onnx3") / "silero_v3_rebuilt.onnx"
-    path.write_bytes(onnx_build.model(onnx_build.graph(
-        nodes, name="silero_v3", inputs=["input", "h0", "c0"], outputs=["output", "hn", "cn"],
-        initializers=inits)))
-    return path, a
+    """tests/torch_port_util.py: build_v3_onnx, a graph with the markers of
+    the official v3 export made from the bundled v3.1 archive: (its path,
+    the archive)."""
+    return build_v3_onnx(tmp_path_factory.mktemp("onnx3") / "silero_v3_rebuilt.onnx")
 
 
 def test_v3_extraction_from_a_rebuilt_graph(v3_onnx):

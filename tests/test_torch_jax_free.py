@@ -29,7 +29,9 @@ PACKAGE = ROOT / "vadc_tpu_torch"
 # ImportError in the interpreter this prefixes
 #: the port's tools: none imports jax or vadc_tpu
 TOOLS = ("torch_multidevice_dryrun.py", "gpu_check.py", "torch_fidelity_report.py",
-         "torch_accuracy_eval.py", "torch_serve_bench.py", "torch_soak.py")
+         "torch_accuracy_eval.py", "torch_serve_bench.py", "torch_soak.py",
+         "torch_bench_stages.py", "torch_ingest_bench.py", "torch_rss_attrib.py",
+         "torch_tensor_image.py", "torch_validate_v5.py")
 
 _BLOCK_JAX = "import sys; sys.modules['jax'] = None; sys.modules['vadc_tpu'] = None\n"
 
@@ -54,7 +56,10 @@ for name in modules:
 for script in ("chip_smoke.py", "chip_profile.py", "chip_ab.py",
                "tools/torch_multidevice_dryrun.py", "tools/gpu_check.py",
                "tools/torch_fidelity_report.py", "tools/torch_accuracy_eval.py",
-               "tools/torch_serve_bench.py", "tools/torch_soak.py"):
+               "tools/torch_serve_bench.py", "tools/torch_soak.py",
+               "tools/torch_bench_stages.py", "tools/torch_ingest_bench.py",
+               "tools/torch_rss_attrib.py", "tools/torch_tensor_image.py",
+               "tools/torch_validate_v5.py"):
     spec = importlib.util.spec_from_file_location(script.split("/")[-1][:-3], script)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for blocked in ("jax", "vadc_tpu"):
@@ -134,8 +139,10 @@ def test_package_imports_and_runs_without_jax():
 def test_no_source_of_the_port_names_jax():
     """No file of the port, nor the card's three scripts and the port's tools
     (the multi-device dry run, the regression tier, the fidelity report, the
-    accuracy evaluation, the serving bench and the soak), imports jax or
-    anything of vadc_tpu, at module level or inside a function."""
+    accuracy evaluation, the serving bench, the soak, the per-stage timing,
+    the ingest bench, the RSS attribution, the tensor image dump and the v5
+    validation harness), imports jax or anything of vadc_tpu, at module
+    level or inside a function."""
     pattern = re.compile(r"^\s*(import jax|from jax|import vadc_tpu|from vadc_tpu)\b", re.M)
     sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
                                                ROOT / "chip_ab.py"] + [

@@ -5,7 +5,9 @@ tools/torch_fidelity_report.py (on fixtures this test writes from seeded
 inputs and the JAX ops' outputs, in the reference's layout), the serving
 bench with its fault clients, the soak, and the tools' device rule: each
 runs on the card unless asked for the CPU, and without a card exits 1
-(tools/torch_multidevice_dryrun.py too)."""
+(tools/torch_multidevice_dryrun.py too; tools/torch_bench_stages.py,
+torch_rss_attrib.py and torch_validate_v5.py as well, whose CPU tests are
+in tests/test_torch_tools_stages.py)."""
 
 import json
 import subprocess
@@ -21,7 +23,8 @@ from tools import accuracy_eval as j_acc
 from tools import fidelity_report as j_fid
 from tools import torch_accuracy_eval as t_acc
 from tools import torch_fidelity_report as t_fid
-from tools import torch_multidevice_dryrun, torch_serve_bench, torch_soak
+from tools import torch_bench_stages, torch_multidevice_dryrun, torch_rss_attrib
+from tools import torch_serve_bench, torch_soak, torch_validate_v5
 from vadc_tpu.io.testtensor import load_testtensor, save_testtensor
 from vadc_tpu.models.weights import V3_STRIDES, transformer_layer_params
 from vadc_tpu.nn import functional as JF
@@ -208,6 +211,9 @@ def test_soak_on_the_cpu(capsys):
     (t_fid, []),
     (torch_soak, ["--minutes", "0.1"]),
     (torch_serve_bench, ["--clients", "1", "--seconds", "1"]),
+    (torch_bench_stages, ["--batch", "2", "--t_short", "1", "--t_long", "2"]),
+    (torch_rss_attrib, ["--clients", "1", "--seconds", "1"]),
+    (torch_validate_v5, [str(ROOT / "README.md")]),
 ])
 def test_the_tools_run_on_the_card_by_default(tool, argv, capsys, monkeypatch):
     """Without `--device`, a tool asks for the card; without one it exits 1
@@ -231,7 +237,9 @@ def test_multidevice_dryrun_defaults_to_the_card(capsys, monkeypatch):
 
 def test_tools_run_as_scripts():
     for script in ("gpu_check.py", "torch_accuracy_eval.py", "torch_serve_bench.py",
-                   "torch_soak.py", "torch_fidelity_report.py"):
+                   "torch_soak.py", "torch_fidelity_report.py", "torch_bench_stages.py",
+                   "torch_ingest_bench.py", "torch_rss_attrib.py", "torch_tensor_image.py",
+                   "torch_validate_v5.py"):
         proc = subprocess.run([sys.executable, str(ROOT / "tools" / script), "--help"],
                               capture_output=True, text=True, timeout=120, cwd=ROOT)
         if script == "gpu_check.py":  # no flags: without a card it exits 2

@@ -239,7 +239,10 @@ def device_ms(fn, iters: int = 50) -> float | None:
         torch.cuda.synchronize()
     busy = 0.0
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a profiling zone (tracing.zone: record_function) adds a device-side
+        # row spanning the kernels it launched: counted, their time twice
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
             us = getattr(e, "self_device_time_total", None)
             busy += e.self_cuda_time_total if us is None else us
     return busy / 1e3 / iters if busy > 0 else None

@@ -123,8 +123,13 @@ def worker(kind: str, prefix: str) -> None:
             raise AssertionError(f"process {pid}, {name} against the unsharded run: {err}")
     engine.barrier()
     torch.distributed.destroy_process_group()
-    print(f"process {pid} of {PROCESSES} on {devices}: {local_n} of {total} streams, "
-          f"step, scans and sharded checkpoint ok ({ckpt.family}, {Path(path).name})", flush=True)
+    # one write of the whole line: the workers share the parent's stdout, and
+    # unbuffered (PYTHONUNBUFFERED) print() writes the text and its newline
+    # apart, so two workers' lines could run together
+    sys.stdout.write(f"process {pid} of {PROCESSES} on {devices}: {local_n} of {total} streams, "
+                     f"step, scans and sharded checkpoint ok ({ckpt.family}, "
+                     f"{Path(path).name})\n")
+    sys.stdout.flush()
 
 
 def free_port() -> int:

@@ -69,13 +69,27 @@ def conv_stage(x: torch.Tensor, p: dict, *, stride: int, tier: Tier = FAITHFUL) 
     return torch.relu(h)
 
 
-def _encoder(params: dict, spect: torch.Tensor, sample_rate: int, tier: Tier) -> torch.Tensor:
+def encoder_input(spect: torch.Tensor, tier: Tier) -> torch.Tensor:
+    """The first conv stage's input: cat([spect, its adaptive
+    normalization]) -> [B, F, 258]."""
     normalized = F.adaptive_audio_normalization_nlc(spect, tier)
-    x = torch.cat([store(spect, tier), normalized], dim=-1)  # [B, F, 258]
+    return torch.cat([store(spect, tier), normalized], dim=-1)
+
+
+def _encoder(params: dict, spect: torch.Tensor, sample_rate: int, tier: Tier) -> torch.Tensor:
+    x = encoder_input(spect, tier)
     strides = V4_STRIDES_16K if sample_rate == 16000 else V4_STRIDES_8K
     for stage_params, stride in zip(params["stages"], strides):
         x = conv_stage(x, stage_params, stride=stride, tier=tier)
     return x
+
+
+def spectrum(params: Params, audio: torch.Tensor, tier: Tier) -> torch.Tensor:
+    """audio [B, S] -> STFT magnitude [B, F, 129]: the stft_magnitude
+    kernel's instance of the tier's STFT operands."""
+    wr, wi = split_basis_of(params)
+    return stft_magnitude(audio, wr, wi, pad_left=STFT_PAD, pad_right=STFT_PAD, hop=STFT_HOP,
+                          mode=stft_mode(tier))
 
 
 def encode(
@@ -84,10 +98,7 @@ def encode(
     """audio [B, S] -> features [B, T, 64] at the tier; the spectrum is the
     stft_magnitude kernel's instance of the tier's STFT operands."""
     tier = tier_of(tier)
-    wr, wi = split_basis_of(params)
-    spect = stft_magnitude(audio, wr, wi, pad_left=STFT_PAD, pad_right=STFT_PAD, hop=STFT_HOP,
-                           mode=stft_mode(tier))
-    return _encoder(params, spect, sample_rate, tier)
+    return _encoder(params, spectrum(params, audio, tier), sample_rate, tier)
 
 
 def encode_reference(

@@ -80,11 +80,27 @@ def attach_context(
     return torch.cat([context, chunks], dim=-1), chunks[:, -context.shape[-1] :]
 
 
+def conv_layer(x: torch.Tensor, p: dict, *, stride: int, tier: Tier) -> torch.Tensor:
+    """One encoder layer over [B, L, C] at the tier: k3 conv (pad 1) ->
+    ReLU."""
+    return torch.relu(F.conv1d_nlc(x, p["w"], p["b"], stride=stride, padding=1, tier=tier))
+
+
 def _convs(params: dict, spect: torch.Tensor, tier: Tier) -> torch.Tensor:
     x = store(spect, tier)  # turbo: the encoder starts in bf16
     for p, stride in zip(params["encoder"], ENCODER_STRIDES):
-        x = torch.relu(F.conv1d_nlc(x, p["w"], p["b"], stride=stride, padding=1, tier=tier))
+        x = conv_layer(x, p, stride=stride, tier=tier)
     return x
+
+
+def spectrum(params: Params, audio: torch.Tensor, *, pad_right: int, hop: int,
+             tier: Tier) -> torch.Tensor:
+    """audio [B, ctx + window] -> STFT magnitude [B, frames, bins]: the
+    stft_magnitude kernel's instance of the tier's v5 STFT operands (no
+    left pad)."""
+    wr, wi = split_basis_of(params)
+    return stft_magnitude(audio, wr, wi, pad_left=0, pad_right=pad_right, hop=hop,
+                          mode=stft_mode(tier, log_sensitive=False))
 
 
 def encode(
@@ -95,10 +111,7 @@ def encode(
     spectrum is the stft_magnitude kernel's instance of the tier's v5 STFT
     operands (no left pad)."""
     tier = tier_of(tier)
-    wr, wi = split_basis_of(params)
-    spect = stft_magnitude(audio, wr, wi, pad_left=0, pad_right=pad_right, hop=hop,
-                           mode=stft_mode(tier, log_sensitive=False))
-    return _convs(params, spect, tier)
+    return _convs(params, spectrum(params, audio, pad_right=pad_right, hop=hop, tier=tier), tier)
 
 
 def encode_reference(
