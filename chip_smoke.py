@@ -58,13 +58,26 @@ Phases, each of which raises on failure (exit code 1):
      - the offline corpus CLI (vadc_tpu_torch.cli.batch) over 24 seeded
        files of 5 to 40 s (one pure silence, one 44.1 kHz wav) with
        --cut_dir, --device cuda against --device cpu: identical lines and
-       cut files, and per file the lines of the streaming CLI;
+       cut files, and per file the lines of the streaming CLI; the same
+       with the bundled v4 archive and a synthetic v5 archive (their slabs
+       the v4 and v5 scans);
      - v4: StreamRunner.scan 2048 x 8 card vs CPU, and the CLI with the
        bundled v4 16 kHz and 8 kHz archives, cuda vs cpu;
      - v5: StreamRunner.scan 2048 x 8 card vs CPU (the audio context
        carried), and MinibatchRunner (the CLI's runner) over two 96-chunk
        windows for v5 and v5 8 kHz, card vs CPU. The v5 weights are
        synthetic, from vadc_tpu_torch.models.synthetic at a fixed seed;
+     - the v4/v5 slab scan (phase_slabs_v45: forward_scan, models/slab.py)
+       of v4, v4_8k, v5 and v5_8k at faithful and each bf16 tier on seeded
+       speech slabs of 2048 x 8 and 64 x 64: each scan's launches read
+       alone (stft_magnitude once a piece of SCAN_PIECE_CHUNKS chunks,
+       lstm_fused those of one call over the slab's frames), the scan
+       against the loop of StreamRunner.step bit for bit or, where the card
+       gives other bits, the context equal, stft_magnitude over a piece
+       equal to its chunk columns (the difference enters at the encoder's
+       cuBLAS products) and the run within tier_check.shard_bound(family,
+       tier) beside a control at another tier that must break it; the
+       first 256 streams card vs CPU within TOL_PATH / PATH_MAX;
      - the serving daemon (vadc_tpu_torch.server, bundled v3.1, 64 slots)
        on localhost: 8 clients send 20 s of seeded speech each, unpaced;
        each client's segment lines equal those of the same server on the
@@ -215,7 +228,11 @@ Phases, each of which raises on failure (exit code 1):
      restore_checkpoint of a 2048-slot v3.1 server (wall time), the ticks'
      p50/p99 while saves run beside them against the ticks no save
      overlaps, and api.speech_probabilities' audio seconds per wall second
-     over 60 s of speech for v3.1 and v4.
+     over 60 s of speech for v3.1, v4 and v5 (v4 and v5 beside the loop of
+     StreamRunner.step over the same chunks, the API's route before their
+     slab scan); the v4/v5 slab scans against the loop of steps at 2048 x 8
+     and 64 x 64 at every tier, in turns in one call, and the scan's peak
+     device memory at 2048 x 8 and 2048 x 64 (phase_timing_slabs_v45).
 
 Prints a JSON line of per-kernel results, a row per tier instance too
 ("forward_fused[fast]", ...: its tier's bound, the bf16 tensor-core peak
@@ -455,11 +472,11 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def cuda_ms_pair(a, b, iters: int = 50) -> tuple[float, float]:
+def cuda_ms_pair(a, b, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
     """Times of a and b taken in turns (a, b, b, a), each the mean of its
     two runs, so a drift of the card's clocks falls on both alike."""
-    a1, b1 = cuda_ms(a, iters), cuda_ms(b, iters)
-    b2, a2 = cuda_ms(b, iters), cuda_ms(a, iters)
+    a1, b1 = cuda_ms(a, iters, warmup), cuda_ms(b, iters, warmup)
+    b2, a2 = cuda_ms(b, iters, warmup), cuda_ms(a, iters, warmup)
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
@@ -1372,6 +1389,160 @@ def phase_main_path_v5(models: dict, device, totals: dict) -> None:
                   ("stft_magnitude", "lstm_fused"))
 
 
+# the v4/v5 slab scans checked against the loop of steps (streams, chunks),
+# and the tier of each bound's control: its first half of the streams must
+# break the bound
+SLABS_V45 = ((B_MAIN, SCAN_CHUNKS), (SLAB_CHUNKS, SLAB_CHUNKS))
+CONTROL_TIER = {"faithful": "fast", "balanced": "fast", "fast": "turbo", "turbo": "fast"}
+
+
+def scan_pieces(family: str, module, params, x, tier: str, want) -> str:
+    """Where a v4/v5 slab scan leaves the loop of steps' bits, by pieces:
+    stft_magnitude over each piece of the slab (SCAN_PIECE_CHUNKS chunks of
+    every stream as one batch) against over each of its chunk columns (B
+    rows, the step's batch), required equal (the kernel's arithmetic is per
+    row); one lstm_fused call over the steps' own features (the encoder by
+    chunk columns) against the loop's state `want` (h, c), required equal;
+    then the encoder's torch ops over each piece against its columns."""
+    import torch
+
+    from vadc_tpu_torch.kernels.lstm import lstm_fused, weight_of
+    from vadc_tpu_torch.models import silero_v4, silero_v5, slab
+    from vadc_tpu_torch.nn.precision import tier_of
+
+    t = tier_of(tier)
+    rows = x
+    if hasattr(module, "attach_contexts"):
+        rows = module.attach_contexts(x, module.init_context(x.shape[0], x.device))[0]
+
+        def spectrum(a):
+            return silero_v5.spectrum(params, a, pad_right=module.STFT_PAD_RIGHT,
+                                      hop=module.STFT_HOP, tier=t)
+    else:
+        def spectrum(a):
+            return silero_v4.spectrum(params, a, t)
+
+    def encode(a):
+        return module.encode(params, a, tier=t)
+
+    columns, enc_diff = [], 0.0
+    for k0 in range(0, x.shape[1], slab.SCAN_PIECE_CHUNKS):
+        piece = rows[:, k0 : k0 + slab.SCAN_PIECE_CHUNKS]
+        flat = piece.reshape(-1, piece.shape[-1])
+        by_cols = [piece[:, j].contiguous() for j in range(piece.shape[1])]
+        whole = spectrum(flat)
+        require(torch.equal(whole, torch.stack([spectrum(c) for c in by_cols], dim=1).reshape(
+            whole.shape)), f"{family} {tier}: stft_magnitude over a piece differs from its columns")
+        enc_cols = torch.stack([encode(c) for c in by_cols], dim=1)
+        enc_diff = max(enc_diff, max_abs(encode(flat).reshape(enc_cols.shape), enc_cols))
+        columns.append(enc_cols)
+    feats = torch.cat(columns, dim=1)
+    h, c = module.init_state(x.shape[0], x.device)
+    _, hn, cn = lstm_fused(feats.reshape(x.shape[0], -1, feats.shape[-1]), h, c, params["lstm_w"],
+                           params["lstm_b"], wt=weight_of(params, t), tier=t)
+    require(torch.equal(hn.cpu(), want[1]) and torch.equal(cn.cpu(), want[2]),
+            f"{family} {tier}: lstm_fused over the steps' features differs from the loop's state")
+    return (f"stft_magnitude over each piece of {slab.SCAN_PIECE_CHUNKS} chunks x {x.shape[0]} "
+            f"streams: each chunk column's bits; one lstm_fused call over the steps' own features: "
+            f"the loop's h and c; the encoder's torch ops (cuBLAS products) over each piece "
+            f"against its columns: max abs diff {enc_diff:.3e}")
+
+
+def check_slab_v45(family: str, module, params, device, tier: str, n_streams: int,
+                   n_chunks: int, seed: int, totals: dict) -> None:
+    """One v4/v5 slab scan (StreamRunner.scan: forward_scan) at the tier on
+    seeded speech: its launches read alone (stft_magnitude once a piece,
+    lstm_fused those of one call over the K*F frames of each stream); against
+    the loop of StreamRunner.step on the same chunks, bit for bit or, where
+    the card gives other bits, the context equal, the difference shown to
+    enter at the encoder's torch products (scan_pieces) and held to
+    tier_check.shard_bound(family, tier) beside its controls (within_bound);
+    then its first TIER_PATH_BATCH streams against the CPU's scan of them,
+    within TOL_PATH (faithful) or PATH_MAX (the bf16 tiers)."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels import tier_check
+    from vadc_tpu_torch.kernels.lstm import lstm_fused, weight_of
+    from vadc_tpu_torch.models import slab
+
+    chunk = V45_RATES[family][1]
+    label = f"slab {family} [{tier}] {n_streams}x{n_chunks}"
+    x = torch.from_numpy(speech_chunks(n_streams * n_chunks, chunk, seed=seed)).to(device).reshape(
+        n_streams, n_chunks, chunk)
+    runner = StreamRunner(family, params, device=device, precision=tier)
+    state = runner.init_state(n_streams)
+    (probs, _), counts = counted(lambda: runner.scan(x, state))
+    # one lstm_fused call over the slab's frames, launched alone
+    first = x[:1, :1]
+    if hasattr(module, "attach_contexts"):
+        first = module.attach_contexts(first, module.init_context(1, device))[0]
+    frames = module.encode(params, first[:, 0], tier=tier).shape[1]
+    h, c = module.init_state(n_streams, device)
+    seq = torch.zeros(n_streams, n_chunks * frames, module.HIDDEN, device=device)
+    _, one_call = counted(lambda: lstm_fused(seq, h, c, params["lstm_w"], params["lstm_b"],
+                                             wt=weight_of(params, tier), tier=tier))
+    pieces = -(-n_chunks // slab.SCAN_PIECE_CHUNKS)
+    want_counts = {**{name: 0 for name in counts}, "stft_magnitude": pieces,
+                   "lstm_fused": one_call["lstm_fused"]}
+    require(counts == want_counts, f"{label}: launches {nonzero(counts)}, not "
+            f"{nonzero(want_counts)} ({pieces} pieces of the encoder, one lstm_fused call)")
+    log(f"{label} launches: {nonzero(counts)} ({pieces} pieces of up to "
+        f"{slab.SCAN_PIECE_CHUNKS} chunks, one lstm_fused call)")
+    add_launches(totals, counts)
+    loop = runner.init_state(n_streams)
+    steps = torch.stack([runner.step(x[:, k], loop)[0] for k in range(n_chunks)], dim=1)
+    torch.cuda.synchronize()
+    got = [t.cpu() for t in (probs, state.h, state.c)]
+    want = [t.cpu() for t in (steps, loop.h, loop.c)]
+    bits = same_bits(got, want)
+    if state.context is not None:
+        require(torch.equal(state.context, loop.context), f"{label}: the context differs")
+    if bits:
+        log(f"{label}: the loop of steps' bits" + (" (and its context)" if loop.context is not None
+                                                    else ""))
+    else:
+        bound = tier_check.shard_bound(family, tier)
+        require(bound is not None, f"{label}: not the loop of steps' bits "
+                f"({variant_diffs({'scan': got}, want, ['probs', 'h', 'c'])}) and no bound")
+        within_bound(label, module, params, x, device, got, want, bound,
+                     scan_pieces(family, module, params, x, tier, want), tier, CONTROL_TIER[tier])
+    # the card against the CPU's plain versions, on the first streams
+    n = min(n_streams, TIER_PATH_BATCH)
+    cpu = StreamRunner(family, params, device="cpu", precision=tier)
+    p_cpu, s_cpu = cpu.scan(x[:n].cpu(), cpu.init_state(n))
+    card = {"probs": probs[:n], "h": state.h[:, :n], "c": state.c[:, :n]}
+    if tier == "faithful":
+        check_close_to_cpu(f"{label}, {n} streams", card,
+                           {"probs": p_cpu, "h": s_cpu.h, "c": s_cpu.c})
+    else:
+        errs = {"probs": max_abs(card["probs"].cpu(), p_cpu),
+                "h": max_abs(card["h"].cpu(), s_cpu.h),
+                "c": max_abs(card["c"].cpu(), s_cpu.c) / max(1.0, float(s_cpu.c.abs().max()))}
+        limits = tier_check.PATH_MAX[tier]
+        log(f"{label}, {n} streams card vs CPU: "
+            + ", ".join(f"{k} {v:.3e} (bound {limits[k]:g})" for k, v in errs.items()))
+        for k, v in errs.items():
+            require(v <= limits[k], f"{label} card vs CPU: {k} {v:.3e}")
+    if s_cpu.context is not None:
+        require(torch.equal(state.context[:n].cpu(), s_cpu.context), f"{label}: CPU context")
+
+
+def phase_slabs_v45(models: dict, device, totals: dict, tier_totals: dict) -> None:
+    """The v4/v5 slab scan of each family at each tier on the slabs of
+    SLABS_V45 (check_slab_v45), each scan's launches read alone and added
+    to the faithful or the tier's totals."""
+    t0 = time.perf_counter()
+    for i, family in enumerate(V45_RATES):
+        module, params = models[family]
+        for tier in ("faithful", *TIERS):
+            counts = totals if tier == "faithful" else tier_totals.setdefault(tier, {})
+            for n_streams, n_chunks in SLABS_V45:
+                check_slab_v45(family, module, params, device, tier, n_streams, n_chunks,
+                               SEED + 1400 + i, counts)
+    log(f"the v4/v5 slab checks took {time.perf_counter() - t0:.1f} s")
+
+
 def write_corpus(root: Path) -> tuple[list[str], float]:
     """CORPUS_FILES files of unequal length from a seed: synthetic speech as
     raw s16le, file 3 pure digital silence, the last one a 44.1 kHz 16-bit
@@ -1414,36 +1585,46 @@ def run_batch_cli(argv: list[str]) -> tuple[str, float]:
     return out.getvalue(), seconds
 
 
-def phase_main_path_batch(device, totals: dict) -> dict:
+def phase_main_path_batch(device, totals: dict, model: str | None = None,
+                          family: str = "v3") -> dict:
     """The offline corpus CLI over the seeded corpus with --cut_dir, on the
     card and on the CPU: identical lines and cut files; per file the lines
-    of the port's streaming CLI on the card."""
+    of the port's streaming CLI on the card. `model`: a weight file other
+    than the bundled v3.1 archive, of `family` (the v4 and v5 scans: their
+    launches stft_magnitude and lstm_fused). With official weights (v3.1,
+    v4) the silent file has no segment and every file a line; the synthetic
+    v5 weights' lines are logged."""
     from vadc_tpu_torch.cli import main as cli
 
+    extra = [] if model is None else ["--model", model]
+    kernels = V3_SLAB_KERNELS if family == "v3" else SCAN_KERNELS[family]
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         paths, audio_s = write_corpus(root)
-        argv = [*paths, "--slab_chunks", str(SLAB_CHUNKS)]
+        argv = [*paths, "--slab_chunks", str(SLAB_CHUNKS), *extra]
         zero_launches()
         out_gpu, first_s = run_batch_cli([*argv, "--device", "cuda", "--cut_dir", str(root / "cut_gpu")])
-        read_launches(f"batch CLI, {CORPUS_FILES} files", totals, V3_SLAB_KERNELS)
+        read_launches(f"batch CLI {family}, {CORPUS_FILES} files", totals, kernels)
         _, again_s = run_batch_cli([*argv, "--device", "cuda"])
         out_cpu, cpu_s = run_batch_cli([*argv, "--device", "cpu", "--cut_dir", str(root / "cut_cpu")])
         lines = out_gpu.splitlines()
-        log(f"batch CLI --device cuda: {CORPUS_FILES} files, {audio_s:.1f} s of audio, {len(lines)} "
-            f"segment lines in {first_s:.3f} s (first call, weights and --cut_dir included: "
-            f"{audio_s / first_s:.1f} audio s per wall s), {again_s:.3f} s again without --cut_dir "
-            f"({audio_s / again_s:.1f} audio s per wall s); --device cpu {cpu_s:.3f} s")
-        require(out_gpu == out_cpu, "batch CLI: lines differ between cuda and cpu")
-        require(len(lines) >= CORPUS_FILES, f"batch CLI: only {len(lines)} segment lines")
-        require(not any(line.startswith(paths[3] + "\t") for line in lines),
-                "batch CLI: segments in the silent file")
+        log(f"batch CLI {family} --device cuda: {CORPUS_FILES} files, {audio_s:.1f} s of audio, "
+            f"{len(lines)} segment lines in {first_s:.3f} s (first call, weights and --cut_dir "
+            f"included: {audio_s / first_s:.1f} audio s per wall s), {again_s:.3f} s again without "
+            f"--cut_dir ({audio_s / again_s:.1f} audio s per wall s); --device cpu {cpu_s:.3f} s")
+        require(out_gpu == out_cpu, f"batch CLI {family}: lines differ between cuda and cpu")
+        silent = [line for line in lines if line.startswith(paths[3] + "\t")]
+        if family.startswith("v5"):
+            log(f"batch CLI {family} (synthetic weights): {len(silent)} lines on the silent file")
+        else:
+            require(len(lines) >= CORPUS_FILES, f"batch CLI {family}: only {len(lines)} lines")
+            require(not silent, f"batch CLI {family}: segments in the silent file")
         cut_gpu = {p.name: p.read_bytes() for p in sorted((root / "cut_gpu").iterdir())}
         cut_cpu = {p.name: p.read_bytes() for p in sorted((root / "cut_cpu").iterdir())}
         require(sorted(cut_gpu) == sorted(Path(p).name for p in paths), f"cut files {sorted(cut_gpu)}")
-        require(cut_gpu == cut_cpu, "batch CLI: cut files differ between cuda and cpu")
-        log(f"batch CLI cut files: {len(cut_gpu)} written, {sum(map(len, cut_gpu.values()))} bytes, "
-            f"identical on cuda and cpu")
+        require(cut_gpu == cut_cpu, f"batch CLI {family}: cut files differ between cuda and cpu")
+        log(f"batch CLI {family} cut files: {len(cut_gpu)} written, "
+            f"{sum(map(len, cut_gpu.values()))} bytes, identical on cuda and cpu")
         # the streaming CLI, file by file, on the card
         for path in paths:
             out, err = io.StringIO(), io.StringIO()
@@ -1451,18 +1632,32 @@ def phase_main_path_batch(device, totals: dict) -> dict:
             with open(path, "rb") as f, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
                 try:
                     if path.endswith(".wav"):
-                        rc = cli.main([path, "--device", "cuda"])
+                        rc = cli.main([path, "--device", "cuda", *extra])
                     else:
                         sys.stdin = io.TextIOWrapper(f)
-                        rc = cli.main(["--device", "cuda"])
+                        rc = cli.main(["--device", "cuda", *extra])
                 finally:
                     sys.stdin = saved
             require(rc == 0, f"streaming CLI on {path}: exit {rc}: {err.getvalue()}")
             batch_lines = [ln.split("\t")[1] for ln in lines if ln.startswith(path + "\t")]
             require(batch_lines == out.getvalue().split(),
-                    f"{Path(path).name}: batch {batch_lines} vs streaming {out.getvalue().split()}")
-        log(f"batch CLI: every file's lines equal the streaming CLI's ({CORPUS_FILES} files)")
+                    f"{family} {Path(path).name}: batch {batch_lines} vs streaming "
+                    f"{out.getvalue().split()}")
+        log(f"batch CLI {family}: every file's lines equal the streaming CLI's "
+            f"({CORPUS_FILES} files)")
     return {"audio_s": audio_s, "wall_s": again_s}
+
+
+def phase_main_path_batch_v45(device, archives: dict, totals: dict) -> None:
+    """phase_main_path_batch with the bundled v4 archive and a synthetic v5
+    archive (random_v5_archive(0)): their slabs are the v4 and v5 scans."""
+    from vadc_tpu_torch.models.synthetic import random_v5_archive, save_archive
+
+    with tempfile.TemporaryDirectory() as tmp:
+        v5 = Path(tmp) / "v5_synthetic.testtensor"
+        save_archive(v5, random_v5_archive(0))
+        for family, model in (("v4", archives["v4"]), ("v5", v5)):
+            phase_main_path_batch(device, totals, str(model), family)
 
 
 def client_pcm(index: int) -> bytes:
@@ -1898,10 +2093,15 @@ def cards_as(devices: list):
         shard.stream_devices = resolve
 
 
-# which kernels each call of the runners launches, by family
+# which kernels each call of the runners launches, by family: a step; a
+# scan, v3.1's slab route, and v4's and v5's forward_scan: stft_magnitude
+# once a piece of the encoder (models/slab.py: SCAN_PIECE_CHUNKS chunks of
+# every stream, so a shard's scan has the unsharded scan's pieces) and
+# lstm_fused once (check_slab_v45 holds those counts)
 STEP_KERNELS = {"v3": ("forward_fused",), "v4": ("stft_magnitude", "lstm_fused"),
                 "v5": ("stft_magnitude", "lstm_fused")}
-SCAN_KERNELS = {**STEP_KERNELS, "v3": V3_SLAB_KERNELS}
+SCAN_KERNELS = {"v3": V3_SLAB_KERNELS, "v4": ("stft_magnitude", "lstm_fused"),
+                "v5": ("stft_magnitude", "lstm_fused")}
 
 
 def v5_stages_by_halves(params, x) -> str:
@@ -1939,57 +2139,56 @@ def shard_errs(got, want) -> dict:
             "state": max(max_abs(got[1], want[1]), max_abs(got[2], want[2]))}
 
 
-def v5_first_half_by(first, params, x, device) -> tuple:
-    """The v5 step and the steps after it over x [B, 1+T, chunk], the first
-    half of the streams through `first` (audio, h, c) -> (probs, hn, cn),
-    the second half through the kernels: (probs [B, 1+T], h, c)."""
+def first_half_by(first, module, params, x, device, tier: str = "faithful") -> tuple:
+    """The module's step at the tier and the steps after it over x [B, T,
+    chunk] from a zero state (a v5 context carried), the first half of the
+    streams through `first` (audio, h, c) -> (probs, hn, cn), the second half
+    through the kernels: (probs [B, T], h, c)."""
     import torch
 
-    from vadc_tpu_torch.models import silero_v5
-
     half = x.shape[0] // 2
-    h, c = silero_v5.init_state(x.shape[0], device)
-    context = silero_v5.init_context(x.shape[0], device)
+    h, c = module.init_state(x.shape[0], device)
+    context = module.init_context(x.shape[0], device) if hasattr(module, "init_context") else None
     probs = []
     for t in range(x.shape[1]):
-        audio, context = silero_v5.attach_context(x[:, t].to(device), context)
-        p0, h0, c0 = first(audio[:half], h[:, :half], c[:, :half])
-        p1, h1, c1 = silero_v5.forward(params, audio[half:], h[:, half:], c[:, half:])
+        audio = x[:, t].to(device)
+        if context is not None:
+            audio, context = module.attach_context(audio, context)
+        h0, h1 = h[:, :half].contiguous(), h[:, half:].contiguous()
+        c0, c1 = c[:, :half].contiguous(), c[:, half:].contiguous()
+        p0, h0, c0 = first(audio[:half], h0, c0)
+        p1, h1, c1 = module.forward(params, audio[half:], h1, c1, tier=tier)
         probs.append(torch.cat([p0, p1]))
         h, c = torch.cat([h0, h1], dim=1), torch.cat([c0, c1], dim=1)
     return torch.stack(probs, dim=1), h, c
 
 
-def v5_within_bound(label: str, params, x, device, got: list, want: list,
-                    after_step: dict) -> None:
-    """v5's sharded run (`got`: probs [B, 1+T], h, c) against the unsharded
-    one (`want`) within SHARD_BOUND, beside two controls: the first half of
-    the streams through the kernels at the fast tier, which must break it,
-    and through the plain versions (the plain spectrum and LSTM), which
-    reads just above the sound run and is logged only: the launch counts,
-    not a limit, tell a shard of plain versions from one of kernels."""
-    from vadc_tpu_torch.kernels.tier_check import SHARD_BOUND
-    from vadc_tpu_torch.models import silero_v5
-
-    bound = SHARD_BOUND["v5"]
+def within_bound(label: str, module, params, x, device, got: list, want: list, bound: dict,
+                 where: str, tier: str = "faithful", control: str = "fast") -> None:
+    """A run (`got`: probs [B, T], h, c) that misses the loop of steps'
+    bits (`want`, the same T chunks from a zero state at the tier) held to
+    `bound` (tier_check.SHARD_BOUND), beside two controls: the first half of
+    the streams through the kernels at the `control` tier, which must break
+    it, and through the plain versions at the tier, which reads just above
+    the sound run and is logged only: the launch counts, not a limit, tell a
+    run of plain versions from one of kernels. `where` says where the
+    difference enters."""
     sound = shard_errs(got, want)
     controls = {
-        "the fast tier": lambda a, h, c: silero_v5.forward(params, a, h, c, tier="fast"),
-        "the plain versions": lambda a, h, c: silero_v5.forward_reference(params, a, h, c),
+        f"the {control} tier": lambda a, h, c: module.forward(params, a, h, c, tier=control),
+        "the plain versions": lambda a, h, c: module.forward_reference(params, a, h, c, tier=tier),
     }
-    readings = {name: shard_errs([t.cpu() for t in v5_first_half_by(first, params, x, device)],
-                                 want)
+    readings = {name: shard_errs([t.cpu() for t in first_half_by(first, module, params, x,
+                                                                 device, tier)], want)
                 for name, first in controls.items()}
-    log(f"{label}: largest differences from the unsharded run after the step {after_step}, "
-        f"after {x.shape[1]} steps {sound}; SHARD_BOUND {bound}; "
-        f"{v5_stages_by_halves(params, x[:, 0].to(device))}")
+    log(f"{label}: largest differences after {x.shape[1]} steps {sound}; bound {bound}; {where}")
     for name, errs in readings.items():
         log(f"{label}: control, the first half's streams by {name}: {errs}")
-    errs = readings["the fast tier"]
+    errs = readings[f"the {control} tier"]
     require(errs["probs"] > bound["probs"] and errs["state"] > bound["state"],
-            f"{label}: the control at the fast tier ({errs}) does not break SHARD_BOUND {bound}")
+            f"{label}: the control at the {control} tier ({errs}) does not break {bound}")
     require(sound["probs"] <= bound["probs"] and sound["state"] <= bound["state"],
-            f"{label}: {sound} beyond SHARD_BOUND {bound}")
+            f"{label}: {sound} beyond {bound}")
 
 
 def sharded_vs_unsharded(family: str, params, devices: list, chunk: int, seed: int,
@@ -1999,7 +2198,7 @@ def sharded_vs_unsharded(family: str, params, devices: list, chunk: int, seed: i
     of that many chunks. Each call's launches are read alone, and the
     sharded call's are n_shards times the unsharded call's. Probabilities,
     h, c and a v5 context bit for bit, except v5's probabilities and state:
-    held to SHARD_BOUND beside its controls (v5_within_bound)."""
+    held to SHARD_BOUND beside its controls (within_bound)."""
     import torch
 
     from vadc_tpu_torch.engine.runner import StreamRunner
@@ -2039,7 +2238,11 @@ def sharded_vs_unsharded(family: str, params, devices: list, chunk: int, seed: i
     diffs = variant_diffs({"sharded": got}, want, ["probs", "h", "c", "context"])
     require(family in SHARD_BOUND, f"{label}: not the unsharded bits ({diffs})")
     require(torch.equal(got[-1], want[-1]), f"{label}: the context differs ({diffs})")
-    v5_within_bound(label, params, x, devices[0], got, want, after_step)
+    from vadc_tpu_torch.models import silero_v5
+
+    halves = v5_stages_by_halves(params, x[:, 0].to(devices[0]))
+    within_bound(label, silero_v5, params, x, devices[0], got, want, SHARD_BOUND["v5"],
+                 f"after the step {after_step}; {halves}")
 
 
 def batch_cli_sharded(root: Path, paths: list, devices: list | None, totals: dict) -> None:
@@ -2377,27 +2580,56 @@ def phase_timing_checkpoint(device) -> dict:
 
 def phase_timing_api(device, archives: dict) -> dict:
     """speech_probabilities on the card over API_TIMED_SECONDS of seeded
-    speech, v3.1 and v4: audio seconds per wall second (host clock around
-    the call, which ends in the copy of the probabilities to the host), the
-    median of 3 calls after one untimed call."""
+    speech, v3.1, v4 and v5: audio seconds per wall second (host clock
+    around the call, which ends in the copy of the probabilities to the
+    host), the median of 3 calls after one untimed call. For v4 and v5
+    beside it the API's route before their slab scan: the loop of
+    StreamRunner.step over the same chunks of one stream, the median of 3
+    loops after one untimed loop."""
+    import torch
+
     from vadc_tpu_torch import api
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         models = api_models(archives, Path(tmp))
         track = api_track(SR, API_TIMED_SECONDS, SEED + 960)
-        for family in ("v3", "v4"):
+        for family in ("v3", "v4", "v5"):
             api.speech_probabilities(track, model=models[family], device="cuda")
             walls = []
             for _ in range(3):
                 t0 = time.perf_counter()
-                api.speech_probabilities(track, model=models[family], device="cuda")
+                probs = api.speech_probabilities(track, model=models[family], device="cuda")
                 walls.append(time.perf_counter() - t0)
             wall = float(np.median(walls))
             out[family] = API_TIMED_SECONDS / wall
             log(f"time api.speech_probabilities {family} over {API_TIMED_SECONDS:g} s of speech: "
                 f"{1e3 * wall:.2f} ms median of 3 (" + ", ".join(f"{1e3 * w:.2f}" for w in walls)
                 + f"): {out[family]:.1f} audio s per wall s")
+            if family == "v3":
+                continue
+            runner, window = api._get_runner(models[family], 1536, "faithful", "cuda")
+            window = getattr(runner.module, "WINDOW_SAMPLES", window)
+            padded = np.zeros(probs.size * window, np.float32)
+            padded[: track.size] = track
+            chunks = torch.from_numpy(padded.reshape(1, probs.size, window)).to(runner.device)
+
+            def steps():
+                state = runner.init_state(1)
+                got = [runner.step(chunks[:, k], state)[0] for k in range(chunks.shape[1])]
+                return torch.stack(got, dim=1).cpu()
+
+            steps()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                steps()
+                walls.append(time.perf_counter() - t0)
+            wall = float(np.median(walls))
+            out[f"{family} steps"] = API_TIMED_SECONDS / wall
+            log(f"time the loop of StreamRunner.step {family} over the same {probs.size} chunks "
+                f"(the API's route before the slab scan): {1e3 * wall:.2f} ms median of 3: "
+                f"{out[f'{family} steps']:.1f} audio s per wall s")
     return out
 
 
@@ -2782,6 +3014,76 @@ def phase_timing_v45(models: dict, device) -> dict:
         if family == "v4":  # the JSON line's shape: the v4 16 kHz step's
             t["lstm_fused"] = (*lstm, lstm_lib, tuple(x.shape), per_call)
     return t
+
+
+def phase_timing_slabs_v45(models: dict, device) -> None:
+    """StreamRunner.scan of each v4/v5 family against the loop of its
+    steps on the slabs of SLABS_V45 at every tier, in turns in one call
+    (cuda_ms_pair), and the scan's two stages alone (its encoder's pieces,
+    its lstm_fused call); then at faithful the scan's peak device memory over
+    B_MAIN streams x SCAN_CHUNKS and x SLAB_CHUNKS chunks
+    (torch.cuda.max_memory_allocated, above what was allocated before the
+    call: the slab and the state)."""
+    import torch
+
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels.lstm import lstm_fused, weight_of
+    from vadc_tpu_torch.models import slab
+
+    for i, (family, (module, params)) in enumerate(models.items()):
+        chunk = V45_RATES[family][1]
+        for n_streams, n_chunks in SLABS_V45:
+            x = torch.from_numpy(speech_chunks(n_streams * n_chunks, chunk, seed=SEED + 1500 + i))
+            x = x.to(device).reshape(n_streams, n_chunks, chunk)
+            ctx = (module.init_context(n_streams, device) if hasattr(module, "init_context")
+                   else None)
+            for tier in ("faithful", *TIERS):
+                runner = StreamRunner(family, params, device=device, precision=tier)
+                state, loop = runner.init_state(n_streams), runner.init_state(n_streams)
+
+                def steps():
+                    for k in range(n_chunks):
+                        runner.step(x[:, k], loop)
+
+                iters = 5 if n_chunks <= SCAN_CHUNKS else 2
+                scan_ms, steps_ms = cuda_ms_pair(lambda: runner.scan(x, state), steps, iters=iters,
+                                                 warmup=1)
+                # the scan's two stages alone: the encoder's pieces, one lstm_fused call
+                t = runner.tier
+                rows = x if ctx is None else module.attach_contexts(x, ctx)[0]
+                def encode(a):
+                    return module.encode(params, a, tier=t)
+
+                feats = slab.encode_slab(encode, rows)
+                enc_ms = cuda_ms(lambda: slab.encode_slab(encode, rows), iters=iters, warmup=1)
+                seq = feats.reshape(n_streams, -1, feats.shape[-1])
+                h, c = module.init_state(n_streams, device)
+                lstm_ms = cuda_ms(lambda: lstm_fused(seq, h, c, params["lstm_w"], params["lstm_b"],
+                                                     wt=weight_of(params, t), tier=t),
+                                  iters=iters, warmup=1)
+                log(f"time slab {family} [{tier}] {n_streams}x{n_chunks} x {chunk}: scan "
+                    f"{scan_ms:.4f} ms, loop of steps {steps_ms:.4f} ms "
+                    f"({steps_ms / scan_ms:.2f}x; "
+                    f"{scan_ms / n_chunks:.4f} vs {steps_ms / n_chunks:.4f} ms a chunk-step); the "
+                    f"scan's encoder pieces alone {enc_ms:.4f} ms, its lstm_fused call alone "
+                    f"(T={seq.shape[1]}) {lstm_ms:.4f} ms")
+        runner = StreamRunner(family, params, device=device)
+        gen = torch.Generator(device=device).manual_seed(SEED + 1510 + i)
+        for n_chunks in (SCAN_CHUNKS, SLAB_CHUNKS):
+            # the memory does not depend on the values: seeded noise on the card
+            x = 0.1 * torch.randn(B_MAIN, n_chunks, chunk, generator=gen, device=device)
+            state = runner.init_state(B_MAIN)
+            runner.scan(x, state)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            runner.scan(x, state)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device) - base
+            log(f"memory slab {family} {B_MAIN}x{n_chunks} x {chunk}: the scan's peak "
+                f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB allocated before it (the "
+                f"slab {x.numel() * 4 / 2**20:.1f} MiB)")
+    log(f"v4/v5 slab timings on {nvidia_smi()}")
 
 
 def phase_timing_variants(models: dict, params, device) -> None:
@@ -4135,7 +4437,11 @@ def main() -> int:
         phase_main_path_tiers(params, device, speech, tier_launches)
         phase_main_path_tiers_v45(models, archives, device, speech, tier_launches)
     phase_main_path_v5(models, device, launches)
+    phase_slabs_v45(models, device, launches, tier_launches)
+    elapsed("the v4/v5 slab checks")
     corpus = phase_main_path_batch(device, launches)
+    phase_main_path_batch_v45(device, archives, launches)
+    elapsed("the batch CLI phases")
     server_lines = phase_server(device, launches)
     elapsed("the server")
     v5_lines = phase_server_checkpoint(device, server_lines, launches, tier_launches)
@@ -4153,6 +4459,7 @@ def main() -> int:
     elapsed("the main paths")
     timing = phase_timing(params, device)
     timing.update(phase_timing_v45(models, device))
+    phase_timing_slabs_v45(models, device)
     slab = phase_timing_slab(params, device, corpus)
     phase_timing_variants(models, params, device)
     tier_timing = phase_timing_tiers(params, device)

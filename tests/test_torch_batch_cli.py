@@ -128,7 +128,7 @@ def test_other_chunk_sizes_equal_the_jax_cli(corpus, capsys, sequence_count):
 
 
 def test_v4_archive_equals_the_jax_cli(corpus, capsys):
-    """A family without a slab route: the scan is the loop of steps."""
+    """The v4 family's slabs run its own slab scan (models/slab.py)."""
     argv = [*corpus[:2], "--model", str(DATA / "silero_v4_16k.testtensor"), "--slab_chunks", "32"]
     rc_j, out_j, _ = _run(JB, argv, capsys)
     rc_t, out_t, _ = _run(TB, [*argv, "--device", "cpu"], capsys)

@@ -192,15 +192,20 @@ def _family_params(family: str):
 @pytest.mark.parametrize("family,samples", [("v4", 1536), ("v4_8k", 768), ("v5", 512),
                                             ("v5_8k", 256)])
 def test_other_families_scan_is_still_the_loop_of_steps(family, samples):
+    """v4 and v5 scan by their own slab scan (`forward_scan`, models/slab.py;
+    tests/test_torch_scan_v45.py holds it at every tier), which on the CPU
+    gives the loop of steps' state and context bit for bit and its
+    probabilities within the decoder's rounding over another row count
+    (measured at most 1.2e-7)."""
     tp = _family_params(family)
-    assert not hasattr(TR.get_family_module(family), "forward_scan")
+    assert hasattr(TR.get_family_module(family), "forward_scan")
     slab = _slab("speech", 3, 4, samples, seed=13)
     tr = TR.StreamRunner(family, tp, device="cpu")
     p_scan, s_scan = tr.scan(slab, tr.init_state(3))
     state = tr.init_state(3)
     for t in range(4):
         p_t, state = tr.step(slab[:, t], state)
-        assert torch.equal(p_t, p_scan[:, t])
+        assert_close(p_t, p_scan[:, t], 1e-6, f"{family} step {t}")
     assert torch.equal(state.h, s_scan.h) and torch.equal(state.c, s_scan.c)
     if state.context is not None:
         assert torch.equal(state.context, s_scan.context)

@@ -72,7 +72,7 @@ from vadc_tpu.nn import functional as JF
 from vadc_tpu_torch.engine import runner as TR
 from vadc_tpu_torch.kernels import lstm as KL
 from vadc_tpu_torch.kernels import stft_mag as KS
-from vadc_tpu_torch.kernels.tier_check import SPEECH_BOUND
+from vadc_tpu_torch.kernels.tier_check import PATH_MAX, SPEECH_BOUND
 from vadc_tpu_torch.models import silero_v4 as T4
 from vadc_tpu_torch.nn import functional as TF
 from vadc_tpu_torch.nn import precision as P
@@ -302,7 +302,15 @@ def test_tier_on_speech_stays_within_the_bound_of_faithful(case, runs, tier):
         if tier != "turbo":  # turbo's segments: the JAX package's, held below
             assert segments(probs[0], family) == segments(want[0], family), f"{tier} {route}"
         assert not torch.equal(probs, want)  # the tier is not faithful in disguise
-    assert torch.equal(runs[tier]["step"], runs[tier]["scan"])  # scan is the loop of steps
+    # the slab scan (models/slab.py) is the loop of steps' arithmetic over
+    # other row counts: its encoder over pieces of 8 chunks, its decoder over
+    # the track. v4 reads within 1e-6 of the loop; v5's products over a
+    # piece's rows sum in another order than over one chunk's, and a bf16
+    # rounding flip carries on through the recurrence: 1.0e-5 at balanced,
+    # 8.1e-4 at fast and 7.0e-4 at turbo, held as tier_check holds paths that
+    # sum in other orders (PATH_MAX)
+    assert_close(runs[tier]["scan"], runs[tier]["step"], PATH_MAX[tier]["probs"],
+                 f"{family} {tier} scan vs steps")
     assert len(segments(faithful["step"][0], family)) >= 1
 
 

@@ -5,9 +5,9 @@ Counterpart of vadc_tpu/engine/runner.py, for the five families: v3
 
   * `StreamRunner.step` — one chunk per stream for a batch of B independent
     streams (the realtime serving hot path); `StreamRunner.scan` — T chunks
-    of each stream in order: the family's slab scan where it has one (v3.1's
-    `forward_scan`: the encoders of all B*T chunks at once, then one kernel
-    through each stream's chunks), else a Python loop of steps.
+    of each stream in order: the family's slab scan, `forward_scan` (the
+    encoders of all B*T chunks at once, then one kernel through each
+    stream's chunks).
   * `MinibatchRunner` — the reference driver's semantics for ONE stream: a
     window of N consecutive chunks through the model with the LSTM state
     threading chunk to chunk (process_chunks, vadc.c:56-103); the CLI's
@@ -15,9 +15,10 @@ Counterpart of vadc_tpu/engine/runner.py, for the five families: v3
 
 The v5 families carry a raw-audio context between chunks (the last 64
 samples of a chunk, 32 at 8 kHz, prefix the next); both runners attach it
-before the model sees the audio. The JAX package's chunk-blocked scan
-(`_scan_tblock`) is a TPU throughput device, not semantics, and is not
-ported.
+before the model sees the audio, and a scan hands it to `forward_scan`.
+The JAX package's chunk-blocked scan (`_scan_tblock`, behind its
+`scan_block_chunks`) is ported as every family's `forward_scan`; one kernel
+walks all the chunks, so there is no block size to choose.
 
 Every runner takes its device explicitly. On a CUDA device the model runs
 through the package's CUDA kernels, with that device made current for the
@@ -159,14 +160,12 @@ class StreamRunner:
         T steps in order; the state is updated in place as in `step`."""
         with on_device(self.device):
             audio = _as_audio(chunks, self.device)
-            if hasattr(self.module, "forward_scan"):
-                probs, _, _ = self.module.forward_scan(
-                    self.params, audio, state.h, state.c, hn=state.h, cn=state.c, tier=self.tier
-                )
-                return probs, state
-            probs = torch.empty(audio.shape[:2], dtype=torch.float32, device=self.device)
-            for t in range(audio.shape[1]):
-                probs[:, t], state = self.step(audio[:, t], state)
+            kw = dict(hn=state.h, cn=state.c, tier=self.tier)
+            if state.context is None:
+                probs = self.module.forward_scan(self.params, audio, state.h, state.c, **kw)[0]
+            else:
+                probs = self.module.forward_scan(self.params, audio, state.h, state.c,
+                                                 state.context, context_out=state.context, **kw)[0]
         return probs, state
 
 
@@ -205,11 +204,9 @@ class MinibatchRunner:
                 )
             # per-chunk context prefix: chunk i gets the tail of chunk i-1,
             # chunk 0 the carried context (process_chunks_v5, vadc.c:105-162)
-            ctx = self.module.CONTEXT_SAMPLES
-            tails = torch.cat([self.context, chunks[:-1, -ctx:]], dim=0)
-            self.context = chunks[-1:, -ctx:].clone()
-            inp = torch.cat([tails, chunks], dim=-1)
-            return self.module.forward_minibatched(self.params, inp, self.h, self.c, self.tier)
+            inp, tail = self.module.attach_contexts(chunks[None], self.context)
+            self.context = tail.clone()
+            return self.module.forward_minibatched(self.params, inp[0], self.h, self.c, self.tier)
 
     def process_window(self, samples) -> list[float]:
         """Process a window of samples (zero-padded multiple of the chunk

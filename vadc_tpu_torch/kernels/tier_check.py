@@ -138,7 +138,63 @@ SPEECH_BOUND = {
 #: half the streams through the kernels at the fast tier: 2.5e-2 and 0.57
 #: (must break the limits); through the plain versions: 2.6e-6 and 2.1e-5,
 #: too close to the sound run for a limit that holds in every run.
-SHARD_BOUND = {"v5": {"probs": 5e-6, "state": 5e-5}}
+#:
+#: "family/tier": the v4/v5 slab scan (models/slab.py, StreamRunner.scan)
+#: against the loop of StreamRunner.step on the same chunks, where the card
+#: gives other bits (chip_smoke.py: check_slab_v45), the same two
+#: readings. The scan runs the step's encoder over pieces of 8 chunks of
+#: every stream, and its torch ops are cuBLAS products (the conv stages'
+#: linears, v4's 7-tap smoothing, the 64 -> 1 decoder), whose algorithm
+#: cuBLAS picks by the number of rows; stft_magnitude over a piece gives
+#: each chunk's bits, and one lstm_fused call over the steps' own features
+#: gives the loop's state. Three times the largest reading over seeded
+#: speech slabs of 2048 x 8 and 64 x 64 on an NVIDIA H100 80GB HBM3 at
+#: 700 W, rounded up; the readings (probs, state), and in brackets the
+#: control, the first half of the streams at another tier (faithful,
+#: balanced and turbo: fast; fast: turbo), which must break the bound:
+#:   v4 faithful 1.07e-6, 3.50e-5 (6.2e-3, 0.127); balanced 5.72e-6,
+#:   1.41e-4 (6.3e-3, 0.126); fast 1.32e-3, 1.85e-2 (7.2e-2, 0.943); turbo
+#:   1.19e-3, 1.80e-2 (7.2e-2, 0.943);
+#:   v4_8k faithful 8.94e-7, 5.72e-5 (6.2e-3, 0.184); balanced 9.15e-6,
+#:   1.49e-4 (6.3e-3, 0.185); fast 7.10e-4, 2.27e-2 (4.4e-2, 1.46); turbo
+#:   1.03e-3, 2.69e-2 (4.4e-2, 1.46);
+#:   v5 faithful 1.91e-6, 1.11e-4 (2.4e-2, 1.15), beyond SHARD_BOUND["v5"]
+#:   over 64 steps of 64 streams (its c grows to larger values than over
+#:   the 9 steps behind that bound); balanced 1.72e-5, 2.04e-4 (2.4e-2,
+#:   1.15); fast 6.90e-4, 9.08e-3 (3.3e-2, 1.02); turbo 3.44e-3, 2.95e-2
+#:   (3.3e-2, 1.02);
+#:   v5_8k faithful 1.01e-6, 1.34e-5 (1.3e-2, 0.517), within v5's bound,
+#:   which holds it; balanced 6.97e-6, 2.30e-4 (1.3e-2, 0.517); fast
+#:   1.05e-3, 8.27e-3 (1.9e-2, 0.365); turbo 5.86e-4, 2.78e-3 (1.9e-2,
+#:   0.365).
+#: At 2048 x 8 v5 and v5_8k give the loop's bits at every tier; every other
+#: slab reads above.
+SHARD_BOUND = {
+    "v5": {"probs": 5e-6, "state": 5e-5},
+    "v4/faithful": {"probs": 3.5e-6, "state": 1.1e-4},
+    "v4/balanced": {"probs": 2e-5, "state": 4.5e-4},
+    "v4/fast": {"probs": 4e-3, "state": 6e-2},
+    "v4/turbo": {"probs": 4e-3, "state": 6e-2},
+    "v4_8k/faithful": {"probs": 3e-6, "state": 2e-4},
+    "v4_8k/balanced": {"probs": 3e-5, "state": 4.5e-4},
+    "v4_8k/fast": {"probs": 2.5e-3, "state": 7e-2},
+    "v4_8k/turbo": {"probs": 3.5e-3, "state": 8.5e-2},
+    "v5/faithful": {"probs": 6e-6, "state": 3.5e-4},
+    "v5/balanced": {"probs": 6e-5, "state": 6.5e-4},
+    "v5/fast": {"probs": 2.5e-3, "state": 3e-2},
+    "v5/turbo": {"probs": 1.1e-2, "state": 9e-2},
+    "v5_8k/faithful": {"probs": 5e-6, "state": 5e-5},
+    "v5_8k/balanced": {"probs": 2.5e-5, "state": 7e-4},
+    "v5_8k/fast": {"probs": 3.5e-3, "state": 2.5e-2},
+    "v5_8k/turbo": {"probs": 2e-3, "state": 9e-3},
+}
+
+
+def shard_bound(family: str, tier: str = "faithful") -> dict | None:
+    """The SHARD_BOUND entry that holds a v4/v5 slab scan of `family` at
+    `tier` where it misses the loop of steps' bits; None where there is
+    none."""
+    return SHARD_BOUND.get(f"{family}/{tier}")
 
 
 def errors(got, want, tier: str, scale: float = 1.0) -> tuple[float, float]:

@@ -11,12 +11,15 @@ Counterpart of vadc_tpu/models/silero_v4.py. v4 differs from v3.1
        frame mean) -> speech probability
 
 Chunks are 512..1536 samples in steps of 256 at 16 kHz (256..768 in steps
-of 128 at 8 kHz). `forward` and `forward_minibatched` go through the two
-kernel wrappers `kernels.stft_mag.stft_magnitude` and
+of 128 at 8 kHz). `forward`, `forward_scan` and `forward_minibatched` go
+through the two kernel wrappers `kernels.stft_mag.stft_magnitude` and
 `kernels.lstm.lstm_fused`; the normalization, the conv stages and the
 decoder are torch ops, as the JAX package leaves them to XLA. On a CPU
-tensor the wrappers run their plain versions. `forward_reference` and
-`forward_minibatched_reference` are the JAX package's `forward` and
+tensor the wrappers run their plain versions. `forward_scan` is the slab
+scan behind `StreamRunner.scan` (models/slab.py: the encoder over the B*K
+chunks, one `lstm_fused` through each stream's chunks). `forward_reference`,
+`forward_scan_reference` and `forward_minibatched_reference` are the JAX
+package's `forward`, chunk-blocked scan (`engine/runner._scan_tblock`) and
 `forward_minibatched` in the plain ops of nn/functional, on any device.
 
 Every function takes the precision tier (`nn.precision`; a name or a Tier,
@@ -35,6 +38,7 @@ import torch
 
 from vadc_tpu_torch.kernels.lstm import lstm_fused, weight_of
 from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude
+from vadc_tpu_torch.models import slab
 from vadc_tpu_torch.models.weights import V4_STRIDES_16K, V4_STRIDES_8K, Params
 from vadc_tpu_torch.nn import functional as F
 from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, stft_mode, store, tier_of
@@ -137,6 +141,22 @@ def _forward_minibatched(params, audio, h, c, sample_rate, tier):
     return probs, hn, cn
 
 
+def _forward_scan(params, audio, h, c, hn, cn, sample_rate, tier):
+    tier = tier_of(tier)
+    return slab.forward_scan(
+        params, lambda rows: encode(params, rows, sample_rate=sample_rate, tier=tier), audio, h, c,
+        hn, cn, tier,
+    )
+
+
+def _forward_scan_reference(params, audio, h, c, sample_rate, tier):
+    tier = tier_of(tier)
+    return slab.forward_scan_reference(
+        params, lambda rows: encode_reference(params, rows, sample_rate=sample_rate, tier=tier),
+        audio, h, c, tier,
+    )
+
+
 def _forward_reference(params, audio, h, c, sample_rate, tier):
     tier = tier_of(tier)
     feats = encode_reference(params, audio, sample_rate=sample_rate, tier=tier)
@@ -167,6 +187,23 @@ def forward(
     return _forward(params, audio, h, c, hn, cn, SAMPLE_RATE, tier)
 
 
+def forward_scan(
+    params: Params,
+    audio: torch.Tensor,
+    h: torch.Tensor,
+    c: torch.Tensor,
+    *,
+    hn: torch.Tensor | None = None,
+    cn: torch.Tensor | None = None,
+    tier: Tier | str = FAITHFUL,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A slab of K consecutive chunks of each of B independent streams at
+    the tier: audio [B, K, S]; h, c [2, B, 64] -> (probs [B, K], hn, cn),
+    K calls of `forward` in order (models/slab.py). `hn`/`cn` may be
+    `h`/`c` to update the state in place."""
+    return _forward_scan(params, audio, h, c, hn, cn, SAMPLE_RATE, tier)
+
+
 def forward_minibatched(
     params: Params, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     tier: Tier | str = FAITHFUL,
@@ -185,6 +222,15 @@ def forward_reference(
     """Plain independent-stream forward (the JAX package's `forward`) at the
     tier."""
     return _forward_reference(params, audio, h, c, SAMPLE_RATE, tier)
+
+
+def forward_scan_reference(
+    params: dict, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+    tier: Tier | str = FAITHFUL,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain slab scan (the JAX package's `_scan_tblock`) at the tier:
+    audio [B, K, S] -> (probs [B, K], hn, cn)."""
+    return _forward_scan_reference(params, audio, h, c, SAMPLE_RATE, tier)
 
 
 def forward_minibatched_reference(
@@ -218,12 +264,21 @@ class _V48k:
         return _forward(params, audio, h, c, hn, cn, 8000, tier)
 
     @staticmethod
+    def forward_scan(params, audio, h, c, *, hn=None, cn=None, tier=FAITHFUL):
+        # the 8 kHz encoder, with its own stage-3 stride, over the slab
+        return _forward_scan(params, audio, h, c, hn, cn, 8000, tier)
+
+    @staticmethod
     def forward_minibatched(params, audio, h, c, tier=FAITHFUL):
         return _forward_minibatched(params, audio, h, c, 8000, tier)
 
     @staticmethod
     def forward_reference(params, audio, h, c, tier=FAITHFUL):
         return _forward_reference(params, audio, h, c, 8000, tier)
+
+    @staticmethod
+    def forward_scan_reference(params, audio, h, c, tier=FAITHFUL):
+        return _forward_scan_reference(params, audio, h, c, 8000, tier)
 
     @staticmethod
     def forward_minibatched_reference(params, audio, h, c, tier=FAITHFUL):

@@ -13,12 +13,15 @@ silero_vad.py:367-433):
 
 The 8 kHz branch (`v5_8k`) has the same encoder and LSTM at half-rate STFT
 geometry: 256-sample chunks with a 32-sample context, n_fft 128 (65 bins),
-right pad 32, hop 64. `forward` and `forward_minibatched` go through the
-kernel wrappers `kernels.stft_mag.stft_magnitude` and
+right pad 32, hop 64. `forward`, `forward_scan` and `forward_minibatched`
+go through the kernel wrappers `kernels.stft_mag.stft_magnitude` and
 `kernels.lstm.lstm_fused`; the convs and the decoder are torch ops. The
 `*_reference` forms are the JAX package's functions in the plain ops of
-nn/functional. The context is the caller's: the runners attach it
-(`attach_context`) before the model sees the audio.
+nn/functional (`forward_scan_reference`: its chunk-blocked scan,
+`engine/runner._scan_tblock`). The context is the caller's: the runners
+attach it (`attach_context` to a step's chunks, `attach_contexts` to
+consecutive chunks of each stream) before the model sees the audio;
+`forward_scan` takes it and attaches it itself.
 
 Every function takes the precision tier (`nn.precision`; a name or a Tier,
 default faithful), as the JAX package's model code computes at it under
@@ -39,6 +42,7 @@ import torch
 
 from vadc_tpu_torch.kernels.lstm import lstm_fused, weight_of
 from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude
+from vadc_tpu_torch.models import slab
 from vadc_tpu_torch.models.weights import Params
 from vadc_tpu_torch.nn import functional as F
 from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, stft_mode, store, tier_of
@@ -78,6 +82,19 @@ def attach_context(
     a view of the chunks' tails). Reference: process_chunks_v5
     (vadc.c:105-162)."""
     return torch.cat([context, chunks], dim=-1), chunks[:, -context.shape[-1] :]
+
+
+def attach_contexts(
+    chunks: torch.Tensor, context: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`attach_context` for K consecutive chunks of each stream at once:
+    chunks [B, K, window], context [B, ctx] -> (model inputs [B, K, ctx +
+    window], the new context, a view of the last chunks' tails). Chunk k
+    takes chunk k-1's tail, chunk 0 the carried context (the JAX package's
+    `_scan_tblock`, vadc_tpu/engine/runner.py:259-269)."""
+    n = context.shape[-1]
+    tails = torch.cat([context[:, None], chunks[:, :-1, -n:]], dim=1)
+    return torch.cat([tails, chunks], dim=-1), chunks[:, -1, -n:]
 
 
 def conv_layer(x: torch.Tensor, p: dict, *, stride: int, tier: Tier) -> torch.Tensor:
@@ -149,6 +166,28 @@ def _forward_minibatched(params, audio, h, c, geometry, tier):
     return probs, hn, cn
 
 
+def _forward_scan(params, audio, h, c, context, hn, cn, context_out, geometry, tier):
+    tier = tier_of(tier)
+    inputs, tail = attach_contexts(audio, context)
+    # written only now: context_out may be the context the inputs were made of
+    context_out = tail.clone() if context_out is None else context_out.copy_(tail)
+    probs, hn, cn = slab.forward_scan(
+        params, lambda rows: encode(params, rows, **geometry, tier=tier), inputs, h, c, hn, cn,
+        tier,
+    )
+    return probs, hn, cn, context_out
+
+
+def _forward_scan_reference(params, audio, h, c, context, geometry, tier):
+    tier = tier_of(tier)
+    inputs, tail = attach_contexts(audio, context)
+    probs, hn, cn = slab.forward_scan_reference(
+        params, lambda rows: encode_reference(params, rows, **geometry, tier=tier), inputs, h,
+        c, tier,
+    )
+    return probs, hn, cn, tail.clone()
+
+
 def _forward_reference(params, audio, h, c, geometry, tier):
     tier = tier_of(tier)
     out, hn, cn = F.lstm(encode_reference(params, audio, **geometry, tier=tier), h, c,
@@ -182,6 +221,27 @@ def forward(
     return _forward(params, audio, h, c, hn, cn, _GEOMETRY_16K, tier)
 
 
+def forward_scan(
+    params: Params,
+    audio: torch.Tensor,
+    h: torch.Tensor,
+    c: torch.Tensor,
+    context: torch.Tensor,
+    *,
+    hn: torch.Tensor | None = None,
+    cn: torch.Tensor | None = None,
+    context_out: torch.Tensor | None = None,
+    tier: Tier | str = FAITHFUL,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A slab of K consecutive chunks of each of B independent streams at
+    the tier: audio [B, K, 512] new audio (no context); h, c [1, B, 128];
+    context [B, 64] the carried tails -> (probs [B, K], hn, cn, the new
+    context), K steps in order (`attach_contexts`, then models/slab.py).
+    `hn`/`cn`/`context_out` may be `h`/`c`/`context` to update the state in
+    place; without `context_out` the new context is a new tensor."""
+    return _forward_scan(params, audio, h, c, context, hn, cn, context_out, _GEOMETRY_16K, tier)
+
+
 def forward_minibatched(
     params: Params, audio: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     tier: Tier | str = FAITHFUL,
@@ -196,6 +256,12 @@ def forward_reference(params, audio, h, c, tier=FAITHFUL):
     """Plain independent-stream forward (the JAX package's `forward`) at the
     tier."""
     return _forward_reference(params, audio, h, c, _GEOMETRY_16K, tier)
+
+
+def forward_scan_reference(params, audio, h, c, context, tier=FAITHFUL):
+    """Plain slab scan (the JAX package's `_scan_tblock`) at the tier: audio
+    [B, K, 512] -> (probs [B, K], hn, cn, the new context)."""
+    return _forward_scan_reference(params, audio, h, c, context, _GEOMETRY_16K, tier)
 
 
 def forward_minibatched_reference(params, audio, h, c, tier=FAITHFUL):
@@ -220,6 +286,7 @@ class _V58k:
 
     init_state = staticmethod(init_state)
     attach_context = staticmethod(attach_context)
+    attach_contexts = staticmethod(attach_contexts)
 
     @staticmethod
     def init_context(n_streams: int, device="cpu") -> torch.Tensor:
@@ -238,12 +305,22 @@ class _V58k:
         return _forward(params, audio, h, c, hn, cn, _V58k._GEOMETRY, tier)
 
     @staticmethod
+    def forward_scan(params, audio, h, c, context, *, hn=None, cn=None, context_out=None,
+                     tier=FAITHFUL):
+        return _forward_scan(params, audio, h, c, context, hn, cn, context_out, _V58k._GEOMETRY,
+                             tier)
+
+    @staticmethod
     def forward_minibatched(params, audio, h, c, tier=FAITHFUL):
         return _forward_minibatched(params, audio, h, c, _V58k._GEOMETRY, tier)
 
     @staticmethod
     def forward_reference(params, audio, h, c, tier=FAITHFUL):
         return _forward_reference(params, audio, h, c, _V58k._GEOMETRY, tier)
+
+    @staticmethod
+    def forward_scan_reference(params, audio, h, c, context, tier=FAITHFUL):
+        return _forward_scan_reference(params, audio, h, c, context, _V58k._GEOMETRY, tier)
 
     @staticmethod
     def forward_minibatched_reference(params, audio, h, c, tier=FAITHFUL):
