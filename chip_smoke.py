@@ -197,6 +197,20 @@ Phases, each of which raises on failure (exit code 1):
      (512 pipes, 2 s each; the realtime-stream equivalents logged); and
      tools/torch_tensor_image.py on the bundled v3.1 archive (a PGM file a
      tensor);
+  3g. the live-stream examples (phase_examples), their launches counted in
+     that window alone (forward_fused, stft_magnitude and lstm_fused each >
+     0), under 240 s: examples/serve_streams_torch.py over 2048 streams and
+     examples/serve_pool_torch.py over 256 `cat` producers, each by its
+     main(argv) on the card, for v3.1 and v4 at faithful, v3.1 at --fast
+     and the synthetic v5 at faithful, on 16 seeded speech files of 8 to 12
+     s (a link a stream, so each stream's lines carry its own name; each
+     aggregate-realtime line logged beside the card's name and power
+     limit); serve_pool_torch's events per file those of serve_streams_torch
+     over the same 256 streams while the file lasts, bit for bit; 16 streams
+     again with --device cpu, the card's events under compare_events' rule
+     (identical, or a boundary moved by one chunk where the CPU's
+     probability lies within the path's bound of a threshold, each such
+     chunk logged);
   4. timings with CUDA events: each kernel against its plain version
      (stft_magnitude at every family geometry at B=2048 and at the v4 CLI
      window, each with its own bound; beside the two spectrum kernels,
@@ -224,7 +238,8 @@ Phases, each of which raises on failure (exit code 1):
      lstm_fused and lstm_decoder_fused rows as a yardstick, not the same
      function (its state is bf16); cuFFT
      (torch.stft, torch.fft.rfft) beside the two spectrum kernels, their
-     library_ms where the basis is the Hann DFT; save_checkpoint and
+     library_ms where the basis is the Hann DFT (v3.1's, v4's, v4_8k's;
+     v5's is another); save_checkpoint and
      restore_checkpoint of a 2048-slot v3.1 server (wall time), the ticks'
      p50/p99 while saves run beside them against the ticks no save
      overlaps, and api.speech_probabilities' audio seconds per wall second
@@ -252,6 +267,7 @@ Imports nothing of JAX. Needs one card; exits 1 without one.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import subprocess
@@ -4019,8 +4035,11 @@ def phase_timing_library(params, models: dict, device) -> dict:
         lib = cufft_stft(audio, n_fft, **kw).transpose(1, 2)
         diff = max_abs(lib, kernel) / float(kernel.abs().max())
         ms = cuda_ms(lambda: cufft_stft(audio, n_fft, **kw))
+        # cuFFT computes the kernel's function only where the basis is the
+        # Hann DFT (v4 and v4_8k; v5's bases are another)
         out["stft_magnitude_at"][f"{family} B={B_MAIN} x {samples}"] = {
-            "library_ms": ms, "basis_vs_hann_dft": gap, "library_vs_kernel_rel": diff}
+            "library_ms": ms if gap < 1e-6 else None, "cufft_ms": ms, "basis_vs_hann_dft": gap,
+            "library_vs_kernel_rel": diff}
         log(f"time cuFFT (reflect pad, torch.stft, abs) {family} B={B_MAIN} x {samples}: {ms:.4f} ms; "
             f"the basis against the Hann DFT {gap:.2e}, cuFFT against stft_magnitude {diff:.2e} of "
             "the largest magnitude" + ("" if gap < 1e-6 else " (another basis: not the same function)"))
@@ -4393,6 +4412,238 @@ def phase_ported_tools(device, totals: dict) -> None:
     require(seconds < PORTED_TOOLS_PHASE_LIMIT_S, f"the ported tools phase took {seconds:.1f} s")
 
 
+# ---- the live-stream examples (phase_examples): examples/serve_streams_torch.py
+# and examples/serve_pool_torch.py, each by its main(argv) in this process
+
+EXAMPLE_FILES = 16  # distinct seeded speech files of different lengths; the streams repeat them
+EXAMPLE_PRODUCERS = 256  # serve_pool_torch's producers (and a serve_streams_torch run beside it)
+EXAMPLE_SUBSET = 16  # the streams run again with --device cpu
+EXAMPLES_PHASE_LIMIT_S = 240.0
+EXAMPLE_KERNELS = ("forward_fused", "stft_magnitude", "lstm_fused")
+
+
+class FsmRecord:
+    """What one run's NativeFsm was fed and gave back: per feed call the
+    probabilities [B], the active mask (None: every stream) and the events
+    (stream, start, end) in chunks."""
+
+    def __init__(self) -> None:
+        self.n = 0
+        self.calls: list = []
+
+    def stream_probs(self) -> list:
+        """Per stream its probabilities in its own chunk order."""
+        if not self.calls:
+            return [np.zeros(0, np.float32)] * self.n
+        probs = np.stack([p for p, _, _ in self.calls])
+        active = np.stack([np.ones(self.n, bool) if a is None else a for _, a, _ in self.calls])
+        return [probs[active[:, s], s] for s in range(self.n)]
+
+    def events(self, before: list | None = None) -> list:
+        """Per stream its events (start, end) in order; with `before`, only
+        those the FSM gave while it was fed one of the stream's first
+        before[s] chunks (serve_streams_torch feeds zeros past a file's end,
+        serve_pool_torch stops there)."""
+        fed = np.zeros(self.n, np.int64)
+        out: list = [[] for _ in range(self.n)]
+        for _, active, events in self.calls:
+            for s, a, b in events:
+                if before is None or fed[s] < before[s]:
+                    out[s].append((a, b))
+            fed += 1 if active is None else active
+        return out
+
+
+@contextlib.contextmanager
+def recording_fsm(native_module):
+    """native_module.NativeFsm, while the context lasts, a subclass that
+    records into the FsmRecord it yields (vadc_tpu_torch.native, or the JAX
+    package's native module in the CPU tests: the same API)."""
+    record = FsmRecord()
+    base = native_module.NativeFsm
+
+    class Recording(base):
+        def __init__(self, n_streams, **kw):
+            super().__init__(n_streams, **kw)
+            record.n = n_streams
+
+        def feed(self, probs, active=None):
+            events = super().feed(probs, active)
+            record.calls.append((np.array(probs, np.float32)[:, 0],
+                                 None if active is None else np.array(active, bool), events))
+            return events
+
+    native_module.NativeFsm = Recording
+    try:
+        yield record
+    finally:
+        native_module.NativeFsm = base
+
+
+def lines_by_file(text: str) -> dict:
+    """An example's stdout, `<file>\\t<start>,<end>` lines, as file -> its
+    segments in order."""
+    out: dict = {}
+    for line in text.splitlines():
+        path, seg = line.split("\t")
+        out.setdefault(path, []).append(seg)
+    return out
+
+
+def record_lines(record: FsmRecord, files: list, spc: float, before: list | None = None) -> dict:
+    """The lines an example prints for the recorded events, file -> segments."""
+    out: dict = {}
+    for path, events in zip(files, record.events(before)):
+        if events:
+            out[path] = [f"{a * spc:.2f},{b * spc:.2f}" for a, b in events]
+    return out
+
+
+def compare_events(label: str, got: dict, want: dict, want_probs: dict, spc: float,
+                   bound: float, thresholds: tuple) -> list:
+    """got against want (file -> segments, lines_by_file): per file the same
+    events in the same order; a boundary may move by one chunk only where the
+    reference's probability at the earlier of the two chunks lies within
+    `bound` of a threshold (want_probs: file -> the reference run's
+    probabilities). Raises otherwise; returns one note per such move."""
+    notes = []
+    for path in sorted(set(got) | set(want)):
+        g, w = got.get(path, []), want.get(path, [])
+        require(len(g) == len(w), f"{label}: {path}: {len(g)} events against {len(w)}: {g} vs {w}")
+        for gs, ws in zip(g, w):
+            for gb, wb in zip(gs.split(","), ws.split(",")):
+                gi, wi = round(float(gb) / spc), round(float(wb) / spc)
+                if gi == wi:
+                    continue
+                k = min(gi, wi)
+                p = float(want_probs[path][k]) if k < len(want_probs[path]) else float("nan")
+                near = min(abs(p - t) for t in thresholds)
+                note = (f"{label}: {path}: a boundary at chunk {wi} moved to {gi}; the reference's "
+                        f"probability at chunk {k} is {p:.6f}, {near:.2e} from a threshold "
+                        f"(bound {bound:g})")
+                require(abs(gi - wi) == 1 and near <= bound, f"{note}: {gs} against {ws}")
+                notes.append(note)
+    return notes
+
+
+@functools.cache
+def example(name: str):
+    """examples/<name>.py as a module (loaded once)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_example(name: str, argv: list) -> tuple:
+    """An example's main(argv) in this process, its NativeFsm recorded:
+    (stdout, stderr, FsmRecord); raises unless it exits 0."""
+    from vadc_tpu_torch import native
+
+    out, err = io.StringIO(), io.StringIO()
+    with recording_fsm(native) as record, contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        rc = example(name).main(argv)
+    require(rc == 0, f"{name} exited {rc}: {err.getvalue()}")
+    return out.getvalue(), err.getvalue(), record
+
+
+def fsm_thresholds() -> tuple:
+    """The examples' FSM thresholds (threshold, neg_threshold)."""
+    from vadc_tpu_torch.cli.segmenter import SegmenterConfig
+
+    cfg = SegmenterConfig.from_ms(chunk_samples=CHUNK)
+    return cfg.threshold, cfg.neg_threshold
+
+
+def example_inputs(root: Path) -> list:
+    """EXAMPLE_FILES seeded speech files (speech_track of seeds 0..15, cut
+    to 8 to 11.75 s and a part of a chunk), and B_MAIN stream paths: a link
+    each, stream i to file i mod EXAMPLE_FILES, so each stream's lines carry
+    a name of their own."""
+    src = root / "files"
+    src.mkdir()
+    files = []
+    for i in range(EXAMPLE_FILES):
+        audio = speech_track(seed=i).ravel()[: int((8.0 + 0.25 * i) * SR) + 101 * i]
+        path = src / f"speech{i:02d}.s16le"
+        np.clip(audio * 32768, -32768, 32767).astype("<i2").tofile(path)
+        files.append(path)
+    streams = root / "streams"
+    streams.mkdir()
+    paths = []
+    for i in range(B_MAIN):
+        link = streams / f"s{i:04d}.s16le"
+        link.symlink_to(files[i % EXAMPLE_FILES])
+        paths.append(str(link))
+    return paths
+
+
+def examples_of_model(label: str, paths: list, extra: list, bound: float, spc: float) -> None:
+    """One model and tier through both examples: serve_streams_torch over
+    B_MAIN streams and over EXAMPLE_PRODUCERS, serve_pool_torch over
+    EXAMPLE_PRODUCERS producers (the same streams: its events per file those
+    of serve_streams_torch over them while the file lasts, bit for bit: every
+    tick steps all the rows, so cuBLAS sums each row alike), and
+    serve_streams_torch over EXAMPLE_SUBSET streams with --device cpu (the
+    card's events under compare_events' rule, the CPU the reference)."""
+    smi = nvidia_smi()
+    out, err, _ = run_example("serve_streams_torch", [*extra, *paths])
+    log(f"serve_streams_torch {label}, {len(paths)} streams: {err.strip()} ({smi})")
+    card = lines_by_file(out)
+    few = paths[:EXAMPLE_PRODUCERS]
+    _, _, streams = run_example("serve_streams_torch", [*extra, *few])
+    out, err, pool = run_example("serve_pool_torch", [*extra, *few])
+    log(f"serve_pool_torch {label}, {len(few)} producers: {err.strip()} ({smi})")
+    lengths = [len(p) for p in pool.stream_probs()]
+    want = record_lines(streams, few, spc, before=lengths)
+    require(lines_by_file(out) == want,
+            f"serve_pool_torch {label}: events differ from serve_streams_torch's per file")
+    masked = sum(a is not None and not a.all() for _, a, _ in pool.calls)
+    diff = max(float(np.abs(p - q[: len(p)]).max()) if len(p) else 0.0
+               for p, q in zip(pool.stream_probs(), streams.stream_probs()))
+    log(f"serve_pool_torch {label}: {sum(map(len, want.values()))} events equal "
+        f"serve_streams_torch's per file; {len(pool.calls)} ticks, {masked} with streams masked "
+        f"out; chunk lengths {min(lengths)}-{max(lengths)}; largest probability difference {diff:.3e}")
+    subset = paths[:EXAMPLE_SUBSET]
+    out, err, cpu = run_example("serve_streams_torch", ["--device", "cpu", *extra, *subset])
+    probs = dict(zip(subset, cpu.stream_probs()))
+    notes = compare_events(f"serve_streams_torch {label} card vs CPU",
+                           {p: card.get(p, []) for p in subset}, lines_by_file(out), probs, spc,
+                           bound, fsm_thresholds())
+    for note in notes:
+        log(note)
+    log(f"serve_streams_torch {label}: the card's events on {len(subset)} streams those of "
+        f"--device cpu ({len(notes)} moved by a borderline chunk; CPU: {err.strip()})")
+
+
+def phase_examples(device, archives: dict, totals: dict) -> None:
+    """The two live-stream examples on the card at full width, their
+    launches counted in this window alone (each of EXAMPLE_KERNELS > 0):
+    v3.1 and v4 at faithful, v3.1 at --fast, the synthetic v5 at faithful."""
+    from vadc_tpu_torch.kernels import tier_check
+    from vadc_tpu_torch.models.synthetic import random_v5_archive, save_archive
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = example_inputs(Path(tmp))
+        v5 = Path(tmp) / "v5_synthetic.testtensor"
+        save_archive(v5, random_v5_archive(0))
+        zero_launches()
+        examples_of_model("v3.1", paths, [], TOL_PATH, CHUNK / SR)
+        examples_of_model("v3.1 --fast", paths, ["--fast"], tier_check.SPEECH_BOUND["v3"]["fast"],
+                          CHUNK / SR)
+        examples_of_model("v4", paths, ["--model", str(archives["v4"])], TOL_PATH, V4_CHUNK / SR)
+        examples_of_model("v5 (synthetic weights)", paths, ["--model", str(v5)], TOL_PATH,
+                          V5_CHUNK / SR)
+        read_launches("the live-stream examples", totals, EXAMPLE_KERNELS)
+    seconds = time.perf_counter() - t0
+    log(f"the examples phase took {seconds:.1f} s (limit {EXAMPLES_PHASE_LIMIT_S:.0f} s)")
+    require(seconds < EXAMPLES_PHASE_LIMIT_S, f"the examples phase took {seconds:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4455,6 +4706,8 @@ def main() -> int:
     elapsed("the tools phase")
     phase_ported_tools(device, launches)
     elapsed("the ported tools phase")
+    phase_examples(device, archives, launches)
+    elapsed("the examples phase")
     log(f"launches on the main paths, all phases: {launches}; at the bf16 tiers: {tier_launches}")
     elapsed("the main paths")
     timing = phase_timing(params, device)

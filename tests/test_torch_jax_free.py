@@ -3,8 +3,8 @@ imported (the machine with the card has no JAX, and the port imports nothing
 of vadc_tpu, not even its numpy-only modules: it keeps its own copies): in a
 fresh interpreter where `import jax` and `import vadc_tpu` both fail, every
 module of the package imports, the CPU path runs, the CLI and the batch CLI
-answer and the server serves a client. The port's tools (TOOLS) import
-neither either.
+answer and the server serves a client. The port's tools (TOOLS) and its
+live-stream examples (EXAMPLES) import neither either.
 chip_smoke.py, chip_profile.py and chip_ab.py, which drive the port on the
 card, import neither, and without a card they exit non-zero with no result
 line."""
@@ -33,6 +33,9 @@ TOOLS = ("torch_multidevice_dryrun.py", "gpu_check.py", "torch_fidelity_report.p
          "torch_bench_stages.py", "torch_ingest_bench.py", "torch_rss_attrib.py",
          "torch_tensor_image.py", "torch_validate_v5.py")
 
+#: the port's live-stream examples: neither imports jax or vadc_tpu
+EXAMPLES = ("serve_streams_torch.py", "serve_pool_torch.py")
+
 _BLOCK_JAX = "import sys; sys.modules['jax'] = None; sys.modules['vadc_tpu'] = None\n"
 
 _DRIVE = _BLOCK_JAX + """
@@ -59,7 +62,8 @@ for script in ("chip_smoke.py", "chip_profile.py", "chip_ab.py",
                "tools/torch_serve_bench.py", "tools/torch_soak.py",
                "tools/torch_bench_stages.py", "tools/torch_ingest_bench.py",
                "tools/torch_rss_attrib.py", "tools/torch_tensor_image.py",
-               "tools/torch_validate_v5.py"):
+               "tools/torch_validate_v5.py", "examples/serve_streams_torch.py",
+               "examples/serve_pool_torch.py"):
     spec = importlib.util.spec_from_file_location(script.split("/")[-1][:-3], script)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 for blocked in ("jax", "vadc_tpu"):
@@ -113,6 +117,16 @@ with tempfile.TemporaryDirectory() as tmp:
     assert out.getvalue() == ""
 from vadc_tpu_torch import api
 assert api.speech_probabilities(np.zeros(3072, np.float32), device="cpu").shape == (2,)
+spec = importlib.util.spec_from_file_location("serve_streams_torch", "examples/serve_streams_torch.py")
+serve_streams = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(serve_streams)
+with tempfile.TemporaryDirectory() as tmp:
+    pcm = tmp + "/silence.s16le"
+    open(pcm, "wb").write(b"\\0\\0" * 1536 * 3)
+    with contextlib.redirect_stdout(io.StringIO()) as out, \\
+            contextlib.redirect_stderr(io.StringIO()) as err:
+        assert serve_streams.main(["--device", "cpu", pcm, pcm]) == 0
+    assert out.getvalue() == "" and "# 2 streams x 3 chunks" in err.getvalue(), err.getvalue()
 loaded = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in ("jax", "jaxlib", "vadc_tpu"))
 assert not loaded, loaded
@@ -127,9 +141,9 @@ def _python(code: str, cwd: Path = ROOT) -> subprocess.CompletedProcess:
 
 def test_package_imports_and_runs_without_jax():
     """Also without vadc_tpu: every module of the port (found by walking the
-    package), chip_smoke.py, chip_profile.py, chip_ab.py and the port's
-    tools import; the runners (the sharded one
-    too), the CLI, the batch CLI and the Python API run on the CPU."""
+    package), chip_smoke.py, chip_profile.py, chip_ab.py, the port's tools
+    and its examples import; the runners (the sharded one too), the CLI,
+    the batch CLI, the Python API and serve_streams_torch run on the CPU."""
     proc = _python(_DRIVE)
     assert proc.returncode == 0, proc.stderr
     probs = np.array(proc.stdout.split(), float)
@@ -146,12 +160,22 @@ def test_no_source_of_the_port_names_jax():
     pattern = re.compile(r"^\s*(import jax|from jax|import vadc_tpu|from vadc_tpu)\b", re.M)
     sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
                                                ROOT / "chip_ab.py"] + [
-        ROOT / "tools" / name for name in TOOLS]
+        ROOT / "tools" / name for name in TOOLS] + [ROOT / "examples" / name for name in EXAMPLES]
     assert len(sources) > 30
     for path in sources:
         assert not pattern.search(path.read_text()), path
     assert pattern.search("    from vadc_tpu.io import wav") and pattern.search("import vadc_tpu")
     assert not pattern.search("from vadc_tpu_torch.io import wav\nimport vadc_tpu_torch")
+
+
+def test_silenceremove_torch_runs_only_the_port():
+    """examples/silenceremove_torch.sh runs the port's detector and filter
+    script, and no module of the JAX package."""
+    text = (ROOT / "examples" / "silenceremove_torch.sh").read_text()
+    assert not re.search(r"\bvadc_tpu\.", text), text
+    assert "python -m vadc_tpu_torch.cli.main " in text
+    assert "python -m vadc_tpu_torch.cli.filter_script " in text
+    assert re.search(r"\bvadc_tpu\.", (ROOT / "examples" / "silenceremove.sh").read_text())
 
 
 def test_chip_smoke_without_a_card_exits_nonzero_without_a_result():

@@ -70,6 +70,16 @@ class StreamState:
         return self.h.shape[1]
 
 
+def masked_merge(new: StreamState, old: StreamState, mask: torch.Tensor) -> None:
+    """new = where(mask, new, old), in place, for a [B] bool mask on the
+    state's device: the streams not in `mask` hold their old state (and v5
+    context) bit for bit, so a stalled stream neither drifts nor mis-times."""
+    torch.where(mask[None, :, None], new.h, old.h, out=new.h)
+    torch.where(mask[None, :, None], new.c, old.c, out=new.c)
+    if new.context is not None:
+        torch.where(mask[:, None], new.context, old.context, out=new.context)
+
+
 def init_stream_state(family: str, n_streams: int, device="cpu") -> StreamState:
     mod = get_family_module(family)
     h, c = mod.init_state(n_streams, device)

@@ -60,6 +60,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from vadc_tpu_torch.engine.runner import masked_merge
 from vadc_tpu_torch.runtime import PRECISIONS, NoCudaDeviceError
 
 
@@ -119,15 +120,6 @@ def _masked_zero(state, mask: torch.Tensor) -> None:
     state.c.masked_fill_(mask[None, :, None], 0.0)
     if state.context is not None:
         state.context.masked_fill_(mask[:, None], 0.0)
-
-
-def _masked_merge(new, old, mask: torch.Tensor) -> None:
-    """new = where(mask, new, old), in place: idle slots hold their (possibly
-    just reset) state bit for bit."""
-    torch.where(mask[None, :, None], new.h, old.h, out=new.h)
-    torch.where(mask[None, :, None], new.c, old.c, out=new.c)
-    if new.context is not None:
-        torch.where(mask[:, None], new.context, old.context, out=new.context)
 
 
 class VadServer:
@@ -308,7 +300,7 @@ class VadServer:
             old, new = sh.state, sh.spare
             _masked_zero(old, reset_d)
             probs = sh.runner.step_into(sh.audio[0], old, new)
-            _masked_merge(new, old, active_d)
+            masked_merge(new, old, active_d)
             sh.state, sh.spare = new, old
             self._host_probs[sh.lo : sh.hi].copy_(probs, non_blocking=True)
 
@@ -337,9 +329,9 @@ class VadServer:
             s0, s1 = sh.state, sh.spare
             _masked_zero(s0, reset_d)
             probs_a = sh.runner.step_into(sh.audio[0], s0, s1)
-            _masked_merge(s1, s0, active_a_d)
+            masked_merge(s1, s0, active_a_d)
             probs_b = sh.runner.step_into(sh.audio[1], s1, s0)
-            _masked_merge(s0, s1, active_b_d)
+            masked_merge(s0, s1, active_b_d)
             self._host_probs2[sh.lo : sh.hi].copy_(torch.stack([probs_a, probs_b], dim=1),
                                                    non_blocking=True)
 
