@@ -1182,6 +1182,92 @@ def test_profile_on_the_card_names_the_kernel(params, device, tmp_path):
     assert "forward_fused" in names
 
 
+def _leads_us(slab_starts: list, kernel_starts: list) -> list:
+    """Each encode kernel's lead over the start of its batch.slab span, us
+    (kernels and slabs in order, the same count of kernels a slab)."""
+    assert slab_starts and kernel_starts and len(kernel_starts) % len(slab_starts) == 0
+    per = len(kernel_starts) // len(slab_starts)
+    return [1e6 * (slab_starts[k // per] - t) for k, t in enumerate(kernel_starts)]
+
+
+def _report(label: str, leads: list) -> None:
+    q = np.percentile(leads, [0, 50, 100])
+    print(f"encode_fused_audio kernels' lead over their batch.slab span ({label}): "
+          f"{len(leads)} kernels, min {q[0]:.1f} us, median {q[1]:.1f} us, max {q[2]:.1f} us "
+          f"(negative: the kernel starts after the span)")
+
+
+def test_batch_cli_spans_on_the_card(device, tmp_path, monkeypatch, capsys):
+    """With VADC_TPU_PROFILE set, the batch CLI over 4 files writes one trace
+    and one counters file, and the trace names the CLI's spans beside the
+    slab kernels; in that trace (the profiler aligns the host's ranges and
+    the device's kernels) no encode_fused_audio kernel starts earlier than
+    50 us before its batch.slab span. Under the benchmark's device trace
+    (CUDA activity only) the recorder is on and records the spans; the
+    leads there, by its marker kernel's mapping of the device's clock onto
+    time.monotonic, are printed beside the profiler's."""
+    import json
+    import os
+    import re
+
+    from vadbench import harness
+    from vadc_tpu_torch import tracing
+    from vadc_tpu_torch.cli import batch
+
+    paths = []
+    for i, n_chunks in enumerate((150, 120, 90, 61)):
+        pcm = np.clip(speech(n_chunks, seed=70 + i).ravel()[: n_chunks * 1536 - 77 * i] * 32768,
+                      -32768, 32767).astype("<i2")
+        paths.append(str(tmp_path / f"f{i}.s16le"))
+        pcm.tofile(paths[-1])
+    argv = [*paths, "--slab_chunks", "16"]
+    n_slabs = -(-150 // 16)
+    kernel = re.compile(r"\bsilero_v31_encode_audio_kernel\b")
+    assert batch.main(argv) == 0  # warm: the kernels, the pinned memory
+    plain = capsys.readouterr().out
+
+    monkeypatch.setenv("VADC_TPU_PROFILE", str(tmp_path / "trace"))
+    assert batch.main(argv) == 0
+    monkeypatch.delenv("VADC_TPU_PROFILE")
+    assert capsys.readouterr().out == plain and plain
+    (trace,) = list((tmp_path / "trace").glob("vadc_trace_*.json"))
+    (counters,) = list((tmp_path / "trace").glob("vadc_counters_*.json"))
+    assert len(list((tmp_path / "trace").iterdir())) == 2
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"batch.job", "batch.read", "batch.grid", "batch.pin", "batch.slab", "segmenter.feed",
+            "segmenter.finish", "batch.output", "encode_fused_audio"} <= names
+    assert json.loads(counters.read_text()) == {
+        "batch.read_bytes": sum(os.path.getsize(p) for p in paths)}
+    slabs = sorted(e["ts"] * 1e-6 for e in events
+                   if e.get("name") == "batch.slab" and e.get("cat") == "user_annotation")
+    kernels = sorted(e["ts"] * 1e-6 for e in events
+                     if e.get("cat") == "kernel" and kernel.search(e["name"]))
+    assert len(slabs) == n_slabs
+    profiled = _leads_us(slabs, kernels)
+
+    tracing.clear()
+    dtrace = harness.DeviceTrace(torch.device(device))
+    dtrace.warm()
+    dtrace.begin()
+    on = torch.autograd._profiler_enabled()
+    assert batch.main(argv) == 0
+    dtrace.end()
+    dtrace.collect()
+    capsys.readouterr()
+    assert on, "the recorder is off under a profiler with CUDA activity only"
+    spans = tracing.spans()
+    tracing.clear()
+    assert {s.name for s in spans} >= {"batch.job", "batch.slab", "segmenter.feed"}
+    slabs = sorted(s.start_ns * 1e-9 for s in spans if s.name == "batch.slab")
+    assert len(slabs) == n_slabs
+    with capsys.disabled():
+        _report("profile(), the profiler's alignment", profiled)
+        _report("the benchmark's DeviceTrace, its marker's mapping",
+                _leads_us(slabs, [t for n, t, _d in dtrace.events if kernel.search(n)]))
+    assert max(profiled) < 50.0
+
+
 def _probe_bf16(rows: int, k: int, n: int, seed: int, device):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.normal(size=(rows, k)).astype(np.float32))

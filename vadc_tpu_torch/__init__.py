@@ -15,7 +15,7 @@ bundled weight archives under `vadc_tpu/data` are read by path.
 Layering (bottom to top):
   runtime   device selection (and the device guard of a launch), TF32 off,
             the precision tiers' names
-  tracing   profiling zones (free without a profile) and torch.profiler traces
+  tracing   spans and counters (free with the recorder off), torch.profiler traces
   io/       PCM, wav, resampler, ffmpeg source, .testtensor archives
   export/   numpy readers and the numpy executor of the official .onnx
             graphs (v3, fused v4/v5)

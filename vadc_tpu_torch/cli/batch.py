@@ -26,7 +26,16 @@ Output (stdout): `<filename>\\t<start>,<end>` per segment. With --cut_dir,
 additionally writes one speech-only file per input. Inputs are raw mono
 model-rate s16le files or .wav at any rate/bits/channels (decoded natively).
 With --device cuda (the default) and no card it exits 1 with a one-line
-error; it never runs on the CPU instead.
+error; it never runs on the CPU instead. With VADC_TPU_PROFILE=<dir> the
+run writes a torch.profiler trace and its counters there (tracing.py).
+
+Spans (tracing.zone, recorded while a profiler runs or inside
+tracing.record()): `batch.job` around the whole run, in it `batch.read`
+(the files read; the counter `batch.read_bytes`), `batch.grid` (the int16
+chunk grid), `batch.pin` (the pinned slabs filled), one `batch.slab` a slab
+(the next slab's copies enqueued, the dequant, the scan), the segmenter's
+`segmenter.feed` and `segmenter.finish`, and `batch.output` (the lines and
+the cut files).
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from pathlib import Path
 
 import numpy as np
 
+from vadc_tpu_torch import tracing
 from vadc_tpu_torch.runtime import PRECISIONS, NoCudaDeviceError
 
 
@@ -92,25 +102,29 @@ def load_streams(
 
     # raw s16le or .wav (sniffed by magic; wav decodes/downmixes/resamples
     # natively — the reference needs ffmpeg for any container input)
-    audios = [read_file_s16(p, target_rate=sample_rate) for p in paths]
-    valid = np.asarray([-(-len(a) // chunk_samples) for a in audios], np.int64)
-    # emission parity with the streaming CLI: a trailing partial chunk is
-    # model-processed but not emitted (vadc.c:964 floor semantics)
-    emit_valid = np.asarray([len(a) // chunk_samples for a in audios], np.int64)
-    t_max = int(valid.max())
-    grid = np.zeros((len(audios), t_max, chunk_samples), np.int16)
-    for i, a in enumerate(audios):
-        n_full = len(a) // chunk_samples
-        grid[i, :n_full] = a[: n_full * chunk_samples].reshape(-1, chunk_samples)
-        rem = len(a) - n_full * chunk_samples
-        if rem:
-            grid[i, n_full, :rem] = a[n_full * chunk_samples :]
+    with tracing.zone("batch.read"):
+        audios = [read_file_s16(p, target_rate=sample_rate) for p in paths]
+        tracing.count("batch.read_bytes", sum(a.nbytes for a in audios))
+    with tracing.zone("batch.grid"):
+        valid = np.asarray([-(-len(a) // chunk_samples) for a in audios], np.int64)
+        # emission parity with the streaming CLI: a trailing partial chunk is
+        # model-processed but not emitted (vadc.c:964 floor semantics)
+        emit_valid = np.asarray([len(a) // chunk_samples for a in audios], np.int64)
+        t_max = int(valid.max())
+        grid = np.zeros((len(audios), t_max, chunk_samples), np.int16)
+        for i, a in enumerate(audios):
+            n_full = len(a) // chunk_samples
+            grid[i, :n_full] = a[: n_full * chunk_samples].reshape(-1, chunk_samples)
+            rem = len(a) - n_full * chunk_samples
+            if rem:
+                grid[i, n_full, :rem] = a[n_full * chunk_samples :]
     return grid, emit_valid, audios
 
 
 def main(argv: list[str] | None = None) -> int:
     try:
-        return _main(argv)
+        with tracing.profile(), tracing.zone("batch.job", job=True):
+            return _main(argv)
     except (FileNotFoundError, ValueError, NotImplementedError, NoCudaDeviceError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
@@ -160,12 +174,14 @@ def _main(argv: list[str] | None = None) -> int:
     # devices are cards: each shard's rows of a slab are then one contiguous
     # run that an asynchronous copy takes to its device.
     on_card = device.type == "cuda"
-    slabs = torch.zeros((n_slabs, n_streams, slab, seq), dtype=torch.int16, pin_memory=on_card)
-    slabs_np = slabs.numpy()
-    for k in range(n_slabs):
-        piece = grid[:, k * slab : (k + 1) * slab]
-        slabs_np[k, :n_files, : piece.shape[1]] = piece
-    del grid
+    with tracing.zone("batch.pin"):
+        slabs = torch.zeros((n_slabs, n_streams, slab, seq), dtype=torch.int16,
+                            pin_memory=on_card)
+        slabs_np = slabs.numpy()
+        for k in range(n_slabs):
+            piece = grid[:, k * slab : (k + 1) * slab]
+            slabs_np[k, :n_files, : piece.shape[1]] = piece
+        del grid
 
     state = runner.init_state(n_streams)
     seg_config = SegmenterConfig.from_ms(
@@ -225,37 +241,39 @@ def _main(argv: list[str] | None = None) -> int:
 
     pending = h2d(0) if n_slabs else None
     for k in range(n_slabs):
-        nxt = h2d(k + 1) if k + 1 < n_slabs else None
-        probs, state = runner.scan(dequant(pending), state)
+        with tracing.zone("batch.slab"):
+            nxt = h2d(k + 1) if k + 1 < n_slabs else None
+            probs, state = runner.scan(dequant(pending), state)
         segmenter.feed(probs)
         pending = nxt
 
     segments = segmenter.finish(valid_chunks=valid_all)[:n_files]
-    for path, segs in zip(args.files, segments):
-        for start, end in segs:
-            sys.stdout.write(f"{path}\t{start:.2f},{end:.2f}\n")
-    sys.stdout.flush()
+    with tracing.zone("batch.output"):
+        for path, segs in zip(args.files, segments):
+            for start, end in segs:
+                sys.stdout.write(f"{path}\t{start:.2f},{end:.2f}\n")
+        sys.stdout.flush()
 
-    if args.cut_dir is not None:
-        # corpus-scale silence removal: slice the kept ranges out of the
-        # already-loaded samples and write one speech-only file per input
-        os.makedirs(args.cut_dir, exist_ok=True)
-        written: set[str] = set()
-        for path, samples, segs in zip(args.files, audios, segments):
-            kept = slice_segments(samples, segs, model_sr)
-            name = Path(path).name
-            if name in written:  # same basename from different directories
-                stem, dot, ext = name.partition(".")
-                i = 1
-                while f"{stem}_{i}{dot}{ext}" in written:
-                    i += 1
-                name = f"{stem}_{i}{dot}{ext}"
-            written.add(name)
-            out = Path(args.cut_dir) / name
-            if name.lower().endswith(".wav"):
-                write_wav(out, kept, sample_rate=model_sr)
-            else:
-                out.write_bytes(np.asarray(kept, "<i2").tobytes())
+        if args.cut_dir is not None:
+            # corpus-scale silence removal: slice the kept ranges out of the
+            # already-loaded samples and write one speech-only file per input
+            os.makedirs(args.cut_dir, exist_ok=True)
+            written: set[str] = set()
+            for path, samples, segs in zip(args.files, audios, segments):
+                kept = slice_segments(samples, segs, model_sr)
+                name = Path(path).name
+                if name in written:  # same basename from different directories
+                    stem, dot, ext = name.partition(".")
+                    i = 1
+                    while f"{stem}_{i}{dot}{ext}" in written:
+                        i += 1
+                    name = f"{stem}_{i}{dot}{ext}"
+                written.add(name)
+                out = Path(args.cut_dir) / name
+                if name.lower().endswith(".wav"):
+                    write_wav(out, kept, sample_rate=model_sr)
+                else:
+                    out.write_bytes(np.asarray(kept, "<i2").tobytes())
 
     if args.stats:
         wall = time.perf_counter() - t0

@@ -9,7 +9,9 @@ slab.
 
 Used by the offline corpus path (cli/batch.py): probabilities [B, T] in,
 per-chunk "segment closed here" events out; pad/merge and emission stay on
-the host (they touch only the few closed segments, not every chunk).
+the host (they touch only the few closed segments, not every chunk). `BatchSegmenter.feed` and
+`.finish` are the spans `segmenter.feed` and `segmenter.finish`
+(tracing.zone).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from vadc_tpu_torch import native
+from vadc_tpu_torch import native, tracing
 from vadc_tpu_torch.cli.segmenter import SegmenterConfig
 from vadc_tpu_torch.runtime import resolve_device
 
@@ -210,28 +212,29 @@ class BatchSegmenter:
 
     def feed(self, probs) -> None:
         """probs [B, T]: a tensor on the segmenter's device, or array-like."""
-        probs = torch.as_tensor(probs, dtype=torch.float32).to(self.device)
-        if self._native is not None:
-            # defer only the device->host probability pull; the C++ FSM
-            # must still see slabs in order, so draining is FIFO
-            self._pending.append((*_to_host(probs), self._fed_chunks))
-        else:
-            cfg = self.config
-            self.state, (closed, seg_start, seg_end) = segment_batch(
-                probs,
-                threshold=cfg.threshold,
-                neg_threshold=cfg.neg_threshold,
-                min_silence_chunks=cfg.min_silence_chunks,
-                min_speech_chunks=cfg.min_speech_chunks,
-                state=self.state,
-                valid_chunks=self._valid_dev,
-            )
-            # one [3, T, B] int32 tensor: one copy to the host, no sync yet
-            events = torch.stack([closed.to(torch.int32), seg_start, seg_end])
-            self._pending.append(_to_host(events))
-        self._fed_chunks += probs.shape[1]
-        while len(self._pending) > self.pending_depth:
-            self._drain_one()
+        with tracing.zone("segmenter.feed"):
+            probs = torch.as_tensor(probs, dtype=torch.float32).to(self.device)
+            if self._native is not None:
+                # defer only the device->host probability pull; the C++ FSM
+                # must still see slabs in order, so draining is FIFO
+                self._pending.append((*_to_host(probs), self._fed_chunks))
+            else:
+                cfg = self.config
+                self.state, (closed, seg_start, seg_end) = segment_batch(
+                    probs,
+                    threshold=cfg.threshold,
+                    neg_threshold=cfg.neg_threshold,
+                    min_silence_chunks=cfg.min_silence_chunks,
+                    min_speech_chunks=cfg.min_speech_chunks,
+                    state=self.state,
+                    valid_chunks=self._valid_dev,
+                )
+                # one [3, T, B] int32 tensor: one copy to the host, no sync yet
+                events = torch.stack([closed.to(torch.int32), seg_start, seg_end])
+                self._pending.append(_to_host(events))
+            self._fed_chunks += probs.shape[1]
+            while len(self._pending) > self.pending_depth:
+                self._drain_one()
 
     def _drain_one(self) -> None:
         host, done, *rest = self._pending.popleft()
@@ -271,55 +274,56 @@ class BatchSegmenter:
         """valid_chunks: per-stream real chunk counts (for zero-padded batch
         grids); segments are clamped to each stream's real extent and the
         reference's EOF snap applies at it (vadc.c:1005-1027)."""
-        while self._pending:
-            self._drain_one()
-        cfg = self.config
-        if self._native is not None:
-            triggered = self._native.triggered.astype(bool)
-            open_start = self._native.speech_start
-            total_chunks = int(self._native.chunk_index.max()) if self.n_streams else 0
-        else:
-            triggered = self.state.triggered.cpu().numpy()
-            open_start = self.state.speech_start.cpu().numpy()
-            total_chunks = self.state.chunk_index
-        if valid_chunks is None:
-            valid_chunks = (
-                self._valid if self._valid is not None else [total_chunks] * self.n_streams
-            )
-        elif self._valid is not None:
-            mismatched = [
-                (i, int(v), int(w))
-                for i, (v, w) in enumerate(zip(valid_chunks, self._valid))
-                if int(v) != int(w)
-            ]
-            if mismatched:
-                raise ValueError(
-                    "finish(valid_chunks=...) disagrees with the "
-                    f"constructor's valid_chunks at streams {mismatched[:4]}"
+        with tracing.zone("segmenter.finish"):
+            while self._pending:
+                self._drain_one()
+            cfg = self.config
+            if self._native is not None:
+                triggered = self._native.triggered.astype(bool)
+                open_start = self._native.speech_start
+                total_chunks = int(self._native.chunk_index.max()) if self.n_streams else 0
+            else:
+                triggered = self.state.triggered.cpu().numpy()
+                open_start = self.state.speech_start.cpu().numpy()
+                total_chunks = self.state.chunk_index
+            if valid_chunks is None:
+                valid_chunks = (
+                    self._valid if self._valid is not None else [total_chunks] * self.n_streams
                 )
-        out: list[list[tuple[float, float]]] = []
-        spc = cfg.seconds_per_chunk
-        pad = cfg.speech_pad_s
-        for i in range(self.n_streams):
-            valid = int(valid_chunks[i])
-            last_chunk = valid - 1
-            # with constructor valid_chunks the FSM never saw pad chunks,
-            # so raw events already lie within real data; the filter/clamp
-            # stays as a guard for callers that pad without masking
-            raw = [(s, min(e, last_chunk)) for s, e in self._raw[i] if s < valid]
-            if triggered[i] and int(open_start[i]) < valid:
-                if last_chunk - int(open_start[i]) > cfg.min_speech_chunks:
-                    raw.append((int(open_start[i]), last_chunk))
-            merged: list[tuple[float, float]] = []
-            for start_c, end_c in raw:
-                start_s = max(start_c * spc - pad, 0.0)
-                end_s = end_c * spc + pad
-                if merged and merged[-1][1] >= start_s:
-                    merged[-1] = (merged[-1][0], end_s)
-                else:
-                    merged.append((start_s, end_s))
-            out.append(merged)
-        return out
+            elif self._valid is not None:
+                mismatched = [
+                    (i, int(v), int(w))
+                    for i, (v, w) in enumerate(zip(valid_chunks, self._valid))
+                    if int(v) != int(w)
+                ]
+                if mismatched:
+                    raise ValueError(
+                        "finish(valid_chunks=...) disagrees with the "
+                        f"constructor's valid_chunks at streams {mismatched[:4]}"
+                    )
+            out: list[list[tuple[float, float]]] = []
+            spc = cfg.seconds_per_chunk
+            pad = cfg.speech_pad_s
+            for i in range(self.n_streams):
+                valid = int(valid_chunks[i])
+                last_chunk = valid - 1
+                # with constructor valid_chunks the FSM never saw pad chunks,
+                # so raw events already lie within real data; the filter/clamp
+                # stays as a guard for callers that pad without masking
+                raw = [(s, min(e, last_chunk)) for s, e in self._raw[i] if s < valid]
+                if triggered[i] and int(open_start[i]) < valid:
+                    if last_chunk - int(open_start[i]) > cfg.min_speech_chunks:
+                        raw.append((int(open_start[i]), last_chunk))
+                merged: list[tuple[float, float]] = []
+                for start_c, end_c in raw:
+                    start_s = max(start_c * spc - pad, 0.0)
+                    end_s = end_c * spc + pad
+                    if merged and merged[-1][1] >= start_s:
+                        merged[-1] = (merged[-1][0], end_s)
+                    else:
+                        merged.append((start_s, end_s))
+                out.append(merged)
+            return out
 
 
 def collect_segments(
