@@ -3,7 +3,10 @@ against `vadc_tpu.cli.batch` on the same files (raw s16le of unequal length,
 one pure silence, one 44.1 kHz wav), with the bundled archives given by
 path: identical stdout lines and identical --cut_dir files, unsharded and
 with the streams sharded over a list of CPU devices. Without a card
-`--device cuda` (the default) exits 1 with one line."""
+`--device cuda` (the default) exits 1 with one line. The ingest
+(`load_streams`) reads the files straight into the slab buffer: its slabs
+are the JAX CLI's grid whatever the buffer held before, and a file that
+shrinks while it is read is an error."""
 
 import numpy as np
 import pytest
@@ -154,12 +157,164 @@ def test_lines_equal_the_streaming_cli_per_file(corpus, capsys, monkeypatch):
         assert batch == streamed, path
 
 
-def test_load_streams_equals_the_jax_clis(corpus):
-    grid_t, valid_t, audios_t = TB.load_streams(corpus, 1536)
-    grid_j, valid_j, audios_j = JB.load_streams(corpus, 1536)
-    assert grid_t.dtype == np.int16 and np.array_equal(grid_t, grid_j)
+@pytest.fixture(scope="module")
+def odd_corpus(corpus, tmp_path_factory):
+    """The corpus and one raw file more, 4.2 s of speech and an odd
+    trailing byte."""
+    n = int(4.2 * SR)
+    pcm = np.clip(speech(n // 1536 + 1, seed=44).ravel()[:n] * 32768, -32768, 32767).astype("<i2")
+    path = tmp_path_factory.mktemp("odd") / "odd.s16le"
+    path.write_bytes(pcm.tobytes() + b"\x5a")
+    return [*corpus, str(path)]
+
+
+def _laid_back(slabs: torch.Tensor) -> np.ndarray:
+    """[n_slabs, B, slab, chunk] slabs as the [B, n_slabs * slab, chunk] grid."""
+    n_slabs, streams, slab, chunk = slabs.shape
+    return slabs.permute(1, 0, 2, 3).reshape(streams, n_slabs * slab, chunk).numpy()
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("slab", [64, 16, 5])
+def test_load_streams_equals_the_jax_clis(odd_corpus, slab, shards):
+    """The slabs laid back to [B, T_max, chunk] are the JAX CLI's grid bit
+    for bit, the time axis past T_max and the silent streams (6 files
+    padded to 8 streams for 4 shards) zero; the same emitted chunk counts
+    and sample counts."""
+    slabs, valid_t, lengths = TB.load_streams(odd_corpus, 1536, slab_chunks=slab, shards=shards)
+    grid_j, valid_j, audios_j = JB.load_streams(odd_corpus, 1536)
+    n_files, t_max = grid_j.shape[:2]
+    assert slabs.dtype == torch.int16
+    assert slabs.shape == (-(-t_max // slab), -(-n_files // shards) * shards, slab, 1536)
+    grid_t = _laid_back(slabs)
+    assert np.array_equal(grid_t[:n_files, :t_max], grid_j)
+    assert not grid_t[n_files:].any() and not grid_t[:, t_max:].any()
     assert np.array_equal(valid_t, valid_j)
-    assert all(np.array_equal(a, b) for a, b in zip(audios_t, audios_j))
+    assert list(lengths) == [len(a) for a in audios_j]
+    assert lengths[-1] == (1 + 2 * int(4.2 * SR)) // 2
+
+
+@pytest.mark.parametrize("slab,shards", [(64, 1), (5, 4)])
+def test_load_streams_zeroes_what_a_reused_buffer_held(odd_corpus, monkeypatch, slab, shards):
+    """A buffer full of 0x7FFF, as the pinned block of an earlier job may
+    be, gives the slabs of a clean one."""
+    clean = TB.load_streams(odd_corpus, 1536, slab_chunks=slab, shards=shards)[0]
+    monkeypatch.setattr(TB, "slab_buffer",
+                        lambda shape, pin: torch.full(shape, 0x7FFF, dtype=torch.int16))
+    stale = TB.load_streams(odd_corpus, 1536, slab_chunks=slab, shards=shards)[0]
+    assert torch.equal(stale, clean)
+
+
+def test_load_streams_past_the_open_file_budget_reopens_the_files(odd_corpus, monkeypatch):
+    """Files past half the descriptor limit are closed after their sizing
+    and opened again to be read: at most that many held open while the
+    buffer is taken, and the same slabs."""
+    import os
+
+    clean = TB.load_streams(odd_corpus, 1536, slab_chunks=5)[0]
+    take, held = TB.slab_buffer, []
+
+    def counted(shape, pin):
+        held.append(len(os.listdir("/proc/self/fd")))
+        return take(shape, pin)
+
+    monkeypatch.setattr(TB, "slab_buffer", counted)
+    before = len(os.listdir("/proc/self/fd"))
+    assert torch.equal(TB.load_streams(odd_corpus, 1536, slab_chunks=5)[0], clean)
+    assert held[-1] - before == 5  # the raw files, the wav closed
+    monkeypatch.setattr(TB.resource, "getrlimit", lambda _which: (4, 4))
+    assert torch.equal(TB.load_streams(odd_corpus, 1536, slab_chunks=5)[0], clean)
+    assert held[-1] - before == 2
+    assert len(os.listdir("/proc/self/fd")) == before
+
+
+def test_read_runs_resumes_after_short_reads(tmp_path, monkeypatch):
+    """A preadv that returns part of what was asked, and at most MAX_IOV
+    buffers a call: the runs are filled in order all the same."""
+    import os
+
+    data = np.random.default_rng(3).integers(0, 256, 10_000, dtype=np.uint8)
+    path = tmp_path / "f.bin"
+    path.write_bytes(data.tobytes())
+    preadv, calls = os.preadv, []
+
+    def short(fd, buffers, offset):
+        calls.append(len(buffers))
+        return preadv(fd, [b[:777] for b in buffers[:1]], offset)
+
+    monkeypatch.setattr(TB, "MAX_IOV", 2)
+    monkeypatch.setattr(os, "preadv", short)
+    out = np.zeros(10_000, np.uint8)
+    runs = [memoryview(out[a:b]) for a, b in ((0, 3000), (3000, 6001), (6001, 10_000))]
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        assert TB._read_runs(fd, runs, str(path)) == 10_000
+    finally:
+        os.close(fd)
+    assert np.array_equal(out, data) and max(calls) == 2 and len(calls) > 13
+
+
+def test_a_shorter_corpus_after_a_longer_one_prints_a_fresh_processs_lines(
+        corpus, tmp_path, capsys, monkeypatch):
+    """Two jobs in one process, the second on shorter files, with the slab
+    buffer handed back from the first job as torch's pinned-memory cache
+    hands it back on a card: the second job's lines and cut files are a
+    fresh process's."""
+    import os
+    import subprocess
+    import sys
+
+    from tests.torch_port_util import ROOT
+
+    short = []
+    for i, secs in enumerate((4.0, 1.3)):
+        n = int(secs * SR)
+        pcm = np.clip(speech(n // 1536 + 1, seed=50 + i).ravel()[:n] * 32768, -32768,
+                      32767).astype("<i2")
+        short.append(str(tmp_path / f"short{i}.s16le"))
+        pcm.tofile(short[-1])
+    model = ["--model", str(V31_ARCHIVE), "--slab_chunks", "16", "--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    fresh = subprocess.run([sys.executable, "-m", "vadc_tpu_torch.cli.batch", *short, *model,
+                            "--cut_dir", str(tmp_path / "fresh")],
+                           capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert fresh.returncode == 0, fresh.stderr
+
+    cache, handed = [], []
+
+    def cached(shape, pin):
+        need = int(np.prod(shape))
+        if not cache or cache[0].numel() < need:
+            cache[:] = [torch.empty(need, dtype=torch.int16)]
+        handed.append(cache[0].data_ptr())
+        return cache[0][:need].view(shape)
+
+    monkeypatch.setattr(TB, "slab_buffer", cached)
+    rc_long, out_long, _ = _run(TB, [*corpus[:3], *model], capsys)
+    rc, out, _ = _run(TB, [*short, *model, "--cut_dir", str(tmp_path / "after")], capsys)
+    assert rc_long == rc == 0 and out_long
+    assert handed[0] == handed[1]
+    assert out == fresh.stdout and out
+    assert _cut_files(tmp_path / "after") == _cut_files(tmp_path / "fresh")
+
+
+def test_a_file_that_shrinks_after_it_was_sized_exits_1(corpus, tmp_path, capsys, monkeypatch):
+    """A file cut short between its fstat and its read is an error of one
+    line, never zeros in its place."""
+    path = tmp_path / "shrinks.s16le"
+    path.write_bytes(open(corpus[0], "rb").read())
+    take = TB.slab_buffer
+
+    def truncate_then_take(shape, pin):
+        with open(path, "r+b") as f:
+            f.truncate(3000)
+        return take(shape, pin)
+
+    monkeypatch.setattr(TB, "slab_buffer", truncate_then_take)
+    rc, out, err = _run(TB, [corpus[1], str(path), "--device", "cpu"], capsys)
+    assert rc == 1 and out == ""
+    assert len(err.strip().splitlines()) == 1
+    assert err.startswith("Error: ") and "shrank" in err and str(path) in err
 
 
 def test_cuda_is_the_default_and_exits_1_without_a_card(corpus, capsys):

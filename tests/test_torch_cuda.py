@@ -329,6 +329,54 @@ def test_batch_cli_on_the_card_equals_its_cpu_self(tmp_path, device, capsys):
         assert (tmp_path / "cuda" / name).read_bytes() == (tmp_path / "cpu" / name).read_bytes()
 
 
+def test_batch_cli_back_to_back_reuses_the_pinned_block(tmp_path, device, capsys):
+    """Two jobs in one process, the second on shorter files of the same
+    slab shape: the second job's slab buffer is the first one's pinned
+    block, which still holds its samples, and its lines and cut files are
+    those of a fresh process."""
+    import os
+    import subprocess
+    import sys
+
+    from vadc_tpu_torch.cli import batch
+
+    def corpus(name, lengths, seed):
+        paths = []
+        for i, n_chunks in enumerate(lengths):
+            pcm = np.clip(speech(n_chunks, seed=seed + i).ravel()[: n_chunks * 1536 - 211 * i]
+                          * 32768, -32768, 32767).astype("<i2")
+            paths.append(str(tmp_path / f"{name}{i}.s16le"))
+            pcm.tofile(paths[-1])
+        return paths
+
+    longer, shorter = corpus("long", (150, 120, 90, 61), 80), corpus("short", (145, 30, 9, 2), 90)
+    argv = ["--slab_chunks", "16", "--device", device.type]
+    root = Path(__file__).resolve().parent.parent
+    fresh = subprocess.run([sys.executable, "-m", "vadc_tpu_torch.cli.batch", *shorter, *argv,
+                            "--cut_dir", str(tmp_path / "fresh")], capture_output=True, text=True,
+                           timeout=600, env=dict(os.environ, PYTHONPATH=str(root)), cwd=root)
+    assert fresh.returncode == 0, fresh.stderr
+    take, blocks = batch.slab_buffer, []
+
+    def recorded(shape, pin):
+        slabs = take(shape, pin)
+        blocks.append((slabs.data_ptr(), slabs.is_pinned()))
+        return slabs
+
+    batch.slab_buffer = recorded
+    try:
+        assert batch.main([*longer, *argv]) == 0
+        first = capsys.readouterr().out
+        assert batch.main([*shorter, *argv, "--cut_dir", str(tmp_path / "after")]) == 0
+        second = capsys.readouterr().out
+    finally:
+        batch.slab_buffer = take
+    assert first and second == fresh.stdout and second
+    assert blocks[0] == blocks[1] and blocks[0][1], blocks
+    for name in os.listdir(tmp_path / "fresh"):
+        assert (tmp_path / "after" / name).read_bytes() == (tmp_path / "fresh" / name).read_bytes()
+
+
 @pytest.mark.parametrize("batch,chunk", [(64, 1536), (37, 1536), (1, 1536), (16, 512),
                                          (16, 1024)])
 def test_forward_fused_kernel_matches_plain(params, device, batch, chunk):
@@ -1199,8 +1247,9 @@ def _report(label: str, leads: list) -> None:
 
 def test_batch_cli_spans_on_the_card(device, tmp_path, monkeypatch, capsys):
     """With VADC_TPU_PROFILE set, the batch CLI over 4 files writes one trace
-    and one counters file, and the trace names the CLI's spans beside the
-    slab kernels; in that trace (the profiler aligns the host's ranges and
+    and one counters file (the read bytes and the raw files read straight
+    into the slabs), and the trace names the CLI's spans, the ingest's in
+    the order open, pin, read, grid, beside the slab kernels; in that trace (the profiler aligns the host's ranges and
     the device's kernels) no encode_fused_audio kernel starts earlier than
     50 us before its batch.slab span. Under the benchmark's device trace
     (CUDA activity only) the recorder is on and records the spans; the
@@ -1235,10 +1284,15 @@ def test_batch_cli_spans_on_the_card(device, tmp_path, monkeypatch, capsys):
     assert len(list((tmp_path / "trace").iterdir())) == 2
     events = json.loads(trace.read_text())["traceEvents"]
     names = {e.get("name") for e in events}
-    assert {"batch.job", "batch.read", "batch.grid", "batch.pin", "batch.slab", "segmenter.feed",
-            "segmenter.finish", "batch.output", "encode_fused_audio"} <= names
+    assert {"batch.job", "batch.open", "batch.pin", "batch.read", "batch.grid", "batch.slab",
+            "segmenter.feed", "segmenter.finish", "batch.output", "encode_fused_audio"} <= names
     assert json.loads(counters.read_text()) == {
-        "batch.read_bytes": sum(os.path.getsize(p) for p in paths)}
+        "batch.read_bytes": sum(os.path.getsize(p) for p in paths),
+        "batch.read_direct_files": len(paths)}
+    ingest = ["batch.open", "batch.pin", "batch.read", "batch.grid"]
+    phases = sorted((e["ts"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation" and e.get("name") in ingest)
+    assert [name for _ts, name in phases] == ingest
     slabs = sorted(e["ts"] * 1e-6 for e in events
                    if e.get("name") == "batch.slab" and e.get("cat") == "user_annotation")
     kernels = sorted(e["ts"] * 1e-6 for e in events

@@ -23,8 +23,8 @@ from vadc_tpu_torch.engine.runner import StreamRunner
 PLAIN_ZONES = {"stft", "adaptive_norm", "encoder_layer_1", "encoder_layer_2", "encoder_layer_3",
                "encoder_layer_4", "lstm", "decoder"}
 #: the batch CLI's spans: name -> the name of its parent
-BATCH_TREE = {"batch.read": "batch.job", "batch.grid": "batch.job", "batch.pin": "batch.job",
-              "batch.slab": "batch.job", "segmenter.feed": "batch.job",
+BATCH_TREE = {"batch.open": "batch.job", "batch.pin": "batch.job", "batch.read": "batch.job",
+              "batch.grid": "batch.job", "batch.slab": "batch.job", "segmenter.feed": "batch.job",
               "segmenter.finish": "batch.job", "batch.output": "batch.job"}
 
 
@@ -235,13 +235,14 @@ def test_batch_cli_span_tree_and_read_counter(corpus, batch_runs):
                       "segmenter.feed": n_slabs}
     # the phases in the order the CLI runs them, the slab kernels inside the slabs
     order = [s.name for s in sorted(named, key=lambda s: s.start_ns)]
-    assert order[:3] == ["batch.read", "batch.grid", "batch.pin"]
-    assert order[3:-2] == ["batch.slab", "segmenter.feed"] * n_slabs
+    assert order[:4] == ["batch.open", "batch.pin", "batch.read", "batch.grid"]
+    assert order[4:-2] == ["batch.slab", "segmenter.feed"] * n_slabs
     assert order[-2:] == ["segmenter.finish", "batch.output"]
     for s in spans:
         if s.name == "encode_fused_audio":
             assert by_index[s.parent].name == "batch.slab"
-    assert counters == {"batch.read_bytes": sum(os.path.getsize(p) for p in corpus)}
+    assert counters == {"batch.read_bytes": sum(os.path.getsize(p) for p in corpus),
+                        "batch.read_direct_files": len(corpus)}
 
 
 def test_batch_cli_lines_are_the_same_with_the_recorder_on(batch_runs):
@@ -260,4 +261,24 @@ def test_batch_cli_traces_under_the_variable(corpus, tmp_path, monkeypatch):
     assert {"batch.job", *BATCH_TREE, "encode_fused_audio"} <= names
     (counters,) = list(tmp_path.glob("vadc_counters_*.json"))
     assert json.loads(counters.read_text()) == {
-        "batch.read_bytes": sum(os.path.getsize(p) for p in corpus[:2])}
+        "batch.read_bytes": sum(os.path.getsize(p) for p in corpus[:2]),
+        "batch.read_direct_files": 2}
+
+
+def test_batch_cli_counts_a_wav_input_apart(corpus, tmp_path):
+    """A .wav input is decoded and copied into its runs: its samples' bytes
+    count in `batch.read_bytes`, the file not in `batch.read_direct_files`.
+    A raw file's odd trailing byte is not read."""
+    import os
+
+    from vadc_tpu_torch.io.wav import read_file_s16, write_wav
+
+    wav, odd = tmp_path / "s1.wav", tmp_path / "odd.s16le"
+    write_wav(wav, np.fromfile(corpus[1], "<i2"), sample_rate=16000)
+    odd.write_bytes(open(corpus[2], "rb").read() + b"\x01")
+    with tracing.record():
+        _batch([corpus[0], str(wav), str(odd)])
+    assert tracing.counters() == {
+        "batch.read_bytes": os.path.getsize(corpus[0]) + read_file_s16(wav).nbytes
+        + os.path.getsize(corpus[2]),
+        "batch.read_direct_files": 2}

@@ -30,18 +30,24 @@ error; it never runs on the CPU instead. With VADC_TPU_PROFILE=<dir> the
 run writes a torch.profiler trace and its counters there (tracing.py).
 
 Spans (tracing.zone, recorded while a profiler runs or inside
-tracing.record()): `batch.job` around the whole run, in it `batch.read`
-(the files read; the counter `batch.read_bytes`), `batch.grid` (the int16
-chunk grid), `batch.pin` (the pinned slabs filled), one `batch.slab` a slab
-(the next slab's copies enqueued, the dequant, the scan), the segmenter's
-`segmenter.feed` and `segmenter.finish`, and `batch.output` (the lines and
-the cut files).
+tracing.record()): `batch.job` around the whole run, in it, from
+`load_streams`, `batch.open` (the files opened and sized: `fstat`, the
+12-byte RIFF sniff, a .wav input decoded), `batch.pin` (the slab buffer
+taken: uninitialised, from torch's pinned-memory cache after the first
+job), `batch.read` (the files read into it; the counters `batch.read_bytes`,
+the samples' bytes, and `batch.read_direct_files`, the raw files read
+straight into their runs, as against a .wav input's decoded copy) and
+`batch.grid` (the padding zeroed: past each file's last sample, and the
+silent streams); then one `batch.slab` a slab (the next slab's copies
+enqueued, the dequant, the scan), the segmenter's `segmenter.feed` and
+`segmenter.finish`, and `batch.output` (the lines and the cut files).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import resource
 import sys
 import time
 from pathlib import Path
@@ -89,36 +95,117 @@ def batch_devices(device: str) -> list:
     return stream_devices(None if device == "cuda" else [device])
 
 
+def slab_buffer(shape: tuple, pin: bool):
+    """The slab-major int16 host buffer, uninitialised: pinned for the
+    cards, where a job after the first takes the block back from torch's
+    pinned-memory cache with the samples of the job before still in it."""
+    import torch
+
+    return torch.empty(shape, dtype=torch.int16, pin_memory=pin)
+
+
+#: buffers one preadv takes (Linux's UIO_MAXIOV)
+MAX_IOV = 1024
+
+
+def _read_runs(fd: int, runs: list, path: str) -> int:
+    """Read the file from its start into the buffers `runs`, in order,
+    until they are full; a file that ends first is an error. Returns the
+    bytes read."""
+    want, got = sum(len(r) for r in runs), 0
+    while runs:
+        step = os.preadv(fd, runs[:MAX_IOV], got)
+        if not step:
+            raise ValueError(f"{path}: the file shrank while it was read ({got} of {want} bytes)")
+        got += step
+        while runs and step >= len(runs[0]):
+            step -= len(runs.pop(0))
+        if step:
+            runs[0] = runs[0][step:]
+    return got
+
+
 def load_streams(
-    paths: list[str], chunk_samples: int, sample_rate: int = 16000
-) -> tuple[np.ndarray, np.ndarray, list[np.ndarray]]:
-    """Load s16le files into a zero-padded [B, T_max, chunk] grid.
-    Returns (chunk grid, per-stream emitted chunk counts, the files' samples).
+    paths: list[str], chunk_samples: int, sample_rate: int = 16000, *,
+    slab_chunks: int = 64, shards: int = 1, pin: bool = False,
+) -> tuple:
+    """Read the files straight into the slab-major buffer that the
+    host->device copies read from: int16 [n_slabs, n_streams, slab, chunk],
+    the time axis zero-padded to a whole number of slabs and the stream
+    count to a multiple of `shards` with silent streams. File i's samples
+    of slab k are the one contiguous run `slabs[k, i]`, so a raw file is
+    read by one `preadv` into its runs, in order, and nothing but the
+    padding is written besides. A .wav input (RIFF magic) is decoded
+    (downmixed, resampled to `sample_rate`) and copied into its runs.
+    Returns (slabs, per-file emitted chunk counts, per-file sample counts).
 
-    The grid stays int16: the s16 -> f32/32768 conversion runs ON THE DEVICE
-    per slab, so int16 is what crosses the host->device link (half the
-    bytes), and no whole-corpus float conversion runs on the host."""
-    from vadc_tpu_torch.io.wav import read_file_s16
+    The samples stay int16: the s16 -> f32/32768 conversion runs ON THE
+    DEVICE per slab, so int16 is what crosses the host->device link (half
+    the bytes), and no whole-corpus float conversion runs on the host."""
+    from vadc_tpu_torch.io.wav import is_riff_wave, read_file_s16
 
-    # raw s16le or .wav (sniffed by magic; wav decodes/downmixes/resamples
-    # natively — the reference needs ffmpeg for any container input)
-    with tracing.zone("batch.read"):
-        audios = [read_file_s16(p, target_rate=sample_rate) for p in paths]
-        tracing.count("batch.read_bytes", sum(a.nbytes for a in audios))
-    with tracing.zone("batch.grid"):
-        valid = np.asarray([-(-len(a) // chunk_samples) for a in audios], np.int64)
+    lengths = np.zeros(len(paths), np.int64)
+    decoded = {}  # a .wav input's samples, by file
+    fds = {}  # raw files held open from their sizing to their read
+    keep_open = resource.getrlimit(resource.RLIMIT_NOFILE)[0] // 2
+    try:
+        with tracing.zone("batch.open"):
+            for i, path in enumerate(paths):
+                fds[i] = os.open(path, os.O_RDONLY)
+                size = os.fstat(fds[i]).st_size
+                if is_riff_wave(os.pread(fds[i], 12, 0)):
+                    decoded[i] = read_file_s16(path, target_rate=sample_rate)
+                    size = 2 * len(decoded[i])
+                if i in decoded or len(fds) > keep_open:
+                    os.close(fds.pop(i))
+                # a raw file's odd trailing byte is dropped
+                lengths[i] = size // 2
+        valid = -(-lengths // chunk_samples)
         # emission parity with the streaming CLI: a trailing partial chunk is
         # model-processed but not emitted (vadc.c:964 floor semantics)
-        emit_valid = np.asarray([len(a) // chunk_samples for a in audios], np.int64)
+        emit_valid = lengths // chunk_samples
         t_max = int(valid.max())
-        grid = np.zeros((len(audios), t_max, chunk_samples), np.int16)
-        for i, a in enumerate(audios):
-            n_full = len(a) // chunk_samples
-            grid[i, :n_full] = a[: n_full * chunk_samples].reshape(-1, chunk_samples)
-            rem = len(a) - n_full * chunk_samples
+        slab = max(1, min(slab_chunks, t_max))
+        n_slabs = -(-t_max // slab)
+        n_streams = -(-len(paths) // shards) * shards
+        run = slab * chunk_samples
+
+        with tracing.zone("batch.pin"):
+            slabs = slab_buffer((n_slabs, n_streams, slab, chunk_samples), pin)
+        runs = slabs.numpy().reshape(n_slabs, n_streams, run)
+        with tracing.zone("batch.read"):
+            read = 0
+            for i, path in enumerate(paths):
+                n = int(lengths[i])
+                if i in decoded:
+                    for k in range(0, n, run):
+                        runs[k // run, i, : min(run, n - k)] = decoded[i][k : k + run]
+                    read += 2 * n
+                    continue
+                fd = fds.pop(i, None)
+                if fd is None:
+                    fd = os.open(path, os.O_RDONLY)
+                try:
+                    read += _read_runs(fd, [memoryview(runs[k // run, i, : min(run, n - k)])
+                                            .cast("B") for k in range(0, n, run)], path)
+                finally:
+                    os.close(fd)
+            tracing.count("batch.read_bytes", read)
+            tracing.count("batch.read_direct_files", len(paths) - len(decoded))
+    finally:
+        for fd in fds.values():
+            os.close(fd)
+    with tracing.zone("batch.grid"):
+        # the buffer may hold an earlier job's samples: every sample past a
+        # file's end, and the silent streams, are zeroed
+        for i, n in enumerate(lengths):
+            k, rem = divmod(int(n), run)
             if rem:
-                grid[i, n_full, :rem] = a[n_full * chunk_samples :]
-    return grid, emit_valid, audios
+                runs[k, i, rem:] = 0
+                k += 1
+            runs[k:, i] = 0
+        runs[:, len(paths):] = 0
+    return slabs, emit_valid, lengths
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -160,28 +247,18 @@ def _main(argv: list[str] | None = None) -> int:
     model_sr = runner.module.SAMPLE_RATE
 
     t0 = time.perf_counter()
-    grid, valid, audios = load_streams(args.files, seq, sample_rate=model_sr)
-    n_files, t_chunks = grid.shape[:2]
-    slab = max(1, min(args.slab_chunks, t_chunks))
-    n_slabs = -(-t_chunks // slab)
-    # pad the stream count to a multiple of the device count with silent
-    # streams that emit nothing (valid 0)
-    n_streams = -(-n_files // runner.n_shards) * runner.n_shards
-    valid_all = np.concatenate([valid, np.zeros(n_streams - n_files, valid.dtype)])
-
-    # The corpus slab by slab, [n_slabs, B, slab, chunk] int16 with the time
-    # axis zero-padded to a slab multiple, in pinned host memory when the
-    # devices are cards: each shard's rows of a slab are then one contiguous
-    # run that an asynchronous copy takes to its device.
+    # The corpus slab by slab, [n_slabs, B, slab, chunk] int16, in pinned
+    # host memory when the devices are cards: each shard's rows of a slab
+    # are then one contiguous run that an asynchronous copy takes to its
+    # device. The stream count is padded to a multiple of the device count
+    # with silent streams that emit nothing (valid 0).
     on_card = device.type == "cuda"
-    with tracing.zone("batch.pin"):
-        slabs = torch.zeros((n_slabs, n_streams, slab, seq), dtype=torch.int16,
-                            pin_memory=on_card)
-        slabs_np = slabs.numpy()
-        for k in range(n_slabs):
-            piece = grid[:, k * slab : (k + 1) * slab]
-            slabs_np[k, :n_files, : piece.shape[1]] = piece
-        del grid
+    slabs, valid, lengths = load_streams(args.files, seq, sample_rate=model_sr,
+                                         slab_chunks=args.slab_chunks,
+                                         shards=runner.n_shards, pin=on_card)
+    n_files = len(args.files)
+    n_slabs, n_streams = slabs.shape[:2]
+    valid_all = np.concatenate([valid, np.zeros(n_streams - n_files, valid.dtype)])
 
     state = runner.init_state(n_streams)
     seg_config = SegmenterConfig.from_ms(
@@ -255,11 +332,13 @@ def _main(argv: list[str] | None = None) -> int:
         sys.stdout.flush()
 
         if args.cut_dir is not None:
-            # corpus-scale silence removal: slice the kept ranges out of the
-            # already-loaded samples and write one speech-only file per input
+            # corpus-scale silence removal: slice the kept ranges out of each
+            # file's runs of the slabs and write one speech-only file per input
             os.makedirs(args.cut_dir, exist_ok=True)
             written: set[str] = set()
-            for path, samples, segs in zip(args.files, audios, segments):
+            runs = slabs.numpy()
+            for i, (path, segs) in enumerate(zip(args.files, segments)):
+                samples = runs[:, i].reshape(-1)[: lengths[i]]
                 kept = slice_segments(samples, segs, model_sr)
                 name = Path(path).name
                 if name in written:  # same basename from different directories

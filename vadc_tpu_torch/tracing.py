@@ -30,8 +30,9 @@ the plain path (the kernels' plain versions, which the CPU runs), and on the
 kernel path the kernel's name (`forward_fused`, `encode_fused_audio`,
 `lstm_decoder_fused`), around the plain stages on the CPU. The batch CLI's
 job and phases (`batch.*`) and the vectorized segmenter's calls
-(`segmenter.*`) are spans of their own, and `batch.read_bytes` counts the
-bytes of the files the CLI read.
+(`segmenter.*`) are spans of their own, `batch.read_bytes` counts the
+bytes of the files the CLI read and `batch.read_direct_files` the raw files
+it read straight into its slab buffer.
 """
 
 from __future__ import annotations
