@@ -2,10 +2,12 @@
 names, the profiler window, the record of launched shapes and host spans,
 and the checks of a run's process.
 
-Each configuration, traffic mix, limit set and per-layer metric is a file of
-its own, found by the name `BENCHMARK.json` gives it:
+Each configuration, model family, traffic mix, limit set and per-layer metric
+is a file of its own, found by the name `BENCHMARK.json` (or the configuration)
+gives it:
 
-    vadbench/configs/<config>.json      sizes, weights, precision, reference
+    vadbench/configs/<config>.json      sizes, weights, precision, reference, family
+    vadbench/families/<family>.py       the model's operations a chunk (metrics/counts.py)
     vadbench/traffic/<traffic>.json     parameters; "kind" names the module below
     vadbench/kinds/<kind>.py            drives the program under that kind of traffic
     vadbench/limits/<workload>.json     the limits that decide `correct`
@@ -114,6 +116,10 @@ def quantile(values, q: float) -> float:
 
 # ---- what the traced run records from outside the program ---------------
 
+def _stft_shape(a, k) -> tuple:
+    return (*a[0].shape, k["pad_left"], k["pad_right"], k["hop"], *a[1].shape)
+
+
 #: call sites of the kernels the rooflines read: (module, attribute) ->
 #: the kernel's name in the record and a function of the call's arguments
 #: giving the launched shape
@@ -123,10 +129,12 @@ CALL_SITES = {
     ("vadc_tpu_torch.models.silero_v31", "lstm_decoder_fused"):
         ("lstm_decoder_fused", lambda a, k: tuple(a[0].shape)),
     ("vadc_tpu_torch.models.silero_v4", "stft_magnitude"):
-        ("stft_magnitude", lambda a, k: (*a[0].shape, k["pad_left"], k["pad_right"], k["hop"],
-                                         *a[1].shape)),
+        ("stft_magnitude", _stft_shape),
+    ("vadc_tpu_torch.models.silero_v5", "stft_magnitude"):
+        ("stft_magnitude", _stft_shape),
+    # x [B, T, width], w [layers, 4 x hidden, 2 x hidden]
     ("vadc_tpu_torch.models.slab", "lstm_fused"):
-        ("lstm_fused", lambda a, k: (*a[0].shape, a[3].shape[0])),
+        ("lstm_fused", lambda a, k: (*a[0].shape, a[3].shape[0], a[3].shape[1] // 4)),
 }
 
 
@@ -190,6 +198,7 @@ class DeviceTrace:
         self.torch, self.device = torch, device
         self.prof = None
         self.events: list = []  # (name, start, duration), seconds, monotonic clock
+        self.chip_busy: dict = {}  # card index -> seconds busy (its events' union)
         self.t_begin = self.t_end = 0.0
 
     def warm(self) -> None:
@@ -225,39 +234,34 @@ class DeviceTrace:
         for e in self.prof.profiler.kineto_results.events():
             if e.device_type() != self.torch.autograd.DeviceType.CUDA or e.is_user_annotation():
                 continue
-            raw.append((e.name(), e.start_ns() * 1e-9, e.duration_ns() * 1e-9))
+            raw.append((e.name(), e.start_ns() * 1e-9, e.duration_ns() * 1e-9, e.device_index()))
         self.prof = None
         raw.sort(key=lambda r: r[1])
         marker = next((r for r in raw if "spin_kernel" in r[0]), raw[0] if raw else None)
-        if marker is None:
-            self.events = []
-            return
-        # the marker started at t_begin
-        offset = marker[1] - self.t_begin
-        self.events = [(n, s - offset, d) for n, s, d in raw if (n, s, d) != marker]
-
-    def clip(self, t0: float, t1: float) -> None:
-        """Keep the stretch [t0, t1] of the traced window and its events."""
-        self.t_begin, self.t_end = t0, t1
-        self.events = [e for e in self.events if t0 <= e[1] <= t1]
+        raw = [r for r in raw if r is not marker]
+        # the marker started at t_begin (on the first card; the profiler
+        # puts every card's events on one clock)
+        offset = marker[1] - self.t_begin if marker else 0.0
+        self.events = [(n, s - offset, d) for n, s, d, _dev in raw]
+        self.chip_busy = {dev: _union_s([(s, d) for _n, s, d, k in raw if k == dev])
+                          for dev in {r[3] for r in raw}}
 
     @property
     def window_s(self) -> float:
         return self.t_end - self.t_begin
 
     def busy_intervals(self) -> list:
-        """The union of the device events' intervals."""
-        out = []
-        for _n, s, d in self.events:
-            e = s + d
-            if out and s <= out[-1][1]:
-                out[-1][1] = max(out[-1][1], e)
-            else:
-                out.append([s, e])
-        return out
+        """The union of the device events' intervals (every card's)."""
+        return _union([(s, d) for _n, s, d in self.events])
 
     def busy_s(self) -> float:
-        return float(sum(e - s for s, e in self.busy_intervals()))
+        return _union_s([(s, d) for _n, s, d in self.events])
+
+    def chip_busy_s(self, chips: int) -> float:
+        """Seconds in which an operation ran on a card, averaged over
+        `chips` cards: each card's own union of its events, a card with
+        none counting 0."""
+        return float(sum(self.chip_busy.values())) / chips
 
     def idle_gaps(self) -> list:
         """(start, end) of each stretch of the traced window with nothing on
@@ -298,3 +302,20 @@ class DeviceTrace:
             "idle_gaps": [[f"{label} ({n} gaps, longest {longest * 1e3:.3f} ms)", float(total)]
                           for label, (n, total, longest) in gaps],
         }
+
+
+def _union(intervals) -> list:
+    """(start, duration) pairs, sorted by start -> their union as [start,
+    end] runs."""
+    out = []
+    for s, d in intervals:
+        e = s + d
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _union_s(intervals) -> float:
+    return float(sum(e - s for s, e in _union(intervals)))

@@ -22,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import os
 import shutil
+import statistics
 import sys
 import tempfile
 import time
@@ -35,10 +36,20 @@ from vadbench.traffic.audio import Library, Stream
 
 
 def file_lengths(seed: int, tr: dict, rate: int) -> np.ndarray:
-    """Samples of each file: evenly spaced over the mix's range, in an
-    order drawn from the seed (every seed carries the same audio)."""
+    """Samples of each file, in an order drawn from the seed (every seed
+    carries the same set of lengths, so the same audio): evenly spaced over
+    the mix's range `file_s`, or, where the mix gives `file_s_lognormal`
+    ({"median": s, "sigma": ...}), the log-normal's quantiles at (i + 0.5)
+    / files clipped to that range."""
     lo, hi = tr["file_s"]
-    lengths = np.round(np.linspace(lo, hi, tr["files"]) * rate).astype(np.int64)
+    shape = tr.get("file_s_lognormal")
+    if shape is None:
+        seconds = np.linspace(lo, hi, tr["files"])
+    else:
+        normal = statistics.NormalDist()
+        z = np.array([normal.inv_cdf((i + 0.5) / tr["files"]) for i in range(tr["files"])])
+        seconds = np.clip(shape["median"] * np.exp(shape["sigma"] * z), lo, hi)
+    lengths = np.round(seconds * rate).astype(np.int64)
     return np.random.default_rng([seed, 4]).permutation(lengths)
 
 
@@ -112,6 +123,7 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: str,
 
         _build.library()  # the port's CUDA library: built in a checkout's first run
         parts["kernel_library_s"] = time.monotonic() - t
+    from vadc_tpu_torch import tracing
     from vadc_tpu_torch.cli import batch
     from vadc_tpu_torch.engine import shard, vectorized_segmenter
 
@@ -198,7 +210,10 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: str,
             if dtrace and k == 0:
                 dtrace.begin()
                 record.on = True
-            times.append(job(k))
+            # the program's recorder on for the traced job, with or without
+            # a device trace (the profiler turns it on as well)
+            with (tracing.record() if trace and k == 0 else contextlib.nullcontext()):
+                times.append(job(k))
             if dtrace and k == 0:
                 record.on = False
                 dtrace.end()
@@ -212,7 +227,10 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: str,
               f"({', '.join(f'{k} {v:.3f}' for k, v in parts.items())}); jobs (s) "
               f"{[round(b - a, 4) for a, b in times]}", file=sys.stderr)
         record.uninstall()
-        memory_peak = int(torch.cuda.max_memory_allocated()) if device != "cpu" else 0
+        # the fullest card's peak (card 0 holds a shard, the gathered
+        # probabilities and the segmenter)
+        memory_peak = (max(int(torch.cuda.max_memory_allocated(i)) for i in range(cell.chips))
+                       if device != "cpu" else 0)
         got_probs = [torch.cat(c, dim=1).cpu().numpy() for c in captured[1:]]
         captured.clear()
         index.clear()
@@ -258,6 +276,7 @@ def run(cell: harness.Cell, seed: int, seconds: float, trace: bool, device: str,
             "chunks": chunks * len(done),
             "load_share": (sum(load) / (job0[1] - job0[0])) if trace and load else None,
             "trace": dtrace,
+            "traced_window": times[0] if trace else None,
             "calls": record.calls,
             "config": cfg,
             "model_flops_per_chunk": counts.model_flops_per_chunk(cfg),

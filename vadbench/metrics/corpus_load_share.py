@@ -1,5 +1,7 @@
-"""The traced job's time inside `cli/batch.py: load_streams` (reading the
-files, the int16 chunk grid) over the job's time, %."""
+"""The traced job's time inside `cli/batch.py: load_streams` (the files
+opened and sized, the pinned slab buffer taken, each file read into its
+runs of the buffer, the padding zeroed: the whole host ingest), wrapped
+from outside the program, over the job's time, %."""
 
 
 def read(run):

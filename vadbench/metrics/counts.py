@@ -11,22 +11,24 @@ fp32. The arithmetic is that of the repository's chip smoke test.
 
 from __future__ import annotations
 
+import importlib
+
 #: NVIDIA H100 SXM, published dense peaks: fp32 outside the tensor cores
 #: (the faithful tier), and the HBM3 rate
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 N_FFT, BINS, HOP = 256, 129, 64
+#: the LSTM of v3.1 and v4 (other widths are passed in)
 HIDDEN, LSTM_LAYERS = 64, 2
-#: (in, out, has a projection, stride) of each encoder stage
-V3_STAGES = ((129, 16, True, 2), (16, 32, True, 2), (32, 32, False, 1), (32, 64, True, 1))
-V4_STAGES = ((258, 16, True, 2), (16, 32, True, 2), (32, 32, False, 2), (32, 64, True, 1))
-STFT_PAD = {"v3": 128, "v4": 96}
-DECODER_OUTPUTS = {"v3": 2, "v4": 1}
 #: the packed v3.1 weights the step kernel reads (encoder, LSTM, decoder)
 V31_WEIGHT_BYTES = 124_632 * 4
 BASIS_BYTES = 2 * N_FFT * BINS * 4
-LSTM_WEIGHT_BYTES = (LSTM_LAYERS * 4 * HIDDEN * 2 * HIDDEN + LSTM_LAYERS * 4 * HIDDEN) * 4
+
+
+def lstm_weight_bytes(layers: int = LSTM_LAYERS, hidden: int = HIDDEN) -> int:
+    """Each layer's [4H, 2H] weight and [4H] bias, fp32."""
+    return (layers * 4 * hidden * 2 * hidden + layers * 4 * hidden) * 4
 
 
 def frames(samples: int, pad: int, n_fft: int = N_FFT, hop: int = HOP) -> int:
@@ -66,13 +68,18 @@ def lstm_flops(steps: int, layers: int = LSTM_LAYERS, hidden: int = HIDDEN) -> f
 
 
 def model_flops_per_chunk(config: dict) -> float:
-    """The whole model on one chunk of the configuration."""
-    family = config["family"]
-    stages = V3_STAGES if family == "v3" else V4_STAGES
-    f = frames(config["chunk_samples"], STFT_PAD[family])
-    t = encoder_frames(f, stages)
-    return (spectrum_flops(f) + encoder_flops(f, stages, family == "v3") + lstm_flops(t)
-            + 2.0 * t * HIDDEN * DECODER_OUTPUTS[family])
+    """The whole model on one chunk of the configuration, as the module of
+    its family (vadbench/families/<family>.py) counts it."""
+    name = config["family"]
+    try:
+        family = importlib.import_module(f"vadbench.families.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"vadbench.families.{name}":
+            raise
+        raise ModuleNotFoundError(
+            f"no count of the model family {name!r}: add vadbench/families/{name}.py with "
+            "flops_per_chunk(config)", name=e.name) from None
+    return family.flops_per_chunk(config)
 
 
 def bound_s(flops: float, nbytes: float) -> float:
@@ -82,9 +89,11 @@ def bound_s(flops: float, nbytes: float) -> float:
 
 def encode_fused_audio(rows: int, samples: int) -> tuple[float, float]:
     """The v3.1 slab's front half: rows chunks -> [rows, T, 64] features."""
-    f = frames(samples, STFT_PAD["v3"])
-    t = encoder_frames(f, V3_STAGES)
-    flops = spectrum_flops(rows * f) + rows * encoder_flops(f, V3_STAGES, True)
+    from vadbench.families import v3
+
+    f = frames(samples, v3.STFT_PAD)
+    t = encoder_frames(f, v3.STAGES)
+    flops = spectrum_flops(rows * f) + rows * encoder_flops(f, v3.STAGES, True)
     nbytes = rows * samples * 4 + rows * t * HIDDEN * 4 + V31_WEIGHT_BYTES + BASIS_BYTES
     return flops, nbytes
 
@@ -94,7 +103,7 @@ def lstm_decoder_fused(batch: int, chunks: int, t: int, width: int = HIDDEN) -> 
     probabilities [batch, chunks], state in and out."""
     steps = batch * chunks * t
     nbytes = (steps * width * 4 + 4 * LSTM_LAYERS * batch * HIDDEN * 4 + batch * chunks * 4
-              + LSTM_WEIGHT_BYTES + (2 * HIDDEN + 2) * 4)
+              + lstm_weight_bytes() + (2 * HIDDEN + 2) * 4)
     return lstm_flops(steps), nbytes
 
 
@@ -106,11 +115,13 @@ def stft_magnitude(batch: int, samples: int, pad_left: int, pad_right: int, hop:
     return spectrum_flops(batch * f, n_fft, bins), nbytes
 
 
-def lstm_fused(batch: int, t: int, width: int = HIDDEN, layers: int = LSTM_LAYERS
-               ) -> tuple[float, float]:
-    """[batch, t, 64] frames from a state -> outputs and the new state."""
-    state = 4 * layers * batch * HIDDEN * 4
-    return batch * lstm_flops(t, layers), 2 * batch * t * width * 4 + state + LSTM_WEIGHT_BYTES
+def lstm_fused(batch: int, t: int, width: int = HIDDEN, layers: int = LSTM_LAYERS,
+               hidden: int = HIDDEN) -> tuple[float, float]:
+    """[batch, t, width] frames from a state -> outputs and the new state,
+    `layers` layers of width `hidden`."""
+    state = 4 * layers * batch * hidden * 4
+    return (batch * lstm_flops(t, layers, hidden),
+            2 * batch * t * width * 4 + state + lstm_weight_bytes(layers, hidden))
 
 
 #: the recorded call's shape -> (flops, bytes), by kernel
@@ -119,5 +130,5 @@ KERNELS = {
     "lstm_decoder_fused": lambda shape: lstm_decoder_fused(*shape),
     "stft_magnitude": lambda shape: stft_magnitude(shape[0], shape[1], shape[2], shape[3],
                                                    shape[4], shape[5], shape[6]),
-    "lstm_fused": lambda shape: lstm_fused(shape[0], shape[1], shape[2], shape[3]),
+    "lstm_fused": lambda shape: lstm_fused(*shape),
 }

@@ -1,13 +1,14 @@
 """The program's own spans and counters (`vadc_tpu_torch.tracing`), for the
 per-layer readers of a traced corpus run.
 
-The recorder is on while the traced job's profiler runs, so after the run
-`tracing.spans()` holds that job: the last `batch.job` span that lies in
-the traced window, with its child spans (the batch CLI's phases, the
-segmenter's calls) and its counters. Spans are on `time.monotonic_ns()`,
-the clock `harness.DeviceTrace` maps the device's events onto, so the
-device's idle gaps fall under the spans the host was in. A program without
-the recorder (an older commit) gives no job, and the readers give None.
+The recorder is on while the traced job runs (`tracing.record()`, and on a
+card its profiler), so after the run `tracing.spans()` holds that job: the
+last `batch.job` span that lies in the traced window, with its child spans
+(the batch CLI's phases, the segmenter's calls) and its counters. Spans
+are on `time.monotonic_ns()`, the clock `harness.DeviceTrace` maps the
+device's events onto, so the device's idle gaps fall under the spans the
+host was in. A program without the recorder (an older commit) gives no
+job, and the readers give None.
 """
 
 from __future__ import annotations
@@ -51,9 +52,12 @@ class Job:
 
 
 def job(run: dict) -> Job | None:
-    """The last batch CLI job inside the traced window, or None."""
+    """The last batch CLI job inside the traced window (the run's
+    `traced_window`, else the device trace's), or None."""
     trace = run.get("trace")
-    if trace is None:
+    t_begin, t_end = run.get("traced_window") or (
+        (trace.t_begin, trace.t_end) if trace is not None else (None, None))
+    if t_begin is None:
         return None
     try:
         from vadc_tpu_torch import tracing
@@ -64,7 +68,7 @@ def job(run: dict) -> Job | None:
         return None
     spans = spans_of()
     jobs = [s for s in spans if s.name == "batch.job"
-            and trace.t_begin <= s.start_ns * 1e-9 and s.end_ns * 1e-9 <= trace.t_end]
+            and t_begin <= s.start_ns * 1e-9 and s.end_ns * 1e-9 <= t_end]
     if not jobs:
         return None
     root = max(jobs, key=lambda s: s.start_ns)
@@ -83,6 +87,6 @@ def idle_share(run: dict, name: str | None) -> float | None:
     """The job's device idle time under the child spans `name` (None: under
     none) over the job's time, %."""
     j = job(run)
-    if j is None or j.wall <= 0:
+    if j is None or j.wall <= 0 or run.get("trace") is None:
         return None
     return 100.0 * j.idle_under(run["trace"], name) / j.wall

@@ -57,7 +57,7 @@ def result_line(cell, out: dict, metrics: list[dict], trace: bool, device: str) 
             "failed": int(out["failed"]), "metrics": values, "device": dev}
     trace_rec = out["run"].get("trace")
     if trace and trace_rec is not None:
-        dev["busy_s"] = trace_rec.busy_s()
+        dev["busy_s"] = trace_rec.chip_busy_s(cell.chips)
         dev["window_s"] = trace_rec.window_s
         line["breakdown"] = out["breakdown"]
     # set-up by part (the kernel library's build or load apart), seconds

@@ -57,8 +57,11 @@ def test_manifest_keeps_the_contract():
     assert set(e2e) == {"corpus_audio_s_per_s", "setup_s"}
     for e in m["end_to_end"]:
         assert 0.01 <= e["bound"] <= 0.25 and e["source"] in ("host_clock", "device_trace")
+    # a cell takes 1 card, or 4 where what it measures exists only across
+    # cards; at most a quarter of the cells (one always) take 4
+    assert sum(w["chips"] == 4 for w in m["workloads"]) <= max(1, len(CELLS) // 4)
     for w in m["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
         assert len(w["why"]) <= 200
         assert (ROOT / "vadbench/traffic" / f"{w['traffic']}.json").exists()
         assert (ROOT / "vadbench/limits" / f"{w['name']}.json").exists()

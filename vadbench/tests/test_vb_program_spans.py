@@ -1,4 +1,4 @@
-"""The six readers of the program's own spans and counters
+"""The seven readers of the program's own spans and counters
 (`vadbench/program_spans.py`) on hand-made spans and a hand-made device
 trace, their values worked by hand; and None where the traced window holds
 no job, where there is no trace, and where the program has no recorder."""
@@ -9,7 +9,7 @@ from vadbench import harness
 from vadc_tpu_torch import tracing
 
 READERS = ("corpus_read_share", "corpus_grid_share", "corpus_pin_share", "corpus_read_gb_per_s",
-           "corpus_fsm_idle_share", "corpus_idle_outside_spans_share")
+           "corpus_fsm_idle_share", "corpus_idle_outside_spans_share", "corpus_slab_share")
 S = 1_000_000_000  # ns a second
 
 
@@ -68,6 +68,8 @@ def test_readers_by_hand(program):
     assert _read("corpus_grid_share", trace) == pytest.approx(100 * 0.6 / 4)
     assert _read("corpus_pin_share", trace) == pytest.approx(100 * 0.4 / 4)
     assert _read("corpus_read_gb_per_s", trace) == pytest.approx(1.6e9 / 0.8 / 1e9)
+    # two slabs of 0.3 s; the span nested in the first is not a child
+    assert _read("corpus_slab_share", trace) == pytest.approx(100 * 0.6 / 4)
     # the idle gaps cut to the job, by midpoint: [1.0, 1.05] read, [1.10,
     # 2.70] grid, [2.82, 2.85] none (2.835 between pin and slab), [2.95,
     # 3.0] slab, [3.25, 3.3] and [3.35, 3.5] feed, [3.7, 4.0] slab (3.85),
@@ -92,6 +94,14 @@ def test_the_window_picks_the_job(program):
 def test_none_without_a_job_in_the_window(program, name):
     assert _read(name, _Trace(EVENTS, 5.5, 10.0)) is None  # the last job ends after it
     assert _read(name, None) is None
+
+
+def test_host_spans_read_without_a_device_trace(program):
+    # a traced run on the CPU: the job's own stretch, no device events
+    run = {"trace": None, "traced_window": (0.95, 5.05)}
+    assert harness.metric_reader("corpus_slab_share")(run) == pytest.approx(100 * 0.6 / 4)
+    assert harness.metric_reader("corpus_read_share")(run) == pytest.approx(100 * 0.8 / 4)
+    assert harness.metric_reader("corpus_fsm_idle_share")(run) is None
 
 
 @pytest.mark.parametrize("name", READERS)

@@ -1,7 +1,10 @@
 """The traffic is a function of the seed: the same seed gives the same
 bytes, another seed other bytes, and every seed the same amount of work."""
 
+import statistics
+
 import numpy as np
+import pytest
 
 from vadbench import harness
 from vadbench.kinds import corpus
@@ -48,3 +51,27 @@ def test_the_corpus_written_is_the_corpus_the_reference_reads(tmp_path):
     pcm = corpus.corpus_pcm(11, tr, 16000, 1536)
     for i, (path, n) in enumerate(zip(paths, corpus.file_lengths(11, tr, 16000))):
         assert np.array_equal(np.fromfile(path, "<i2"), pcm[i, :n])
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_evenly_spaced_lengths_are_as_they_were(seed):
+    # the lengths before the log-normal mix came: evenly spaced, permuted
+    tr = harness.cell("v31.corpus.512").traffic
+    lengths = np.round(np.linspace(45.0, 75.0, 512) * 16000).astype(np.int64)
+    was = np.random.default_rng([seed, 4]).permutation(lengths)
+    assert np.array_equal(corpus.file_lengths(seed, tr, 16000), was)
+
+
+def test_log_normal_lengths_are_the_clipped_quantiles_for_every_seed():
+    tr = {"files": 200, "file_s": [5.0, 600.0],
+          "file_s_lognormal": {"median": 40.0, "sigma": 1.2}}
+    normal = statistics.NormalDist()
+    want = [round(min(max(40.0 * np.exp(1.2 * normal.inv_cdf((i + 0.5) / 200)), 5.0), 600.0)
+                  * 16000) for i in range(200)]
+    got = [corpus.file_lengths(seed, tr, 16000) for seed in SEEDS]
+    for lengths in got:
+        assert sorted(lengths.tolist()) == want
+    assert not np.array_equal(got[0], got[1])  # the order is the seed's
+    # both clips bite at these figures, and the median is the mix's
+    assert want[0] == 5 * 16000 and want[-1] == 600 * 16000
+    assert want[99] < 40 * 16000 < want[100]
