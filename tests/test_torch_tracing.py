@@ -241,8 +241,10 @@ def test_batch_cli_span_tree_and_read_counter(corpus, batch_runs):
     for s in spans:
         if s.name == "encode_fused_audio":
             assert by_index[s.parent].name == "batch.slab"
+    # segmenter.columns: the chunk columns fed, every slab's 16
     assert counters == {"batch.read_bytes": sum(os.path.getsize(p) for p in corpus),
-                        "batch.read_direct_files": len(corpus)}
+                        "batch.read_direct_files": len(corpus),
+                        "segmenter.columns": 16 * n_slabs}
 
 
 def test_batch_cli_lines_are_the_same_with_the_recorder_on(batch_runs):
@@ -262,7 +264,7 @@ def test_batch_cli_traces_under_the_variable(corpus, tmp_path, monkeypatch):
     (counters,) = list(tmp_path.glob("vadc_counters_*.json"))
     assert json.loads(counters.read_text()) == {
         "batch.read_bytes": sum(os.path.getsize(p) for p in corpus[:2]),
-        "batch.read_direct_files": 2}
+        "batch.read_direct_files": 2, "segmenter.columns": 16 * 5}
 
 
 def test_batch_cli_counts_a_wav_input_apart(corpus, tmp_path):
@@ -281,4 +283,4 @@ def test_batch_cli_counts_a_wav_input_apart(corpus, tmp_path):
     assert tracing.counters() == {
         "batch.read_bytes": os.path.getsize(corpus[0]) + read_file_s16(wav).nbytes
         + os.path.getsize(corpus[2]),
-        "batch.read_direct_files": 2}
+        "batch.read_direct_files": 2, "segmenter.columns": 16 * 5}

@@ -4,14 +4,16 @@ timestamps, in one batched pass.
 Counterpart of vadc_tpu/cli/batch.py. Every file is an independent stream
 with its own LSTM state; the corpus is scanned on the device in time slabs
 with the state carried from slab to slab, and the segmentation FSM runs
-vectorized on the device. For Silero v3.1 a slab is one `forward_scan`: the
-front-end and the encoder of every chunk of the slab at once, then one
-kernel that walks each stream's chunks in order; the v4 and v5 families scan
-a slab as a loop of steps. With --device cuda the streams are sharded over
-every visible card (engine/shard.py, the JAX package's mesh over the
-stream axis), the stream count padded to a multiple of the card count;
-with --device cuda:N or cpu they run on that one device. The lines and cut
-files do not depend on the sharding.
+vectorized on the device. A slab is one `forward_scan` of the family: the
+front-end and the encoder of every chunk of the slab at once (v3.1's
+`encode_fused_audio`; for v4 and v5, `stft_magnitude` and torch-op convs in
+pieces of chunks, models/slab.py, v5 with each chunk's 64-sample context
+attached), then one kernel that walks each stream's chunks in order
+(v3.1's `lstm_decoder_fused`; `lstm_fused` and the decoder). With --device
+cuda the streams are sharded over every visible card (engine/shard.py, the
+JAX package's mesh over the stream axis), the stream count padded to a
+multiple of the card count; with --device cuda:N or cpu they run on that
+one device. The lines and cut files do not depend on the sharding.
 
 Usage:
     python -m vadc_tpu_torch.cli.batch FILE.s16le [FILE.s16le ...]
@@ -39,8 +41,11 @@ the samples' bytes, and `batch.read_direct_files`, the raw files read
 straight into their runs, as against a .wav input's decoded copy) and
 `batch.grid` (the padding zeroed: past each file's last sample, and the
 silent streams); then one `batch.slab` a slab (the next slab's copies
-enqueued, the dequant, the scan), the segmenter's `segmenter.feed` and
-`segmenter.finish`, and `batch.output` (the lines and the cut files).
+enqueued, the dequant, the scan, with the model's zones in it: v5's
+`v5.context`, `v5.spectrum` and `v5.convs`, models/silero_v5.py), the
+segmenter's `segmenter.feed` (the counter `segmenter.columns`: the chunk
+columns fed) and `segmenter.finish`, and `batch.output` (the lines and the
+cut files).
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@ Used by the offline corpus path (cli/batch.py): probabilities [B, T] in,
 per-chunk "segment closed here" events out; pad/merge and emission stay on
 the host (they touch only the few closed segments, not every chunk). `BatchSegmenter.feed` and
 `.finish` are the spans `segmenter.feed` and `segmenter.finish`
-(tracing.zone).
+(tracing.zone); the counter `segmenter.columns` counts the chunk columns
+fed, each one FSM step over every stream.
 """
 
 from __future__ import annotations
@@ -233,6 +234,7 @@ class BatchSegmenter:
                 events = torch.stack([closed.to(torch.int32), seg_start, seg_end])
                 self._pending.append(_to_host(events))
             self._fed_chunks += probs.shape[1]
+            tracing.count("segmenter.columns", probs.shape[1])
             while len(self._pending) > self.pending_depth:
                 self._drain_one()
 

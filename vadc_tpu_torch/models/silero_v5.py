@@ -32,6 +32,11 @@ turbo the spectrum and every conv's taps, partial sums and bias stored bf16;
 the LSTM, the decoder and the state stay fp32. The two kernels run the
 tier's instances.
 
+Spans (tracing.zone): `v5.context` (a slab's contexts attached, the new
+context written), `v5.spectrum` (the `stft_magnitude` launch) and
+`v5.convs` (the four convs); on the slab path the last two nest in
+models/slab.py's `encode`, once a piece.
+
 Only synthetic weights of the official shapes exist in the repository
 (models/synthetic.py); results on them are labelled so.
 """
@@ -46,6 +51,7 @@ from vadc_tpu_torch.models import slab
 from vadc_tpu_torch.models.weights import Params
 from vadc_tpu_torch.nn import functional as F
 from vadc_tpu_torch.nn.precision import FAITHFUL, Tier, stft_mode, store, tier_of
+from vadc_tpu_torch.tracing import zone
 
 SAMPLE_RATE = 16000
 CONTEXT_SAMPLES = 64  # reference SILERO_V5_CONTEXT_SIZE (vadc.h:90)
@@ -116,8 +122,9 @@ def spectrum(params: Params, audio: torch.Tensor, *, pad_right: int, hop: int,
     stft_magnitude kernel's instance of the tier's v5 STFT operands (no
     left pad)."""
     wr, wi = split_basis_of(params)
-    return stft_magnitude(audio, wr, wi, pad_left=0, pad_right=pad_right, hop=hop,
-                          mode=stft_mode(tier, log_sensitive=False))
+    with zone("v5.spectrum"):
+        return stft_magnitude(audio, wr, wi, pad_left=0, pad_right=pad_right, hop=hop,
+                              mode=stft_mode(tier, log_sensitive=False))
 
 
 def encode(
@@ -128,7 +135,9 @@ def encode(
     spectrum is the stft_magnitude kernel's instance of the tier's v5 STFT
     operands (no left pad)."""
     tier = tier_of(tier)
-    return _convs(params, spectrum(params, audio, pad_right=pad_right, hop=hop, tier=tier), tier)
+    spect = spectrum(params, audio, pad_right=pad_right, hop=hop, tier=tier)
+    with zone("v5.convs"):
+        return _convs(params, spect, tier)
 
 
 def encode_reference(
@@ -168,9 +177,10 @@ def _forward_minibatched(params, audio, h, c, geometry, tier):
 
 def _forward_scan(params, audio, h, c, context, hn, cn, context_out, geometry, tier):
     tier = tier_of(tier)
-    inputs, tail = attach_contexts(audio, context)
-    # written only now: context_out may be the context the inputs were made of
-    context_out = tail.clone() if context_out is None else context_out.copy_(tail)
+    with zone("v5.context"):
+        inputs, tail = attach_contexts(audio, context)
+        # written only now: context_out may be the context the inputs were made of
+        context_out = tail.clone() if context_out is None else context_out.copy_(tail)
     probs, hn, cn = slab.forward_scan(
         params, lambda rows: encode(params, rows, **geometry, tier=tier), inputs, h, c, hn, cn,
         tier,

@@ -24,15 +24,18 @@ recorder of where its time goes.
     VADC_TPU_PROFILE environment variable names the directory, as in the
     JAX package; with neither it is a no-op.
 
-The model's zones are the JAX package's, on the Silero v3.1 model only:
-`stft`, `adaptive_norm`, `encoder_layer_1`..`4`, `lstm` and `decoder` on
-the plain path (the kernels' plain versions, which the CPU runs), and on the
-kernel path the kernel's name (`forward_fused`, `encode_fused_audio`,
-`lstm_decoder_fused`), around the plain stages on the CPU. The batch CLI's
-job and phases (`batch.*`) and the vectorized segmenter's calls
+The model's zones: on Silero v3.1 the JAX package's, `stft`,
+`adaptive_norm`, `encoder_layer_1`..`4`, `lstm` and `decoder` on the plain
+path (the kernels' plain versions, which the CPU runs), and on the kernel
+path the kernel's name (`forward_fused`, `encode_fused_audio`,
+`lstm_decoder_fused`), around the plain stages on the CPU; on the v4 and v5
+slab scan (models/slab.py) `encode` and `lstm_decoder`; on v5
+(models/silero_v5.py) `v5.context`, `v5.spectrum` and `v5.convs`. The
+batch CLI's job and phases (`batch.*`) and the vectorized segmenter's calls
 (`segmenter.*`) are spans of their own, `batch.read_bytes` counts the
-bytes of the files the CLI read and `batch.read_direct_files` the raw files
-it read straight into its slab buffer.
+bytes of the files the CLI read, `batch.read_direct_files` the raw files
+it read straight into its slab buffer and `segmenter.columns` the chunk
+columns the segmenter was fed.
 """
 
 from __future__ import annotations
