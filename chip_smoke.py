@@ -46,6 +46,11 @@ Phases, each of which raises on failure (exit code 1):
        bit, and (whole chunks) lstm_decoder_fused(encode_fused(feats))
        against forward_fused2d bit for bit; encode_fused against the plain
        encoder stages;
+     - fsm_scan (the batch segmenter's FSM, kernels/fsm.py) at the corpus
+       cells' shape, 512 streams x 64 columns, over two slabs in turn with
+       valid_chunks 0, inside either slab and past both, on probabilities
+       at the fp32 thresholds and one ulp either side: its [3, T, B] events
+       and state bit for bit those of segment_batch on the card;
   3. the main paths, each with the kernels' launch counts set to 0 just
      before and read just after (each kernel of the path must be > 0):
      - v3.1: StreamRunner.scan over 2048 streams x 8 chunks on the card
@@ -58,9 +63,10 @@ Phases, each of which raises on failure (exit code 1):
      - the offline corpus CLI (vadc_tpu_torch.cli.batch) over 24 seeded
        files of 5 to 40 s (one pure silence, one 44.1 kHz wav) with
        --cut_dir, --device cuda against --device cpu: identical lines and
-       cut files, and per file the lines of the streaming CLI; the same
-       with the bundled v4 archive and a synthetic v5 archive (their slabs
-       the v4 and v5 scans);
+       cut files, and per file the lines of the streaming CLI (fsm_scan
+       > 0 besides the family's scan kernels); the same with the bundled
+       v4 archive and a synthetic v5 archive (their slabs the v4 and v5
+       scans);
      - v4: StreamRunner.scan 2048 x 8 card vs CPU, and the CLI with the
        bundled v4 16 kHz and 8 kHz archives, cuda vs cpu;
      - v5: StreamRunner.scan 2048 x 8 card vs CPU (the audio context
@@ -143,7 +149,8 @@ Phases, each of which raises on failure (exit code 1):
      unsharded call's (forward_fused; encode_fused_audio and
      lstm_decoder_fused; stft_magnitude and lstm_fused); the batch CLI over
      the 24-file corpus on the two shards against one device (identical
-     lines and cut files, twice the launches); the server with its slots
+     lines and cut files, twice the launches, fsm_scan's as often: the
+     segmenter runs on the first card over the gathered slab); the server with its slots
      on the two shards, the 8 clients of the server phase (each client's
      lines those of the unsharded server), its checkpoint resumed sharded
      -> unsharded and back (the uninterrupted run's lines, and the sharded
@@ -1266,8 +1273,108 @@ def minibatch_card_vs_cpu(family: str, params, device, chunk: int, seed: int) ->
         require(torch.equal(gpu.context.cpu(), cpu.context), f"minibatch {family}: context differs")
 
 
+# the corpus cells' segmenter slab: 512 streams, 64 chunk columns a feed
+FSM_STREAMS, FSM_COLS = 512, 64
+
+
+def fsm_probs(batch: int, n_cols: int, cfg, seed: int) -> np.ndarray:
+    """Probabilities that dwell (runs of speech-like, silence-like and
+    in-between levels), so segments open, close and get discarded; about
+    one entry in eight is exactly cfg's fp32 threshold or neg_threshold,
+    or one ulp either side of one."""
+    rng = np.random.default_rng(seed)
+    run = np.cumsum(rng.random((batch, n_cols)) < 0.1, axis=1)
+    levels = rng.choice([0.05, 0.3, 0.42, 0.55, 0.9], size=(batch, n_cols + 1))
+    out = np.take_along_axis(levels, run, 1) + 0.08 * rng.normal(size=(batch, n_cols))
+    out = np.clip(out, 0, 1).astype(np.float32)
+    at = np.float32([cfg.threshold, cfg.neg_threshold])
+    edge = np.concatenate([at, np.nextafter(at, np.float32(0)), np.nextafter(at, np.float32(1))])
+    mask = rng.random((batch, n_cols)) < 0.125
+    out[mask] = rng.choice(edge, size=int(mask.sum()))
+    return out
+
+
+def device_ms(fn, match: str | None = None, iters: int = 20) -> float | None:
+    """Device time of one call of fn by torch.profiler: the self time of
+    the kernels whose name holds `match` (all of them without it), over
+    `iters` calls; None where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for event in prof.key_averages():
+        if match is None or match in event.key:
+            total_us += getattr(event, "self_device_time_total",
+                                getattr(event, "self_cuda_time_total", 0.0))
+    return total_us / iters / 1e3 if total_us > 0 else None
+
+
+def phase_kernels_fsm(device) -> dict:
+    """fsm_scan at the corpus cells' shape (FSM_STREAMS x FSM_COLS) with
+    the v5 CLI's segmenter (32 ms chunks), over two slabs in turn, the
+    state carried, valid_chunks 0, inside either slab and past both: its
+    [3, T, B] events and state bit for bit segment_batch's on the card.
+    Then both timed on one slab: CUDA events around calls in a row (the
+    host's cost of a call where it exceeds the device's) and device time
+    (torch.profiler)."""
+    import torch
+
+    from vadc_tpu_torch.cli.segmenter import SegmenterConfig
+    from vadc_tpu_torch.kernels import fsm
+
+    cfg = SegmenterConfig.from_ms(chunk_samples=512)
+    kw = dict(threshold=cfg.threshold, neg_threshold=cfg.neg_threshold,
+              min_silence_chunks=cfg.min_silence_chunks, min_speech_chunks=cfg.min_speech_chunks)
+    batch, n_cols = FSM_STREAMS, FSM_COLS
+    label = f"fsm_scan B={batch} x T={n_cols}"
+    probs = torch.from_numpy(fsm_probs(batch, 2 * n_cols, cfg, seed=SEED + 900)).to(device)
+    valid = np.random.default_rng(SEED + 901).integers(0, 2 * n_cols + 2, batch)
+    valid[:3] = [0, n_cols, 2 * n_cols + 5]
+    valid = torch.from_numpy(valid.astype(np.int32)).to(device)
+    ks = ps = fsm.init_fsm_state(batch, device)
+    closes = 0
+    for k, slab in enumerate((probs[:, :n_cols], probs[:, n_cols:])):
+        ks, events = fsm.fsm_scan(slab, ks, **kw, valid_chunks=valid)
+        ps, (closed, starts, ends) = fsm.segment_batch(slab, **kw, state=ps, valid_chunks=valid)
+        plain = torch.stack([closed.to(torch.int32), starts, ends])
+        require(events.dtype == torch.int32 and events.shape == (3, n_cols, batch),
+                f"{label}: events {events.dtype} {tuple(events.shape)}")
+        require(torch.equal(events, plain), f"{label}, slab {k}: "
+                f"{int((events != plain).sum())} entries of the events differ from segment_batch's")
+        require(ks.chunk_index == ps.chunk_index == (k + 1) * n_cols,
+                f"{label}, slab {k}: chunk index {ks.chunk_index} vs {ps.chunk_index}")
+        for field in ("triggered", "speech_start", "temp_end"):
+            require(torch.equal(getattr(ks, field), getattr(ps, field)),
+                    f"{label}, slab {k}: {field} differs from segment_batch's")
+        closes += int(plain[0].sum())
+    require(closes > 0, f"{label}: the probabilities closed no segment")
+    slab, state = probs[:, :n_cols], fsm.init_fsm_state(batch, device)
+
+    def kernel():
+        return fsm.fsm_scan(slab, state, **kw, valid_chunks=valid)
+
+    def plain():
+        return fsm.segment_batch(slab, **kw, state=state, valid_chunks=valid)
+
+    ms, plain_ms = cuda_ms_pair(kernel, plain, iters=20)
+    dev_ms, plain_dev_ms = device_ms(kernel, "fsm_scan"), device_ms(plain)
+    shown = lambda v: "not seen" if v is None else f"{v:.4f} ms"  # noqa: E731
+    log(f"{label}: events and state of two slabs bit for bit segment_batch's ({closes} segments "
+        f"closed); CUDA events {ms:.4f} ms a call (segment_batch {plain_ms:.4f}), device time "
+        f"{shown(dev_ms)} (segment_batch {shown(plain_dev_ms)})")
+    return {"err": 0.0, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+            "plain_device_ms": plain_dev_ms}
+
+
 def wrappers() -> dict:
     """name -> the wrapper that counts that kernel's launches."""
+    from vadc_tpu_torch.kernels.fsm import fsm_scan
     from vadc_tpu_torch.kernels.lstm import lstm_fused
     from vadc_tpu_torch.kernels.lstm_decoder import lstm_decoder_fused
     from vadc_tpu_torch.kernels.probes import bf16_dot, bf16_dot_wgmma, concat_dot
@@ -1281,7 +1388,7 @@ def wrappers() -> dict:
             "encode_fused_audio": encode_fused_audio,
             "stft_magnitude": stft_magnitude, "lstm_fused": lstm_fused,
             "lstm_decoder_fused": lstm_decoder_fused, "bf16_dot": bf16_dot,
-            "bf16_dot_wgmma": bf16_dot_wgmma, "concat_dot": concat_dot}
+            "bf16_dot_wgmma": bf16_dot_wgmma, "concat_dot": concat_dot, "fsm_scan": fsm_scan}
 
 
 def zero_launches() -> None:
@@ -1322,14 +1429,17 @@ def read_launches(label: str, totals: dict, required: tuple, counts: dict | None
 
 
 def require_scaled(label: str, got: dict, one: dict, n: int, required: tuple,
-                   totals: dict) -> None:
+                   totals: dict, once: tuple = ()) -> None:
     """A run over n shards launched each kernel n times as often as the
     unsharded run of the same work (`one`), which launched every kernel of
-    `required`; both runs' launches go into `totals`."""
-    for name in required:
+    `required` and of `once`; the kernels of `once`, which run on the
+    first device over what the shards gathered, as often as it. Both runs'
+    launches go into `totals`."""
+    for name in (*required, *once):
         require(one[name] > 0, f"{name}: no launch in the unsharded run: {label}")
-    require(got == {k: n * v for k, v in one.items()},
-            f"{label}: launches {nonzero(got)}, not {n} x the unsharded run's {nonzero(one)}")
+    require(got == {k: v if k in once else n * v for k, v in one.items()},
+            f"{label}: launches {nonzero(got)}, not {n} x the unsharded run's {nonzero(one)}"
+            + (f" ({once} as often)" if once else ""))
     log(f"{label} launches: {nonzero(got)}, {n} x the unsharded run's {nonzero(one)}")
     add_launches(totals, got)
     add_launches(totals, one)
@@ -1601,6 +1711,11 @@ def run_batch_cli(argv: list[str]) -> tuple[str, float]:
     return out.getvalue(), seconds
 
 
+# the batch CLI's kernels besides its family's scan: the segmenter's FSM, one
+# launch a slab on the first device over every stream's probabilities
+BATCH_KERNELS = ("fsm_scan",)
+
+
 def phase_main_path_batch(device, totals: dict, model: str | None = None,
                           family: str = "v3") -> dict:
     """The offline corpus CLI over the seeded corpus with --cut_dir, on the
@@ -1613,7 +1728,7 @@ def phase_main_path_batch(device, totals: dict, model: str | None = None,
     from vadc_tpu_torch.cli import main as cli
 
     extra = [] if model is None else ["--model", model]
-    kernels = V3_SLAB_KERNELS if family == "v3" else SCAN_KERNELS[family]
+    kernels = (*(V3_SLAB_KERNELS if family == "v3" else SCAN_KERNELS[family]), *BATCH_KERNELS)
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         paths, audio_s = write_corpus(root)
@@ -2265,7 +2380,8 @@ def batch_cli_sharded(root: Path, paths: list, devices: list | None, totals: dic
     """The batch CLI over the corpus with --cut_dir, --device cuda over
     `devices` (None: every visible card) against --device cuda:0 (one
     device): identical lines and cut files, each run's launches read alone
-    and the sharded run's n_shards times the one device's."""
+    and the sharded run's n_shards times the one device's, but for the
+    segmenter's (BATCH_KERNELS), which runs once over the gathered slab."""
     import torch
 
     argv = [*paths, "--slab_chunks", str(SLAB_CHUNKS)]
@@ -2277,7 +2393,7 @@ def batch_cli_sharded(root: Path, paths: list, devices: list | None, totals: dic
         (out_sharded, seconds), got = counted(
             lambda: run_batch_cli([*argv, "--device", "cuda", "--cut_dir",
                                    str(root / "sharded")]))
-    require_scaled(label, got, one, n, V3_SLAB_KERNELS, totals)
+    require_scaled(label, got, one, n, V3_SLAB_KERNELS, totals, once=BATCH_KERNELS)
     cut = [{p.name: p.read_bytes() for p in sorted((root / d).iterdir())}
            for d in ("one", "sharded")]
     require(out_sharded == out_one, f"{label}: lines differ from one device's")
@@ -4675,6 +4791,7 @@ def main() -> int:
     tier_errs = phase_kernels_tiers(params, device)
     phase_spectrum_edges(params, models, device)
     tier_errs_v45 = phase_kernels_tiers_v45(models, device)
+    fsm_row = phase_kernels_fsm(device)
     elapsed("the kernel checks")
     launches: dict = {}
     tier_launches: dict = {}
@@ -4798,6 +4915,17 @@ def main() -> int:
          f"B={tail_shape[0]} x K={tail_shape[1]} x T={tail_shape[2]}",
          {"variant": variant_of(tail_shape[0], tail_shape[1] * tail_shape[2]),
           "kernels_per_call": tail_per_call}),
+        # no Pallas kernel is its counterpart: the JAX package's FSM is a
+        # lax.scan; bytes: probabilities in, [3, T, B] events out, the
+        # state (a byte and two int32 a stream) in and out, valid_chunks in
+        ("fsm_scan", "vadc_tpu_torch/kernels/csrc/fsm_scan.cu",
+         "vadc_tpu/engine/vectorized_segmenter.py:96", launches["fsm_scan"], fsm_row["err"],
+         fsm_row["ms"], fsm_row["plain_ms"], None,
+         bound_ms(0.0, FSM_STREAMS * FSM_COLS * 4 * (1 + 3) + FSM_STREAMS * (2 * 9 + 4)),
+         f"B={FSM_STREAMS} x T={FSM_COLS}",
+         {"device_ms": fsm_row["device_ms"], "plain_device_ms": fsm_row["plain_device_ms"],
+          "ms_is": "CUDA events around 20 calls in a row (the host's cost of a call where it "
+                   "exceeds the device's)"}),
     ]
     # each tier instance of the v3.1 path's kernels, with the tier's bound
     slab_rows = SLAB_CHUNKS * SLAB_CHUNKS

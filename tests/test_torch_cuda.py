@@ -34,7 +34,10 @@ their plain version within 1e-5 (and with each other) at seeded shapes,
 concat_dot within 1e-3 of fp32 at the probe's inputs and 1e-5 of bf16_3x
 at seeded shapes, among them shapes whose strides TMA cannot take (the
 kernels' threads copy those operands); the staging rule of
-kernels/probes.py is the C entries'.
+kernels/probes.py is the C entries'. The segmenter's FSM kernel
+(kernels/fsm.py: fsm_scan) gives segment_batch's events and state bit for
+bit, on probabilities at the thresholds and on strided views, and
+BatchSegmenter on the card the scalar Segmenter's segments.
 """
 
 from pathlib import Path
@@ -375,6 +378,201 @@ def test_batch_cli_back_to_back_reuses_the_pinned_block(tmp_path, device, capsys
     assert blocks[0] == blocks[1] and blocks[0][1], blocks
     for name in os.listdir(tmp_path / "fresh"):
         assert (tmp_path / "after" / name).read_bytes() == (tmp_path / "fresh" / name).read_bytes()
+
+
+FSM = dict(threshold=0.5, neg_threshold=0.35, min_silence_chunks=2, min_speech_chunks=3)
+
+
+def fsm_probs(batch: int, n_cols: int, seed: int, edges: bool = True) -> np.ndarray:
+    """Probabilities that dwell (runs of speech-like, silence-like and
+    in-between levels), so segments open, close and get discarded; with
+    `edges` about one entry in eight is exactly the fp32 threshold or
+    neg_threshold, or one ulp either side of one."""
+    rng = np.random.default_rng(seed)
+    run = np.cumsum(rng.random((batch, n_cols)) < 0.25, axis=1)
+    levels = rng.choice([0.05, 0.3, 0.42, 0.55, 0.9], size=(batch, n_cols + 1))
+    out = np.take_along_axis(levels, run, 1) + 0.08 * rng.normal(size=(batch, n_cols))
+    out = np.clip(out, 0, 1).astype(np.float32)
+    if edges:
+        at = np.float32([FSM["threshold"], FSM["neg_threshold"]])
+        edge = np.concatenate([at, np.nextafter(at, np.float32(0)), np.nextafter(at, np.float32(1))])
+        mask = rng.random((batch, n_cols)) < 0.125
+        out[mask] = rng.choice(edge, size=int(mask.sum()))
+    return out
+
+
+FSM_SHAPES = [(n_cols, batch) for n_cols in (1, 7, 64) for batch in (1, 5, 512, 1000)]
+FSM_LAYOUTS = ["transposed", "column_slice", "every_other"]
+
+
+def fsm_case(n_cols: int, batch: int, with_valid: bool):
+    """The inputs of test_fsm_scan_kernel_is_segment_batch_bit_for_bit:
+    probabilities [batch, 2 * n_cols] (two slabs of n_cols) and
+    valid_chunks (int32 [batch], or None), 0, inside either slab and past
+    both among them. tests/test_torch_vectorized_segmenter.py holds the
+    plain version to the JAX package's on the same inputs."""
+    rng = np.random.default_rng(1000 * n_cols + batch)
+    probs = fsm_probs(batch, 2 * n_cols, seed=batch + n_cols)
+    valid = None
+    if with_valid:
+        valid = rng.integers(0, 2 * n_cols + 2, size=batch)
+        valid[: min(batch, 3)] = [0, n_cols, 2 * n_cols + 5][: min(batch, 3)]
+        valid = valid.astype(np.int32)
+    return probs, valid
+
+
+def fsm_view_case(layout: str):
+    """The inputs of test_fsm_scan_kernel_on_views_that_are_not_contiguous:
+    a [333, 120] grid, valid_chunks, and the view of the grid (a tensor on
+    any device) that the kernel reads: a transposed [T, B] tensor, a column
+    slice of the wider slab or every other column, 40 columns each."""
+    batch, n_cols = 333, 40
+    grid = fsm_probs(batch, 3 * n_cols, seed=7)
+    valid = np.random.default_rng(8).integers(0, 50, batch).astype(np.int32)
+
+    def view(t: torch.Tensor) -> torch.Tensor:
+        if layout == "transposed":
+            return t[:, :n_cols].t().contiguous().t()
+        if layout == "column_slice":
+            return t[:, 3 : 3 + n_cols]
+        return t[:, ::2][:, :n_cols]
+
+    return grid, valid, view
+
+
+def segmenter_case():
+    """The inputs of test_batch_segmenter_on_the_card_is_the_scalar_segmenter:
+    probabilities [37, 200] and every stream's real chunk count."""
+    batch, n_cols = 37, 200
+    probs = fsm_probs(batch, n_cols, seed=11, edges=False)
+    valid = np.random.default_rng(12).integers(0, n_cols + 1, batch)
+    valid[:2] = [0, n_cols]
+    return probs, valid
+
+
+def _fsm_both(probs_slabs, valid, device):
+    """The kernel and segment_batch on the card, and segment_batch on the
+    CPU, over the same slabs in turn, the state carried: their events and
+    states after each slab. The kernel leaves the state it was given as it
+    was (a checkpoint may hold it), as segment_batch does."""
+    from vadc_tpu_torch.kernels import fsm
+
+    batch = probs_slabs[0].shape[0]
+    ks = ts = fsm.init_fsm_state(batch, device)
+    cs = fsm.init_fsm_state(batch)
+    valid_cpu = None if valid is None else valid.cpu()
+    out = []
+    for probs in probs_slabs:
+        launches = fsm.fsm_scan.launches
+        given = [t.clone() for t in ks[:3]]
+        held, (ks, events) = ks, fsm.fsm_scan(probs, ks, **FSM, valid_chunks=valid)
+        assert fsm.fsm_scan.launches == launches + 1
+        assert all(torch.equal(t, g) for t, g in zip(held[:3], given))
+        ts, (closed, starts, ends) = fsm.segment_batch(probs, **FSM, state=ts, valid_chunks=valid)
+        cs, cpu_events = fsm.segment_batch(probs.cpu(), **FSM, state=cs, valid_chunks=valid_cpu)
+        out.append((ks, events, ts, torch.stack([closed.to(torch.int32), starts, ends]), cs,
+                    torch.stack([cpu_events[0].to(torch.int32), *cpu_events[1:]])))
+    torch.cuda.synchronize()
+    return out
+
+
+def _fsm_equal(out) -> int:
+    """The kernel's events and state equal segment_batch's on the card and
+    on the CPU bit for bit; the number of segments closed."""
+    closes = 0
+    for ks, events, ts, plain, cs, cpu_plain in out:
+        assert events.dtype == torch.int32 and events.shape == plain.shape
+        assert torch.equal(events, plain)
+        assert torch.equal(events.cpu(), cpu_plain)
+        assert ks.chunk_index == ts.chunk_index == cs.chunk_index
+        for field in ("triggered", "speech_start", "temp_end"):
+            assert getattr(ks, field).dtype == getattr(ts, field).dtype
+            assert torch.equal(getattr(ks, field), getattr(ts, field)), field
+            assert torch.equal(getattr(ks, field).cpu(), getattr(cs, field)), field
+        closes += int(plain[0].sum())
+    return closes
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+@pytest.mark.parametrize("n_cols,batch", FSM_SHAPES)
+def test_fsm_scan_kernel_is_segment_batch_bit_for_bit(device, n_cols, batch, with_valid):
+    """Two slabs in turn, the state carried: the kernel's [3, T, B] events
+    (seg_start and seg_end where nothing closed too) and its state equal
+    segment_batch's on the card and on the CPU, with probabilities at the
+    fp32 thresholds and one ulp either side; valid_chunks 0, inside either
+    slab and past both."""
+    grid, valid = fsm_case(n_cols, batch, with_valid)
+    probs = torch.from_numpy(grid).to(device)
+    valid = None if valid is None else torch.from_numpy(valid).to(device)
+    out = _fsm_both([probs[:, :n_cols], probs[:, n_cols:]], valid, device)
+    closes = _fsm_equal(out)
+    if n_cols * batch >= 7 * 512:
+        assert closes, "the probabilities should close some segments"
+
+
+@pytest.mark.parametrize("layout", FSM_LAYOUTS)
+def test_fsm_scan_kernel_on_views_that_are_not_contiguous(device, layout):
+    """The kernel reads probs through both strides: a transposed [T, B]
+    tensor, a column slice of a wider slab and every other column give
+    segment_batch's bits, with no copy made."""
+    grid, valid, view = fsm_view_case(layout)
+    probs = view(torch.from_numpy(grid).to(device))
+    assert not probs.is_contiguous()
+    out = _fsm_both([probs, probs.flip(1)], torch.from_numpy(valid).to(device), device)
+    assert _fsm_equal(out)
+
+
+def test_fsm_scan_refuses_what_it_does_not_take_on_the_card(device):
+    from vadc_tpu_torch.kernels import fsm
+
+    state = fsm.init_fsm_state(4, device)
+    probs = torch.zeros(4, 3, device=device)
+    with pytest.raises(TypeError, match="float32"):
+        fsm.fsm_scan(probs.double(), state, **FSM)
+    with pytest.raises(ValueError, match="non-empty"):
+        fsm.fsm_scan(probs[:, :0], state, **FSM)
+    with pytest.raises(ValueError, match="speech_start"):
+        fsm.fsm_scan(probs, state._replace(speech_start=state.speech_start.long()), **FSM)
+    with pytest.raises(ValueError, match="triggered"):
+        fsm.fsm_scan(probs, state._replace(triggered=state.triggered.cpu()), **FSM)
+    with pytest.raises(ValueError, match="valid_chunks"):
+        fsm.fsm_scan(probs, state, **FSM, valid_chunks=torch.zeros(5, dtype=torch.int32,
+                                                                   device=device))
+    with pytest.raises(ValueError, match="int32"):
+        fsm.fsm_scan(probs, state._replace(chunk_index=2**31 - 2), **FSM)
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_batch_segmenter_on_the_card_is_the_scalar_segmenter(device, depth):
+    """BatchSegmenter on the card (one kernel launch a slab) gives the
+    scalar Segmenter's segments on every stream's real prefix, and counts
+    every column it fed as a kernel column."""
+    from vadc_tpu_torch import tracing
+    from vadc_tpu_torch.cli.segmenter import Segmenter, SegmenterConfig
+    from vadc_tpu_torch.engine.vectorized_segmenter import BatchSegmenter
+    from vadc_tpu_torch.kernels import fsm
+
+    probs, valid = segmenter_case()
+    batch, n_cols = probs.shape
+    config = SegmenterConfig(**FSM)
+    launches = fsm.fsm_scan.launches
+    before = tracing.counters()
+    with tracing.record():
+        seg = BatchSegmenter(config, batch, device=device, backend="device", pending_depth=depth,
+                             valid_chunks=valid)
+        on_card = torch.from_numpy(probs).to(device)
+        for off in range(0, n_cols, 64):
+            seg.feed(on_card[:, off : off + 64])
+        got = seg.finish()
+    after = tracing.counters()
+    counted = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+    assert counted == {"segmenter.columns": n_cols, "segmenter.kernel_columns": n_cols}
+    assert fsm.fsm_scan.launches == launches + 4
+    want = []
+    for row, n in zip(probs, valid):
+        scalar = Segmenter(config)
+        want.append([s for p in row[:n] for s in scalar.feed(float(p))] + list(scalar.finish()))
+    assert got == want and any(got)
 
 
 @pytest.mark.parametrize("batch,chunk", [(64, 1536), (37, 1536), (1, 1536), (16, 512),
@@ -1247,8 +1445,9 @@ def _report(label: str, leads: list) -> None:
 
 def test_batch_cli_spans_on_the_card(device, tmp_path, monkeypatch, capsys):
     """With VADC_TPU_PROFILE set, the batch CLI over 4 files writes one trace
-    and one counters file (the read bytes and the raw files read straight
-    into the slabs), and the trace names the CLI's spans, the ingest's in
+    and one counters file (the read bytes, the raw files read straight
+    into the slabs, and the columns the segmenter was fed, every one
+    stepped by its kernel), and the trace names the CLI's spans, the ingest's in
     the order open, pin, read, grid, beside the slab kernels; in that trace (the profiler aligns the host's ranges and
     the device's kernels) no encode_fused_audio kernel starts earlier than
     50 us before its batch.slab span. Under the benchmark's device trace
@@ -1288,7 +1487,8 @@ def test_batch_cli_spans_on_the_card(device, tmp_path, monkeypatch, capsys):
             "segmenter.feed", "segmenter.finish", "batch.output", "encode_fused_audio"} <= names
     assert json.loads(counters.read_text()) == {
         "batch.read_bytes": sum(os.path.getsize(p) for p in paths),
-        "batch.read_direct_files": len(paths)}
+        "batch.read_direct_files": len(paths), "segmenter.columns": n_slabs * 16,
+        "segmenter.kernel_columns": n_slabs * 16}
     ingest = ["batch.open", "batch.pin", "batch.read", "batch.grid"]
     phases = sorted((e["ts"], e["name"]) for e in events
                     if e.get("cat") == "user_annotation" and e.get("name") in ingest)

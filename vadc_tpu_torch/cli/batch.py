@@ -43,8 +43,9 @@ straight into their runs, as against a .wav input's decoded copy) and
 silent streams); then one `batch.slab` a slab (the next slab's copies
 enqueued, the dequant, the scan, with the model's zones in it: v5's
 `v5.context`, `v5.spectrum` and `v5.convs`, models/silero_v5.py), the
-segmenter's `segmenter.feed` (the counter `segmenter.columns`: the chunk
-columns fed) and `segmenter.finish`, and `batch.output` (the lines and the
+segmenter's `segmenter.feed` (the counters `segmenter.columns`: the chunk
+columns fed, and `segmenter.kernel_columns`: those its kernel stepped, on a
+card every one) and `segmenter.finish`, and `batch.output` (the lines and the
 cut files).
 """
 
@@ -280,7 +281,7 @@ def _main(argv: list[str] | None = None) -> int:
     # event readback until two more slabs have been enqueued, so the
     # readback overlaps the next slabs' transfer and compute.
     # the vectorized FSM runs on the first device over the gathered slab
-    # probabilities of every stream
+    # probabilities of every stream, on a card one kernel launch a slab
     segmenter = BatchSegmenter(
         seg_config, n_streams, device=device, backend="device", pending_depth=2,
         # mask each file's zero-padded tail out of the FSM: pad chunks

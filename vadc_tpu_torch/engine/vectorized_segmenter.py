@@ -1,143 +1,37 @@
 """Vectorized hysteresis FSM: segment many streams on the device.
 
-Counterpart of vadc_tpu/engine/vectorized_segmenter.py. Same transition
-semantics as the host Segmenter (and the reference's feed_probability,
-vadc.c:165-221), as torch ops on int32/bool state tensors of [B]:
-`torch.where` replaces the branches, so the whole batch advances in a
-handful of elementwise ops per chunk, with no host synchronisation inside a
-slab.
+Counterpart of vadc_tpu/engine/vectorized_segmenter.py. The FSM itself
+lives in kernels/fsm.py: `fsm_step` and `segment_batch`, torch ops on [B]
+state tensors, are its plain version, which the CPU runs; on a card
+`fsm_scan` advances every stream over a whole slab in one kernel launch
+(the same transitions, events and state, bit for bit). Their names are
+imported here, where the engine's callers find them.
 
 Used by the offline corpus path (cli/batch.py): probabilities [B, T] in,
 per-chunk "segment closed here" events out; pad/merge and emission stay on
-the host (they touch only the few closed segments, not every chunk). `BatchSegmenter.feed` and
-`.finish` are the spans `segmenter.feed` and `segmenter.finish`
-(tracing.zone); the counter `segmenter.columns` counts the chunk columns
-fed, each one FSM step over every stream.
+the host (they touch only the few closed segments, not every chunk).
+`BatchSegmenter.feed` and `.finish` are the spans `segmenter.feed` and
+`segmenter.finish` (tracing.zone); the counter `segmenter.columns` counts
+the chunk columns fed, each one FSM step over every stream, and
+`segmenter.kernel_columns` (counted by fsm_scan) those the kernel stepped.
 """
 
 from __future__ import annotations
 
 from collections import deque
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from vadc_tpu_torch import native, tracing
 from vadc_tpu_torch.cli.segmenter import SegmenterConfig
+# fsm_step and segment_batch too: the engine's callers find the FSM here
+from vadc_tpu_torch.kernels.fsm import (
+    FsmState, fsm_scan, fsm_step, init_fsm_state, segment_batch,
+)
 from vadc_tpu_torch.runtime import resolve_device
 
 BACKENDS = ("auto", "native", "device")
-
-
-class FsmState(NamedTuple):
-    triggered: torch.Tensor  # bool [B]
-    speech_start: torch.Tensor  # int32 [B]
-    temp_end: torch.Tensor  # int32 [B]
-    chunk_index: int  # the next chunk's global index, the same for every stream
-
-
-def init_fsm_state(n_streams: int, device="cpu") -> FsmState:
-    return FsmState(
-        triggered=torch.zeros(n_streams, dtype=torch.bool, device=device),
-        speech_start=torch.zeros(n_streams, dtype=torch.int32, device=device),
-        temp_end=torch.zeros(n_streams, dtype=torch.int32, device=device),
-        chunk_index=0,
-    )
-
-
-def fsm_step(
-    state: FsmState,
-    prob: torch.Tensor,
-    *,
-    threshold: float,
-    neg_threshold: float,
-    min_silence_chunks: int,
-    min_speech_chunks: int,
-    active: torch.Tensor | None = None,
-) -> tuple[FsmState, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """Advance every stream's FSM one chunk.
-
-    prob: float32 [B]. active (optional bool [B]): streams marked False keep
-    their state untouched and emit nothing — zero-padded grid chunks must be
-    invisible to the FSM (a pad chunk advancing it can close a segment the
-    scalar segmenter, fed only the real prefix, would EOF-snap instead).
-    Returns (new state, (closed [B] bool, seg_start [B], seg_end [B])).
-    """
-    idx = state.chunk_index
-    above = prob >= threshold
-    below_neg = prob < neg_threshold
-    zero = torch.zeros_like(state.temp_end)
-
-    # prob >= threshold cancels a tentative end
-    temp_end = torch.where(above, zero, state.temp_end)
-
-    # not triggered and above -> trigger
-    newly_triggered = ~state.triggered & above
-    speech_start = torch.where(newly_triggered, idx, state.speech_start)
-    triggered = state.triggered | newly_triggered
-
-    # triggered and below neg_threshold -> tentative end, maybe close
-    tentative = state.triggered & below_neg
-    temp_end = torch.where(tentative & (temp_end == 0), idx, temp_end)
-    closing = tentative & (idx - temp_end >= min_silence_chunks)
-    long_enough = temp_end - speech_start >= min_speech_chunks
-    closed = closing & long_enough
-    seg_start = speech_start
-    seg_end = temp_end
-
-    # reset on close (valid or discarded)
-    triggered = triggered & ~closing
-    speech_start = torch.where(closing, zero, speech_start)
-    temp_end = torch.where(closing, zero, temp_end)
-
-    if active is not None:
-        triggered = torch.where(active, triggered, state.triggered)
-        speech_start = torch.where(active, speech_start, state.speech_start)
-        temp_end = torch.where(active, temp_end, state.temp_end)
-        closed = closed & active
-
-    return (
-        FsmState(triggered, speech_start, temp_end, idx + 1),
-        (closed, seg_start, seg_end),
-    )
-
-
-def segment_batch(
-    probs: torch.Tensor,
-    *,
-    threshold: float,
-    neg_threshold: float,
-    min_silence_chunks: int,
-    min_speech_chunks: int,
-    state: FsmState | None = None,
-    valid_chunks: torch.Tensor | None = None,
-) -> tuple[FsmState, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """Run the FSM over probs [B, T], on the device the probabilities lie on.
-
-    valid_chunks (optional int [B], on that device): each stream's real
-    chunk count in a zero-padded grid — chunks at global index >= valid are
-    masked out of the FSM (state freezes at the stream's true EOF, exactly
-    what BatchSegmenter.finish's EOF snap needs).
-    Returns (final state, (closed [T, B], seg_start [T, B], seg_end [T, B])).
-    """
-    if state is None:
-        state = init_fsm_state(probs.shape[0], probs.device)
-    closed, starts, ends = [], [], []
-    for t in range(probs.shape[1]):
-        state, (c, s, e) = fsm_step(
-            state,
-            probs[:, t],
-            threshold=threshold,
-            neg_threshold=neg_threshold,
-            min_silence_chunks=min_silence_chunks,
-            min_speech_chunks=min_speech_chunks,
-            active=None if valid_chunks is None else state.chunk_index < valid_chunks,
-        )
-        closed.append(c)
-        starts.append(s)
-        ends.append(e)
-    return state, (torch.stack(closed), torch.stack(starts), torch.stack(ends))
 
 
 def _to_host(t: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:
@@ -158,8 +52,9 @@ class BatchSegmenter:
     """Incremental multi-stream segmentation over probability slabs.
 
     Feed probabilities in [B, T_slab] slabs (any slab sizes). The per-chunk
-    FSM runs on `device` as torch ops (backend "device": only the sparse
-    events come to the host) or in the native C++ kernel on the host
+    FSM runs on `device` (backend "device": one `fsm_scan` kernel a slab on
+    a card, `segment_batch`'s torch ops on the CPU; only the sparse events
+    come to the host) or in the native C++ kernel on the host
     (backend "native": the probabilities come to the host in one transfer;
     "auto" takes it when the native library is available); `finish` applies
     the EOF snap for still-open segments and the pad/merge pass. Semantics
@@ -221,17 +116,18 @@ class BatchSegmenter:
                 self._pending.append((*_to_host(probs), self._fed_chunks))
             else:
                 cfg = self.config
-                self.state, (closed, seg_start, seg_end) = segment_batch(
+                # on a card one kernel launch for the whole slab, on the CPU
+                # segment_batch; one [3, T, B] int32 tensor of events either
+                # way: one copy to the host, no sync yet
+                self.state, events = fsm_scan(
                     probs,
+                    self.state,
                     threshold=cfg.threshold,
                     neg_threshold=cfg.neg_threshold,
                     min_silence_chunks=cfg.min_silence_chunks,
                     min_speech_chunks=cfg.min_speech_chunks,
-                    state=self.state,
                     valid_chunks=self._valid_dev,
                 )
-                # one [3, T, B] int32 tensor: one copy to the host, no sync yet
-                events = torch.stack([closed.to(torch.int32), seg_start, seg_end])
                 self._pending.append(_to_host(events))
             self._fed_chunks += probs.shape[1]
             tracing.count("segmenter.columns", probs.shape[1])

@@ -40,6 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
+_F = ctypes.c_float
 # C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
 _SIGNATURES = {
     # frames base, batch, n_frames, stride_b, stride_f, padded basis, n_fft,
@@ -73,6 +74,11 @@ _SIGNATURES = {
     # launched), stream
     "vadc_lstm_decoder_fused_resident": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I,
                                          _I, _I, _I, _IP, _P],
+    # probs, stride_b, stride_t, batch, columns, threshold, neg_threshold,
+    # min_silence, min_speech, chunk index of column 0, valid (or null),
+    # triggered, speech_start, temp_end in, the same out, events, stream
+    "vadc_fsm_scan": [_P, _L, _L, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P],
     # x, w, out, rows, k, n, stream (the two bf16 probe products)
     "vadc_bf16_dot": [_P, _P, _P, _I, _I, _I, _P],
     "vadc_bf16_dot_wgmma": [_P, _P, _P, _I, _I, _I, _P],

@@ -34,8 +34,9 @@ slab scan (models/slab.py) `encode` and `lstm_decoder`; on v5
 batch CLI's job and phases (`batch.*`) and the vectorized segmenter's calls
 (`segmenter.*`) are spans of their own, `batch.read_bytes` counts the
 bytes of the files the CLI read, `batch.read_direct_files` the raw files
-it read straight into its slab buffer and `segmenter.columns` the chunk
-columns the segmenter was fed.
+it read straight into its slab buffer, `segmenter.columns` the chunk
+columns the segmenter was fed and `segmenter.kernel_columns` those its
+kernel (kernels/fsm.py) stepped.
 """
 
 from __future__ import annotations
