@@ -177,14 +177,16 @@ def _backend_or_skip(backend):
         pytest.skip("native library not built")
 
 
-@pytest.mark.parametrize("pending_depth", [0, 2])
-@pytest.mark.parametrize("backend", ["device", "native"])
-def test_batch_segmenter_checkpoint_mid_stream(backend, pending_depth):
+@pytest.mark.parametrize("first_slab", [11, 4])
+@pytest.mark.parametrize("jax_backend", ["device", "native"])
+def test_batch_segmenter_checkpoint_mid_stream(jax_backend, first_slab):
     """BatchSegmenter: the accumulated raw segments and the FSM fields
-    survive a save and restore (the port's also with readbacks still
-    deferred at the capture); the resumed output equals the uninterrupted
-    run, including a segment closed before the stop that merges with one
-    closed after, and equals the JAX package's."""
+    survive a save and restore, the first 11 columns fed as one slab or in
+    slabs of 4 (then two readbacks are still deferred at the capture); the
+    resumed output equals the uninterrupted run, including a segment closed
+    before the stop that merges with one closed after, and equals the JAX
+    package's on either of its backends. The capture holds the bytes of the
+    JAX package's device-backend capture."""
     import jax.numpy as jnp
 
     from vadc_tpu.cli.segmenter import SegmenterConfig as JConfig
@@ -192,21 +194,24 @@ def test_batch_segmenter_checkpoint_mid_stream(backend, pending_depth):
     from vadc_tpu.engine.vectorized_segmenter import BatchSegmenter as JSeg
     from vadc_tpu_torch.cli.segmenter import SegmenterConfig
     from vadc_tpu_torch.engine.runner import init_stream_state
-    from vadc_tpu_torch.engine.vectorized_segmenter import BatchSegmenter
+    from vadc_tpu_torch.engine.vectorized_segmenter import PENDING_SLABS, BatchSegmenter
 
-    _backend_or_skip(backend)
+    _backend_or_skip(jax_backend)
     probs = np.stack([_speech_probs(), _speech_probs()[::-1].copy()])
     cfg = SegmenterConfig(speech_pad_s=0.3)
 
     def make():
-        return BatchSegmenter(cfg, 2, device="cpu", backend=backend, pending_depth=pending_depth)
+        return BatchSegmenter(cfg, 2, device="cpu")
 
     ref = make()
     ref.feed(probs)
     expected = ref.finish()
 
     first = make()
-    first.feed(probs[:, :11])
+    offsets = range(0, 11, first_slab)
+    for off in offsets:
+        first.feed(probs[:, off : min(off + first_slab, 11)])
+    assert len(first._pending) == min(len(offsets), PENDING_SLABS)
     ckpt = T.EngineCheckpoint.capture("v3", init_stream_state("v3", 2), first)
     assert any(ckpt.raw_segments), "the test must stop with an accumulated raw segment"
     restored = T.EngineCheckpoint.from_bytes(ckpt.to_bytes())
@@ -215,19 +220,20 @@ def test_batch_segmenter_checkpoint_mid_stream(backend, pending_depth):
     second.feed(probs[:, 11:])
     assert second.finish() == expected
 
-    jfirst = JSeg(JConfig(speech_pad_s=0.3), 2, backend=backend)
+    jfirst = JSeg(JConfig(speech_pad_s=0.3), 2, backend="device")
     jfirst.feed(jnp.asarray(probs[:, :11]))
     jckpt = J.EngineCheckpoint.capture("v3", j_state("v3", 2), jfirst)
     assert ckpt.to_bytes() == jckpt.to_bytes()
-    jref = JSeg(JConfig(speech_pad_s=0.3), 2, backend=backend)
+    jref = JSeg(JConfig(speech_pad_s=0.3), 2, backend=jax_backend)
     jref.feed(jnp.asarray(probs))
     assert expected == jref.finish()
 
 
-@pytest.mark.parametrize("backend", ["device", "native"])
-def test_segmenter_checkpoint_crosses_packages(backend):
-    """A BatchSegmenter captured in one package resumes in the other's and
-    finishes with the uninterrupted run's segments, both ways."""
+@pytest.mark.parametrize("jax_backend", ["device", "native"])
+def test_segmenter_checkpoint_crosses_packages(jax_backend):
+    """A BatchSegmenter captured in one package (the JAX package's on either
+    backend) resumes in the other's and finishes with the uninterrupted
+    run's segments, both ways."""
     import jax.numpy as jnp
 
     from vadc_tpu.cli.segmenter import SegmenterConfig as JConfig
@@ -237,24 +243,24 @@ def test_segmenter_checkpoint_crosses_packages(backend):
     from vadc_tpu_torch.engine.runner import init_stream_state
     from vadc_tpu_torch.engine.vectorized_segmenter import BatchSegmenter
 
-    _backend_or_skip(backend)
+    _backend_or_skip(jax_backend)
     probs = np.stack([_speech_probs(), _speech_probs()[::-1].copy()])
-    jref = JSeg(JConfig(speech_pad_s=0.3), 2, backend=backend)
+    jref = JSeg(JConfig(speech_pad_s=0.3), 2, backend=jax_backend)
     jref.feed(jnp.asarray(probs))
     expected = jref.finish()
 
-    jfirst = JSeg(JConfig(speech_pad_s=0.3), 2, backend=backend)
+    jfirst = JSeg(JConfig(speech_pad_s=0.3), 2, backend=jax_backend)
     jfirst.feed(jnp.asarray(probs[:, :11]))
     data = J.EngineCheckpoint.capture("v3", j_state("v3", 2), jfirst).to_bytes()
-    port = BatchSegmenter(SegmenterConfig(speech_pad_s=0.3), 2, device="cpu", backend=backend)
+    port = BatchSegmenter(SegmenterConfig(speech_pad_s=0.3), 2, device="cpu")
     T.EngineCheckpoint.from_bytes(data).restore_segmenter(port)
     port.feed(probs[:, 11:])
     assert port.finish() == expected
 
-    first = BatchSegmenter(SegmenterConfig(speech_pad_s=0.3), 2, device="cpu", backend=backend)
+    first = BatchSegmenter(SegmenterConfig(speech_pad_s=0.3), 2, device="cpu")
     first.feed(probs[:, :11])
     data = T.EngineCheckpoint.capture("v3", init_stream_state("v3", 2), first).to_bytes()
-    jsecond = JSeg(JConfig(speech_pad_s=0.3), 2, backend=backend)
+    jsecond = JSeg(JConfig(speech_pad_s=0.3), 2, backend=jax_backend)
     J.EngineCheckpoint.from_bytes(data).restore_segmenter(jsecond)
     jsecond.feed(jnp.asarray(probs[:, 11:]))
     assert jsecond.finish() == expected
@@ -427,9 +433,30 @@ def test_restore_segmenter_refuses_a_checkpoint_without_fsm_state():
     from vadc_tpu_torch.engine.runner import init_stream_state
     from vadc_tpu_torch.engine.vectorized_segmenter import BatchSegmenter
 
-    seg = BatchSegmenter(SegmenterConfig(), 2, device="cpu", backend="device")
+    seg = BatchSegmenter(SegmenterConfig(), 2, device="cpu")
     with pytest.raises(ValueError, match="no segmentation state"):
         T.EngineCheckpoint("v3", init_stream_state("v3", 2)).restore_segmenter(seg)
+
+
+def test_checkpoint_uses_no_private_name_of_the_segmenter():
+    """engine/checkpoint.py reads and writes a BatchSegmenter only through
+    its `state_dict` and `load_state_dict`: every attribute taken off a
+    name annotated as a BatchSegmenter is one of the two."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(T))
+    segmenters = {
+        arg.arg
+        for node in ast.walk(tree) if isinstance(node, ast.FunctionDef)
+        for arg in node.args.args + node.args.kwonlyargs
+        if arg.annotation is not None and "BatchSegmenter" in ast.unparse(arg.annotation)
+    }
+    assert segmenters == {"segmenter"}
+    used = {node.attr for node in ast.walk(tree)
+            if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name)
+            and node.value.id in segmenters}
+    assert used == {"state_dict", "load_state_dict"}, used
 
 
 def test_sharded_checkpoint_resume_on_devices(v31, tmp_path):
@@ -461,7 +488,7 @@ def test_sharded_checkpoint_resume_on_devices(v31, tmp_path):
     assert ckpt.family == "v3" and len(restored_state.shards) == 8
     seg2 = BatchSegmenter(SegmenterConfig(), n, device="cpu")
     ckpt.restore_segmenter(seg2)
-    assert seg2._raw == seg._raw
+    assert seg2.state_dict()["raw_segments"] == seg.state_dict()["raw_segments"]
     resumed, _ = engine.scan(tail, restored_state)
     np.testing.assert_array_equal(resumed, live)
 
@@ -497,9 +524,9 @@ def test_checkpoint_refuses_a_state_sharded_over_processes(v31):
 @pytest.mark.parametrize("family", ["v3", "v5"])
 def test_save_sharded_file_is_the_jax_packages(family, v31, v5, tmp_path):
     """For the same state (from seeded arrays) and a segmenter fed the same
-    probabilities, the port's one-process save_sharded file over 8 CPU
-    devices holds exactly the bytes of the JAX package's over its 8
-    virtual devices."""
+    probabilities (the JAX package's on its device backend), the port's
+    one-process save_sharded file over 8 CPU devices holds exactly the
+    bytes of the JAX package's over its 8 virtual devices."""
     import jax.numpy as jnp
 
     from vadc_tpu.cli.segmenter import SegmenterConfig as JConfig
@@ -526,7 +553,7 @@ def test_save_sharded_file_is_the_jax_packages(family, v31, v5, tmp_path):
     je = JEngine(family, jp)
     j_state = je.state_from_local(JState(jnp.asarray(h), jnp.asarray(c),
                                          None if ctx is None else jnp.asarray(ctx)))
-    j_seg = JSegmenter(JConfig(), n)
+    j_seg = JSegmenter(JConfig(), n, backend="device")
     j_seg.feed(jnp.asarray(probs))
     j_path = J.save_sharded(je, j_state, tmp_path / "jax", segmenter=j_seg, pending=pending)
 
@@ -537,6 +564,7 @@ def test_save_sharded_file_is_the_jax_packages(family, v31, v5, tmp_path):
     t_seg.feed(torch.from_numpy(probs))
     t_path = T.save_sharded(te, t_state, tmp_path / "port", segmenter=t_seg, pending=pending)
 
-    assert any(t_seg._raw) and t_seg._raw == j_seg._raw
+    raw = t_seg.state_dict()["raw_segments"]
+    assert any(raw) and raw == j_seg._raw
     assert t_path.name == "port.proc0of1.testtensor" and j_path.name == "jax.proc0of1.testtensor"
     assert t_path.read_bytes() == j_path.read_bytes()

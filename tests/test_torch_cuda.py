@@ -542,11 +542,11 @@ def test_fsm_scan_refuses_what_it_does_not_take_on_the_card(device):
         fsm.fsm_scan(probs, state._replace(chunk_index=2**31 - 2), **FSM)
 
 
-@pytest.mark.parametrize("depth", [0, 2])
-def test_batch_segmenter_on_the_card_is_the_scalar_segmenter(device, depth):
-    """BatchSegmenter on the card (one kernel launch a slab) gives the
-    scalar Segmenter's segments on every stream's real prefix, and counts
-    every column it fed as a kernel column."""
+@pytest.mark.parametrize("slab", [64, 37])
+def test_batch_segmenter_on_the_card_is_the_scalar_segmenter(device, slab):
+    """BatchSegmenter on the card (one kernel launch a slab, the last slab
+    ragged) gives the scalar Segmenter's segments on every stream's real
+    prefix, and counts every column it fed."""
     from vadc_tpu_torch import tracing
     from vadc_tpu_torch.cli.segmenter import Segmenter, SegmenterConfig
     from vadc_tpu_torch.engine.vectorized_segmenter import BatchSegmenter
@@ -558,16 +558,15 @@ def test_batch_segmenter_on_the_card_is_the_scalar_segmenter(device, depth):
     launches = fsm.fsm_scan.launches
     before = tracing.counters()
     with tracing.record():
-        seg = BatchSegmenter(config, batch, device=device, backend="device", pending_depth=depth,
-                             valid_chunks=valid)
+        seg = BatchSegmenter(config, batch, device=device, valid_chunks=valid)
         on_card = torch.from_numpy(probs).to(device)
-        for off in range(0, n_cols, 64):
-            seg.feed(on_card[:, off : off + 64])
+        for off in range(0, n_cols, slab):
+            seg.feed(on_card[:, off : off + slab])
         got = seg.finish()
     after = tracing.counters()
     counted = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
-    assert counted == {"segmenter.columns": n_cols, "segmenter.kernel_columns": n_cols}
-    assert fsm.fsm_scan.launches == launches + 4
+    assert counted == {"segmenter.columns": n_cols}
+    assert fsm.fsm_scan.launches == launches + -(-n_cols // slab)
     want = []
     for row, n in zip(probs, valid):
         scalar = Segmenter(config)
@@ -1446,10 +1445,10 @@ def _report(label: str, leads: list) -> None:
 def test_batch_cli_spans_on_the_card(device, tmp_path, monkeypatch, capsys):
     """With VADC_TPU_PROFILE set, the batch CLI over 4 files writes one trace
     and one counters file (the read bytes, the raw files read straight
-    into the slabs, and the columns the segmenter was fed, every one
-    stepped by its kernel), and the trace names the CLI's spans, the ingest's in
-    the order open, pin, read, grid, beside the slab kernels; in that trace (the profiler aligns the host's ranges and
-    the device's kernels) no encode_fused_audio kernel starts earlier than
+    into the slabs, and the columns the segmenter was fed), and the trace
+    names the CLI's spans, the ingest's in the order open, pin, read, grid,
+    beside the slab kernels; in that trace (the profiler aligns the host's
+    ranges and the device's kernels) no encode_fused_audio kernel starts earlier than
     50 us before its batch.slab span. Under the benchmark's device trace
     (CUDA activity only) the recorder is on and records the spans; the
     leads there, by its marker kernel's mapping of the device's clock onto
@@ -1487,8 +1486,7 @@ def test_batch_cli_spans_on_the_card(device, tmp_path, monkeypatch, capsys):
             "segmenter.feed", "segmenter.finish", "batch.output", "encode_fused_audio"} <= names
     assert json.loads(counters.read_text()) == {
         "batch.read_bytes": sum(os.path.getsize(p) for p in paths),
-        "batch.read_direct_files": len(paths), "segmenter.columns": n_slabs * 16,
-        "segmenter.kernel_columns": n_slabs * 16}
+        "batch.read_direct_files": len(paths), "segmenter.columns": n_slabs * 16}
     ingest = ["batch.open", "batch.pin", "batch.read", "batch.grid"]
     phases = sorted((e["ts"], e["name"]) for e in events
                     if e.get("cat") == "user_annotation" and e.get("name") in ingest)

@@ -1,10 +1,11 @@
 """The port's vectorized segmentation FSM against
 vadc_tpu.engine.vectorized_segmenter and against the scalar Segmenter, on
 seeded random probability grids: `fsm_step`, `segment_batch` and
-`BatchSegmenter` (backends device, native and auto; pending_depth 0 and 2;
-valid_chunks) give identical states, events and segments. The FSM kernel's
-wrapper (`kernels/fsm.py: fsm_scan`) takes segment_batch for a CPU tensor,
-and on the CPU the segmenter counts no kernel columns (the kernel against
+`BatchSegmenter` (against the JAX package's backends device, native and
+auto; slabs of 16 and of 7, whose last is ragged; valid_chunks) give
+identical states, events and segments. The FSM kernel's wrapper
+(`kernels/fsm.py: fsm_scan`) takes segment_batch for a CPU tensor, and on
+the CPU the segmenter launches no kernel (the kernel against
 segment_batch on the card: tests/test_torch_cuda.py, whose inputs the
 plain version here holds to the JAX package's bit for bit, since the card's
 machine has no JAX). No tolerance: the FSM is integer logic on float32
@@ -24,7 +25,7 @@ from hypothesis import strategies as st
 from vadc_tpu.cli.segmenter import Segmenter as JSegmenter
 from vadc_tpu.cli.segmenter import SegmenterConfig as JConfig
 from vadc_tpu.engine import vectorized_segmenter as JV
-from vadc_tpu_torch import native, tracing
+from vadc_tpu_torch import tracing
 from vadc_tpu_torch.cli.segmenter import SegmenterConfig
 from vadc_tpu_torch.engine import vectorized_segmenter as TV
 from vadc_tpu_torch.kernels import _build, fsm
@@ -146,16 +147,16 @@ def test_fsm_scan_on_the_cpu_is_segment_batch(name, with_valid):
 
 
 @pytest.mark.parametrize("with_valid", [False, True])
-def test_no_kernel_columns_on_the_cpu(with_valid):
-    """On the CPU the device backend steps every column with segment_batch:
-    `segmenter.columns` counts them, `segmenter.kernel_columns` stays 0 and
-    the kernel's launch count does not move."""
+def test_every_column_counted_and_no_launch_on_the_cpu(with_valid):
+    """On the CPU the segmenter steps every column with segment_batch:
+    `segmenter.columns` counts them, no other counter moves and the
+    kernel's launch count does not move."""
     probs = _grid(4, 40, seed=9)
     valid = np.array([40, 17, 25, 3]) if with_valid else None
     launches = fsm.fsm_scan.launches
     before = tracing.counters()
     with tracing.record():
-        got = _port_segments(probs, {}, backend="device", depth=2, valid=valid, slab=16)
+        got = _port_segments(probs, {}, valid=valid, slab=16)
     after = tracing.counters()
     counted = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
     assert counted == {"segmenter.columns": 40}
@@ -281,26 +282,24 @@ def test_card_segmenter_inputs_scalar_is_jax():
     assert any(port)
 
 
-def _port_segments(probs, kw, *, backend, depth, valid, slab):
-    seg = TV.BatchSegmenter(_config(kw), probs.shape[0], device="cpu", backend=backend,
-                            pending_depth=depth, valid_chunks=valid)
+def _port_segments(probs, kw, *, valid, slab):
+    seg = TV.BatchSegmenter(_config(kw), probs.shape[0], device="cpu", valid_chunks=valid)
     for off in range(0, probs.shape[1], slab):
         seg.feed(torch.from_numpy(probs[:, off : off + slab]))
-        assert len(seg._pending) <= depth
+        assert len(seg._pending) <= TV.PENDING_SLABS
     return seg.finish(valid_chunks=valid)
 
 
-@pytest.mark.parametrize("backend", ["device", "native", "auto"])
-@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("jax_backend", ["device", "native", "auto"])
+@pytest.mark.parametrize("slab", [16, 7])
 @pytest.mark.parametrize("with_valid", [False, True])
-def test_batch_segmenter_matches_jax_and_the_scalar_segmenter(backend, depth, with_valid):
+def test_batch_segmenter_matches_jax_and_the_scalar_segmenter(jax_backend, slab, with_valid):
     probs = _grid(7, 64, seed=4)
     valid = np.array([64, 50, 33, 12, 1, 0, 64]) if with_valid else None
-    got = _port_segments(probs, {}, backend=backend, depth=depth, valid=valid, slab=16)
-    jseg = JV.BatchSegmenter(_config({}, JConfig), 7, backend=backend, pending_depth=depth,
-                             valid_chunks=valid)
-    for off in range(0, 64, 16):
-        jseg.feed(probs[:, off : off + 16])
+    got = _port_segments(probs, {}, valid=valid, slab=slab)
+    jseg = JV.BatchSegmenter(_config({}, JConfig), 7, backend=jax_backend, valid_chunks=valid)
+    for off in range(0, 64, slab):
+        jseg.feed(probs[:, off : off + slab])
     assert got == jseg.finish(valid_chunks=valid)
     assert got == _scalar(probs, {}, valid)
     assert any(got), "the grid should hold some segments"
@@ -311,14 +310,8 @@ def test_batch_segmenter_matches_jax_and_the_scalar_segmenter(backend, depth, wi
 def test_batch_segmenter_is_slab_size_invariant(name, slab):
     probs = _grid(4, 64, seed=5)
     valid = np.array([64, 17, 40, 3])
-    got = _port_segments(probs, CONFIGS[name], backend="device", depth=2, valid=valid, slab=slab)
+    got = _port_segments(probs, CONFIGS[name], valid=valid, slab=slab)
     assert got == _scalar(probs, CONFIGS[name], valid)
-
-
-def test_native_backend_is_the_same_library_when_available():
-    seg = TV.BatchSegmenter(_config({}), 2, device="cpu", backend="auto")
-    assert (seg._native is not None) == native.available()
-    assert (seg.state is None) == native.available()
 
 
 def test_collect_segments_and_array_input():
@@ -328,10 +321,8 @@ def test_collect_segments_and_array_input():
     assert got == _scalar(probs, {})
 
 
-def test_unknown_backend_and_mismatched_valid_chunks_raise():
-    with pytest.raises(ValueError, match="unknown backend"):
-        TV.BatchSegmenter(_config({}), 2, device="cpu", backend="gpu")
-    seg = TV.BatchSegmenter(_config({}), 2, device="cpu", backend="device", valid_chunks=[3, 4])
+def test_finish_refuses_valid_chunks_that_disagree_with_the_constructors():
+    seg = TV.BatchSegmenter(_config({}), 2, device="cpu", valid_chunks=[3, 4])
     seg.feed(np.zeros((2, 4), np.float32))
     with pytest.raises(ValueError, match="disagrees"):
         seg.finish(valid_chunks=[3, 5])
@@ -352,15 +343,14 @@ def test_cuda_device_is_refused_without_a_card():
     n_streams=st.integers(1, 5),
     n_chunks=st.integers(1, 40),
     slab=st.integers(1, 12),
-    depth=st.integers(0, 3),
     min_silence=st.integers(1, 4),
     min_speech=st.integers(1, 4),
 )
-def test_batch_segmenter_equals_scalar_segmenter_property(seed, n_streams, n_chunks, slab, depth,
+def test_batch_segmenter_equals_scalar_segmenter_property(seed, n_streams, n_chunks, slab,
                                                           min_silence, min_speech):
     rng = np.random.default_rng(seed)
     probs = _grid(n_streams, n_chunks, seed=seed)
     valid = rng.integers(0, n_chunks + 1, size=n_streams)
     kw = dict(min_silence_chunks=min_silence, min_speech_chunks=min_speech)
-    got = _port_segments(probs, kw, backend="device", depth=depth, valid=valid, slab=slab)
+    got = _port_segments(probs, kw, valid=valid, slab=slab)
     assert got == _scalar(probs, kw, valid)

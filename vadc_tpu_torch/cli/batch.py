@@ -41,12 +41,9 @@ the samples' bytes, and `batch.read_direct_files`, the raw files read
 straight into their runs, as against a .wav input's decoded copy) and
 `batch.grid` (the padding zeroed: past each file's last sample, and the
 silent streams); then one `batch.slab` a slab (the next slab's copies
-enqueued, the dequant, the scan, with the model's zones in it: v5's
-`v5.context`, `v5.spectrum` and `v5.convs`, models/silero_v5.py), the
-segmenter's `segmenter.feed` (the counters `segmenter.columns`: the chunk
-columns fed, and `segmenter.kernel_columns`: those its kernel stepped, on a
-card every one) and `segmenter.finish`, and `batch.output` (the lines and the
-cut files).
+enqueued, the dequant, the scan, with the model's zones in it, models/),
+the segmenter's spans (engine/vectorized_segmenter.py), and `batch.output`
+(the lines and the cut files).
 """
 
 from __future__ import annotations
@@ -276,14 +273,12 @@ def _main(argv: list[str] | None = None) -> int:
         neg_threshold_relative=args.neg_threshold_relative,
         speech_pad_ms=args.speech_pad,
     )
-    # device backend: only the sparse closed-segment events cross the
-    # device->host boundary per slab. pending_depth=2 defers each slab's
-    # event readback until two more slabs have been enqueued, so the
-    # readback overlaps the next slabs' transfer and compute.
     # the vectorized FSM runs on the first device over the gathered slab
-    # probabilities of every stream, on a card one kernel launch a slab
+    # probabilities of every stream, on a card one kernel launch a slab;
+    # only the sparse closed-segment events cross to the host, each slab's
+    # read two slabs later, so the readback overlaps the next slabs' work
     segmenter = BatchSegmenter(
-        seg_config, n_streams, device=device, backend="device", pending_depth=2,
+        seg_config, n_streams, device=device,
         # mask each file's zero-padded tail out of the FSM: pad chunks
         # must not confirm closes the scalar segmenter would EOF-snap
         valid_chunks=valid_all,

@@ -67,7 +67,8 @@ class EngineCheckpoint:
     (BatchSegmenter accumulation, the batched analogue of the reference's
     buffered segment). pending: per-stream held merge candidate (the host
     Segmenter / server slot `pending`, vadc.c:831). chunk_indices: per-stream
-    chunk counters when streams advance independently (native FSM).
+    chunk counters when streams advance independently (the server's
+    per-slot native FSM, the JAX package's native BatchSegmenter).
     sendbuf: per-stream rendered but unsent output bytes (the serving
     daemon's outbox under client backpressure), re-delivered to the
     reconnecting client after a restore."""
@@ -196,62 +197,35 @@ class EngineCheckpoint:
     ) -> "EngineCheckpoint":
         """Snapshot engine + segmentation state, INCLUDING the accumulated
         raw segments awaiting pad/merge (and per-slot pending segments when
-        the caller holds them, e.g. the serving daemon). Slabs whose
-        readback the segmenter still defers (pending_depth) are drained
-        first, so their events are in the snapshot."""
-        while segmenter._pending:
-            segmenter._drain_one()
-        if segmenter._native is not None:
-            n = segmenter._native
-            chunk_indices = n.chunk_index.astype(np.int32).copy()
-            chunk_index = int(chunk_indices.max(initial=0))
-            fsm = FsmState(
-                triggered=torch.from_numpy(n.triggered.astype(bool)),
-                speech_start=torch.from_numpy(n.speech_start.astype(np.int32)),
-                temp_end=torch.from_numpy(n.temp_end.astype(np.int32)),
-                chunk_index=chunk_index,
-            )
-        else:
-            fsm = segmenter.state
-            chunk_index = int(fsm.chunk_index)
-            chunk_indices = None
+        the caller holds them, e.g. the serving daemon): the segmenter's
+        `state_dict`."""
+        d = segmenter.state_dict()
+        fsm = FsmState(d["triggered"], d["speech_start"], d["temp_end"], d["chunk_index"])
         return cls(
             family=family,
             model_state=model_state,
             fsm_state=fsm,
-            chunk_index=chunk_index,
-            raw_segments=[list(r) for r in segmenter._raw],
+            chunk_index=fsm.chunk_index,
+            raw_segments=d["raw_segments"],
             pending=pending,
-            chunk_indices=chunk_indices,
         )
 
     def restore_segmenter(self, segmenter: BatchSegmenter) -> None:
-        """Load FSM fields and accumulated raw segments into a fresh
-        BatchSegmenter (native or device backend; the device backend's [B]
-        tensors go to the segmenter's own device)."""
+        """Load the FSM fields and the accumulated raw segments into a fresh
+        BatchSegmenter (its `load_state_dict`). A capture of per-stream
+        chunk counters (the JAX package's native FSM) resumes at the
+        largest, `chunk_index`."""
         if self.fsm_state is None:
             raise ValueError("checkpoint has no segmentation state")
         fsm = self.fsm_state
-        if segmenter._native is not None:
-            n = segmenter._native
-            n.triggered[:] = _host(fsm.triggered).astype(n.triggered.dtype)
-            n.speech_start[:] = _host(fsm.speech_start)
-            n.temp_end[:] = _host(fsm.temp_end)
-            if self.chunk_indices is not None:
-                n.chunk_index[:] = self.chunk_indices
-            else:
-                n.chunk_index[:] = self.chunk_index
-        else:
-            segmenter.state = FsmState(
-                triggered=_tensor(_host(fsm.triggered), torch.bool, segmenter.device),
-                speech_start=_tensor(_host(fsm.speech_start), torch.int32, segmenter.device),
-                temp_end=_tensor(_host(fsm.temp_end), torch.int32, segmenter.device),
-                chunk_index=self.chunk_index,
-            )
-        # the global grid offset of the next slab (valid_chunks masking)
-        segmenter._fed_chunks = self.chunk_index
-        if self.raw_segments is not None:
-            segmenter._raw = [list(r) for r in self.raw_segments]
+        raw = self.raw_segments if self.raw_segments is not None else [[]] * len(fsm.triggered)
+        segmenter.load_state_dict({
+            "triggered": fsm.triggered,
+            "speech_start": fsm.speech_start,
+            "temp_end": fsm.temp_end,
+            "chunk_index": self.chunk_index,
+            "raw_segments": raw,
+        })
 
     def save(self, path: str | Path) -> None:
         Path(path).write_bytes(self.to_bytes())

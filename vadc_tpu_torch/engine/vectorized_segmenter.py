@@ -12,8 +12,7 @@ per-chunk "segment closed here" events out; pad/merge and emission stay on
 the host (they touch only the few closed segments, not every chunk).
 `BatchSegmenter.feed` and `.finish` are the spans `segmenter.feed` and
 `segmenter.finish` (tracing.zone); the counter `segmenter.columns` counts
-the chunk columns fed, each one FSM step over every stream, and
-`segmenter.kernel_columns` (counted by fsm_scan) those the kernel stepped.
+the chunk columns fed, each one FSM step over every stream.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from vadc_tpu_torch import native, tracing
+from vadc_tpu_torch import tracing
 from vadc_tpu_torch.cli.segmenter import SegmenterConfig
 # fsm_step and segment_batch too: the engine's callers find the FSM here
 from vadc_tpu_torch.kernels.fsm import (
@@ -31,7 +30,10 @@ from vadc_tpu_torch.kernels.fsm import (
 )
 from vadc_tpu_torch.runtime import resolve_device
 
-BACKENDS = ("auto", "native", "device")
+#: slabs whose events' readback `feed` defers: it enqueues the FSM and an
+#: asynchronous copy into pinned memory, and reads slab k's events while
+#: slab k + 2 is computing
+PENDING_SLABS = 2
 
 
 def _to_host(t: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:
@@ -52,26 +54,12 @@ class BatchSegmenter:
     """Incremental multi-stream segmentation over probability slabs.
 
     Feed probabilities in [B, T_slab] slabs (any slab sizes). The per-chunk
-    FSM runs on `device` (backend "device": one `fsm_scan` kernel a slab on
-    a card, `segment_batch`'s torch ops on the CPU; only the sparse events
-    come to the host) or in the native C++ kernel on the host
-    (backend "native": the probabilities come to the host in one transfer;
-    "auto" takes it when the native library is available); `finish` applies
-    the EOF snap for still-open segments and the pad/merge pass. Semantics
-    match the scalar CLI Segmenter."""
+    FSM runs on `device` (`fsm_scan`: one kernel launch a slab on a card,
+    `segment_batch`'s torch ops on the CPU); only the sparse events come to
+    the host. `finish` applies the EOF snap for still-open segments and the
+    pad/merge pass. Semantics match the scalar CLI Segmenter."""
 
-    def __init__(
-        self,
-        config: SegmenterConfig,
-        n_streams: int,
-        *,
-        device,
-        backend: str = "auto",
-        pending_depth: int = 0,
-        valid_chunks=None,
-    ):
-        if backend not in BACKENDS:
-            raise ValueError(f"unknown backend {backend!r}")
+    def __init__(self, config: SegmenterConfig, n_streams: int, *, device, valid_chunks=None):
         self.config = config
         self.n_streams = n_streams
         self.device = resolve_device(device)
@@ -81,112 +69,87 @@ class BatchSegmenter:
         # tentative close that the scalar segmenter — fed only the real
         # prefix — would instead resolve with the reference's EOF snap.
         self._valid = None if valid_chunks is None else np.asarray(valid_chunks, np.int64)
-        self._fed_chunks = 0  # global grid offset of the next slab
+        self._valid_dev = (
+            None if self._valid is None
+            else torch.as_tensor(self._valid, dtype=torch.int32, device=self.device)
+        )
+        self._state = init_fsm_state(n_streams, self.device)
         self._raw: list[list[tuple[int, int]]] = [[] for _ in range(n_streams)]
-        # pending_depth > 0 defers the device->host readback by that many
-        # feed() calls: feed only enqueues the FSM and an asynchronous copy
-        # into pinned memory, and slab k's results are read while slab
-        # k+depth is already computing.
-        self.pending_depth = pending_depth
         self._pending: deque = deque()
-        if backend == "native" or (backend == "auto" and native.available()):
-            self._native = native.NativeFsm(
-                n_streams,
-                threshold=config.threshold,
-                neg_threshold=config.neg_threshold,
-                min_silence_chunks=config.min_silence_chunks,
-                min_speech_chunks=config.min_speech_chunks,
-            )
-            self.state = None
-        else:
-            self._native = None
-            self.state = init_fsm_state(n_streams, self.device)
-            self._valid_dev = (
-                None if self._valid is None
-                else torch.as_tensor(self._valid, dtype=torch.int32, device=self.device)
-            )
 
     def feed(self, probs) -> None:
         """probs [B, T]: a tensor on the segmenter's device, or array-like."""
         with tracing.zone("segmenter.feed"):
             probs = torch.as_tensor(probs, dtype=torch.float32).to(self.device)
-            if self._native is not None:
-                # defer only the device->host probability pull; the C++ FSM
-                # must still see slabs in order, so draining is FIFO
-                self._pending.append((*_to_host(probs), self._fed_chunks))
-            else:
-                cfg = self.config
-                # on a card one kernel launch for the whole slab, on the CPU
-                # segment_batch; one [3, T, B] int32 tensor of events either
-                # way: one copy to the host, no sync yet
-                self.state, events = fsm_scan(
-                    probs,
-                    self.state,
-                    threshold=cfg.threshold,
-                    neg_threshold=cfg.neg_threshold,
-                    min_silence_chunks=cfg.min_silence_chunks,
-                    min_speech_chunks=cfg.min_speech_chunks,
-                    valid_chunks=self._valid_dev,
-                )
-                self._pending.append(_to_host(events))
-            self._fed_chunks += probs.shape[1]
+            cfg = self.config
+            # one [3, T, B] int32 tensor of events: one copy to the host,
+            # no sync yet
+            self._state, events = fsm_scan(
+                probs,
+                self._state,
+                threshold=cfg.threshold,
+                neg_threshold=cfg.neg_threshold,
+                min_silence_chunks=cfg.min_silence_chunks,
+                min_speech_chunks=cfg.min_speech_chunks,
+                valid_chunks=self._valid_dev,
+            )
+            self._pending.append(_to_host(events))
             tracing.count("segmenter.columns", probs.shape[1])
-            while len(self._pending) > self.pending_depth:
-                self._drain_one()
+            self._drain(keep=PENDING_SLABS)
 
-    def _drain_one(self) -> None:
-        host, done, *rest = self._pending.popleft()
-        if done is not None:
-            done.synchronize()  # the sync point: this slab's copy, not the device
-        if self._native is not None:
-            (offset,) = rest
-            probs = np.ascontiguousarray(host.numpy(), np.float32)
-            t = probs.shape[1]
-            if self._valid is None:
-                subslabs = [(0, t, None)]
-            else:
-                # the native active mask is per-stream per-FEED: split the
-                # slab at every stream EOF it contains, so within each
-                # sub-slab every stream is uniformly active or frozen.
-                # Total extra feeds across a whole run are bounded by the
-                # number of distinct stream lengths.
-                cuts = np.unique(np.clip(self._valid - offset, 0, t))
-                cuts = [int(c) for c in cuts if 0 < c < t]
-                bounds = [0, *cuts, t]
-                subslabs = [
-                    (a, b, (self._valid > offset + a).astype(np.uint8))
-                    for a, b in zip(bounds[:-1], bounds[1:])
-                ]
-            for a, b, active in subslabs:
-                for i, start, end in self._native.feed(probs[:, a:b], active=active):
-                    self._raw[i].append((start, end))
-            return
-        closed, seg_start, seg_end = host.numpy()  # each [T, B]
-        if not closed.any():
-            return
-        times, streams = np.nonzero(closed)
-        for t, i in zip(times, streams):
-            self._raw[i].append((int(seg_start[t, i]), int(seg_end[t, i])))
+    def _drain(self, keep: int = 0) -> None:
+        """Read the deferred slabs' events, oldest first, until `keep` remain."""
+        while len(self._pending) > keep:
+            host, done = self._pending.popleft()
+            if done is not None:
+                done.synchronize()  # the sync point: this slab's copy, not the device
+            closed, seg_start, seg_end = host.numpy()  # each [T, B]
+            for t, i in zip(*np.nonzero(closed)):
+                self._raw[i].append((int(seg_start[t, i]), int(seg_end[t, i])))
+
+    def state_dict(self) -> dict:
+        """Complete resumable state: the FSM fields ([B] tensors on the
+        segmenter's device), the global index of the next chunk and the
+        closed segments awaiting pad/merge. Slabs whose readback `feed`
+        still defers are read first, so their events are in it."""
+        self._drain()
+        return {
+            "triggered": self._state.triggered,
+            "speech_start": self._state.speech_start,
+            "temp_end": self._state.temp_end,
+            "chunk_index": self._state.chunk_index,
+            "raw_segments": [list(r) for r in self._raw],
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        """Replace the whole state with a `state_dict`'s (tensors or arrays
+        on any device; the FSM fields go to the segmenter's device). Events
+        of slabs fed before and not yet read are dropped with the rest."""
+        def field(name, dtype):
+            return torch.as_tensor(d[name]).to(device=self.device, dtype=dtype)
+
+        self._state = FsmState(
+            triggered=field("triggered", torch.bool),
+            speech_start=field("speech_start", torch.int32),
+            temp_end=field("temp_end", torch.int32),
+            chunk_index=int(d["chunk_index"]),
+        )
+        self._raw = [list(r) for r in d["raw_segments"]]
+        self._pending.clear()
 
     def finish(self, valid_chunks=None) -> list[list[tuple[float, float]]]:
         """valid_chunks: per-stream real chunk counts (for zero-padded batch
         grids); segments are clamped to each stream's real extent and the
         reference's EOF snap applies at it (vadc.c:1005-1027)."""
         with tracing.zone("segmenter.finish"):
-            while self._pending:
-                self._drain_one()
+            self._drain()
             cfg = self.config
-            if self._native is not None:
-                triggered = self._native.triggered.astype(bool)
-                open_start = self._native.speech_start
-                total_chunks = int(self._native.chunk_index.max()) if self.n_streams else 0
-            else:
-                triggered = self.state.triggered.cpu().numpy()
-                open_start = self.state.speech_start.cpu().numpy()
-                total_chunks = self.state.chunk_index
+            triggered = self._state.triggered.cpu().numpy()
+            open_start = self._state.speech_start.cpu().numpy()
             if valid_chunks is None:
                 valid_chunks = (
-                    self._valid if self._valid is not None else [total_chunks] * self.n_streams
+                    self._valid if self._valid is not None
+                    else [self._state.chunk_index] * self.n_streams
                 )
             elif self._valid is not None:
                 mismatched = [

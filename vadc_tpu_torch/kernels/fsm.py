@@ -16,8 +16,8 @@ launches `csrc/fsm_scan.cu` once a slab instead, whose header says what
 bounds it: one thread a stream walks the slab's columns with the FSM's
 state in registers, the transitions `fsm_step`'s in its order, and writes
 the events engine/vectorized_segmenter.py's `BatchSegmenter.feed` copies to
-the host, in segment_batch's layout and bits. Each launch counts its
-columns under the tracing counter `segmenter.kernel_columns`.
+the host, in segment_batch's layout and bits. `fsm_scan.launches` counts
+the launches.
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ from typing import NamedTuple
 
 import torch
 
-from vadc_tpu_torch import tracing
 from vadc_tpu_torch.kernels import _build
 from vadc_tpu_torch.runtime import on_device
 
@@ -157,10 +156,10 @@ def fsm_scan(
     stream's chunks at global index >= valid are masked out, as there.
 
     A CPU tensor takes the plain version, `segment_batch`; a CUDA tensor
-    launches the kernel (built at first use) or raises, and counts its
-    columns as `segmenter.kernel_columns`. The kernel writes the new state
-    into new tensors, as the plain version returns new ones: a state
-    captured before the call (engine/checkpoint.py) stays as it was."""
+    launches the kernel (built at first use) or raises. The kernel writes
+    the new state into new tensors, as the plain version returns new ones:
+    a state captured before the call (engine/checkpoint.py) stays as it
+    was."""
     if probs.device.type == "cpu":
         state, (closed, starts, ends) = segment_batch(
             probs, threshold=threshold, neg_threshold=neg_threshold,
@@ -186,7 +185,6 @@ def fsm_scan(
         )
     _build.check(status, "fsm_scan")
     fsm_scan.launches += 1
-    tracing.count("segmenter.kernel_columns", n_cols)
     new_state = state._replace(triggered=triggered, speech_start=speech_start, temp_end=temp_end,
                                chunk_index=state.chunk_index + n_cols)
     return new_state, events

@@ -11,7 +11,8 @@ frames in order, and the decoder runs over every chunk at once. The JAX
 function walks blocks of `tblock` chunks because XLA needs a fixed shape;
 one kernel call walks all the chunks here, so there is no block argument.
 The models' `forward_scan` (silero_v4, silero_v5 and their 8 kHz shims)
-are this with their own encoder.
+are this with their own encoder. Spans (tracing.zone): `encode` around the
+encoder's pieces and `lstm_decoder` around the LSTM and the decoder.
 """
 
 from __future__ import annotations

@@ -24,19 +24,9 @@ recorder of where its time goes.
     VADC_TPU_PROFILE environment variable names the directory, as in the
     JAX package; with neither it is a no-op.
 
-The model's zones: on Silero v3.1 the JAX package's, `stft`,
-`adaptive_norm`, `encoder_layer_1`..`4`, `lstm` and `decoder` on the plain
-path (the kernels' plain versions, which the CPU runs), and on the kernel
-path the kernel's name (`forward_fused`, `encode_fused_audio`,
-`lstm_decoder_fused`), around the plain stages on the CPU; on the v4 and v5
-slab scan (models/slab.py) `encode` and `lstm_decoder`; on v5
-(models/silero_v5.py) `v5.context`, `v5.spectrum` and `v5.convs`. The
-batch CLI's job and phases (`batch.*`) and the vectorized segmenter's calls
-(`segmenter.*`) are spans of their own, `batch.read_bytes` counts the
-bytes of the files the CLI read, `batch.read_direct_files` the raw files
-it read straight into its slab buffer, `segmenter.columns` the chunk
-columns the segmenter was fed and `segmenter.kernel_columns` those its
-kernel (kernels/fsm.py) stepped.
+Each module that opens zones or counts names them in its own docstring
+(models/silero_v31.py also those of its kernels' plain versions); README
+says which metrics read them.
 """
 
 from __future__ import annotations
