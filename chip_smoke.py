@@ -51,6 +51,12 @@ Phases, each of which raises on failure (exit code 1):
        valid_chunks 0, inside either slab and past both, on probabilities
        at the fp32 thresholds and one ulp either side: its [3, T, B] events
        and state bit for bit those of segment_batch on the card;
+     - v5_convs (v5's four convs, kernels/v5_convs.py) at v5's and v5_8k's
+       widths, every tier and 1, 37, 2048 and 4096 rows against the plain
+       chain (silero_v5._convs; TOL_V5_CONVS at faithful, tier_check's
+       class at the bf16 tiers, each beside a control that breaks it), a
+       launch over part of the rows bit for bit the same rows of the whole;
+       then timed alone at 4096 and 2048 rows beside its bound;
   3. the main paths, each with the kernels' launch counts set to 0 just
      before and read just after (each kernel of the path must be > 0):
      - v3.1: StreamRunner.scan over 2048 streams x 8 chunks on the card
@@ -348,8 +354,20 @@ OVERLAP_TICKS = 600
 # family's path must launch
 API_SECONDS, API_TIMED_SECONDS, CUT_SECONDS = 30.0, 60.0, 20.0
 TOL_API = {"v5": 1e-5, "v5_8k": 1e-5}
+# the kernels of v5's path (v4's: its spectrum and LSTM kernels)
+V5_KERNELS = ("stft_magnitude", "v5_convs", "lstm_fused")
 API_KERNELS = {"v3": ("encode_fused_audio", "lstm_decoder_fused"),
-               **{f: ("stft_magnitude", "lstm_fused") for f in ("v4", "v4_8k", "v5", "v5_8k")}}
+               **{f: ("stft_magnitude", "lstm_fused") for f in ("v4", "v4_8k")},
+               **{f: V5_KERNELS for f in ("v5", "v5_8k")}}
+# v5_convs against the plain chain on the card (phase_kernels_v5_convs):
+# the rows it is checked at (a single stream's step, a ragged tile, the
+# server's and the batch CLI's pieces) and timed at; at faithful the largest
+# difference relative to the largest feature, three times the largest
+# reading on an H100 (6.1e-7 over 236 inputs at both widths; the kernel
+# sums each tap's products in channel order, cuBLAS in its own) rounded up;
+# the bf16 tiers by tier_check's class of the kernel
+V5_CONVS_ROWS, V5_CONVS_TIMED = (1, 37, 2048, 4096), (4096, 2048)
+TOL_V5_CONVS = 2e-6
 # the corpus path: files, their lengths in seconds, the slab
 CORPUS_FILES, CORPUS_SECONDS, SLAB_CHUNKS = 24, (5.0, 40.0), 64
 # encode_fused against the plain encoder stages: fp32 both, other orders of
@@ -1372,6 +1390,124 @@ def phase_kernels_fsm(device) -> dict:
             "plain_device_ms": plain_dev_ms}
 
 
+def v5_convs_counts(rows: int, c_in: int) -> tuple[float, float]:
+    """(flops, bytes) of v5's four convs over `rows` chunks: the taps that
+    read a real frame (10, 5, 2 and 1 a chunk: kernels/v5_convs.py:
+    used_taps), the spectrum [rows, 4, c_in] in, the features [rows, 128]
+    out, the used taps' weights and the biases read once."""
+    from vadc_tpu_torch.kernels.v5_convs import FRAMES, STRIDES, WIDTHS, used_taps
+
+    macs, weights, frames, cin = 0, 0, FRAMES, c_in
+    for cout, stride in zip(WIDTHS, STRIDES):
+        out = (frames - 1) // stride + 1
+        real = sum(0 <= f * stride + t - 1 < frames for f in range(out) for t in range(3))
+        macs += real * cin * cout
+        weights += len(used_taps(frames, stride)) * cin * cout + cout
+        frames, cin = out, cout
+    return 2.0 * rows * macs, 4.0 * (rows * (FRAMES * c_in + WIDTHS[-1]) + weights)
+
+
+def phase_kernels_v5_convs(models: dict, device) -> dict:
+    """v5_convs (v5's four convs, kernels/v5_convs.py) at both widths
+    (v5's C_in 129, v5_8k's 65), every tier and the rows of V5_CONVS_ROWS,
+    on the spectrum of seeded speech, against the plain chain
+    (silero_v5._convs) on the card: at faithful the largest difference
+    relative to the largest feature held to TOL_V5_CONVS beside the
+    control, the plain chain at fast, which must break it; at a bf16 tier
+    tier_check's limits of the kernel beside the control, the faithful
+    kernel, which must break them at fast, and at turbo from
+    tier_check.SHARE_MIN_BATCH rows; and a launch over rows [a:b] bit for
+    bit the same rows of the whole launch. Then
+    timed alone at V5_CONVS_TIMED rows, at each tier: CUDA events around
+    calls in a row and device time (torch.profiler), beside the plain chain
+    and the bound (v5_convs_counts)."""
+    import torch
+
+    from vadc_tpu_torch.kernels import tier_check
+    from vadc_tpu_torch.kernels.v5_convs import v5_convs
+    from vadc_tpu_torch.models import silero_v5
+    from vadc_tpu_torch.nn.precision import tier_of
+
+    out = {"err": 0.0, "timing": {}}
+    for family, chunk in (("v5", V5_CHUNK), ("v5_8k", V5_8K_CHUNK)):
+        module, params = models[family]
+        for rows in V5_CONVS_ROWS:
+            audio = torch.from_numpy(speech_chunks(rows, module.CONTEXT_SAMPLES + chunk,
+                                                   seed=SEED + 950 + rows)).to(device)
+            for tier in ("faithful", *TIERS):
+                t = tier_of(tier)
+                label = f"v5_convs {family} [{tier}] {rows} rows"
+                spect = silero_v5.spectrum(params, audio, pad_right=module.STFT_PAD_RIGHT,
+                                           hop=module.STFT_HOP, tier=t)
+                before = v5_convs.launches
+                got = v5_convs(params, spect, t)
+                want = silero_v5._convs(params, spect, t)
+                a = rows // 3
+                b = min(rows, a + max(1, rows // 2))
+                part = v5_convs(params, spect[a:b].contiguous(), t)
+                torch.cuda.synchronize()
+                require(v5_convs.launches == before + 2, f"{label}: launches")
+                require(got.shape == (rows, 1, 128), f"{label}: shape {tuple(got.shape)}")
+                require(torch.equal(part, got[a:b]),
+                        f"{label}: rows [{a}:{b}] alone differ from the whole launch's")
+                scale = float(want.abs().max())
+                if tier == "faithful":
+                    largest = max_abs(got, want) / scale
+                    c = max_abs(silero_v5._convs(params, spect, tier_of("fast")), want) / scale
+                    log(f"{label}: largest difference {largest:.3e} of the largest feature "
+                        f"({scale:.3f}), bound {TOL_V5_CONVS:g}; the control (the plain chain "
+                        f"at fast) {c:.3e}; rows [{a}:{b}] alone bit for bit")
+                    require(largest <= TOL_V5_CONVS, f"{label}: {largest:.3e}")
+                    require(c > TOL_V5_CONVS, f"{label}: the control {c:.3e} is within the bound")
+                    out["err"] = max(out["err"], largest)
+                    continue
+                errs = {"feat": tier_check.errors(got, want, tier, scale)}
+                faithful = v5_convs(params, spect, tier_of("faithful"))
+                caught = tier_check.breaches(tier, "v5_convs", rows,
+                                             {"feat": tier_check.errors(faithful, want, tier,
+                                                                        scale)})
+                log(f"{label}: largest difference {errs['feat'][0]:.3e} of the largest feature, "
+                    f"{errs['feat'][1]:.5f} above {tier_check.TAU[tier]:g}; the control (the "
+                    f"faithful kernel) {'breaks the limits' if caught else 'within the limits'}; "
+                    f"rows [{a}:{b}] alone bit for bit")
+                broken = tier_check.breaches(tier, "v5_convs", rows, errs)
+                require(not broken, f"{label}: {broken}")
+                # bf16_3x and fp32 products differ by 2^-17 or less: no limit
+                # tells the faithful kernel from the balanced one; at turbo a
+                # flip moves a stored feature a bf16 ulp, as far as the
+                # faithful kernel does, and only the share, held from
+                # SHARE_MIN_BATCH rows, tells them apart
+                blind = tier == "balanced" or (tier == "turbo"
+                                               and rows < tier_check.SHARE_MIN_BATCH)
+                require(caught or blind, f"{label}: the control is within the limits")
+    module, params = models["v5"]
+    for rows in V5_CONVS_TIMED:
+        audio = torch.from_numpy(speech_chunks(rows, module.CONTEXT_SAMPLES + V5_CHUNK,
+                                               seed=SEED + 960)).to(device)
+        for tier in ("faithful", *TIERS):
+            t = tier_of(tier)
+            spect = silero_v5.spectrum(params, audio, pad_right=module.STFT_PAD_RIGHT,
+                                       hop=module.STFT_HOP, tier=t)
+
+            def kernel():
+                return v5_convs(params, spect, t)
+
+            def plain():
+                return silero_v5._convs(params, spect, t)
+
+            ms, plain_ms = cuda_ms_pair(kernel, plain, iters=50)
+            dev_ms = device_ms(kernel, "v5_convs_kernel")
+            flops, nbytes = v5_convs_counts(rows, 129)
+            bound, by = products_bound_ms(nbytes, (flops, t.products))
+            shown = "not seen" if dev_ms is None else f"{dev_ms:.4f} ms"
+            log(f"v5_convs [{tier}] {rows} x 4 x 129: CUDA events {ms:.4f} ms a call, device time "
+                f"{shown}, bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f} % of the events' "
+                f"time), plain chain {plain_ms:.4f} ms")
+            out["timing"][(tier, rows)] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                                           "bound_ms": bound, "bound_by": by}
+    return out
+
+
 def wrappers() -> dict:
     """name -> the wrapper that counts that kernel's launches."""
     from vadc_tpu_torch.kernels.fsm import fsm_scan
@@ -1382,13 +1518,15 @@ def wrappers() -> dict:
     from vadc_tpu_torch.kernels.silero_v31_fused2d import encode_fused, forward_fused2d
     from vadc_tpu_torch.kernels.stft_dotmag import dot_magnitude
     from vadc_tpu_torch.kernels.stft_mag import stft_magnitude
+    from vadc_tpu_torch.kernels.v5_convs import v5_convs
 
     return {"dot_magnitude": dot_magnitude, "forward_fused2d": forward_fused2d,
             "encode_fused": encode_fused, "forward_fused": forward_fused,
             "encode_fused_audio": encode_fused_audio,
             "stft_magnitude": stft_magnitude, "lstm_fused": lstm_fused,
             "lstm_decoder_fused": lstm_decoder_fused, "bf16_dot": bf16_dot,
-            "bf16_dot_wgmma": bf16_dot_wgmma, "concat_dot": concat_dot, "fsm_scan": fsm_scan}
+            "bf16_dot_wgmma": bf16_dot_wgmma, "concat_dot": concat_dot, "fsm_scan": fsm_scan,
+            "v5_convs": v5_convs}
 
 
 def zero_launches() -> None:
@@ -1512,7 +1650,7 @@ def phase_main_path_v5(models: dict, device, totals: dict) -> None:
     minibatch_card_vs_cpu("v5", models["v5"][1], device, V5_CHUNK, SEED + 121)
     minibatch_card_vs_cpu("v5_8k", models["v5_8k"][1], device, V5_8K_CHUNK, SEED + 122)
     read_launches(f"v5 path (scan {B_MAIN}x{SCAN_CHUNKS} + MinibatchRunner v5, v5_8k)", totals,
-                  ("stft_magnitude", "lstm_fused"))
+                  V5_KERNELS)
 
 
 # the v4/v5 slab scans checked against the loop of steps (streams, chunks),
@@ -1610,6 +1748,7 @@ def check_slab_v45(family: str, module, params, device, tier: str, n_streams: in
                                              wt=weight_of(params, tier), tier=tier))
     pieces = -(-n_chunks // slab.SCAN_PIECE_CHUNKS)
     want_counts = {**{name: 0 for name in counts}, "stft_magnitude": pieces,
+                   "v5_convs": pieces if family.startswith("v5") else 0,
                    "lstm_fused": one_call["lstm_fused"]}
     require(counts == want_counts, f"{label}: launches {nonzero(counts)}, not "
             f"{nonzero(want_counts)} ({pieces} pieces of the encoder, one lstm_fused call)")
@@ -2082,8 +2221,7 @@ def phase_server_checkpoint(device, want: list, totals: dict, tier_totals: dict)
         v5 = {"device": device, "model": str(archive)}
         want_v5, _ = serve_clients(**v5, payloads=payloads)
         lines, saved = resume_run(payloads, V5_CHUNK, v5, v5)
-        require_resume_launches("v5 server checkpoint card -> card", saved, totals,
-                                ("stft_magnitude", "lstm_fused"))
+        require_resume_launches("v5 server checkpoint card -> card", saved, totals, V5_KERNELS)
     # the synthetic weights' probabilities hover near the threshold: a held
     # segment is not required of them
     check_resumed("card -> card, v5 (synthetic weights)", lines, saved, want_v5, need_held=False)
@@ -2230,9 +2368,8 @@ def cards_as(devices: list):
 # every stream, so a shard's scan has the unsharded scan's pieces) and
 # lstm_fused once (check_slab_v45 holds those counts)
 STEP_KERNELS = {"v3": ("forward_fused",), "v4": ("stft_magnitude", "lstm_fused"),
-                "v5": ("stft_magnitude", "lstm_fused")}
-SCAN_KERNELS = {"v3": V3_SLAB_KERNELS, "v4": ("stft_magnitude", "lstm_fused"),
-                "v5": ("stft_magnitude", "lstm_fused")}
+                "v5": V5_KERNELS}
+SCAN_KERNELS = {"v3": V3_SLAB_KERNELS, "v4": ("stft_magnitude", "lstm_fused"), "v5": V5_KERNELS}
 
 
 def v5_stages_by_halves(params, x) -> str:
@@ -2448,8 +2585,7 @@ def server_sharded_v5(device, devices: list, want: list, totals: dict) -> None:
         save_archive(archive, random_v5_archive(0))
         zero_launches()
         lines, srv = serve_clients(device, payloads, model=str(archive), devices=devices)
-        require_server_launches(label, srv, launch_counts(), totals,
-                                ("stft_magnitude", "lstm_fused"))
+        require_server_launches(label, srv, launch_counts(), totals, V5_KERNELS)
     for i, (got, ref) in enumerate(zip(lines, want)):
         require(got == ref, f"{label}, client {i}: {got} vs unsharded {ref}")
     log(f"{label}: every client's {sum(map(len, lines))} lines in all equal the unsharded "
@@ -4090,7 +4226,7 @@ def phase_main_path_tiers_v45(models: dict, archives: dict, device, speech: Path
                                                        *speech_runs[family])
                             for family in V45_RATES}
         read_launches(f"{tier}: v4/v5 StreamRunner.scan, MinibatchRunner, on speech", counts,
-                      ("stft_magnitude", "lstm_fused"))
+                      V5_KERNELS)
     zero_launches()
     cli_card_vs_cpu_tier(["--model", str(archives["v4"])], speech, "fast")
     read_launches("fast: v4 CLI", totals["fast"], ("stft_magnitude", "lstm_fused"))
@@ -4792,6 +4928,7 @@ def main() -> int:
     phase_spectrum_edges(params, models, device)
     tier_errs_v45 = phase_kernels_tiers_v45(models, device)
     fsm_row = phase_kernels_fsm(device)
+    v5_convs_row = phase_kernels_v5_convs(models, device)
     elapsed("the kernel checks")
     launches: dict = {}
     tier_launches: dict = {}
@@ -4926,6 +5063,14 @@ def main() -> int:
          {"device_ms": fsm_row["device_ms"], "plain_device_ms": fsm_row["plain_device_ms"],
           "ms_is": "CUDA events around 20 calls in a row (the host's cost of a call where it "
                    "exceeds the device's)"}),
+        # no Pallas kernel is its counterpart: the JAX package's convs are
+        # XLA ops; the batch CLI's piece, 4096 chunks
+        ("v5_convs", "vadc_tpu_torch/kernels/csrc/v5_convs.cu", "vadc_tpu/models/silero_v5.py",
+         launches["v5_convs"], v5_convs_row["err"], v5_convs_row["timing"][("faithful", 4096)]["ms"],
+         v5_convs_row["timing"][("faithful", 4096)]["plain_ms"], None,
+         bound_ms(*v5_convs_counts(4096, 129)), "4096 x 4 x 129",
+         {"device_ms": v5_convs_row["timing"][("faithful", 4096)]["device_ms"],
+          "at": {f"{tier} x {rows}": t for (tier, rows), t in v5_convs_row["timing"].items()}}),
     ]
     # each tier instance of the v3.1 path's kernels, with the tier's bound
     slab_rows = SLAB_CHUNKS * SLAB_CHUNKS

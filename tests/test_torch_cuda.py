@@ -37,7 +37,11 @@ kernels' threads copy those operands); the staging rule of
 kernels/probes.py is the C entries'. The segmenter's FSM kernel
 (kernels/fsm.py: fsm_scan) gives segment_batch's events and state bit for
 bit, on probabilities at the thresholds and on strided views, and
-BatchSegmenter on the card the scalar Segmenter's segments.
+BatchSegmenter on the card the scalar Segmenter's segments. v5's convs
+(kernels/v5_convs.py: v5_convs) against the plain chain at every tier and
+both widths (the bounds beside those tests), a chunk's bits the same
+whatever rows share its launch, one launch a piece of the v5 scans, and
+the v5 slab scan against the loop of steps within tier_check's bounds.
 """
 
 from pathlib import Path
@@ -884,6 +888,7 @@ def test_v4_v5_runners_on_the_card(family_params, device, family):
     from vadc_tpu_torch.engine.runner import StreamRunner
     from vadc_tpu_torch.kernels.lstm import lstm_fused, use_resident
     from vadc_tpu_torch.kernels.stft_mag import stft_magnitude
+    from vadc_tpu_torch.kernels.v5_convs import v5_convs
 
     chunk = {"v4": 1536, "v4_8k": 768, "v5": 512, "v5_8k": 256}[family]
     module, params = family_params[family]
@@ -892,12 +897,14 @@ def test_v4_v5_runners_on_the_card(family_params, device, family):
     chunks = speech(32 * 3, chunk=chunk, seed=8).reshape(32, 3, -1)
     gpu = StreamRunner(family, params, device=device)
     cpu = StreamRunner(family, params, device="cpu")
-    stft_magnitude.launches = lstm_fused.launches = 0
+    stft_magnitude.launches = lstm_fused.launches = v5_convs.launches = 0
     state = gpu.init_state(32)
     p_gpu, st = gpu.scan(chunks, state)
     torch.cuda.synchronize()
     assert st is state
     assert stft_magnitude.launches == 1
+    # v5's convs: one launch a piece of the encoder, as its spectrum's
+    assert v5_convs.launches == (stft_magnitude.launches if family.startswith("v5") else 0)
     assert lstm_fused.launches == (2 if use_resident(32, 3 * frames) else 1)
     p_cpu, st_cpu = cpu.scan(chunks, cpu.init_state(32))
     assert _max_abs(p_gpu.cpu(), p_cpu) <= 1e-4
@@ -1208,6 +1215,103 @@ def test_v4_v5_runners_at_a_tier_on_the_card(family_params, device, family, tier
     assert _max_abs(st.h.cpu(), st_cpu.h) <= limits["h"]
 
 
+# ---- v5's four convs in one kernel (kernels/v5_convs.py) -------------------
+# against the plain chain (models/silero_v5.py: _convs) on the card, at both
+# widths (v5's C_in 129, v5_8k's 65), every tier and the rows of a single
+# stream's step (1), a ragged tile of the kernel's 32 chunks (37), the
+# server's batch (2048) and the batch CLI's piece (4096). Faithful: 2e-6 of
+# the largest feature, chip_smoke.py's TOL_V5_CONVS, three times the largest
+# reading on an H100 (6.1e-7 over 236 inputs; the kernel sums each tap's
+# products in channel order, cuBLAS in its own) rounded up; the control, the
+# plain chain at fast, reads 2.2e-3 and up there. The bf16 tiers:
+# tier_check's class of the kernel, which says why. A chunk's bits do not
+# depend on the rows launched with it.
+
+V5_CONVS_ROWS = (1, 37, 2048, 4096)
+V5_CONVS_FAITHFUL = 2e-6
+
+
+def _v5_spectrum(family_params, device, family, rows, tier, seed):
+    """(params, the spectrum at the tier of `rows` chunks of speech)."""
+    from vadc_tpu_torch.models import silero_v5
+    from vadc_tpu_torch.nn.precision import tier_of
+
+    module, params = family_params[family]
+    chunk = {"v5": 512, "v5_8k": 256}[family]
+    audio = torch.from_numpy(speech(rows, chunk=module.CONTEXT_SAMPLES + chunk, seed=seed)).to(
+        device)
+    return params, silero_v5.spectrum(params, audio, pad_right=module.STFT_PAD_RIGHT,
+                                      hop=module.STFT_HOP, tier=tier_of(tier))
+
+
+@pytest.mark.parametrize("rows", V5_CONVS_ROWS)
+@pytest.mark.parametrize("tier", ("faithful", *TIERS))
+@pytest.mark.parametrize("family", ["v5", "v5_8k"])
+def test_v5_convs_kernel_matches_plain(family_params, device, family, tier, rows):
+    from vadc_tpu_torch.kernels import tier_check
+    from vadc_tpu_torch.kernels import v5_convs as KV
+    from vadc_tpu_torch.models import silero_v5
+    from vadc_tpu_torch.nn.precision import tier_of
+
+    t = tier_of(tier)
+    params, spect = _v5_spectrum(family_params, device, family, rows, t, seed=80 + rows)
+    before = KV.v5_convs.launches
+    got = KV.v5_convs(params, spect, t)
+    want = silero_v5._convs(params, spect, t)
+    torch.cuda.synchronize()
+    assert KV.v5_convs.launches == before + 1
+    assert got.shape == want.shape == (rows, 1, 128)
+    scale = float(want.abs().max())
+    if tier == "faithful":
+        assert _max_abs(got, want) <= V5_CONVS_FAITHFUL * scale
+    else:
+        broken = tier_check.breaches(tier, "v5_convs", rows,
+                                     {"feat": tier_check.errors(got, want, tier, scale)})
+        assert not broken, broken
+
+
+@pytest.mark.parametrize("tier", ("faithful", *TIERS))
+@pytest.mark.parametrize("family", ["v5", "v5_8k"])
+def test_v5_convs_gives_a_chunk_the_same_bits_whatever_rows_share_its_launch(
+        family_params, device, family, tier):
+    from vadc_tpu_torch.kernels.v5_convs import v5_convs
+
+    params, spect = _v5_spectrum(family_params, device, family, 4096, tier, seed=90)
+    whole = v5_convs(params, spect, tier)
+    for a, b in ((0, 1), (5, 37), (31, 33), (1000, 3049), (4095, 4096)):
+        part = v5_convs(params, spect[a:b].contiguous(), tier)
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[a:b]), (a, b)
+
+
+@pytest.mark.parametrize("tier", ("faithful", *TIERS))
+@pytest.mark.parametrize("family", ["v5", "v5_8k"])
+def test_v5_scan_against_the_loop_of_steps_within_tier_checks_bound(family_params, device,
+                                                                     family, tier):
+    """The batch CLI's slab (64 streams x 64 chunks) by the scan against
+    the loop of StreamRunner.step on the card: the loop's bits, or within
+    tier_check.shard_bound(family, tier). The convs' kernel gives each chunk
+    the step's bits in the scan's pieces, and the context is the loop's."""
+    from vadc_tpu_torch.engine.runner import StreamRunner
+    from vadc_tpu_torch.kernels.tier_check import shard_bound
+
+    module, params = family_params[family]
+    chunk = {"v5": 512, "v5_8k": 256}[family]
+    x = torch.from_numpy(speech(64 * 64, chunk=chunk, seed=91)).to(device).reshape(64, 64, chunk)
+    runner = StreamRunner(family, params, device=device, precision=tier)
+    scan = runner.init_state(64)
+    probs, _ = runner.scan(x, scan)
+    loop = runner.init_state(64)
+    steps = torch.stack([runner.step(x[:, k], loop)[0] for k in range(64)], dim=1)
+    torch.cuda.synchronize()
+    assert torch.equal(scan.context, loop.context)
+    got, want = (probs, scan.h, scan.c), (steps, loop.h, loop.c)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        bound = shard_bound(family, tier)
+        assert _max_abs(probs, steps) <= bound["probs"]
+        assert max(_max_abs(scan.h, loop.h), _max_abs(scan.c, loop.c)) <= bound["state"]
+
+
 # ---- checkpoints and the Python API across the card and the CPU ------------
 
 
@@ -1297,8 +1401,9 @@ def _sharded_against_unsharded(family, params, devices, batch, chunk, seed):
     want = [pp2.cpu(), p_state.h.cpu(), p_state.c.cpu()]
     if all(torch.equal(g, w) for g, w in zip(got, want)):
         return
-    # a v4/v5 slab scan runs its encoder's and decoder's cuBLAS products over
-    # each shard's rows, which sum in an order set by the row count
+    # a v4 slab scan runs its encoder's, and a v4/v5 scan its decoder's,
+    # cuBLAS products over each shard's rows, which sum in an order set by
+    # the row count
     from vadc_tpu_torch.kernels.tier_check import shard_bound
 
     bound = shard_bound(family)
@@ -1320,9 +1425,9 @@ def test_sharded_runner_on_one_card_holds_the_unsharded_bits(params, family_para
 
 
 def test_sharded_v5_on_one_card_is_held_to_its_bounds(family_params, device):
-    """v5 on two shards of one card at B=2048: its spectrum kernel gives each
-    shard's rows the whole batch's bits; its encoder's convs are
-    torch.matmul products, whose algorithm cuBLAS picks by the number of
+    """v5 on two shards of one card at B=2048: its spectrum and convs'
+    kernels give each shard's rows the whole batch's bits; its decoder is a
+    torch.matmul product, whose algorithm cuBLAS picks by the number of
     rows, so the step is held to tier_check's SHARD_BOUND and its context
     bit for bit."""
     from vadc_tpu_torch.engine.runner import StreamRunner

@@ -253,7 +253,7 @@ def test_kernel_sources_and_build_flags():
     names = sorted(p.name for p in _build.sources())
     assert names == ["errors.cu", "fsm_scan.cu", "lstm.cu", "lstm_decoder.cu", "probes.cu",
                      "silero_v31_fused.cu", "silero_v31_fused_audio.cu", "stft_dotmag.cu",
-                     "stft_mag.cu"]
+                     "stft_mag.cu", "v5_convs.cu"]
     # the headers the kernels share are part of the library's hash: the
     # STFT tile (dot_magnitude, stft_magnitude, forward_fused), the v3.1
     # model body (forward_fused2d, encode_fused, forward_fused,

@@ -79,6 +79,8 @@ _SIGNATURES = {
     # triggered, speech_start, temp_end in, the same out, events, stream
     "vadc_fsm_scan": [_P, _L, _L, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                       _P],
+    # spectrum, rows, C_in, packed weights and biases, out, tier, stream
+    "vadc_v5_convs": [_P, _I, _I, _P, _P, _I, _P],
     # x, w, out, rows, k, n, stream (the two bf16 probe products)
     "vadc_bf16_dot": [_P, _P, _P, _I, _I, _I, _P],
     "vadc_bf16_dot_wgmma": [_P, _P, _P, _I, _I, _I, _P],

@@ -40,6 +40,22 @@ most 0.0002 above 1e-4, and the faithful instance (the control) 0.37 to
 0.70 of its outputs. Their limits are one class a kernel, fast and turbo
 the same.
 
+v5's four convs in one kernel (kernels/v5_convs.py: v5_convs) against
+their plain chain (models/silero_v5.py: _convs), the features relative to
+the largest feature, at both widths, 1, 37, 2048 and 4096 rows of seeded
+speech and noise (chip_smoke.py: phase_kernels_v5_convs; 41 inputs a
+width at 1 and at 37 rows): at most 1.02e-5 at balanced; at fast 3.3e-7 at
+1 row, 1.14e-4 at 37 rows, where cuBLAS sums in another order and a sum's
+last bit flipped a bf16 operand, and 0 at 2048 and 4096; at turbo 0 but at
+37 rows, where 5 of 82 inputs flipped a stored value and read up to
+6.49e-3 (a stored feature a bf16 ulp off), the share above TAU at most
+0.0044. The control, the faithful kernel against the plain chain at the
+tier, reads at least 2.5e-3 with 0.23 of the features above 1e-4 at fast
+and turbo, and within the limit at balanced, which no check tells from
+bf16_3x; at turbo below SHARE_MIN_BATCH rows only the share, not held
+there, tells it from a flip. Its limits are a class of its own, three
+times the largest reading rounded up.
+
 The largest differences are held too, at three times the largest reading
 of each batch class, rounded up. B=1 has no flip in its readings. B=37 and
 the batches of 2048 do. lstm_decoder_fused has a class of its own, and so
@@ -58,14 +74,15 @@ TAU = {"balanced": 1e-5, "fast": 1e-4, "turbo": 1e-4}
 #: the largest share of outputs that may differ: "state" is probabilities,
 #: h and c of forward_fused and forward_fused2d, "enc" the encoder's output
 #: of encode_fused_audio, "lstm" lstm_decoder_fused's probabilities, h and c
-SHARE = {"balanced": {"state": 0.15, "enc": 0.15, "lstm": 0.02, "lstm_fused": 0.02},
-         "fast": {"state": 0.25, "enc": 0.12, "lstm": 0.02, "lstm_fused": 0.02},
-         "turbo": {"state": 0.25, "enc": 0.12, "lstm": 0.02, "lstm_fused": 0.02}}
+SHARE = {"balanced": {"state": 0.15, "enc": 0.15, "lstm": 0.02, "lstm_fused": 0.02,
+                      "v5_convs": 0.02},
+         "fast": {"state": 0.25, "enc": 0.12, "lstm": 0.02, "lstm_fused": 0.02, "v5_convs": 0.02},
+         "turbo": {"state": 0.25, "enc": 0.12, "lstm": 0.02, "lstm_fused": 0.02, "v5_convs": 0.02}}
 #: shares are held from this many streams on
 SHARE_MIN_BATCH = 1024
 #: the kernels whose limits are a class of their own, at every batch
 OWN_CLASS = {"lstm_decoder_fused": "lstm", "stft_magnitude": "stft_magnitude",
-             "lstm_fused": "lstm_fused"}
+             "lstm_fused": "lstm_fused", "v5_convs": "v5_convs"}
 #: the largest difference by tier and batch class ("1", "small": below
 #: SHARE_MIN_BATCH, "large"; "lstm": lstm_decoder_fused at every batch),
 #: three times the largest reading of the class, rounded up
@@ -77,6 +94,7 @@ MAX = {
         "lstm": {"probs": 1.5e-5, "h": 6e-5, "c": 2e-5},
         "stft_magnitude": {"mag": 3.5e-6},
         "lstm_fused": {"y": 2e-5, "h": 2e-5, "c": 1.5e-5},
+        "v5_convs": {"feat": 3.5e-5},
     },
     "fast": {
         "1": {"probs": 1e-6, "h": 2e-6, "c": 1e-6, "enc": 2e-6, "mag": 5e-6},
@@ -85,6 +103,7 @@ MAX = {
         "lstm": {"probs": 2.5e-4, "h": 3e-3, "c": 4.5e-3},
         "stft_magnitude": {"mag": 3.5e-6},
         "lstm_fused": {"y": 7.5e-3, "h": 4.5e-3, "c": 9e-4},
+        "v5_convs": {"feat": 3.5e-4},
     },
     "turbo": {
         "1": {"probs": 1e-6, "h": 1e-6, "c": 1e-6, "enc": 1e-6, "mag": 1e-6},
@@ -93,6 +112,7 @@ MAX = {
         "lstm": {"probs": 1.5e-6, "h": 9e-3, "c": 1e-3},
         "stft_magnitude": {"mag": 1.5e-6},
         "lstm_fused": {"y": 7.5e-3, "h": 4.5e-3, "c": 9e-4},
+        "v5_convs": {"feat": 2e-2},
     },
 }
 #: the v4/v5 paths at a tier, the card's kernels against the CPU's plain
@@ -128,10 +148,11 @@ SPEECH_BOUND = {
 #: v5 at faithful on shards of a card against the unsharded runner, B=2048, a
 #: step and the 8 steps after it (chip_smoke.py: v5_within_bound): the
 #: largest difference of the probabilities and of the state (h and c). The
-#: encoder's k3 convs are torch.matmul products, whose algorithm cuBLAS
-#: picks by the number of rows, so a shard's half of the streams sums in
-#: another order; the spectrum and LSTM kernels give each shard's rows the
-#: whole batch's bits. Readings on an NVIDIA H100 80GB HBM3 at 700 W, 2
+#: readings below were taken while the encoder's k3 convs were torch.matmul
+#: products, whose algorithm cuBLAS picks by the number of rows, so a
+#: shard's half of the streams summed in another order; the spectrum, the
+#: convs' kernel (kernels/v5_convs.py, since) and the LSTM kernel give each
+#: shard's rows the whole batch's bits. Readings on an NVIDIA H100 80GB HBM3 at 700 W, 2
 #: shards of the card: after the step 8.9e-7 and 8.4e-6 with the shards'
 #: first step run one after the other, 1.25e-6 and 1.09e-5 with the two at
 #: once; after the 9 steps 1.49e-6 and 1.53e-5. Controls,
@@ -143,8 +164,9 @@ SPEECH_BOUND = {
 #: against the loop of StreamRunner.step on the same chunks, where the card
 #: gives other bits (chip_smoke.py: check_slab_v45), the same two
 #: readings. The scan runs the step's encoder over pieces of 8 chunks of
-#: every stream, and its torch ops are cuBLAS products (the conv stages'
-#: linears, v4's 7-tap smoothing, the 64 -> 1 decoder), whose algorithm
+#: every stream, and its torch ops are cuBLAS products (v4's conv stages'
+#: linears and 7-tap smoothing, v5's convs until their kernel, the 64 -> 1
+#: decoder), whose algorithm
 #: cuBLAS picks by the number of rows; stft_magnitude over a piece gives
 #: each chunk's bits, and one lstm_fused call over the steps' own features
 #: gives the loop's state. Three times the largest reading over seeded
@@ -215,7 +237,7 @@ def breaches(tier: str, kernel: str, batch: int, errs: dict, envelope: bool = Fa
     """The limits that `errs` (output -> (max, share), from errors or
     state_errors) break, as text; empty when within. `kernel` is
     forward_fused, encode_fused_audio, forward_fused2d, lstm_decoder_fused,
-    dot_magnitude, stft_magnitude or lstm_fused. `envelope` holds the
+    dot_magnitude, stft_magnitude, lstm_fused or v5_convs. `envelope` holds the
     largest differences to the large batches' limits at every batch: for
     inputs other than chip_smoke.py's, whose readings set the tighter
     classes."""

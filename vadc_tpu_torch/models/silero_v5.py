@@ -14,8 +14,9 @@ silero_vad.py:367-433):
 The 8 kHz branch (`v5_8k`) has the same encoder and LSTM at half-rate STFT
 geometry: 256-sample chunks with a 32-sample context, n_fft 128 (65 bins),
 right pad 32, hop 64. `forward`, `forward_scan` and `forward_minibatched`
-go through the kernel wrappers `kernels.stft_mag.stft_magnitude` and
-`kernels.lstm.lstm_fused`; the convs and the decoder are torch ops. The
+go through the kernel wrappers `kernels.stft_mag.stft_magnitude`,
+`kernels.v5_convs.v5_convs` (the four convs; `_convs` is its plain
+version) and `kernels.lstm.lstm_fused`; the decoder is torch ops. The
 `*_reference` forms are the JAX package's functions in the plain ops of
 nn/functional (`forward_scan_reference`: its chunk-blocked scan,
 `engine/runner._scan_tblock`). The context is the caller's: the runners
@@ -29,13 +30,14 @@ default faithful), as the JAX package's model code computes at it under
 (no log follows: bf16 operands from fast on), every product (the convs'
 taps, the LSTM's gates, the decoder) at the tier's, the tier's tanh, and in
 turbo the spectrum and every conv's taps, partial sums and bias stored bf16;
-the LSTM, the decoder and the state stay fp32. The two kernels run the
+the LSTM, the decoder and the state stay fp32. The three kernels run the
 tier's instances.
 
 Spans (tracing.zone): `v5.context` (a slab's contexts attached, the new
 context written), `v5.spectrum` (the `stft_magnitude` launch) and
-`v5.convs` (the four convs); on the slab path the last two nest in
-models/slab.py's `encode`, once a piece.
+`v5.convs` (the `v5_convs` launch); on the slab path the last two nest in
+models/slab.py's `encode`, once a piece. The counter `v5.conv_rows`
+(kernels/v5_convs.py) counts the chunk rows through the convs' kernel.
 
 Only synthetic weights of the official shapes exist in the repository
 (models/synthetic.py); results on them are labelled so.
@@ -47,6 +49,7 @@ import torch
 
 from vadc_tpu_torch.kernels.lstm import lstm_fused, weight_of
 from vadc_tpu_torch.kernels.stft_mag import split_basis_of, stft_magnitude
+from vadc_tpu_torch.kernels.v5_convs import v5_convs
 from vadc_tpu_torch.models import slab
 from vadc_tpu_torch.models.weights import Params
 from vadc_tpu_torch.nn import functional as F
@@ -131,13 +134,14 @@ def encode(
     params: Params, audio: torch.Tensor, *, pad_right: int = STFT_PAD_RIGHT, hop: int = STFT_HOP,
     tier: Tier | str = FAITHFUL,
 ) -> torch.Tensor:
-    """audio [B, ctx + window] -> features [B, frames, 128] at the tier; the
+    """audio [B, ctx + window] -> features [B, 1, 128] at the tier: the
     spectrum is the stft_magnitude kernel's instance of the tier's v5 STFT
-    operands (no left pad)."""
+    operands (no left pad), the convs the v5_convs kernel's instance of the
+    tier (on the CPU both are their plain versions)."""
     tier = tier_of(tier)
     spect = spectrum(params, audio, pad_right=pad_right, hop=hop, tier=tier)
     with zone("v5.convs"):
-        return _convs(params, spect, tier)
+        return v5_convs(params, spect, tier)
 
 
 def encode_reference(

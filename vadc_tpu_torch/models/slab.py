@@ -3,7 +3,8 @@ B independent streams in one pass.
 
 Counterpart of the JAX package's chunk-blocked scan
 (vadc_tpu/engine/runner.py: `_scan_tblock`) for the families whose
-front-end and encoder are torch ops around the `stft_magnitude` kernel.
+front-end is the `stft_magnitude` kernel and whose encoder is torch ops
+(v4) or the `v5_convs` kernel (v5).
 Only the LSTM carries anything from chunk to chunk, so the encoder runs
 over the B*K chunks as one batch (in pieces of whole chunks:
 SCAN_PIECE_CHUNKS), then ONE `lstm_fused` call walks each stream's K*F
